@@ -1,0 +1,87 @@
+"""Command-line interface of the port (the ported subset of colmap_tpu's).
+
+reference behavior: src/colmap/exe/colmap.cc. Same command names and flags
+as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
+``cpu`` runs the plain PyTorch versions of the kernels). Ported commands:
+
+    bundle_adjuster   read a model, run bundle adjustment, write the model
+    model_analyzer    print a model's statistics
+
+Run as ``python -m colmap_tpu_torch.cli.main <command> ...``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def _cmd_bundle_adjuster(args):
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators.ba_setup import (
+        problem_from_reconstruction,
+        update_reconstruction,
+    )
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+
+    recon = read_model(args.input_path)
+    problem, index = problem_from_reconstruction(recon, device=args.device)
+    options = ba.BAOptions(max_iterations=args.max_num_iterations)
+    masks = ba.default_masks(problem, index["model_id"], options)
+    masks = ba.fix_gauge_two_frames(masks, 0, 1)
+    solved, summary = ba.solve(problem, index["model_id"], options, masks)
+    update_reconstruction(recon, solved, index)
+    recon.update_point3D_errors()
+    write_model(recon, args.output_path, fmt="bin")
+    print(
+        f"BA: cost {summary['initial_cost']:.4e} -> {summary['final_cost']:.4e} "
+        f"in {summary['num_iterations']} iterations"
+    )
+
+
+def _cmd_model_analyzer(args):
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+    recon = read_model(args.path)
+    recon.update_point3D_errors()
+    n_obs = recon.compute_num_observations()
+    print(f"Cameras: {recon.num_cameras()}")
+    print(f"Images: {recon.num_images()}")
+    print(f"Registered frames: {recon.num_reg_frames()}")
+    print(f"Points: {recon.num_points3D()}")
+    print(f"Observations: {n_obs}")
+    print(f"Mean track length: {recon.compute_mean_track_length():.6f}")
+    print(
+        "Mean observations per registered image: "
+        f"{n_obs / max(recon.num_reg_frames(), 1):.6f}"
+    )
+    print(f"Mean reprojection error: {recon.compute_mean_reprojection_error():.6f}px")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="colmap_tpu_torch",
+        description="PyTorch/CUDA SfM with COLMAP-compatible data formats",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    c = sub.add_parser("bundle_adjuster")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--max_num_iterations", type=int, default=100)
+    c.add_argument("--device", default="cuda",
+                   help="torch device to solve on; cuda raises if no card is present")
+    c.set_defaults(fn=_cmd_bundle_adjuster)
+
+    c = sub.add_parser("model_analyzer")
+    c.add_argument("--path", required=True)
+    c.set_defaults(fn=_cmd_model_analyzer)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""Build BAProblem tensors from a Reconstruction and write results back.
+
+Counterpart of colmap_tpu/estimators/ba_setup.py for single-model problems
+(reference behavior: CreateDefaultBundleAdjuster + BundleAdjustmentConfig,
+estimators/bundle_adjustment.h:46-233). colmap_tpu pads the counts to powers
+of two to reuse compiled programs; PyTorch compiles nothing, so the port
+packs the exact sizes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from colmap_tpu_torch.estimators.bundle_adjustment import BAProblem
+from colmap_tpu_torch.scene.reconstruction import Reconstruction
+from colmap_tpu_torch.scene.types import INVALID_POINT3D, Pose
+from colmap_tpu_torch.utils.dtypes import floatx, resolve_device
+
+
+def problem_from_reconstruction(
+    recon: Reconstruction,
+    image_ids: Optional[List[int]] = None,
+    point_ids: Optional[List[int]] = None,
+    dtype=None,
+    device=None,
+) -> Tuple[BAProblem, Dict]:
+    """Pack (a subset of) a reconstruction into BAProblem tensors on ``device``.
+
+    Only observations where both the image and the 3D point are selected are
+    included. Returns (problem, index) where index maps rows back to ids:
+    {"image_ids", "camera_ids", "point_ids", "model_id"}. ``dtype`` defaults
+    to floatx(device).
+    """
+    device = resolve_device(device)
+    dtype = dtype or floatx(device)
+    if image_ids is None:
+        image_ids = recon.reg_image_ids()
+    image_ids = list(image_ids)
+    img_row = {iid: i for i, iid in enumerate(image_ids)}
+
+    camera_ids = sorted({recon.images[i].camera_id for i in image_ids})
+    cam_row = {cid: i for i, cid in enumerate(camera_ids)}
+    model_ids = sorted({int(recon.cameras[c].model_id) for c in camera_ids})
+    if len(model_ids) != 1:
+        raise NotImplementedError(
+            f"the reconstruction mixes camera models {model_ids}; problems with "
+            "mixed models are not ported yet (colmap_tpu handles them)"
+        )
+    model_id = model_ids[0]
+    cam_params = np.stack([recon.cameras[c].params for c in camera_ids])
+
+    if point_ids is None:
+        pid_set = set()
+        for iid in image_ids:
+            for pid in recon.images[iid].points2D_p3d:
+                if pid != INVALID_POINT3D:
+                    pid_set.add(int(pid))
+        point_ids = sorted(pid_set)
+    point_ids = list(point_ids)
+    pt_row = {pid: i for i, pid in enumerate(point_ids)}
+
+    quat = np.stack([recon.cam_from_world(i).quat for i in image_ids])
+    t = np.stack([recon.cam_from_world(i).t for i in image_ids])
+    points = (np.stack([recon.points3D[p].xyz for p in point_ids])
+              if point_ids else np.zeros((0, 3)))
+
+    obs_frame, obs_cam, obs_point, obs_xy = [], [], [], []
+    for iid in image_ids:
+        image = recon.images[iid]
+        fi = img_row[iid]
+        ci = cam_row[image.camera_id]
+        for p2d_idx, pid in enumerate(image.points2D_p3d):
+            if pid == INVALID_POINT3D or int(pid) not in pt_row:
+                continue
+            obs_frame.append(fi)
+            obs_cam.append(ci)
+            obs_point.append(pt_row[int(pid)])
+            obs_xy.append(image.points2D_xy[p2d_idx])
+    n_obs = len(obs_frame)
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt).to(device)
+
+    problem = BAProblem(
+        quat=dev(quat),
+        t=dev(t),
+        cam_params=dev(cam_params),
+        points=dev(points),
+        obs_frame=dev(np.asarray(obs_frame, np.int32), torch.int32),
+        obs_cam=dev(np.asarray(obs_cam, np.int32), torch.int32),
+        obs_point=dev(np.asarray(obs_point, np.int32), torch.int32),
+        obs_xy=dev(np.asarray(obs_xy, np.float64).reshape(n_obs, 2)),
+        obs_w=dev(np.ones(n_obs)),
+    )
+    index = {
+        "image_ids": image_ids,
+        "camera_ids": camera_ids,
+        "point_ids": point_ids,
+        "model_id": int(model_id),
+    }
+    return problem, index
+
+
+def update_reconstruction(recon: Reconstruction, problem: BAProblem, index: Dict):
+    """Write optimized poses / intrinsics / points back into the scene."""
+    quat = problem.quat.double().cpu().numpy()
+    t = problem.t.double().cpu().numpy()
+    cam_params = problem.cam_params.double().cpu().numpy()
+    pts = problem.points.double().cpu().numpy()
+    for row, iid in enumerate(index["image_ids"]):
+        recon.set_cam_from_world(iid, Pose(quat[row], t[row]).normalize())
+    for row, cid in enumerate(index["camera_ids"]):
+        n = len(recon.cameras[cid].params)
+        recon.cameras[cid].params = cam_params[row][:n].copy()
+    for row, pid in enumerate(index["point_ids"]):
+        recon.points3D[pid].xyz = pts[row].copy()
