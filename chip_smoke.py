@@ -10,8 +10,10 @@ Phases; any failure exits non-zero:
      float64 on the same inputs) on the card, on the headline problem
      (200 frames x 50k points x 300k observations, float32, SIMPLE_RADIAL)
      and on small problems over camera models 0-4, robust losses, ragged
-     tracks, several cameras and tracks longer than a warp; time kernel and
-     plain version with CUDA events;
+     tracks, several cameras, tracks longer than a warp, 800 frames with a
+     706-observation track and 4200 frames (the kernels' paths for large
+     frame tables and long tracks); time kernel and plain version with CUDA
+     events;
   4. headline solve: lm_solve_fused_packed for 10 LM iterations with the
      dense Schur solver ("auto") and with PCG, counting kernel launches, held
      against the colmap_tpu reference cost and against the same solve
@@ -194,6 +196,27 @@ def ragged_problem(seed, num_frames, num_points, obs_per_point, num_cams, keep, 
     return p, model_id
 
 
+def long_track_problem(seed, num_frames, num_points, track, device):
+    """A synthetic problem whose point 0 is also seen by frames 0..track-1,
+    measured at its projection in the initial state plus 0.5 px noise."""
+    from colmap_tpu_torch.geometry import rotation as rot
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+    from colmap_tpu_torch.sensor.models import img_from_cam
+
+    p, _, model_id = synthetic_ba_problem(num_frames, num_points, 6, seed=seed, device=device)
+    frames = torch.arange(track, device=device)
+    Xc = rot.quat_rotate(p.quat[frames], p.points[0].expand(track, 3)) + p.t[frames]
+    xy, _ = img_from_cam(model_id, p.cam_params[0], Xc)
+    g = torch.Generator(device=device).manual_seed(seed)
+    xy = xy + 0.5 * torch.randn(track, 2, device=device, generator=g)
+    ids = lambda a, b: torch.cat([a, b.to(torch.int32)])  # noqa: E731
+    return p._replace(
+        obs_frame=ids(p.obs_frame, frames), obs_cam=ids(p.obs_cam, torch.zeros_like(frames)),
+        obs_point=ids(p.obs_point, torch.zeros_like(frames)),
+        obs_xy=torch.cat([p.obs_xy, xy]), obs_w=torch.cat([p.obs_w, torch.ones_like(xy[:, 0])]),
+    ), model_id
+
+
 def phase_kernels(headline):
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
@@ -224,6 +247,20 @@ def phase_kernels(headline):
     packed, maps, masks = setup(problem, model_id)
     compare_kernels(packed, maps, model_id, options, masks, errs,
                     f"tracks of up to {maps.frame_pm.shape[1]} slots")
+    # 800 frames: K2's frame table exceeds its shared-memory limit, so K2 adds
+    # straight into global memory; one track of 706 observations makes K4 tile
+    # the point's slots. 4200 frames: the same for K3's matvec table.
+    for num_frames, num_points, track in ((800, 2000, 700), (4200, 1000, 0)):
+        problem, model_id = long_track_problem(5, num_frames, num_points, track, "cuda")
+        packed, maps, masks = setup(problem, model_id)
+        ctx = compare_kernels(packed, maps, model_id, options, masks, errs,
+                              f"{num_frames} frames, tracks of up to {maps.frame_pm.shape[1]} "
+                              "slots")
+        (_, Jp, Jc, Jx), red = ctx["J"], ctx["red"]
+        ms = time_ms(lambda: K.dense_schur_assemble(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
+                                                    red.Hpp_inv, ctx["lam_diag"], num_frames),
+                     reps=5)
+        log(f"  K4 time: {ms:.3f} ms")
 
     problem, model_id, packed, maps, masks = headline
     ctx = compare_kernels(packed, maps, model_id, options, masks, errs,
@@ -273,13 +310,21 @@ def time_kernels(ctx, maps, model_id):
         nbytes(Jp, Jc, Jx, red.Hpp_inv, xp, xc) + ids + nbytes(xp, xc),
         # per slot: u 2(6 + P) x 2 (twice), w 12, v 12, JT z 4(6 + P); per point 18.
         O * (8 * (6 + P) + 24 + 4 * (6 + P)) + N * 18)
+    # Per point with n real slots (a non-zero [Jp | Jc] row) and M = nK entries:
+    # W = JT Jx (6nK FMAs) and Z = W Hpp^-1 (9nK FMAs); S_corr = Z WT is
+    # symmetric, so M(M+1)/2 dot products of 3 (3 FMAs each); the H_cc term
+    # on the nK(K+1)/2 entries of the diagonal blocks (2 FMAs each); one add
+    # into S per entry of the symmetric half. An FMA is 2 operations.
+    n = ((Jp != 0).flatten(1).any(1) | (Jc != 0).flatten(1).any(1)).view(N, capp)
+    n = n.sum(1).double()
+    M = n * K_
+    k4_ops = float((30 * n * K_ + 3 * M * (M + 1) + 2 * n * K_ * (K_ + 1)
+                    + M * (M + 1) / 2).sum())
     row("ba_dense_schur_assemble",
         lambda: K.dense_schur_assemble(Jp, Jc, Jx, fpm, cpm, red.Hpp_inv, ctx["lam_diag"], F),
         lambda: K.dense_schur_assemble_plain(Jp, Jc, Jx, fpm, cpm, red.Hpp_inv,
                                              ctx["lam_diag"], F),
-        nbytes(Jp, Jc, Jx, red.Hpp_inv, ctx["lam_diag"]) + ids + D * D * 4,
-        # per point: W and Z 2 x capp K 3 x 2, pairs capp^2 K^2 x 7 (dot of 3, H_cc term, add).
-        N * (12 * capp * K_ + 7 * capp * capp * K_ * K_))
+        nbytes(Jp, Jc, Jx, red.Hpp_inv, ctx["lam_diag"]) + ids + D * D * 4, k4_ops)
     cost_ms = time_ms(lambda: K.obs_cost(*args, model_id, "trivial", 1.0))
     log(f"  ba_obs_jacobians cost mode: {cost_ms:.4f} ms")
     return rows
@@ -328,8 +373,9 @@ def phase_headline_solve(headline, gt_cost, launches):
         dt_warm = time.perf_counter() - t0
         log(f"  warm: the same solve again in {dt_warm:.3f} s = {iters / dt_warm:.3f} LM iter/s "
             f"(final cost {cost_warm:.6e})")
-        _, cost_plain, iters_plain = ba.lm_solve_fused_packed(packed, maps, model_id, options,
-                                                              masks, K.PLAIN)
+        _, cost_plain, iters_plain = ba._lm_loop(packed, maps, model_id, options, masks,
+                                                 ba._use_dense(packed, options), True,
+                                                 kernels=K.PLAIN)
         rel = abs(cost - cost_plain) / cost_plain
         log(f"  same solve through the plain versions: {cost_plain:.6e} "
             f"({iters_plain} iterations), relative difference {rel:.3e}")

@@ -26,7 +26,8 @@ Problem layout (struct-of-arrays tensors; padding rows carry weight 0):
 Parameterization: rotation by a left-multiplied quaternion exponential,
 translation, masked camera parameters and points additive. Gauge and
 constant blocks via per-block masks (reference: BundleAdjustmentConfig).
-Mixed camera models in one problem are not ported yet.
+The residual model (make_residual_fn, quat_exp, the robust losses) is in
+``ba_residual.py``. Mixed camera models in one problem are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,9 +38,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from colmap_tpu_torch.estimators.ba_residual import quat_exp
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import ba as ba_kernels
-from colmap_tpu_torch.kernels.ba import make_residual_fn, quat_exp  # noqa: F401
 from colmap_tpu_torch.sensor import models as camera_models
 
 
@@ -199,9 +200,12 @@ def pack_problem(problem: BAProblem, align: int = 2, capp: Optional[int] = None)
     return packed, maps, {"capf": capf, "capp": capp}
 
 
-def compute_cost(problem: BAProblem, model_id: int, options: BAOptions,
-                 kernels=ba_kernels.KERNELS):
+def compute_cost(problem: BAProblem, model_id: int, options: BAOptions):
     """½ Σ ρ(‖r‖²)·w as a 0-d tensor (K1, cost mode)."""
+    return _cost(problem, model_id, options, ba_kernels.KERNELS)
+
+
+def _cost(problem: BAProblem, model_id: int, options: BAOptions, kernels):
     p = problem
     return kernels.obs_cost(p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam,
                              p.obs_point, p.obs_xy, p.obs_w, _single_model(model_id),
@@ -342,7 +346,7 @@ def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id: int,
     dx = kernels.back_substitute(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
                                   red.Hpp_inv, red.gx, dp, dc)
     new_problem = _apply_update(problem, dp, dc, dx)
-    new_cost = float(compute_cost(new_problem, model_id, options, kernels))
+    new_cost = float(_cost(new_problem, model_id, options, kernels))
     pred = 0.5 * float(
         (dp * red.gp).sum() + (dc * red.gc).sum() + (dx * red.gx).sum()
         + lam * (
@@ -362,23 +366,26 @@ def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id: int,
 
 
 def lm_step_packed(problem: BAProblem, maps: PackedMaps, model_id: int,
-                   options: BAOptions, masks: BAMasks, lam: float, nu: float,
-                   kernels=ba_kernels.KERNELS):
+                   options: BAOptions, masks: BAMasks, lam: float, nu: float):
     """One LM iteration in the packed layout (same semantics as colmap_tpu's
     lm_step_packed). Returns (problem, lam, nu, cost, new_cost, accepted)."""
     model_id = _single_model(model_id)
-    cost = float(compute_cost(problem, model_id, options, kernels))
+    cost = float(compute_cost(problem, model_id, options))
     out = _lm_step_packed_impl(problem, maps, model_id, options, _obs_masks(masks, options),
-                               lam, nu, cost, kernels, _use_dense(problem, options), True)
+                               lam, nu, cost, ba_kernels.KERNELS,
+                               _use_dense(problem, options), True)
     return out[:6]
 
 
-def _lm_loop(problem, maps, model_id, options, masks, kernels, use_dense,
-             block_jacobi, verbose=False):
+def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
+             verbose=False, kernels=ba_kernels.KERNELS):
+    """The LM loop of every solve. ``kernels`` is ``ba_kernels.KERNELS``;
+    a check on the card passes ``ba_kernels.PLAIN`` to run the same solve
+    through the plain versions."""
     model_id = _single_model(model_id)
     obs_masks = _obs_masks(masks, options)
     lam, nu = float(options.initial_lambda), 2.0
-    cur_cost = last_cost = float(compute_cost(problem, model_id, options, kernels))
+    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels))
     it, done = 0, False
     while not done and it < options.max_iterations:
         problem, lam, nu, cost, new_cost, accepted, cur_cost = _lm_step_packed_impl(
@@ -399,15 +406,13 @@ def _lm_loop(problem, maps, model_id, options, masks, kernels, use_dense,
 
 
 def lm_solve_fused_packed(problem: BAProblem, maps: PackedMaps, model_id: int,
-                          options: BAOptions, masks: BAMasks,
-                          kernels=ba_kernels.KERNELS):
+                          options: BAOptions, masks: BAMasks):
     """Full packed LM solve. Returns (problem, final_cost, num_iterations).
 
     Stops on function tolerance or lambda saturation, as colmap_tpu's
     fused loop. ``solver_type`` picks the dense Schur solve (K4 + Cholesky)
     or PCG with the block-Jacobi preconditioner (K3)."""
-    return _lm_loop(problem, maps, model_id, options, masks, kernels,
-                    _use_dense(problem, options), True)
+    return _lm_loop(problem, maps, model_id, options, masks, _use_dense(problem, options), True)
 
 
 def _unpack(problem: BAProblem, solved: BAProblem) -> BAProblem:
@@ -417,8 +422,7 @@ def _unpack(problem: BAProblem, solved: BAProblem) -> BAProblem:
 
 def solve_packed(problem: BAProblem, model_id: int,
                  options: Optional[BAOptions] = None,
-                 masks: Optional[BAMasks] = None,
-                 kernels=ba_kernels.KERNELS):
+                 masks: Optional[BAMasks] = None):
     """Pack + solve + unpack. Parameters keep their layout (only the
     observation arrays are permuted internally). Returns (problem, summary)."""
     if options is None:
@@ -426,10 +430,8 @@ def solve_packed(problem: BAProblem, model_id: int,
     if masks is None:
         masks = default_masks(problem, model_id, options)
     packed, maps, _ = pack_problem(problem)
-    initial_cost = float(compute_cost(packed, model_id, options, kernels))
-    solved, final_cost, n_iters = lm_solve_fused_packed(
-        packed, maps, model_id, options, masks, kernels
-    )
+    initial_cost = float(compute_cost(packed, model_id, options))
+    solved, final_cost, n_iters = lm_solve_fused_packed(packed, maps, model_id, options, masks)
     return _unpack(problem, solved), {
         "initial_cost": initial_cost,
         "final_cost": float(final_cost),
@@ -438,8 +440,7 @@ def solve_packed(problem: BAProblem, model_id: int,
 
 
 def solve(problem: BAProblem, model_id: int, options: Optional[BAOptions] = None,
-          masks: Optional[BAMasks] = None, verbose: bool = False,
-          kernels=ba_kernels.KERNELS):
+          masks: Optional[BAMasks] = None, verbose: bool = False):
     """Run LM to convergence with colmap_tpu's ``solve`` semantics: always
     PCG, with the scalar Jacobi preconditioner, whatever ``solver_type`` says.
     It runs on the packed kernels. Returns (problem, summary dict)."""
@@ -447,11 +448,10 @@ def solve(problem: BAProblem, model_id: int, options: Optional[BAOptions] = None
         options = BAOptions()
     if masks is None:
         masks = default_masks(problem, model_id, options)
-    initial_cost = float(compute_cost(problem, model_id, options, kernels))
+    initial_cost = float(compute_cost(problem, model_id, options))
     packed, maps, _ = pack_problem(problem)
-    solved, final_cost, n_iters = _lm_loop(
-        packed, maps, model_id, options, masks, kernels, False, False, verbose
-    )
+    solved, final_cost, n_iters = _lm_loop(packed, maps, model_id, options, masks,
+                                           False, False, verbose)
     return _unpack(problem, solved), {
         "initial_cost": initial_cost,
         "final_cost": float(final_cost),

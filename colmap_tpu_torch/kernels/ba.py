@@ -12,8 +12,9 @@ Each wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; on a CUDA tensor it
 launches or raises, it never falls back. ``LAUNCHES`` counts kernel launches
 by kernel name (a wrapper adds one where it launches, nowhere else).
-``KERNELS`` bundles the wrappers and ``PLAIN`` the plain versions, so a
-caller can drive the solver through either on the same device.
+``KERNELS`` bundles the wrappers, which the solver runs, and ``PLAIN`` the
+plain versions, which only the solver's private loop takes, so that a
+check on the card can run the same solve through both.
 
 Layouts (point-major, as ``pack_problem`` builds them; Opm = N * capp):
     r (Opm, 2), Jp (Opm, 2, 6), Jc (Opm, 2, P), Jx (Opm, 2, 3),
@@ -32,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from colmap_tpu_torch.estimators.ba_residual import make_residual_fn, robust_cost, robust_weight
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.sensor import models as camera_models
 
@@ -50,66 +52,6 @@ LOSSES = {"trivial": 0, "huber": 1, "cauchy": 2}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# Residual model shared by the plain versions and the solver.
-# ---------------------------------------------------------------------------
-
-
-def quat_exp(w):
-    """so(3) tangent (..., 3) -> unit quaternion, small-angle safe."""
-    theta2 = (w * w).sum(-1, keepdim=True)
-    theta = torch.sqrt(theta2 + 1e-30)
-    half = 0.5 * theta
-    sinc = torch.where(theta2 > 1e-12, torch.sin(half) / theta, 0.5 - theta2 / 48.0)
-    return torch.cat([torch.cos(half), sinc * w], dim=-1)
-
-
-def robust_weight(sq_norm, loss: str, scale: float):
-    """IRLS weight ρ'(s) for squared residual norm s."""
-    if loss == "trivial":
-        return torch.ones_like(sq_norm)
-    s = sq_norm / (scale * scale)
-    if loss == "huber":
-        return torch.where(s <= 1.0, 1.0, 1.0 / torch.sqrt(torch.clamp(s, min=1e-30)))
-    if loss == "cauchy":
-        return 1.0 / (1.0 + s)
-    raise ValueError(loss)
-
-
-def robust_cost(sq_norm, loss: str, scale: float):
-    if loss == "trivial":
-        return sq_norm
-    a2 = scale * scale
-    s = sq_norm / a2
-    if loss == "huber":
-        return torch.where(
-            s <= 1.0, sq_norm, a2 * (2.0 * torch.sqrt(torch.clamp(s, min=0.0)) - 1.0)
-        )
-    if loss == "cauchy":
-        return a2 * torch.log1p(s)
-    raise ValueError(loss)
-
-
-def make_residual_fn(model_id: int):
-    """Per-observation reprojection residual over local deltas.
-
-    f(dpose (6,), dcam (P,), dX (3,), quat, t, cam_params, X, xy) -> (2,).
-    Rotation is left-multiplied by the quaternion exponential of dpose[:3],
-    translation and the rest are additive; differentiating at delta = 0
-    gives the Jacobians with respect to the local parameterization.
-    """
-
-    def f(dpose, dcam, dX, quat, t, cam_params, X, xy):
-        q = rot.quat_multiply(quat_exp(dpose[:3]), quat)
-        Xc = rot.quat_rotate(q, X + dX) + t + dpose[3:]
-        proj, _ = camera_models.img_from_cam(
-            model_id, cam_params + dcam, Xc, check_cheirality=False
-        )
-        return proj - xy
-
-    return f
 
 
 # ---------------------------------------------------------------------------
@@ -283,9 +225,11 @@ def dense_schur_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
 
     W holds a point's (pose, camera) x point coupling blocks Jᵀ Jx per slot;
     H_cc adds each slot's [Jp Jc]ᵀ[Jp Jc]: pose 6×6 on the frame diagonal,
-    pose-camera and camera-camera blocks. D = 6F + C·P.
+    pose-camera and camera-camera blocks. D = 6F + C·P. Only slot pairs of
+    one point whose [Jp | Jc] rows are not zero add anything, so the work
+    follows each point's real track length, not capp.
     """
-    N, capp = frame_pm.shape
+    capp = frame_pm.shape[1]
     P = Jc.shape[-1]
     D = lam_diag.shape[0]
     K = 6 + P
@@ -295,18 +239,24 @@ def dense_schur_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
     Hcc = (J[..., :, None] * J[..., None, :]).sum(1)  # (Opm, K, K)
     S.index_put_((rows[:, :, None].expand(-1, K, K), rows[:, None, :].expand(-1, K, K)),
                  Hcc, accumulate=True)
-    W = (J[..., :, None] * Jx[..., None, :]).sum(1).reshape(N, capp, K, 3)
-    rows = rows.reshape(N, capp, K)
-    point_chunk = 4096  # bounds the (chunk, capp, capp, K, K) temporaries
-    for s in range(0, N, point_chunk):
-        Wc = W[s:s + point_chunk]
-        Z = (Wc[..., :, None] * Hpp_inv[s:s + point_chunk, None, None]).sum(-2)  # W Hinv
-        blk = (Z[:, :, None, :, None, :] * Wc[:, None, :, None, :, :]).sum(-1)
-        rk = rows[s:s + point_chunk]
-        n = rk.shape[0]
-        ri = rk[:, :, None, :, None].expand(n, capp, capp, K, K)
-        ci = rk[:, None, :, None, :].expand(n, capp, capp, K, K)
-        S.index_put_((ri, ci), -blk, accumulate=True)
+    real = (J != 0).flatten(1).any(1).nonzero()[:, 0]  # slot ids, point-major
+    pt = real // capp
+    W = (J[real, :, :, None] * Jx[real, :, None, :]).sum(1)  # (M, K, 3)
+    Z = W @ Hpp_inv[pt]  # W Hpp⁻¹
+    # Every ordered pair (i, j) of real slots of one point, as indices into `real`.
+    cnt = torch.bincount(pt, minlength=frame_pm.shape[0])
+    reps = cnt[pt]
+    i = torch.repeat_interleave(torch.arange(len(real), device=J.device), reps)
+    offs = torch.arange(len(i), device=J.device) - torch.repeat_interleave(
+        torch.cumsum(reps, 0) - reps, reps)
+    j = (torch.cumsum(cnt, 0) - cnt)[pt[i]] + offs
+    pair_chunk = max(1, (1 << 22) // (K * K))  # bounds the (chunk, K, K) temporaries
+    for s in range(0, len(i), pair_chunk):
+        a, b = i[s:s + pair_chunk], j[s:s + pair_chunk]
+        blk = Z[a] @ W[b].transpose(-1, -2)
+        ra, rb = rows[real[a]], rows[real[b]]
+        S.index_put_((ra[:, :, None].expand(-1, K, K), rb[:, None, :].expand(-1, K, K)),
+                     -blk, accumulate=True)
     S.diagonal().add_(lam_diag + 1e-10)
     return S
 

@@ -57,9 +57,10 @@ def _port_options(opts):
     return convert.options_from_fields(dataclasses.asdict(opts))
 
 
-def _problem(model_id, seed, num_cams=1):
+def _problem(model_id, seed, num_cams=1, long_track=0):
     """A small packed problem with one point behind a camera, one NaN
-    measurement and (optionally) several cameras; JAX and port forms."""
+    measurement, (optionally) several cameras and (optionally) point 1 seen
+    ``long_track`` more times; JAX and port forms."""
     jp, _, _ = j_synthetic(6, 40, 4, model_id=model_id, seed=seed, dtype=jnp.float64)
     d = {k: np.array(v) for k, v in jp._asdict().items()}
     f0 = d["obs_frame"][0]
@@ -74,6 +75,14 @@ def _problem(model_id, seed, num_cams=1):
         d["cam_params"] = np.concatenate(
             [d["cam_params"] * (1.0 + 0.01 * k) for k in range(num_cams)])
         d["obs_cam"] = rng.integers(0, num_cams, len(d["obs_cam"])).astype(np.int32)
+    if long_track:
+        o = int(np.flatnonzero(d["obs_point"] == 1)[0])
+        extra = {k: np.repeat(v[o:o + 1], long_track, axis=0) for k, v in d.items()
+                 if k.startswith("obs_")}
+        extra["obs_frame"] = (np.arange(long_track) % len(d["quat"])).astype(np.int32)
+        extra["obs_xy"] = extra["obs_xy"] + rng.normal(0.0, 2.0, (long_track, 2))
+        for k, v in extra.items():
+            d[k] = np.concatenate([d[k], v])
     jp = jba.BAProblem(**{k: jnp.asarray(v) for k, v in d.items()})
     jpk, jmaps, _ = jba.pack_problem(jp)
     tpk = convert.problem_from_numpy({k: _np(v) for k, v in jpk._asdict().items()}, "cpu")
@@ -118,12 +127,11 @@ def test_k1_obs_jacobians_matches_jax(model_id, loss):
     assert abs(tcost - jcost) <= 1e-9 * max(1.0, abs(jcost))
 
 
-@pytest.fixture(scope="module")
-def reduced():
+def _reduced(long_track=0):
     """JAX intermediates of one LM step (l.1070-1097 of bundle_adjustment.py)
     on a two-camera problem, and the port's inputs."""
     model_id, lam = 2, 1e-3
-    jpk, jmaps, tpk, tmaps = _problem(model_id, seed=3, num_cams=2)
+    jpk, jmaps, tpk, tmaps = _problem(model_id, seed=3, num_cams=2, long_track=long_track)
     opts = jba.BAOptions(loss="cauchy")
     jm, _ = _masks(jpk, model_id, opts)
     r, Jp, Jc, Jx = _jax_jacobians(jpk, jm, model_id, opts)
@@ -150,6 +158,11 @@ def reduced():
     return dict(model_id=model_id, lam=lam, jpk=jpk, jmaps=jmaps, tmaps=tmaps, F=F, C=C,
                 jax_J=(r, Jp, Jc, Jx), J=J, jax_red=jax_red,
                 red=K.lm_reduce(*J, tmaps.frame_pm, tmaps.cam_pm, F, C, lam))
+
+
+@pytest.fixture(scope="module")
+def reduced():
+    return _reduced()
 
 
 def test_k2_lm_reduce_matches_jax(reduced):
@@ -223,6 +236,19 @@ def test_k4_dense_schur_matches_jax(reduced):
     and against _dense_schur_solve(use_bf16=False), which accumulates
     S_corr in float32 (bundle_adjustment.py:1561-1569): 1e-4 of the largest
     step entry."""
+    _check_k4(reduced)
+
+
+def test_k4_dense_schur_long_track_matches_jax():
+    """As test_k4_dense_schur_matches_jax, with point 1 seen 40 more times
+    (capp 44 while most points have 4 observations): the pairs of one
+    point's real slots are all summed, and padding adds nothing."""
+    red = _reduced(long_track=40)
+    assert red["tmaps"].frame_pm.shape[1] >= 44
+    _check_k4(red)
+
+
+def _check_k4(reduced):
     jr, lam = reduced["jax_red"], reduced["lam"]
     r, Jp, Jc, Jx = reduced["jax_J"]
     tm, red = reduced["tmaps"], reduced["red"]

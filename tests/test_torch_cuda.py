@@ -29,26 +29,51 @@ def _f64(*xs):
     return [x.double() if x.is_floating_point() else x for x in xs]
 
 
-@pytest.fixture
-def problem():
+def _setup(num_frames, num_points, track=0):
+    """A synthetic problem on the card, packed, with two-frame gauge masks.
+    With ``track`` > 0 its point 0 is also seen by frames 0..track-1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.geometry import rotation as rot
     from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+    from colmap_tpu_torch.sensor.models import img_from_cam
 
-    problem, _, model_id = synthetic_ba_problem(20, 2000, 6, seed=1, device="cuda")
+    problem, _, model_id = synthetic_ba_problem(num_frames, num_points, 6, seed=1,
+                                                device="cuda")
+    if track:
+        p = problem
+        frames = torch.arange(track, device="cuda")
+        Xc = rot.quat_rotate(p.quat[frames], p.points[0].expand(track, 3)) + p.t[frames]
+        xy, _ = img_from_cam(model_id, p.cam_params[0], Xc)
+        zeros = torch.zeros(track, dtype=torch.int32, device="cuda")
+        problem = p._replace(
+            obs_frame=torch.cat([p.obs_frame, frames.to(torch.int32)]),
+            obs_cam=torch.cat([p.obs_cam, zeros]), obs_point=torch.cat([p.obs_point, zeros]),
+            obs_xy=torch.cat([p.obs_xy, xy + 0.5]),
+            obs_w=torch.cat([p.obs_w, torch.ones_like(xy[:, 0])]))
     opts = ba.BAOptions(max_iterations=3, pcg_iterations=10)
     masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, opts), 0, 1)
     packed, maps, _ = ba.pack_problem(problem)
     return packed, maps, model_id, opts, masks
 
 
-def test_kernels_match_plain_on_cuda(problem):
-    """K1-K4 against their plain versions (float64) on a 20 x 2000 problem."""
+@pytest.fixture
+def problem():
+    return _setup(20, 2000)
+
+
+@pytest.mark.parametrize("shape", [(20, 2000, 0), (800, 2000, 700)],
+                         ids=["20x2000", "800_frames_long_track"])
+def test_kernels_match_plain_on_cuda(shape):
+    """K1-K4 against their plain versions (float64) on a 20 x 2000 problem,
+    and on 800 frames with one track of 706 observations: there K2 adds its
+    frame table (above its shared-memory limit) straight into global memory,
+    and K4 tiles the long point's slots."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
 
-    pk, maps, model_id, opts, masks = problem
+    pk, maps, model_id, opts, masks = _setup(*shape)
     om = ba._obs_masks(masks, opts)
     args = (pk.quat, pk.t, pk.cam_params, pk.points, pk.obs_frame, pk.obs_cam, pk.obs_point,
             pk.obs_xy, pk.obs_w, om.pose, om.cam, om.point)
@@ -91,5 +116,6 @@ def test_solve_matches_plain_on_cuda(problem, solver):
     _, cost, _ = ba.lm_solve_fused_packed(pk, maps, model_id, opts, masks)
     assert K.LAUNCHES["ba_dense_schur_assemble" if solver == "dense_schur"
                       else "ba_schur_matvec"] > 0
-    _, cost_plain, _ = ba.lm_solve_fused_packed(pk, maps, model_id, opts, masks, K.PLAIN)
+    _, cost_plain, _ = ba._lm_loop(pk, maps, model_id, opts, masks, ba._use_dense(pk, opts),
+                                   True, kernels=K.PLAIN)
     assert abs(cost - cost_plain) <= 1e-3 * cost_plain
