@@ -21,7 +21,22 @@ Phases; any failure exits non-zero:
   5. CLI: bundle_adjuster on a synthetic 120-frame model on cuda, then
      model_analyzer;
   6. profile: device time by kernel and the device's idle share in a warm
-     LM iteration of each solver (torch.profiler).
+     LM iteration of each solver (torch.profiler);
+  7. mapper kernels: K5-K9 (colmap_tpu_torch/kernels/sfm.py) against their
+     plain versions (float64, same inputs) at the mapper's shapes, on the
+     cases of colmap_tpu_torch/kernels/sfm_cases.py, timed with CUDA events;
+  8. mapper, verify scene: the `mapper` command on cuda on a synthetic
+     8-frame, 120-point database (seed 3), held to the ground truth
+     (8/8 frames within 1e-2 deg and 1e-4 units);
+  9. mapper, full-size scene: 40 frames x 1000 points (SIMPLE_RADIAL,
+     1024 x 768, f = 2500, exhaustive matches, noise-free, seed 3): frames, errors
+     against the ground truth, wall time, time by phase, launches of every
+     kernel, and the device's idle share from torch.profiler over a second
+     run of the same scene.
+Each path is driven with the launch counts set to 0 just before it and
+read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
+the dense solver), the mapper runs K1-K3 and K5-K9 (its BA is PCG, so K4
+is not on its path).
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.
 """
@@ -61,6 +76,33 @@ K1_RTOL = 1e-5
 # the weight carries into every Jacobian entry of small residuals.
 K1_ROBUST_RTOL = 1e-4
 K234_RTOL = 1e-4  # float32 sums, in an order the atomics change from run to run
+# K5: one float32 projection / 25 float32 Newton steps against float64.
+K5_RTOL = 1e-5
+# K6, K7: float32 minimal solvers against float64; models are compared where
+# the plain one has at least 90% of the best support (all-inlier samples).
+K67_RTOL = 1e-3
+# K8: float32 Jacobi on the 4x4 normal equations against a float64 SVD.
+K8_RTOL = 1e-3
+# K9: one float32 projection per observation against float64.
+K9_RTOL = 1e-4
+# Reference thresholds of the mapper against ground truth (BASELINE.md:13).
+MAX_ROT_DEG, MAX_CENTER = 1e-2, 1e-4
+# The full-size mapper scene: 40 frames x 1000 points. Its focal length of
+# 2500 px (a 23 x 17 degree field of view) makes each frame see about three
+# quarters of the points (tracks of 18-40 views): with the generator's
+# default 1280 px every frame sees every point, the initial pair
+# triangulates them all and the triangulator never creates a track.
+FULL_FRAMES, FULL_FOCAL = 40, 2500.0
+SFM_SOURCES = {
+    "camera_map": ("colmap_tpu_torch/csrc/camera_map.cu", "colmap_tpu/sensor/models.py:464"),
+    "p3p_ransac": ("colmap_tpu_torch/csrc/p3p_ransac.cu", "colmap_tpu/estimators/pose.py:31"),
+    "essential_ransac": ("colmap_tpu_torch/csrc/essential_ransac.cu",
+                         "colmap_tpu/estimators/two_view_geometry.py:127"),
+    "triangulate_tracks": ("colmap_tpu_torch/csrc/triangulate_tracks.cu",
+                           "colmap_tpu/estimators/triangulation.py:72"),
+    "filter_points": ("colmap_tpu_torch/csrc/filter_points.cu",
+                      "colmap_tpu/sfm/filtering.py:24"),
+}
 
 
 def log(msg):
@@ -116,7 +158,7 @@ def check(name, got, ref, rtol, errs):
     log(f"  {name}: max_abs_err {a:.3e} rel {r:.3e} (tol {rtol:g})")
     if not r <= rtol:
         raise AssertionError(f"{name}: relative error {r:.3e} > {rtol:g}")
-    errs.append(a)
+    errs.append((a, r))
 
 
 def f64(*xs):
@@ -507,6 +549,365 @@ def phase_cli(launches):
             raise AssertionError("model_analyzer does not list every frame")
 
 
+def phase_sfm_kernels():
+    """K5-K9 against their plain versions (float64 on the same inputs), then
+    their times at the mapper's shapes. Returns (errs, rows)."""
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.geometry.essential import sampson_error
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.optim.ransac import unpack_best
+    from colmap_tpu_torch.sensor import models as M
+
+    errs = {k: [] for k in K.LAUNCHES}
+    rows = {}
+
+    def row(name, fn, plain, bytes_moved, ops):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=10)
+        b_ms, by = bound(bytes_moved, ops)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
+
+    def same(name, a, b):
+        n_diff = int((a != b).sum())
+        log(f"  {name}: {n_diff} of {a.numel()} differ")
+        if n_diff:
+            raise AssertionError(f"{name}: kernel and plain version disagree on {n_diff}")
+
+    def same_mask(name, a, b, res, max_sq):
+        """Inlier masks that agree except on rows within 2% of the threshold."""
+        diff = a != b
+        border = (res - max_sq).abs() <= 0.02 * max_sq
+        log(f"  {name}: {int(diff.sum())} of {a.numel()} differ, {int((diff & border).sum())} "
+            "of them borderline")
+        if bool((diff & ~border).any()):
+            raise AssertionError(f"{name}: kernel and plain version disagree off the threshold")
+
+    log("mapper kernels vs plain (float64 on the same inputs):")
+    # K5 on models 0-4 with distortion, shared and per-row parameters.
+    n = 1010  # one image's keypoints in the full-size scene
+    for mid in range(5):
+        p, uvw, xy = C.camera_map_case(mid, n, mid, "cuda")
+        xy_k, ok_k = K.img_from_cam(mid, p, uvw)
+        xy_p, ok_p = M.img_from_cam(mid, p.double(), uvw.double())
+        check(f"K5 project model {mid}", xy_k, xy_p, K5_RTOL, errs["camera_map"])
+        same(f"K5 project valid model {mid}", ok_k, ok_p)
+        uv_k, _ = K.cam_from_img(mid, p, xy)
+        uv_p, _ = M.cam_from_img(mid, p.double(), xy.double())
+        check(f"K5 unproject model {mid}", uv_k, uv_p, K5_RTOL, errs["camera_map"])
+        uv_rows, _ = K.cam_from_img(mid, p.expand(n, -1).contiguous(), xy)
+        check(f"K5 unproject per-row params model {mid}", uv_rows, uv_p, K5_RTOL,
+              errs["camera_map"])
+
+    # K6: 1000 2D-3D rows with 30% outliers, a batch of 64 injected samples.
+    c = C.p3p_case(1000, 64, 0, "cuda")
+    d = C.as_double(c)
+    args_k = (c["X"], c["rays"], c["uv"], c["mask"], c["samples"], c["max_sq"])
+    mk, ck, bk = K.p3p_propose_score(*args_k)
+    mp, cp, bp = K.p3p_propose_score_plain(d["X"], d["rays"], d["uv"], d["mask"], d["samples"],
+                                           d["max_sq"])
+    _check_ransac_batch("K6", mk, ck, bk, mp, cp, bp, 1000, 64, errs["p3p_ransac"], unpack_best,
+                        lambda m: torch.where(d["mask"], K.p3p_residuals(m, d["X"], d["uv"]),
+                                              torch.inf), d["max_sq"])
+    best = unpack_best(int(bp.item()))[1]
+    model = mp[best].float()
+    same_mask("K6 inlier mask", K.p3p_inliers(c["X"], c["uv"], c["mask"], model, c["max_sq"]),
+              K.p3p_inliers_plain(d["X"], d["uv"], d["mask"], model.double(), d["max_sq"]),
+              K.p3p_residuals(model.double()[None], d["X"], d["uv"])[0], d["max_sq"])
+    # Refit from a perturbed pose so that the refit has work to do.
+    start = model.clone()
+    start[:, 3] += 0.03
+    start_count = int(K.p3p_inliers_plain(d["X"], d["uv"], d["mask"], start.double(),
+                                          d["max_sq"]).sum())
+    rk, nk = K.p3p_refit(c["X"], c["uv"], c["mask"], start, c["max_sq"], start_count)
+    rp, np_ = K.p3p_refit_plain(d["X"], d["uv"], d["mask"], start.double(), d["max_sq"],
+                                start_count)
+    log(f"  K6 refit: support {start_count} -> kernel {nk}, plain {np_}")
+    if nk != np_:
+        raise AssertionError(f"K6 refit support: kernel {nk}, plain {np_}")
+    check("K6 refit model", rk, rp, K67_RTOL, errs["p3p_ransac"])
+    N = 1000
+    row("p3p_ransac", lambda: K.p3p_propose_score(*args_k),
+        lambda: K.p3p_propose_score_plain(*args_k),
+        nbytes(c["X"], c["rays"], c["uv"], c["mask"], c["samples"], mk, ck, bk),
+        # per sample: quartic ~300 flops, 4 poses (3x3 Jacobi + Kabsch) ~1500
+        # each; per model and row: the residual, ~20 flops.
+        64 * (300 + 4 * 1500) + 64 * 4 * N * 20)
+
+    # K7: 1000 matches with 30% outliers, a batch of 128 injected samples.
+    c = C.essential_case(1000, 128, 0, "cuda")
+    d = C.as_double(c)
+    args_k = (c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+    mk, ck, bk = K.essential_propose_score(*args_k)
+    mp, cp, bp = K.essential_propose_score_plain(d["x1"], d["x2"], d["mask"], d["samples"],
+                                                 d["max_sq"])
+    _check_ransac_batch("K7", mk, ck, bk, mp, cp, bp, 1000, 128, errs["essential_ransac"],
+                        unpack_best,
+                        lambda m: torch.where(d["mask"], sampson_error(m[:, None], d["x1"][None],
+                                                                       d["x2"][None]), torch.inf),
+                        d["max_sq"], sign_free=True)
+    best = unpack_best(int(bp.item()))[1]
+    model = mp[best].float()
+    same_mask("K7 inlier mask",
+              K.essential_inliers(c["x1"], c["x2"], c["mask"], model, c["max_sq"]),
+              K.essential_inliers_plain(d["x1"], d["x2"], d["mask"], model.double(), d["max_sq"]),
+              sampson_error(model.double(), d["x1"], d["x2"]), d["max_sq"])
+    start = model + 0.003
+    start_count = int(K.essential_inliers_plain(d["x1"], d["x2"], d["mask"], start.double(),
+                                                d["max_sq"]).sum())
+    rk, nk = K.essential_refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], start_count)
+    rp, np_ = K.essential_refit_plain(d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"],
+                                      start_count)
+    log(f"  K7 refit: support {start_count} -> kernel {nk}, plain {np_}")
+    if nk != np_:
+        raise AssertionError(f"K7 refit support: kernel {nk}, plain {np_}")
+    sgn = torch.sign((rk.double() * rp).sum())
+    check("K7 refit model", rk * sgn, rp, K67_RTOL, errs["essential_ransac"])
+    row("essential_ransac", lambda: K.essential_propose_score(*args_k),
+        lambda: K.essential_propose_score_plain(*args_k),
+        nbytes(c["x1"], c["x2"], c["mask"], c["samples"], mk, ck, bk),
+        # per sample: null space and elimination ~6e3 flops, the grid 2050
+        # evaluations of ~25 flops, the bisections (9 x 24 + 28 x 28)
+        # evaluations of ~60 flops with sin and cos, 10 models ~300; per model
+        # and row: the Sampson error, ~25 flops.
+        128 * (6000 + 2050 * 25 + 1000 * 60 + 3000) + 128 * 10 * N * 25)
+
+    # K8: 1000 tracks with outlier views and two-view tracks.
+    c = C.tracks_case(1000, 0, "cuda")
+    d = C.as_double(c)
+    args_k = (c["R"], c["t"], c["x"], c["mask"], c["min_angle"], c["max_err"])
+    xk, ik, sk = K.triangulate_tracks(*args_k)
+    xp, ip, sp = K.triangulate_tracks_plain(d["R"], d["t"], d["x"], d["mask"], d["min_angle"],
+                                            d["max_err"])
+    same("K8 success", sk, sp)
+    same("K8 inlier mask", ik[sp], ip[sp])
+    check("K8 xyz", xk[sp], xp[sp], K8_RTOL, errs["triangulate_tracks"])
+    row("triangulate_tracks", lambda: K.triangulate_tracks(*args_k),
+        lambda: K.triangulate_tracks_plain(*args_k),
+        nbytes(c["R"], c["t"], c["x"], c["mask"], xk, ik, sk),
+        # per track: 28 pairs x (4x4 normal equations ~130, Jacobi ~2400,
+        # 8 angular errors ~30 each) and the refit ~3000 flops.
+        1000 * (28 * (130 + 2400 + 8 * 30) + 3000))
+
+    # K9: 1000 points of 2-32 views, outliers and negative depths.
+    c = C.filter_case(1000, 0, "cuda")
+    d = C.as_double(c)
+    keys = ("quat", "t", "cam_params", "xyz", "obs_xy", "valid")
+    ek, dk, mck = K.filter_points(2, *(c[k] for k in keys))
+    ep, dp, mcp = K.filter_points_plain(2, *(d[k] for k in keys))
+    fin = torch.isfinite(ep)
+    same("K9 infinite errors", torch.isfinite(ek), fin)
+    check("K9 errors", ek[fin], ep[fin], K9_RTOL, errs["filter_points"])
+    check("K9 depths", dk, dp, K9_RTOL, errs["filter_points"])
+    check("K9 min |cos|", mck, mcp, K9_RTOL, errs["filter_points"])
+    row("filter_points", lambda: K.filter_points(2, *(c[k] for k in keys)),
+        lambda: K.filter_points_plain(2, *(c[k] for k in keys)),
+        nbytes(*(c[k] for k in keys), ek, dk, mck),
+        # per slot: rotation ~30, projection ~20, error ~6, center and ray
+        # ~40, 32 cosines ~6 flops each.
+        1000 * 32 * (30 + 20 + 6 + 40 + 32 * 6))
+
+    # K5 at the mapper's shape: one image's keypoints through the Newton
+    # undistortion (SIMPLE_RADIAL), the main use.
+    p, uvw, xy = C.camera_map_case(2, n, 2, "cuda")
+    out = K.cam_from_img(2, p, xy)
+    row("camera_map", lambda: K.cam_from_img(2, p, xy), lambda: M.cam_from_img(2, p, xy),
+        nbytes(p, xy, *out),
+        # 25 Newton steps of ~60 flops (distortion on Dual<2>, 2x2 solve,
+        # trust region) per point.
+        n * 25 * 60)
+    proj_ms = time_ms(lambda: K.img_from_cam(2, p, uvw))
+    log(f"  camera_map project mode: {proj_ms:.4f} ms")
+    return errs, rows
+
+
+def _check_ransac_batch(tag, mk, ck, bk, mp, cp, bp, n, n_samples, errs, unpack_best, residuals,
+                        max_sq, sign_free=False):
+    """One propose-and-score batch, kernel (float32) against plain (float64).
+
+    - the same best, support and index; where float32 rounding of the
+      minimal solver moves a few rows across the threshold (it can for the
+      5-point solver), a best support within 1% of the rows of the plain
+      best's (the index is then reported, not required);
+    - the kernel's support of each of its own models equals the float64
+      count for that model (``residuals`` gives inf on invalid rows), up to the rows whose residual lies within 2% of
+      the threshold (float32 rounding can move those across it);
+    - of the plain models with at least 90% of the best support, at least
+      80% have a kernel solution of the same sample that agrees to K67_RTOL
+      and whose support is within 1% of the rows; float32 rounding moves the
+      solution of an ill-conditioned sample (close points) further.
+    """
+    (sk, ik), (sp, ip) = unpack_best(int(bk.item())), unpack_best(int(bp.item()))
+    log(f"  {tag} best: kernel support {sk} at {ik}, plain support {sp} at {ip}")
+    if (sk, ik) != (sp, ip):
+        log(f"  {tag}: different best; the plain model at the kernel's best has support "
+            f"{int(cp[ik])}")
+        if abs(sk - sp) > n // 100:
+            raise AssertionError(f"{tag}: best support {sk} vs plain {sp} (index {ik} vs {ip})")
+    fin = torch.isfinite(mk.flatten(1)).all(1)
+    res = residuals(mk[fin].double())
+    counts = (res <= max_sq).sum(-1)
+    borderline = ((res - max_sq).abs() <= 0.02 * max_sq).sum(-1)
+    diff = (ck[fin] - counts).abs()
+    log(f"  {tag}: {int(fin.sum())} finite kernel models; support against a float64 count of "
+        f"the same models differs on {int((diff > 0).sum())} by at most {int(diff.max())} "
+        f"(borderline rows: at most {int(borderline.max())})")
+    if bool((diff > borderline).any()) or bool((ck[~fin] != 0).any()):
+        raise AssertionError(f"{tag}: kernel support differs from the float64 count")
+
+    def closest(i):
+        """(relative error, support) of the kernel solution of plain model i's
+        sample that is closest to it (solvers may order the roots of a
+        sample differently)."""
+        per = mp.shape[0] // n_samples
+        lo = (i // per) * per
+        b = mp[i].double()
+        cand = mk[lo:lo + per].double()
+        if sign_free:  # E and -E are the same model
+            cand = cand * torch.sign((cand * b).flatten(1).sum(1))[:, None, None]
+        e = torch.nan_to_num((cand - b).abs().flatten(1).amax(1) / b.abs().max(), nan=math.inf)
+        j = int(torch.argmin(e))
+        return float(e[j]), int(ck[lo + j])
+
+    near_best = torch.nonzero(cp >= 0.9 * sp).flatten().tolist()
+    pairs = [(closest(i), int(cp[i])) for i in near_best]
+    agree = [e for (e, s_k), s_p in pairs if e <= K67_RTOL and abs(s_k - s_p) <= n // 100]
+    errs_m = sorted(e for (e, _), _ in pairs)
+    errs.append((max(agree, default=math.inf),) * 2)
+    log(f"  {tag}: {len(pairs)} plain models with >= 90% of the best support; {len(agree)} "
+        f"agree with a kernel solution of their sample to {K67_RTOL:g} with a support within "
+        f"{n // 100} rows (median error {errs_m[len(errs_m) // 2]:.3e}, largest "
+        f"{errs_m[-1]:.3e})")
+    if len(agree) < 0.8 * len(pairs):
+        raise AssertionError(f"{tag}: near-best models disagree")
+    log(f"  {tag}: {int((~fin).sum())} kernel / "
+        f"{int((~torch.isfinite(mp.flatten(1)).all(1)).sum())} plain models non-finite")
+
+
+def make_scene(root, num_frames, num_points, focal=1280.0, seed=3):
+    """A synthetic database and its ground truth (one SIMPLE_RADIAL camera,
+    1024 x 768, prior focal length, exhaustive noise-free matches), written
+    with the port's generator."""
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
+
+    db_path = os.path.join(root, "db.db")
+    db = Database(db_path)
+    gt = synthesize_dataset(
+        SyntheticDatasetOptions(num_rigs=1, num_cameras_per_rig=1, num_frames_per_rig=num_frames,
+                                num_points3D=num_points, camera_params=(focal, 512.0, 384.0, 0.05),
+                                camera_has_prior_focal_length=True),
+        db, rng=np.random.default_rng(seed))
+    db.close()
+    return db_path, gt
+
+
+def run_mapper(db_path, out, label, min_launches=True):
+    """`mapper` through the CLI on cuda with every launch count at 0 before;
+    returns (pipeline, seconds, launches, stdout)."""
+    from colmap_tpu_torch.cli import main as cli
+    from colmap_tpu_torch.kernels import ba as KB
+    from colmap_tpu_torch.kernels import sfm as K
+
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    K.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        pipeline = cli.main(["mapper", "--database_path", db_path, "--output_path", out,
+                             "--device", "cuda", "--quiet"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {**KB.LAUNCHES, **K.LAUNCHES}
+    log(f"{label}: {buf.getvalue().strip()} ({dt:.3f} s)")
+    log(f"  launches: {counts}")
+    needed = [k for k in counts if k != "ba_dense_schur_assemble"]
+    missing = [k for k in needed if counts[k] == 0]
+    if min_launches and missing:
+        raise AssertionError(f"{label}: the mapper launched no {missing}")
+    return pipeline, dt, counts
+
+
+def check_against_gt(out, gt, num_frames, label):
+    from colmap_tpu_torch.estimators.alignment import compare_reconstructions
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+    recon = read_model(os.path.join(out, "0"))
+    cmp = compare_reconstructions(recon, gt)
+    n, rot_err, ctr = cmp["num_common_images"], cmp["max_rotation_error_deg"], cmp["max_center_error"]
+    log(f"  {label}: {recon.num_reg_frames()}/{num_frames} frames registered, "
+        f"{recon.num_points3D()} points; against ground truth: {n} common frames, max rotation "
+        f"error {rot_err:.3e} deg, max center error {ctr:.3e}")
+    if not (n == num_frames and rot_err <= MAX_ROT_DEG and ctr <= MAX_CENTER):
+        raise AssertionError(f"{label}: {n}/{num_frames} frames, {rot_err} deg, {ctr}: outside "
+                             f"{MAX_ROT_DEG} deg / {MAX_CENTER}")
+    return cmp
+
+
+def phase_mapper(launches):
+    """The verify scene and the full-size scene through `mapper` on cuda."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The verify scene's initial pair triangulates every point (all are
+        # seen by all 8 frames), so K8 has no track to create there; the
+        # full-size scene is the path every kernel must run on.
+        for label, frames, points, focal, full in (
+                ("mapper, verify scene", 8, 120, 1280.0, False),
+                ("mapper, full-size scene", FULL_FRAMES, 1000, FULL_FOCAL, True)):
+            root = os.path.join(tmp, f"{frames}x{points}")
+            os.makedirs(root)
+            db_path, gt = make_scene(root, frames, points, focal)
+            out = os.path.join(root, "sparse")
+            pipeline, dt, counts = run_mapper(db_path, out, label, min_launches=full)
+            for k, v in counts.items():
+                launches[k] += v
+            cmp = check_against_gt(out, gt, frames, label)
+            phases = {k: (pipeline.timer.seconds[k], pipeline.timer.calls[k])
+                      for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
+                                      reverse=True)}
+            log("  time by phase (s, calls): " + ", ".join(
+                f"{k} {v[0]:.3f}/{v[1]}" for k, v in phases.items()))
+            results[label] = dict(seconds=dt, phases=phases, launches=counts,
+                                  max_rot_deg=cmp["max_rotation_error_deg"],
+                                  max_center=cmp["max_center_error"])
+        # Idle share: device time under torch.profiler (device activity only)
+        # over a second run of the full-size scene, against the wall time of
+        # the first run. The raw event list is read directly: key_averages()
+        # over a whole mapper run (millions of events) takes longer than the
+        # run itself.
+        out = os.path.join(root, "sparse_profiled")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_mapper(db_path, out, "mapper, full-size scene under the profiler",
+                       min_launches=False)
+        spans, by_name = [], {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+                spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+                ms, cnt = by_name.get(e.name(), (0.0, 0))
+                by_name[e.name()] = (ms + e.duration_ns() / 1e6, cnt + 1)
+        wall_ms = results["mapper, full-size scene"]["seconds"] * 1e3
+        if spans:
+            spans.sort()
+            busy_ns, end = 0, spans[0][0]
+            for a, b in spans:  # the union of the device intervals
+                busy_ns += max(0, b - max(a, end))
+                end = max(end, b)
+            busy_ms = busy_ns / 1e6
+            idle = 1 - busy_ms / wall_ms
+            results["idle_share"] = idle
+            log(f"  full-size scene on the card: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+                f"wall, idle share {idle:.4f}")
+            for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+                log(f"    {ms:10.3f} ms  {cnt:7d} launches  {name[:90]}")
+        else:
+            log("  the profiler recorded no device time; idle share not measured")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; it needs a CUDA card")
@@ -543,6 +944,9 @@ def main():
     solves = phase_headline_solve(headline, gt_cost, launches)
     phase_cli(launches)
     phase_profile(headline, solves)
+    sfm_errs, sfm_rows = phase_sfm_kernels()
+    launches.update({k: 0 for k in SFM_SOURCES})
+    phase_mapper(launches)
 
     sources = {
         "ba_obs_jacobians": ("colmap_tpu_torch/csrc/ba_jacobians.cu",
@@ -554,11 +958,15 @@ def main():
         "ba_dense_schur_assemble": ("colmap_tpu_torch/csrc/ba_dense_schur.cu",
                                     "colmap_tpu/estimators/bundle_adjustment.py:1490"),
     }
+    sources.update(SFM_SOURCES)
+    errs.update(sfm_errs)
+    rows.update(sfm_rows)
     kernels = []
     for name, (src, replaces) in sources.items():
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=max(errs[name]),
+            launches=launches[name], max_abs_err=max(e[0] for e in errs[name]),
+            max_rel_err=max(e[1] for e in errs[name]),
             ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
             bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
             library_ms=None,

@@ -4,8 +4,13 @@ reference behavior: src/colmap/exe/colmap.cc. Same command names and flags
 as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch versions of the kernels). Ported commands:
 
+    mapper            incremental SfM: database -> sparse model(s)
     bundle_adjuster   read a model, run bundle adjustment, write the model
     model_analyzer    print a model's statistics
+
+Commands return what they built (``main`` passes it on), so a caller that
+drives the CLI in-process can read it: ``mapper`` returns its pipeline,
+whose ``timer`` holds the time by phase.
 
 Run as ``python -m colmap_tpu_torch.cli.main <command> ...``.
 """
@@ -13,6 +18,33 @@ Run as ``python -m colmap_tpu_torch.cli.main <command> ...``.
 from __future__ import annotations
 
 import argparse
+import os
+
+
+def _cmd_mapper(args):
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+    from colmap_tpu_torch.sfm.incremental_pipeline import (
+        IncrementalPipeline,
+        IncrementalPipelineOptions,
+    )
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    db = Database(args.database_path, must_exist=True)
+    options = IncrementalPipelineOptions(verbose=not args.quiet)
+    pipeline = IncrementalPipeline(options, db, device=device)
+    models = pipeline.run()
+    os.makedirs(args.output_path, exist_ok=True)
+    for i, recon in enumerate(models):
+        out = os.path.join(args.output_path, str(i))
+        write_model(recon, out, fmt="bin")
+        print(
+            f"Model {i}: {recon.num_reg_frames()} frames, "
+            f"{recon.num_points3D()} points -> {out}"
+        )
+    db.close()
+    return pipeline
 
 
 def _cmd_bundle_adjuster(args):
@@ -63,13 +95,21 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA SfM with COLMAP-compatible data formats",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    device_help = "torch device to run on; cuda raises if no card is present"
+
+    c = sub.add_parser("mapper")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--image_path", default=None)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--quiet", action="store_true")
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_mapper)
 
     c = sub.add_parser("bundle_adjuster")
     c.add_argument("--input_path", required=True)
     c.add_argument("--output_path", required=True)
     c.add_argument("--max_num_iterations", type=int, default=100)
-    c.add_argument("--device", default="cuda",
-                   help="torch device to solve on; cuda raises if no card is present")
+    c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=_cmd_bundle_adjuster)
 
     c = sub.add_parser("model_analyzer")
@@ -80,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

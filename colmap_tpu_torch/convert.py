@@ -1,17 +1,26 @@
-"""Carry bundle-adjustment state between colmap_tpu and this package.
+"""Carry state between colmap_tpu and this package.
 
 Both packages solve the same problem when they are handed the same arrays:
 ``problem_from_numpy`` builds the port's BAProblem (or BAMasks) from the
 numpy form of colmap_tpu's fields (``np.asarray`` of each), and
 ``problem_to_numpy`` gives the inverse. ``options_from_fields`` carries a
-BAOptions across field by field. Nothing here imports colmap_tpu: callers
-pass plain dicts and numpy arrays.
+BAOptions across field by field.
+
+The scene and the mapper's options are host objects with the same fields in
+both packages: ``convert_reconstruction`` and ``convert_camera`` rebuild a
+Reconstruction or a Camera of either package with the classes of the other
+(by default the port's), and ``convert_options`` does the same for
+dataclass options, nested ones included. A database needs no conversion:
+both packages read and write the same SQLite schema.
+
+Nothing here imports colmap_tpu: callers pass its objects and, for the way
+back, its classes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -49,3 +58,75 @@ def options_from_fields(fields: Dict[str, object]) -> BAOptions:
     if extra:
         raise ValueError(f"unknown BAOptions fields: {sorted(extra)}")
     return BAOptions(**fields)
+
+
+def _pose(pose, types):
+    return None if pose is None else types.Pose(np.array(pose.quat, dtype=np.float64),
+                                                np.array(pose.t, dtype=np.float64))
+
+
+def convert_camera(camera, types=None):
+    """A Camera of either package as a Camera of ``types`` (default: the
+    port's scene.types module)."""
+    if types is None:
+        from colmap_tpu_torch.scene import types
+    return types.Camera(camera_id=camera.camera_id, model_id=int(camera.model_id),
+                        width=camera.width, height=camera.height,
+                        params=np.array(camera.params, dtype=np.float64),
+                        has_prior_focal_length=camera.has_prior_focal_length)
+
+
+def convert_reconstruction(recon, types=None, reconstruction_cls=None):
+    """A Reconstruction of either package rebuilt with ``types`` and
+    ``reconstruction_cls`` (default: the port's), with the same ids, poses,
+    registrations, 2D points, tracks and next point id."""
+    if types is None:
+        from colmap_tpu_torch.scene import types
+    if reconstruction_cls is None:
+        from colmap_tpu_torch.scene.reconstruction import Reconstruction as reconstruction_cls
+    out = reconstruction_cls()
+    for rig in recon.rigs.values():
+        out.add_rig(types.Rig(rig_id=rig.rig_id, ref_sensor_id=tuple(rig.ref_sensor_id),
+                              sensors={tuple(k): _pose(v, types) for k, v in rig.sensors.items()}))
+    for camera in recon.cameras.values():
+        out.add_camera(convert_camera(camera, types))
+    for frame in recon.frames.values():
+        out.add_frame(types.Frame(frame_id=frame.frame_id, rig_id=frame.rig_id,
+                                  rig_from_world=_pose(frame.rig_from_world, types),
+                                  data_ids=[tuple(d) for d in frame.data_ids]))
+    for image in recon.images.values():
+        out.add_image(types.Image(image_id=image.image_id, name=image.name,
+                                  camera_id=image.camera_id, frame_id=image.frame_id,
+                                  points2D_xy=np.array(image.points2D_xy, dtype=np.float64),
+                                  points2D_p3d=np.array(image.points2D_p3d, dtype=np.int64)))
+    for pid, point in recon.points3D.items():
+        out.points3D[pid] = types.Point3D(
+            xyz=np.array(point.xyz, dtype=np.float64), color=np.array(point.color),
+            error=float(point.error),
+            track=[types.TrackElement(el.image_id, el.point2D_idx) for el in point.track])
+    for frame_id in recon.reg_frame_ids():
+        out.register_frame(frame_id)
+    out._next_point3D_id = recon._next_point3D_id
+    return out
+
+
+def convert_options(options, cls: Optional[type] = None, **nested):
+    """A dataclass of options rebuilt field by field as ``cls`` (by default
+    the port's class of the same module path and name). Nested dataclass
+    fields are converted the same way; ``nested`` maps a field name to the
+    class to build it as (needed on the way back to colmap_tpu)."""
+    if cls is None:
+        import importlib
+
+        module = options.__class__.__module__.replace("colmap_tpu.", "colmap_tpu_torch.", 1)
+        cls = getattr(importlib.import_module(module), options.__class__.__name__)
+    names = {f.name for f in dataclasses.fields(cls)}
+    values = {}
+    for f in dataclasses.fields(options):
+        if f.name not in names:
+            raise ValueError(f"{cls.__name__} has no field {f.name}")
+        v = getattr(options, f.name)
+        if dataclasses.is_dataclass(v):
+            v = convert_options(v, nested.get(f.name))
+        values[f.name] = v
+    return cls(**values)

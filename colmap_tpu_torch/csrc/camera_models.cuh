@@ -7,6 +7,12 @@
 // P for the parameters) the same code yields the exact derivatives
 // d(x, y)/d(u, v, w, params), as jax.jacfwd / torch.func.jacfwd do.
 //
+// unproject<MODEL>(params, x, y, u, v) is the inverse map to the z = 1
+// plane (cam_from_img): principal point and focal lengths, then, for models
+// with distortion, _newton_undistort's 25 trust-region Newton steps on
+// x + d(x) = x0, whose 2x2 Jacobian comes from distortion<MODEL> evaluated
+// on Dual<2>, so the distortion is written once for both directions.
+//
 // Models implemented: SIMPLE_PINHOLE, PINHOLE, SIMPLE_RADIAL, RADIAL,
 // OPENCV (ids 0-4). ModelInfo<MODEL> gives each model's parameter count
 // and the positions of its focal lengths, principal point and extra params.
@@ -126,6 +132,41 @@ __device__ __forceinline__ void project(const T* p, const T& u, const T& v, cons
   distortion<MODEL, T>(p + M::EXTRA, un, vn, du, dv);
   x = p[M::FX] * (un + du) + p[M::CX];
   y = p[M::FY] * (vn + dv) + p[M::CY];
+}
+
+// Pixel (x, y) -> (u, v) on the z = 1 plane; no validity test (always
+// valid for models 0-4).
+template <int MODEL>
+__device__ __forceinline__ void unproject(const float* p, float x, float y, float& u, float& v) {
+  using M = ModelInfo<MODEL>;
+  const float u0 = (x - p[M::CX]) / p[M::FX];
+  const float v0 = (y - p[M::CY]) / p[M::FY];
+  u = u0;
+  v = v0;
+  if constexpr (M::P > M::EXTRA) {
+    constexpr int NE = M::P - M::EXTRA;
+    Dual<2> e[NE];
+    for (int i = 0; i < NE; ++i) e[i] = Dual<2>(p[M::EXTRA + i]);
+    for (int it = 0; it < 25; ++it) {
+      Dual<2> U(u), V(v), du, dv;
+      U.d[0] = 1.f;
+      V.d[1] = 1.f;
+      distortion<MODEL, Dual<2>>(e, U, V, du, dv);
+      const Dual<2> ru = U + du, rv = V + dv;
+      const float a = ru.d[0], b = ru.d[1], c = rv.d[0], d = rv.d[1];
+      const float e0 = ru.v - u0, e1 = rv.v - v0;
+      const float det = a * d - b * c;
+      const float inv_det = fabsf(det) > 1e-30f ? 1.f / det : 0.f;
+      const float dx0 = inv_det * (d * e0 - b * e1);
+      const float dx1 = inv_det * (-c * e0 + a * e1);
+      // Trust region: the step is at most max(0.1 |x|, 0.1).
+      const float step = sqrtf(dx0 * dx0 + dx1 * dx1);
+      const float max_step = fmaxf(sqrtf(u * u + v * v) * 0.1f, 0.1f);
+      const float scale = fminf(1.f, max_step / fmaxf(step, 1e-30f));
+      u -= dx0 * scale;
+      v -= dx1 * scale;
+    }
+  }
 }
 
 }  // namespace ctt

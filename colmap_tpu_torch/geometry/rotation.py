@@ -1,4 +1,4 @@
-"""Batched quaternion utilities (the subset bundle adjustment uses).
+"""Batched quaternion utilities (the subset bundle adjustment and the mapper use).
 
 Counterpart of colmap_tpu/geometry/rotation.py. Quaternions are ``(..., 4)``
 tensors in Hamilton convention, scalar first ``(w, x, y, z)``, as in the
@@ -46,3 +46,58 @@ def quat_rotate(q, v):
     # v' = v + 2 w (u × v) + 2 u × (u × v)
     uv = _cross(u, v)
     return v + 2.0 * (w * uv + _cross(u, uv))
+
+
+def quat_conjugate(q):
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_to_rotmat(q):
+    """Unit quaternion -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def rotmat_to_quat(m):
+    """Rotation matrix (..., 3, 3) -> unit quaternion with w >= 0.
+
+    Four candidates, one per largest diagonal combination; the
+    best-conditioned one is taken (as colmap_tpu's branch-free form).
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = torch.clamp(1.0 + tr, min=0.0)
+    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    cands = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+    ], dim=-2)
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :])
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_from_axis_angle(axis, angle):
+    """axis (..., 3) need not be normalized; angle (...,) in radians."""
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis, dim=-1, keepdim=True),
+                              min=torch.finfo(axis.dtype).tiny)
+    half = 0.5 * torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)

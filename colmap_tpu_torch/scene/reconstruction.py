@@ -2,8 +2,8 @@
 
 Counterpart of colmap_tpu/scene/reconstruction.py (reference behavior:
 src/colmap/scene/reconstruction.h:56-197) — rigs, cameras,
-frames, images, points3D with registration bookkeeping, and the statistics
-and reprojection errors that bundle adjustment and model_analyzer use.
+frames, images, points3D with registration bookkeeping, point/observation add/merge/delete,
+normalization, transform and statistics.
 Host-side dict maps with numpy values.
 """
 
@@ -86,6 +86,21 @@ class Reconstruction:
         assert self.frames[frame_id].has_pose()
         self._reg_frame_ids.add(frame_id)
 
+    def deregister_frame(self, frame_id: int):
+        # Remove all observations of this frame's images.
+        for image_id in self.frames[frame_id].image_ids():
+            image = self.images[image_id]
+            for p2d_idx in image.get_observation_points2D_idxs():
+                self.delete_observation(image_id, int(p2d_idx))
+        self._reg_frame_ids.discard(frame_id)
+
+    def is_frame_registered(self, frame_id: int) -> bool:
+        return frame_id in self._reg_frame_ids
+
+    def is_image_registered(self, image_id: int) -> bool:
+        img = self.images[image_id]
+        return img.frame_id in self._reg_frame_ids
+
     # -- pose access -------------------------------------------------------
     def cam_from_world(self, image_id: int) -> Pose:
         """Composed sensor_from_rig ∘ rig_from_world for the image."""
@@ -123,6 +138,55 @@ class Reconstruction:
             assert image.points2D_p3d[el.point2D_idx] == INVALID_POINT3D
             image.points2D_p3d[el.point2D_idx] = point3D_id
         return point3D_id
+
+    def add_observation(self, point3D_id: int, el: TrackElement):
+        image = self.images[el.image_id]
+        assert image.points2D_p3d[el.point2D_idx] == INVALID_POINT3D
+        image.points2D_p3d[el.point2D_idx] = point3D_id
+        self.points3D[point3D_id].track.append(el)
+
+    def delete_observation(self, image_id: int, point2D_idx: int):
+        image = self.images[image_id]
+        point3D_id = int(image.points2D_p3d[point2D_idx])
+        if point3D_id == INVALID_POINT3D:
+            return
+        point = self.points3D[point3D_id]
+        if len(point.track) <= 2:
+            self.delete_point3D(point3D_id)
+            return
+        image.points2D_p3d[point2D_idx] = INVALID_POINT3D
+        point.track = [
+            el
+            for el in point.track
+            if not (el.image_id == image_id and el.point2D_idx == point2D_idx)
+        ]
+
+    def delete_point3D(self, point3D_id: int):
+        point = self.points3D.pop(point3D_id)
+        for el in point.track:
+            self.images[el.image_id].points2D_p3d[el.point2D_idx] = INVALID_POINT3D
+
+    def merge_points3D(self, point3D_id1: int, point3D_id2: int) -> int:
+        """Merge two points, weighted by track length (scene/reconstruction.cc
+        MergePoints3D behavior)."""
+        p1, p2 = self.points3D[point3D_id1], self.points3D[point3D_id2]
+        n1, n2 = len(p1.track), len(p2.track)
+        xyz = (n1 * p1.xyz + n2 * p2.xyz) / (n1 + n2)
+        color = ((n1 * p1.color.astype(np.int64) + n2 * p2.color.astype(np.int64)) // (n1 + n2)).astype(np.uint8)
+        track = p1.track + p2.track
+        for el in p2.track:
+            self.images[el.image_id].points2D_p3d[el.point2D_idx] = INVALID_POINT3D
+        self.delete_point3D(point3D_id2) if point3D_id2 in self.points3D else None
+        # Rebuild p1 with merged data.
+        for el in p1.track:
+            self.images[el.image_id].points2D_p3d[el.point2D_idx] = INVALID_POINT3D
+        del self.points3D[point3D_id1]
+        merged_id = self._next_point3D_id
+        self._next_point3D_id += 1
+        self.points3D[merged_id] = Point3D(xyz=xyz, color=color, error=-1.0, track=track)
+        for el in track:
+            self.images[el.image_id].points2D_p3d[el.point2D_idx] = merged_id
+        return merged_id
 
     # -- geometry ----------------------------------------------------------
     def compute_mean_track_length(self) -> float:
@@ -187,3 +251,49 @@ class Reconstruction:
             self.points3D[pid].error = (
                 err_sum[pid] / err_cnt[pid] if err_cnt[pid] else -1.0
             )
+    def compute_centroid(self, min_percentile=0.0, max_percentile=1.0) -> np.ndarray:
+        if not self.points3D:
+            return np.zeros(3)
+        xyz = np.stack([p.xyz for p in self.points3D.values()])
+        lo = np.quantile(xyz, min_percentile, axis=0)
+        hi = np.quantile(xyz, max_percentile, axis=0)
+        mask = np.all((xyz >= lo) & (xyz <= hi), axis=1)
+        return xyz[mask].mean(axis=0) if mask.any() else xyz.mean(axis=0)
+
+    def normalize(self, fixed_scale=False, extent=10.0, min_percentile=0.1, max_percentile=0.9):
+        """Center at the percentile-trimmed camera-center centroid and scale
+        to the given extent (reference: Reconstruction::Normalize)."""
+        centers = np.array(
+            [
+                self.cam_from_world(iid).projection_center()
+                for iid in self.reg_image_ids()
+            ]
+        )
+        if len(centers) == 0:
+            return
+        lo = np.quantile(centers, min_percentile, axis=0)
+        hi = np.quantile(centers, max_percentile, axis=0)
+        mask = np.all((centers >= lo) & (centers <= hi), axis=1)
+        sel = centers[mask] if mask.any() else centers
+        mean_center = sel.mean(axis=0)
+        bbox_extent = float(np.max(hi - lo))
+        scale = 1.0 if fixed_scale or bbox_extent <= 0 else extent / max(bbox_extent, 1e-12)
+        self.transform(scale, Pose.identity().quat, -scale * mean_center)
+
+    def transform(self, scale: float, quat: np.ndarray, t: np.ndarray):
+        """Apply Sim3 new_from_old = (scale, quat, t) to the whole model."""
+        from colmap_tpu_torch.scene.types import _quat_mul_np, _quat_rotate_np
+
+        q = np.asarray(quat, dtype=np.float64)
+        q = q / np.linalg.norm(q)
+        t = np.asarray(t, dtype=np.float64)
+        for point in self.points3D.values():
+            point.xyz = scale * _quat_rotate_np(q, point.xyz) + t
+        for frame in self.frames.values():
+            if frame.rig_from_world is None:
+                continue
+            # rig_from_new = TransformCameraWorld(Sim3, rig_from_old).
+            q_new = _quat_mul_np(frame.rig_from_world.quat, q * np.array([1.0, -1, -1, -1]))
+            q_new /= np.linalg.norm(q_new)
+            t_new = scale * frame.rig_from_world.t - _quat_rotate_np(q_new, t)
+            frame.rig_from_world = Pose(q_new, t_new)

@@ -1,10 +1,9 @@
 """Host-side scene entity types.
 
-Counterpart of colmap_tpu/scene/types.py (reference behavior:
-src/colmap/scene/{camera,image,frame,point3d,track}.h and
-src/colmap/sensor/rig.h). These are light numpy dataclasses used by the host
-orchestration layer; device compute uses the struct-of-arrays tensors of
-estimators/bundle_adjustment.py.
+reference behavior: src/colmap/scene/{camera,image,frame,point2d,point3d,
+track,two_view_geometry}.h and src/colmap/sensor/rig.h. These are light
+Python dataclasses used by the host orchestration layer; device compute uses
+the packed struct-of-arrays form (colmap_tpu_torch.scene.arrays).
 
 Pose conventions match the reference: image poses are ``cam_from_world``
 (derived from the frame's ``rig_from_world`` composed with the rig's
@@ -14,12 +13,16 @@ Pose conventions match the reference: image poses are ``cam_from_world``
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from colmap_tpu_torch.sensor import models as camera_models
-from colmap_tpu_torch.utils.types import SensorType
+from colmap_tpu_torch.utils.types import (
+    INVALID_POINT3D_ID,
+    SensorType,
+)
 
 # In-memory sentinel for "no 3D point": -1 in int64 arrays (maps to the
 # reference's uint64-max kInvalidPoint3DId at the I/O boundary).
@@ -55,6 +58,9 @@ class Pose:
     @staticmethod
     def identity() -> "Pose":
         return Pose(np.array([1.0, 0, 0, 0]), np.zeros(3))
+
+    def copy(self) -> "Pose":
+        return Pose(self.quat.copy(), self.t.copy())
 
     def normalize(self) -> "Pose":
         return Pose(self.quat / np.linalg.norm(self.quat), self.t)
@@ -93,6 +99,13 @@ class Pose:
     def projection_center(self) -> np.ndarray:
         return self.inverse().t
 
+    def angle_to(self, other: "Pose") -> float:
+        """Relative rotation angle in radians."""
+        q1 = self.quat / np.linalg.norm(self.quat)
+        q2 = other.quat / np.linalg.norm(other.quat)
+        return 2.0 * np.arccos(min(1.0, abs(float(np.dot(q1, q2)))))
+
+
 @dataclasses.dataclass
 class Camera:
     """reference: src/colmap/scene/camera.h:48."""
@@ -104,9 +117,41 @@ class Camera:
     params: np.ndarray
     has_prior_focal_length: bool = False
 
+    @staticmethod
+    def create(camera_id, model_id, focal_length, width, height) -> "Camera":
+        # pycolmap parity: accept the model NAME ("SIMPLE_PINHOLE") as well
+        # as the numeric/enum id (src/pycolmap binds both spellings).
+        if isinstance(model_id, str):
+            model_id = camera_models.MODEL_NAME_TO_ID[model_id]
+        return Camera(
+            camera_id=camera_id,
+            model_id=int(model_id),
+            width=int(width),
+            height=int(height),
+            params=camera_models.initialize_params(model_id, focal_length, width, height),
+        )
+
     @property
     def model_name(self) -> str:
         return camera_models.MODEL_ID_TO_NAME[int(self.model_id)]
+
+    def mean_focal_length(self) -> float:
+        return float(camera_models.mean_focal_length(self.model_id, self.params))
+
+    def cam_from_img_threshold(self, threshold_px: float) -> float:
+        return threshold_px / self.mean_focal_length()
+
+
+@dataclasses.dataclass
+class Point2D:
+    """reference: src/colmap/scene/point2d.h."""
+
+    xy: np.ndarray
+    point3D_id: int = INVALID_POINT3D
+
+    def has_point3D(self) -> bool:
+        return self.point3D_id != INVALID_POINT3D
+
 
 @dataclasses.dataclass
 class Image:
@@ -132,6 +177,10 @@ class Image:
     def set_points2D(self, xy: np.ndarray):
         self.points2D_xy = np.asarray(xy, dtype=np.float64).reshape(-1, 2)
         self.points2D_p3d = np.full(len(self.points2D_xy), INVALID_POINT3D, dtype=np.int64)
+
+    def get_observation_points2D_idxs(self) -> np.ndarray:
+        return np.nonzero(self.points2D_p3d != INVALID_POINT3D)[0]
+
 
 @dataclasses.dataclass
 class Rig:
@@ -190,3 +239,36 @@ class Point3D:
     color: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3, dtype=np.uint8))
     error: float = -1.0
     track: List[TrackElement] = dataclasses.field(default_factory=list)
+
+
+class TwoViewGeometryConfig(enum.IntEnum):
+    """reference: src/colmap/scene/two_view_geometry.h:43-69."""
+
+    UNDEFINED = 0
+    DEGENERATE = 1
+    CALIBRATED = 2
+    UNCALIBRATED = 3
+    PLANAR = 4
+    PANORAMIC = 5
+    PLANAR_OR_PANORAMIC = 6
+    WATERMARK = 7
+    MULTIPLE = 8
+
+
+@dataclasses.dataclass
+class TwoViewGeometry:
+    """reference: src/colmap/scene/two_view_geometry.h:41."""
+
+    config: int = int(TwoViewGeometryConfig.UNDEFINED)
+    E: Optional[np.ndarray] = None
+    F: Optional[np.ndarray] = None
+    H: Optional[np.ndarray] = None
+    cam2_from_cam1: Optional[Pose] = None
+    inlier_matches: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0, 2), dtype=np.uint32)
+    )
+    tri_angle: float = -1.0
+    # Cameras with focal lengths estimated by the shared-/one-sided-focal
+    # paths (reference: two_view_geometry.h:94-95 optional camera1/camera2).
+    camera1: Optional["Camera"] = None
+    camera2: Optional["Camera"] = None

@@ -7,9 +7,13 @@ batches built from elementwise torch ops only, so the same code runs under
 Jacobian kernel differentiates it) and on any device.
 
     img_from_cam(model_id, params, uvw) -> (xy, valid)
+    cam_from_img(model_id, params, xy) -> (uv, valid)   (z = 1 plane)
+    cam_ray_from_img(model_id, params, xy) -> (ray, valid)   (unit bearing)
 
-The CUDA kernels carry their own copy of these formulas in
-``colmap_tpu_torch/csrc/camera_models.cuh``.
+These are the plain versions. The mapper reaches them through the camera
+map wrappers of ``colmap_tpu_torch/kernels/sfm.py``, which launch the CUDA
+kernel K5 on card tensors; the kernels carry their own copy of these
+formulas in ``colmap_tpu_torch/csrc/camera_models.cuh``.
 
 Conventions (identical to the reference):
 - image coords: upper-left corner (0, 0); pixel centers at (i+0.5, j+0.5).
@@ -126,6 +130,11 @@ def mean_focal_length(model_id, params):
     return sum(params[..., i] for i in idxs) / len(idxs)
 
 
+def cam_from_img_threshold(model_id, params, threshold):
+    """Pixel threshold -> normalized-plane threshold (models.h:1131-1139)."""
+    return threshold / mean_focal_length(model_id, params)
+
+
 # ---------------------------------------------------------------------------
 # Distortion functions: (extra_params, u, v) -> (du, dv), elementwise; u/v are
 # coordinates in the normalized (or fisheye theta-) plane.
@@ -199,6 +208,24 @@ def _dist_fov(e, u, v):
     return u * (factor - 1), v * (factor - 1)
 
 
+def _undist_fov(e, u, v):
+    # Closed-form inverse (models.h FOVCameraModel::Undistortion).
+    omega = e[0]
+    eps = 1e-4
+    r2 = u * u + v * v
+    omega2 = omega * omega
+    tan_half = torch.tan(omega / 2)
+    r = torch.sqrt(torch.clamp(r2, min=1e-30))
+    safe_tan = _safe(torch.abs(tan_half) < 1e-30, tan_half)
+    factor_full = torch.tan(r * omega) / (r * 2 * safe_tan)
+    factor_small_omega = (omega2 * r2) / 3 - omega2 / 12 + 1
+    factor_small_r = (omega * (omega2 * r2 + 3)) / (6 * safe_tan)
+    factor = torch.where(
+        omega2 < eps, factor_small_omega, torch.where(r2 < eps, factor_small_r, factor_full)
+    )
+    return u * factor, v * factor
+
+
 def _dist_thin_prism(e, u, v):
     k1, k2, p1, p2, k3, k4, sx1, sy1 = (e[i] for i in range(8))
     u2, v2, uv = u * u, v * v, u * v
@@ -259,6 +286,15 @@ def _fisheye_from_normal(u, v):
         r > 1e-12, torch.atan(r) / torch.clamp(r, min=1e-30), torch.ones_like(r)
     )
     return u * scale, v * scale
+
+
+def _normal_from_fisheye(uu, vv):
+    """Inverse of _fisheye_from_normal: (u, v) * sin(θ) / (θ cos θ)."""
+    theta = torch.sqrt(uu * uu + vv * vv)
+    theta_cos = theta * torch.cos(theta)
+    big = theta_cos > 1e-12
+    scale = torch.where(big, torch.sin(theta) / torch.where(big, theta_cos, 1.0), 1.0)
+    return uu * scale, vv * scale
 
 
 def _split_focal_pp(model_id, params):
@@ -347,3 +383,151 @@ def img_from_cam(model_id, params, uvw, check_cheirality=True):
     x = fx * xd + cx
     y = fy * yd + cy
     return torch.stack([x, y], dim=-1), valid
+
+
+def _newton_undistort(dist_fn, extra, u0, v0, num_iterations=25):
+    """Solve x + d(x) = x0 by Newton iteration with a trust region.
+
+    reference behavior: models.h IterativeUndistortion :1141-1200 (100 iters,
+    rel/abs step radius 0.1). As colmap_tpu: a fixed count of 25 steps, the
+    2x2 Jacobian by forward-mode differentiation of the distortion function
+    (two jvps over the whole batch), the step scaled to at most
+    max(0.1 |x|, 0.1). The step count sets the result; keep it.
+    """
+
+    def residual(u, v):
+        du, dv = dist_fn(extra, u, v)
+        return u + du, v + dv
+
+    u, v = u0, v0
+    one, zero = torch.ones_like(u0), torch.zeros_like(u0)
+    for _ in range(num_iterations):
+        (ru, rv), (a, c) = torch.func.jvp(residual, (u, v), (one, zero))
+        _, (b, d) = torch.func.jvp(residual, (u, v), (zero, one))
+        e0, e1 = ru - u0, rv - v0
+        det = a * d - b * c
+        inv_det = torch.where(torch.abs(det) > 1e-30, 1.0 / _safe(det == 0, det), 0.0)
+        dx0 = inv_det * (d * e0 - b * e1)
+        dx1 = inv_det * (-c * e0 + a * e1)
+        step_norm = torch.sqrt(dx0 * dx0 + dx1 * dx1)
+        max_step = torch.clamp(torch.sqrt(u * u + v * v) * 0.1, min=0.1)
+        scale = torch.clamp(max_step / torch.clamp(step_norm, min=1e-30), max=1.0)
+        u, v = u - dx0 * scale, v - dx1 * scale
+    return u, v
+
+
+def cam_from_img(model_id, params, xy):
+    """Lift pixel coordinates to the normalized z=1 camera plane.
+
+    params: (num_params,) or (..., num_params) matched to xy (..., 2).
+    Returns (uv, valid): uv (..., 2) such that (u, v, 1) is the ray.
+    """
+    mid = CameraModelId(int(model_id))
+    x, y = xy[..., 0], xy[..., 1]
+    eps = torch.finfo(xy.dtype).eps
+
+    if mid == CameraModelId.EQUIRECTANGULAR:
+        width, height = params[..., 0], params[..., 1]
+        theta = 2 * math.pi * (x / width - 0.5)
+        phi = math.pi * (0.5 - y / height)
+        cos_phi = torch.cos(phi)
+        rx = cos_phi * torch.sin(theta)
+        ry = -torch.sin(phi)
+        rz = cos_phi * torch.cos(theta)
+        valid = rz > eps
+        safe_rz = _safe(torch.abs(rz) < eps, rz)
+        return torch.stack([rx / safe_rz, ry / safe_rz], dim=-1), valid
+
+    fx, fy, cx, cy = _split_focal_pp(mid, params)
+    uu = (x - cx) / fx
+    vv = (y - cy) / fy
+    if mid == CameraModelId.EUCM:
+        alpha, beta = params[..., 4], params[..., 5]
+        r2 = uu * uu + vv * vv
+        gamma = 1.0 - alpha
+        radicand = 1.0 - (alpha - gamma) * beta * r2
+        valid = radicand >= 0
+        helper_den = alpha * torch.sqrt(torch.clamp(radicand, min=0.0)) + gamma
+        valid = valid & (helper_den >= eps)
+        helper = (1.0 - alpha * alpha * beta * r2) / _safe(helper_den < eps, helper_den)
+        valid = valid & (helper >= eps)
+        safe_helper = _safe(torch.abs(helper) < eps, helper)
+        return torch.stack([uu / safe_helper, vv / safe_helper], dim=-1), valid
+
+    if mid in (CameraModelId.SIMPLE_DIVISION, CameraModelId.DIVISION):
+        k = _extra(mid, params)[0]
+        denom = 1.0 + k * (uu * uu + vv * vv)
+        valid = torch.abs(denom) >= eps
+        safe = _safe(torch.abs(denom) < eps, denom)
+        return torch.stack([uu / safe, vv / safe], dim=-1), valid
+
+    ones = torch.ones_like(uu, dtype=torch.bool)
+    if mid == CameraModelId.FOV:
+        u, v = _undist_fov(_extra(mid, params), uu, vv)
+        return torch.stack([u, v], dim=-1), ones
+
+    dist_fn, is_fisheye = _DISTORTIONS[mid]
+    extra = _extra(mid, params)
+    if extra:
+        # Per-row parameters enter the Newton solve broadcast to the points.
+        extra = [torch.broadcast_to(e, uu.shape) for e in extra]
+        uu, vv = _newton_undistort(dist_fn, extra, uu, vv)
+    if is_fisheye:
+        uu, vv = _normal_from_fisheye(uu, vv)
+    return torch.stack([uu, vv], dim=-1), ones
+
+
+def cam_ray_from_img(model_id, params, xy):
+    """Pixel -> unit bearing vector in the camera frame (..., 3)."""
+    mid = CameraModelId(int(model_id))
+    if mid == CameraModelId.EQUIRECTANGULAR:
+        x, y = xy[..., 0], xy[..., 1]
+        theta = 2 * math.pi * (x / params[..., 0] - 0.5)
+        phi = math.pi * (0.5 - y / params[..., 1])
+        cos_phi = torch.cos(phi)
+        ray = torch.stack(
+            [cos_phi * torch.sin(theta), -torch.sin(phi), cos_phi * torch.cos(theta)], dim=-1
+        )
+        return ray, torch.ones(ray.shape[:-1], dtype=torch.bool, device=ray.device)
+    uv, valid = cam_from_img(model_id, params, xy)
+    return ray_from_plane(uv), valid
+
+
+def ray_from_plane(uv):
+    """(u, v) on the z = 1 plane -> unit ray (u, v, 1) / |(u, v, 1)|."""
+    ray = torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
+    return ray / torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+
+
+def has_bogus_params(
+    model_id,
+    params,
+    width,
+    height,
+    min_focal_length_ratio,
+    max_focal_length_ratio,
+    max_extra_param,
+):
+    """reference behavior: CameraModelHasBogusParams (models.h:912).
+    Host-side check on a numpy parameter vector."""
+    mid = CameraModelId(int(model_id))
+    params = np.asarray(params)
+    if mid == CameraModelId.EQUIRECTANGULAR:
+        return False
+    for i in focal_length_idxs(mid):
+        ratio = params[i] / max(width, height)
+        if ratio < min_focal_length_ratio or ratio > max_focal_length_ratio:
+            return True
+    pp = principal_point_idxs(mid)
+    if params[pp[0]] < 0 or params[pp[0]] > width:
+        return True
+    if params[pp[1]] < 0 or params[pp[1]] > height:
+        return True
+    for i in extra_params_idxs(mid):
+        if abs(params[i]) > max_extra_param:
+            return True
+    if mid == CameraModelId.EUCM:
+        alpha, beta = params[..., 4], params[..., 5]
+        if alpha < 0 or alpha > 1 or beta <= 0:
+            return True
+    return False

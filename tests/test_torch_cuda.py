@@ -10,6 +10,12 @@ Each float32 kernel is held against its plain version run in float64 on
 the same inputs. K1 agrees to 1e-5 of each output's largest entry. K2-K4
 sum frame and camera terms with atomics, so the order of those float32
 sums, and their last bits, vary from run to run: they are held to 1e-4.
+The mapper kernels run on the cases of colmap_tpu_torch/kernels/sfm_cases.py
+at small sizes: K5 (one projection or 25 Newton steps) to 1e-5; K6 and K7
+count each model's inliers as a float64 count of the same model does, up to
+rows within 2% of the threshold, and refit to the same support; K8 (float32
+Jacobi on the 4x4 normal equations against a float64 SVD) to 1e-3; K9 to
+1e-4.
 """
 
 import pytest
@@ -119,3 +125,136 @@ def test_solve_matches_plain_on_cuda(problem, solver):
     _, cost_plain, _ = ba._lm_loop(pk, maps, model_id, opts, masks, ba._use_dense(pk, opts),
                                    True, kernels=K.PLAIN)
     assert abs(cost - cost_plain) <= 1e-3 * cost_plain
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.parametrize("model_id", range(5))
+def test_camera_map_matches_plain_on_cuda(model_id):
+    """K5, project and unproject (shared and per-row parameters)."""
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.sensor import models as M
+
+    p, uvw, xy = C.camera_map_case(model_id, 300, model_id, "cuda")
+    got, ok = K.img_from_cam(model_id, p, uvw)
+    ref, ok_ref = M.img_from_cam(model_id, p.double(), uvw.double())
+    _close(got, ref, 1e-5, "K5 project")
+    assert torch.equal(ok, ok_ref)
+    ref, _ = M.cam_from_img(model_id, p.double(), xy.double())
+    _close(K.cam_from_img(model_id, p, xy)[0], ref, 1e-5, "K5 unproject")
+    _close(K.cam_from_img(model_id, p.expand(300, -1).contiguous(), xy)[0], ref, 1e-5,
+           "K5 unproject, per-row parameters")
+
+
+def test_camera_map_raises_for_models_without_cuda():
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+
+    xy = torch.zeros(4, 2, device="cuda")
+    with pytest.raises(NotImplementedError):
+        K.cam_from_img(5, torch.ones(8, device="cuda"), xy)
+
+
+def _counts_match(counts, models, residuals, mask, max_sq):
+    fin = torch.isfinite(models.flatten(1)).all(1)
+    res = torch.where(mask, residuals(models[fin].double()), torch.inf)
+    border = ((res - max_sq).abs() <= 0.02 * max_sq).sum(-1)
+    assert bool(((counts[fin] - (res <= max_sq).sum(-1)).abs() <= border).all())
+    assert bool((counts[~fin] == 0).all())
+
+
+def test_p3p_ransac_matches_plain_on_cuda():
+    """K6: scoring, inlier mask and refit."""
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    c = C.p3p_case(400, 32, 1, "cuda")
+    d = C.as_double(c)
+    models, counts, best = K.p3p_propose_score(c["X"], c["rays"], c["uv"], c["mask"],
+                                               c["samples"], c["max_sq"])
+    _counts_match(counts, models, lambda m: K.p3p_residuals(m, d["X"], d["uv"]), d["mask"],
+                  d["max_sq"])
+    support, idx = unpack_best(int(best.item()))
+    assert support == int(counts.max()) and counts[idx] == support
+    model = models[idx]
+    assert torch.equal(K.p3p_inliers(c["X"], c["uv"], c["mask"], model, c["max_sq"]),
+                       K.p3p_inliers_plain(d["X"], d["uv"], d["mask"], model.double(),
+                                           d["max_sq"]))
+    start = model.clone()
+    start[:, 3] += 0.03
+    n0 = int(K.p3p_inliers_plain(d["X"], d["uv"], d["mask"], start.double(), d["max_sq"]).sum())
+    got, n_got = K.p3p_refit(c["X"], c["uv"], c["mask"], start, c["max_sq"], n0)
+    ref, n_ref = K.p3p_refit_plain(d["X"], d["uv"], d["mask"], start.double(), d["max_sq"], n0)
+    assert n_got == n_ref
+    _close(got, ref, 1e-3, "K6 refit")
+
+
+def test_essential_ransac_matches_plain_on_cuda():
+    """K7: scoring, inlier mask and refit."""
+    _need_card()
+    from colmap_tpu_torch.geometry.essential import sampson_error
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    c = C.essential_case(400, 32, 1, "cuda")
+    d = C.as_double(c)
+    models, counts, best = K.essential_propose_score(c["x1"], c["x2"], c["mask"], c["samples"],
+                                                     c["max_sq"])
+    _counts_match(counts, models,
+                  lambda m: sampson_error(m[:, None], d["x1"][None], d["x2"][None]),
+                  d["mask"], d["max_sq"])
+    support, idx = unpack_best(int(best.item()))
+    assert support == int(counts.max()) and counts[idx] == support
+    model = models[idx]
+    assert torch.equal(K.essential_inliers(c["x1"], c["x2"], c["mask"], model, c["max_sq"]),
+                       K.essential_inliers_plain(d["x1"], d["x2"], d["mask"], model.double(),
+                                                 d["max_sq"]))
+    start = model + 0.003
+    n0 = int(K.essential_inliers_plain(d["x1"], d["x2"], d["mask"], start.double(),
+                                       d["max_sq"]).sum())
+    got, n_got = K.essential_refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0)
+    ref, n_ref = K.essential_refit_plain(d["x1"], d["x2"], d["mask"], start.double(),
+                                         d["max_sq"], n0)
+    assert n_got == n_ref
+    _close(got * torch.sign((got.double() * ref).sum()), ref, 1e-3, "K7 refit")
+
+
+def test_triangulate_tracks_matches_plain_on_cuda():
+    """K8 on tracks with outlier views and two-view tracks."""
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+
+    c = C.tracks_case(300, 1, "cuda")
+    d = C.as_double(c)
+    keys = ("R", "t", "x", "mask", "min_angle", "max_err")
+    xyz, inl, ok = K.triangulate_tracks(*(c[k] for k in keys))
+    xyz_p, inl_p, ok_p = K.triangulate_tracks_plain(*(d[k] for k in keys))
+    assert torch.equal(ok, ok_p) and torch.equal(inl[ok_p], inl_p[ok_p])
+    _close(xyz[ok_p], xyz_p[ok_p], 1e-3, "K8 xyz")
+
+
+def test_filter_points_matches_plain_on_cuda():
+    """K9 on points of 2-32 views with outliers and negative depths."""
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+
+    c = C.filter_case(200, 1, "cuda")
+    d = C.as_double(c)
+    keys = ("quat", "t", "cam_params", "xyz", "obs_xy", "valid")
+    err, depth, mc = K.filter_points(2, *(c[k] for k in keys))
+    err_p, depth_p, mc_p = K.filter_points_plain(2, *(d[k] for k in keys))
+    fin = torch.isfinite(err_p)
+    assert torch.equal(torch.isfinite(err), fin)
+    _close(err[fin], err_p[fin], 1e-4, "K9 errors")
+    _close(depth, depth_p, 1e-4, "K9 depths")
+    _close(mc, mc_p, 1e-4, "K9 min |cos|")
