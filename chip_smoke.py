@@ -24,15 +24,17 @@ Phases; any failure exits non-zero:
      LM iteration of each solver (torch.profiler);
   7. mapper kernels: K5-K9 (colmap_tpu_torch/kernels/sfm.py) against their
      plain versions (float64, same inputs) at the mapper's shapes, on the
-     cases of colmap_tpu_torch/kernels/sfm_cases.py, timed with CUDA events;
+     cases of colmap_tpu_torch/kernels/sfm_cases.py (K6 and K7 on batches of
+     injected samples: the same best index and model), timed with CUDA
+     events;
   8. mapper, verify scene: the `mapper` command on cuda on a synthetic
      8-frame, 120-point database (seed 3), held to the ground truth
      (8/8 frames within 1e-2 deg and 1e-4 units);
   9. mapper, full-size scene: 40 frames x 1000 points (SIMPLE_RADIAL,
-     1024 x 768, f = 2500, exhaustive matches, noise-free, seed 3): frames, errors
-     against the ground truth, wall time, time by phase, launches of every
-     kernel, and the device's idle share from torch.profiler over a second
-     run of the same scene.
+     1024 x 768, f = 2500, exhaustive matches, noise-free, seed 3), run once
+     under torch.profiler: frames, errors against the ground truth, wall
+     time, time by phase, launches of every kernel, and the device's idle
+     share, all from that run.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
 the dense solver), the mapper runs K1-K3 and K5-K9 (its BA is PCG, so K4
@@ -551,7 +553,8 @@ def phase_cli(launches):
 
 def phase_sfm_kernels():
     """K5-K9 against their plain versions (float64 on the same inputs), then
-    their times at the mapper's shapes. Returns (errs, rows)."""
+    their times at the mapper's shapes. Returns (errs, rows, agree): agree
+    holds K6's and K7's (agreeing, near-best) model counts."""
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.geometry.essential import sampson_error
     from colmap_tpu_torch.kernels import sfm_cases as C
@@ -559,7 +562,7 @@ def phase_sfm_kernels():
     from colmap_tpu_torch.sensor import models as M
 
     errs = {k: [] for k in K.LAUNCHES}
-    rows = {}
+    rows, agree = {}, {}
 
     def row(name, fn, plain, bytes_moved, ops):
         ms = time_ms(fn)
@@ -606,9 +609,10 @@ def phase_sfm_kernels():
     mk, ck, bk = K.p3p_propose_score(*args_k)
     mp, cp, bp = K.p3p_propose_score_plain(d["X"], d["rays"], d["uv"], d["mask"], d["samples"],
                                            d["max_sq"])
-    _check_ransac_batch("K6", mk, ck, bk, mp, cp, bp, 1000, 64, errs["p3p_ransac"], unpack_best,
-                        lambda m: torch.where(d["mask"], K.p3p_residuals(m, d["X"], d["uv"]),
-                                              torch.inf), d["max_sq"])
+    agree["p3p_ransac"] = _check_ransac_batch(
+        "K6", mk, ck, bk, mp, cp, bp, 1000, 64, errs["p3p_ransac"], unpack_best,
+        lambda m: torch.where(d["mask"], K.p3p_residuals(m, d["X"], d["uv"]), torch.inf),
+        d["max_sq"])
     best = unpack_best(int(bp.item()))[1]
     model = mp[best].float()
     same_mask("K6 inlier mask", K.p3p_inliers(c["X"], c["uv"], c["mask"], model, c["max_sq"]),
@@ -641,11 +645,11 @@ def phase_sfm_kernels():
     mk, ck, bk = K.essential_propose_score(*args_k)
     mp, cp, bp = K.essential_propose_score_plain(d["x1"], d["x2"], d["mask"], d["samples"],
                                                  d["max_sq"])
-    _check_ransac_batch("K7", mk, ck, bk, mp, cp, bp, 1000, 128, errs["essential_ransac"],
-                        unpack_best,
-                        lambda m: torch.where(d["mask"], sampson_error(m[:, None], d["x1"][None],
-                                                                       d["x2"][None]), torch.inf),
-                        d["max_sq"], sign_free=True)
+    agree["essential_ransac"] = _check_ransac_batch(
+        "K7", mk, ck, bk, mp, cp, bp, 1000, 128, errs["essential_ransac"], unpack_best,
+        lambda m: torch.where(d["mask"], sampson_error(m[:, None], d["x1"][None], d["x2"][None]),
+                              torch.inf),
+        d["max_sq"], sign_free=True)
     best = unpack_best(int(bp.item()))[1]
     model = mp[best].float()
     same_mask("K7 inlier mask",
@@ -682,6 +686,11 @@ def phase_sfm_kernels():
     same("K8 success", sk, sp)
     same("K8 inlier mask", ik[sp], ip[sp])
     check("K8 xyz", xk[sp], xp[sp], K8_RTOL, errs["triangulate_tracks"])
+    # Without RANSAC (the triangulator's robust_creation=False): the N-view
+    # point of every track over its valid views.
+    check("K8 N-view xyz", K.triangulate_multi_view_tracks(*args_k[:4]),
+          K.triangulate_multi_view_tracks_plain(d["R"], d["t"], d["x"], d["mask"]), K8_RTOL,
+          errs["triangulate_tracks"])
     row("triangulate_tracks", lambda: K.triangulate_tracks(*args_k),
         lambda: K.triangulate_tracks_plain(*args_k),
         nbytes(c["R"], c["t"], c["x"], c["mask"], xk, ik, sk),
@@ -718,32 +727,33 @@ def phase_sfm_kernels():
         n * 25 * 60)
     proj_ms = time_ms(lambda: K.img_from_cam(2, p, uvw))
     log(f"  camera_map project mode: {proj_ms:.4f} ms")
-    return errs, rows
+    return errs, rows, agree
 
 
 def _check_ransac_batch(tag, mk, ck, bk, mp, cp, bp, n, n_samples, errs, unpack_best, residuals,
                         max_sq, sign_free=False):
-    """One propose-and-score batch, kernel (float32) against plain (float64).
+    """One propose-and-score batch of injected samples, kernel (float32)
+    against plain (float64); returns (agreeing, near-best) model counts.
 
-    - the same best, support and index; where float32 rounding of the
-      minimal solver moves a few rows across the threshold (it can for the
-      5-point solver), a best support within 1% of the rows of the plain
-      best's (the index is then reported, not required);
+    - the same best: support and index, and the best model to K67_RTOL;
     - the kernel's support of each of its own models equals the float64
-      count for that model (``residuals`` gives inf on invalid rows), up to the rows whose residual lies within 2% of
-      the threshold (float32 rounding can move those across it);
+      count for that model (``residuals`` gives inf on invalid rows), up to
+      the rows whose residual lies within 2% of the threshold (float32
+      rounding can move those across it);
     - of the plain models with at least 90% of the best support, at least
       80% have a kernel solution of the same sample that agrees to K67_RTOL
-      and whose support is within 1% of the rows; float32 rounding moves the
-      solution of an ill-conditioned sample (close points) further.
+      and whose support is within 1% of the rows: float32 rounding moves the
+      solution of an ill-conditioned sample (close points) further. The
+      largest error over all of them, agreeing or not, goes into ``errs``.
     """
     (sk, ik), (sp, ip) = unpack_best(int(bk.item())), unpack_best(int(bp.item()))
     log(f"  {tag} best: kernel support {sk} at {ik}, plain support {sp} at {ip}")
     if (sk, ik) != (sp, ip):
-        log(f"  {tag}: different best; the plain model at the kernel's best has support "
-            f"{int(cp[ik])}")
-        if abs(sk - sp) > n // 100:
-            raise AssertionError(f"{tag}: best support {sk} vs plain {sp} (index {ik} vs {ip})")
+        raise AssertionError(f"{tag}: best support {sk} at {ik} vs plain {sp} at {ip}")
+    best_k = mk[ik].double()
+    if sign_free:  # E and -E are the same model
+        best_k = best_k * torch.sign((best_k * mp[ip]).sum())
+    check(f"{tag} best model", best_k, mp[ip], K67_RTOL, errs)
     fin = torch.isfinite(mk.flatten(1)).all(1)
     res = residuals(mk[fin].double())
     counts = (res <= max_sq).sum(-1)
@@ -756,24 +766,24 @@ def _check_ransac_batch(tag, mk, ck, bk, mp, cp, bp, n, n_samples, errs, unpack_
         raise AssertionError(f"{tag}: kernel support differs from the float64 count")
 
     def closest(i):
-        """(relative error, support) of the kernel solution of plain model i's
-        sample that is closest to it (solvers may order the roots of a
-        sample differently)."""
+        """(absolute error, relative error, support) of the kernel solution
+        of plain model i's sample that is closest to it (solvers may order
+        the roots of a sample differently)."""
         per = mp.shape[0] // n_samples
         lo = (i // per) * per
         b = mp[i].double()
         cand = mk[lo:lo + per].double()
         if sign_free:  # E and -E are the same model
             cand = cand * torch.sign((cand * b).flatten(1).sum(1))[:, None, None]
-        e = torch.nan_to_num((cand - b).abs().flatten(1).amax(1) / b.abs().max(), nan=math.inf)
-        j = int(torch.argmin(e))
-        return float(e[j]), int(ck[lo + j])
+        a = torch.nan_to_num((cand - b).abs().flatten(1).amax(1), nan=math.inf)
+        j = int(torch.argmin(a))
+        return float(a[j]), float(a[j] / b.abs().max()), int(ck[lo + j])
 
     near_best = torch.nonzero(cp >= 0.9 * sp).flatten().tolist()
     pairs = [(closest(i), int(cp[i])) for i in near_best]
-    agree = [e for (e, s_k), s_p in pairs if e <= K67_RTOL and abs(s_k - s_p) <= n // 100]
-    errs_m = sorted(e for (e, _), _ in pairs)
-    errs.append((max(agree, default=math.inf),) * 2)
+    agree = [r for (_, r, s_k), s_p in pairs if r <= K67_RTOL and abs(s_k - s_p) <= n // 100]
+    errs_m = sorted(r for (_, r, _), _ in pairs)
+    errs.append((max(a for (a, _, _), _ in pairs), errs_m[-1]))
     log(f"  {tag}: {len(pairs)} plain models with >= 90% of the best support; {len(agree)} "
         f"agree with a kernel solution of their sample to {K67_RTOL:g} with a support within "
         f"{n // 100} rows (median error {errs_m[len(errs_m) // 2]:.3e}, largest "
@@ -782,6 +792,7 @@ def _check_ransac_batch(tag, mk, ck, bk, mp, cp, bp, n, n_samples, errs, unpack_
         raise AssertionError(f"{tag}: near-best models disagree")
     log(f"  {tag}: {int((~fin).sum())} kernel / "
         f"{int((~torch.isfinite(mp.flatten(1)).all(1)).sum())} plain models non-finite")
+    return len(agree), len(pairs)
 
 
 def make_scene(root, num_frames, num_points, focal=1280.0, seed=3):
@@ -846,7 +857,13 @@ def check_against_gt(out, gt, num_frames, label):
 
 
 def phase_mapper(launches):
-    """The verify scene and the full-size scene through `mapper` on cuda."""
+    """The verify scene and the full-size scene through `mapper` on cuda.
+
+    The full-size scene runs once, under torch.profiler (device activity
+    only): its launches, time by phase, wall time and device busy time all
+    come from that one run, and the idle share is 1 - busy / wall of it. The
+    raw event list is read directly: key_averages() over a whole mapper run
+    (millions of events) takes longer than the run itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -862,7 +879,11 @@ def phase_mapper(launches):
             os.makedirs(root)
             db_path, gt = make_scene(root, frames, points, focal)
             out = os.path.join(root, "sparse")
-            pipeline, dt, counts = run_mapper(db_path, out, label, min_launches=full)
+            ctx = profile(activities=[ProfilerActivity.CUDA]) if full else contextlib.nullcontext()
+            with ctx as prof:
+                pipeline, dt, counts = run_mapper(db_path, out, label, min_launches=full)
+            if full:
+                profiled, wall_ms = prof, dt * 1e3
             for k, v in counts.items():
                 launches[k] += v
             cmp = check_against_gt(out, gt, frames, label)
@@ -874,22 +895,12 @@ def phase_mapper(launches):
             results[label] = dict(seconds=dt, phases=phases, launches=counts,
                                   max_rot_deg=cmp["max_rotation_error_deg"],
                                   max_center=cmp["max_center_error"])
-        # Idle share: device time under torch.profiler (device activity only)
-        # over a second run of the full-size scene, against the wall time of
-        # the first run. The raw event list is read directly: key_averages()
-        # over a whole mapper run (millions of events) takes longer than the
-        # run itself.
-        out = os.path.join(root, "sparse_profiled")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run_mapper(db_path, out, "mapper, full-size scene under the profiler",
-                       min_launches=False)
         spans, by_name = [], {}
-        for e in prof.profiler.kineto_results.events():
+        for e in profiled.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
                 spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
                 ms, cnt = by_name.get(e.name(), (0.0, 0))
                 by_name[e.name()] = (ms + e.duration_ns() / 1e6, cnt + 1)
-        wall_ms = results["mapper, full-size scene"]["seconds"] * 1e3
         if spans:
             spans.sort()
             busy_ns, end = 0, spans[0][0]
@@ -899,8 +910,8 @@ def phase_mapper(launches):
             busy_ms = busy_ns / 1e6
             idle = 1 - busy_ms / wall_ms
             results["idle_share"] = idle
-            log(f"  full-size scene on the card: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-                f"wall, idle share {idle:.4f}")
+            log(f"  full-size scene on the card, under the profiler: device busy {busy_ms:.1f} ms "
+                f"of {wall_ms:.1f} ms wall, idle share {idle:.4f}")
             for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
                 log(f"    {ms:10.3f} ms  {cnt:7d} launches  {name[:90]}")
         else:
@@ -944,7 +955,7 @@ def main():
     solves = phase_headline_solve(headline, gt_cost, launches)
     phase_cli(launches)
     phase_profile(headline, solves)
-    sfm_errs, sfm_rows = phase_sfm_kernels()
+    sfm_errs, sfm_rows, sfm_agree = phase_sfm_kernels()
     launches.update({k: 0 for k in SFM_SOURCES})
     phase_mapper(launches)
 
@@ -971,6 +982,8 @@ def main():
             bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
             library_ms=None,
         ))
+        if name in sfm_agree:  # near-best models that agree, of all near-best models
+            kernels[-1]["near_best_agree"] = list(sfm_agree[name])
     log("headline LM iter/s on " + smi + ": " + ", ".join(
         f"{k} {v['iter_per_s']:.3f}, warm {v['warm_iter_per_s']:.3f} "
         f"(final cost {v['final_cost']:.6e})" for k, v in solves.items()))

@@ -22,6 +22,11 @@
 // which is kept when it has at least as many inliers and is finite. Output:
 // xyz, inlier mask, success = (inliers >= 2) & (best support >= 2).
 //
+// With robust = 0 the kernel is triangulate_multi_view alone, the
+// triangulator's creation path without RANSAC (robust_creation=False): the
+// pair search is skipped, every valid view enters the N-view system, and the
+// output is its point, the valid views as the mask and success = (views >= 2).
+//
 // Bound on the card: operations, about 28 x (4x4 Jacobi, ~2000 flops, and
 // 8 angular errors with an arccos) per track, all in registers; the inputs
 // (8 x 14 floats a track) are read once. One warp per track keeps a track's
@@ -70,7 +75,7 @@ __device__ __forceinline__ float tri_angle(const float* c1, const float* c2, con
   return fminf(a, kPiF - a);
 }
 
-__global__ void triangulate_tracks_kernel(int b, float min_angle, float max_err,
+__global__ void triangulate_tracks_kernel(int b, int robust, float min_angle, float max_err,
                                           const float* __restrict__ R, const float* __restrict__ t,
                                           const float* __restrict__ x,
                                           const unsigned char* __restrict__ mask,
@@ -109,7 +114,7 @@ __global__ void triangulate_tracks_kernel(int b, float min_angle, float max_err,
   float X[3] = {0.f, 0.f, 0.f};
   int support = 0;
   unsigned inl_bits = 0;
-  if (lane < kPairs) {
+  if (robust && lane < kPairs) {
     const float* P1 = T.P[pi];
     const float* P2 = T.P[pj];
     float A[4][4];
@@ -141,7 +146,9 @@ __global__ void triangulate_tracks_kernel(int b, float min_angle, float max_err,
   const int best_support = (int)(best_key >> 8);
   float Xb[3];
   for (int i = 0; i < 3; ++i) Xb[i] = __shfl_sync(kFull, X[i], best);
-  const unsigned inl = __shfl_sync(kFull, inl_bits, best);
+  // Without RANSAC every valid view is an inlier of the N-view system.
+  const unsigned inl = robust ? __shfl_sync(kFull, inl_bits, best)
+                              : __ballot_sync(kFull, lane < kV && T.m[lane]);
   // N-view refit on the best pair's inliers: 10 entries of the 4x4 system.
   float sys[10];
   for (int q = 0; q < 10; ++q) sys[q] = 0.f;
@@ -177,23 +184,23 @@ __global__ void triangulate_tracks_kernel(int b, float min_angle, float max_err,
   const bool in_ref = lane < kV && T.m[lane] && angular_error(T, lane, Xr) <= max_err;
   const unsigned inl_ref = __ballot_sync(kFull, in_ref);
   if (lane == 0) {
-    const bool take = __popc(inl_ref) >= __popc(inl) && all_finite(Xr, 3);
-    const unsigned bits = take ? inl_ref : inl;
+    const bool take = !robust || (__popc(inl_ref) >= __popc(inl) && all_finite(Xr, 3));
+    const unsigned bits = robust && take ? inl_ref : inl;
     for (int i = 0; i < 3; ++i) xyz[track * 3 + i] = take ? Xr[i] : Xb[i];
     for (int v = 0; v < kV; ++v) inl_out[track * kV + v] = (bits >> v) & 1u;
-    success[track] = __popc(bits) >= 2 && best_support >= 2;
+    success[track] = __popc(bits) >= 2 && (!robust || best_support >= 2);
   }
 }
 
 }  // namespace ctt
 
-extern "C" int triangulate_tracks_f32(int b, float min_angle, float max_err, const float* R,
-                                      const float* t, const float* x, const unsigned char* mask,
-                                      float* xyz, unsigned char* inl, unsigned char* success,
-                                      void* stream) {
+extern "C" int triangulate_tracks_f32(int b, int robust, float min_angle, float max_err,
+                                      const float* R, const float* t, const float* x,
+                                      const unsigned char* mask, float* xyz, unsigned char* inl,
+                                      unsigned char* success, void* stream) {
   using namespace ctt;
   const unsigned blocks = (unsigned)((b + kTriWarps - 1) / kTriWarps);
   triangulate_tracks_kernel<<<blocks, 32 * kTriWarps, 0, (cudaStream_t)stream>>>(
-      b, min_angle, max_err, R, t, x, mask, xyz, inl, success);
+      b, robust, min_angle, max_err, R, t, x, mask, xyz, inl, success);
   return (int)cudaGetLastError();
 }

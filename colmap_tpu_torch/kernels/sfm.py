@@ -7,7 +7,7 @@ Five CUDA kernels carry the device programs of the incremental mapper
     K6 p3p_ransac          p3p_propose_score, p3p_refit, p3p_inliers
     K7 essential_ransac    essential_propose_score, essential_refit,
                            essential_inliers
-    K8 triangulate_tracks  triangulate_tracks
+    K8 triangulate_tracks  triangulate_tracks, triangulate_multi_view_tracks
     K9 filter_points       filter_points
 
 Each wrapper runs the plain version when its tensors lie on the CPU and
@@ -184,6 +184,12 @@ def triangulate_tracks_plain(R, t, x, mask, min_angle, max_err):
     return xyz, inl_out, success
 
 
+def triangulate_multi_view_tracks_plain(R, t, x, mask):
+    """K8 without RANSAC: colmap_tpu's triangulate_multi_view of each track
+    over its valid views. Returns xyz (B, 3)."""
+    return triangulate_multi_view(torch.cat([R, t[..., None]], dim=-1), x, mask)
+
+
 def filter_points_plain(model_id, quat, t, cam_params, xyz, obs_xy, valid):
     """K9: colmap_tpu's _filter_kernel for one camera model.
 
@@ -229,7 +235,7 @@ _SIGNATURES = {
     "essential_propose_score_f32": [_I, _I, _F] + [_P] * 7 + [_P],
     "essential_refit_f32": [_I, _F, _I] + [_P] * 6 + [_P],
     "essential_inliers_f32": [_I, _F] + [_P] * 5 + [_P],
-    "triangulate_tracks_f32": [_I, _F, _F] + [_P] * 7 + [_P],
+    "triangulate_tracks_f32": [_I, _I, _F, _F] + [_P] * 7 + [_P],
     "filter_points_f32": [_I, _I, _I, _I] + [_P] * 9 + [_P],
 }
 
@@ -462,6 +468,18 @@ def triangulate_tracks(R, t, x, mask, min_angle, max_err):
     triangulate_tracks_plain."""
     if x.device.type == "cpu":
         return triangulate_tracks_plain(R, t, x, mask, min_angle, max_err)
+    return _triangulate_tracks(True, R, t, x, mask, min_angle, max_err)
+
+
+def triangulate_multi_view_tracks(R, t, x, mask):
+    """K8 without RANSAC: the N-view triangulation of each of B tracks of
+    V = 8 views over its valid views. See triangulate_multi_view_tracks_plain."""
+    if x.device.type == "cpu":
+        return triangulate_multi_view_tracks_plain(R, t, x, mask)
+    return _triangulate_tracks(False, R, t, x, mask, 0.0, 0.0)[0]
+
+
+def _triangulate_tracks(robust, R, t, x, mask, min_angle, max_err):
     dev = _require_cuda(x)
     B, V = x.shape[:2]
     if V != TRACK_VIEWS:
@@ -473,7 +491,7 @@ def triangulate_tracks(R, t, x, mask, min_angle, max_err):
     inl = torch.empty(B, V, dtype=u8, device=dev)
     success = torch.empty(B, dtype=u8, device=dev)
     if B:
-        _call("triangulate_tracks_f32", B, float(min_angle), float(max_err),
+        _call("triangulate_tracks_f32", B, int(robust), float(min_angle), float(max_err),
               *map(_ptr, (R, t, x, mask, xyz, inl, success)), _stream(dev))
         LAUNCHES["triangulate_tracks"] += 1
     return xyz, inl, success

@@ -540,36 +540,23 @@ class IncrementalMapper:
         self.num_structure_less_reg_trials[image_id] = (
             self.num_structure_less_reg_trials.get(image_id, 0) + 1
         )
-        image = recon.images[image_id]
-        min_num_inliers = 2 * options.abs_pose_min_num_inliers
-
-        graph = self.cache.correspondence_graph
-        offsets, data_img, data_idx = graph.correspondence_arrays(image_id)
-        pt_idx = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
-        pts_new, pts_w, w_cam_idxs = [], [], []
-        world_poses, world_cams = [], []
-        world_image_to_idx: Dict[int, int] = {}
-        for (p, oid, oidx) in zip(pt_idx, data_img, data_idx):
-            oid = int(oid)
+        # Correspondences to registered images whose camera is sound, and
+        # those images: the counts the reference checks before estimating.
+        _, data_img, _ = self.cache.correspondence_graph.correspondence_arrays(image_id)
+        num_corrs, partners = 0, set()
+        for oid in map(int, data_img):
             if not recon.is_image_registered(oid):
                 continue
-            w_image = recon.images[oid]
-            w_camera = recon.cameras[w_image.camera_id]
+            camera = recon.cameras[recon.images[oid].camera_id]
             if camera_models.has_bogus_params(
-                w_camera.model_id, w_camera.params, w_camera.width,
-                w_camera.height, options.min_focal_length_ratio,
-                options.max_focal_length_ratio, options.max_extra_param,
+                camera.model_id, camera.params, camera.width, camera.height,
+                options.min_focal_length_ratio, options.max_focal_length_ratio,
+                options.max_extra_param,
             ):
                 continue
-            if oid not in world_image_to_idx:
-                world_image_to_idx[oid] = len(world_poses)
-                world_poses.append(recon.cam_from_world(oid))
-                world_cams.append(w_camera)
-            pts_new.append(image.points2D_xy[int(p)])
-            pts_w.append(w_image.points2D_xy[int(oidx)])
-            w_cam_idxs.append(world_image_to_idx[oid])
-
-        if len(pts_new) < min_num_inliers or len(world_poses) < 2:
+            num_corrs += 1
+            partners.add(oid)
+        if num_corrs < 2 * options.abs_pose_min_num_inliers or len(partners) < 2:
             return False
         raise NotImplementedError(
             "structure-less registration (estimate_structure_less_absolute_pose) is not "

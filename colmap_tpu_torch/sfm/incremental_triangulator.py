@@ -6,8 +6,8 @@ per-image Find/Create/Continue/Merge/Complete operations. The decision logic
 numeric work — multi-view DLT, reprojection and angle checks — is batched
 per image into single device calls (triangulate candidates padded to a fixed
 view count). Counterpart of colmap_tpu/sfm/incremental_triangulator.py: the
-camera maps run in the CUDA kernel K5 and the robust triangulation of new
-tracks in K8 (kernels/sfm.py), on the triangulator's device.
+camera maps run in the CUDA kernel K5 and the triangulation of new tracks,
+robust or not, in K8 (kernels/sfm.py), on the triangulator's device.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from colmap_tpu_torch.estimators.triangulation import TriangulationOptions, estimate_triangulation
-from colmap_tpu_torch.geometry.triangulation import triangulate_multi_view
 from colmap_tpu_torch.kernels import sfm as K
 from colmap_tpu_torch.scene.correspondence_graph import CorrespondenceGraph
 from colmap_tpu_torch.scene.reconstruction import Reconstruction
@@ -257,9 +256,10 @@ class IncrementalTriangulator:
             robust_inl = out["inlier_mask"].cpu().numpy()
             robust_ok = out["success"].cpu().numpy()
         else:
-            X = triangulate_multi_view(
-                torch.from_numpy(proj_arr), torch.from_numpy(uv_arr), torch.from_numpy(mask_arr)
-            ).numpy()
+            X = K.triangulate_multi_view_tracks(
+                self._dev(proj_arr[:, :, :, :3]), self._dev(proj_arr[:, :, :, 3]),
+                self._dev(uv_arr), self._dev(mask_arr) > 0,
+            ).double().cpu().numpy()
 
         num_created = 0
         for b, (p2d_idx, elements, projs, uvs, centers) in enumerate(rows):

@@ -14,8 +14,8 @@ The mapper kernels run on the cases of colmap_tpu_torch/kernels/sfm_cases.py
 at small sizes: K5 (one projection or 25 Newton steps) to 1e-5; K6 and K7
 count each model's inliers as a float64 count of the same model does, up to
 rows within 2% of the threshold, and refit to the same support; K8 (float32
-Jacobi on the 4x4 normal equations against a float64 SVD) to 1e-3; K9 to
-1e-4.
+Jacobi on the 4x4 normal equations against a float64 SVD), with and without
+RANSAC over view pairs, to 1e-3; K9 to 1e-4.
 """
 
 import pytest
@@ -240,6 +240,19 @@ def test_triangulate_tracks_matches_plain_on_cuda():
     xyz_p, inl_p, ok_p = K.triangulate_tracks_plain(*(d[k] for k in keys))
     assert torch.equal(ok, ok_p) and torch.equal(inl[ok_p], inl_p[ok_p])
     _close(xyz[ok_p], xyz_p[ok_p], 1e-3, "K8 xyz")
+
+
+def test_multi_view_tracks_matches_plain_on_cuda():
+    """K8 without RANSAC: the N-view point of every track over its valid views."""
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+
+    c = C.tracks_case(300, 1, "cuda")
+    d = C.as_double(c)
+    keys = ("R", "t", "x", "mask")
+    xyz = K.triangulate_multi_view_tracks(*(c[k] for k in keys))
+    _close(xyz, K.triangulate_multi_view_tracks_plain(*(d[k] for k in keys)), 1e-3, "K8 N-view xyz")
 
 
 def test_filter_points_matches_plain_on_cuda():

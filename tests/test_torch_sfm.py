@@ -21,6 +21,7 @@ from colmap_tpu.estimators import alignment as jalign
 from colmap_tpu.estimators import pose as jpose
 from colmap_tpu.estimators.triangulation import TriangulationOptions as JTriOptions
 from colmap_tpu.estimators.triangulation import estimate_triangulation as j_est_tri
+from colmap_tpu.geometry import triangulation as jtri
 from colmap_tpu.scene import database as jdb
 from colmap_tpu.scene import database_cache as jcache
 from colmap_tpu.scene import reconstruction_io as jio
@@ -258,6 +259,91 @@ def test_estimate_triangulation_matches_jax():
     np.testing.assert_allclose(out_t["xyz"].numpy()[ok], np.asarray(out_j["xyz"])[ok], atol=1e-8)
 
 
+def test_multi_view_tracks_matches_jax():
+    # K8 without RANSAC against colmap_tpu's triangulate_multi_view on the
+    # same tracks (outlier views included): LAPACK's eigh on both sides in
+    # float64, 1e-9.
+    d = C.as_double(C.tracks_case(200, 3, "cpu"))
+    P = torch.cat([d["R"], d["t"][..., None]], dim=-1)
+    xj = jtri.triangulate_multi_view(jnp.asarray(P.numpy()), jnp.asarray(d["x"].numpy()),
+                                     jnp.asarray(d["mask"].numpy().astype(float)))
+    xt = K.triangulate_multi_view_tracks(d["R"], d["t"], d["x"], d["mask"])
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-9)
+
+
+@pytest.mark.parametrize("robust", [True, False])
+def test_triangulator_creates_points_like_jax(tmp_path, robust):
+    # Both triangulators on the verify scene with three frames registered at
+    # their ground-truth poses and no points yet: triangulate_image on the
+    # third frame, with and without RANSAC over view pairs at creation,
+    # creates the same tracks; on noise-free data each point lies on its
+    # ground-truth point (1e-6) and both packages agree to 1e-8 (the same
+    # float64 formulas).
+    from colmap_tpu.sfm import incremental_mapper as jmapper
+    from colmap_tpu.sfm.incremental_triangulator import TriangulatorOptions as JTriangulatorOptions
+    from colmap_tpu_torch.scene.reconstruction import Reconstruction
+    from colmap_tpu_torch.sfm import incremental_mapper as tmapper
+    from colmap_tpu_torch.sfm.incremental_triangulator import TriangulatorOptions
+
+    db = str(tmp_path / "db.db")
+    gt = _write_db(db, tsyn, tdb.Database)
+    frames = sorted(gt.frames)[:3]
+    made = []
+    for pkg, cache_mod, recon_cls, opts in (
+            (jmapper, jcache, JReconstruction, JTriangulatorOptions),
+            (tmapper, tcache, Reconstruction, TriangulatorOptions)):
+        db_cls = jdb.Database if pkg is jmapper else tdb.Database
+        cache = cache_mod.DatabaseCache.create(db_cls(db, must_exist=True), min_num_matches=15)
+        mapper = (pkg.IncrementalMapper(cache) if pkg is jmapper
+                  else pkg.IncrementalMapper(cache, device="cpu"))
+        recon = recon_cls()
+        mapper.begin_reconstruction(recon)
+        for fid in frames:
+            pose = gt.frames[fid].rig_from_world
+            recon.frames[fid].rig_from_world = type(pose)(np.array(pose.quat), np.array(pose.t))
+            recon.register_frame(fid)
+        image_id = gt.frames[frames[-1]].image_ids()[0]
+        n = mapper.triangulator.triangulate_image(
+            image_id, opts(robust_creation=robust, ignore_two_view_tracks=False))
+        assert n > 0 and recon.num_points3D() > 0
+        made.append({tuple(sorted((e.image_id, e.point2D_idx) for e in p.track)): p.xyz
+                     for p in recon.points3D.values()})
+        for track, xyz in made[-1].items():
+            iid, idx = track[0]
+            np.testing.assert_allclose(xyz, gt.points3D[int(gt.images[iid].points2D_p3d[idx])].xyz,
+                                       atol=1e-6)
+    assert made[0].keys() == made[1].keys()
+    for track in made[0]:
+        np.testing.assert_allclose(made[1][track], made[0][track], atol=1e-8)
+
+
+def test_structure_less_registration_stops_at_the_estimator(tmp_path):
+    # The port checks what the reference checks before the structure-less
+    # estimator (two registered partners, twice the inliers of the
+    # structured path) and raises where the estimator would run.
+    from colmap_tpu_torch.scene.reconstruction import Reconstruction
+    from colmap_tpu_torch.sfm import incremental_mapper as tmapper
+
+    db = str(tmp_path / "db.db")
+    gt = _write_db(db, tsyn, tdb.Database)
+    cache = tcache.DatabaseCache.create(tdb.Database(db, must_exist=True), min_num_matches=15)
+    mapper = tmapper.IncrementalMapper(cache, device="cpu")
+    recon = Reconstruction()
+    mapper.begin_reconstruction(recon)
+    frames = sorted(gt.frames)
+    image_id = gt.frames[frames[2]].image_ids()[0]
+    options = tmapper.IncrementalMapperOptions()
+    for fid in frames[:2]:
+        assert not mapper.register_next_structure_less_image(image_id, options)
+        pose = gt.frames[fid].rig_from_world
+        recon.frames[fid].rig_from_world = type(pose)(np.array(pose.quat), np.array(pose.t))
+        recon.register_frame(fid)
+    many = dataclasses.replace(options, abs_pose_min_num_inliers=10 ** 6)
+    assert not mapper.register_next_structure_less_image(image_id, many)
+    with pytest.raises(NotImplementedError, match="structure-less"):
+        mapper.register_next_structure_less_image(image_id, options)
+
+
 def _absolute_pose_data(seed=0, n=300):
     c = C.p3p_case(n, 64, seed, "cpu")
     X = c["X"].double().numpy()[:-3]
@@ -320,7 +406,7 @@ def test_essential_ransac_outcome():
     # sign, to 1e-4 (the 8-point refit also fits the few random outliers that
     # fall within the 4 px threshold), and exactly the rows whose Sampson
     # error under the true E is within the threshold. (colmap_tpu's _ransac_e takes a minute
-    # to compile on the CPU; the slow test holds the two mappers together.)
+    # to compile on the CPU: a slow test holds the two packages' outcomes together.)
     c = C.as_double(C.essential_case(300, 128, 3, "cpu"))
     R1, t1 = C._look_at(np.array([0.0, 0.0, -5.0]))
     R2, t2 = C._look_at(np.array([1.5, 0.3, -4.8]))
@@ -337,6 +423,32 @@ def test_essential_ransac_outcome():
     np.testing.assert_allclose(E.numpy(), E_true.numpy(), atol=1e-4)
     true_inl = (sampson_error(E_true, c["x1"], c["x2"]) <= c["max_sq"]).numpy()
     np.testing.assert_array_equal(res.inlier_mask.numpy(), true_inl)
+
+
+@pytest.mark.slow
+def test_essential_ransac_outcome_matches_jax():
+    # colmap_tpu's _ransac_e (about a minute to compile on the CPU) and the
+    # port's on the same 300 matches with 30% outliers: both succeed, their
+    # E agree up to sign and scale to 1e-4 (each is the 8-point refit on its
+    # inliers, which may take in a few outliers within the 4 px threshold),
+    # and their inlier sets are the same.
+    from colmap_tpu.estimators.two_view_geometry import _ransac_e as j_ransac_e
+    from colmap_tpu.optim.ransac import RansacOptions as JRansacOptions
+
+    c = C.as_double(C.essential_case(300, 128, 3, "cpu"))
+    kw = dict(confidence=0.999, min_num_trials=100, max_num_trials=10000, min_inlier_ratio=0.25,
+              batch_size=128)
+    max_error = float(np.sqrt(c["max_sq"]))
+    x1, x2, mask = (jnp.asarray(c[k].numpy()) for k in ("x1", "x2", "mask"))
+    rj = j_ransac_e(jax.random.PRNGKey(0), x1, x2, mask, max_error, JRansacOptions(**kw))
+    Ej, inl_j, ok_j = np.asarray(rj.model), np.asarray(rj.inlier_mask), bool(rj.success)
+    rt = t_ransac_e(torch.Generator().manual_seed(0), c["x1"], c["x2"], c["mask"], max_error,
+                    RansacOptions(**kw))
+    assert ok_j and rt.success
+    Ej = Ej / np.linalg.norm(Ej)
+    Et = rt.model.numpy() / np.linalg.norm(rt.model.numpy())
+    np.testing.assert_allclose(Et * np.sign((Et * Ej).sum()), Ej, atol=1e-4)
+    np.testing.assert_array_equal(rt.inlier_mask.numpy(), inl_j)
 
 
 def test_ransac_keeps_unported_options_out():
