@@ -4,6 +4,10 @@ reference behavior: src/colmap/exe/colmap.cc. Same command names and flags
 as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch versions of the kernels). Ported commands:
 
+    database_creator    create an empty database
+    exhaustive_matcher  match and verify every image pair of a database
+    sequential_matcher  match and verify pairs within --overlap in name order
+    matches_importer    match and verify the pairs of a list file
     mapper            incremental SfM: database -> sparse model(s)
     bundle_adjuster   read a model, run bundle adjustment, write the model
     model_analyzer    print a model's statistics
@@ -19,6 +23,55 @@ from __future__ import annotations
 
 import argparse
 import os
+
+
+def _cmd_database_creator(args):
+    from colmap_tpu_torch.scene.database import Database
+
+    Database(args.database_path).close()
+    print(f"Created database at {args.database_path}")
+
+
+def _open_for_matching(args):
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    return Database(args.database_path, must_exist=True), resolve_device(args.device)
+
+
+def _cmd_exhaustive_matcher(args):
+    from colmap_tpu_torch.controllers.feature_pipeline import run_exhaustive_matching
+
+    db, device = _open_for_matching(args)
+    n = run_exhaustive_matching(db, device=device)
+    print(f"Verified {n} image pairs")
+    db.close()
+    return n
+
+
+def _cmd_sequential_matcher(args):
+    from colmap_tpu_torch.controllers.feature_pipeline import run_sequential_matching
+    from colmap_tpu_torch.feature.pairing import SequentialPairingOptions
+
+    db, device = _open_for_matching(args)
+    n = run_sequential_matching(db, pairing=SequentialPairingOptions(overlap=args.overlap),
+                                device=device)
+    print(f"Verified {n} image pairs")
+    db.close()
+    return n
+
+
+def _cmd_matches_importer(args):
+    from colmap_tpu_torch.controllers.feature_pipeline import run_matches_import
+    from colmap_tpu_torch.feature.pairing import imported_pairs
+
+    db, device = _open_for_matching(args)
+    name_to_id = {name: iid for (iid, name, _) in db.read_images()}
+    pairs = imported_pairs(args.match_list_path, name_to_id)
+    n = run_matches_import(db, pairs, device=device)
+    print(f"Verified {n} of {len(pairs)} imported pairs")
+    db.close()
+    return n
 
 
 def _cmd_mapper(args):
@@ -96,6 +149,27 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     device_help = "torch device to run on; cuda raises if no card is present"
+
+    c = sub.add_parser("database_creator")
+    c.add_argument("--database_path", required=True)
+    c.set_defaults(fn=_cmd_database_creator)
+
+    c = sub.add_parser("exhaustive_matcher")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_exhaustive_matcher)
+
+    c = sub.add_parser("sequential_matcher")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--overlap", type=int, default=10)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_sequential_matcher)
+
+    c = sub.add_parser("matches_importer")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--match_list_path", required=True)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_matches_importer)
 
     c = sub.add_parser("mapper")
     c.add_argument("--database_path", required=True)

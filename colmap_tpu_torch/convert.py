@@ -9,9 +9,11 @@ BAOptions across field by field.
 The scene and the mapper's options are host objects with the same fields in
 both packages: ``convert_reconstruction`` and ``convert_camera`` rebuild a
 Reconstruction or a Camera of either package with the classes of the other
-(by default the port's), and ``convert_options`` does the same for
-dataclass options, nested ones included. A database needs no conversion:
-both packages read and write the same SQLite schema.
+(by default the port's), ``convert_options`` does the same for dataclass
+options, nested ones included (the mapper's, MatchingOptions,
+TwoViewGeometryOptions with its RansacOptions, MatchingPipelineOptions), and
+``convert_two_view_geometry`` for a TwoViewGeometry. A database needs no
+conversion: both packages read and write the same SQLite schema.
 
 Nothing here imports colmap_tpu: callers pass its objects and, for the way
 back, its classes.
@@ -110,23 +112,47 @@ def convert_reconstruction(recon, types=None, reconstruction_cls=None):
     return out
 
 
+def convert_two_view_geometry(g, types=None):
+    """A TwoViewGeometry of either package as one of ``types`` (default: the
+    port's scene.types module), with copies of its arrays."""
+    if types is None:
+        from colmap_tpu_torch.scene import types
+
+    def mat(m):
+        return None if m is None else np.array(m, dtype=np.float64)
+
+    def cam(c):
+        return None if c is None else convert_camera(c, types)
+
+    return types.TwoViewGeometry(
+        config=int(g.config), E=mat(g.E), F=mat(g.F), H=mat(g.H),
+        cam2_from_cam1=_pose(g.cam2_from_cam1, types),
+        inlier_matches=np.array(g.inlier_matches, dtype=np.uint32).reshape(-1, 2),
+        tri_angle=float(g.tri_angle), camera1=cam(g.camera1), camera2=cam(g.camera2))
+
+
 def convert_options(options, cls: Optional[type] = None, **nested):
     """A dataclass of options rebuilt field by field as ``cls`` (by default
     the port's class of the same module path and name). Nested dataclass
-    fields are converted the same way; ``nested`` maps a field name to the
-    class to build it as (needed on the way back to colmap_tpu)."""
+    fields are converted the same way, each as the class ``cls`` itself
+    builds for that field by default; ``nested`` maps a field name to
+    another class to build it as."""
     if cls is None:
         import importlib
 
         module = options.__class__.__module__.replace("colmap_tpu.", "colmap_tpu_torch.", 1)
         cls = getattr(importlib.import_module(module), options.__class__.__name__)
-    names = {f.name for f in dataclasses.fields(cls)}
+    targets = {f.name: f for f in dataclasses.fields(cls)}
     values = {}
     for f in dataclasses.fields(options):
-        if f.name not in names:
+        if f.name not in targets:
             raise ValueError(f"{cls.__name__} has no field {f.name}")
         v = getattr(options, f.name)
         if dataclasses.is_dataclass(v):
-            v = convert_options(v, nested.get(f.name))
+            sub = nested.get(f.name)
+            factory = targets[f.name].default_factory
+            if sub is None and factory is not dataclasses.MISSING:
+                sub = type(factory())
+            v = convert_options(v, sub)
         values[f.name] = v
     return cls(**values)

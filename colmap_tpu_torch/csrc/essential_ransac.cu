@@ -34,6 +34,12 @@
 //     values (1, 1, 0); kept if its support is larger.
 //   essential_inliers: one thread per row, the inlier mask of one model.
 //
+// The pair axis (estimators/two_view_batch.py _verify_block, l.62): every
+// entry takes B problems, x1, x2 (B, N, 2), mask (B, N), one max_sq for all
+// or one per problem (max_sq_arr), and propose_score an optional ``active``
+// byte per problem whose zeros it skips; grids span (sample, problem),
+// (problem) and (row, problem). The mapper's one-pair calls are B = 1.
+//
 // Degenerate samples (repeated rows, a singular elimination) give
 // non-finite polynomials, no roots and models that score 0; every loop has
 // a fixed length.
@@ -299,17 +305,29 @@ __device__ void five_point_model(const FivePoint& S, int r, float* E) {
 }
 
 __global__ void essential_propose_score_kernel(int n, int k, float max_sq,
+                                               const float* __restrict__ max_sq_arr,
                                                const float* __restrict__ x1,
                                                const float* __restrict__ x2,
                                                const unsigned char* __restrict__ mask,
                                                const int* __restrict__ samples,
+                                               const unsigned char* __restrict__ active,
                                                float* __restrict__ models_out,
                                                int* __restrict__ counts_out,
                                                unsigned long long* __restrict__ best) {
   __shared__ FivePoint shared[kEWarps];
+  const int pair = blockIdx.y;
+  if (active != nullptr && !active[pair]) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sample = blockIdx.x * kEWarps + warp;
   if (sample >= k) return;  // whole warps leave together
+  x1 += (size_t)pair * n * 2;
+  x2 += (size_t)pair * n * 2;
+  mask += (size_t)pair * n;
+  samples += (size_t)pair * k * 5;
+  models_out += (size_t)pair * k * 90;
+  counts_out += (size_t)pair * k * 10;
+  best += pair;
+  if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
   FivePoint& S = shared[warp];
   if (lane == 0) {
     float s1[10], s2[10];
@@ -445,7 +463,8 @@ __device__ __forceinline__ bool e_inlier(const float* E, const float* x1, const 
   return mask[i] && sampson(E, x1[2 * i], x1[2 * i + 1], x2[2 * i], x2[2 * i + 1]) <= max_sq;
 }
 
-__global__ void essential_refit_kernel(int n, float max_sq, int count_in,
+__global__ void essential_refit_kernel(int n, float max_sq, const float* __restrict__ max_sq_arr,
+                                       int count_in, const int* __restrict__ count_arr,
                                        const float* __restrict__ x1, const float* __restrict__ x2,
                                        const unsigned char* __restrict__ mask,
                                        const float* __restrict__ model_in,
@@ -453,6 +472,15 @@ __global__ void essential_refit_kernel(int n, float max_sq, int count_in,
   __shared__ float scratch[32 * 45];
   __shared__ float refined[9];
   __shared__ bool refined_ok;
+  const int pair = blockIdx.x;
+  x1 += (size_t)pair * n * 2;
+  x2 += (size_t)pair * n * 2;
+  mask += (size_t)pair * n;
+  model_in += pair * 9;
+  model_out += pair * 9;
+  count_out += pair;
+  if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
+  if (count_arr != nullptr) count_in = count_arr[pair];
   float m[9];
   for (int e = 0; e < 9; ++e) m[e] = model_in[e];
   // Hartley normalization of both point sets over the inliers.
@@ -534,47 +562,57 @@ __global__ void essential_refit_kernel(int n, float max_sq, int count_in,
   }
 }
 
-__global__ void essential_inliers_kernel(int n, float max_sq, const float* __restrict__ x1,
+__global__ void essential_inliers_kernel(int n, float max_sq, const float* __restrict__ max_sq_arr,
+                                         const float* __restrict__ x1,
                                          const float* __restrict__ x2,
                                          const unsigned char* __restrict__ mask,
                                          const float* __restrict__ model,
                                          unsigned char* __restrict__ inl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int pair = blockIdx.y;
   if (i >= n) return;
+  if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
   float m[9];
-  for (int e = 0; e < 9; ++e) m[e] = model[e];
-  inl[i] = e_inlier(m, x1, x2, mask, i, max_sq);
+  for (int e = 0; e < 9; ++e) m[e] = model[pair * 9 + e];
+  const size_t off = (size_t)pair * n;
+  inl[off + i] = e_inlier(m, x1 + 2 * off, x2 + 2 * off, mask + off, i, max_sq);
 }
 
 }  // namespace ctt
 
-extern "C" int essential_propose_score_f32(int n, int k, float max_sq, const float* x1,
+extern "C" int essential_propose_score_f32(int b, int n, int k, float max_sq,
+                                           const float* max_sq_arr, const float* x1,
                                            const float* x2, const unsigned char* mask,
-                                           const int* samples, float* models, int* counts,
-                                           unsigned long long* best, void* stream) {
+                                           const int* samples, const unsigned char* active,
+                                           float* models, int* counts, unsigned long long* best,
+                                           void* stream) {
   using namespace ctt;
-  const unsigned blocks = (unsigned)((k + kEWarps - 1) / kEWarps);
-  essential_propose_score_kernel<<<blocks, 32 * kEWarps, 0, (cudaStream_t)stream>>>(
-      n, k, max_sq, x1, x2, mask, samples, models, counts, best);
+  if (b == 0 || k == 0) return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((k + kEWarps - 1) / kEWarps), (unsigned)b);
+  essential_propose_score_kernel<<<grid, 32 * kEWarps, 0, (cudaStream_t)stream>>>(
+      n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best);
   return (int)cudaGetLastError();
 }
 
-extern "C" int essential_refit_f32(int n, float max_sq, int count_in, const float* x1,
+extern "C" int essential_refit_f32(int b, int n, float max_sq, const float* max_sq_arr,
+                                   int count_in, const int* count_arr, const float* x1,
                                    const float* x2, const unsigned char* mask,
                                    const float* model_in, float* model_out, int* count_out,
                                    void* stream) {
   using namespace ctt;
-  essential_refit_kernel<<<1, kRefitThreads, 0, (cudaStream_t)stream>>>(
-      n, max_sq, count_in, x1, x2, mask, model_in, model_out, count_out);
+  if (b == 0) return (int)cudaGetLastError();
+  essential_refit_kernel<<<b, kRefitThreads, 0, (cudaStream_t)stream>>>(
+      n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int essential_inliers_f32(int n, float max_sq, const float* x1, const float* x2,
-                                     const unsigned char* mask, const float* model,
-                                     unsigned char* inl, void* stream) {
+extern "C" int essential_inliers_f32(int b, int n, float max_sq, const float* max_sq_arr,
+                                     const float* x1, const float* x2, const unsigned char* mask,
+                                     const float* model, unsigned char* inl, void* stream) {
   using namespace ctt;
-  if (n == 0) return (int)cudaGetLastError();
-  essential_inliers_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(n, max_sq, x1, x2,
-                                                                             mask, model, inl);
+  if (b == 0 || n == 0) return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((n + 255) / 256), (unsigned)b);
+  essential_inliers_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(n, max_sq, max_sq_arr, x1, x2,
+                                                                   mask, model, inl);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Reductions and packing shared by the mapper kernels (K6-K9).
+// Reductions, packing and the closed-form cubic shared by the mapper and
+// verification kernels (K6-K9, K11, K12).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +51,25 @@ __device__ __forceinline__ bool all_finite(const float* x, int n) {
   bool ok = true;
   for (int i = 0; i < n; ++i) ok = ok && isfinite(x[i]);
   return ok;
+}
+
+// Real roots of x^3 + b x^2 + c x + d (polynomial.py solve_cubic, a = 1).
+__device__ inline void solve_cubic_monic(float b_, float c_, float d_, float* r, bool* m) {
+  const float p = c_ - b_ * b_ / 3.f;
+  const float q = 2.f * b_ * b_ * b_ / 27.f - b_ * c_ / 3.f + d_;
+  const float shift = -b_ / 3.f;
+  const float disc = (q / 2.f) * (q / 2.f) + (p / 3.f) * (p / 3.f) * (p / 3.f);
+  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const float single = cbrtf(-q / 2.f + sq) + cbrtf(-q / 2.f - sq) + shift;
+  const float p_neg = fminf(p, -1e-30f);
+  const float mm = 2.f * sqrtf(-p_neg / 3.f);
+  const float theta = acosf(fminf(fmaxf(3.f * q / (p_neg * mm), -1.f), 1.f)) / 3.f;
+  const bool three = disc <= 0.f;
+  for (int k = 0; k < 3; ++k) {
+    const float rk = mm * cosf(theta - 2.f * kPiF * k / 3.f) + shift;
+    r[k] = three ? rk : single;
+    m[k] = k == 0 ? true : three;
+  }
 }
 
 }  // namespace ctt

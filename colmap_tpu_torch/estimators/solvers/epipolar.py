@@ -1,8 +1,13 @@
-"""Batched essential-matrix solvers: Nistér's 5-point and the weighted 8-point.
+"""Batched epipolar solvers: E (5-point, 8-point), F (7-point, 8-point), H (DLT).
 
-Counterpart of the parts of colmap_tpu/estimators/solvers/epipolar.py the
-mapper calls (reference behavior: src/colmap/estimators/solvers/
-essential_matrix.* and essential_matrix_poly.h). The 5-point solve keeps
+Counterpart of colmap_tpu/estimators/solvers/epipolar.py (reference
+behavior: src/colmap/estimators/solvers/{essential,fundamental,homography}_
+matrix.* and essential_matrix_poly.h). Every solver maps (..., m, 2) samples
+(or a weighted N-point set, for the refits) to one or more 3x3 models, NaN
+where a slot holds no solution, with Hartley normalization inside. The
+fundamental and homography solvers are the plain versions of the CUDA
+kernels K11 and K12 (csrc/fundamental_ransac.cu, csrc/homography_ransac.cu).
+The 5-point solve keeps
 colmap_tpu's formulation: null space of the 5x9 constraint matrix, the
 10x20 cubic-constraint system, Gauss-Jordan, the 3x3 polynomial matrix
 B(z) whose determinant is of degree 10, its real roots isolated on a grid of
@@ -19,6 +24,7 @@ import math
 
 import torch
 
+from colmap_tpu_torch.optim.polynomial import solve_cubic
 from colmap_tpu_torch.optim.small_linalg import eigh_small, nullspace_small, svd3x3
 
 GRID = 1024  # cells in θ over [-π/2, π/2]
@@ -66,6 +72,111 @@ def _epipolar_constraint_matrix(x1, x2):
     u2, v2 = x2[..., 0], x2[..., 1]
     return torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, torch.ones_like(u1)],
                        dim=-1)
+
+
+def _smallest_right_singular(A):
+    """Right singular vector of the smallest singular value of A (..., m, n):
+    the exact null space by Householder QR for a minimal sample (m < n), the
+    smallest eigenvector of AᵀA (eigh_small) for an overdetermined refit."""
+    if A.shape[-2] < A.shape[-1]:
+        return nullspace_small(A, 1)[..., :, 0]
+    _, vecs = eigh_small(A.transpose(-1, -2) @ A)
+    return vecs[..., :, 0]
+
+
+def _det3(M):
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def _similarity_inv(T):
+    """Inverse of a Hartley similarity [[s, 0, tx], [0, s, ty], [0, 0, 1]]."""
+    inv_s = 1.0 / T[..., 0, 0]
+    out = torch.zeros_like(T)
+    out[..., 0, 0] = inv_s
+    out[..., 1, 1] = inv_s
+    out[..., 2, 2] = 1.0
+    out[..., 0, 2] = -T[..., 0, 2] * inv_s
+    out[..., 1, 2] = -T[..., 1, 2] * inv_s
+    return out
+
+
+def _unit_frobenius(M):
+    norm = torch.linalg.vector_norm(M.flatten(-2), dim=-1)
+    return M / torch.clamp(norm, min=1e-30)[..., None, None]
+
+
+def fundamental_eight_point(x1, x2, weights=None):
+    """8-point (or weighted N-point) fundamental matrix of unit Frobenius
+    norm, rank 2 enforced. x1, x2: (..., N, 2) pixels; weights (..., N)."""
+    n1, T1 = _hartley_normalize(x1, weights)
+    n2, T2 = _hartley_normalize(x2, weights)
+    A = _epipolar_constraint_matrix(n1, n2)
+    if weights is not None:
+        A = A * weights[..., None]
+    f = _smallest_right_singular(A)
+    F = f.reshape(f.shape[:-1] + (3, 3))
+    U, S, Vt = svd3x3(F)
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., :1])], dim=-1)
+    F = U @ (S[..., None] * Vt)
+    return _unit_frobenius(T2.transpose(-1, -2) @ F @ T1)
+
+
+def fundamental_seven_point(x1, x2):
+    """7-point fundamental matrices: x1, x2 (..., 7, 2). Returns
+    (..., 3, 3, 3), the solution axis first, NaN where a root is complex."""
+    n1, T1 = _hartley_normalize(x1)
+    n2, T2 = _hartley_normalize(x2)
+    A = _epipolar_constraint_matrix(n1, n2)  # (..., 7, 9)
+    ns = nullspace_small(A, 2)  # (..., 9, 2)
+    batch = A.shape[:-2]
+    f1 = ns[..., :, 0].reshape(batch + (3, 3))
+    f2 = ns[..., :, 1].reshape(batch + (3, 3))
+    # det(a F1 + (1 - a) F2) is a cubic in a: interpolate it at 4 nodes.
+    nodes = torch.tensor([0.0, 1.0, 2.0, -1.0], dtype=x1.dtype, device=x1.device)
+    gv = torch.stack([_det3(a * f1 + (1 - a) * f2) for a in nodes], dim=-1)
+    V = torch.stack([nodes**3, nodes**2, nodes, torch.ones_like(nodes)], dim=-1)
+    coeffs = torch.einsum("ij,...j->...i", torch.linalg.inv(V), gv)
+    roots, mask = solve_cubic(coeffs[..., 0], coeffs[..., 1], coeffs[..., 2], coeffs[..., 3])
+    a = roots[..., None, None]  # (..., 3, 1, 1)
+    F = a * f1[..., None, :, :] + (1 - a) * f2[..., None, :, :]
+    F = _unit_frobenius(T2.transpose(-1, -2)[..., None, :, :] @ F @ T1[..., None, :, :])
+    nan = torch.tensor(float("nan"), dtype=x1.dtype, device=x1.device)
+    return torch.where(mask[..., None, None], F, nan)
+
+
+def homography_dlt(x1, x2, weights=None):
+    """4-point (or weighted N-point) homography by DLT, x2 ~ H x1, of unit
+    Frobenius norm. x1, x2: (..., N, 2); weights (..., N)."""
+    n1, T1 = _hartley_normalize(x1, weights)
+    n2, T2 = _hartley_normalize(x2, weights)
+    u1, v1 = n1[..., 0], n1[..., 1]
+    u2, v2 = n2[..., 0], n2[..., 1]
+    z, o = torch.zeros_like(u1), torch.ones_like(u1)
+    row1 = torch.stack([-u1, -v1, -o, z, z, z, u2 * u1, u2 * v1, u2], dim=-1)
+    row2 = torch.stack([z, z, z, -u1, -v1, -o, v2 * u1, v2 * v1, v2], dim=-1)
+    A = torch.cat([row1, row2], dim=-2)
+    if weights is not None:
+        A = A * torch.cat([weights, weights], dim=-1)[..., None]
+    h = _smallest_right_singular(A)
+    H = h.reshape(h.shape[:-1] + (3, 3))
+    return _unit_frobenius(_similarity_inv(T2) @ H @ T1)
+
+
+def homography_transfer_error(H, x1, x2):
+    """Squared forward transfer error |H x1 - x2|² per point; inf where the
+    transferred point lies at infinity (|w| < 1e-12). H (..., 3, 3); x1, x2
+    (..., 2); batch dimensions broadcast."""
+    u1, v1 = x1[..., 0], x1[..., 1]
+    hx = H[..., 0, 0] * u1 + H[..., 0, 1] * v1 + H[..., 0, 2]
+    hy = H[..., 1, 0] * u1 + H[..., 1, 1] * v1 + H[..., 1, 2]
+    w = H[..., 2, 0] * u1 + H[..., 2, 1] * v1 + H[..., 2, 2]
+    bad = torch.abs(w) < 1e-12
+    safe_w = torch.where(bad, 1.0, w)
+    dx = hx / safe_w - x2[..., 0]
+    dy = hy / safe_w - x2[..., 1]
+    return torch.where(bad, torch.inf, dx * dx + dy * dy)
 
 
 def essential_eight_point(x1, x2, weights=None):

@@ -1,4 +1,4 @@
-"""Essential matrix math, batched.
+"""Essential and fundamental matrix math, batched.
 
 Counterpart of colmap_tpu/geometry/essential.py (reference behavior:
 src/colmap/geometry/essential_matrix.h:53-81). Functions broadcast over
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from colmap_tpu_torch.geometry import rotation as rot
+
 
 def cross_product_matrix(v):
     """(..., 3) -> (..., 3, 3) skew-symmetric matrix."""
@@ -23,6 +25,18 @@ def cross_product_matrix(v):
         dim=-1,
     )
     return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def essential_from_pose(quat, t):
+    """E = [t / |t|]x R of cam2_from_cam1 given as a wxyz quaternion (4,)
+    and a translation (3,) (essential_matrix.cc EssentialMatrixFromPose)."""
+    t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-30)
+    return cross_product_matrix(t) @ rot.quat_to_rotmat(quat)
+
+
+def essential_from_fundamental(K2, F, K1):
+    """E = K2ᵀ F K1."""
+    return K2.transpose(-1, -2) @ F @ K1
 
 
 def decompose_essential_matrix(E):
@@ -114,3 +128,15 @@ def sampson_error(E, x1, x2):
     x2tEx1 = u2 * a + v2 * b + c
     denom = a * a + b * b + at * at + bt * bt
     return x2tEx1**2 / torch.clamp(denom, min=1e-30)
+
+
+def squared_epipolar_line_distance(F, x1, x2):
+    """Squared distance of x2 to the epipolar line F x1, per point. F
+    (..., 3, 3); x1, x2 (..., 2) pixels; batch dimensions broadcast."""
+    u1, v1 = x1[..., 0], x1[..., 1]
+    u2, v2 = x2[..., 0], x2[..., 1]
+    a = F[..., 0, 0] * u1 + F[..., 0, 1] * v1 + F[..., 0, 2]
+    b = F[..., 1, 0] * u1 + F[..., 1, 1] * v1 + F[..., 1, 2]
+    c = F[..., 2, 0] * u1 + F[..., 2, 1] * v1 + F[..., 2, 2]
+    x2tFx1 = u2 * a + v2 * b + c
+    return x2tFx1**2 / torch.clamp(a * a + b * b, min=1e-30)

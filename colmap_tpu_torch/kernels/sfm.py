@@ -25,6 +25,14 @@ non-finite model) and the packed best (``optim.ransac.pack_best``: support
 in the high 32 bits, 0xFFFFFFFF - index in the low 32). The refit entries
 are colmap_tpu's ``_try_refine``: refit on the inliers of the given model,
 keep the refit if its support is larger; they return (model, support).
+
+The pair axis: the two-view entries (K7 here, K11 and K12 in
+kernels/matching.py) also take a block of B problems, x1, x2 (B, N, 2), mask
+(B, N), samples (B, K, m), ``max_sq`` a float or a (B,) tensor, and an
+optional ``active`` (B,) bool whose False problems the launch skips. One
+launch spans (problem, sample); models, counts and bests gain a leading B,
+and the refit takes and returns (B,) int32 counts on the device. A problem's
+result in a block equals that of the one-problem entry.
 """
 
 from __future__ import annotations
@@ -113,27 +121,73 @@ def p3p_refit_plain(X, uv, mask, model, max_sq, count):
     return (refined, count_r) if count_r > count else (model, count)
 
 
-def essential_propose_score_plain(x1, x2, mask, samples, max_sq):
-    """K7 propose-and-score: 5-point on each sample, Sampson scoring."""
+def _threshold(max_sq, ndim):
+    """A float threshold, or a (B,) tensor of them shaped to broadcast
+    against ``ndim`` dimensions."""
+    return max_sq.reshape((-1,) + (1,) * (ndim - 1)) if torch.is_tensor(max_sq) else max_sq
+
+
+def two_view_propose_score_plain(solve, residual, x1, x2, mask, samples, max_sq, active=None):
+    """Propose-and-score of a two-view model family, one problem or a block:
+    ``solve`` maps samples (.., m, 2) x 2 to models (.., S, 3, 3) and
+    ``residual`` (models, x1, x2) broadcasts to squared errors. Problems
+    whose ``active`` is False get zero counts and a zero best."""
+    if x1.dim() == 2:
+        models, counts, best = two_view_propose_score_plain(
+            solve, residual, x1[None], x2[None], mask[None], samples[None], max_sq)
+        return models[0], counts[0], best
+    B = x1.shape[0]
     s = samples.long()
-    models = essential_five_point(x1[s], x2[s]).reshape(-1, 3, 3)
-    res = sampson_error(models[:, None], x1[None], x2[None])
-    counts = _support(models, res, mask, max_sq)
-    return models, counts, pack_best(counts)
+    rows = torch.arange(B, device=x1.device)[:, None, None]
+    models = solve(x1[rows, s], x2[rows, s]).reshape(B, -1, 3, 3)
+    res = residual(models[:, :, None], x1[:, None], x2[:, None])  # (B, M, N)
+    counts = ((res <= _threshold(max_sq, 3)) & mask[:, None]).sum(-1).to(torch.int32)
+    counts = torch.where(torch.isfinite(models.flatten(2)).all(-1), counts, 0)
+    best = pack_best(counts)
+    if active is not None:
+        counts = torch.where(active[:, None], counts, 0)
+        best = torch.where(active, best, 0)
+    return models, counts, best
+
+
+def two_view_inliers_plain(residual, x1, x2, mask, model, max_sq):
+    """Inlier mask (.., N) of one model per problem."""
+    if x1.dim() == 2:
+        return (residual(model, x1, x2) <= max_sq) & mask
+    return (residual(model[:, None], x1, x2) <= _threshold(max_sq, 2)) & mask
+
+
+def two_view_refit_plain(fit, residual, x1, x2, mask, model, max_sq, count):
+    """``_try_refine``: ``fit`` (x1, x2, weights) on the model's inliers,
+    kept where it is finite and its support is larger. One problem: count an
+    int, returns (model, int); a block: (B,) int32 counts, returns tensors."""
+    if x1.dim() == 2:
+        out, cnt = two_view_refit_plain(
+            fit, residual, x1[None], x2[None], mask[None], model[None], max_sq,
+            torch.tensor([count], dtype=torch.int32, device=x1.device))
+        return out[0], int(cnt[0])
+    inl = two_view_inliers_plain(residual, x1, x2, mask, model, max_sq)
+    refined = fit(x1, x2, inl.to(x1.dtype))
+    count_r = two_view_inliers_plain(residual, x1, x2, mask, refined, max_sq).sum(-1)
+    take = torch.isfinite(refined.flatten(1)).all(-1) & (count_r > count)
+    return (torch.where(take[:, None, None], refined, model),
+            torch.where(take, count_r, count).to(torch.int32))
+
+
+def essential_propose_score_plain(x1, x2, mask, samples, max_sq, active=None):
+    """K7 propose-and-score: 5-point on each sample, Sampson scoring."""
+    return two_view_propose_score_plain(essential_five_point, sampson_error, x1, x2, mask,
+                                        samples, max_sq, active)
 
 
 def essential_inliers_plain(x1, x2, mask, model, max_sq):
-    return (sampson_error(model, x1, x2) <= max_sq) & mask
+    return two_view_inliers_plain(sampson_error, x1, x2, mask, model, max_sq)
 
 
 def essential_refit_plain(x1, x2, mask, model, max_sq, count):
     """K7 refit: weighted 8-point on the model's inliers."""
-    w = essential_inliers_plain(x1, x2, mask, model, max_sq).to(x1.dtype)
-    refined = essential_eight_point(x1, x2, w)
-    if not bool(torch.isfinite(refined).all()):
-        return model, count
-    count_r = int(essential_inliers_plain(x1, x2, mask, refined, max_sq).sum())
-    return (refined, count_r) if count_r > count else (model, count)
+    return two_view_refit_plain(essential_eight_point, sampson_error, x1, x2, mask, model, max_sq,
+                                count)
 
 
 def _angular_errors(X, R, t, x):
@@ -232,9 +286,9 @@ _SIGNATURES = {
     "p3p_propose_score_f32": [_I, _I, _F] + [_P] * 8 + [_P],
     "p3p_refit_f32": [_I, _F, _I] + [_P] * 6 + [_P],
     "p3p_inliers_f32": [_I, _F] + [_P] * 5 + [_P],
-    "essential_propose_score_f32": [_I, _I, _F] + [_P] * 7 + [_P],
-    "essential_refit_f32": [_I, _F, _I] + [_P] * 6 + [_P],
-    "essential_inliers_f32": [_I, _F] + [_P] * 5 + [_P],
+    "essential_propose_score_f32": [_I, _I, _I, _F] + [_P] * 9 + [_P],
+    "essential_refit_f32": [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
+    "essential_inliers_f32": [_I, _I, _F] + [_P] * 6 + [_P],
     "triangulate_tracks_f32": [_I, _I, _F, _F] + [_P] * 7 + [_P],
     "filter_points_f32": [_I, _I, _I, _I] + [_P] * 9 + [_P],
 }
@@ -406,58 +460,113 @@ def p3p_inliers(X, uv, mask, model, max_sq):
     return inl
 
 
-# K7 ------------------------------------------------------------------------
+# K7 (and the shape K11 and K12 share with it) ------------------------------
 
 
-def essential_propose_score(x1, x2, mask, samples, max_sq):
-    """K7 propose-and-score. x1, x2 (N, 2), mask (N,), samples (K, 5) int32.
-    Returns models (10K, 3, 3), counts (10K,), packed best (1,)."""
-    if x1.device.type == "cpu":
-        return essential_propose_score_plain(x1, x2, mask, samples, max_sq)
+def _opt_ptr(x):
+    return None if x is None else _ptr(x)
+
+
+def _max_sq_args(max_sq, b, dev):
+    """(scalar, pointer) of a threshold given as a float or a (B,) tensor."""
+    if torch.is_tensor(max_sq):
+        _check("max_sq", max_sq, f32, (b,), dev)
+        return 0.0, _ptr(max_sq)
+    return float(max_sq), None
+
+
+def _check_two_view(x1, x2, mask):
+    """Device, problem count and leading shape of one problem (N, 2) or a
+    block (B, N, 2)."""
     dev = _require_cuda(x1)
-    n, k = x1.shape[0], samples.shape[0]
-    _check_rows(dev, n, x1=(x1, 2), x2=(x2, 2), mask=(mask, None))
-    _check("samples", samples, i32, (k, 5), dev)
-    models = torch.empty(k * E_SOLUTIONS, 3, 3, dtype=f32, device=dev)
-    counts = torch.empty(k * E_SOLUTIONS, dtype=i32, device=dev)
-    best = torch.zeros(1, dtype=torch.int64, device=dev)
-    _call("essential_propose_score_f32", n, k, float(max_sq),
-          *map(_ptr, (x1, x2, mask, samples, models, counts, best)), _stream(dev))
-    LAUNCHES["essential_ransac"] += 1
+    lead = tuple(x1.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"x1 has shape {tuple(x1.shape)}, expected (N, 2) or (B, N, 2)")
+    n = x1.shape[-2]
+    _check("x1", x1, f32, lead + (n, 2), dev)
+    _check("x2", x2, f32, lead + (n, 2), dev)
+    _check("mask", mask, u8, lead + (n,), dev)
+    return dev, (lead[0] if lead else 1), lead, n
+
+
+def two_view_propose_score(call, name, m, solutions, x1, x2, mask, samples, max_sq, active):
+    """Launch ``<name>_propose_score_f32``: samples (K, m) or (B, K, m) int32.
+    Returns models (.., K * solutions, 3, 3), counts (.., K * solutions),
+    packed best (B,) int64."""
+    dev, b, lead, n = _check_two_view(x1, x2, mask)
+    k = samples.shape[-2]
+    _check("samples", samples, i32, lead + (k, m), dev)
+    if active is not None:
+        _check("active", active, u8, (b,), dev)
+    sq, sq_ptr = _max_sq_args(max_sq, b, dev)
+    models = torch.empty(lead + (k * solutions, 3, 3), dtype=f32, device=dev)
+    counts = torch.empty(lead + (k * solutions,), dtype=i32, device=dev)
+    best = torch.zeros(b, dtype=torch.int64, device=dev)
+    call(f"{name}_propose_score_f32", b, n, k, sq, sq_ptr,
+         *map(_ptr, (x1, x2, mask, samples)), _opt_ptr(active),
+         *map(_ptr, (models, counts, best)), _stream(dev))
     return models, counts, best
+
+
+def two_view_refit(call, name, x1, x2, mask, model, max_sq, count):
+    """Launch ``<name>_refit_f32``. One problem: count an int, returns
+    (model, int); a block: count (B,) int32 on the device, returns tensors."""
+    dev, b, lead, n = _check_two_view(x1, x2, mask)
+    model = model.contiguous()
+    _check("model", model, f32, lead + (3, 3), dev)
+    sq, sq_ptr = _max_sq_args(max_sq, b, dev)
+    out = torch.empty(lead + (3, 3), dtype=f32, device=dev)
+    out_count = torch.empty(b, dtype=i32, device=dev)
+    if lead:
+        _check("count", count, i32, (b,), dev)
+        scalar, count_ptr = 0, _ptr(count)
+    else:
+        scalar, count_ptr = int(count), None
+    call(f"{name}_refit_f32", b, n, sq, sq_ptr, scalar, count_ptr,
+         *map(_ptr, (x1, x2, mask, model, out, out_count)), _stream(dev))
+    return out, (out_count if lead else int(out_count.item()))
+
+
+def two_view_inliers(call, name, x1, x2, mask, model, max_sq):
+    """Launch ``<name>_inliers_f32``: the inlier mask (.., N) of one model per problem."""
+    dev, b, lead, n = _check_two_view(x1, x2, mask)
+    model = model.contiguous()
+    _check("model", model, f32, lead + (3, 3), dev)
+    sq, sq_ptr = _max_sq_args(max_sq, b, dev)
+    inl = torch.empty(lead + (n,), dtype=u8, device=dev)
+    call(f"{name}_inliers_f32", b, n, sq, sq_ptr, *map(_ptr, (x1, x2, mask, model, inl)),
+         _stream(dev))
+    return inl
+
+
+def essential_propose_score(x1, x2, mask, samples, max_sq, active=None):
+    """K7 propose-and-score. x1, x2 (N, 2), mask (N,), samples (K, 5) int32,
+    or a block of B problems. Returns models (.., 10K, 3, 3), counts
+    (.., 10K), packed best (B,)."""
+    if x1.device.type == "cpu":
+        return essential_propose_score_plain(x1, x2, mask, samples, max_sq, active)
+    out = two_view_propose_score(_call, "essential", 5, E_SOLUTIONS, x1, x2, mask, samples,
+                                 max_sq, active)
+    LAUNCHES["essential_ransac"] += 1
+    return out
 
 
 def essential_refit(x1, x2, mask, model, max_sq, count):
     """K7 refit (``_try_refine`` of the essential RANSAC). Returns (model, count)."""
     if x1.device.type == "cpu":
         return essential_refit_plain(x1, x2, mask, model, max_sq, count)
-    dev = _require_cuda(x1)
-    n = x1.shape[0]
-    _check_rows(dev, n, x1=(x1, 2), x2=(x2, 2), mask=(mask, None))
-    model = model.contiguous()
-    _check("model", model, f32, (3, 3), dev)
-    out = torch.empty(3, 3, dtype=f32, device=dev)
-    out_count = torch.empty(1, dtype=i32, device=dev)
-    _call("essential_refit_f32", n, float(max_sq), int(count),
-          *map(_ptr, (x1, x2, mask, model, out, out_count)), _stream(dev))
+    out = two_view_refit(_call, "essential", x1, x2, mask, model, max_sq, count)
     LAUNCHES["essential_ransac"] += 1
-    return out, int(out_count.item())
+    return out
 
 
 def essential_inliers(x1, x2, mask, model, max_sq):
-    """K7 inlier mask (N,) of one essential matrix."""
+    """K7 inlier mask (.., N) of one essential matrix per problem."""
     if x1.device.type == "cpu":
         return essential_inliers_plain(x1, x2, mask, model, max_sq)
-    dev = _require_cuda(x1)
-    n = x1.shape[0]
-    _check_rows(dev, n, x1=(x1, 2), x2=(x2, 2), mask=(mask, None))
-    model = model.contiguous()
-    _check("model", model, f32, (3, 3), dev)
-    inl = torch.empty(n, dtype=u8, device=dev)
-    _call("essential_inliers_f32", n, float(max_sq), *map(_ptr, (x1, x2, mask, model, inl)),
-          _stream(dev))
+    out = two_view_inliers(_call, "essential", x1, x2, mask, model, max_sq)
     LAUNCHES["essential_ransac"] += 1
-    return inl
+    return out
 
 
 # K8 ------------------------------------------------------------------------

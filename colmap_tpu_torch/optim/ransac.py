@@ -19,7 +19,15 @@ whether to go on. The semantics are colmap_tpu's:
   ``max(min_sample_size, min_inlier_ratio * num_valid)``.
 
 Samples come from an explicit CPU ``torch.Generator``, so the same seed
-gives the same samples on every device.
+gives the same samples on every device. Each batch draws K x m uniform
+numbers in [0, 1) once and scales them to the problem's count of valid rows.
+
+``ransac_block`` runs B problems of one model family in lockstep (the pair
+blocks of two-view verification; colmap_tpu vmaps its loop over the pair
+axis): one launch per batch spans (problem, sample), the host reads the B
+packed bests in one copy and keeps each problem's trial count, early exit
+and LO round. All problems see the same draws, so a problem's result in a
+block equals that problem run alone; ``ransac`` is the block of one.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -72,11 +81,130 @@ def unpack_best(packed: int):
 
 
 def pack_best(counts: torch.Tensor) -> torch.Tensor:
-    """The packed best of ``counts`` (M,) as a (1,) int64 tensor (plain
-    versions; the kernels build it with one atomicMax)."""
-    idx = torch.arange(counts.shape[0], device=counts.device, dtype=torch.int64)
+    """The packed best of ``counts`` (M,) as a (1,) int64 tensor, or of each
+    row of (B, M) as (B,) (plain versions; the kernels build it with one
+    atomicMax)."""
+    idx = torch.arange(counts.shape[-1], device=counts.device, dtype=torch.int64)
     packed = (counts.to(torch.int64) << 32) | (0xFFFFFFFF - idx)
-    return packed.amax().reshape(1)
+    return packed.amax(-1).reshape(-1)
+
+
+def _draw(generator, K, m, pool):
+    """Sample positions (B, K, m) int64 in [0, pool[b]): one draw of K x m
+    uniform numbers, scaled to each problem's count ``pool`` (B,)."""
+    u = torch.rand(K, m, generator=generator, dtype=torch.float64)
+    pool = torch.as_tensor(pool, dtype=torch.float64)[:, None, None]
+    return torch.minimum((u * pool).to(torch.int64), (pool - 1).to(torch.int64))
+
+
+class BlockRansacResult(NamedTuple):
+    model: torch.Tensor  # (B, ...) best model of each problem
+    num_inliers: np.ndarray  # (B,) int64
+    inlier_mask: torch.Tensor  # (B, N) bool
+    num_trials: np.ndarray  # (B,) int64
+    success: np.ndarray  # (B,) bool
+
+
+def ransac_block(
+    generator: torch.Generator,
+    mask: torch.Tensor,
+    min_sample_size: int,
+    propose_and_score: Callable,
+    inliers: Callable,
+    options: RansacOptions,
+    local_refine: Optional[Callable] = None,
+) -> BlockRansacResult:
+    """(LO-)RANSAC on B problems in lockstep; problem b's result equals
+    ``ransac`` on problem b alone with a generator in the same state.
+
+    Args:
+        generator: CPU torch.Generator; one draw per batch serves all problems.
+        mask: (B, N) bool validity of the data rows of each problem.
+        min_sample_size: m, rows per minimal sample.
+        propose_and_score: (sample_idxs (B, K, m) int32, active (B,) bool),
+            both on mask's device -> (models (B, M, ...), counts (B, M),
+            packed best (B,) int64); entries of problems that are not active
+            are not read.
+        inliers: models (B, ...) -> (B, N) bool inlier masks.
+        options: RansacOptions.
+        local_refine: optional (models (B, ...), counts (B,) int32) ->
+            (models, counts), the ``_try_refine`` step on every problem.
+    """
+    if options.sampling != "uniform":
+        raise NotImplementedError("progressive sampling is not ported yet (ROADMAP queue 1)")
+    if options.support != "inlier_count":
+        raise NotImplementedError("m-estimator support is not ported yet (ROADMAP queue 1)")
+    device = mask.device
+    mask_h = mask.cpu().numpy()
+    B, N = mask_h.shape
+    num_valid = mask_h.sum(1)
+    # Valid rows first, in order; problems without a valid row sample row 0.
+    valid_idx = torch.from_numpy(np.argsort(~mask_h, axis=1, kind="stable"))
+    valid_idx[torch.from_numpy(num_valid == 0)] = 0
+    pool = np.maximum(num_valid, 1)
+    K, m = options.batch_size, min_sample_size
+
+    model = None
+    count = np.full(B, -1, dtype=np.int64)
+    trials = np.zeros(B, dtype=np.int64)
+
+    def batch(active):
+        """One batch for the active problems: keep a better model, count it."""
+        nonlocal model
+        r = _draw(generator, K, m, pool)  # (B, K, m)
+        samples = torch.gather(valid_idx, 1, r.reshape(B, -1)).reshape(B, K, m)
+        models, _, best = propose_and_score(samples.to(torch.int32).to(device),
+                                            torch.from_numpy(active).to(device))
+        packed = best.cpu().numpy()  # the one read of this batch
+        new_count, idx = packed >> 32, 0xFFFFFFFF - (packed & 0xFFFFFFFF)
+        take = np.flatnonzero(active & (new_count > count))
+        if model is None:
+            model = torch.zeros((B,) + tuple(models.shape[2:]), dtype=models.dtype, device=device)
+        if take.size:
+            rows = torch.from_numpy(take).to(device)
+            model[rows] = models[rows, torch.from_numpy(idx[take]).to(device)]
+            count[take] = new_count[take]
+        trials[active] += K
+
+    def refine():
+        nonlocal model
+        model, counts = local_refine(model, torch.from_numpy(count).to(torch.int32).to(device))
+        count[:] = counts.cpu().numpy()
+
+    def stop(b):
+        dyn = _dyn_max_trials(int(count[b]), int(num_valid[b]), m, options.confidence,
+                              options.dyn_num_trials_multiplier)
+        t = int(trials[b])
+        return not (t < options.max_num_trials and (t < options.min_num_trials or t < dyn))
+
+    batch(np.ones(B, dtype=bool))
+    if local_refine is not None:
+        refine()
+    done = np.array([stop(b) or num_valid[b] < m for b in range(B)])
+
+    def run_batches(limit):
+        while True:
+            active = ~done & (trials < limit)
+            if not active.any():
+                return
+            batch(active)
+            for b in np.flatnonzero(active):
+                done[b] = stop(b)
+
+    if local_refine is None:
+        run_batches(math.inf)
+    else:
+        R = max(1, options.lo_outer_rounds)
+        for rnd in range(R):
+            run_batches(((rnd + 1) * options.max_num_trials) // R)
+            refine()
+            for b in np.flatnonzero(~done):
+                done[b] = stop(b)
+
+    inlier_mask = inliers(model)
+    num_inliers = inlier_mask.sum(1).cpu().numpy().astype(np.int64)
+    success = num_inliers >= np.maximum(m, options.min_inlier_ratio * num_valid)
+    return BlockRansacResult(model, num_inliers, inlier_mask, trials, success)
 
 
 def ransac(
@@ -88,7 +216,7 @@ def ransac(
     options: RansacOptions,
     local_refine: Optional[Callable] = None,
 ) -> RansacResult:
-    """Run (LO-)RANSAC.
+    """(LO-)RANSAC on one problem: ``ransac_block`` with B = 1.
 
     Args:
         generator: CPU torch.Generator the samples are drawn from.
@@ -102,55 +230,16 @@ def ransac(
         local_refine: optional (model, count) -> (model, count), the
             ``_try_refine`` step.
     """
-    if options.sampling != "uniform":
-        raise NotImplementedError("progressive sampling is not ported yet (ROADMAP queue 1)")
-    if options.support != "inlier_count":
-        raise NotImplementedError("m-estimator support is not ported yet (ROADMAP queue 1)")
-    device = mask.device
-    valid_idx = torch.nonzero(mask.cpu()).flatten().to(torch.int32)
-    num_valid = int(valid_idx.numel())
-    if num_valid == 0:
-        valid_idx = torch.zeros(1, dtype=torch.int32)
-    K = options.batch_size
-    pool = max(num_valid, 1)
+    def propose(idxs, active):
+        models, counts, best = propose_and_score(idxs[0])
+        return models[None], counts[None], best
 
-    def propose():
-        r = torch.randint(0, pool, (K, min_sample_size), generator=generator)
-        models, _, best = propose_and_score(valid_idx[r].to(device))
-        count, idx = unpack_best(int(best.item()))
-        return models[idx], count
+    def refine(models, counts):
+        model, count = local_refine(models[0], int(counts[0]))
+        return model[None], torch.tensor([count], dtype=torch.int32)
 
-    def continue_p(count, trials):
-        dyn = _dyn_max_trials(count, num_valid, min_sample_size, options.confidence,
-                              options.dyn_num_trials_multiplier)
-        return trials < options.max_num_trials and (
-            trials < options.min_num_trials or trials < dyn)
-
-    model, count = propose()
-    if local_refine is not None:
-        model, count = local_refine(model, count)
-    trials = K
-    done = not continue_p(count, trials) or num_valid < min_sample_size
-
-    def run_batches(limit):
-        nonlocal model, count, trials, done
-        while not done and trials < limit:
-            new_model, new_count = propose()
-            if new_count > count:
-                model, count = new_model, new_count
-            trials += K
-            done = not continue_p(count, trials)
-
-    if local_refine is None:
-        run_batches(math.inf)
-    else:
-        R = max(1, options.lo_outer_rounds)
-        for rnd in range(R):
-            run_batches(((rnd + 1) * options.max_num_trials) // R)
-            model, count = local_refine(model, count)
-            done = done or not continue_p(count, trials)
-
-    inlier_mask = inliers(model)
-    num_inliers = int(inlier_mask.sum())
-    success = num_inliers >= max(min_sample_size, options.min_inlier_ratio * num_valid)
-    return RansacResult(model, num_inliers, inlier_mask, trials, success)
+    res = ransac_block(generator, mask[None], min_sample_size, propose,
+                       lambda models: inliers(models[0])[None], options,
+                       refine if local_refine is not None else None)
+    return RansacResult(res.model[0], int(res.num_inliers[0]), res.inlier_mask[0],
+                        int(res.num_trials[0]), bool(res.success[0]))

@@ -15,7 +15,12 @@ at small sizes: K5 (one projection or 25 Newton steps) to 1e-5; K6 and K7
 count each model's inliers as a float64 count of the same model does, up to
 rows within 2% of the threshold, and refit to the same support; K8 (float32
 Jacobi on the 4x4 normal equations against a float64 SVD), with and without
-RANSAC over view pairs, to 1e-3; K9 to 1e-4.
+RANSAC over view pairs, to 1e-3; K9 to 1e-4. The matching kernels run on the
+cases of colmap_tpu_torch/kernels/matching_cases.py: K10 gives the plain
+version's matches on every row whose arccos tests lie further than 1e-5 rad
+from their thresholds (float32 similarities against float64); K11 and K12
+count and refit as K6 and K7 do; a block of pairs through K7, K11 and K12
+gives each pair exactly what the one-pair entry gives it.
 """
 
 import pytest
@@ -271,3 +276,179 @@ def test_filter_points_matches_plain_on_cuda():
     _close(err[fin], err_p[fin], 1e-4, "K9 errors")
     _close(depth, depth_p, 1e-4, "K9 depths")
     _close(mc, mc_p, 1e-4, "K9 min |cos|")
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+def test_match_top2_matches_plain_on_cuda(guided):
+    """K10 on 6 pairs of 4 images of up to 700 descriptors (row and column
+    tiles with ragged edges, unequal counts)."""
+    _need_card()
+    from colmap_tpu_torch.feature.matcher import MatchingOptions
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import matching_cases as C
+
+    c = C.descriptor_case(4, 700, 1, "cuda")
+    extra = dict(keypoints=c["keypoints"], F=c["F"]) if guided else {}
+    opts = MatchingOptions()
+    KM.reset_launches()
+    idx, ok, best = KM.match_top2(c["desc"], c["counts"], c["pairs"], opts, details=True, **extra)
+    assert KM.LAUNCHES["match_top2"] == 2
+    if guided:
+        extra["F"] = extra["F"].double()
+    idx_p, ok_p, margin, best_p = KM.match_top2_plain(c["desc"], c["counts"], c["pairs"], opts,
+                                                      dtype=torch.float64, details=True, **extra)
+    clear = margin > 1e-5
+    assert torch.equal(ok[clear], ok_p[clear]) and int(ok_p.sum()) > 1000
+    both = ok & ok_p
+    assert torch.equal(idx[both], idx_p[both])
+    fin = torch.isfinite(best_p)
+    fin &= torch.arange(700, device="cuda")[None] < c["counts"][c["pairs"][:, 0].long()][:, None]
+    _close(best[fin], best_p[fin], 1e-5, "K10 best similarity")
+    for flag in (False, True):  # the wrapper's plain two-output form, with and without the cross check
+        o = MatchingOptions(cross_check=flag)
+        ok_k = KM.match_top2(c["desc"], c["counts"], c["pairs"], o, **{
+            k: (v.float() if k == "F" else v) for k, v in extra.items()})[1]
+        ok_r = KM.match_top2_plain(c["desc"], c["counts"], c["pairs"], o, dtype=torch.float64,
+                                   **extra)[1]
+        assert int((ok_k != ok_r).sum()) <= int((~clear).sum())
+
+
+def _two_view_family(kind):
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_transfer_error
+    from colmap_tpu_torch.geometry.essential import sampson_error, squared_epipolar_line_distance
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import sfm as K
+
+    return {
+        "E": (sampson_error, K.essential_propose_score, K.essential_refit, K.essential_inliers,
+              K.essential_refit_plain, K.essential_inliers_plain),
+        "F": (squared_epipolar_line_distance, KM.fundamental_propose_score, KM.fundamental_refit,
+              KM.fundamental_inliers, KM.fundamental_refit_plain, KM.fundamental_inliers_plain),
+        "H": (homography_transfer_error, KM.homography_propose_score, KM.homography_refit,
+              KM.homography_inliers, KM.homography_refit_plain, KM.homography_inliers_plain),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["F", "H"])
+def test_two_view_ransac_matches_plain_on_cuda(kind):
+    """K11, K12: scoring, inlier mask, refit and (K11) the fit alone."""
+    _need_card()
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    residual, propose, refit, inliers, refit_p, inliers_p = _two_view_family(kind)
+    c = C.two_view_case(kind, 600, 48, 1, "cuda")
+    d = C.as_double(c)
+    models, counts, best = propose(c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+    _counts_match(counts, models, lambda m: residual(m[:, None], d["x1"][None], d["x2"][None]),
+                  d["mask"], d["max_sq"])
+    support, idx = unpack_best(int(best.item()))
+    assert support == int(counts.max()) and counts[idx] == support and support > 300
+    model = models[idx]
+    got = inliers(c["x1"], c["x2"], c["mask"], model, c["max_sq"])
+    ref = inliers_p(d["x1"], d["x2"], d["mask"], model.double(), d["max_sq"])
+    border = (residual(model.double(), d["x1"], d["x2"]) - d["max_sq"]).abs() <= 0.02 * d["max_sq"]
+    assert not bool(((got != ref) & ~border).any())
+    start = models[int(torch.argmin((counts - support // 2).abs()))]
+    if kind == "H":
+        start = model.clone()
+        start[0, 1] += 0.01 * model[0, 0]
+    n0 = int(inliers_p(d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"]).sum())
+    got, n_got = refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0)
+    ref, n_ref = refit_p(d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"], n0)
+    assert abs(n_got - n_ref) <= 1 and n_ref > n0
+    _close(got * torch.sign((got.double() * ref).sum()), ref, 1e-3, f"{kind} refit")
+    if kind == "F":
+        fit = KM.fundamental_fit(c["x1"], c["x2"], ref_mask := inliers_p(
+            d["x1"], d["x2"], d["mask"], ref, d["max_sq"]))
+        fit_p = KM.fundamental_fit_plain(d["x1"], d["x2"], ref_mask)
+        _close(fit * torch.sign((fit.double() * fit_p).sum()), fit_p, 1e-3, "K11 fit only")
+
+
+@pytest.mark.parametrize("kind", ["E", "F", "H"])
+def test_pair_axis_equals_one_pair_entries_on_cuda(kind):
+    """A block of 9 pairs with different valid counts, outlier shares and (E)
+    thresholds, one of them not active: every entry gives each pair exactly
+    what the one-pair entry gives."""
+    _need_card()
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    _, propose, refit, inliers, _, _ = _two_view_family(kind)
+    B = 9
+    c = C.two_view_block_case(kind, B, 500, 16, 2, "cuda")
+    sq = c["max_sq"]
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    active[4] = False
+    mb, cb, bb = propose(c["x1"], c["x2"], c["mask"], c["samples"], sq, active)
+    assert int(bb[4]) == 0
+    picks = [unpack_best(int(v)) for v in bb.tolist()]
+    idx = torch.tensor([0 if b == 4 else p[1] for b, p in enumerate(picks)], device="cuda")
+    start = torch.nan_to_num(mb[torch.arange(B, device="cuda"), idx])
+    counts = torch.tensor([p[0] for p in picks], dtype=torch.int32, device="cuda")
+    rb, nb = refit(c["x1"], c["x2"], c["mask"], start, sq, counts)
+    ib = inliers(c["x1"], c["x2"], c["mask"], rb, sq)
+    for b in range(B):
+        s1 = float(sq[b]) if torch.is_tensor(sq) else sq
+        one = (c["x1"][b], c["x2"][b], c["mask"][b])
+        r1, n1 = refit(*one, start[b], s1, int(counts[b]))
+        assert torch.equal(r1, rb[b]) and n1 == int(nb[b])
+        assert torch.equal(inliers(*one, rb[b], s1), ib[b])
+        if b != 4:
+            m1, c1, b1 = propose(*one, c["samples"][b], s1)
+            assert int(b1) == int(bb[b]) and torch.equal(c1, cb[b])
+            assert torch.equal(torch.nan_to_num(m1), torch.nan_to_num(mb[b]))
+
+
+def test_matcher_and_verification_through_the_command_on_cuda(tmp_path):
+    """exhaustive_matcher on cuda on the 8-frame scene stripped to features:
+    every pair's matches are the generator's and verify as CALIBRATED."""
+    _need_card()
+    import numpy as np
+
+    from colmap_tpu_torch.cli import main as cli
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
+
+    path = str(tmp_path / "db.db")
+    db = Database(path)
+    synthesize_dataset(SyntheticDatasetOptions(num_rigs=1, num_frames_per_rig=8, num_points3D=120,
+                                               camera_has_prior_focal_length=True), db,
+                       rng=np.random.default_rng(3))
+    truth = {(a, b): db.read_matches(a, b) for a in range(1, 9) for b in range(a + 1, 9)}
+    db.conn.execute("DELETE FROM matches")
+    db.conn.execute("DELETE FROM two_view_geometries")
+    db.commit()
+    db.close()
+    KM.reset_launches()
+    assert cli.main(["exhaustive_matcher", "--database_path", path]) == 28
+    assert all(v > 0 for v in KM.LAUNCHES.values())
+    db = Database(path, must_exist=True)
+    for (a, b), gen in truth.items():
+        gen = {tuple(r) for r in gen.tolist()}
+        assert {tuple(r) for r in db.read_matches(a, b).tolist()} == gen
+        g = db.read_two_view_geometry(a, b)
+        assert g.config == 2 and {tuple(r) for r in g.inlier_matches.tolist()} == gen
+    # Guided matching: K10's guided mode, then the one-pair path of the
+    # verification on the card; a pair alone gives what its block gave.
+    from colmap_tpu_torch.controllers.feature_pipeline import (
+        MatchingPipelineOptions,
+        run_matches_import,
+    )
+    from colmap_tpu_torch.estimators.two_view_geometry import estimate_two_view_geometry
+
+    block = db.read_two_view_geometry(3, 7)
+    assert run_matches_import(db, [(3, 7)], MatchingPipelineOptions(guided_matching=True)) == 1
+    guided = db.read_two_view_geometry(3, 7)
+    assert {tuple(r) for r in guided.inlier_matches.tolist()} == {
+        tuple(r) for r in truth[(3, 7)].tolist()}
+    cameras, images = db.read_cameras(), {i: c for i, _, c in db.read_images()}
+    alone = estimate_two_view_geometry(
+        cameras[images[3]], db.read_keypoints(3)[:, :2], cameras[images[7]],
+        db.read_keypoints(7)[:, :2], db.read_matches(3, 7))
+    assert alone.config == block.config
+    assert np.array_equal(alone.inlier_matches, block.inlier_matches)
+    assert np.allclose(alone.E, block.E, atol=1e-6) and np.allclose(alone.F, block.F, atol=1e-6)
+    db.close()
