@@ -147,6 +147,36 @@ SFM_SOURCES = {
 }
 
 
+SIFT_SOURCES = {
+    "sift_pyramid": ("colmap_tpu_torch/csrc/sift_pyramid.cu", "colmap_tpu/feature/sift.py:127"),
+    "sift_extrema": ("colmap_tpu_torch/csrc/sift_extrema.cu", "colmap_tpu/feature/sift.py:144"),
+    "sift_orientation": ("colmap_tpu_torch/csrc/sift_orientation.cu",
+                         "colmap_tpu/feature/sift.py:236"),
+    "sift_descriptor": ("colmap_tpu_torch/csrc/sift_descriptor.cu",
+                        "colmap_tpu/feature/sift.py:236"),
+}
+# SIFT at south-building's resolution (BASELINE.json config 1), whole under
+# COLMAP's default max_image_size of 3200: octave 0 is 6144 x 4608. The
+# rendered scene has 1000 points (about 8000 keypoints a view).
+SIFT_W, SIFT_H, SIFT_POINTS = 3072, 2304, 1000
+EXTRACT_VIEWS = 4
+# K13 float32 stencils against float64, level by level on the same input;
+# K14's refinement is a float32 3x3 LU solve; K15's theta and K16's
+# descriptors (fed K15's theta) against float64 sampling.
+K13_RTOL, K14_RTOL, K15_RAD, K16_COUNTS = 1e-5, 1e-4, 1e-3, 1
+# Flops a gradient sample of K15 and K16 costs: the warped position (4),
+# two bilinear samples of central differences (8 level reads, 6 differences
+# and halvings, 14 for the weights and sums), the rotation into the patch
+# frame (6), sqrt and atan2 (about 25), the Gaussian weight (about 12).
+SIFT_SAMPLE_OPS = 70
+SIFT_WINDOW_HALF = 8  # samples reach 7.5 sigma from the keypoint, plus a pixel
+# Images -> model: 12 frames of the generator's scene (seed 3, PINHOLE
+# 1024 x 768, f = 1280) rendered as the CPU anchor scene is, held to
+# tests/test_e2e_images.py's bounds.
+IMG_FRAMES, IMG_POINTS, IMG_FOCAL, IMG_PATCH_WORLD = 12, 1000, 1280.0, 0.08
+IMG_MAX_ROT_DEG, IMG_MAX_CENTER = 2.0, 0.25
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -862,16 +892,18 @@ def all_launch_counts():
     from colmap_tpu_torch.kernels import ba as KB
     from colmap_tpu_torch.kernels import matching as KM
     from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sift as KS
 
-    return {**KB.LAUNCHES, **K.LAUNCHES, **KM.LAUNCHES}
+    return {**KB.LAUNCHES, **K.LAUNCHES, **KM.LAUNCHES, **KS.LAUNCHES}
 
 
 def reset_all_launches():
     from colmap_tpu_torch.kernels import ba as KB
     from colmap_tpu_torch.kernels import matching as KM
     from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sift as KS
 
-    for mod in (KB, K, KM):
+    for mod in (KB, K, KM, KS):
         mod.reset_launches()
 
 
@@ -968,7 +1000,8 @@ def run_mapper(db_path, out, label, min_launches=True):
     counts = all_launch_counts()
     log(f"{label}: {buf.getvalue().strip()} ({dt:.3f} s)")
     log(f"  launches: {counts}")
-    needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES]
+    needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
+              and k not in SIFT_SOURCES]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -1292,10 +1325,348 @@ def phase_matcher_full(launches):
             raise AssertionError(f"verified {verified} of {len(truth)} pairs")
 
 
+
+# ---------------------------------------------------------------------------
+# SIFT: K13-K16 against their plain versions, and the extractor.
+# ---------------------------------------------------------------------------
+
+
+def orientation_margin(hist, n_ori):
+    """(K,) smallest gap, relative to the largest bin, of a decision of the
+    orientation peaks that can change the output: a bin within 1e-4 of the
+    0.8 threshold or above it against the threshold and against its two
+    neighbours (the local-maximum test), and the n_ori-th peak against the
+    next one. Rows with a gap under 1e-4 may differ between float32 and
+    float64."""
+    m = hist.max(dim=1, keepdim=True).values
+    cand = hist >= (0.8 - 1e-4) * m
+    big = torch.full_like(hist, torch.inf)
+    gaps = [torch.where(cand, g, big) for g in
+            ((hist - 0.8 * m).abs(), (hist - torch.roll(hist, 1, 1)).abs(),
+             (hist - torch.roll(hist, -1, 1)).abs())]
+    is_local = (hist >= torch.roll(hist, 1, 1)) & (hist >= torch.roll(hist, -1, 1))
+    peaks = torch.where(is_local & (hist >= 0.8 * m), hist, torch.zeros_like(hist))
+    top = torch.sort(peaks, dim=1, descending=True).values[:, :n_ori + 1]
+    order_gap = torch.where(top[:, :-1] > 0, top[:, :-1] - top[:, 1:], torch.inf)
+    margin = torch.cat([g.min(dim=1, keepdim=True).values for g in gaps]
+                       + [order_gap.min(dim=1, keepdim=True).values], 1)
+    return margin.min(dim=1).values / m[:, 0]
+
+
+def refine_margin(ext, options, W, H):
+    """(N,) True where a keep decision of K14's refinement lies within
+    1e-4 (relative) of its threshold: contrast, edge ratio, determinant or
+    bounds."""
+    x, y, resp = ext.rows[:, 0].double(), ext.rows[:, 1].double(), ext.rows[:, 4].double()
+    pt = options.peak_threshold
+    near = (resp.abs() - pt).abs() <= 1e-4 * pt
+    for v, hi in ((x, W - 1), (y, H - 1)):
+        near |= ((v - 1).abs() <= 1e-3) | ((v - hi).abs() <= 1e-3)
+    return near
+
+
+def window_bytes(sigma, scales=(1.0,)):
+    """Bytes of the level pixels the 16 x 16 samples of each keypoint touch
+    (the bounding square of the rotated window, plus the gradient stencil),
+    summed over keypoints and DSP scales."""
+    side = torch.zeros_like(sigma, dtype=torch.float64)
+    for f in scales:
+        side += (2 * SIFT_WINDOW_HALF * math.sqrt(2) * sigma.double() * f + 4) ** 2
+    return float(side.sum()) * 4
+
+
+def phase_sift_kernels():
+    """K13-K16 against their plain versions (float64 on the same inputs) on
+    one rendered 3072 x 2304 view (octave 0 is 6144 x 4608), and their
+    times. Returns (errs, rows)."""
+    import torch.nn.functional as F
+
+    from colmap_tpu_torch.feature import sift as FS
+    from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import sift_cases as SC
+
+    errs = {k: [] for k in KS.LAUNCHES}
+    rows = {}
+    opts = FS.SiftOptions()
+    t0 = time.perf_counter()
+    view = SC.rendered_views(1, SIFT_W, SIFT_H, num_points=SIFT_POINTS)[0]
+    img = torch.from_numpy(view).to("cuda").float() / 255.0
+    log(f"SIFT kernels vs plain (float64 on the same inputs), one rendered {SIFT_W} x {SIFT_H} "
+        f"view (set-up {time.perf_counter() - t0:.1f} s):")
+
+    # K13, level by level on the same input.
+    up = KS.upsample2(img)
+    check("K13 upsample2", up, KS.upsample2_plain(img.double()), K13_RTOL, errs["sift_pyramid"])
+    base = KS.blur(up, opts.sigma0)
+    check("K13 base blur", base, KS.blur_plain(up.double(), opts.sigma0), K13_RTOL,
+          errs["sift_pyramid"])
+    gauss, dog = KS.build_octave(base, opts)
+    sigmas = KS.octave_sigmas(opts)
+    for s, sigma in enumerate(sigmas):
+        prev = gauss[s].double()
+        check(f"K13 level {s + 1} (sigma {sigma:.3f})", gauss[s + 1], KS.blur_plain(prev, sigma),
+              K13_RTOL, errs["sift_pyramid"])
+        check(f"K13 DoG {s}", dog[s], gauss[s + 1].double() - prev, K13_RTOL,
+              errs["sift_pyramid"])
+    if not torch.equal(KS.downsample2(gauss[3]), gauss[3][::2, ::2]):
+        raise AssertionError("K13 downsample2 differs from x[::2, ::2]")
+    torch.cuda.synchronize()
+
+    # K14 on K13's DoG.
+    S_, H, W = dog.shape[0] - 2, dog.shape[1], dog.shape[2]
+    ext = KS.detect_extrema(dog, opts)
+    ref = KS.detect_extrema_plain(dog.double(), opts)
+    thr = 0.8 * opts.peak_threshold
+    inner = dog[1:-1].reshape(-1)
+    gk, rk = set(ext.flat.tolist()), set(ref.flat.tolist())
+    diff = gk ^ rk
+    near = [i for i in diff if abs(abs(float(inner[i])) - thr) <= 1e-6]
+    n_near = int(((inner.abs().double() - thr).abs() <= 1e-6).sum())
+    log(f"  K14: {len(gk)} extrema ({len(rk)} plain); {len(diff)} differ, all within 1e-6 of the "
+        f"threshold: {len(diff) == len(near)} ({n_near} samples of the octave lie there)")
+    if len(diff) != len(near) or len(rk) < 1000:
+        raise AssertionError("K14: the extrema differ away from the threshold")
+    cap = opts.max_candidates_per_octave
+    top_k, top_r = KS.top_candidates(ext, cap), KS.top_candidates(ref, cap)
+    if not torch.equal(ext.flat[top_k], ref.flat[top_r]):
+        raise AssertionError("K14: the selected candidates differ")
+    keep_k, keep_r = ext.keep[top_k], ref.keep[top_r]
+    borderline = refine_margin(ext._replace(rows=ext.rows[top_k]), opts, W, H)
+    hard = (keep_k != keep_r) & ~borderline
+    log(f"  K14: the same {len(top_k)} selected candidates in the same order; keep differs on "
+        f"{int((keep_k != keep_r).sum())}, {int(hard.sum())} of them away from a threshold")
+    if int(hard.sum()):
+        raise AssertionError("K14: keep flags differ away from a threshold")
+    both = keep_k & keep_r
+    for j, name in enumerate(("x", "y", "s", "sigma", "response")):
+        check(f"K14 refined {name}", ext.rows[top_k][both, j], ref.rows[top_r][both, j],
+              K14_RTOL, errs["sift_extrema"])
+
+    # K15 on the selected keypoints.
+    sel = top_k[keep_k]
+    x, y, lvl, sigma, resp = KS.selected_keypoints(ext, sel)
+    g64 = gauss.double()
+    theta, ok = KS.orientations(gauss, x, y, lvl, sigma, opts)
+    theta_p, ok_p = KS.orientations_plain(g64, x.double(), y.double(), lvl, sigma.double(), opts)
+    hist = KS.orientation_histograms_plain(g64, x.double(), y.double(), lvl, sigma.double())
+    clear = orientation_margin(hist, opts.max_num_orientations) > 1e-4
+    agree = (ok == ok_p).all(dim=1)
+    dth = torch.remainder(theta.double() - theta_p + math.pi, 2 * math.pi) - math.pi
+    both = ok & ok_p & agree[:, None]
+    err = float(dth[both].abs().max())
+    errs["sift_orientation"].append((err, err / math.pi))
+    log(f"  K15: {len(sel)} keypoints, {int(ok.sum())} orientations; ok rows differ on "
+        f"{int((~agree).sum())} keypoints ({int((~agree & clear).sum())} with a margin above "
+        f"1e-4, {int((~clear).sum())} keypoints within it); theta max error {err:.3e} rad "
+        f"(tol {K15_RAD:g})")
+    if int((~agree & clear).sum()) or not err <= K15_RAD:
+        raise AssertionError("K15: orientations differ")
+
+    # K16 on K15's orientations.
+    data, desc = KS.descriptors(gauss, x, y, lvl, sigma, resp, theta, ok, opts)
+    data_p, _, desc_p = KS.descriptors_plain(g64, x.double(), y.double(), lvl, sigma.double(),
+                                             resp.double(), theta.double(), opts)
+    okr = ok.reshape(-1)
+    dd = (desc[okr].int() - desc_p[okr].int()).abs()
+    worst = int(dd.max())
+    errs["sift_descriptor"].append((float(worst), worst / 255.0))
+    log(f"  K16: {int(okr.sum())} rows, descriptors within {worst} count (tol {K16_COUNTS}), "
+        f"{float((dd == 0).double().mean()):.6f} of entries equal")
+    check("K16 rows (x, y, sigma, theta, response, frame)", data[okr], data_p[okr], 1e-5,
+          errs["sift_descriptor"])
+    if worst > K16_COUNTS:
+        raise AssertionError("K16: descriptors differ by more than one count")
+
+    # Times at octave 0's shapes.
+    log("  times at octave 0 (6144 x 4608, 6 levels):")
+    HW, n_lv = H * W, len(sigmas)
+    radii = [KS.blur_radius(s) for s in [opts.sigma0] + sigmas]
+    taps = [KS.gaussian_taps(s, torch.float32, "cuda") for s in [opts.sigma0] + sigmas]
+
+    def pyramid(m):
+        return m.build_octave(m.blur(m.upsample2(img), opts.sigma0), opts)
+
+    def library():
+        def conv(z, t):
+            r = (t.shape[0] - 1) // 2
+            z = F.conv2d(F.pad(z, (r, r, 0, 0), mode="replicate"), t.view(1, 1, 1, -1))
+            return F.conv2d(F.pad(z, (0, 0, r, r), mode="replicate"), t.view(1, 1, -1, 1))
+
+        z = F.interpolate(img[None, None], scale_factor=2, mode="bilinear", align_corners=False)
+        levels = [conv(z, taps[0])]
+        for t in taps[1:]:
+            levels.append(conv(levels[-1], t))
+        g = torch.cat(levels)
+        return g, g[1:] - g[:-1]
+
+    # Upsample 6 flops an output pixel, each blur pass 2 (2r + 1), the DoG 1.
+    ops = 6 * HW + sum(2 * 2 * (2 * r + 1) * HW for r in radii) + n_lv * HW
+    rows["sift_pyramid"] = _sift_row(
+        "sift_pyramid", lambda: pyramid(FS.KERNELS), lambda: pyramid(FS.PLAIN),
+        HW + 4 * HW * (2 * n_lv + 1), ops, library)
+    n_ext = len(ext.flat)
+    rows["sift_extrema"] = _sift_row(
+        "sift_extrema", lambda: KS.detect_extrema(dog, opts),
+        lambda: KS.detect_extrema_plain(dog, opts), 4 * (S_ + 2) * HW + 33 * n_ext,
+        2 * S_ * HW + 200 * n_ext)
+    K_ = len(sel)
+    rows["sift_orientation"] = _sift_row(
+        "sift_orientation", lambda: KS.orientations(gauss, x, y, lvl, sigma, opts),
+        lambda: KS.orientations_plain(gauss, x, y, lvl, sigma, opts),
+        window_bytes(sigma) + 20 * K_ + 5 * ok.numel(), SIFT_SAMPLE_OPS * 256 * K_)
+    rr = okr.nonzero().flatten() // opts.max_num_orientations
+    rows["sift_descriptor"] = _sift_row(
+        "sift_descriptor", lambda: KS.descriptors(gauss, x, y, lvl, sigma, resp, theta, ok, opts),
+        lambda: KS.descriptors_plain(gauss, x, y, lvl, sigma, resp, theta, opts),
+        window_bytes(sigma[rr]) + 24 * K_ + 4 * theta.numel() + ok.numel()
+        + (36 + 128) * theta.numel(),
+        (SIFT_SAMPLE_OPS * 256 + 8 * 4 * 256) * len(rr))
+    return errs, rows
+
+
+def _sift_row(name, fn, plain, bytes_moved, ops, library=None):
+    ms = time_ms(fn, reps=10)
+    plain_ms = time_ms(plain, reps=3)
+    library_ms = time_ms(library, reps=10) if library else None
+    b_ms, by = bound(bytes_moved, ops)
+    lib = f", conv2d + interpolate {library_ms:.4f} ms" if library else ""
+    log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound {b_ms:.5f} ms by {by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+
+
+def run_command(argv, label, kernels):
+    """One CLI command on cuda with every launch count at 0 before; logs the
+    kernels it launched, returns (result, seconds, launches) and fails if a
+    kernel of ``kernels`` did not launch."""
+    from colmap_tpu_torch.cli import main as cli
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = all_launch_counts()
+    log(f"{label}: {buf.getvalue().strip().splitlines()[-1]} ({dt:.3f} s)")
+    log(f"  launches: { {k: v for k, v in counts.items() if v} }")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: launched no {missing}")
+    return out, dt, counts
+
+
+def phase_extractor(launches):
+    """(a) Four rendered 3072 x 2304 views through `feature_extractor` on
+    cuda under torch.profiler, each held against the plain extraction on
+    the card; (b) images -> model: the rendered 12-frame scene through
+    `feature_extractor`, `exhaustive_matcher` and `mapper` on cuda, held to
+    the ground truth."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colmap_tpu_torch.feature import sift as FS
+    from colmap_tpu_torch.kernels import sift_cases as SC
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.utils.image_io import read_image_gray
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "wide")
+        t0 = time.perf_counter()
+        SC.render_scene(images, EXTRACT_VIEWS, SIFT_POINTS, SIFT_W, SIFT_H, 1.25 * SIFT_W)
+        log(f"extractor at full width: {EXTRACT_VIEWS} rendered {SIFT_W} x {SIFT_H} views "
+            f"(set-up {time.perf_counter() - t0:.1f} s)")
+        db_path = os.path.join(tmp, "wide.db")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
+            torch.cuda.synchronize()
+            _, dt, counts = run_command(["feature_extractor", "--database_path", db_path,
+                                         "--image_path", images], "feature_extractor, full width",
+                                        SIFT_SOURCES)
+        for k, v in counts.items():
+            launches[k] += v
+        busy_ms, by_name = device_busy(prof)
+        idle = log_busy("feature_extractor, full width", busy_ms, by_name, dt * 1e3, top=10)
+        db = Database(db_path, must_exist=True)
+        opts = FS.SiftOptions()
+        n_kp = []
+        t0 = time.perf_counter()
+        for iid, name, _ in db.read_images():
+            kp, desc = db.read_keypoints(iid), db.read_descriptors(iid)
+            img = read_image_gray(os.path.join(images, name))
+            img_t = torch.from_numpy(img).to("cuda").float() / 255.0
+            rows_p, desc_p = FS._extract(img_t, opts, FS._num_octaves(img.shape, opts), FS.PLAIN)
+            kp_p, desc_p = FS.cut_to_max_features(rows_p.cpu().numpy(), desc_p.cpu().numpy(), opts)
+            share, worst, equal, _ = SC.match_keypoints(kp_p, desc_p, kp, desc)
+            log(f"  {name}: {len(kp)} keypoints ({len(kp_p)} plain); {share:.4f} of the plain "
+                f"keypoints matched, descriptors within {worst} counts, {equal:.4f} of entries "
+                "equal")
+            if not (share >= 0.97 and worst <= 2 and equal >= 0.95
+                    and abs(len(kp) - len(kp_p)) <= 0.03 * len(kp_p)):
+                raise AssertionError(f"{name}: the extraction differs from the plain version")
+            n_kp.append(len(kp))
+        db.close()
+        log(f"  {EXTRACT_VIEWS} images in {dt:.3f} s = {EXTRACT_VIEWS / dt:.3f} images/s on "
+            f"{nvidia_smi_line()}; keypoints per image {n_kp}; idle share "
+            f"{'not measured' if idle is None else f'{idle:.4f}'} (plain check "
+            f"{time.perf_counter() - t0:.1f} s)")
+        results["full_width"] = dict(seconds=dt, images_per_s=EXTRACT_VIEWS / dt, keypoints=n_kp,
+                                     idle_share=idle)
+
+        # (b) images -> model.
+        root = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        gt, _, params = SC.render_scene(os.path.join(root, "images"), IMG_FRAMES, IMG_POINTS,
+                                        1024, 768, IMG_FOCAL, patch_world=IMG_PATCH_WORLD)
+        log(f"images -> model: {IMG_FRAMES} rendered frames x {IMG_POINTS} points, PINHOLE 1024 x "
+            f"768, f = {IMG_FOCAL:g}, patch_world {IMG_PATCH_WORLD} (set-up "
+            f"{time.perf_counter() - t0:.1f} s)")
+        db_path = os.path.join(root, "db.db")
+        seconds = {}
+        _, seconds["feature_extractor"], counts = run_command(
+            ["feature_extractor", "--database_path", db_path, "--image_path",
+             os.path.join(root, "images"), "--camera_model", "PINHOLE", "--camera_params",
+             ",".join(repr(float(v)) for v in params)], "feature_extractor", SIFT_SOURCES)
+        sift_launches = {k: counts[k] for k in SIFT_SOURCES}
+        for k, v in counts.items():
+            launches[k] += v
+        _, seconds["exhaustive_matcher"], counts = run_command(
+            ["exhaustive_matcher", "--database_path", db_path], "exhaustive_matcher",
+            MATCHER_KERNELS)
+        for k, v in counts.items():
+            launches[k] += v
+        out = os.path.join(root, "sparse")
+        _, seconds["mapper"], counts = run_command(
+            ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"], "mapper",
+            ())
+        for k, v in counts.items():
+            launches[k] += v
+        from colmap_tpu_torch.estimators.alignment import compare_reconstructions
+        from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+        recon = read_model(os.path.join(out, "0"))
+        cmp = compare_reconstructions(recon, gt)
+        n, rot, ctr = (cmp["num_common_images"], cmp["max_rotation_error_deg"],
+                       cmp["max_center_error"])
+        log(f"  images -> model: {recon.num_reg_frames()}/{IMG_FRAMES} frames, "
+            f"{recon.num_points3D()} points; max rotation error {rot:.4f} deg, max center error "
+            f"{ctr:.5f} (bounds {IMG_MAX_ROT_DEG} deg, {IMG_MAX_CENTER}); seconds by command "
+            f"{ {k: round(v, 3) for k, v in seconds.items()} }; SIFT launches {sift_launches}")
+        if not (n == IMG_FRAMES and rot < IMG_MAX_ROT_DEG and ctr < IMG_MAX_CENTER):
+            raise AssertionError(f"images -> model: {n}/{IMG_FRAMES} frames, {rot} deg, {ctr}")
+        results["images_to_model"] = dict(seconds=seconds, frames=n, max_rot_deg=rot,
+                                          max_center=ctr)
+    return results
+
+
+ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="ba,sfm,mapper,matching,matcher",
-                        help="comma-separated subset of ba,sfm,mapper,matching,matcher")
+    parser.add_argument("--phases", default=",".join(ALL_PHASES),
+                        help="comma-separated subset of " + ",".join(ALL_PHASES))
     phases = set(parser.parse_args().phases.split(","))
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; it needs a CUDA card")
@@ -1312,28 +1683,41 @@ def main():
 
     errs, rows, agree, solves = {}, {}, {}, {}
     launches = {k: 0 for k in all_launch_counts()}
+    seconds = {}
+
+    def run(phase, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        return out
+
     if "ba" in phases:
-        ba_errs, ba_rows, solves = phases_ba(launches)
+        ba_errs, ba_rows, solves = run("ba", lambda: phases_ba(launches))
         errs.update(ba_errs)
         rows.update(ba_rows)
     if "sfm" in phases:
-        sfm_errs, sfm_rows, sfm_agree = phase_sfm_kernels()
+        sfm_errs, sfm_rows, sfm_agree = run("sfm", phase_sfm_kernels)
         errs.update(sfm_errs)
         rows.update(sfm_rows)
         agree.update(sfm_agree)
     if "mapper" in phases:
-        phase_mapper(launches)
+        run("mapper", lambda: phase_mapper(launches))
     if "matching" in phases:
-        m_errs, m_rows, m_agree = phase_matching_kernels()
+        m_errs, m_rows, m_agree = run("matching", phase_matching_kernels)
         errs.update(m_errs)
         rows.update(m_rows)
         agree.update(m_agree)
     if "matcher" in phases:
-        phase_matcher_full(launches)
+        run("matcher", lambda: phase_matcher_full(launches))
+    if "sift" in phases:
+        s_errs, s_rows = run("sift", phase_sift_kernels)
+        errs.update(s_errs)
+        rows.update(s_rows)
+    if "extractor" in phases:
+        run("extractor", lambda: phase_extractor(launches))
+    log(f"seconds by phase: {seconds}")
 
-    sources = dict(BA_SOURCES)
-    sources.update(SFM_SOURCES)
-    sources.update(MATCH_SOURCES)
+    sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:
@@ -1348,7 +1732,7 @@ def main():
         ))
         if name in agree:  # near-best models that agree, of all near-best models
             kernels[-1]["near_best_agree"] = list(agree[name])
-    complete = phases >= {"ba", "sfm", "mapper", "matching", "matcher"}
+    complete = phases >= set(ALL_PHASES)
     if complete:
         idle_kernels = [k["name"] for k in kernels if k["launches"] == 0]
         if len(kernels) != len(sources) or idle_kernels:

@@ -1,19 +1,30 @@
-"""Matching pipelines: database features -> matches -> two-view geometries.
+"""Feature pipelines: images -> features, and database features -> matches
+-> two-view geometries.
 
-Counterpart of the matching half of colmap_tpu/controllers/feature_pipeline.py
-(reference behavior: src/colmap/controllers/feature_matching.cc: pair blocks
--> matcher workers -> verifier pool -> database). Pairs stream in blocks of
-256: each block is one call of the matcher kernel K10 over the block's
-descriptor table, then blocks of up to 64 pairs through the E, F and H
-RANSAC kernels (estimators/two_view_batch.py), and the results go to the
-SQLite database. Descriptors live on the device only for their block.
-Feature extraction is not ported yet.
+Counterpart of colmap_tpu/controllers/feature_pipeline.py (reference
+behavior: src/colmap/controllers/feature_extraction.cc, reader ->
+extractor -> writer, and feature_matching.cc, pair blocks -> matcher
+workers -> verifier pool -> database).
+
+Extraction: one reader thread decodes images (utils/image_io.py, no PIL)
+and reads their EXIF up to four images ahead of the extractor; each image
+goes through extract_sift (feature/sift.py, kernels K13-K16) on the chosen
+device, and cameras, images, pose priors, keypoints and descriptors land in
+the SQLite database on this thread.
+
+Matching: pairs stream in blocks of 256: each block is one call of the
+matcher kernel K10 over the block's descriptor table, then blocks of up to
+64 pairs through the E, F and H RANSAC kernels
+(estimators/two_view_batch.py), and the results go to the database.
+Descriptors live on the device only for their block.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,8 +40,139 @@ from colmap_tpu_torch.feature.pairing import (
     exhaustive_pairs,
     sequential_pairs,
 )
+from colmap_tpu_torch.feature.sift import SiftOptions, extract_sift
 from colmap_tpu_torch.scene.database import Database
+from colmap_tpu_torch.scene.types import Camera
+from colmap_tpu_torch.sensor import models as camera_models
+from colmap_tpu_torch.sensor.specs import focal_length_px_from_exif
 from colmap_tpu_torch.utils.dtypes import resolve_device
+from colmap_tpu_torch.utils.exif import read_exif
+from colmap_tpu_torch.utils.image_io import read_image_gray
+
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
+
+
+@dataclasses.dataclass
+class ImageReaderOptions:
+    """reference: controllers/image_reader.h — camera initialization from
+    EXIF or defaults; one camera for all images or one per image."""
+
+    camera_model: str = "SIMPLE_RADIAL"
+    single_camera: bool = True
+    default_focal_length_factor: float = 1.2
+    camera_params: Optional[str] = None  # comma-separated explicit params
+    # Per-image masks: the mask of "abc/012.jpg" is "<mask_path>/abc/012.jpg.png"
+    # (or "<stem>.png"); zero mask pixels suppress features
+    # (reference: image_reader.h:49-52).
+    mask_path: Optional[str] = None
+    # One mask for every image (reference: image_reader.h:57).
+    camera_mask_path: Optional[str] = None
+    # "sift"; "aliked" is not ported yet (ROADMAP queue 1 item 14).
+    extractor_type: str = "sift"
+    aliked_weights_path: Optional[str] = None
+
+
+def _load_image_gray(path: str) -> np.ndarray:
+    return read_image_gray(path)
+
+
+def _load_mask(reader_options: ImageReaderOptions, name: str) -> Optional[np.ndarray]:
+    """The feature mask of an image, or None (reference:
+    image_reader.cc:148-172)."""
+    path = None
+    if reader_options.mask_path:
+        cand = os.path.join(reader_options.mask_path, name + ".png")
+        if os.path.exists(cand):
+            path = cand
+        else:
+            alt = os.path.join(reader_options.mask_path, os.path.splitext(name)[0] + ".png")
+            if not os.path.exists(alt):
+                raise FileNotFoundError(f"Mask at {cand} does not exist")
+            path = alt
+    elif reader_options.camera_mask_path:
+        path = reader_options.camera_mask_path
+    return None if path is None else read_image_gray(path)
+
+
+def _apply_mask(kp: np.ndarray, desc: np.ndarray, mask_img: np.ndarray):
+    """Drop keypoints on zero mask pixels."""
+    x = np.clip(kp[:, 0].astype(np.int64), 0, mask_img.shape[1] - 1)
+    y = np.clip(kp[:, 1].astype(np.int64), 0, mask_img.shape[0] - 1)
+    keep = mask_img[y, x] != 0
+    return kp[keep], desc[keep]
+
+
+def run_feature_extraction(
+    database: Database,
+    image_dir: str,
+    image_names: Optional[Sequence[str]] = None,
+    reader_options: Optional[ImageReaderOptions] = None,
+    sift_options: Optional[SiftOptions] = None,
+    device=None,
+) -> List[int]:
+    """Extract SIFT features for the images of a directory (by default all
+    of them, sorted by name) into the database; returns the image ids."""
+    reader_options = reader_options or ImageReaderOptions()
+    sift_options = sift_options or SiftOptions()
+    if reader_options.extractor_type != "sift":
+        raise NotImplementedError(
+            f"extractor_type {reader_options.extractor_type!r} is not ported yet "
+            "(ROADMAP queue 1 item 14)")
+    device = resolve_device(device)
+    if image_names is None:
+        image_names = sorted(f for f in os.listdir(image_dir)
+                             if f.lower().endswith(IMAGE_EXTENSIONS))
+    image_names = list(image_names)
+    model_id = camera_models.MODEL_NAME_TO_ID[reader_options.camera_model]
+
+    def read_one(name):
+        path = os.path.join(image_dir, name)
+        return name, _load_image_gray(path), read_exif(path)
+
+    # The reader thread keeps up to AHEAD images decoded ahead of the
+    # extractor (the bounded reader -> extractor queue of
+    # controllers/feature_extraction.cc:86-470); database writes stay on
+    # this thread, which owns the SQLite connection.
+    AHEAD = 4
+    camera_id, image_ids = None, []
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="img-read") as reader:
+        pending = [reader.submit(read_one, n) for n in image_names[:AHEAD]]
+        upcoming = iter(image_names[AHEAD:])
+        while pending:
+            name, img, exif = pending.pop(0).result()
+            nxt = next(upcoming, None)
+            if nxt is not None:
+                pending.append(reader.submit(read_one, nxt))
+            h, w = img.shape
+            if camera_id is None or not reader_options.single_camera:
+                # EXIF focal length (35 mm equivalent, or mm and the sensor
+                # width), else the default factor (reference:
+                # controllers/image_reader.cc, sensor/specs.*).
+                focal, has_prior = focal_length_px_from_exif(
+                    exif, w, h, reader_options.default_focal_length_factor)
+                cam = Camera.create(0, model_id, focal, w, h)
+                cam.has_prior_focal_length = has_prior
+                if reader_options.camera_params:
+                    cam.params = np.array(
+                        [float(v) for v in reader_options.camera_params.split(",")])
+                    cam.has_prior_focal_length = True
+                camera_id = database.write_camera(cam, use_camera_id=False)
+            image_id = database.write_image(name, camera_id)
+            # EXIF GPS -> a WGS84 pose prior (coordinate_system 0).
+            if "latitude" in exif and "longitude" in exif:
+                database.write_pose_prior(
+                    image_id, position=np.array([exif["latitude"], exif["longitude"],
+                                                 exif.get("altitude", 0.0)]),
+                    coordinate_system=0)
+            kp, desc = extract_sift(img, sift_options, device=device)
+            mask_img = _load_mask(reader_options, name)
+            if mask_img is not None:
+                kp, desc = _apply_mask(kp, desc, mask_img)
+            database.write_keypoints(image_id, kp)
+            database.write_descriptors(image_id, desc)
+            image_ids.append(image_id)
+    database.commit()
+    return image_ids
 
 
 @dataclasses.dataclass

@@ -12,9 +12,10 @@ Counterpart of colmap_tpu/sfm/incremental_mapper.py for single-sensor
 frames, on an explicit device: the initial pair's essential RANSAC runs in
 K7, registration's P3P RANSAC in K6, camera maps in K5, new tracks in K8,
 point filtering in K9, and every BA (init, local, global, pose refinement)
-in the packed LM solver over K1-K4 (kernels/). Rig frames, structure-less
-registration and mixed camera models are not ported yet (ROADMAP queue 1):
-those paths raise NotImplementedError.
+in the packed LM solver over K1-K4 (kernels/); structure-less registration
+runs as torch ops (estimators/generalized_pose.py). Rig frames and mixed
+camera models are not ported yet (ROADMAP queue 1): those paths raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -505,7 +506,13 @@ class IncrementalMapper:
                 np.stack([image.points2D_xy[i] for (i, _p) in jobs]),
             )
             for (p2d_idx, p3d_id), err in zip(jobs, errs):
-                if err <= options.filter_max_reproj_error:
+                # A 2D point may be an inlier of several 3D points (its
+                # correspondences lie in different tracks): the first that
+                # reprojects within the threshold takes it, as the
+                # reference's HasPoint3D check at insertion does
+                # (incremental_mapper.cc:463-474).
+                if (err <= options.filter_max_reproj_error
+                        and image.points2D_p3d[p2d_idx] == INVALID_POINT3D):
                     recon.add_observation(
                         p3d_id, TrackElement(image_id, p2d_idx)
                     )
@@ -525,42 +532,68 @@ class IncrementalMapper:
         self, image_id: int, options: IncrementalMapperOptions
     ) -> bool:
         """Structure-less resectioning from 2D-2D correspondences to
-        registered images (Zheng & Wu). The cheap checks are ported; the
-        estimator (generalized_pose.py) is not, so an image that passes them
-        raises NotImplementedError.
+        registered images (Zheng & Wu; estimators/generalized_pose.py).
 
         reference: RegisterNextStructureLessImage
         (incremental_mapper.cc:673-870) — requires 2x the inliers of the
         structured path because each 2D-2D correspondence contributes one
         epipolar constraint instead of two reprojection constraints.
         """
+        from colmap_tpu_torch.estimators.generalized_pose import (
+            StructureLessAbsolutePoseOptions,
+            estimate_structure_less_absolute_pose,
+        )
+
         recon = self.recon
         if recon.num_reg_frames() < 2:
             return False
         self.num_structure_less_reg_trials[image_id] = (
             self.num_structure_less_reg_trials.get(image_id, 0) + 1
         )
-        # Correspondences to registered images whose camera is sound, and
-        # those images: the counts the reference checks before estimating.
-        _, data_img, _ = self.cache.correspondence_graph.correspondence_arrays(image_id)
-        num_corrs, partners = 0, set()
-        for oid in map(int, data_img):
+        image = recon.images[image_id]
+        camera = recon.cameras[image.camera_id]
+        min_num_inliers = 2 * options.abs_pose_min_num_inliers
+        # Correspondences to registered images whose camera is sound.
+        offsets, data_img, data_idx = self.cache.correspondence_graph.correspondence_arrays(
+            image_id)
+        pt_idx = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+        pts_new, pts_w, w_cam_idxs = [], [], []
+        world_poses, world_cams = [], []
+        world_image_to_idx: Dict[int, int] = {}
+        for p, oid, oidx in zip(pt_idx, map(int, data_img), data_idx):
             if not recon.is_image_registered(oid):
                 continue
-            camera = recon.cameras[recon.images[oid].camera_id]
+            w_image = recon.images[oid]
+            w_camera = recon.cameras[w_image.camera_id]
             if camera_models.has_bogus_params(
-                camera.model_id, camera.params, camera.width, camera.height,
+                w_camera.model_id, w_camera.params, w_camera.width, w_camera.height,
                 options.min_focal_length_ratio, options.max_focal_length_ratio,
                 options.max_extra_param,
             ):
                 continue
-            num_corrs += 1
-            partners.add(oid)
-        if num_corrs < 2 * options.abs_pose_min_num_inliers or len(partners) < 2:
+            if oid not in world_image_to_idx:
+                world_image_to_idx[oid] = len(world_poses)
+                world_poses.append(recon.cam_from_world(oid))
+                world_cams.append(w_camera)
+            pts_new.append(image.points2D_xy[int(p)])
+            pts_w.append(w_image.points2D_xy[int(oidx)])
+            w_cam_idxs.append(world_image_to_idx[oid])
+        if len(pts_new) < min_num_inliers or len(world_poses) < 2:
             return False
-        raise NotImplementedError(
-            "structure-less registration (estimate_structure_less_absolute_pose) is not "
-            "ported yet (ROADMAP queue 1)")
+        pose, inlier_mask = estimate_structure_less_absolute_pose(
+            np.asarray(pts_new), np.asarray(pts_w), np.asarray(w_cam_idxs), world_poses,
+            world_cams, camera,
+            # Sampson scoring: a stricter threshold than the 2D-3D path
+            # (reference: incremental_mapper.cc:765).
+            StructureLessAbsolutePoseOptions(max_error_px=0.5 * options.abs_pose_max_error),
+            seed=options.seed, device=self.device,
+        )
+        if pose is None or int(inlier_mask.sum()) < min_num_inliers:
+            return False
+        recon.set_cam_from_world(image_id, pose)
+        recon.register_frame(image.frame_id)
+        self._register_frame_event(image.frame_id)
+        return True
 
     # ------------------------------------------------------------------
     def triangulate_image(self, image_id: int, tri_options: TriangulatorOptions) -> int:

@@ -452,3 +452,138 @@ def test_matcher_and_verification_through_the_command_on_cuda(tmp_path):
     assert np.array_equal(alone.inlier_matches, block.inlier_matches)
     assert np.allclose(alone.E, block.E, atol=1e-6) and np.allclose(alone.F, block.F, atol=1e-6)
     db.close()
+
+
+# SIFT (K13-K16) --------------------------------------------------------------
+
+
+def _sift_octave():
+    """A rendered 320 x 240 view on the card: the image, its upsampled and
+    blurred base, and octave 0's stack and DoG from the kernels."""
+    _need_card()
+    from colmap_tpu_torch.feature.sift import SiftOptions
+    from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import sift_cases as SC
+
+    opts = SiftOptions()
+    img = torch.from_numpy(SC.rendered_views(1, 320, 240, num_points=300)[0]).to("cuda")
+    img = img.float() / 255.0
+    base = KS.blur(KS.upsample2(img), opts.sigma0)
+    gauss, dog = KS.build_octave(base, opts)
+    torch.cuda.synchronize()
+    return opts, img, base, gauss, dog
+
+
+def test_sift_pyramid_matches_plain_on_cuda():
+    """K13: upsample, blur, every level and DoG of an octave and the
+    downsample against the plain versions in float64, level by level on
+    the same input, to 1e-5 of each level's largest entry."""
+    from colmap_tpu_torch.kernels import sift as KS
+
+    opts, img, base, gauss, dog = _sift_octave()
+    _close(KS.upsample2(img), KS.upsample2_plain(img.double()), 1e-6, "upsample2")
+    up = KS.upsample2(img)
+    _close(KS.blur(up, opts.sigma0), KS.blur_plain(up.double(), opts.sigma0), 1e-5, "base blur")
+    for s, sigma in enumerate(KS.octave_sigmas(opts)):
+        ref = KS.blur_plain(gauss[s].double(), sigma)
+        _close(gauss[s + 1], ref, 1e-5, f"level {s + 1}")
+        _close(dog[s], gauss[s + 1].double() - gauss[s].double(), 1e-6, f"dog {s}")
+    assert torch.equal(KS.downsample2(gauss[3]), gauss[3][::2, ::2])
+
+
+def test_sift_extrema_matches_plain_on_cuda():
+    """K14 against the plain version in float64 on the same DoG: the same
+    extrema except at samples within 1e-6 of the threshold, the refined
+    rows to 1e-4 of each column's scale; on a DoG of tied values the same
+    extrema and the same selection (lax.top_k's order); a capacity too small
+    makes the wrapper run again and lose nothing."""
+    from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import sift_cases as SC
+
+    opts, _, _, _, dog = _sift_octave()
+    got = KS.detect_extrema(dog, opts)
+    ref = KS.detect_extrema_plain(dog.double(), opts)
+    thr = 0.8 * opts.peak_threshold
+    flat = dog[1:-1].reshape(-1).double().abs()
+    gk, rk = set(got.flat.tolist()), set(ref.flat.tolist())
+    near = {i for i in gk ^ rk if abs(float(flat[i]) - thr) <= 1e-6}
+    assert gk ^ rk == near and len(rk) > 100
+    order_g, order_r = torch.argsort(got.flat), torch.argsort(ref.flat)
+    common = torch.isin(got.flat[order_g], ref.flat[order_r])
+    g_rows = got.rows[order_g][common]
+    r_rows = ref.rows[order_r][torch.isin(ref.flat[order_r], got.flat[order_g])]
+    for j, name in enumerate(("x", "y", "s", "sigma", "response")):
+        _close(g_rows[:, j], r_rows[:, j], 1e-4, name)
+
+    tied = SC.tied_dog(3, 96, 128, 0, "cuda", torch.float32)
+    got = KS.detect_extrema(tied, opts, capacity=16)
+    ref = KS.detect_extrema_plain(tied.double(), opts)
+    assert len(got.flat) == len(ref.flat) > 16
+    for cap in (8, 64, 4096):
+        sel_g = got.flat[KS.select_candidates(got._replace(keep=torch.ones_like(got.keep)), cap)]
+        sel_r = ref.flat[KS.select_candidates(ref._replace(keep=torch.ones_like(ref.keep)), cap)]
+        assert torch.equal(sel_g, sel_r)
+
+
+def test_sift_orientations_and_descriptors_match_plain_on_cuda():
+    """K15 and K16 against the plain versions in float64 on the selected
+    keypoints of octave 0: the same ok rows and theta to 1e-3 rad except at
+    keypoints whose histogram ties within 1e-5; descriptors (fed K15's
+    theta) within 1 count; with upright, L2 and DSP too."""
+    from colmap_tpu_torch.feature.sift import SiftOptions
+    from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import sift_cases as SC
+
+    opts, _, _, gauss, dog = _sift_octave()
+    ext = KS.detect_extrema(dog, opts)
+    sel = KS.select_candidates(ext, opts.max_candidates_per_octave)
+    x, y, lvl, sigma, resp = KS.selected_keypoints(ext, sel)
+    g64 = gauss.double()
+    for o in (opts, SiftOptions(upright=True), SiftOptions(normalization="L2"),
+              SiftOptions(domain_size_pooling=True)):
+        theta, ok = KS.orientations(gauss, x, y, lvl, sigma, o)
+        theta_p, ok_p = KS.orientations_plain(g64, x.double(), y.double(), lvl, sigma.double(), o)
+        hist = KS.orientation_histograms_plain(g64, x.double(), y.double(), lvl, sigma.double())
+        top = torch.sort(hist, dim=1, descending=True).values
+        clear = ((top[:, 0] - top[:, 1]).abs() > 1e-5 * top[:, 0]) | o.upright
+        agree = (ok == ok_p).all(dim=1)
+        assert bool(agree[clear].float().mean() > 0.99), "ok rows differ"
+        both = ok & ok_p & agree[:, None] & clear[:, None]
+        dth = torch.remainder(theta.double() - theta_p + torch.pi, 2 * torch.pi) - torch.pi
+        assert float(dth[both].abs().max()) <= 1e-3
+        data, desc = KS.descriptors(gauss, x, y, lvl, sigma, resp, theta, ok, o)
+        data_p, _, desc_p = KS.descriptors_plain(g64, x.double(), y.double(), lvl, sigma.double(),
+                                                 resp.double(), theta.double(), o)
+        rows = ok.reshape(-1)
+        diff = (desc[rows].int() - desc_p[rows].int()).abs()
+        assert int(diff.max()) <= 1 and rows.sum() > 50
+        _close(data[rows], data_p[rows], 1e-5, "descriptor rows")
+
+
+def test_feature_extractor_command_on_cuda(tmp_path):
+    """feature_extractor on cuda launches K13-K16 and writes what the
+    plain extraction (CPU, float32) gives: >= 97% of its keypoints within
+    1e-2 px, 1e-3 relative scale and 1e-2 rad, descriptors within 2 counts."""
+    _need_card()
+    from colmap_tpu_torch.cli import main as cli
+    from colmap_tpu_torch.feature.sift import extract_sift
+    from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import sift_cases as SC
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.utils.image_io import read_image_gray
+
+    SC.render_scene(str(tmp_path / "images"), 2, 300, 320, 240, 400.0)
+    KS.reset_launches()
+    path = str(tmp_path / "db.db")
+    assert len(cli.main(["feature_extractor", "--database_path", path, "--image_path",
+                         str(tmp_path / "images")])) == 2
+    assert all(v > 0 for v in KS.LAUNCHES.values()), KS.LAUNCHES
+    db = Database(path, must_exist=True)
+    for iid, name, _ in db.read_images():
+        kp, desc = db.read_keypoints(iid), db.read_descriptors(iid)
+        kp_p, desc_p = extract_sift(read_image_gray(str(tmp_path / "images" / name)),
+                                    device="cpu")
+        assert abs(len(kp) - len(kp_p)) <= 0.03 * len(kp_p)
+        share, worst, _, _ = SC.match_keypoints(kp_p, desc_p, kp, desc)
+        assert share >= 0.97 and worst <= 2, (share, worst)
+    db.close()
