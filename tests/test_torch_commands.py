@@ -10,7 +10,6 @@ database, and its verified pairs against the synthetic generator's scene
 import shutil
 
 import numpy as np
-import torch
 
 from colmap_tpu.cli.extra_commands import _prior_positions_enu as j_prior_positions_enu
 from colmap_tpu.feature import pairing as jpairing
@@ -21,12 +20,6 @@ from colmap_tpu_torch.geometry import gps as tgps
 from colmap_tpu_torch.scene import database as tdb
 from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
 from colmap_tpu_torch.utils.types import pair_id_to_image_pair
-
-# The suite runs several worker processes on the CPU's cores, and every
-# worker imports every test module: one intra-op thread a process keeps the
-# port's many small CPU ops from oversubscribing the cores (on one core they
-# run about as fast as on eight).
-torch.set_num_threads(1)
 
 
 def _verify_scene(path):

@@ -348,6 +348,61 @@ def test_structure_less_registration_stops_at_the_estimator(tmp_path):
     assert np.abs(got.t - want.t).max() <= 1e-6
 
 
+def test_registration_gives_a_2d_point_in_two_tracks_to_the_first_within_threshold(tmp_path):
+    # A 2D point whose correspondences lie in two tracks is an inlier of both
+    # 3D points. Frames 0 and 1 of the verify scene are registered at their
+    # ground-truth poses, and every ground-truth point becomes two 3D points:
+    # one observed in frame 0, one in frame 1. Registering frame 2 then
+    # gives each of its 2D points two 2D-3D correspondences. For every
+    # fourth point the first of the two is moved 8 px off in frame 2: a P3P
+    # inlier at 12 px that fails the 4 px filter. Each 2D point goes to the
+    # first of its 3D points that reprojects within 4 px, and the other
+    # 3D point keeps its one observation.
+    from colmap_tpu_torch.scene.reconstruction import Reconstruction
+    from colmap_tpu_torch.sfm import incremental_mapper as tmapper
+
+    db = str(tmp_path / "db.db")
+    gt = _write_db(db, tsyn, tdb.Database)
+    cache = tcache.DatabaseCache.create(tdb.Database(db, must_exist=True), min_num_matches=15)
+    mapper = tmapper.IncrementalMapper(cache, device="cpu")
+    recon = Reconstruction()
+    mapper.begin_reconstruction(recon)
+    frames = sorted(gt.frames)
+    image_ids = [gt.frames[fid].image_ids()[0] for fid in frames[:3]]
+    for fid in frames[:2]:
+        pose = gt.frames[fid].rig_from_world
+        recon.frames[fid].rig_from_world = type(pose)(np.array(pose.quat), np.array(pose.t))
+        recon.register_frame(fid)
+    planted = {}  # ground-truth point -> its 3D point in frame 0 and in frame 1
+    for iid in image_ids[:2]:
+        for idx, g in enumerate(gt.images[iid].points2D_p3d):
+            if g != tmapper.INVALID_POINT3D:
+                planted.setdefault(int(g), []).append(recon.add_point3D(
+                    gt.points3D[int(g)].xyz, [tmapper.TrackElement(iid, idx)]))
+    new = image_ids[2]
+    p2d, p3d = mapper._collect_2d3d_for_image(new)
+    first = {}
+    for p, q in zip(p2d, p3d):
+        first.setdefault(p, []).append(q)
+    assert len(first) >= 100 and all(len(q) == 2 for q in first.values())
+    cam = gt.cam_from_world(new)
+    f = gt.cameras[gt.images[new].camera_id].params[0]
+    moved = set()
+    for p in sorted(first)[::4]:
+        q = first[p][0]
+        z = cam.apply(recon.points3D[q].xyz[None])[0, 2]
+        recon.points3D[q].xyz = recon.points3D[q].xyz + cam.rotmat().T @ np.array([8 * z / f, 0, 0])
+        moved.add(p)
+    options = tmapper.IncrementalMapperOptions()
+    assert mapper.register_next_image(new, options)
+    for p, (q0, q1) in first.items():
+        took, left = (q1, q0) if p in moved else (q0, q1)
+        assert recon.images[new].points2D_p3d[p] == took
+        assert [(e.image_id, e.point2D_idx) for e in recon.points3D[took].track][-1] == (new, p)
+        assert len(recon.points3D[left].track) == 1
+        assert recon.points3D[left].track[0].image_id != new
+
+
 def test_structure_less_pose_matches_colmap_tpu():
     """estimate_structure_less_absolute_pose against colmap_tpu's on the
     same correspondences (a new camera against three registered ones, 0.5

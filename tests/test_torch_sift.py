@@ -46,10 +46,11 @@ from colmap_tpu_torch.sensor import specs as tspecs
 from colmap_tpu_torch.utils import image_io
 from colmap_tpu_torch.utils.exif import read_exif as t_read_exif
 
-# The suite runs several worker processes on the CPU's cores, and every
-# worker imports every test module: one intra-op thread a process keeps the
-# port's many small CPU ops from oversubscribing the cores (on one core they
-# run about as fast as on eight).
+# The suite runs several worker processes on the CPU's cores: one intra-op
+# thread a process keeps the port's many small CPU ops from oversubscribing
+# the cores (on one core they run about as fast as on eight). Every worker
+# collects, and so imports, every test module, so this one call sets the
+# whole worker process, and with it every port test that the worker runs.
 torch.set_num_threads(1)
 
 
