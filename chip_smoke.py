@@ -47,14 +47,28 @@ Phases; any failure exits non-zero:
      `exhaustive_matcher` on cuda under torch.profiler; every pair's matches
      hold the generator's correspondences and equal the plain version's
      (float64, CPU), and its two-view geometry is CALIBRATED with at least
-     99% of them as inliers and no other.
+     99% of them as inliers and no other;
+ 12. SIFT kernels (phase `sift`): K13-K16 against float64 plain versions
+     at octave 0 of a rendered 3072 x 2304 view;
+ 13. extractor (phase `extractor`): `feature_extractor` on four rendered
+     3072 x 2304 views, then images -> model on 12 rendered frames;
+ 14. dense (phase `dense`): six rendered 3072 x 2304 SIMPLE_RADIAL views
+     of two stepped slanted planes through `image_undistorter`,
+     `patch_match_stereo --geom_consistency --write_consistency_graph` and
+     `stereo_fusion`, each under torch.profiler, held to the kept share,
+     depth error and fused-cloud gates of colmap_tpu's MVS tests;
+ 15. MVS kernels (phase `mvs`, after `dense`): K17-K20 against their plain
+     versions in float64 on a 640 x 480 crop of the dense workspace's first
+     problem, then timed at full width.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
 the dense solver), the matcher K5, K7 and K10-K12, the mapper K1-K3 and
-K5-K9 (its BA is PCG, so K4 is not on its path).
+K5-K9 (its BA is PCG, so K4 is not on its path), the extractor K13-K16,
+`image_undistorter` K5 and `patch_match_stereo` K17-K20.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. `--phases ba,sfm,mapper,matching,matcher`
-runs a subset while developing; the kernels line needs them all.
+{"ok": true, "device": {...}}. `--phases dense,mvs` (or any subset of the
+phases) runs a subset while developing and prints no result; the kernels
+line needs them all.
 """
 
 from __future__ import annotations
@@ -175,6 +189,50 @@ SIFT_SAMPLE_OPS = 70
 # tests/test_e2e_images.py's bounds.
 IMG_FRAMES, IMG_POINTS, IMG_FOCAL, IMG_PATCH_WORLD = 12, 1000, 1280.0, 0.08
 IMG_MAX_ROT_DEG, IMG_MAX_CENTER = 2.0, 0.25
+
+
+MVS_SOURCES = {
+    "pm_cost": ("colmap_tpu_torch/csrc/pm_cost.cu", "colmap_tpu/mvs/patch_match.py:155"),
+    "pm_iteration": ("colmap_tpu_torch/csrc/pm_iteration.cu",
+                     "colmap_tpu/mvs/patch_match.py:452"),
+    "pm_view_weights": ("colmap_tpu_torch/csrc/pm_view_weights.cu",
+                        "colmap_tpu/mvs/patch_match.py:415"),
+    "pm_view_selection": ("colmap_tpu_torch/csrc/pm_view_selection.cu",
+                          "colmap_tpu/mvs/patch_match.py:338"),
+}
+# The dense scene: six SIMPLE_RADIAL views at south-building's resolution
+# (BASELINE.json config 1), f = 3840 px, k = -0.02, centres on a 3 x 2 grid
+# 0.5 apart, all looking along +z at two slanted textured planes with a step
+# between them (x < 0: z = 5 + 0.08 x + 0.05 y; x >= 0: z = 4.7 + 0.08 x -
+# 0.04 y; the wall x = 0 joins them), about one texel per pixel; 300 sparse
+# points on the surface make the sparse model. COLMAP's default
+# max_image_size of -1 runs PatchMatch at this size.
+DENSE_W, DENSE_H, DENSE_F, DENSE_K, DENSE_POINTS = 3072, 2304, 3840.0, -0.02, 300
+DENSE_PLANES = ((np.array([-0.08, -0.05, 1.0]), 5.0), (np.array([-0.08, 0.04, 1.0]), 4.7))
+# Gates on the geometric maps (interior: 5% margins) and the fused cloud:
+# tests/test_mvs_workspace.py:93, tests/test_mvs.py:124,
+# tests/test_mvs_workspace.py:100.
+DENSE_MIN_KEPT, DENSE_MAX_DEPTH_ERR, DENSE_MAX_FUSED_ERR = 0.4, 0.02, 0.03
+MVS_CROP_W, MVS_CROP_H = 640, 480
+# K17/K18 float32 NCC moments against float64: costs to 1e-4 of their
+# largest entry away from near-ties (a window tap within 1e-3 px of a
+# source's border, and the like: costs_plain's tie_px; the geometric term
+# next to a hole or a step of over 2% in a source depth map: mvs_cases'
+# geom_ties), which must leave at least 75% of the entries; K18's choice
+# away from near-ties of its candidates' costs (gap 1e-4); K19 (float64
+# angles) and K20 (odds) to 1e-5.
+K17_RTOL, K18_MIN_SAME, K1920_ATOL, MVS_TIE_PX, MVS_TIE_GAP = 1e-4, 0.999, 1e-5, 1e-3, 1e-4
+# The geometric error's float32 round trip at f = 3840 px carries about
+# 1e-3 px: the filter's geometric test is a near-tie within 1e-2 px.
+MVS_DEPTH_STEP, MVS_GEOM_EPS = 0.02, 1e-2
+# f32 operations a window tap of K17/K18 costs (counted from pm_common.cuh's
+# photo_cost: the reference pixel and its weight with expf, the tap's ray,
+# the plane depth, two 3 x 3 products and the perspective division, the
+# bounds test, the bilinear sample and six moments), a geometric term, a
+# view of K19 (float64) and a sample of K20's two passes.
+PM_TAP_OPS, PM_GEOM_OPS, PM_WEIGHT_OPS, PM_SEL_OPS = 100, 80, 150, 30
+# NVIDIA's H100 SXM data sheet: float64 outside the tensor cores.
+PEAK_F64_OPS_PER_S = 34e12
 
 
 def log(msg):
@@ -891,19 +949,21 @@ def make_scene(root, num_frames, num_points, focal=1280.0, seed=3):
 def all_launch_counts():
     from colmap_tpu_torch.kernels import ba as KB
     from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import mvs as KV
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
 
-    return {**KB.LAUNCHES, **K.LAUNCHES, **KM.LAUNCHES, **KS.LAUNCHES}
+    return {**KB.LAUNCHES, **K.LAUNCHES, **KM.LAUNCHES, **KS.LAUNCHES, **KV.LAUNCHES}
 
 
 def reset_all_launches():
     from colmap_tpu_torch.kernels import ba as KB
     from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import mvs as KV
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
 
-    for mod in (KB, K, KM, KS):
+    for mod in (KB, K, KM, KS, KV):
         mod.reset_launches()
 
 
@@ -1001,7 +1061,7 @@ def run_mapper(db_path, out, label, min_launches=True):
     log(f"{label}: {buf.getvalue().strip()} ({dt:.3f} s)")
     log(f"  launches: {counts}")
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
-              and k not in SIFT_SOURCES]
+              and k not in SIFT_SOURCES and k not in MVS_SOURCES]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -1702,7 +1762,431 @@ def phase_extractor(launches):
     return results
 
 
-ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor")
+def _surface_hit(o, d):
+    """Ray parameter s (z-depth for rays with d_z = 1) and the (N, 2)
+    texture coordinates of the nearest hit of rays o + s d on the dense
+    scene's surface: plane A where x < 0, plane B where x >= 0, the wall
+    x = 0 between them (its coordinates (z, y), shifted clear of the
+    planes')."""
+    (na, ca), (nb, cb) = DENSE_PLANES
+    best = np.full(len(d), np.inf)
+    uv = np.zeros((len(d), 2))
+    for n, c, side in ((na, ca, -1), (nb, cb, 1)):
+        s = (c - n @ o) / (d @ n)
+        X = o + s[:, None] * d
+        ok = (s > 0) & ((X[:, 0] < 0) if side < 0 else (X[:, 0] >= 0)) & (s < best)
+        best[ok] = s[ok]
+        uv[ok] = X[ok][:, :2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s = -o[0] / d[:, 0]
+        X = o + s[:, None] * d
+    lo, hi = _wall_span(X[:, 1])
+    ok = (s > 0) & (X[:, 2] >= lo) & (X[:, 2] <= hi) & (s < best)
+    best[ok] = s[ok]
+    uv[ok] = np.stack([X[ok][:, 2] - 10.0, X[ok][:, 1]], axis=1)
+    return best, uv
+
+
+def _wall_span(y):
+    """The wall's z range at height y: between the two planes at x = 0."""
+    (na, ca), (nb, cb) = DENSE_PLANES
+    za, zb = ca - na[1] * y, cb - nb[1] * y
+    return np.minimum(za, zb), np.maximum(za, zb)
+
+
+def _texture_lookup(tex, uv, texel):
+    u = uv[:, 0] / texel + tex.shape[1] / 2
+    v = uv[:, 1] / texel + tex.shape[0] / 2
+    u0 = np.clip(np.floor(u).astype(np.int64), 0, tex.shape[1] - 2)
+    v0 = np.clip(np.floor(v).astype(np.int64), 0, tex.shape[0] - 2)
+    fu, fv = np.clip(u - u0, 0, 1), np.clip(v - v0, 0, 1)
+    return (tex[v0, u0] * (1 - fu) * (1 - fv) + tex[v0, u0 + 1] * fu * (1 - fv)
+            + tex[v0 + 1, u0] * (1 - fu) * fv + tex[v0 + 1, u0 + 1] * fu * fv)
+
+
+def render_dense_scene(root, seed=3):
+    """Render the dense scene into root/images (8-bit gray PNG) and its
+    sparse model into root/sparse; returns the view centres. Each pixel's
+    ray comes from the port's cam_from_img of the distorted camera (on the
+    host) and meets the surface exactly; the texture is uniform noise
+    smoothed by a Gaussian of one texel, sampled bilinearly."""
+    from scipy.ndimage import gaussian_filter
+
+    from colmap_tpu_torch.scene.reconstruction import Reconstruction
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+    from colmap_tpu_torch.scene.types import Camera, Frame, Image, Pose, Rig, TrackElement
+    from colmap_tpu_torch.sensor import models as camera_models
+    from colmap_tpu_torch.utils.image_io import write_png
+    from colmap_tpu_torch.utils.types import SensorType
+
+    rng = np.random.default_rng(seed)
+    W, H, f = DENSE_W, DENSE_H, DENSE_F
+    params = np.array([f, W / 2.0, H / 2.0, DENSE_K])
+    texel = 5.0 / f
+    tex = gaussian_filter(rng.uniform(0.0, 1.0, (int(4.6 / texel), int(13.0 / texel)))
+                          .astype(np.float32), 1.0)
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+    ys, xs = np.mgrid[0:H, 0:W]
+    grid = torch.from_numpy(np.stack([xs + 0.5, ys + 0.5], -1).reshape(-1, 2).astype(np.float64))
+    uv, _ = camera_models.cam_from_img(2, torch.from_numpy(params), grid)
+    rays = np.concatenate([uv.numpy(), np.ones((len(uv), 1))], axis=1)
+    centres = [np.array([x, y, 0.0]) for y in (-0.25, 0.25) for x in (-0.5, 0.0, 0.5)]
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    recon = Reconstruction()
+    recon.add_camera(Camera(camera_id=1, model_id=2, width=W, height=H, params=params))
+    # Sparse points on the surface, seen by every view.
+    pts = []
+    while len(pts) < DENSE_POINTS:
+        o = np.array([rng.uniform(-1.2, 1.2), rng.uniform(-0.8, 0.8), 0.0])
+        s, _ = _surface_hit(o, np.array([[0.0, 0.0, 1.0]]))
+        if np.isfinite(s[0]) and abs(o[0]) > 0.02:
+            pts.append(o + s[0] * np.array([0.0, 0.0, 1.0]))
+    pts = np.array(pts)
+    for i, c in enumerate(centres):
+        iid = i + 1
+        s, tuv = _surface_hit(c, rays)
+        img = np.clip(np.rint(255.0 * _texture_lookup(tex, tuv, texel)), 0, 255)
+        name = f"view{i}.png"
+        write_png(os.path.join(root, "images", name), img.reshape(H, W).astype(np.uint8), 1)
+        recon.add_rig(Rig(rig_id=iid, ref_sensor_id=(int(SensorType.CAMERA), 1)))
+        recon.add_frame(Frame(frame_id=iid, rig_id=iid,
+                              rig_from_world=Pose(np.array([1.0, 0, 0, 0]), -c),
+                              data_ids=[(int(SensorType.CAMERA), 1, iid)]))
+        image = Image(image_id=iid, name=name, camera_id=1, frame_id=iid)
+        xy, _ = camera_models.img_from_cam(2, torch.from_numpy(params),
+                                           torch.from_numpy(pts - c))
+        image.set_points2D(xy.numpy())
+        recon.add_image(image)
+        recon.register_frame(iid)
+    for k, X in enumerate(pts):
+        recon.add_point3D(X, [TrackElement(iid, k) for iid in range(1, len(centres) + 1)])
+    write_model(recon, os.path.join(root, "sparse"), fmt="bin")
+    return centres
+
+
+def dense_gt_depth(K, centre):
+    """(H, W) z-depth of the surface along the undistorted view's pixel
+    rays K^-1 (x, y, 1), the rays PatchMatch's depth maps are indexed by."""
+    ys, xs = np.mgrid[0:DENSE_H, 0:DENSE_W]
+    rays = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3) @ np.linalg.inv(K).T
+    return _surface_hit(centre, rays)[0].reshape(DENSE_H, DENSE_W)
+
+
+def fused_relative_error(pts):
+    """Each fused point's distance to its surface piece (plane A for x < 0,
+    B for x >= 0, or the wall) over its depth."""
+    (na, ca), (nb, cb) = DENSE_PLANES
+    da = np.abs(pts @ na - ca) / np.linalg.norm(na)
+    db = np.abs(pts @ nb - cb) / np.linalg.norm(nb)
+    lo, hi = _wall_span(pts[:, 1])
+    on_wall = (pts[:, 2] >= lo) & (pts[:, 2] <= hi)
+    dist = np.where(pts[:, 0] < 0, da, db)
+    dist = np.where(on_wall, np.minimum(dist, np.abs(pts[:, 0])), dist)
+    return dist / np.abs(pts[:, 2])
+
+
+DENSE_STATE = {}
+
+
+def phase_dense(launches):
+    """The dense scene through the CLI on cuda, each command under
+    torch.profiler: `image_undistorter` -> `patch_match_stereo
+    --geom_consistency --write_consistency_graph` -> `stereo_fusion`; the
+    geometric maps and the fused cloud held to the gates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colmap_tpu_torch.mvs.depth_map import read_map
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.mvs.workspace import _pinhole_K
+
+    root = tempfile.mkdtemp(prefix="dense_")
+    DENSE_STATE["root"] = root
+    t0 = time.perf_counter()
+    centres = render_dense_scene(root)
+    log(f"dense scene: {len(centres)} SIMPLE_RADIAL views {DENSE_W} x {DENSE_H}, f = {DENSE_F:g}, "
+        f"k = {DENSE_K}, {DENSE_POINTS} sparse points (set-up {time.perf_counter() - t0:.1f} s)")
+    ws = os.path.join(root, "dense")
+    commands = [
+        ("image_undistorter", ["image_undistorter", "--image_path", os.path.join(root, "images"),
+                               "--input_path", os.path.join(root, "sparse"), "--output_path", ws],
+         ("camera_map",)),
+        ("patch_match_stereo", ["patch_match_stereo", "--workspace_path", ws,
+                                "--geom_consistency", "--write_consistency_graph"],
+         tuple(MVS_SOURCES)),
+        ("stereo_fusion", ["stereo_fusion", "--workspace_path", ws, "--output_path",
+                           os.path.join(ws, "fused.ply")], ()),
+    ]
+    seconds, idle = {}, {}
+    for label, argv, kernels in commands:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
+            torch.cuda.synchronize()
+            out, seconds[label], counts = run_command(argv, label, kernels)
+        for k, v in counts.items():
+            launches[k] += v
+        busy_ms, by_name = device_busy(prof)
+        idle[label] = log_busy(label, busy_ms, by_name, seconds[label] * 1e3, top=8)
+        if label == "stereo_fusion":
+            pts = out[0]
+    recon = read_model(os.path.join(ws, "sparse"))
+    kept, errs = [], []
+    mx, my = DENSE_W // 20, DENSE_H // 20
+    for iid in recon.reg_image_ids():
+        img = recon.images[iid]
+        K = _pinhole_K(recon.cameras[img.camera_id])
+        d = read_map(os.path.join(ws, "stereo", "depth_maps", f"{img.name}.geometric.bin"))
+        gt = dense_gt_depth(K, centres[iid - 1])
+        inner, g = d[my:-my, mx:-mx], gt[my:-my, mx:-mx]
+        ok = inner > 0
+        kept.append(float(ok.mean()))
+        errs.append(np.abs(inner[ok] - g[ok]) / g[ok])
+    kept_share = float(np.mean(kept))
+    med = float(np.median(np.concatenate(errs)))
+    fused = float(np.median(fused_relative_error(pts)))
+    log(f"  dense gates on {nvidia_smi_line()}: kept share {kept_share:.4f} (per view "
+        f"{[round(k, 4) for k in kept]}; bound >= {DENSE_MIN_KEPT}), median relative depth error "
+        f"{med:.5f} (<= {DENSE_MAX_DEPTH_ERR}), {len(pts)} fused points, median relative "
+        f"distance to the surface {fused:.5f} (<= {DENSE_MAX_FUSED_ERR}); seconds by command "
+        f"{ {k: round(v, 3) for k, v in seconds.items()} }; idle share "
+        f"{ {k: (None if v is None else round(v, 4)) for k, v in idle.items()} }")
+    if not (kept_share >= DENSE_MIN_KEPT and med <= DENSE_MAX_DEPTH_ERR
+            and fused <= DENSE_MAX_FUSED_ERR):
+        raise AssertionError("dense: a gate failed")
+    return dict(seconds=seconds, kept=kept_share, median_depth_err=med, fused_err=fused,
+                idle=idle)
+
+
+def _dense_problem(ref_index=0):
+    """The full-width problem of one reference view of the dense workspace
+    (its sources by shared points), with the photometric maps of the
+    sources as source depths, and a state: the reference's photometric
+    planes, random planes where it has none."""
+    from colmap_tpu_torch.mvs import patch_match as PM
+    from colmap_tpu_torch.mvs.depth_map import read_map
+    from colmap_tpu_torch.mvs.workspace import _pinhole_K, select_patch_match_problems
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.image_io import read_image_gray
+
+    ws = os.path.join(DENSE_STATE["root"], "dense")
+    recon = read_model(os.path.join(ws, "sparse"))
+    spec = select_patch_match_problems(recon)[ref_index]
+    opts = PM.PatchMatchOptions(depth_min=spec.depth_min, depth_max=spec.depth_max)
+
+    def gray(iid):
+        return read_image_gray(os.path.join(ws, "images", recon.images[iid].name)) / 255.0
+
+    def maps(iid, kind):
+        return read_map(os.path.join(ws, "stereo", kind, f"{recon.images[iid].name}"
+                                     ".photometric.bin"))
+
+    ref_pose = recon.cam_from_world(spec.ref_image_id)
+    rels = [recon.cam_from_world(s).compose(ref_pose.inverse()) for s in spec.src_image_ids]
+    K = _pinhole_K(recon.cameras[1])
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32).cuda()  # noqa: E731
+    problem = PM.PatchMatchProblem(
+        ref_image=t(gray(spec.ref_image_id)),
+        src_images=t(np.stack([gray(s) for s in spec.src_image_ids])), K_ref=t(K),
+        K_src=t(np.stack([K] * len(rels))), R_rel=t(np.stack([r.rotmat() for r in rels])),
+        t_rel=t(np.stack([r.t for r in rels])),
+        src_depths=t(np.stack([maps(s, "depth_maps") for s in spec.src_image_ids])))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    depth, normal = t(maps(spec.ref_image_id, "depth_maps")), t(maps(spec.ref_image_id,
+                                                                      "normal_maps"))
+    draws = PM.draw(gen, tuple(depth.shape), opts, torch.float32, "cuda")
+    hole = depth <= 0
+    depth = torch.where(hole, draws.depth, depth)
+    normal = torch.where(hole[..., None], draws.normal, normal)
+    sel = 0.05 + 0.9 * torch.rand(problem.src_images.shape, generator=gen, device="cuda")
+    return problem, depth, normal, sel, PM.draw(gen, tuple(depth.shape), opts, torch.float32,
+                                                "cuda"), opts
+
+
+def _crop(problem, depth, normal, sel, draws, x0, y0, w, h):
+    """A w x h window of the reference at (x0, y0), and of each source the
+    w x h window where the reference window's centre lands at its depth, so
+    that the sources' borders cut the reference window only near its own
+    edges (the intrinsics shifted to match)."""
+    from colmap_tpu_torch.kernels.mvs import Draws
+
+    H, W = depth.shape
+    win = (slice(y0, y0 + h), slice(x0, x0 + w))
+    centre = torch.tensor([x0 + w / 2.0, y0 + h / 2.0, 1.0], device="cuda", dtype=torch.float64)
+    X = torch.linalg.inv(problem.K_ref.double()) @ centre * float(depth[win].median())
+    ps = torch.einsum("sij,sj->si", problem.K_src.double(),
+                      problem.R_rel.double() @ X + problem.t_rel.double())
+    shifts, srcs, sdeps = [], [], []
+    for k in range(problem.src_images.shape[0]):
+        xs = int(min(max(round(float(ps[k, 0] / ps[k, 2]) - w / 2), 0), W - w))
+        ys = int(min(max(round(float(ps[k, 1] / ps[k, 2]) - h / 2), 0), H - h))
+        shifts.append([xs, ys])
+        srcs.append(problem.src_images[k, ys:ys + h, xs:xs + w])
+        sdeps.append(problem.src_depths[k, ys:ys + h, xs:xs + w])
+    shift = torch.zeros((len(shifts), 3, 3), dtype=torch.float32, device="cuda")
+    shift[:, :2, 2] = torch.tensor(shifts, dtype=torch.float32, device="cuda")
+    ref_shift = torch.zeros((3, 3), dtype=torch.float32, device="cuda")
+    ref_shift[0, 2], ref_shift[1, 2] = x0, y0
+    p = problem._replace(ref_image=problem.ref_image[win].contiguous(),
+                         src_images=torch.stack(srcs).contiguous(),
+                         src_depths=torch.stack(sdeps).contiguous(),
+                         K_ref=problem.K_ref - ref_shift, K_src=problem.K_src - shift)
+    return (p, depth[win].contiguous(), normal[win].contiguous(),
+            sel[(slice(None),) + win].contiguous(), Draws(*(x[win].contiguous() for x in draws)))
+
+
+def phase_mvs_kernels():
+    """K17-K20 against their plain versions in float64 on a 640 x 480 crop
+    of the dense scene's first reference view, then timed at full width.
+    Returns (errs, rows)."""
+    import dataclasses
+
+    from colmap_tpu_torch.kernels import mvs as KV
+    from colmap_tpu_torch.kernels import mvs_cases as C
+    from colmap_tpu_torch.mvs import patch_match as PM
+
+    errs = {k: [] for k in MVS_SOURCES}
+    rows, failed = {}, []
+    full, depth, normal, sel, draws, opts = _dense_problem()
+    H, W = depth.shape
+    Sv = full.src_images.shape[0]
+    crop = _crop(full, depth, normal, sel, draws, (W - MVS_CROP_W) // 2 - 200,
+                 (H - MVS_CROP_H) // 2, MVS_CROP_W, MVS_CROP_H)
+    p, d, n, s, dr = crop
+    to64 = lambda x: x.double() if torch.is_tensor(x) else x  # noqa: E731
+    p64 = type(p)(*(to64(x) for x in p))
+    d64, n64, s64 = d.double(), n.double(), s.double()
+    dr64 = type(dr)(*(x.double() for x in dr))
+    log(f"MVS kernels vs plain (float64 on the same inputs), a {MVS_CROP_W} x {MVS_CROP_H} crop "
+        f"of the dense scene, {Sv} source views, depth range [{opts.depth_min:.3f}, "
+        f"{opts.depth_max:.3f}]:")
+    for geometric in (False, True):
+        pg, pg64 = (p, p64) if geometric else (p._replace(src_depths=None),
+                                               p64._replace(src_depths=None))
+        got = KV.costs(pg, d, n, opts)
+        ref, tie = KV.costs_plain(pg64, d64, n64, opts, tie_px=MVS_TIE_PX)
+        tie |= C.geom_ties(pg64, d64, MVS_TIE_PX, MVS_DEPTH_STEP)
+        a, r = rel_err(got[~tie], ref[~tie])
+        log(f"  K17 {'geometric' if geometric else 'photometric'}: max_abs_err {a:.3e} rel "
+            f"{r:.3e} (tol {K17_RTOL:g}) away from {int(tie.sum())} near-tie entries of "
+            f"{tie.numel()}")
+        if not (r <= K17_RTOL and tie.double().mean() < 0.25):
+            failed.append(f"K17 {'geometric' if geometric else 'photometric'}")
+        errs["pm_cost"].append((a, r))
+    w = KV.view_weights(p, d, n, s, opts)
+    w64 = KV.view_weights_plain(p64, d64, n64, s64, opts)
+    a, r = rel_err(w, w64)
+    log(f"  K19 weights: max_abs_err {a:.3e} (tol {K1920_ATOL:g} absolute)")
+    if not a <= K1920_ATOL:
+        failed.append("K19 weights")
+    errs["pm_view_weights"].append((a, r))
+    ca64 = KV.costs_plain(p64, d64, n64, opts)
+    for axis in (0, 1):
+        got = KV.update_sel_prob(ca64.float(), s, axis, 0.4, opts)
+        a, r = rel_err(got, KV.update_sel_prob_plain(ca64, s64, axis, 0.4, opts))
+        log(f"  K20 along {'HW'[axis]}: max_abs_err {a:.3e} (tol {K1920_ATOL:g} absolute)")
+        if not a <= K1920_ATOL:
+            failed.append(f"K20 axis {axis}")
+        errs["pm_view_selection"].append((a, r))
+    # K18 on two states: the first half-iteration's (random planes, as
+    # patch_match starts) and the photometric pass's planes (converged:
+    # many candidates are near-equal). Away from near-ties every pixel must
+    # choose the plain version's plane; at >= 99.9% of the interior pixels
+    # (6 px from the crop's edges, tests/test_mvs.py's margin) the kernel's
+    # plane must be as good, its float64 cost within the tie gap of the
+    # plain version's choice. On the edges the window's taps land on the
+    # sources' borders, where float32 and float64 count different taps.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    start = PM.draw(gen, tuple(d.shape), opts, torch.float32, "cuda")
+    states = {"initial": (start.depth, start.normal), "photometric": (d, n)}
+    for vs in (True, False):
+        o = dataclasses.replace(opts, view_selection=vs)
+        for label, (sd, sn) in states.items():
+            sd64, sn64 = sd.double(), sn.double()
+            ca_s = KV.costs_plain(p64, sd64, sn64, o)
+            ww = KV.view_weights_plain(p64, sd64, sn64, s64, o) if vs else None
+            cost = KV.aggregate(ca_s, ww)
+            for parity in (0, 1):
+                got = KV.iteration(p, sd, sn, cost.float(), ca_s.float(),
+                                   None if ww is None else ww.float(), dr, parity, 0.5, o)
+                ref = KV.iteration_plain(p64, sd64, sn64, cost, ca_s, ww, dr64, parity, 0.5, o)
+                ties = C.choice_ties(p64, sd64, sn64, cost, ww, dr64, parity, 0.5, o,
+                                     MVS_TIE_PX, MVS_TIE_GAP, MVS_DEPTH_STEP)
+                same = (((got[0].double() - ref[0]).abs() <= 1e-5 * ref[0])
+                        & ((got[1].double() - ref[1]).abs().amax(-1) <= 1e-4))
+                k_cost = KV.aggregate(KV.costs_plain(p64, got[0].double(), got[1].double(), o),
+                                      ww)
+                as_good = same | ((k_cost - ref[2]).abs() <= MVS_TIE_GAP)
+                agree = same & ~ties
+                a, r = rel_err(got[2][agree], ref[2][agree])
+                inner = as_good[6:-6, 6:-6]
+                share = float(inner.double().mean())
+                log(f"  K18 {'weights' if vs else 'best half'}, {label} planes, parity {parity}: "
+                    f"the same plane at {float(same.double().mean()):.6f} of pixels and at "
+                    f"{float(same[~ties].double().mean()):.6f} away from {int(ties.sum())} "
+                    f"near-ties, as good a plane at {float(as_good.double().mean()):.6f} of "
+                    f"pixels and {share:.6f} of the interior ({int((ref[0] != sd64).sum())} "
+                    f"planes moved); cost max_abs_err {a:.3e} rel {r:.3e}")
+                if not (bool(same[~ties].all()) and r <= K17_RTOL and share >= K18_MIN_SAME):
+                    failed.append(f"K18 view_selection={vs} {label} parity {parity}")
+                errs["pm_iteration"].append((a, r))
+        df, nf, mask = KV.consistency_filter(p, d, n, ca64.float(), s, o)
+        df64, nf64, mask64 = KV.consistency_filter_plain(p64, d64, n64, ca64, s64, o)
+        ok = ~C.filter_ties(p64, d64, n64, ca64, s64, o, K1920_ATOL, MVS_TIE_PX, MVS_DEPTH_STEP,
+                            MVS_GEOM_EPS)
+        differ = int((mask[:, ok] != mask64[:, ok]).sum())
+        log(f"  K19 filter ({'selection' if vs else 'costs'}): {differ} mask entries differ away "
+            f"from {int((~ok).sum())} pixels within {K1920_ATOL:g} of a threshold; kept "
+            f"{int(mask64.any(0).sum())} pixels")
+        if differ or not torch.equal(df[ok], df64[ok].float()):
+            failed.append(f"K19 filter view_selection={vs}")
+    torch.cuda.synchronize()
+
+    # Times at full width: the first reference view and its sources.
+    HW = H * W
+    taps = (2 * opts.window_radius // opts.window_step + 1) ** 2
+    f4 = 4
+    ca = KV.costs(full, depth, normal, opts)
+    ww = KV.view_weights(full, depth, normal, sel, opts)
+    cost = KV.aggregate(ca, ww)
+    log(f"  times at full width ({W} x {H}, {Sv} source views, {taps} taps, geometric term):")
+    rows["pm_cost"] = _mvs_row(
+        "pm_cost", lambda: KV.costs(full, depth, normal, opts),
+        lambda: KV.costs_plain(full, depth, normal, opts),
+        f4 * HW * (1 + 2 * Sv + 4) + f4 * Sv * HW, Sv * HW * (taps * PM_TAP_OPS + PM_GEOM_OPS))
+    rows["pm_iteration"] = _mvs_row(
+        "pm_iteration",
+        lambda: KV.iteration(full, depth, normal, cost, ca, ww, draws, 0, 0.5, opts),
+        lambda: KV.iteration_plain(full, depth, normal, cost, ca, ww, draws, 0, 0.5, opts),
+        f4 * HW * (1 + 2 * Sv + 4 + 1 + 2 * Sv + 8) + f4 * HW * (5 + Sv),
+        HW // 2 * 7 * Sv * (taps * PM_TAP_OPS + PM_GEOM_OPS))
+    rows["pm_view_weights"] = _mvs_row(
+        "pm_view_weights", lambda: KV.view_weights(full, depth, normal, sel, opts),
+        lambda: KV.view_weights_plain(full, depth, normal, sel, opts),
+        f4 * HW * (4 + 2 * Sv), 0, f64_ops=HW * Sv * PM_WEIGHT_OPS)
+    sel_rows = [_mvs_row(f"pm_view_selection along {'HW'[axis]}",
+                         lambda a=axis: KV.update_sel_prob(ca, sel, a, 0.4, opts),
+                         lambda a=axis: KV.update_sel_prob_plain(ca, sel, a, 0.4, opts),
+                         f4 * 3 * Sv * HW, PM_SEL_OPS * Sv * HW) for axis in (0, 1)]
+    rows["pm_view_selection"] = {k: (sel_rows[0][k] + sel_rows[1][k]) / 2
+                                 if isinstance(sel_rows[0][k], float) else sel_rows[0][k]
+                                 for k in sel_rows[0]}
+    if failed:
+        raise AssertionError(f"MVS kernels differ from their plain versions: {failed}")
+    return errs, rows
+
+
+def _mvs_row(name, fn, plain, bytes_moved, ops, f64_ops=0):
+    ms = time_ms(fn, reps=10)
+    plain_ms = time_ms(plain, reps=2)
+    b_ms, by = bound(bytes_moved, ops)
+    if f64_ops / PEAK_F64_OPS_PER_S * 1e3 > b_ms:
+        b_ms, by = f64_ops / PEAK_F64_OPS_PER_S * 1e3, "operations"
+    log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None)
+
+
+ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs")
 
 
 def main():
@@ -1757,9 +2241,19 @@ def main():
         rows.update(s_rows)
     if "extractor" in phases:
         run("extractor", lambda: phase_extractor(launches))
+    if "dense" in phases:
+        run("dense", lambda: phase_dense(launches))
+    if "mvs" in phases:
+        if "dense" not in phases:
+            raise SystemExit("chip_smoke: phase mvs reads the dense phase's workspace")
+        v_errs, v_rows = run("mvs", phase_mvs_kernels)
+        errs.update(v_errs)
+        rows.update(v_rows)
+    if "root" in DENSE_STATE:
+        shutil.rmtree(DENSE_STATE["root"], ignore_errors=True)
     log(f"seconds by phase: {seconds}")
 
-    sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES}
+    sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

@@ -15,6 +15,10 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     mapper            incremental SfM: database -> sparse model(s)
     bundle_adjuster   read a model, run bundle adjustment, write the model
     model_analyzer    print a model's statistics
+    image_undistorter   undistort a model's images into a dense workspace
+                        (--output_type COLMAP; PMVS and CMP-MVS raise)
+    patch_match_stereo  depth and normal maps of every workspace image
+    stereo_fusion       fuse the depth maps into a point cloud (PLY + .vis)
 
 Commands return what they built (``main`` passes it on), so a caller that
 drives the CLI in-process can read it: ``mapper`` returns its pipeline,
@@ -243,6 +247,90 @@ def _cmd_model_analyzer(args):
     print(f"Mean reprojection error: {recon.compute_mean_reprojection_error():.6f}px")
 
 
+def _write_image(path, img):
+    """PNG, PGM or PPM by the file's extension; another format through PIL
+    where it is installed."""
+    from colmap_tpu_torch.utils.image_io import write_png, write_pnm
+
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        write_png(path, img)
+    elif ext in (".pgm", ".ppm"):
+        write_pnm(path, img)
+    else:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ValueError(f"{path}: writing {ext} images needs PIL, which is not installed "
+                             "(PNG, PGM and PPM are written without it)") from None
+        Image.fromarray(img).save(path)
+
+
+def _cmd_image_undistorter(args):
+    import numpy as np
+
+    from colmap_tpu_torch.image.undistortion import undistort_camera, undistort_image
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.image_io import read_image
+
+    if args.output_type != "COLMAP":
+        raise NotImplementedError(
+            f"--output_type {args.output_type} is not ported yet (ROADMAP queue 1 item 13)")
+    device = resolve_device(args.device)
+    recon = read_model(args.input_path)
+    os.makedirs(os.path.join(args.output_path, "images"), exist_ok=True)
+    new_cams = {cid: undistort_camera(cam, device=device) for cid, cam in recon.cameras.items()}
+    n = 0
+    for iid in recon.reg_image_ids():
+        image = recon.images[iid]
+        src = os.path.join(args.image_path, image.name)
+        if not os.path.exists(src):
+            continue
+        out = undistort_image(read_image(src), recon.cameras[image.camera_id],
+                              new_cams[image.camera_id], device=device)
+        dst = os.path.join(args.output_path, "images", image.name)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        _write_image(dst, out.astype(np.uint8))
+        n += 1
+    for cid in recon.cameras:
+        recon.cameras[cid] = new_cams[cid]
+    write_model(recon, os.path.join(args.output_path, "sparse"), fmt="bin")
+    print(f"Undistorted {n} images -> {args.output_path}")
+    return n
+
+
+def _cmd_patch_match_stereo(args):
+    from colmap_tpu_torch.mvs.workspace import CachedWorkspace, run_patch_match_workspace
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    ws = args.workspace_path
+    recon = read_model(os.path.join(ws, "sparse"))
+    # Memory-bounded streaming of image pages (reference: Workspace
+    # cache_size GB option, mvs/workspace.h:46-136).
+    images = CachedWorkspace(ws, cache_size_gb=args.cache_size).image_map(recon)
+    problems = run_patch_match_workspace(
+        recon, images, ws, geom_consistency=args.geom_consistency,
+        write_consistency_graph=args.write_consistency_graph, device=device)
+    print(f"PatchMatch: processed {len(problems)} reference images")
+    return problems
+
+
+def _cmd_stereo_fusion(args):
+    from colmap_tpu_torch.mvs.workspace import run_fusion_workspace
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    ws = args.workspace_path
+    recon = read_model(os.path.join(ws, "sparse"))
+    pts, normals, vis = run_fusion_workspace(recon, ws, args.output_path, device=device)
+    print(f"Fused {len(pts)} points -> {args.output_path}")
+    return pts, normals, vis
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="colmap_tpu_torch",
@@ -324,6 +412,33 @@ def build_parser() -> argparse.ArgumentParser:
     c = sub.add_parser("model_analyzer")
     c.add_argument("--path", required=True)
     c.set_defaults(fn=_cmd_model_analyzer)
+
+    c = sub.add_parser("image_undistorter")
+    c.add_argument("--image_path", required=True)
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--output_type", default="COLMAP", choices=["COLMAP", "PMVS", "CMP-MVS"])
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_image_undistorter)
+
+    c = sub.add_parser("patch_match_stereo")
+    c.add_argument("--workspace_path", required=True)
+    c.add_argument("--geom_consistency", action="store_true",
+                   help="second pass with geometric-consistency cost")
+    c.add_argument("--write_consistency_graph", action="store_true",
+                   help="write per-pixel consistent-view lists "
+                        "(reference: --PatchMatchStereo.write_consistency_graph)")
+    c.add_argument("--cache_size", type=float, default=32.0,
+                   help="image page cache budget in GB "
+                        "(reference: --PatchMatchStereo.cache_size)")
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_patch_match_stereo)
+
+    c = sub.add_parser("stereo_fusion")
+    c.add_argument("--workspace_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_stereo_fusion)
     return p
 
 

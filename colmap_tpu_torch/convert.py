@@ -15,6 +15,11 @@ TwoViewGeometryOptions with its RansacOptions, MatchingPipelineOptions), and
 ``convert_two_view_geometry`` for a TwoViewGeometry. A database needs no
 conversion: both packages read and write the same SQLite schema.
 
+Dense stereo: ``patch_match_problem_from_numpy`` builds the port's
+PatchMatchProblem from the numpy form of colmap_tpu's fields,
+``convert_fusion_image`` carries a FusionImage across, and
+``convert_options`` carries PatchMatchOptions and FusionOptions.
+
 Nothing here imports colmap_tpu: callers pass its objects and, for the way
 back, its classes.
 """
@@ -156,3 +161,28 @@ def convert_options(options, cls: Optional[type] = None, **nested):
             v = convert_options(v, sub)
         values[f.name] = v
     return cls(**values)
+
+
+def patch_match_problem_from_numpy(d: Dict[str, Optional[np.ndarray]], device, dtype=None):
+    """The port's PatchMatchProblem on ``device`` from the numpy form of
+    colmap_tpu's fields (``np.asarray`` of each; ``src_depths`` may be
+    None). Fields keep their numpy dtype unless ``dtype`` is given."""
+    from colmap_tpu_torch.mvs.patch_match import PatchMatchProblem
+
+    def tensor(a):
+        if a is None:
+            return None
+        t = torch.from_numpy(np.array(a))
+        return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+    return PatchMatchProblem(**{name: tensor(d.get(name)) for name in PatchMatchProblem._fields})
+
+
+def convert_fusion_image(fi, cls=None):
+    """A FusionImage of either package as one of ``cls`` (default: the
+    port's), with copies of its arrays."""
+    if cls is None:
+        from colmap_tpu_torch.mvs.fusion import FusionImage as cls
+    color = None if fi.color is None else np.array(fi.color)
+    return cls(fi.image_id, np.array(fi.K), np.array(fi.R), np.array(fi.t), np.array(fi.depth),
+               np.array(fi.normal), color)

@@ -11,10 +11,13 @@ and PPM itself, so it runs where PIL is not installed:
 - ``to_gray``: PIL's ``convert("L")``, (19595 R + 38470 G + 7471 B +
   0x8000) >> 16 on 8-bit samples; alpha is dropped, a palette is looked up
   first, 16-bit gray is clipped to 255.
-- ``write_png_gray``: 8-bit gray PNG; ``write_pnm``: binary PGM or PPM.
+- ``write_png``: 8-bit gray, gray + alpha, RGB or RGBA PNG
+  (``write_png_gray`` for gray); ``write_pnm``: binary PGM or PPM.
 - ``read_image_gray``: any of the above by its signature; another format
   (JPEG, TIFF, BMP) goes through PIL where PIL is importable and raises an
   error naming the file and the format where it is not.
+- ``read_image``: the samples of an 8-bit file as ``np.asarray`` of PIL's
+  ``Image.open(path)`` gives them: (H, W) gray, (H, W, C) otherwise.
 """
 
 from __future__ import annotations
@@ -176,14 +179,20 @@ def to_gray(img: np.ndarray, color: int, depth: int, palette: Optional[np.ndarra
             >> 16).astype(np.uint8)
 
 
-def write_png_gray(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Write an (H, W) uint8 array as an 8-bit gray PNG (filter None)."""
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # samples per pixel -> PNG color type
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Write (H, W) uint8 as 8-bit gray, or (H, W, C) uint8 with C = 1, 2,
+    3, 4 as gray, gray + alpha, RGB or RGBA PNG (filter None)."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"{path}: write_png_gray takes an (H, W) array, got {img.shape}")
-    h, w = img.shape
-    raw = np.zeros((h, w + 1), dtype=np.uint8)
-    raw[:, 1:] = img
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
+        raise ValueError(f"{path}: write_png takes (H, W) or (H, W, 1-4), got {img.shape}")
+    h, w, c = img.shape
+    raw = np.zeros((h, w * c + 1), dtype=np.uint8)
+    raw[:, 1:] = img.reshape(h, w * c)
 
     def chunk(kind: bytes, payload: bytes) -> bytes:
         return (struct.pack(">I", len(payload)) + kind + payload
@@ -191,9 +200,16 @@ def write_png_gray(path: str, img: np.ndarray, level: int = 6) -> None:
 
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), level)))
         f.write(chunk(b"IEND", b""))
+
+
+def write_png_gray(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Write an (H, W) uint8 array as an 8-bit gray PNG (filter None)."""
+    if np.ndim(img) != 2:
+        raise ValueError(f"{path}: write_png_gray takes an (H, W) array, got {np.shape(img)}")
+    write_png(path, img, level)
 
 
 def _pnm_tokens(data: bytes, count: int, path: str) -> Tuple[list, int]:
@@ -281,3 +297,35 @@ def read_image_gray(path: str) -> np.ndarray:
             f"(PNG, PGM and PPM are read without it)") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("L"), dtype=np.uint8)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An 8-bit image file as ``np.asarray(PIL.Image.open(path))``: (H, W)
+    uint8 gray, (H, W, 2) gray + alpha, (H, W, 3) RGB or (H, W, 4) RGBA.
+    PNG (8-bit, not palette), PGM and PPM are read without PIL; other
+    formats go through PIL where it is installed."""
+    fmt = image_format(path)
+    if fmt == "png":
+        img, color, depth, _, _ = read_png(path)
+        if depth != 8 or color == 3:
+            raise ValueError(f"{path}: read_image takes 8-bit non-palette PNG "
+                             f"(color type {color}, depth {depth})")
+        return img[..., 0].copy() if img.shape[2] == 1 else img
+    if fmt == "pnm":
+        with open(path, "rb") as f:
+            data = f.read()
+        (magic, w, h, maxval), pos = _pnm_tokens(data, 4, path)
+        channels = {b"P5": 1, b"P6": 3}.get(magic)
+        if channels is None or int(maxval) != 255:
+            raise ValueError(f"{path}: read_image takes 8-bit binary PGM or PPM")
+        img = np.frombuffer(data, dtype=np.uint8, count=int(w) * int(h) * channels,
+                            offset=pos).reshape(int(h), int(w), channels)
+        return img[..., 0].copy() if channels == 1 else img.copy()
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{os.fspath(path)}: {fmt} images need PIL, which is not installed "
+            f"(PNG, PGM and PPM are read without it)") from None
+    with Image.open(path) as im:
+        return np.asarray(im)

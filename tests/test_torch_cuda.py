@@ -20,7 +20,9 @@ cases of colmap_tpu_torch/kernels/matching_cases.py: K10 gives the plain
 version's matches on every row whose arccos tests lie further than 1e-5 rad
 from their thresholds (float32 similarities against float64); K11 and K12
 count and refit as K6 and K7 do; a block of pairs through K7, K11 and K12
-gives each pair exactly what the one-pair entry gives it.
+gives each pair exactly what the one-pair entry gives it. The PatchMatch
+kernels K17-K20 run on colmap_tpu_torch/kernels/mvs_cases.py's plane case
+(their tolerances are stated above their tests).
 """
 
 import pytest
@@ -587,3 +589,109 @@ def test_feature_extractor_command_on_cuda(tmp_path):
         share, worst, _, _ = SC.match_keypoints(kp_p, desc_p, kp, desc)
         assert share >= 0.97 and worst <= 2, (share, worst)
     db.close()
+
+
+# PatchMatch kernels K17-K20 on colmap_tpu_torch/kernels/mvs_cases.py's plane
+# case at 96 x 64 with three source views, each float32 kernel against its
+# plain version in float64 on the same inputs. A cost jumps where a window
+# tap crosses a source's border (and at the other near-ties that
+# costs_plain's tie_px and geom_ties mark); rounding decides there, so the
+# costs are held to 1e-4 of their largest entry away from ties within 1e-3
+# px or next to a depth step of 2%, and K18's choice away from choice_ties.
+# K19 takes its angles in float64 and K20 carries its messages as odds:
+# both to 1e-5.
+
+
+def _pm_case(geometric):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from colmap_tpu_torch.kernels import mvs_cases as C
+    from colmap_tpu_torch.mvs.patch_match import PatchMatchOptions
+
+    case = C.plane_case(64, 96, 3, seed=5)
+    return (C.tensors(case, "cuda", torch.float32, geometric),
+            C.tensors(case, "cuda", torch.float64, geometric),
+            PatchMatchOptions(depth_min=2.0, depth_max=10.0))
+
+
+@pytest.mark.parametrize("geometric", [False, True], ids=["photometric", "geometric"])
+def test_pm_cost_matches_plain_on_cuda(geometric):
+    """K17 against costs_plain, away from near-ties."""
+    from colmap_tpu_torch.kernels import mvs as K
+
+    (p, d, n, _, _), (p64, d64, n64, _, _), opts = _pm_case(geometric)
+    K.reset_launches()
+    got = K.costs(p, d, n, opts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pm_cost"] == 1
+    from colmap_tpu_torch.kernels import mvs_cases as C
+
+    ref, tie = K.costs_plain(p64, d64, n64, opts, tie_px=1e-3)
+    tie |= C.geom_ties(p64, d64, 1e-3, 0.02)
+    assert tie.double().mean() < 0.01
+    _close(got[~tie], ref[~tie], 1e-4, "K17")
+
+
+def test_pm_view_weights_and_selection_match_plain_on_cuda():
+    """K19's weights and K20 along H and W against their plain versions."""
+    from colmap_tpu_torch.kernels import mvs as K
+
+    (p, d, n, sel, _), (p64, d64, n64, sel64, _), opts = _pm_case(True)
+    w = K.view_weights(p, d, n, sel, opts)
+    err = (w.double() - K.view_weights_plain(p64, d64, n64, sel64, opts)).abs().max().item()
+    assert err <= 1e-5, f"K19 weights: {err:.3e}"
+    ca = K.costs_plain(p64, d64, n64, opts)
+    for axis in (0, 1):
+        got = K.update_sel_prob(ca.float(), sel, axis, 0.4, opts)
+        err = (got.double() - K.update_sel_prob_plain(ca, sel64, axis, 0.4, opts)).abs().max()
+        assert err.item() <= 1e-5, f"K20 axis {axis}: {err.item():.3e}"
+
+
+@pytest.mark.parametrize("view_selection", [True, False], ids=["weights", "best_half"])
+def test_pm_iteration_matches_plain_on_cuda(view_selection):
+    """K18 at both parities: the plain version's choice at every pixel away
+    from choice_ties (at least 99.9% of all pixels), its depth and normal
+    there, and its costs at those of them that are not ties."""
+    import dataclasses
+
+    from colmap_tpu_torch.kernels import mvs as K
+    from colmap_tpu_torch.kernels import mvs_cases as C
+
+    (p, d, n, sel, dr), (p64, d64, n64, sel64, dr64), opts = _pm_case(True)
+    opts = dataclasses.replace(opts, view_selection=view_selection)
+    ca = K.costs_plain(p64, d64, n64, opts)
+    w64 = K.view_weights_plain(p64, d64, n64, sel64, opts) if view_selection else None
+    cost = K.aggregate(ca, w64)
+    for parity in (0, 1):
+        got = K.iteration(p, d, n, cost.float(), ca.float(), None if w64 is None else w64.float(),
+                          dr, parity, 0.5, opts)
+        ref = K.iteration_plain(p64, d64, n64, cost, ca, w64, dr64, parity, 0.5, opts)
+        ties = C.choice_ties(p64, d64, n64, cost, w64, dr64, parity, 0.5, opts, 1e-3, 1e-4, 0.02)
+        same = (((got[0].double() - ref[0]).abs() <= 1e-5 * ref[0])
+                & ((got[1].double() - ref[1]).abs().amax(-1) <= 1e-4))
+        assert bool(same[~ties].all()), f"parity {parity}: {int((~same & ~ties).sum())} differ"
+        assert same.double().mean() >= 0.999
+        agree = same & ~ties
+        _close(got[2][agree], ref[2][agree], 1e-4, "K18 cost")
+        _close(got[3][:, agree], ref[3][:, agree], 1e-4, "K18 cost_all")
+
+
+@pytest.mark.parametrize("view_selection", [True, False], ids=["weights", "best_half"])
+def test_pm_consistency_filter_matches_plain_on_cuda(view_selection):
+    """K19's filter mode: the same masks and kept maps away from pixels
+    within 1e-5 of a threshold (1e-2 px for the geometric error)."""
+    import dataclasses
+
+    from colmap_tpu_torch.kernels import mvs as K
+    from colmap_tpu_torch.kernels import mvs_cases as C
+
+    (p, d, n, sel, _), (p64, d64, n64, sel64, _), opts = _pm_case(True)
+    opts = dataclasses.replace(opts, view_selection=view_selection)
+    ca = K.costs_plain(p64, d64, n64, opts)
+    df, nf, mask = K.consistency_filter(p, d, n, ca.float(), sel, opts)
+    df64, nf64, mask64 = K.consistency_filter_plain(p64, d64, n64, ca, sel64, opts)
+    ok = ~C.filter_ties(p64, d64, n64, ca, sel64, opts, 1e-5, 1e-3, 0.02, 1e-2)
+    assert bool(mask64.any())
+    assert torch.equal(mask[:, ok], mask64[:, ok])
+    _close(df[ok], df64[ok], 1e-6, "K19 depth")
+    _close(nf[ok], nf64[ok], 1e-6, "K19 normal")

@@ -4,7 +4,9 @@ The machine the port runs on has PyTorch, numpy and scipy, and neither JAX
 nor PIL. A child process blocks those three packages with a sys.meta_path
 finder, imports every module of colmap_tpu_torch, renders two small views
 with the port's renderer and extracts their features with
-``feature_extractor --device cpu``.
+``feature_extractor --device cpu``, then runs the dense modules on a small
+plane case: PatchMatch with the consistency filter, the map, graph, PLY and
+.vis files, the workspace's PNG bitmaps and fusion.
 """
 
 import os
@@ -36,6 +38,7 @@ CHILD = textwrap.dedent("""
     assert not leaked, leaked
 
     import numpy as np
+    import torch
     from colmap_tpu_torch.cli import main as cli
     from colmap_tpu_torch.scene.database import Database
     from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
@@ -55,6 +58,33 @@ CHILD = textwrap.dedent("""
     db.close()
     assert len(views) == 2 and len(ids) == 2 and min(counts) > 10, counts
     print("MODULES", len(names), "KEYPOINTS", counts)
+
+    from colmap_tpu_torch.kernels import mvs_cases
+    from colmap_tpu_torch.mvs import patch_match, fusion, workspace
+    from colmap_tpu_torch.mvs.consistency_graph import ConsistencyGraph
+    from colmap_tpu_torch.mvs.depth_map import read_map, write_map
+    from colmap_tpu_torch.utils.image_io import write_png
+    from colmap_tpu_torch.utils.ply import read_ply, write_ply
+
+    case = mvs_cases.plane_case(20, 24, 2, seed=1)
+    problem = mvs_cases.tensors(case, "cpu", torch.float32, geometric=True)[0]
+    opts = patch_match.PatchMatchOptions(depth_min=2.0, depth_max=10.0, num_iterations=1)
+    depth, normal, _, mask = patch_match.patch_match(problem, opts, return_consistency=True)
+    write_map(os.path.join(root, "d.bin"), depth.numpy())
+    assert (read_map(os.path.join(root, "d.bin")) == depth.numpy()).all()
+    ConsistencyGraph.from_mask(mask.numpy(), [0, 1]).write(os.path.join(root, "g.bin"))
+    os.makedirs(os.path.join(root, "ws", "images"))
+    write_png(os.path.join(root, "ws", "images", "a.png"), np.zeros((4, 5, 3), np.uint8))
+    assert workspace.CachedWorkspace(os.path.join(root, "ws")).get_bitmap("a.png").shape == (4, 5)
+    K = case.problem["K_ref"]
+    imgs = [fusion.FusionImage(i, K, np.eye(3), np.array([0.1 * i, 0, 0]), case.gt_depth,
+                               np.tile([0.0, 0.0, -1.0], case.gt_depth.shape + (1,)))
+            for i in (1, 2)]
+    pts, nrm, vis = fusion.fuse_depth_maps(imgs, device="cpu")
+    write_ply(os.path.join(root, "f.ply"), pts, nrm)
+    fusion.write_fused_vis(os.path.join(root, "f.ply.vis"), vis)
+    assert len(read_ply(os.path.join(root, "f.ply"))["points"]) == len(pts) > 0
+    print("DENSE", int((depth > 0).sum()), len(pts))
 """)
 
 
@@ -63,4 +93,4 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     out = subprocess.run([sys.executable, "-c", CHILD, str(tmp_path)], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    assert "KEYPOINTS" in out.stdout
+    assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout
