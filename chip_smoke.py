@@ -216,23 +216,70 @@ DENSE_MIN_KEPT, DENSE_MAX_DEPTH_ERR, DENSE_MAX_FUSED_ERR = 0.4, 0.02, 0.03
 MVS_CROP_W, MVS_CROP_H = 640, 480
 # K17/K18 float32 NCC moments against float64: costs to 1e-4 of their
 # largest entry away from near-ties (a window tap within 1e-3 px of a
-# source's border, and the like: costs_plain's tie_px; the geometric term
-# next to a hole or a step of over 2% in a source depth map: mvs_cases'
-# geom_ties), which must leave at least 75% of the entries; K18's choice
-# away from near-ties of its candidates' costs (gap 1e-4); K19 (float64
-# angles) and K20 (odds) to 1e-5.
+# source's border, and the like: mvs_cases' cost_ties; the geometric term
+# next to a hole or a step of over 2% in a source depth map: geom_ties),
+# which must leave at least 75% of the entries; K18 the same choice at >=
+# 99.9% of pixels, every pixel away from near-ties of its candidates' costs
+# (gap 1e-4); K19 (float64 angles) and K20 (odds) to 1e-5.
 K17_RTOL, K18_MIN_SAME, K1920_ATOL, MVS_TIE_PX, MVS_TIE_GAP = 1e-4, 0.999, 1e-5, 1e-3, 1e-4
 # The geometric error's float32 round trip at f = 3840 px carries about
 # 1e-3 px: the filter's geometric test is a near-tie within 1e-2 px.
 MVS_DEPTH_STEP, MVS_GEOM_EPS = 0.02, 1e-2
-# f32 operations a window tap of K17/K18 costs (counted from pm_common.cuh's
-# photo_cost: the reference pixel and its weight with expf, the tap's ray,
-# the plane depth, two 3 x 3 products and the perspective division, the
-# bounds test, the bilinear sample and six moments), a geometric term, a
-# view of K19 (float64) and a sample of K20's two passes.
-PM_TAP_OPS, PM_GEOM_OPS, PM_WEIGHT_OPS, PM_SEL_OPS = 100, 80, 150, 30
-# NVIDIA's H100 SXM data sheet: float64 outside the tensor cores.
-PEAK_F64_OPS_PER_S = 34e12
+# f32 operations the PatchMatch functions need (an FMA is 2; a compare, a
+# select, a floor, a reciprocal, a division, an exp or a square root is
+# 1), counted from colmap_tpu/mvs/patch_match.py for the least arithmetic
+# that computes it. A plane (d, n) at pixel p induces in source s the
+# homography H = A_s + b_s m^T, with A_s = K_s R_s K_ref^-1 and b_s = K_s t_s
+# per view and m = -K_ref^-T n / (d n . r_p) per plane, so a tap needs no
+# ray and no plane depth of its own.
+#  - per (pixel, tap), whatever the plane and view: the bilateral weight
+#    w_sp exp(-(I_k - I_p)^2 / 2 sigma^2) (5), the weight sum (1), and
+#    w (I_k - I_p), w (I_k - I_p)^2 (2): PM_TAP_OPS = 8;
+#  - per (pixel, plane): n . r_p (5), times d (1), K_ref^-T n (6 FMA), a
+#    reciprocal and 3 multiplications: PM_PLANE_OPS = 22;
+#  - per (pixel, plane, view): H (9 FMA) and H (x, y, 1) (6 FMA, 3 adds);
+#    the NCC from the six moments (sw + eps and its reciprocal 2, two means
+#    2, two clamped variances 8, the covariance 3, the clamped product 2,
+#    a reciprocal square root and a product 2: 19), the weight share and
+#    its test (2), 1 - clip(ncc) or 2 (4): PM_VIEW_OPS = 58;
+#  - per (pixel, plane, view, tap): the tap's point p + dx h0 + dy h1
+#    (6 FMA), the division (a reciprocal, 2 multiplications), the bounds
+#    test (5 compares, an and), the bilinear sample (2 floors, 2 fractions,
+#    2 complements, 4 corner weights, a multiplication and 3 FMA: 17), and
+#    the six moments (the masked weight 1; sw, swr, swrr from the tap's
+#    products 3; w sv 1, sws 1, swss and swrs 2 FMA: 10):
+#    PM_TAP_VIEW_OPS = 12 + 3 + 6 + 17 + 10 = 48;
+#  - the geometric term per (pixel, plane, view), with P_s = K_s [R_s | t_s],
+#    G_s = K_ref R_s^T K_s^-1 and g_s = K_ref R_s^T t_s per view: X = d r_p
+#    (3), P_s X (9 FMA, 3 adds), the division (3), the bounds test (6), the
+#    bilinear depth (17), d_s G_s (sx, sy, 1) - g_s (6 FMA, 3 adds, 3
+#    multiplications, 3 subtractions), the division (3), the error (2
+#    subtractions, a multiplication, an FMA, a square root), the depth tests
+#    (2), the clamp and the weighted add (3): PM_GEOM_OPS = 85;
+#  - K18 per active pixel: four propagated plane depths (n . r twice, a
+#    multiplication, a division, the clamp: 14 each), the perturbed depth
+#    (5) and normal (3 FMA, the squared norm 5, its clamp and reciprocal
+#    square root 2, 3 multiplications, the sign 1: 17): PM_CAND_OPS = 78;
+#    per (pixel, candidate) the aggregation (S FMA) and the strict
+#    comparison (1);
+#  - K19's weights per pixel: the ray, X = d r_p and 1 / |X| (13), the
+#    four corners' rays and plane depths (6 + 4 x 11), the total's test and
+#    reciprocal (2): PM_WEIGHT_PIXEL_OPS = 65; per (pixel, view): S_c - X
+#    (3), 1 / |S_c - X| (6), the two cosines (13), the triangulation prior
+#    (9), the incidence prior (5), the four corners through P_s with their
+#    divisions (4 x 24), the footprint's area and ratio (24), the product,
+#    the sum and the normalization (6): PM_WEIGHT_VIEW_OPS = 162;
+#  - K20 per (view, sample): the emission (4), the forward message (11),
+#    the backward message (10), the posterior and the blend (9):
+#    PM_SEL_OPS = 34.
+PM_TAP_OPS, PM_PLANE_OPS, PM_VIEW_OPS, PM_TAP_VIEW_OPS, PM_GEOM_OPS = 8, 22, 58, 48, 85
+PM_CAND_OPS, PM_WEIGHT_PIXEL_OPS, PM_WEIGHT_VIEW_OPS, PM_SEL_OPS = 78, 65, 162, 34
+
+
+def pm_plane_ops(taps, views, geometric):
+    """f32 operations of one plane's cost at one pixel in every view."""
+    return PM_PLANE_OPS + views * (PM_VIEW_OPS + taps * PM_TAP_VIEW_OPS
+                                   + (PM_GEOM_OPS if geometric else 0))
 
 
 def log(msg):
@@ -2034,72 +2081,71 @@ def _crop(problem, depth, normal, sel, draws, x0, y0, w, h):
             sel[(slice(None),) + win].contiguous(), Draws(*(x[win].contiguous() for x in draws)))
 
 
-def phase_mvs_kernels():
-    """K17-K20 against their plain versions in float64 on a 640 x 480 crop
-    of the dense scene's first reference view, then timed at full width.
-    Returns (errs, rows)."""
+def _mvs_checks(where, inputs, opts, view_selection, margin, errs, failed):
+    """K17-K20 against their plain versions in float64 on the same inputs
+    (problem, depth, normal, sel_prob, draws): K17 photometric and
+    geometric, K19's weights, K20 along H and W, and for each of
+    ``view_selection`` K18 on two states at both parities and K19's
+    filter. K18's shares are taken over the pixels ``margin`` or more from
+    the edges. Appends to errs and to failed."""
     import dataclasses
 
     from colmap_tpu_torch.kernels import mvs as KV
     from colmap_tpu_torch.kernels import mvs_cases as C
     from colmap_tpu_torch.mvs import patch_match as PM
 
-    errs = {k: [] for k in MVS_SOURCES}
-    rows, failed = {}, []
-    full, depth, normal, sel, draws, opts = _dense_problem()
-    H, W = depth.shape
-    Sv = full.src_images.shape[0]
-    crop = _crop(full, depth, normal, sel, draws, (W - MVS_CROP_W) // 2 - 200,
-                 (H - MVS_CROP_H) // 2, MVS_CROP_W, MVS_CROP_H)
-    p, d, n, s, dr = crop
+    p, d, n, s, dr = inputs
     to64 = lambda x: x.double() if torch.is_tensor(x) else x  # noqa: E731
     p64 = type(p)(*(to64(x) for x in p))
     d64, n64, s64 = d.double(), n.double(), s.double()
     dr64 = type(dr)(*(x.double() for x in dr))
-    log(f"MVS kernels vs plain (float64 on the same inputs), a {MVS_CROP_W} x {MVS_CROP_H} crop "
-        f"of the dense scene, {Sv} source views, depth range [{opts.depth_min:.3f}, "
-        f"{opts.depth_max:.3f}]:")
+    H, W = d.shape
+    region = (slice(margin, H - margin), slice(margin, W - margin))
+    region_label = f"the pixels {margin} px or more from the edges" if margin else "the pixels"
+    log(f"  {where}:")
     for geometric in (False, True):
         pg, pg64 = (p, p64) if geometric else (p._replace(src_depths=None),
                                                p64._replace(src_depths=None))
         got = KV.costs(pg, d, n, opts)
-        ref, tie = KV.costs_plain(pg64, d64, n64, opts, tie_px=MVS_TIE_PX)
+        ref = KV.costs_plain(pg64, d64, n64, opts)
+        tie = C.cost_ties(pg64, d64, n64, opts, MVS_TIE_PX)
         tie |= C.geom_ties(pg64, d64, MVS_TIE_PX, MVS_DEPTH_STEP)
         a, r = rel_err(got[~tie], ref[~tie])
-        log(f"  K17 {'geometric' if geometric else 'photometric'}: max_abs_err {a:.3e} rel "
+        log(f"    K17 {'geometric' if geometric else 'photometric'}: max_abs_err {a:.3e} rel "
             f"{r:.3e} (tol {K17_RTOL:g}) away from {int(tie.sum())} near-tie entries of "
             f"{tie.numel()}")
         if not (r <= K17_RTOL and tie.double().mean() < 0.25):
-            failed.append(f"K17 {'geometric' if geometric else 'photometric'}")
+            failed.append(f"{where}: K17 {'geometric' if geometric else 'photometric'}")
         errs["pm_cost"].append((a, r))
     w = KV.view_weights(p, d, n, s, opts)
-    w64 = KV.view_weights_plain(p64, d64, n64, s64, opts)
-    a, r = rel_err(w, w64)
-    log(f"  K19 weights: max_abs_err {a:.3e} (tol {K1920_ATOL:g} absolute)")
+    a, r = rel_err(w, KV.view_weights_plain(p64, d64, n64, s64, opts))
+    log(f"    K19 weights: max_abs_err {a:.3e} (tol {K1920_ATOL:g} absolute)")
     if not a <= K1920_ATOL:
-        failed.append("K19 weights")
+        failed.append(f"{where}: K19 weights")
     errs["pm_view_weights"].append((a, r))
     ca64 = KV.costs_plain(p64, d64, n64, opts)
     for axis in (0, 1):
         got = KV.update_sel_prob(ca64.float(), s, axis, 0.4, opts)
         a, r = rel_err(got, KV.update_sel_prob_plain(ca64, s64, axis, 0.4, opts))
-        log(f"  K20 along {'HW'[axis]}: max_abs_err {a:.3e} (tol {K1920_ATOL:g} absolute)")
+        log(f"    K20 along {'HW'[axis]} (chains of {d.shape[axis]}): max_abs_err {a:.3e} "
+            f"(tol {K1920_ATOL:g} absolute)")
         if not a <= K1920_ATOL:
-            failed.append(f"K20 axis {axis}")
+            failed.append(f"{where}: K20 axis {axis}")
         errs["pm_view_selection"].append((a, r))
     # K18 on two states: the first half-iteration's (random planes, as
     # patch_match starts) and the photometric pass's planes (converged:
-    # many candidates are near-equal). Away from near-ties every pixel must
-    # choose the plain version's plane; at >= 99.9% of the interior pixels
-    # (6 px from the crop's edges, tests/test_mvs.py's margin) the kernel's
-    # plane must be as good, its float64 cost within the tie gap of the
-    # plain version's choice. On the edges the window's taps land on the
-    # sources' borders, where float32 and float64 count different taps.
+    # many candidates are near-equal). The same choice as the plain version
+    # at >= 99.9% of the pixels: the same plane, or a plane of exactly the
+    # plain version's float64 cost (where no source sees any candidate's
+    # window every plane costs the same, and the float32 sums break the tie
+    # by their rounding); the same plane at every pixel away from
+    # near-ties; a plane as good (its float64 cost within the tie gap of
+    # the plain version's choice) at >= 99.9%.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     start = PM.draw(gen, tuple(d.shape), opts, torch.float32, "cuda")
     states = {"initial": (start.depth, start.normal), "photometric": (d, n)}
-    for vs in (True, False):
+    for vs in view_selection:
         o = dataclasses.replace(opts, view_selection=vs)
         for label, (sd, sn) in states.items():
             sd64, sn64 = sd.double(), sn.double()
@@ -2112,35 +2158,64 @@ def phase_mvs_kernels():
                 ref = KV.iteration_plain(p64, sd64, sn64, cost, ca_s, ww, dr64, parity, 0.5, o)
                 ties = C.choice_ties(p64, sd64, sn64, cost, ww, dr64, parity, 0.5, o,
                                      MVS_TIE_PX, MVS_TIE_GAP, MVS_DEPTH_STEP)
-                same = (((got[0].double() - ref[0]).abs() <= 1e-5 * ref[0])
-                        & ((got[1].double() - ref[1]).abs().amax(-1) <= 1e-4))
+                plane = (((got[0].double() - ref[0]).abs() <= 1e-5 * ref[0])
+                         & ((got[1].double() - ref[1]).abs().amax(-1) <= 1e-4))
                 k_cost = KV.aggregate(KV.costs_plain(p64, got[0].double(), got[1].double(), o),
                                       ww)
+                same = plane | (k_cost == ref[2])
                 as_good = same | ((k_cost - ref[2]).abs() <= MVS_TIE_GAP)
-                agree = same & ~ties
+                agree = plane & ~ties
                 a, r = rel_err(got[2][agree], ref[2][agree])
-                inner = as_good[6:-6, 6:-6]
-                share = float(inner.double().mean())
-                log(f"  K18 {'weights' if vs else 'best half'}, {label} planes, parity {parity}: "
-                    f"the same plane at {float(same.double().mean()):.6f} of pixels and at "
-                    f"{float(same[~ties].double().mean()):.6f} away from {int(ties.sum())} "
-                    f"near-ties, as good a plane at {float(as_good.double().mean()):.6f} of "
-                    f"pixels and {share:.6f} of the interior ({int((ref[0] != sd64).sum())} "
-                    f"planes moved); cost max_abs_err {a:.3e} rel {r:.3e}")
-                if not (bool(same[~ties].all()) and r <= K17_RTOL and share >= K18_MIN_SAME):
-                    failed.append(f"K18 view_selection={vs} {label} parity {parity}")
+                same_share = float(same[region].double().mean())
+                good_share = float(as_good[region].double().mean())
+                log(f"    K18 {'weights' if vs else 'best half'}, {label} planes, parity "
+                    f"{parity}: the same choice at {same_share:.6f} of {region_label} (>= "
+                    f"{K18_MIN_SAME}; the same plane at {float(plane[region].double().mean()):.6f}, "
+                    f"all pixels {float(same.double().mean()):.6f}), the same plane at "
+                    f"{float(plane[~ties].double().mean()):.6f} away from {int(ties.sum())} "
+                    f"near-ties (all), as good a plane at {good_share:.6f} (>= {K18_MIN_SAME}); "
+                    f"{int((ref[0] != sd64).sum())} planes moved; cost max_abs_err {a:.3e} rel "
+                    f"{r:.3e}")
+                if not (bool(plane[~ties].all()) and r <= K17_RTOL and same_share >= K18_MIN_SAME
+                        and good_share >= K18_MIN_SAME):
+                    failed.append(f"{where}: K18 view_selection={vs} {label} parity {parity}")
                 errs["pm_iteration"].append((a, r))
         df, nf, mask = KV.consistency_filter(p, d, n, ca64.float(), s, o)
         df64, nf64, mask64 = KV.consistency_filter_plain(p64, d64, n64, ca64, s64, o)
         ok = ~C.filter_ties(p64, d64, n64, ca64, s64, o, K1920_ATOL, MVS_TIE_PX, MVS_DEPTH_STEP,
                             MVS_GEOM_EPS)
         differ = int((mask[:, ok] != mask64[:, ok]).sum())
-        log(f"  K19 filter ({'selection' if vs else 'costs'}): {differ} mask entries differ away "
-            f"from {int((~ok).sum())} pixels within {K1920_ATOL:g} of a threshold; kept "
+        log(f"    K19 filter ({'selection' if vs else 'costs'}): {differ} mask entries differ "
+            f"away from {int((~ok).sum())} pixels within {K1920_ATOL:g} of a threshold; kept "
             f"{int(mask64.any(0).sum())} pixels")
         if differ or not torch.equal(df[ok], df64[ok].float()):
-            failed.append(f"K19 filter view_selection={vs}")
+            failed.append(f"{where}: K19 filter view_selection={vs}")
     torch.cuda.synchronize()
+
+
+def phase_mvs_kernels():
+    """K17-K20 against their plain versions in float64 on the dense scene's
+    first reference view: at full width, with the options the dense path
+    runs (view selection on), and on a 640 x 480 crop in both aggregation
+    modes, where the sources' crops put many window taps on borders; then
+    timed at full width. Returns (errs, rows)."""
+    from colmap_tpu_torch.kernels import mvs as KV
+
+    errs = {k: [] for k in MVS_SOURCES}
+    rows, failed = {}, []
+    full, depth, normal, sel, draws, opts = _dense_problem()
+    H, W = depth.shape
+    Sv = full.src_images.shape[0]
+    log(f"MVS kernels vs plain (float64 on the same inputs), the dense scene's first reference "
+        f"view and its {Sv} source views, depth range [{opts.depth_min:.3f}, "
+        f"{opts.depth_max:.3f}]:")
+    t0 = time.perf_counter()
+    _mvs_checks(f"full width, {W} x {H}", (full, depth, normal, sel, draws), opts, (True,), 0,
+                errs, failed)
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    crop = _crop(full, depth, normal, sel, draws, (W - MVS_CROP_W) // 2 - 200,
+                 (H - MVS_CROP_H) // 2, MVS_CROP_W, MVS_CROP_H)
+    _mvs_checks(f"a {MVS_CROP_W} x {MVS_CROP_H} crop", crop, opts, (True, False), 6, errs, failed)
 
     # Times at full width: the first reference view and its sources.
     HW = H * W
@@ -2149,21 +2224,24 @@ def phase_mvs_kernels():
     ca = KV.costs(full, depth, normal, opts)
     ww = KV.view_weights(full, depth, normal, sel, opts)
     cost = KV.aggregate(ca, ww)
+    active = (HW + 1) // 2  # parity 0
     log(f"  times at full width ({W} x {H}, {Sv} source views, {taps} taps, geometric term):")
     rows["pm_cost"] = _mvs_row(
         "pm_cost", lambda: KV.costs(full, depth, normal, opts),
         lambda: KV.costs_plain(full, depth, normal, opts),
-        f4 * HW * (1 + 2 * Sv + 4) + f4 * Sv * HW, Sv * HW * (taps * PM_TAP_OPS + PM_GEOM_OPS))
+        f4 * HW * (1 + 2 * Sv + 4) + f4 * Sv * HW,
+        HW * (taps * PM_TAP_OPS + pm_plane_ops(taps, Sv, True)))
     rows["pm_iteration"] = _mvs_row(
         "pm_iteration",
         lambda: KV.iteration(full, depth, normal, cost, ca, ww, draws, 0, 0.5, opts),
         lambda: KV.iteration_plain(full, depth, normal, cost, ca, ww, draws, 0, 0.5, opts),
         f4 * HW * (1 + 2 * Sv + 4 + 1 + 2 * Sv + 8) + f4 * HW * (5 + Sv),
-        HW // 2 * 7 * Sv * (taps * PM_TAP_OPS + PM_GEOM_OPS))
+        active * (taps * PM_TAP_OPS + PM_CAND_OPS
+                  + 7 * (2 * Sv + 1 + pm_plane_ops(taps, Sv, True))))
     rows["pm_view_weights"] = _mvs_row(
         "pm_view_weights", lambda: KV.view_weights(full, depth, normal, sel, opts),
         lambda: KV.view_weights_plain(full, depth, normal, sel, opts),
-        f4 * HW * (4 + 2 * Sv), 0, f64_ops=HW * Sv * PM_WEIGHT_OPS)
+        f4 * HW * (4 + 2 * Sv), HW * (PM_WEIGHT_PIXEL_OPS + Sv * PM_WEIGHT_VIEW_OPS))
     sel_rows = [_mvs_row(f"pm_view_selection along {'HW'[axis]}",
                          lambda a=axis: KV.update_sel_prob(ca, sel, a, 0.4, opts),
                          lambda a=axis: KV.update_sel_prob_plain(ca, sel, a, 0.4, opts),
@@ -2176,12 +2254,10 @@ def phase_mvs_kernels():
     return errs, rows
 
 
-def _mvs_row(name, fn, plain, bytes_moved, ops, f64_ops=0):
+def _mvs_row(name, fn, plain, bytes_moved, ops):
     ms = time_ms(fn, reps=10)
     plain_ms = time_ms(plain, reps=2)
     b_ms, by = bound(bytes_moved, ops)
-    if f64_ops / PEAK_F64_OPS_PER_S * 1e3 > b_ms:
-        b_ms, by = f64_ops / PEAK_F64_OPS_PER_S * 1e3, "operations"
     log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None)
 

@@ -16,11 +16,10 @@
 //
 // Bound on the card: operations. A (view, pixel) reads its plane and the
 // window's 25 reference pixels and 100 bilinear corners, almost all from
-// L1 (neighbouring threads share them), and does about 100 operations a
-// tap (the reference weight with expf, the tap's ray and n . r in float64,
-// the plane depth, two 3x3 products, the perspective division, the bounds
-// test, the bilinear weights and six moments); the geometric term's round
-// trip, in float64, once a (view, pixel).
+// L1 (neighbouring threads share them); a tap costs the reference weight
+// with expf, the homography's offset and its division, the bounds test,
+// the bilinear weights and six moments; the homography's set-up and the
+// geometric term's round trip, in float64, once a (view, pixel).
 #include <cuda_runtime.h>
 
 #include "pm_common.cuh"
@@ -29,13 +28,13 @@ namespace ctt {
 namespace pm {
 
 __global__ void __launch_bounds__(kThreads)
-cost_kernel(int S, int H, int W, Window win, Geom geom, const float* __restrict__ cams_g,
+cost_kernel(int S, int H, int W, Window win, Geom geom, const double* __restrict__ cams_g,
             const float* __restrict__ taps_g, int n_taps, const float* __restrict__ ref,
             const float* __restrict__ src, const float* __restrict__ depth,
             const float* __restrict__ normal, float* __restrict__ out) {
-  __shared__ float cams[kCamFloats];
+  __shared__ double cams[kCamDoubles];
   __shared__ float taps[kMaxTaps];
-  to_shared(cams, cams_g, 18 + kViewFloats * S);
+  to_shared(cams, cams_g, 18 + kViewDoubles * S);
   to_shared(taps, taps_g, n_taps);
   __syncthreads();
   win.taps = taps;
@@ -45,14 +44,16 @@ cost_kernel(int S, int H, int W, Window win, Geom geom, const float* __restrict_
   const int s = (int)(i / HW);
   const int p = (int)(i % HW);
   const int y = p / W, x = p % W;
-  out[i] = view_cost(cams, win, geom, ref, src, H, W, s, y, x, depth[p], load3(normal, p));
+  const float d = depth[p];
+  out[i] = view_cost(cams, win, geom, ref, src, H, W, s, y, x, d,
+                     plane_at(cams, y, x, d, load3(normal, p)));
 }
 
 }  // namespace pm
 }  // namespace ctt
 
 extern "C" int pm_cost_f32(int S, int H, int W, int R, int step, float inv_2sc2, float geom_weight,
-                           float geom_max, const float* cams, const float* taps, const float* ref,
+                           float geom_max, const double* cams, const float* taps, const float* ref,
                            const float* src, const float* src_depths, const float* depth,
                            const float* normal, float* out, void* stream) {
   using namespace ctt::pm;

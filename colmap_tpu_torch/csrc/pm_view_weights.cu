@@ -23,9 +23,8 @@
 // are taken in float64: the triangulation prior divides 1 - cos by
 // 1 - cos(1 degree) = 1.5e-4, which float32's cosines leave with about four
 // digits. Bound on the card: bytes. A pixel reads its plane (16 bytes) and
-// S selection probabilities and writes S weights, against about 150
-// operations a view (float64 at half the float32 rate stays below the
-// bytes' time).
+// S selection probabilities and writes S weights, against about 160
+// operations a view.
 #include <cuda_runtime.h>
 
 #include "pm_common.cuh"
@@ -34,9 +33,9 @@ namespace ctt {
 namespace pm {
 
 // cos(triangulation angle) and cos(incident angle) of X (normal n) in view s.
-__device__ __forceinline__ void angles64(const float* cams, int s, D3 X, double inv_norm_X, D3 n,
+__device__ __forceinline__ void angles64(const double* cams, int s, D3 X, double inv_norm_X, D3 n,
                                          double* cos_tri, double* cos_inc) {
-  const float* V = view(cams, s);
+  const double* V = view(cams, s);
   const D3 SX = dsub(dscale(dmtv(V, dt(V)), -1.0), X);  // C - X, C = -R^T t
   const double inv_norm_SX = 1.0 / sqrt(fmax(ddot(SX, SX), 1e-12));
   *cos_inc = ddot(SX, n) * inv_norm_SX;
@@ -45,11 +44,11 @@ __device__ __forceinline__ void angles64(const float* cams, int s, D3 X, double 
 
 __global__ void __launch_bounds__(kThreads)
 view_weights_kernel(int S, int H, int W, int R, double cos_min, double inv_2inc2,
-                    const float* __restrict__ cams_g, const float* __restrict__ depth,
+                    const double* __restrict__ cams_g, const float* __restrict__ depth,
                     const float* __restrict__ normal, const float* __restrict__ sel_prob,
                     float* __restrict__ out) {
-  __shared__ float cams[kCamFloats];
-  to_shared(cams, cams_g, 18 + kViewFloats * S);
+  __shared__ double cams[kCamDoubles];
+  to_shared(cams, cams_g, 18 + kViewDoubles * S);
   __syncthreads();
   const size_t HW = (size_t)H * W;
   const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -66,8 +65,7 @@ view_weights_kernel(int S, int H, int W, int R, double cos_min, double inv_2inc2
     const double dy = (c == 0 || c == 3) ? -R : R;
     const double dx = c < 2 ? -R : R;
     const D3 r = dray(cams, x + dx, y + dy);
-    const double den = ddot(n, r);
-    corner[c] = dscale(r, d * ddot(n, r0) / (fabs(den) < 1e-8 ? 1e-8 : den));
+    corner[c] = dscale(r, d * ddot(n, r0) / safe_den(ddot(n, r)));
   }
   const double ref_area = 4.0 * R * R;
   float w[kMaxViews];
@@ -79,12 +77,11 @@ view_weights_kernel(int S, int H, int W, int R, double cos_min, double inv_2inc2
     const double tri = cos_tri > cos_min ? fmin(fmax(1.0 - scaled * scaled, 0.0), 1.0) : 1.0;
     const double xi = 1.0 - fmax(0.0, cos_inc);
     const double inc = exp(-(xi * xi) * inv_2inc2);
-    const float* V = view(cams, s);
+    const double* V = view(cams, s);
     double px[4], py[4];
     for (int c = 0; c < 4; ++c) {
-      const D3 Xs = dmv(V, corner[c]);
-      const D3 ps = dmv(V + 12, d3(Xs.x + V[9], Xs.y + V[10], Xs.z + V[11]));
-      const double z = fabs(ps.z) < 1e-8 ? 1e-8 : ps.z;
+      const D3 ps = dmv(V + 12, dadd(dmv(V, corner[c]), dt(V)));
+      const double z = safe_den(ps.z);
       px[c] = ps.x / z;
       py[c] = ps.y / z;
     }
@@ -102,13 +99,13 @@ view_weights_kernel(int S, int H, int W, int R, double cos_min, double inv_2inc2
 __global__ void __launch_bounds__(kThreads)
 consistency_filter_kernel(int S, int H, int W, int view_selection, double cos_min,
                           float threshold, float geom_max, int min_num,
-                          const float* __restrict__ cams_g, const float* __restrict__ src_depths,
+                          const double* __restrict__ cams_g, const float* __restrict__ src_depths,
                           const float* __restrict__ depth, const float* __restrict__ normal,
                           const float* __restrict__ cost_all, const float* __restrict__ sel_prob,
                           float* __restrict__ depth_f, float* __restrict__ normal_f,
                           unsigned char* __restrict__ mask) {
-  __shared__ float cams[kCamFloats];
-  to_shared(cams, cams_g, 18 + kViewFloats * S);
+  __shared__ double cams[kCamDoubles];
+  to_shared(cams, cams_g, 18 + kViewDoubles * S);
   __syncthreads();
   const size_t HW = (size_t)H * W;
   const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -143,7 +140,7 @@ consistency_filter_kernel(int S, int H, int W, int view_selection, double cos_mi
 }  // namespace ctt
 
 extern "C" int pm_view_weights_f32(int S, int H, int W, int R, double cos_min, double inv_2inc2,
-                                   const float* cams, const float* depth, const float* normal,
+                                   const double* cams, const float* depth, const float* normal,
                                    const float* sel_prob, float* out, void* stream) {
   using namespace ctt::pm;
   const size_t n = (size_t)H * W;
@@ -155,7 +152,7 @@ extern "C" int pm_view_weights_f32(int S, int H, int W, int R, double cos_min, d
 
 extern "C" int pm_consistency_filter_f32(int S, int H, int W, int view_selection, double cos_min,
                                          float threshold, float geom_max, int min_num,
-                                         const float* cams, const float* src_depths,
+                                         const double* cams, const float* src_depths,
                                          const float* depth, const float* normal,
                                          const float* cost_all, const float* sel_prob,
                                          float* depth_f, float* normal_f, unsigned char* mask,

@@ -158,23 +158,13 @@ def spatial_weights(radius, step, sigma_spatial):
                            / (2 * sigma_spatial ** 2))
 
 
-def costs_plain(problem, depth, normal, options, tie_px=None):
+def costs_plain(problem, depth, normal, options):
     """K17's function: colmap_tpu's ``_per_view_costs``, the (S, H, W) cost
     of the plane (depth, normal) of every pixel in every source view:
     1 - clipped bilaterally weighted NCC over the plane-warped window, 2
     where under half of the window's weight lands inside the source, plus
     the clamped geometric term when the problem has source depths.
-
-    The cost jumps where a tap crosses a source's border, where the window
-    weight in bounds crosses one half and where a tap's ray grazes the
-    plane (a tap's depth num / (n . r) loses its digits as n . r nears 0);
-    there rounding decides. With ``tie_px`` it also returns the (S, H, W)
-    mask of such near-ties: a tap within ``tie_px`` pixels of the border
-    (Chebyshev distance to the in-bounds box), a tap in front of the camera
-    by less than 10 ``tie_px`` of its distance, a tap's ray at a cosine
-    under 10 ``tie_px`` to the plane, or an in-bounds weight share within
-    1e-6 of one half (kernels/mvs_cases.py ``geom_ties`` marks the
-    geometric term's)."""
+    kernels/mvs_cases.py ``cost_ties`` marks where rounding decides it."""
     ref = problem.ref_image
     H, W = ref.shape
     dtype, dev = ref.dtype, ref.device
@@ -186,7 +176,6 @@ def costs_plain(problem, depth, normal, options, tie_px=None):
     zeros = torch.zeros((len(problem.src_images), H, W), dtype=dtype, device=dev)
     sw, swr, sws, swrr, swss, swrs = (zeros.clone() for _ in range(6))
     w_sum = torch.zeros((H, W), dtype=dtype, device=dev)
-    tie = torch.zeros_like(zeros, dtype=torch.bool)
     two_sc2 = 2 * options.sigma_color ** 2
     for (dy, dx), wsp in zip(offsets.tolist(), w_sp.tolist()):
         ref_k = ref[torch.clamp(rows + dy, 0, H - 1)][:, torch.clamp(cols + dx, 0, W - 1)]
@@ -205,18 +194,6 @@ def costs_plain(problem, depth, normal, options, tie_px=None):
         swrr += we * ref_k * ref_k
         swss += we * sv * sv
         swrs += we * ref_k * sv
-        if tie_px is not None:
-            inside = torch.minimum(torch.minimum(sx, W - 1 - sx), torch.minimum(sy, H - 1 - sy))
-            outside = torch.maximum(torch.maximum(-sx, sx - (W - 1)),
-                                    torch.maximum(-sy, sy - (H - 1)))
-            margin = torch.where(inside >= 0, inside, outside)
-            Xs = torch.einsum("sij,...j->s...i", problem.R_rel, X) + problem.t_rel[:, None, None]
-            z = torch.einsum("sj,s...j->s...", problem.K_src[:, 2], Xs)
-            grazing = (torch.abs(torch.sum(normal * r, -1))
-                       < 10 * tie_px * torch.linalg.vector_norm(r, dim=-1))
-            tie |= ((margin < tie_px) | (torch.abs(z) < 10 * tie_px
-                                          * torch.linalg.vector_norm(Xs, dim=-1))
-                    | grazing[None])
     sw_safe = sw + 1e-8
     mu_r = swr / sw_safe
     mu_s = sws / sw_safe
@@ -229,9 +206,7 @@ def costs_plain(problem, depth, normal, options, tie_px=None):
     if problem.src_depths is not None:
         geom = torch.clamp(geom_costs_plain(problem, depth), max=options.geom_consistency_max_cost)
         cost = cost + options.geom_consistency_weight * geom
-    if tie_px is None:
-        return cost
-    return cost, tie | (torch.abs(frac_valid - 0.5) < 1e-6)
+    return cost
 
 
 def ncc_norm(ncc_sigma) -> float:
@@ -453,15 +428,19 @@ def _shapes(problem):
 
 
 def _cams(problem):
-    """[K_ref, K_ref⁻¹, then per view R, t, K, K⁻¹] as one float32 vector
-    (18 + 30 S), the inverses taken in float64 (``inv_ex``: no sync to
-    check them)."""
+    """[K_ref, K_ref⁻¹, then per view R, t, K, K⁻¹, K R K_ref⁻¹, K t] as one
+    float64 vector (18 + 42 S), the kernels' cameras (``inv_ex``: no sync
+    to check the inverses)."""
     Kr = problem.K_ref.double()
     Ks = problem.K_src.double()
-    per_view = torch.cat([problem.R_rel.double().reshape(-1, 9), problem.t_rel.double(),
-                          Ks.reshape(-1, 9), torch.linalg.inv_ex(Ks)[0].reshape(-1, 9)], dim=1)
-    return torch.cat([Kr.reshape(9), torch.linalg.inv_ex(Kr)[0].reshape(9),
-                      per_view.reshape(-1)]).float().contiguous()
+    R = problem.R_rel.double()
+    t = problem.t_rel.double()
+    Kr_inv = torch.linalg.inv_ex(Kr)[0]
+    per_view = torch.cat([R.reshape(-1, 9), t, Ks.reshape(-1, 9),
+                          torch.linalg.inv_ex(Ks)[0].reshape(-1, 9),
+                          (Ks @ R @ Kr_inv).reshape(-1, 9),
+                          torch.einsum("sij,sj->si", Ks, t)], dim=1)
+    return torch.cat([Kr.reshape(9), Kr_inv.reshape(9), per_view.reshape(-1)]).contiguous()
 
 
 @functools.lru_cache(maxsize=16)

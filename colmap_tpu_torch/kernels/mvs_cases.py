@@ -13,7 +13,7 @@ borders. With it come a PatchMatch state near the truth (depths within a
 few percent, normals within about ten degrees), selection probabilities
 and one half-iteration's draws.
 
-``geom_ties``, ``choice_ties`` and ``filter_ties`` mark the entries and
+``cost_ties``, ``geom_ties``, ``choice_ties`` and ``filter_ties`` mark the entries and
 pixels where rounding decides a cost or a choice, so that a comparison of
 a float32 kernel with its float64 plain version can leave them out.
 """
@@ -111,12 +111,56 @@ def tensors(case: PlaneCase, device, dtype, geometric=False):
             Draws(**{k: t(v) for k, v in case.draws.items()}))
 
 
+def cost_ties(problem, depth, normal, options, tie_px):
+    """(S, H, W) bool: where rounding decides ``costs_plain``'s photometric
+    cost. It jumps where a tap crosses a source's border, where the window
+    weight in bounds crosses one half, and where a tap's ray grazes the
+    plane (a tap's depth num / (n . r) loses its digits as n . r nears 0).
+    Marked: a tap within ``tie_px`` pixels of the border (Chebyshev
+    distance to the in-bounds box), a tap in front of the camera by less
+    than 10 ``tie_px`` of its distance, a tap's ray at a cosine under 10
+    ``tie_px`` to the plane, or an in-bounds weight share within 1e-6 of
+    one half (``geom_ties`` marks the geometric term's)."""
+    from colmap_tpu_torch.kernels import mvs as K
+
+    ref = problem.ref_image
+    H, W = ref.shape
+    _, _, ray0, Kinv = K.pixel_rays(problem.K_ref, H, W)
+    offsets, w_sp = K.spatial_weights(options.window_radius, options.window_step,
+                                      options.sigma_spatial)
+    rows = torch.arange(H, device=ref.device)
+    cols = torch.arange(W, device=ref.device)
+    sw = torch.zeros((len(problem.src_images), H, W), dtype=ref.dtype, device=ref.device)
+    w_sum = torch.zeros((H, W), dtype=ref.dtype, device=ref.device)
+    tie = torch.zeros_like(sw, dtype=torch.bool)
+    for (dy, dx), wsp in zip(offsets.tolist(), w_sp.tolist()):
+        ref_k = ref[torch.clamp(rows + dy, 0, H - 1)][:, torch.clamp(cols + dx, 0, W - 1)]
+        w = wsp * torch.exp(-((ref_k - ref) ** 2) / (2 * options.sigma_color ** 2))
+        w_sum = w_sum + w
+        r = ray0 + dx * Kinv[:, 0] + dy * Kinv[:, 1]
+        X = r * K.plane_depth_at(depth, normal, ray0, r)[..., None]
+        sx, sy, inb = K._project(problem, X, H, W)
+        sw += torch.where(inb, w, 0.0)
+        inside = torch.minimum(torch.minimum(sx, W - 1 - sx), torch.minimum(sy, H - 1 - sy))
+        outside = torch.maximum(torch.maximum(-sx, sx - (W - 1)), torch.maximum(-sy, sy - (H - 1)))
+        margin = torch.where(inside >= 0, inside, outside)
+        Xs = torch.einsum("sij,...j->s...i", problem.R_rel, X) + problem.t_rel[:, None, None]
+        z = torch.einsum("sj,s...j->s...", problem.K_src[:, 2], Xs)
+        grazing = (torch.abs(torch.sum(normal * r, -1))
+                   < 10 * tie_px * torch.linalg.vector_norm(r, dim=-1))
+        tie |= ((margin < tie_px) | (torch.abs(z) < 10 * tie_px * torch.linalg.vector_norm(Xs, dim=-1))
+                | grazing[None])
+    return tie | (torch.abs(sw / (w_sum[None] + 1e-8) - 0.5) < 1e-6)
+
+
 def geom_ties(problem, depth, tie_px, depth_step):
     """(S, H, W) bool: where the geometric term has a near-tie: the pixel
     projects within ``tie_px`` pixels of a source's border (Chebyshev
     distance to the in-bounds box), or next to a hole or a depth step of
-    the source depth map: the 4 x 4 pixels around the sample hold a depth
-    at or below 0 or span more than ``depth_step`` (relative). A sample's
+    the source depth map: the 4 x 4 pixels around the sample hold depths
+    both at or below 0 and above it, or positive depths spanning more than
+    ``depth_step`` (relative); inside a hole both versions give the term's
+    cap. A sample's
     depth moves the round trip by the views' parallax, hundreds of pixels a
     unit of relative depth, so there float32's position error in the sample
     decides the term. All False without source depths."""
@@ -137,15 +181,15 @@ def geom_ties(problem, depth, tie_px, depth_step):
                                           torch.clamp(x0 + b, 0, W - 1))
                         for a in (-1, 0, 1, 2) for b in (-1, 0, 1, 2)])
     lo, hi = near.amin(dim=0), near.amax(dim=0)
-    return border | (lo <= 0) | (hi > (1.0 + depth_step) * lo)
+    return border | ((lo <= 0) & (hi > 0)) | ((lo > 0) & (hi > (1.0 + depth_step) * lo))
 
 
 def choice_ties(problem, depth, normal, cost, weights, draws, parity, perturbation, options,
                 tie_px, gap, depth_step=None):
     """(H, W) bool: active pixels of a half-iteration whose choice rounding
     may decide, by the plain versions (run them in float64): a candidate
-    plane's cost has a near-tie (``costs_plain``'s ``tie_px``, and with
-    ``depth_step`` ``geom_ties``), or the two lowest of the incumbent's and
+    plane's cost has a near-tie (``cost_ties``, and with ``depth_step``
+    ``geom_ties``), or the two lowest of the incumbent's and
     the seven candidates' aggregated costs lie within ``gap``."""
     from colmap_tpu_torch.kernels import mvs as K
 
@@ -154,9 +198,8 @@ def choice_ties(problem, depth, normal, cost, weights, draws, parity, perturbati
                             torch.arange(W, device=depth.device), indexing="ij")
     aggs, tie = [cost], torch.zeros((H, W), dtype=torch.bool, device=depth.device)
     for d_c, n_c in K.candidates_plain(problem, depth, normal, draws, perturbation, options):
-        ca, t = K.costs_plain(problem, d_c, n_c, options, tie_px=tie_px)
-        aggs.append(K.aggregate(ca, weights))
-        tie |= t.any(dim=0)
+        aggs.append(K.aggregate(K.costs_plain(problem, d_c, n_c, options), weights))
+        tie |= cost_ties(problem, d_c, n_c, options, tie_px).any(dim=0)
         if depth_step is not None:
             tie |= geom_ties(problem, d_c, tie_px, depth_step).any(dim=0)
     low = torch.sort(torch.stack(aggs), dim=0).values

@@ -595,7 +595,7 @@ def test_feature_extractor_command_on_cuda(tmp_path):
 # case at 96 x 64 with three source views, each float32 kernel against its
 # plain version in float64 on the same inputs. A cost jumps where a window
 # tap crosses a source's border (and at the other near-ties that
-# costs_plain's tie_px and geom_ties mark); rounding decides there, so the
+# mvs_cases' cost_ties and geom_ties mark); rounding decides there, so the
 # costs are held to 1e-4 of their largest entry away from ties within 1e-3
 # px or next to a depth step of 2%, and K18's choice away from choice_ties.
 # K19 takes its angles in float64 and K20 carries its messages as odds:
@@ -626,8 +626,8 @@ def test_pm_cost_matches_plain_on_cuda(geometric):
     assert K.LAUNCHES["pm_cost"] == 1
     from colmap_tpu_torch.kernels import mvs_cases as C
 
-    ref, tie = K.costs_plain(p64, d64, n64, opts, tie_px=1e-3)
-    tie |= C.geom_ties(p64, d64, 1e-3, 0.02)
+    ref = K.costs_plain(p64, d64, n64, opts)
+    tie = C.cost_ties(p64, d64, n64, opts, 1e-3) | C.geom_ties(p64, d64, 1e-3, 0.02)
     assert tie.double().mean() < 0.01
     _close(got[~tie], ref[~tie], 1e-4, "K17")
 

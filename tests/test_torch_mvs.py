@@ -11,7 +11,7 @@ tests/test_mvs.py (_textured_plane_scene) and tests/test_mvs_workspace.py
 Border ties: the textured-plane scene's sources differ from the reference by
 an x translation only, so a window tap in the first or last row projects
 exactly onto a source's border row, and the last bits of each package's
-arithmetic decide whether it counts. ``costs_plain(..., tie_px=1e-9)`` marks
+arithmetic decide whether it counts. ``mvs_cases.cost_ties(..., 1e-9)`` marks
 the (view, pixel) entries with a tap within 1e-9 px of a border; they are
 left out of the cost comparisons, and pixels whose choice they (or a gap
 under 1e-9 between the two best candidates) may decide are left out of the
@@ -166,8 +166,8 @@ def test_per_view_costs_match(scene, radius, geometric):
     jo, to = _options(window_radius=radius)
     want = np.asarray(J._per_view_costs(jp, jnp.asarray(scene["depth"]),
                                         jnp.asarray(scene["normal"]), jo))
-    got, tie = K.costs_plain(tp, _t(scene["depth"]), _t(scene["normal"]), to, tie_px=TIE_PX)
-    got, tie = got.numpy(), tie.numpy()
+    got = K.costs_plain(tp, _t(scene["depth"]), _t(scene["normal"]), to).numpy()
+    tie = C.cost_ties(tp, _t(scene["depth"]), _t(scene["normal"]), to, TIE_PX).numpy()
     assert tie.mean() < 0.2, tie.mean()
     np.testing.assert_allclose(got[~tie], want[~tie], rtol=0, atol=1e-9)
     # The wrapper runs the plain version on CPU tensors.
