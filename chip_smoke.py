@@ -58,17 +58,35 @@ Phases; any failure exits non-zero:
      `stereo_fusion`, each under torch.profiler, held to the kept share,
      depth error and fused-cloud gates of colmap_tpu's MVS tests;
  15. MVS kernels (phase `mvs`, after `dense`): K17-K20 against their plain
-     versions in float64 on a 640 x 480 crop of the dense workspace's first
-     problem, then timed at full width.
+     versions in float64 at full width and on a 640 x 480 crop of the dense
+     workspace's first problem (K18: the same plane at >= 99.9% of the
+     pixels), then timed at full width;
+ 16. global-SfM kernels (phase `global_kernels`): K21-K23
+     (colmap_tpu_torch/kernels/global_sfm.py) against float64 plain
+     versions at the scale global SfM users run: K21 on a 1000-node view
+     graph with 25 000 edges (2 deg noise, 5% random), L1 and Geman-McClure,
+     with and without gravity projectors; K22 on 1000 cameras x 200 000
+     points x 1 200 000 observations at a solve's first and last state; K23
+     on 50 cameras and 2000 F edges; timed with CUDA events; then
+     estimate_rotations, solve_global_positioning and calibrate_view_graph
+     through the kernels and through the plain versions in float64 on the
+     card, held to the truth and to each other;
+ 17. global SfM (phase `global`): `global_mapper` on the verify scene, the
+     full-size scene (both with relative poses decomposed from E) and an
+     8-frame gravity-prior scene, `rotation_averager` on the verify scene
+     and `view_graph_calibrator` on a database of UNCALIBRATED pairs, each
+     under torch.profiler: frames, errors against the truth, wall time,
+     time by phase and the device's idle share.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
 the dense solver), the matcher K5, K7 and K10-K12, the mapper K1-K3 and
 K5-K9 (its BA is PCG, so K4 is not on its path), the extractor K13-K16,
-`image_undistorter` K5 and `patch_match_stereo` K17-K20.
+`image_undistorter` K5, `patch_match_stereo` K17-K20, `global_mapper` K1-K3,
+K5, K21 and K22, `rotation_averager` K21 and `view_graph_calibrator` K23.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. `--phases dense,mvs` (or any subset of the
-phases) runs a subset while developing and prints no result; the kernels
-line needs them all.
+{"ok": true, "device": {...}}. `--phases dense,mvs` or `--phases
+global_kernels,global` (or any subset of the phases) runs a subset while
+developing and prints no result; the kernels line needs them all.
 """
 
 from __future__ import annotations
@@ -274,6 +292,55 @@ MVS_DEPTH_STEP, MVS_GEOM_EPS = 0.02, 1e-2
 #    PM_SEL_OPS = 34.
 PM_TAP_OPS, PM_PLANE_OPS, PM_VIEW_OPS, PM_TAP_VIEW_OPS, PM_GEOM_OPS = 8, 22, 58, 48, 85
 PM_CAND_OPS, PM_WEIGHT_PIXEL_OPS, PM_WEIGHT_VIEW_OPS, PM_SEL_OPS = 78, 65, 162, 34
+
+
+GLOBAL_SOURCES = {
+    "rotation_averaging": ("colmap_tpu_torch/csrc/rotation_averaging.cu",
+                           "colmap_tpu/estimators/rotation_averaging.py:274"),
+    "global_positioning": ("colmap_tpu_torch/csrc/global_positioning.cu",
+                           "colmap_tpu/estimators/global_positioning.py:48"),
+    "view_graph_calibration": ("colmap_tpu_torch/csrc/view_graph_calibration.cu",
+                               "colmap_tpu/estimators/view_graph_calibration.py:76"),
+}
+# Global SfM at the scale its users run (1DSfM's collections: about 1000
+# registered images, tens of thousands of view-graph edges): rotation
+# averaging on 1000 nodes and 25 000 edges (a ring plus random pairs, 2 deg
+# of noise on every edge, 5% replaced by random rotations); positioning on
+# 1000 cameras x 200 000 points x 1 200 000 observations (tracks of 6);
+# view-graph calibration on 50 cameras and 2000 F edges.
+RA_NODES, RA_EDGES, GP_CAMS, GP_POINTS, GP_TRACK, VGC_CAMS, VGC_EDGES = (
+    1000, 25000, 1000, 200000, 6, 50, 2000)
+# K21 float32 against float64 (quaternion log, a few products per edge); K22
+# float32 3x3 inverses of point blocks and Schur sums; K23's loss (its edge
+# arithmetic is float64) and its gradient away from cameras on edges with
+# (s0 - s1) / s0 < 1e-4, whose singular vectors are not unique.
+K21_RTOL, K22_RTOL, K23_LOSS_RTOL, K23_GRAD_RTOL, K23_TIE_GAP = 1e-5, 1e-4, 1e-5, 1e-4, 1e-4
+# Whole solves through the kernels against the float64 plain versions on the
+# card: rotation errors within 1.05x the plain path's + 1e-3 deg, aligned
+# centre errors within 2x + 1e-4 of the scene scale, focals within 1e-3.
+RA_SOLVE_FACTOR, RA_SOLVE_DEG, GP_SOLVE_FACTOR, GP_SOLVE_SCALE, VGC_SOLVE_RTOL = (
+    1.05, 1e-3, 2.0, 1e-4, 1e-3)
+# The global mapper's gates: the reference thresholds on the verify and
+# full-size scenes, colmap_tpu's own on the gravity-prior scene
+# (tests/test_global_mapper.py:236-240), 0.5 deg for rotation_averager
+# (tests/test_cli_tools3.py:115) and 5% on the calibrated focals.
+GRAVITY_MAX_ROT_DEG, GRAVITY_MAX_CENTER, RA_CLI_MAX_DEG, VGC_CLI_RTOL = 0.5, 0.05, 0.5, 0.05
+# f32 operations (an FMA is 2) of the global kernels' functions:
+#  - K21 (b) per edge: x_j - x_i (3), times w (3), added at both ends (6):
+#    15 with the weight's sign; per node the free mask (3) and, for nodes
+#    with a gravity projector, its 3x3 product (15);
+#  - K22 (b) per observation, once from each side: the projection
+#    (I - d d^T) v (a dot 5, 3 FMA 6) and w times it, accumulated (6): 17;
+#    per point H_pp^-1 y (15), per camera H_cc x (15) and the difference (3);
+#  - K23 per edge, counted in float64 arithmetic at the float32 rate: E =
+#    K_b^T F K_a (two 3x3 products with the sparse K: 54 + 54), E^T E (6
+#    entries x 3 FMA: 36), a symmetric 3x3 eigensolve (about 150), the two
+#    left vectors (2 x (9 FMA + 3) = 42) and their orthogonalization (15),
+#    res and its derivatives (10), the four u^T dE v terms (4 x 14 = 56):
+#    about 420; per camera its incidences (1 each).
+RA_EDGE_OPS, RA_NODE_OPS, RA_PROJ_OPS = 15, 3, 15
+GP_OBS_OPS, GP_POINT_OPS, GP_CAM_OPS = 34, 15, 18
+VGC_EDGE_OPS = 420
 
 
 def pm_plane_ops(taps, views, geometric):
@@ -975,10 +1042,10 @@ def _check_ransac_batch(tag, mk, ck, bk, mp, cp, bp, n, n_samples, errs, unpack_
     return len(agree), len(pairs)
 
 
-def make_scene(root, num_frames, num_points, focal=1280.0, seed=3):
+def make_scene(root, num_frames, num_points, focal=1280.0, seed=3, **options):
     """A synthetic database and its ground truth (one SIMPLE_RADIAL camera,
-    1024 x 768, prior focal length, exhaustive noise-free matches), written
-    with the port's generator."""
+    1024 x 768, prior focal length, exhaustive noise-free matches; other
+    generator options from ``options``), written with the port's generator."""
     from colmap_tpu_torch.scene.database import Database
     from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
 
@@ -987,30 +1054,29 @@ def make_scene(root, num_frames, num_points, focal=1280.0, seed=3):
     gt = synthesize_dataset(
         SyntheticDatasetOptions(num_rigs=1, num_cameras_per_rig=1, num_frames_per_rig=num_frames,
                                 num_points3D=num_points, camera_params=(focal, 512.0, 384.0, 0.05),
-                                camera_has_prior_focal_length=True),
+                                camera_has_prior_focal_length=True, **options),
         db, rng=np.random.default_rng(seed))
     db.close()
     return db_path, gt
 
 
-def all_launch_counts():
+def _kernel_modules():
     from colmap_tpu_torch.kernels import ba as KB
+    from colmap_tpu_torch.kernels import global_sfm as KG
     from colmap_tpu_torch.kernels import matching as KM
     from colmap_tpu_torch.kernels import mvs as KV
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
 
-    return {**KB.LAUNCHES, **K.LAUNCHES, **KM.LAUNCHES, **KS.LAUNCHES, **KV.LAUNCHES}
+    return KB, K, KM, KS, KV, KG
+
+
+def all_launch_counts():
+    return {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def reset_all_launches():
-    from colmap_tpu_torch.kernels import ba as KB
-    from colmap_tpu_torch.kernels import matching as KM
-    from colmap_tpu_torch.kernels import mvs as KV
-    from colmap_tpu_torch.kernels import sfm as K
-    from colmap_tpu_torch.kernels import sift as KS
-
-    for mod in (KB, K, KM, KS, KV):
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
@@ -1108,14 +1174,14 @@ def run_mapper(db_path, out, label, min_launches=True):
     log(f"{label}: {buf.getvalue().strip()} ({dt:.3f} s)")
     log(f"  launches: {counts}")
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
-              and k not in SIFT_SOURCES and k not in MVS_SOURCES]
+              and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
     return pipeline, dt, counts
 
 
-def check_against_gt(out, gt, num_frames, label):
+def check_against_gt(out, gt, num_frames, label, max_rot_deg=MAX_ROT_DEG, max_center=MAX_CENTER):
     from colmap_tpu_torch.estimators.alignment import compare_reconstructions
     from colmap_tpu_torch.scene.reconstruction_io import read_model
 
@@ -1125,9 +1191,9 @@ def check_against_gt(out, gt, num_frames, label):
     log(f"  {label}: {recon.num_reg_frames()}/{num_frames} frames registered, "
         f"{recon.num_points3D()} points; against ground truth: {n} common frames, max rotation "
         f"error {rot_err:.3e} deg, max center error {ctr:.3e}")
-    if not (n == num_frames and rot_err <= MAX_ROT_DEG and ctr <= MAX_CENTER):
+    if not (n == num_frames and rot_err <= max_rot_deg and ctr <= max_center):
         raise AssertionError(f"{label}: {n}/{num_frames} frames, {rot_err} deg, {ctr}: outside "
-                             f"{MAX_ROT_DEG} deg / {MAX_CENTER}")
+                             f"{max_rot_deg} deg / {max_center}")
     return cmp
 
 
@@ -2134,13 +2200,11 @@ def _mvs_checks(where, inputs, opts, view_selection, margin, errs, failed):
         errs["pm_view_selection"].append((a, r))
     # K18 on two states: the first half-iteration's (random planes, as
     # patch_match starts) and the photometric pass's planes (converged:
-    # many candidates are near-equal). The same choice as the plain version
-    # at >= 99.9% of the pixels: the same plane, or a plane of exactly the
-    # plain version's float64 cost (where no source sees any candidate's
-    # window every plane costs the same, and the float32 sums break the tie
-    # by their rounding); the same plane at every pixel away from
+    # many candidates are near-equal). The same plane as the plain version
+    # at >= 99.9% of the region's pixels and at every pixel away from
     # near-ties; a plane as good (its float64 cost within the tie gap of
-    # the plain version's choice) at >= 99.9%.
+    # the plain version's choice) at >= 99.9%. The share that also counts a
+    # plane of exactly the plain version's float64 cost is logged only.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     start = PM.draw(gen, tuple(d.shape), opts, torch.float32, "cuda")
@@ -2166,18 +2230,18 @@ def _mvs_checks(where, inputs, opts, view_selection, margin, errs, failed):
                 as_good = same | ((k_cost - ref[2]).abs() <= MVS_TIE_GAP)
                 agree = plane & ~ties
                 a, r = rel_err(got[2][agree], ref[2][agree])
-                same_share = float(same[region].double().mean())
+                plane_share = float(plane[region].double().mean())
                 good_share = float(as_good[region].double().mean())
                 log(f"    K18 {'weights' if vs else 'best half'}, {label} planes, parity "
-                    f"{parity}: the same choice at {same_share:.6f} of {region_label} (>= "
-                    f"{K18_MIN_SAME}; the same plane at {float(plane[region].double().mean()):.6f}, "
-                    f"all pixels {float(same.double().mean()):.6f}), the same plane at "
-                    f"{float(plane[~ties].double().mean()):.6f} away from {int(ties.sum())} "
-                    f"near-ties (all), as good a plane at {good_share:.6f} (>= {K18_MIN_SAME}); "
-                    f"{int((ref[0] != sd64).sum())} planes moved; cost max_abs_err {a:.3e} rel "
-                    f"{r:.3e}")
-                if not (bool(plane[~ties].all()) and r <= K17_RTOL and same_share >= K18_MIN_SAME
-                        and good_share >= K18_MIN_SAME):
+                    f"{parity}: the same plane at {plane_share:.6f} of {region_label} (>= "
+                    f"{K18_MIN_SAME}; all pixels {float(plane.double().mean()):.6f}; with "
+                    f"planes of equal float64 cost {float(same[region].double().mean()):.6f}), "
+                    f"the same plane at {float(plane[~ties].double().mean()):.6f} away from "
+                    f"{int(ties.sum())} near-ties (all), as good a plane at {good_share:.6f} "
+                    f"(>= {K18_MIN_SAME}); {int((ref[0] != sd64).sum())} planes moved; cost "
+                    f"max_abs_err {a:.3e} rel {r:.3e}")
+                if not (bool(plane[~ties].all()) and r <= K17_RTOL
+                        and plane_share >= K18_MIN_SAME and good_share >= K18_MIN_SAME):
                     failed.append(f"{where}: K18 view_selection={vs} {label} parity {parity}")
                 errs["pm_iteration"].append((a, r))
         df, nf, mask = KV.consistency_filter(p, d, n, ca64.float(), s, o)
@@ -2262,7 +2326,420 @@ def _mvs_row(name, fn, plain, bytes_moved, ops):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None)
 
 
-ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs")
+def _as64(nt):
+    """A NamedTuple of tensors with its float tensors in float64."""
+    return type(nt)(*(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+                      for x in nt))
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _global_row(name, fn, plain, bytes_moved, ops, library=None, plain_reps=3):
+    ms = time_ms(fn, reps=20)
+    plain_ms = time_ms(plain, reps=plain_reps)
+    library_ms = time_ms(library, reps=20) if library else None
+    b_ms, by = bound(bytes_moved, ops)
+    lib = f", library {library_ms:.4f} ms" if library else ""
+    log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound {b_ms:.5f} ms by {by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+
+
+def _entry_times(fn, plain):
+    return dict(ms=time_ms(fn, reps=20), plain_ms=time_ms(plain, reps=3))
+
+
+def _k21(errs, rows):
+    """K21's entries against float64 on the 1000-node graph, then timed;
+    the whole estimate_rotations through the kernels and through the plain
+    versions in float64."""
+    from colmap_tpu_torch.estimators.rotation_averaging import estimate_rotations
+    from colmap_tpu_torch.estimators.rotation_averaging import spanning_tree_init
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    t0 = time.perf_counter()
+    rc = C.rotation_case(RA_NODES, RA_EDGES, seed=3)
+    N, E = RA_NODES, len(rc.edges)
+    init = spanning_tree_init(N, rc.edges, rc.rel_quats, np.ones(E))
+    free = np.ones(N)
+    free[0] = 0.0
+    g_world = np.array([0.0, 1.0, 0.0])
+    proj = np.tile(np.eye(3), (N, 1, 1))
+    proj[::2] = np.outer(g_world, g_world)
+    dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device="cuda")  # noqa: E731
+    edges = torch.as_tensor(rc.edges, device="cuda")
+    q = dev(init)
+    rng = np.random.default_rng(5)
+    sigma = float(np.deg2rad(5.0))
+    log(f"  K21 on {N} nodes, {E} edges ({int(rc.outliers.sum())} replaced by random rotations) "
+        f"(set-up {time.perf_counter() - t0:.1f} s):")
+    # Two states: random rotations (every residual far from zero) and the
+    # spanning tree's (the solve's start: its N - 1 tree edges have zero
+    # residual). Under L1 weights an edge with |r| < 1e-5 weighs 1e5, and
+    # the float32 residual of two float32 quaternions that agree is rounding
+    # (about 1e-7 rad), so there the weighted residual differs from float64
+    # by about 1e-2 whatever the arithmetic: that case is logged, and the
+    # whole solves below show its effect.
+    q_rand = dev(C.random_quats(rng, N))
+    for P in (None, proj):
+        g32 = G.ra_graph(N, edges, dev(rc.rel_quats), dev(free), None if P is None else dev(P))
+        g64 = _as64(g32)
+        for use_l1, state, qs in ((True, "random", q_rand), (False, "random", q_rand),
+                                  (False, "spanning-tree", q), (True, "spanning-tree", q)):
+            tag = (f"K21 {'L1' if use_l1 else 'Geman-McClure'}, {state} rotations, "
+                   f"{'gravity projectors' if P is not None else 'no projectors'}")
+            st = G.ra_edge_pass(g32, qs, use_l1, sigma)
+            ref = G.ra_edge_pass_plain(g64, qs.double(), use_l1, sigma)
+            if use_l1 and state == "spanning-tree":
+                small = int((ref.ew[:, 3] >= 1e5 * (1 - 1e-6)).sum())
+                log(f"    {tag}: {small} edges at the L1 weight's clamp; edge pass errors " + ", ".join(
+                    f"{f} {rel_err(getattr(st, f), getattr(ref, f))[1]:.2e}" for f in G.RAStep._fields)
+                    + " (logged)")
+                continue
+            for f in G.RAStep._fields:
+                check(f"{tag}, edge pass {f}", getattr(st, f), getattr(ref, f), K21_RTOL,
+                      errs["rotation_averaging"])
+            x = dev(rng.standard_normal((N, 3)))
+            check(f"{tag}, matvec", G.ra_matvec(g32, st.ew, x),
+                  G.ra_matvec_plain(g64, st.ew.double(), x.double()), K21_RTOL,
+                  errs["rotation_averaging"])
+    delta = dev(0.05 * rng.standard_normal((N, 3)))
+    check("K21 node update", G.ra_update(q, delta), G.ra_update_plain(q.double(), delta.double()),
+          K21_RTOL, errs["rotation_averaging"])
+
+    # Times: the Geman-McClure edge pass, the matvec (each CG iteration's)
+    # and the update, without projectors.
+    g32 = G.ra_graph(N, edges, dev(rc.rel_quats), dev(free))
+    g64 = _as64(g32)
+    st = G.ra_edge_pass(g32, q, False, sigma)
+    x = dev(rng.standard_normal((N, 3)))
+    e, w = edges.long(), st.ew[:, 3]
+    ar = torch.arange(N, device="cuda")
+    L = torch.sparse_coo_tensor(
+        torch.cat([torch.stack([e[:, 0], e[:, 1]]), torch.stack([e[:, 1], e[:, 0]]),
+                   torch.stack([ar, ar])], 1),
+        torch.cat([-w, -w, st.deg]), (N, N)).coalesce().to_sparse_csr()
+    lap = torch.sparse.mm(L, x) * g32.free[:, None]
+    a, r = rel_err(lap, G.ra_matvec(g32, st.ew, x))
+    log(f"    torch.sparse.mm on the assembled weighted Laplacian (CSR) agrees with K21 (b) to "
+        f"{r:.2e} of its largest entry")
+    rows["rotation_averaging"] = _global_row(
+        "K21 (b) Laplacian matvec", lambda: G.ra_matvec(g32, st.ew, x),
+        lambda: G.ra_matvec_plain(g64, st.ew.double(), x.double()),
+        4 * (3 * N + E + 2 * E + N + 3 * N), RA_EDGE_OPS * E + RA_NODE_OPS * N,
+        library=lambda: torch.sparse.mm(L, x))
+    rows["rotation_averaging"]["entries"] = {
+        "edge_pass": _entry_times(lambda: G.ra_edge_pass(g32, q, False, sigma),
+                                  lambda: G.ra_edge_pass_plain(g64, q.double(), False, sigma)),
+        "update": _entry_times(lambda: G.ra_update(q, delta),
+                               lambda: G.ra_update_plain(q.double(), delta.double())),
+    }
+    log(f"    K21 (a) edge pass, (c) update: {rows['rotation_averaging']['entries']}")
+
+    # Whole solves.
+    out = {}
+    for label, kw in (("kernels", {}), ("plain float64", dict(dtype=torch.float64,
+                                                                kernels=G.PLAIN))):
+        stats = {}
+        G.reset_launches()
+        est, wall = _timed(lambda: estimate_rotations(N, rc.edges, rc.rel_quats, device="cuda",
+                                                      stats=stats, **kw))
+        errd = C.rotation_errors_deg(est, rc.gt)
+        out[label] = dict(median_deg=float(np.median(errd)), max_deg=float(errd.max()),
+                          seconds=wall, launches=G.LAUNCHES["rotation_averaging"], **stats)
+        log(f"  estimate_rotations through the {label}: rotation error against the truth median "
+            f"{out[label]['median_deg']:.4e} deg, max {out[label]['max_deg']:.4e} deg; "
+            f"{stats['l1_iterations']} L1 + {stats['irls_iterations']} IRLS iterations, "
+            f"{wall:.3f} s, {out[label]['launches']} K21 launches")
+    k, p = out["kernels"], out["plain float64"]
+    if not (k["median_deg"] <= RA_SOLVE_FACTOR * p["median_deg"] + RA_SOLVE_DEG
+            and k["max_deg"] <= RA_SOLVE_FACTOR * p["max_deg"] + RA_SOLVE_DEG):
+        raise AssertionError(f"estimate_rotations: kernels {k} against plain {p}")
+    return out
+
+
+
+def _k22(errs, rows):
+    """K22's entries against float64 on 1000 cameras x 200k points x 1.2M
+    observations, at the solve's first state and at its last, then timed;
+    the whole solve_global_positioning through both."""
+    from colmap_tpu_torch.estimators.global_positioning import solve_global_positioning
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    t0 = time.perf_counter()
+    pc = C.positioning_case(GP_CAMS, GP_POINTS, GP_TRACK, seed=3)
+    Cn, Pn, O = GP_CAMS, GP_POINTS, len(pc.obs_cam)
+    scale = float(np.sqrt(((pc.centers - pc.centers.mean(0)) ** 2).sum(1).mean()))
+    log(f"  K22 on {Cn} cameras x {Pn} points x {O} observations, 1e-3 rad of bearing noise, "
+        f"scene scale {scale:.3f} (set-up {time.perf_counter() - t0:.1f} s):")
+    out, final = {}, {}
+    for label, kw in (("kernels", {}), ("plain float64", dict(dtype=torch.float64,
+                                                                kernels=G.PLAIN))):
+        stats = {}
+        G.reset_launches()
+        (c, X), wall = _timed(lambda: solve_global_positioning(
+            Cn, Pn, pc.obs_cam, pc.obs_point, pc.dirs, device="cuda", stats=stats, **kw))
+        final[label] = (c, X)
+        err = np.linalg.norm(C.similarity_aligned(c, pc.centers) - pc.centers, axis=1)
+        out[label] = dict(median_center=float(np.median(err)) / scale,
+                          max_center=float(err.max()) / scale, seconds=wall,
+                          launches=G.LAUNCHES["global_positioning"], **stats)
+        log(f"  solve_global_positioning through the {label}: aligned centre error against the "
+            f"truth median {out[label]['median_center']:.4e}, max {out[label]['max_center']:.4e} "
+            f"of the scene scale; {stats['irls_iterations']} IRLS rounds, {wall:.3f} s, "
+            f"{out[label]['launches']} K22 launches")
+    k, p = out["kernels"], out["plain float64"]
+    if not k["max_center"] <= GP_SOLVE_FACTOR * p["max_center"] + GP_SOLVE_SCALE:
+        raise AssertionError(f"solve_global_positioning: kernels {k} against plain {p}")
+
+    dev = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device="cuda")  # noqa: E731
+    counts = np.bincount(pc.obs_cam, minlength=Cn)
+    anchor = int(np.nonzero(pc.obs_cam == int(np.argmax(counts)))[0][0])
+    p32 = G.gp_problem(dev(pc.dirs), dev(pc.obs_cam, torch.int32), dev(pc.obs_point, torch.int32),
+                       dev(np.ones(O)), anchor, 100.0, Cn, Pn, 0.1)
+    p64 = _as64(p32)
+    rng = np.random.default_rng(0)
+    states = {"the first round's": (rng.standard_normal((Cn, 3)), rng.standard_normal((Pn, 3))),
+              "the last round's": final["kernels"]}
+    for label, (c, X) in states.items():
+        c32, X32 = dev(c), dev(X)
+        sys = G.gp_setup(p32, c32, X32)
+        ref = G.gp_setup_plain(p64, c32.double(), X32.double())
+        scales = _gp_term_scales(p64, ref, c32.double(), X32.double())
+        for f in G.GPSystem._fields:
+            if f in scales:
+                # g_x and b vanish at the optimum: their float32 error is held
+                # against float32's resolution of the terms they sum.
+                a, r = rel_err(getattr(sys, f), getattr(ref, f))
+                r_terms = a / scales[f]
+                log(f"  K22 at {label} state, setup {f}: max_abs_err {a:.3e} rel {r:.3e}, "
+                    f"{r_terms:.3e} of its terms' scale (tol {K22_RTOL:g})")
+                if not r_terms <= K22_RTOL:
+                    raise AssertionError(f"K22 setup {f}: {r_terms:.3e} > {K22_RTOL:g}")
+                errs["global_positioning"].append((a, r_terms))
+                continue
+            check(f"K22 at {label} state, setup {f}", getattr(sys, f), getattr(ref, f), K22_RTOL,
+                  errs["global_positioning"])
+        sys64 = _as64(sys)
+        check(f"K22 at {label} state, Schur matvec", G.gp_schur_matvec(p32, sys, sys.b),
+              G.gp_schur_matvec_plain(p64, sys64, sys.b.double()), K22_RTOL,
+              errs["global_positioning"])
+        xc = 0.01 * sys.b / sys.b.abs().max()
+        got = G.gp_back_substitute(p32, sys, xc, c32, X32)
+        want = G.gp_back_substitute_plain(p64, sys64, xc.double(), c32.double(), X32.double())
+        check(f"K22 at {label} state, back-substitution point steps", got[1] - X32,
+              want[1] - X32.double(), K22_RTOL, errs["global_positioning"])
+    c32, X32 = (dev(a) for a in states["the first round's"])
+    sys = G.gp_setup(p32, c32, X32)
+    sys64 = _as64(sys)
+    rows["global_positioning"] = _global_row(
+        "K22 (b) Schur matvec", lambda: G.gp_schur_matvec(p32, sys, sys.b),
+        lambda: G.gp_schur_matvec_plain(p64, sys64, sys.b.double()),
+        4 * (3 * O + 2 * O + O + 9 * Pn + 9 * Cn + 3 * Cn + 3 * Cn),
+        GP_OBS_OPS * O + GP_POINT_OPS * Pn + GP_CAM_OPS * Cn)
+    rows["global_positioning"]["entries"] = {
+        "setup": _entry_times(lambda: G.gp_setup(p32, c32, X32),
+                              lambda: G.gp_setup_plain(p64, c32.double(), X32.double())),
+        "back_substitute": _entry_times(
+            lambda: G.gp_back_substitute(p32, sys, sys.b, c32, X32),
+            lambda: G.gp_back_substitute_plain(p64, sys64, sys64.b, c32.double(), X32.double())),
+    }
+    log(f"    K22 (a) setup, (c) back-substitution: {rows['global_positioning']['entries']}")
+    return out
+
+
+def _gp_term_scales(prob, sys, centers, points):
+    """float32's resolution of g_x and b, which vanish at the optimum: the
+    largest per-point sum of w |X_p - c_i| (each residual is the projection
+    of that difference, so float32 resolves it to about 1e-7 of it) and the
+    largest per-camera sum of w (|X_p - c_i| + |y0_p|), float64."""
+    oc, op = prob.obs_cam.long(), prob.obs_point.long()
+    w = sys.w[:, None]
+    diff = w * (points[op] - centers[oc]).norm(dim=-1, keepdim=True)
+    y0 = (sys.Hpp_inv @ sys.g_x[..., None])[..., 0]
+    gx = torch.zeros(points.shape[0], 1, dtype=w.dtype, device=w.device).index_add_(0, op, diff)
+    b = torch.zeros(centers.shape[0], 1, dtype=w.dtype, device=w.device).index_add_(
+        0, oc, diff + w * y0[op].norm(dim=-1, keepdim=True))
+    return {"g_x": float(gx.max()), "b": float(b.max())}
+
+
+def _k23(errs, rows):
+    """K23 against float64 autograd on 50 cameras and 2000 F edges at the
+    priors and near the optimum, then timed; calibrate_view_graph through
+    both."""
+    from colmap_tpu_torch.estimators.view_graph_calibration import calibrate_view_graph
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    vc = C.calibration_case(VGC_CAMS, VGC_EDGES, seed=3)
+    n, E = VGC_CAMS, VGC_EDGES
+    graph = G.vgc_graph(*(torch.as_tensor(a, device="cuda")
+                          for a in (vc.Fs, vc.e1, vc.e2, vc.priors, vc.pps)))
+    log(f"  K23 on {n} cameras and {E} F edges, priors up to 25% off:")
+    rng = np.random.default_rng(1)
+    for label, x in (("at the priors", np.zeros(n)),
+                     ("near the optimum", np.log(vc.true_focals / vc.priors)
+                      + 1e-3 * rng.standard_normal(n))):
+        x32 = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+        loss, grad = G.vgc_loss_grad(graph, x32)
+        x64 = x32.double().requires_grad_()
+        ref = G.vgc_loss_plain(graph, x64)
+        (ref_g,) = torch.autograd.grad(ref, x64)
+        check(f"K23 {label}, loss", loss, ref.detach(), K23_LOSS_RTOL,
+              errs["view_graph_calibration"])
+        near = C.calibration_near_ties(graph, x32, K23_TIE_GAP)
+        check(f"K23 {label}, gradient away from {int(near.sum())} cameras on near-degenerate "
+              f"edges", grad[~near], ref_g[~near], K23_GRAD_RTOL, errs["view_graph_calibration"])
+    x32 = torch.zeros(n, device="cuda")
+
+    def plain():
+        x64 = x32.double().requires_grad_()
+        return torch.autograd.grad(G.vgc_loss_plain(graph, x64), x64)
+
+    rows["view_graph_calibration"] = _global_row(
+        "K23 loss and gradient", lambda: G.vgc_loss_grad(graph, x32), plain,
+        E * (72 + 8) + n * (8 + 16 + 4 + 4) + 4, VGC_EDGE_OPS * E + 2 * E)
+    ids = list(range(n))
+    args = (ids, dict(enumerate(vc.priors)), dict(enumerate(map(tuple, vc.pps))),
+            [(int(a), int(b), F) for a, b, F in zip(vc.e1, vc.e2, vc.Fs)])
+    out, focals = {}, {}
+    for label, kw in (("kernels", {}), ("plain float64", dict(dtype=torch.float64,
+                                                                kernels=G.PLAIN))):
+        G.reset_launches()
+        focals[label], wall = _timed(lambda: calibrate_view_graph(*args, device="cuda", **kw))
+        f = np.array([focals[label][i] for i in ids])
+        rel = np.abs(f - vc.true_focals) / vc.true_focals
+        out[label] = dict(median_rel=float(np.median(rel)), max_rel=float(rel.max()), seconds=wall,
+                          launches=G.LAUNCHES["view_graph_calibration"])
+        log(f"  calibrate_view_graph through the {label}: focal error against the truth median "
+            f"{out[label]['median_rel']:.4e}, max {out[label]['max_rel']:.4e} (relative); "
+            f"200 Adam steps, {wall:.3f} s, {out[label]['launches']} K23 launches")
+    diff = max(abs(focals["kernels"][i] - focals["plain float64"][i]) / focals["plain float64"][i]
+               for i in ids)
+    out["kernels_vs_plain_rel"] = diff
+    log(f"  calibrate_view_graph: kernel-path focals within {diff:.3e} of the plain path's "
+        f"(<= {VGC_SOLVE_RTOL})")
+    if not diff <= VGC_SOLVE_RTOL:
+        raise AssertionError(f"calibrate_view_graph: focals {diff} apart")
+    return out
+
+
+def phase_global_kernels():
+    """K21-K23 against their float64 plain versions on the same inputs at
+    the scale global SfM users run, timed with CUDA events beside their
+    plain versions; then the three solvers through the kernels and through
+    the plain versions in float64 on the card. Returns (errs, rows, solves)."""
+    errs = {k: [] for k in GLOBAL_SOURCES}
+    rows = {}
+    log("global-SfM kernels vs plain (float64 on the same inputs):")
+    solves = dict(rotations=_k21(errs, rows), positioning=_k22(errs, rows),
+                  calibration=_k23(errs, rows))
+    torch.cuda.synchronize()
+    return errs, rows, solves
+
+
+GLOBAL_MAPPER_KERNELS = ("rotation_averaging", "global_positioning", "camera_map",
+                         "ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec")
+
+
+def _profiled_command(argv, label, kernels, launches):
+    """run_command under torch.profiler; adds the launches to ``launches``
+    and logs the device's idle share and its top items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
+        torch.cuda.synchronize()
+        out, seconds, counts = run_command(argv, label, kernels)
+    for k, v in counts.items():
+        launches[k] += v
+    busy_ms, by_name = device_busy(prof)
+    idle = log_busy(label, busy_ms, by_name, seconds * 1e3, top=8)
+    return out, seconds, idle
+
+
+def phase_global(launches):
+    """The global-SfM commands on cuda, each under torch.profiler:
+    `global_mapper` on the verify, full-size and gravity-prior scenes
+    (relative poses decomposed from E), `rotation_averager` on the verify
+    scene and `view_graph_calibrator` on a database of UNCALIBRATED pairs;
+    each held to its gates."""
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = (
+            ("verify scene", 8, dict(num_points=120, focal=1280.0, seed=3),
+             MAX_ROT_DEG, MAX_CENTER),
+            ("full-size scene", FULL_FRAMES, dict(num_points=1000, focal=FULL_FOCAL, seed=3),
+             MAX_ROT_DEG, MAX_CENTER),
+            ("gravity-prior scene", 8, dict(num_points=120, seed=11, prior_gravity=True,
+                                            num_points2D_without_point3D=5),
+             GRAVITY_MAX_ROT_DEG, GRAVITY_MAX_CENTER),
+        )
+        for label, frames, kw, max_rot, max_ctr in scenes:
+            root = os.path.join(tmp, label.split()[0])
+            os.makedirs(root)
+            t0 = time.perf_counter()
+            kw = dict(kw)
+            db_path, gt = make_scene(root, frames, kw.pop("num_points"),
+                                     two_view_geometry_has_relative_pose=False, **kw)
+            log(f"global_mapper, {label}: {frames} frames (set-up {time.perf_counter() - t0:.1f} s)")
+            out = os.path.join(root, "sparse")
+            pipeline, seconds, idle = _profiled_command(
+                ["global_mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
+                f"global_mapper, {label}", GLOBAL_MAPPER_KERNELS, launches)
+            cmp = check_against_gt(out, gt, frames, f"global_mapper, {label}", max_rot, max_ctr)
+            phases = {k: (round(pipeline.timer.seconds[k], 3), pipeline.timer.calls[k])
+                      for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
+                                      reverse=True)}
+            log("  time by phase (s, calls): " + ", ".join(
+                f"{k} {v[0]:.3f}/{v[1]}" for k, v in phases.items()))
+            results[label] = dict(seconds=seconds, idle=idle, phases=phases,
+                                  max_rot_deg=cmp["max_rotation_error_deg"],
+                                  max_center=cmp["max_center_error"])
+            if label == "verify scene":
+                ra_out = os.path.join(root, "rotations")
+                recon, seconds, idle = _profiled_command(
+                    ["rotation_averager", "--database_path", db_path, "--output_path", ra_out],
+                    "rotation_averager, verify scene", ("rotation_averaging",), launches)
+                recon = read_model(ra_out)
+                iids = sorted(recon.reg_image_ids())
+                worst = 0.0
+                for iid in iids[1:]:
+                    R = recon.cam_from_world(iid).rotmat() @ recon.cam_from_world(iids[0]).rotmat().T
+                    R_gt = gt.cam_from_world(iid).rotmat() @ gt.cam_from_world(iids[0]).rotmat().T
+                    cos = (np.trace(R @ R_gt.T) - 1.0) / 2.0
+                    worst = max(worst, float(np.degrees(np.arccos(np.clip(cos, -1, 1)))))
+                log(f"  rotation_averager: {len(iids)}/{frames} frames, max rotation error "
+                    f"against the truth {worst:.3e} deg (<= {RA_CLI_MAX_DEG})")
+                if not (len(iids) == frames and worst <= RA_CLI_MAX_DEG):
+                    raise AssertionError("rotation_averager: outside its gate")
+                results["rotation_averager"] = dict(seconds=seconds, idle=idle, max_deg=worst)
+        path = os.path.join(tmp, "calibrator.db")
+        true_focals = C.write_calibrator_database(path)
+        focals, seconds, idle = _profiled_command(
+            ["view_graph_calibrator", "--database_path", path],
+            "view_graph_calibrator, two cameras 25% off", ("view_graph_calibration",), launches)
+        rel = {cid: abs(focals[cid] - f) / f for cid, f in true_focals.items()}
+        log(f"  view_graph_calibrator: focals {focals} against the truth {true_focals}: relative "
+            f"errors {rel} (<= {VGC_CLI_RTOL})")
+        if not max(rel.values()) <= VGC_CLI_RTOL:
+            raise AssertionError("view_graph_calibrator: outside its gate")
+        results["view_graph_calibrator"] = dict(seconds=seconds, idle=idle, rel=rel)
+    return results
+
+
+ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
+              "global_kernels", "global")
 
 
 def main():
@@ -2327,9 +2804,16 @@ def main():
         rows.update(v_rows)
     if "root" in DENSE_STATE:
         shutil.rmtree(DENSE_STATE["root"], ignore_errors=True)
+    if "global_kernels" in phases:
+        g_errs, g_rows, _ = run("global_kernels", phase_global_kernels)
+        errs.update(g_errs)
+        rows.update(g_rows)
+    if "global" in phases:
+        run("global", lambda: phase_global(launches))
     log(f"seconds by phase: {seconds}")
 
-    sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES}
+    sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
+               **GLOBAL_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:
@@ -2344,6 +2828,8 @@ def main():
         ))
         if name in agree:  # near-best models that agree, of all near-best models
             kernels[-1]["near_best_agree"] = list(agree[name])
+        if "entries" in rows[name]:  # the kernel's other entries: ms and plain ms
+            kernels[-1]["entries"] = rows[name]["entries"]
     complete = phases >= set(ALL_PHASES)
     if complete:
         idle_kernels = [k["name"] for k in kernels if k["launches"] == 0]

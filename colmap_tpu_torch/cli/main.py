@@ -13,6 +13,9 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     transitive_matcher  match and verify the pairs that close A-B, B-C
     geometric_verifier  verify again every pair that has matches
     mapper            incremental SfM: database -> sparse model(s)
+    global_mapper     global SfM: database -> one sparse model
+    rotation_averager   global rotations of a database's view graph -> model
+    view_graph_calibrator  focal lengths from F matrices -> database cameras
     bundle_adjuster   read a model, run bundle adjustment, write the model
     model_analyzer    print a model's statistics
     image_undistorter   undistort a model's images into a dense workspace
@@ -21,8 +24,8 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     stereo_fusion       fuse the depth maps into a point cloud (PLY + .vis)
 
 Commands return what they built (``main`` passes it on), so a caller that
-drives the CLI in-process can read it: ``mapper`` returns its pipeline,
-whose ``timer`` holds the time by phase.
+drives the CLI in-process can read it: ``mapper`` and ``global_mapper``
+return their pipeline, whose ``timer`` holds the time by phase.
 
 Run as ``python -m colmap_tpu_torch.cli.main <command> ...``.
 """
@@ -203,6 +206,120 @@ def _cmd_mapper(args):
         )
     db.close()
     return pipeline
+
+
+def _cmd_global_mapper(args):
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+    from colmap_tpu_torch.sfm.global_pipeline import GlobalPipeline, GlobalPipelineOptions
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    db = Database(args.database_path, must_exist=True)
+    pipeline = GlobalPipeline(GlobalPipelineOptions(verbose=not args.quiet), db, device=device)
+    recon = pipeline.run()
+    db.close()
+    if recon is None:
+        raise SystemExit("Global mapping failed")
+    os.makedirs(args.output_path, exist_ok=True)
+    out = os.path.join(args.output_path, "0")
+    write_model(recon, out, fmt="bin")
+    print(f"Model: {recon.num_reg_frames()} frames, {recon.num_points3D()} points -> {out}")
+    return pipeline
+
+
+def collect_relative_poses(database, min_num_matches: int = 15, device=None):
+    """pair_id -> relative Pose via the PoseGraph (scene/pose_graph.py)."""
+    from colmap_tpu_torch.scene.pose_graph import PoseGraph
+
+    return PoseGraph.load(database, min_num_inliers=min_num_matches, device=device).rel_poses()
+
+
+def _cmd_rotation_averager(args):
+    """Global rotation averaging over the view graph, written as a model of
+    registered frames at the averaged rotations and zero translations
+    (reference: rotation_averager, controllers/rotation_averaging.*)."""
+    import numpy as np
+
+    from colmap_tpu_torch.estimators.rotation_averaging import estimate_rotations
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.database_cache import DatabaseCache
+    from colmap_tpu_torch.scene.reconstruction import Reconstruction
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+    from colmap_tpu_torch.scene.types import Pose
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.types import pair_id_to_image_pair
+
+    device = resolve_device(args.device)
+    db = Database(args.database_path, must_exist=True)
+    rel_poses = collect_relative_poses(db, args.min_num_matches, device=device)
+    if not rel_poses:
+        db.close()
+        raise SystemExit("No relative poses in database; run a matcher first")
+    cache = DatabaseCache.create(db, min_num_matches=args.min_num_matches)
+    image_ids = sorted(cache.images.keys())
+    row = {iid: i for i, iid in enumerate(image_ids)}
+    edges, rel_quats = [], []
+    for pair_id, pose in rel_poses.items():
+        a, b = pair_id_to_image_pair(pair_id)
+        if a in row and b in row:
+            edges.append((row[a], row[b]))
+            rel_quats.append(pose.quat)
+    quats = estimate_rotations(len(image_ids), np.asarray(edges), np.asarray(rel_quats),
+                               device=device)
+    recon = Reconstruction()
+    for cam in cache.cameras.values():
+        recon.add_camera(cam)
+    for rig in cache.rigs.values():
+        recon.add_rig(rig)
+    for frame in cache.frames.values():
+        recon.add_frame(frame)
+    for image in cache.images.values():
+        recon.add_image(image)
+    for iid in image_ids:
+        frame_id = cache.images[iid].frame_id
+        recon.frames[frame_id].rig_from_world = Pose(np.asarray(quats[row[iid]]), np.zeros(3))
+        recon.register_frame(frame_id)
+    os.makedirs(args.output_path, exist_ok=True)
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Averaged rotations for {len(image_ids)} images -> {args.output_path}")
+    db.close()
+    return recon
+
+
+def _cmd_view_graph_calibrator(args):
+    """Focal lengths from the F matrices over the view graph, written to the
+    database's cameras (reference: view_graph_calibrator,
+    estimators/view_graph_calibration.*)."""
+    from colmap_tpu_torch.estimators.view_graph_calibration import calibrate_view_graph
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.sensor import models as camera_models
+    from colmap_tpu_torch.sfm.global_pipeline import principal_point
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    db = Database(args.database_path, must_exist=True)
+    cameras = db.read_cameras()
+    images = {iid: cid for (iid, _, cid) in db.read_images()}
+    edges = [(images[id1], images[id2], g.F)
+             for (id1, id2, g) in db.read_all_two_view_geometries()
+             if g is not None and g.F is not None and id1 in images and id2 in images]
+    camera_ids = sorted(cameras.keys())
+    prior_focals = {cid: float(camera_models.mean_focal_length(cameras[cid].model_id,
+                                                               cameras[cid].params))
+                    for cid in camera_ids}
+    pps = {cid: principal_point(cameras[cid]) for cid in camera_ids}
+    focals = calibrate_view_graph(camera_ids, prior_focals, pps, edges, device=device)
+    for cid, f in focals.items():
+        cam = cameras[cid]
+        for i in camera_models.focal_length_idxs(cam.model_id):
+            cam.params[i] = float(f)
+        db.update_camera(cam)
+    db.commit()
+    for cid in camera_ids:
+        print(f"camera {cid}: focal {prior_focals[cid]:.2f} -> {focals[cid]:.2f}")
+    db.close()
+    return focals
 
 
 def _cmd_bundle_adjuster(args):
@@ -401,6 +518,26 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--quiet", action="store_true")
     c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=_cmd_mapper)
+
+    c = sub.add_parser("global_mapper")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--image_path", default=None)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--quiet", action="store_true")
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_global_mapper)
+
+    c = sub.add_parser("rotation_averager")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--min_num_matches", type=int, default=15)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_rotation_averager)
+
+    c = sub.add_parser("view_graph_calibrator")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_view_graph_calibrator)
 
     c = sub.add_parser("bundle_adjuster")
     c.add_argument("--input_path", required=True)

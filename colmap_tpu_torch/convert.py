@@ -20,6 +20,11 @@ PatchMatchProblem from the numpy form of colmap_tpu's fields,
 ``convert_fusion_image`` carries a FusionImage across, and
 ``convert_options`` carries PatchMatchOptions and FusionOptions.
 
+Global SfM: ``convert_options`` carries RotationAveragingOptions,
+GlobalPositioningOptions (frozen), ViewGraphCalibrationOptions,
+GlobalMapperOptions (with its nested rotation_averaging, positioning and
+ba) and GlobalPipelineOptions, both ways.
+
 Nothing here imports colmap_tpu: callers pass its objects and, for the way
 back, its classes.
 """

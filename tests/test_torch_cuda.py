@@ -25,6 +25,7 @@ kernels K17-K20 run on colmap_tpu_torch/kernels/mvs_cases.py's plane case
 (their tolerances are stated above their tests).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -695,3 +696,153 @@ def test_pm_consistency_filter_matches_plain_on_cuda(view_selection):
     assert torch.equal(mask[:, ok], mask64[:, ok])
     _close(df[ok], df64[ok], 1e-6, "K19 depth")
     _close(nf[ok], nf64[ok], 1e-6, "K19 normal")
+
+
+@pytest.mark.parametrize("view_selection", [True, False], ids=["weights", "best_half"])
+@pytest.mark.parametrize("geometric", [False, True], ids=["photometric", "geometric"])
+def test_pm_iteration_keeps_the_plane_where_no_source_sees_the_window(view_selection,
+                                                                     geometric):
+    """K18 where every source looks away: each view of every candidate
+    returns the no-view cost (2.0, plus the clamped geometric term), every
+    plane costs the same in exact arithmetic, and the float64 plain version
+    keeps the incumbent; so must the kernel, at every pixel, under random
+    normalised weights whose float32 sums round otherwise."""
+    import dataclasses
+
+    from colmap_tpu_torch.kernels import mvs as K
+
+    (p, d, n, _, dr), (p64, d64, n64, _, dr64), opts = _pm_case(geometric)
+    away = torch.tensor([1e3, 0.0, 0.0], device="cuda")
+    p, p64 = p._replace(t_rel=p.t_rel + away), p64._replace(t_rel=p64.t_rel + away.double())
+    opts = dataclasses.replace(opts, view_selection=view_selection)
+    ca = K.costs_plain(p64, d64, n64, opts)
+    assert bool((ca == ca.flatten()[0]).all()), "a source sees a window"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    w64 = None
+    if view_selection:
+        w64 = torch.rand(ca.shape, generator=gen, device="cuda", dtype=torch.float64) + 0.05
+        w64 = w64 / w64.sum(0, keepdim=True)
+    cost = K.aggregate(ca, w64)
+    for parity in (0, 1):
+        got = K.iteration(p, d, n, cost.float(), ca.float(), None if w64 is None else w64.float(),
+                          dr, parity, 0.5, opts)
+        ref = K.iteration_plain(p64, d64, n64, cost, ca, w64, dr64, parity, 0.5, opts)
+        assert torch.equal(ref[0], d64) and torch.equal(ref[1], n64)
+        moved = int(((got[0] != d) | (got[1] != n).any(-1)).sum())
+        assert moved == 0, f"parity {parity}: {moved} planes moved"
+
+
+# K21-K23 against their float64 plain versions on the same float32 inputs, on
+# colmap_tpu_torch/kernels/global_cases.py's cases at small sizes. Each sum is
+# a gather in a fixed order (no atomics); K21 in float32 to 1e-5 of each
+# output's largest entry, K22 (3x3 inverses of float32 point blocks) to
+# 1e-4; K23's per-edge arithmetic runs in float64: its loss to 1e-5, its
+# gradient to 1e-4 away from cameras on near-degenerate edges.
+
+
+def _ra_case(gravity):
+    _need_card()
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    case = C.rotation_case(60, 400, seed=2)
+    rng = np.random.default_rng(3)
+    quats = C.random_quats(rng, 60)
+    free = np.ones(60)
+    free[0] = 0.0
+    proj = None
+    if gravity:
+        g = np.array([0.0, 1.0, 0.0])
+        proj = np.tile(np.eye(3), (60, 1, 1))
+        proj[::2] = np.outer(g, g)
+
+    def graph(dt):
+        t = lambda a: torch.as_tensor(a, dtype=dt, device="cuda")  # noqa: E731
+        return G.ra_graph(60, torch.as_tensor(case.edges, device="cuda"), t(case.rel_quats),
+                          t(free), None if proj is None else t(proj))
+
+    q32 = torch.as_tensor(quats, dtype=torch.float32, device="cuda")
+    return G, graph(torch.float32), graph(torch.float64), q32
+
+
+@pytest.mark.parametrize("gravity", [False, True], ids=["free", "gravity"])
+@pytest.mark.parametrize("use_l1", [True, False], ids=["l1", "geman_mcclure"])
+def test_rotation_averaging_kernel_matches_plain_on_cuda(use_l1, gravity):
+    """K21's three entries."""
+    G, g32, g64, q32 = _ra_case(gravity)
+    G.reset_launches()
+    step = G.ra_edge_pass(g32, q32, use_l1, np.deg2rad(5.0))
+    ref = G.ra_edge_pass_plain(g64, q32.double(), use_l1, np.deg2rad(5.0))
+    for name in ("ew", "b", "deg", "cost"):
+        _close(getattr(step, name), getattr(ref, name), 1e-5, f"K21 {name}")
+    x = torch.randn(60, 3, device="cuda")
+    _close(G.ra_matvec(g32, step.ew, x), G.ra_matvec_plain(g64, step.ew.double(), x.double()),
+           1e-5, "K21 matvec")
+    delta = 0.1 * torch.randn(60, 3, device="cuda")
+    _close(G.ra_update(q32, delta), G.ra_update_plain(q32.double(), delta.double()), 1e-5,
+           "K21 update")
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["rotation_averaging"] == 3
+
+
+def test_global_positioning_kernel_matches_plain_on_cuda():
+    """K22's setup, Schur matvec and back-substitution."""
+    _need_card()
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    case = C.positioning_case(30, 400, 5, seed=4)
+    rng = np.random.default_rng(5)
+
+    def prob(dt):
+        t = lambda a: torch.as_tensor(a, dtype=dt, device="cuda")  # noqa: E731
+        return G.gp_problem(t(case.dirs), t(case.obs_cam).int(), t(case.obs_point).int(),
+                            t(np.ones(len(case.dirs))), 7, 100.0, 30, 400, 0.1)
+
+    p32, p64 = prob(torch.float32), prob(torch.float64)
+    p64 = p64._replace(eps_rel=p32.eps_rel, anchor_dir=p32.anchor_dir)
+    c = torch.as_tensor(rng.standard_normal((30, 3)), dtype=torch.float32, device="cuda")
+    X = torch.as_tensor(rng.standard_normal((400, 3)), dtype=torch.float32, device="cuda")
+    G.reset_launches()
+    sys = G.gp_setup(p32, c, X)
+    ref = G.gp_setup_plain(p64, c.double(), X.double())
+    for name in G.GPSystem._fields:
+        _close(getattr(sys, name), getattr(ref, name), 1e-4, f"K22 {name}")
+    xc = torch.randn(30, 3, device="cuda")
+    sys64 = G.GPSystem(*(t.double() for t in sys))
+    _close(G.gp_schur_matvec(p32, sys, xc), G.gp_schur_matvec_plain(p64, sys64, xc.double()),
+           1e-4, "K22 matvec")
+    got = G.gp_back_substitute(p32, sys, xc, c, X)
+    want = G.gp_back_substitute_plain(p64, sys64, xc.double(), c.double(), X.double())
+    _close(got[0], want[0], 1e-5, "K22 centers")
+    _close(got[1] - X, want[1] - X.double(), 1e-4, "K22 point steps")
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["global_positioning"] == 3
+
+
+def test_view_graph_calibration_kernel_matches_plain_on_cuda():
+    """K23's loss and gradient, and its autograd form."""
+    _need_card()
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    case = C.calibration_case(10, 60, seed=6)
+    graph = G.vgc_graph(*(torch.as_tensor(a, device="cuda") for a in
+                          (case.Fs, case.e1, case.e2, case.priors, case.pps)))
+    for x in (torch.zeros(10, device="cuda"),
+              torch.as_tensor(np.log(case.true_focals / case.priors), dtype=torch.float32,
+                              device="cuda") + 0.01 * torch.randn(10, device="cuda")):
+        G.reset_launches()
+        loss, grad = G.vgc_loss_grad(graph, x)
+        x64 = x.double().requires_grad_()
+        ref = G.vgc_loss_plain(graph, x64)
+        (ref_g,) = torch.autograd.grad(ref, x64)
+        _close(loss, ref.detach(), 1e-5, "K23 loss")
+        near = C.calibration_near_ties(graph, x)
+        _close(grad[~near], ref_g[~near], 1e-4, "K23 gradient")
+        xg = x.clone().requires_grad_()
+        (g2,) = torch.autograd.grad(G.vgc_loss(graph, xg) * 2.0, xg)
+        _close(g2, 2.0 * grad, 1e-7, "K23 backward")
+        torch.cuda.synchronize()
+        assert G.LAUNCHES["view_graph_calibration"] == 2

@@ -6,7 +6,9 @@ finder, imports every module of colmap_tpu_torch, renders two small views
 with the port's renderer and extracts their features with
 ``feature_extractor --device cpu``, then runs the dense modules on a small
 plane case: PatchMatch with the consistency filter, the map, graph, PLY and
-.vis files, the workspace's PNG bitmaps and fusion.
+.vis files, the workspace's PNG bitmaps and fusion; then ``global_mapper``
+on a four-frame scene and ``view_graph_calibrator``, both with
+``--device cpu``.
 """
 
 import os
@@ -85,6 +87,18 @@ CHILD = textwrap.dedent("""
     fusion.write_fused_vis(os.path.join(root, "f.ply.vis"), vis)
     assert len(read_ply(os.path.join(root, "f.ply"))["points"]) == len(pts) > 0
     print("DENSE", int((depth > 0).sum()), len(pts))
+
+    gdb = os.path.join(root, "global.db")
+    synthesize_dataset(SyntheticDatasetOptions(
+        num_rigs=1, num_frames_per_rig=4, num_points3D=60, camera_has_prior_focal_length=True,
+        two_view_geometry_has_relative_pose=False), Database(gdb), rng=np.random.default_rng(3))
+    pipe = cli.main(["global_mapper", "--database_path", gdb, "--output_path",
+                     os.path.join(root, "global"), "--device", "cpu", "--quiet"])
+    from colmap_tpu_torch.kernels import global_cases
+    global_cases.write_calibrator_database(os.path.join(root, "vgc.db"))
+    focals = cli.main(["view_graph_calibrator", "--database_path", os.path.join(root, "vgc.db"),
+                       "--device", "cpu"])
+    print("GLOBAL", sum(pipe.timer.calls.values()), len(focals))
 """)
 
 
@@ -93,4 +107,4 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     out = subprocess.run([sys.executable, "-c", CHILD, str(tmp_path)], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout
+    assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
