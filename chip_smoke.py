@@ -76,17 +76,37 @@ Phases; any failure exits non-zero:
      8-frame gravity-prior scene, `rotation_averager` on the verify scene
      and `view_graph_calibrator` on a database of UNCALIBRATED pairs, each
      under torch.profiler: frames, errors against the truth, wall time,
-     time by phase and the device's idle share.
+     time by phase and the device's idle share;
+ 18. rig kernels (phase `rig_kernels`): K24-K27
+     (colmap_tpu_torch/kernels/rig.py) against float64 plain versions on the
+     rig BA headline (50 frames x 4 sensors x 50 000 points x 300 000
+     observations, SIMPLE_RADIAL, Cauchy, sensors free) and on small problems
+     over camera models 0-4 with a constant frame and an empty sensor row
+     (K25, K26: the same bits in two runs), K27 on 1024 injected samples of a
+     2000-row rig frame (the same best sample or a near-tie marked from
+     float64), timed with CUDA events; then 10 LM iterations of the rig solve
+     through the kernels and through the float64 plain versions, held to
+     each other and to the true sensor_from_rig;
+ 19. rig mapper (phase `rig`): the verify rig scene (2 cameras x 6 frames x
+     200 points, seed 4) stripped to features, its rigs and frames emptied
+     and rebuilt by `rig_configurator`, and the full-size rig scene (4
+     cameras x 10 frames x 1000 points, f = 2500, seed 3) stripped to
+     features, each through `exhaustive_matcher` and `mapper` on cuda (the
+     mapper under torch.profiler): frames, errors against the truth, wall
+     time, time by phase and the device's idle share.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
 the dense solver), the matcher K5, K7 and K10-K12, the mapper K1-K3 and
 K5-K9 (its BA is PCG, so K4 is not on its path), the extractor K13-K16,
 `image_undistorter` K5, `patch_match_stereo` K17-K20, `global_mapper` K1-K3,
-K5, K21 and K22, `rotation_averager` K21 and `view_graph_calibrator` K23.
+K5, K21 and K22, `rotation_averager` K21, `view_graph_calibrator` K23, the
+rig solve K24-K26 and the rig mapper K5, K7 and K24-K27 (and on the
+full-size rig scene K8 and K9).
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. `--phases dense,mvs` or `--phases
-global_kernels,global` (or any subset of the phases) runs a subset while
-developing and prints no result; the kernels line needs them all.
+{"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
+global_kernels,global` or `--phases rig_kernels,rig` (or any subset of the
+phases) runs a subset while developing and prints no result; the kernels
+line needs them all.
 """
 
 from __future__ import annotations
@@ -341,6 +361,62 @@ GRAVITY_MAX_ROT_DEG, GRAVITY_MAX_CENTER, RA_CLI_MAX_DEG, VGC_CLI_RTOL = 0.5, 0.0
 RA_EDGE_OPS, RA_NODE_OPS, RA_PROJ_OPS = 15, 3, 15
 GP_OBS_OPS, GP_POINT_OPS, GP_CAM_OPS = 34, 15, 18
 VGC_EDGE_OPS = 420
+
+RIG_SOURCES = {
+    "rig_ba_jacobians": ("colmap_tpu_torch/csrc/rig_ba_jacobians.cu",
+                         "colmap_tpu/estimators/bundle_adjustment_rig.py:169"),
+    "rig_ba_reduce": ("colmap_tpu_torch/csrc/rig_ba_reduce.cu",
+                      "colmap_tpu/estimators/bundle_adjustment_rig.py:238"),
+    "rig_ba_matvec": ("colmap_tpu_torch/csrc/rig_ba_matvec.cu",
+                      "colmap_tpu/estimators/bundle_adjustment_rig.py:255"),
+    "gen_abs_ransac": ("colmap_tpu_torch/csrc/gen_abs_ransac.cu",
+                       "colmap_tpu/estimators/generalized_pose.py:113"),
+}
+# The rig BA headline: bench.py:101's problem grouped into a 4-camera rig,
+# 50 frames x 4 sensors (200 images) x 50 000 points x 300 000
+# observations, SIMPLE_RADIAL, Cauchy loss, the three non-reference sensors
+# free.
+RIG_FRAMES, RIG_SENSORS, RIG_POINTS, RIG_TRACK = 50, 4, 50000, 6
+# K24 float32 against float64 under Cauchy (the weight carries the float32
+# residual's rounding, as K1's robust tolerance says); K25 and K26 float32
+# sums in a fixed order; K27's all-inlier models (a float64 solve rounded to
+# float32).
+K24_RTOL, K2526_RTOL, K27_RTOL = 1e-4, 1e-4, 1e-4
+# K27 at a rig registration's scale: 2000 correspondences of one 4-camera
+# frame (30% outliers, baselines of 0.05 at a distance of 5), 1024 injected
+# samples in batches of 64, the world at scale 1 and shrunk to 0.37 (a
+# monocular model's arbitrary scale); rows within 1e-3 of the threshold
+# count as near.
+GEN_ABS_ROWS, GEN_ABS_SAMPLES, GEN_ABS_BATCH, GEN_ABS_MARGIN = 2000, 1024, 64, 1e-3
+# The rig solve (10 LM iterations): kernel and float64 plain paths' final
+# costs within 1e-3 of each other; each path's sensor_from_rig errors
+# against the truth at most a quarter of the initial ones (sensors perturbed
+# by 0.01 units and 0.1 deg a component), the kernels' within 1.1x the plain
+# path's + 1e-4 units / 1e-3 deg.
+RIG_SOLVE_RTOL, RIG_SENSOR_GAIN, RIG_SENSOR_FACTOR = 1e-3, 4.0, 1.1
+# The full-size rig scene: 1 rig x 4 cameras x 10 frames (40 images, as
+# many as the full-size mono scene) x 1000 points, SIMPLE_RADIAL 1024 x 768,
+# f = 2500, seed 3.
+RIG_FULL_CAMS, RIG_FULL_FRAMES = 4, 10
+# f32 operations (an FMA is 2) of the rig kernels' functions:
+#  - K24 per observation: two quaternion rotations (2 x 18), the
+#    projection on duals of 3 + P directions (about 20 x (3 + P)), B = A Rs
+#    (36), the rotation columns of Js and Jf (24), Jx = B Rf (36), the
+#    weight and the scaled, masked outputs (2 x (32 + 2P) / 2): about 320
+#    at P = 4;
+#  - K25 per observation: Hpp and gx (36), q = r + Jx y (12), and on each
+#    of its three camera-side rows -J^T r, -J^T q and J^2 (3 x 2 x 3 x 2
+#    x W, W = 6 or P): about 200; per point the damped inverse and y (45);
+#  - K26 (matvec) per observation: u (2 x (12 + P) FMA), w (12), z (12)
+#    and J^T z on its three rows (3 x 2 x 2 x W): about 150; per point y
+#    (15);
+#  - K27 per sample the float64 gDLT, counted at the float32 rate: the
+#    normal equations (18 rows x 78 FMA), Cholesky of 12 (about 600), the
+#    3x3 Jacobi (about 500) and t (about 200): about 4100; per sample and
+#    row the residual (9 FMA, a quaternion rotation 18, the error 10): 45.
+RIG_K24_OBS_OPS, RIG_K25_OBS_OPS, RIG_K25_POINT_OPS, RIG_K26_OBS_OPS, RIG_K26_POINT_OPS = (
+    320, 200, 45, 150, 15)
+GDLT_OPS, GEN_ABS_ROW_OPS = 4100, 45
 
 
 def pm_plane_ops(taps, views, geometric):
@@ -1042,17 +1118,19 @@ def _check_ransac_batch(tag, mk, ck, bk, mp, cp, bp, n, n_samples, errs, unpack_
     return len(agree), len(pairs)
 
 
-def make_scene(root, num_frames, num_points, focal=1280.0, seed=3, **options):
-    """A synthetic database and its ground truth (one SIMPLE_RADIAL camera,
-    1024 x 768, prior focal length, exhaustive noise-free matches; other
-    generator options from ``options``), written with the port's generator."""
+def make_scene(root, num_frames, num_points, focal=1280.0, seed=3, num_cameras=1, **options):
+    """A synthetic database and its ground truth (one rig of ``num_cameras``
+    SIMPLE_RADIAL cameras, 1024 x 768, prior focal length, exhaustive
+    noise-free matches; other generator options from ``options``), written
+    with the port's generator."""
     from colmap_tpu_torch.scene.database import Database
     from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
 
     db_path = os.path.join(root, "db.db")
     db = Database(db_path)
     gt = synthesize_dataset(
-        SyntheticDatasetOptions(num_rigs=1, num_cameras_per_rig=1, num_frames_per_rig=num_frames,
+        SyntheticDatasetOptions(num_rigs=1, num_cameras_per_rig=num_cameras,
+                                num_frames_per_rig=num_frames,
                                 num_points3D=num_points, camera_params=(focal, 512.0, 384.0, 0.05),
                                 camera_has_prior_focal_length=True, **options),
         db, rng=np.random.default_rng(seed))
@@ -1063,12 +1141,13 @@ def make_scene(root, num_frames, num_points, focal=1280.0, seed=3, **options):
 def _kernel_modules():
     from colmap_tpu_torch.kernels import ba as KB
     from colmap_tpu_torch.kernels import global_sfm as KG
+    from colmap_tpu_torch.kernels import rig as KR
     from colmap_tpu_torch.kernels import matching as KM
     from colmap_tpu_torch.kernels import mvs as KV
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
 
-    return KB, K, KM, KS, KV, KG
+    return KB, K, KM, KS, KV, KG, KR
 
 
 def all_launch_counts():
@@ -1174,14 +1253,19 @@ def run_mapper(db_path, out, label, min_launches=True):
     log(f"{label}: {buf.getvalue().strip()} ({dt:.3f} s)")
     log(f"  launches: {counts}")
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
-              and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES]
+              and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
+              and k not in RIG_SOURCES]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
     return pipeline, dt, counts
 
 
-def check_against_gt(out, gt, num_frames, label, max_rot_deg=MAX_ROT_DEG, max_center=MAX_CENTER):
+def check_against_gt(out, gt, num_frames, label, max_rot_deg=MAX_ROT_DEG, max_center=MAX_CENTER,
+                     num_images=None):
+    """The model in out/0 against the ground truth: every frame registered
+    (``num_images`` images in common, num_frames when not given) within the
+    rotation and centre bounds after a Sim3 alignment."""
     from colmap_tpu_torch.estimators.alignment import compare_reconstructions
     from colmap_tpu_torch.scene.reconstruction_io import read_model
 
@@ -1189,10 +1273,12 @@ def check_against_gt(out, gt, num_frames, label, max_rot_deg=MAX_ROT_DEG, max_ce
     cmp = compare_reconstructions(recon, gt)
     n, rot_err, ctr = cmp["num_common_images"], cmp["max_rotation_error_deg"], cmp["max_center_error"]
     log(f"  {label}: {recon.num_reg_frames()}/{num_frames} frames registered, "
-        f"{recon.num_points3D()} points; against ground truth: {n} common frames, max rotation "
+        f"{recon.num_points3D()} points; against ground truth: {n} common images, max rotation "
         f"error {rot_err:.3e} deg, max center error {ctr:.3e}")
-    if not (n == num_frames and rot_err <= max_rot_deg and ctr <= max_center):
-        raise AssertionError(f"{label}: {n}/{num_frames} frames, {rot_err} deg, {ctr}: outside "
+    expected = num_frames if num_images is None else num_images
+    if not (recon.num_reg_frames() == num_frames and n == expected and rot_err <= max_rot_deg
+            and ctr <= max_center):
+        raise AssertionError(f"{label}: {n}/{expected} images, {rot_err} deg, {ctr}: outside "
                              f"{max_rot_deg} deg / {max_center}")
     return cmp
 
@@ -2738,8 +2824,316 @@ def phase_global(launches):
     return results
 
 
+def _rig_compare(problem, model_id, options, masks, errs, label):
+    """K24-K26 against their float64 plain versions on one rig problem (the
+    plain versions evaluated in float64 on the kernels' float32 inputs);
+    K25 and K26 give the same bits in two runs. Returns the inputs and
+    outputs for timing."""
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig as KR
+
+    log(f"rig kernels vs plain: {label}")
+    om, obs, layout = rba._obs_masks(masks, options), rba._obs(problem), rba._layout(problem)
+    params = tuple(problem[:6])
+    rest = (model_id, options.loss, options.loss_scale)
+    obs64 = type(obs)(*f64(*obs))
+    jac = KR.rig_obs_jacobians(*params, obs, *om, *rest)
+    jac_p = KR.rig_obs_jacobians_plain(*f64(*params), obs64, *f64(*om), *rest)
+    for n, a, b in zip(KR.RigJacobians._fields, jac, jac_p):
+        check(f"K24 {n}", a, b, K24_RTOL, errs["rig_ba_jacobians"])
+    check("K24 cost", KR.rig_obs_cost(*params, obs, *rest),
+          KR.rig_obs_cost_plain(*f64(*params), obs64, *rest), K24_RTOL, errs["rig_ba_jacobians"])
+    lam = 1e-3
+    jac64 = KR.RigJacobians(*f64(*jac))
+    red = KR.rig_lm_reduce(jac, obs, layout, lam)
+    red_p = KR.rig_lm_reduce_plain(jac64, obs, layout, lam)
+    for n, a, b in zip(red._fields, red, red_p):
+        check(f"K25 {n}", a, b, K2526_RTOL, errs["rig_ba_reduce"])
+    if not all(torch.equal(a, b) for a, b in zip(red, KR.rig_lm_reduce(jac, obs, layout, lam))):
+        raise AssertionError(f"{label}: K25 differs between two runs")
+    F, G = layout.num_frames, layout.num_sensors
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(red.g.shape, device="cuda", generator=g) * (red.diag != 0)
+    x[F + G:] *= 1e-3  # camera parameters: steps of their scale
+    red64 = KR.RigReduction(*f64(*red))
+    mv = KR.rig_schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, x)
+    check("K26 matvec", mv, KR.rig_schur_matvec_plain(jac64, obs, layout, red64.Hpp_inv,
+                                                      red64.lam_diag, x.double()),
+          K2526_RTOL, errs["rig_ba_matvec"])
+    if not torch.equal(mv, KR.rig_schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, x)):
+        raise AssertionError(f"{label}: K26 differs between two runs")
+    check("K26 dx", KR.rig_back_substitute(jac, obs, layout, red.Hpp_inv, red.gx, x),
+          KR.rig_back_substitute_plain(jac64, obs, layout, red64.Hpp_inv, red64.gx, x.double()),
+          K2526_RTOL, errs["rig_ba_matvec"])
+    return dict(params=params, obs=obs, om=om, rest=rest, layout=layout, jac=jac, red=red, x=x,
+                lam=lam)
+
+
+def _rig_small_cases(errs):
+    """Models 0-4 at a small size: a constant frame, the reference sensor
+    held constant, and (model 2) a sensor and a camera row that no
+    observation uses."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    for model_id in range(5):
+        p, _, _ = RC.rig_ba_problem(12, 3, 2000, 5, model_id=model_id, seed=10 + model_id,
+                                    device="cuda")
+        if model_id == 2:
+            p = RC.with_empty_sensor(p)
+        opts = ba.BAOptions(loss="cauchy", refine_principal_point=True)
+        masks = rba.fix_gauge_two_frames(rba.default_masks(p, model_id, opts, const_frames=[3]),
+                                         0, 1)
+        _rig_compare(p, model_id, opts, masks, errs,
+                     f"model {model_id}, 12 frames x 3 sensors x 2000 points"
+                     + (", an empty sensor row" if model_id == 2 else ""))
+
+
+def _k27(errs, agree):
+    """K27 on batches of injected samples against its float64 plain version
+    on the same (float32) inputs: every count within its near rows, the same
+    best sample or a near-tie decided from the float64 arithmetic, the
+    all-inlier models to K27_RTOL, the inlier mask of the best model equal
+    off the near rows. Returns the timing inputs."""
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    max_sq = 12.0 ** 2
+    same = total = ties = 0
+    for seed, scale in ((31, 1.0), (32, 0.37)):
+        case, _, inl = RC.gen_abs_case(GEN_ABS_ROWS, seed=seed, world_scale=scale, device="cuda")
+        data = KR.GenAbsData(*(t.float() if t.is_floating_point() else t for t in case))
+        data64 = KR.GenAbsData(*f64(*data))
+        samples = RC.injected_samples(GEN_ABS_ROWS, GEN_ABS_SAMPLES, seed, inl, device="cuda")
+        near_max = 0
+        for b0 in range(0, GEN_ABS_SAMPLES, GEN_ABS_BATCH):
+            sb = samples[b0:b0 + GEN_ABS_BATCH]
+            m, c, best = KR.gen_abs_propose_score(data, sb, max_sq, True)
+            m64, c64, best64 = KR.gen_abs_propose_score_plain(data64, sb, max_sq, True)
+            count_ok, best_ok, near, tie = RC.ransac_agreement(
+                c, unpack_best(int(best[0])), m64, c64, unpack_best(int(best64[0])), data64,
+                max_sq, GEN_ABS_MARGIN)
+            if not (count_ok and best_ok):
+                raise AssertionError(f"K27 batch {b0 // GEN_ABS_BATCH} (scale {scale}): counts "
+                                     f"agree {count_ok}, best agrees {best_ok}")
+            full = c64 >= 0.9 * c64.max()
+            a, r = rel_err(m[full], m64[full])
+            if not r <= K27_RTOL:
+                raise AssertionError(f"K27 models: relative error {r:.3e} > {K27_RTOL}")
+            errs["gen_abs_ransac"].append((a, r))
+            total += 1
+            ties += int(tie)
+            same += int(not tie)
+            near_max = max(near_max, near)
+        idx = unpack_best(int(best64[0]))[1]
+        inl_k = KR.gen_abs_inliers(data, m64[idx].float(), max_sq)
+        res = KR.gen_abs_residuals(m64[idx][None], data64)[0]
+        far = (res - max_sq).abs() > GEN_ABS_MARGIN * max_sq
+        if not torch.equal(inl_k[far], (res <= max_sq)[far]):
+            raise AssertionError("K27 inlier mask differs off the near rows")
+        log(f"  K27, world scale {scale}: {GEN_ABS_SAMPLES} samples x {GEN_ABS_ROWS} rows, "
+            f"at most {near_max} near rows a model; best model of each batch: the float64 "
+            f"one or a near-tie; max model error {max(e[1] for e in errs['gen_abs_ransac']):.3e}")
+    log(f"  K27: {same} of {total} batches pick the float64 best sample, {ties} a near-tie")
+    agree["gen_abs_ransac"] = (same, total)
+    return data, samples[:GEN_ABS_BATCH], max_sq
+
+
+def _rig_rows(ctx, k27):
+    """ms, plain_ms, bound_ms, bound_by of K24-K27 at the headline shapes
+    (K27: a batch of 64 samples on 2000 rows)."""
+    from colmap_tpu_torch.kernels import rig as KR
+
+    params, obs, om, rest, layout = (ctx[k] for k in ("params", "obs", "om", "rest", "layout"))
+    jac, red, x, lam = ctx["jac"], ctx["red"], ctx["x"], ctx["lam"]
+    O, N = jac.r.shape[0], layout.num_points
+    P = jac.Jc.shape[-1]
+    lay = nbytes(*layout[:7])
+    ids = nbytes(*obs[:4])
+    jac_bytes = nbytes(*jac)
+    rows = {}
+    log("rig kernel times at the headline shapes (median of CUDA-event-timed launches):")
+    rows["rig_ba_jacobians"] = _global_row(
+        "rig_ba_jacobians", lambda: KR.rig_obs_jacobians(*params, obs, *om, *rest),
+        lambda: KR.rig_obs_jacobians_plain(*params, obs, *om, *rest),
+        nbytes(*params, *obs, *om) + jac_bytes, O * RIG_K24_OBS_OPS)
+    rows["rig_ba_reduce"] = _global_row(
+        "rig_ba_reduce", lambda: KR.rig_lm_reduce(jac, obs, layout, lam),
+        lambda: KR.rig_lm_reduce_plain(jac, obs, layout, lam),
+        jac_bytes + ids + lay + nbytes(*red), O * RIG_K25_OBS_OPS + N * RIG_K25_POINT_OPS)
+    rows["rig_ba_matvec"] = _global_row(
+        "rig_ba_matvec",
+        lambda: KR.rig_schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, x),
+        lambda: KR.rig_schur_matvec_plain(jac, obs, layout, red.Hpp_inv, red.lam_diag, x),
+        nbytes(jac.Jf, jac.Js, jac.Jc, jac.Jx, red.Hpp_inv, red.lam_diag, x) + ids + lay
+        + nbytes(x), O * RIG_K26_OBS_OPS + N * RIG_K26_POINT_OPS)
+    data, samples, max_sq = k27
+    K, n = samples.shape[0], data.X.shape[0]
+    rows["gen_abs_ransac"] = _global_row(
+        "gen_abs_ransac", lambda: KR.gen_abs_propose_score(data, samples, max_sq, True),
+        lambda: KR.gen_abs_propose_score_plain(data, samples, max_sq, True),
+        nbytes(data.X, data.uv, data.cam_q, data.cam_t, data.focal, data.mask, samples)
+        + K * (15 * 4 + 4) + 8, K * (GDLT_OPS + n * GEN_ABS_ROW_OPS))
+    rows["rig_ba_matvec"]["entries"] = {"back_substitute": _entry_times(
+        lambda: KR.rig_back_substitute(jac, obs, layout, red.Hpp_inv, red.gx, x),
+        lambda: KR.rig_back_substitute_plain(jac, obs, layout, red.Hpp_inv, red.gx, x))}
+    rows["rig_ba_jacobians"]["entries"] = {"cost": _entry_times(
+        lambda: KR.rig_obs_cost(*params, obs, *rest),
+        lambda: KR.rig_obs_cost_plain(*params, obs, *rest))}
+    rows["gen_abs_ransac"]["entries"] = {"inliers": _entry_times(
+        lambda: KR.gen_abs_inliers(data, torch.eye(3, 5, device="cuda"), max_sq),
+        lambda: KR.gen_abs_inliers_plain(data, torch.eye(3, 5, device="cuda"), max_sq))}
+    return rows
+
+
+def _sensor_errors(solved, gt):
+    """Largest sensor_from_rig errors against the truth: (units, deg)."""
+    from colmap_tpu_torch.geometry import rotation as rot
+
+    dt = (solved.sensor_t.double() - gt.sensor_t.double()).norm(dim=-1).max().item()
+    ang = rot.quat_angle(solved.sensor_quat.double(), gt.sensor_quat.double())
+    return dt, math.degrees(ang.max().item())
+
+
+def phase_rig_kernels():
+    """K24-K27 against their float64 plain versions on the card (the rig BA
+    headline, models 0-4 at a small size, K27 on injected samples), timed
+    beside their plain versions; then 10 LM iterations of the rig solve on
+    the headline through the kernels and through the float64 plain versions.
+    Returns (errs, rows, agree)."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    errs = {k: [] for k in RIG_SOURCES}
+    agree = {}
+    t0 = time.perf_counter()
+    problem, gt, model_id = RC.rig_ba_problem(RIG_FRAMES, RIG_SENSORS, RIG_POINTS, RIG_TRACK,
+                                              seed=0, device="cuda")
+    # Frames 0 and 1 at the truth: the gauge (frame 0, frame 1's x) is the
+    # truth's, so the solve can be held to the true sensor_from_rig.
+    problem = problem._replace(quat=torch.cat([gt.quat[:2], problem.quat[2:]]),
+                               t=torch.cat([gt.t[:2], problem.t[2:]]))
+    options = ba.BAOptions(max_iterations=10, pcg_iterations=20, loss="cauchy",
+                           function_tolerance=0.0)
+    masks = rba.fix_gauge_two_frames(rba.default_masks(problem, model_id, options), 0, 1)
+    log(f"rig headline: F={RIG_FRAMES} G={RIG_SENSORS} N={RIG_POINTS} "
+        f"O={problem.obs_xy.shape[0]}, sensors free, Cauchy (set-up "
+        f"{time.perf_counter() - t0:.1f} s)")
+    ctx = _rig_compare(problem, model_id, options, masks, errs, "rig headline")
+    _rig_small_cases(errs)
+    log("K27 vs plain (float64 on the same inputs), injected samples:")
+    k27 = _k27(errs, agree)
+    rows = _rig_rows(ctx, k27)
+
+    KR.reset_launches()
+    (solved, cost, iters), seconds = _timed(lambda: rba._lm_loop(problem, model_id, options,
+                                                                   masks))
+    launches = dict(KR.LAUNCHES)
+    p64, m64 = type(problem)(*f64(*problem)), type(masks)(*f64(*masks))
+    (solved64, cost64, _), seconds64 = _timed(lambda: rba._lm_loop(p64, model_id, options, m64,
+                                                                     kernels=KR.PLAIN))
+    rel = abs(cost - cost64) / cost64
+    st, sdeg = _sensor_errors(solved, gt)
+    st64, sdeg64 = _sensor_errors(solved64, gt)
+    init_t, init_deg = _sensor_errors(problem, gt)
+    log(f"rig solve, {iters} LM iterations: kernels {cost:.6e} in {seconds:.3f} s "
+        f"({launches}), float64 plain {cost64:.6e} in {seconds64:.3f} s, relative difference "
+        f"{rel:.3e} (<= {RIG_SOLVE_RTOL}); sensor_from_rig against the truth: kernels "
+        f"{st:.3e} units / {sdeg:.3e} deg, plain {st64:.3e} / {sdeg64:.3e} (initial "
+        f"{init_t:.3e} / {init_deg:.3e})")
+    if not (iters == 10 and rel <= RIG_SOLVE_RTOL):
+        raise AssertionError(f"rig solve: {iters} iterations, kernel vs plain {rel:.3e}")
+    if not (max(st, st64) * RIG_SENSOR_GAIN <= init_t
+            and max(sdeg, sdeg64) * RIG_SENSOR_GAIN <= init_deg
+            and st <= RIG_SENSOR_FACTOR * st64 + 1e-4
+            and sdeg <= RIG_SENSOR_FACTOR * sdeg64 + 1e-3):
+        raise AssertionError("rig solve: sensor_from_rig outside its gate")
+    missing = [k for k in ("rig_ba_jacobians", "rig_ba_reduce", "rig_ba_matvec")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"rig solve: launched no {missing}")
+    torch.cuda.synchronize()
+    return errs, rows, agree
+
+
+# The kernels each rig scene's mapper must launch: the verify scene's initial
+# pair triangulates most points, so K8 and K9 may find no work there; the
+# full-size scene runs every one.
+RIG_VERIFY_KERNELS = ("camera_map", "essential_ransac", *RIG_SOURCES)
+RIG_MAPPER_KERNELS = ("camera_map", "essential_ransac", "triangulate_tracks", "filter_points",
+                      *RIG_SOURCES)
+
+
+def phase_rig(launches):
+    """The rig mapper as users reach it, each command on cuda and the
+    mapper under torch.profiler: the verify rig scene
+    (tests/test_rig_mapper.py:38-45) stripped to features with its rigs and
+    frames emptied and rebuilt by `rig_configurator`, then the full-size
+    rig scene stripped to features; `exhaustive_matcher` and `mapper` on
+    each, held to the truth."""
+    from colmap_tpu_torch.kernels.rig_cases import write_rig_config
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("verify rig scene", "full-size rig scene"):
+            root = os.path.join(tmp, label.split()[0])
+            os.makedirs(root)
+            t0 = time.perf_counter()
+            if label.startswith("verify"):
+                frames, images = 6, 12
+                db_path = os.path.join(root, "db.db")
+                db = Database(db_path)
+                gt = synthesize_dataset(SyntheticDatasetOptions(
+                    num_rigs=1, num_cameras_per_rig=2, num_frames_per_rig=6, num_points3D=200,
+                    camera_has_prior_focal_length=True, seed=4), db)
+                db.close()
+            else:
+                frames, images = RIG_FULL_FRAMES, RIG_FULL_FRAMES * RIG_FULL_CAMS
+                db_path, gt = make_scene(root, frames, 1000, FULL_FOCAL, num_cameras=RIG_FULL_CAMS)
+            pairs = strip_to_features(db_path)
+            log(f"rig mapper, {label}: {frames} frames x {len(gt.cameras)} cameras, "
+                f"{gt.num_points3D()} points (set-up {time.perf_counter() - t0:.1f} s)")
+            if label.startswith("verify"):
+                db = Database(db_path, must_exist=True)
+                for table in ("rigs", "rig_sensors", "frames", "frame_data"):
+                    db.conn.execute(f"DELETE FROM {table}")
+                db.commit()
+                db.close()
+                config = os.path.join(root, "rig.json")
+                write_rig_config(gt, config)
+                run_command(["rig_configurator", "--database_path", db_path, "--rig_config_path",
+                             config], f"rig_configurator, {label}", ())
+            verified, _, m_counts = run_matcher(db_path, f"matcher, {label}")
+            expected = sum(len(m) >= 15 for m in pairs.values())
+            if verified != expected:
+                raise AssertionError(f"{label}: verified {verified} of {expected} pairs")
+            for k, v in m_counts.items():
+                launches[k] += v
+            out = os.path.join(root, "sparse")
+            pipeline, seconds, idle = _profiled_command(
+                ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
+                f"mapper, {label}",
+                RIG_VERIFY_KERNELS if label.startswith("verify") else RIG_MAPPER_KERNELS, launches)
+            cmp = check_against_gt(out, gt, frames, f"mapper, {label}", num_images=images)
+            phases = {k: (round(pipeline.timer.seconds[k], 3), pipeline.timer.calls[k])
+                      for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
+                                      reverse=True)}
+            log("  time by phase (s, calls): " + ", ".join(
+                f"{k} {v[0]:.3f}/{v[1]}" for k, v in phases.items()))
+            results[label] = dict(seconds=seconds, idle=idle, phases=phases,
+                                  max_rot_deg=cmp["max_rotation_error_deg"],
+                                  max_center=cmp["max_center_error"])
+    return results
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
-              "global_kernels", "global")
+              "global_kernels", "global", "rig_kernels", "rig")
 
 
 def main():
@@ -2810,10 +3204,17 @@ def main():
         rows.update(g_rows)
     if "global" in phases:
         run("global", lambda: phase_global(launches))
+    if "rig_kernels" in phases:
+        r_errs, r_rows, r_agree = run("rig_kernels", phase_rig_kernels)
+        errs.update(r_errs)
+        rows.update(r_rows)
+        agree.update(r_agree)
+    if "rig" in phases:
+        run("rig", lambda: phase_rig(launches))
     log(f"seconds by phase: {seconds}")
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
-               **GLOBAL_SOURCES}
+               **GLOBAL_SOURCES, **RIG_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

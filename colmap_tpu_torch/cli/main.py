@@ -12,6 +12,7 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     spatial_matcher     match and verify pairs of nearby pose priors (GPS)
     transitive_matcher  match and verify the pairs that close A-B, B-C
     geometric_verifier  verify again every pair that has matches
+    rig_configurator    group a database's images into rigs and frames
     mapper            incremental SfM: database -> sparse model(s)
     global_mapper     global SfM: database -> one sparse model
     rotation_averager   global rotations of a database's view graph -> model
@@ -41,6 +42,63 @@ def _cmd_database_creator(args):
 
     Database(args.database_path).close()
     print(f"Created database at {args.database_path}")
+
+
+def _cmd_rig_configurator(args):
+    """Group the database's images into rigs and frames by filename prefix,
+    from a rig configuration JSON (reference: rig_configurator, exe/rig.cc;
+    colmap_tpu's command, cli/extra_commands.py:664-733). Each rig lists its
+    cameras with an ``image_prefix``, one ``ref_sensor``, and the others'
+    ``cam_from_rig_rotation`` (wxyz) and ``cam_from_rig_translation``; the
+    images whose names share the part after their prefix form one frame.
+    ``--device`` is taken for parity with the other commands and not used."""
+    import json
+
+    import numpy as np
+
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.types import Frame, Pose, Rig, SensorType
+
+    with open(args.rig_config_path) as f:
+        config = json.load(f)
+    camera = int(SensorType.CAMERA)
+    db = Database(args.database_path, must_exist=True)
+    images = db.read_images()  # (image_id, name, camera_id)
+    next_rig_id, next_frame_id, n_frames = 1, 1, 0
+    for rig_cfg in config:
+        cam_cfgs = rig_cfg["cameras"]
+        ref_idx = max((ci for ci, cc in enumerate(cam_cfgs) if cc.get("ref_sensor")), default=0)
+        groups = {}  # name suffix -> {camera config index: (image_id, camera_id)}
+        prefix_cam = {}
+        for iid, name, cid in images:
+            for ci, cc in enumerate(cam_cfgs):
+                if name.startswith(cc["image_prefix"]):
+                    groups.setdefault(name[len(cc["image_prefix"]):], {})[ci] = (iid, cid)
+                    prefix_cam[ci] = cid
+                    break
+        if not groups or ref_idx not in prefix_cam:
+            continue
+        rig = Rig(rig_id=next_rig_id, ref_sensor_id=(camera, prefix_cam[ref_idx]))
+        for ci, cc in enumerate(cam_cfgs):
+            if ci == ref_idx or ci not in prefix_cam:
+                continue
+            pose = None
+            if "cam_from_rig_rotation" in cc:
+                pose = Pose(np.asarray(cc["cam_from_rig_rotation"], dtype=np.float64),
+                            np.asarray(cc.get("cam_from_rig_translation", [0, 0, 0]),
+                                       dtype=np.float64))
+            rig.sensors[(camera, prefix_cam[ci])] = pose
+        db.write_rig(rig)
+        next_rig_id += 1
+        for suffix in sorted(groups):
+            db.write_frame(Frame(frame_id=next_frame_id, rig_id=rig.rig_id, data_ids=[
+                (camera, cid, iid) for _, (iid, cid) in sorted(groups[suffix].items())]))
+            next_frame_id += 1
+            n_frames += 1
+    db.commit()
+    print(f"Configured {next_rig_id - 1} rigs, {n_frames} frames")
+    db.close()
+    return next_rig_id - 1, n_frames
 
 
 def _cmd_feature_extractor(args):
@@ -510,6 +568,12 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--guided_matching", action="store_true")
     c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=_cmd_geometric_verifier)
+
+    c = sub.add_parser("rig_configurator")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--rig_config_path", required=True)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_rig_configurator)
 
     c = sub.add_parser("mapper")
     c.add_argument("--database_path", required=True)

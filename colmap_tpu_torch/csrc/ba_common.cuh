@@ -12,6 +12,23 @@ __device__ __forceinline__ float group_sum(float x, int G) {
   return x;
 }
 
+// IRLS weight rho'(s) and cost rho(s) of a squared residual norm.
+// loss: 0 trivial, 1 huber, 2 cauchy (ba_residual.py robust_weight / robust_cost).
+__device__ __forceinline__ float robust_weight(float sq, int loss, float scale) {
+  if (loss == 0) return 1.f;
+  const float s = sq / (scale * scale);
+  if (loss == 1) return s <= 1.f ? 1.f : 1.f / sqrtf(fmaxf(s, 1e-30f));
+  return 1.f / (1.f + s);
+}
+
+__device__ __forceinline__ float robust_cost(float sq, int loss, float scale) {
+  if (loss == 0) return sq;
+  const float a2 = scale * scale;
+  const float s = sq / a2;
+  if (loss == 1) return s <= 1.f ? sq : a2 * (2.f * sqrtf(fmaxf(s, 0.f)) - 1.f);
+  return a2 * log1pf(s);
+}
+
 // Smallest power of two >= n, clamped to [1, 32]: the lanes a point gets.
 inline int group_size(int n) {
   int g = 1;

@@ -30,21 +30,6 @@
 
 namespace ctt {
 
-__device__ __forceinline__ float robust_weight(float sq, int loss, float scale) {
-  if (loss == 0) return 1.f;
-  const float s = sq / (scale * scale);
-  if (loss == 1) return s <= 1.f ? 1.f : 1.f / sqrtf(fmaxf(s, 1e-30f));
-  return 1.f / (1.f + s);
-}
-
-__device__ __forceinline__ float robust_cost(float sq, int loss, float scale) {
-  if (loss == 0) return sq;
-  const float a2 = scale * scale;
-  const float s = sq / a2;
-  if (loss == 1) return s <= 1.f ? sq : a2 * (2.f * sqrtf(fmaxf(s, 0.f)) - 1.f);
-  return a2 * log1pf(s);
-}
-
 template <int MODEL, bool COST>
 __global__ void obs_kernel(long long n, int loss, float scale, const float* __restrict__ quat,
                            const float* __restrict__ tvec, const float* __restrict__ cam,

@@ -1,16 +1,17 @@
-// Small dense linear algebra for one thread: the symmetric eigensolver and
-// the 3x3 decompositions the RANSAC and triangulation kernels (K6, K7, K8)
-// run per sample, per refit or per track.
+// Small dense linear algebra for one thread: the symmetric eigensolver, a
+// Cholesky solve and the 3x3 decompositions the RANSAC and triangulation
+// kernels (K6, K7, K8, K27) run per sample, per refit or per track.
 //
 // Plain versions: colmap_tpu_torch/optim/small_linalg.py (eigh_small,
 // svd3x3) and estimators/solvers/p3p.py (kabsch). The kernels never call a
 // library for these: cuSOLVER's batched routines would add a launch and a
 // round trip through device memory per sample.
 //
-// jacobi_eigh<N> is the cyclic Jacobi method with the algebraic rotation of
-// Golub & Van Loan 8.4 (no trigonometry) and colmap_tpu's skip rule: a
-// rotation whose |a_pq| * 1e12 < |a_qq - a_pp| is skipped. Matrices are
-// row-major arrays in the thread's registers or local memory.
+// jacobi_eigh<N, T> is the cyclic Jacobi method with the algebraic rotation
+// of Golub & Van Loan 8.4 (no trigonometry) and colmap_tpu's skip rule: a
+// rotation whose |a_pq| * 1e12 < |a_qq - a_pp| is skipped. T is float or
+// double. Matrices are row-major arrays in the thread's registers or local
+// memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,40 +20,52 @@ namespace ctt {
 
 __device__ __forceinline__ float sgnf(float x) { return (float)((x > 0.f) - (x < 0.f)); }
 
+template <typename T>
+__device__ __forceinline__ T sgn(T x) {
+  return (T)((x > T(0)) - (x < T(0)));
+}
+
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float fabs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double fabs_t(double x) { return fabs(x); }
+
 // In place: on return the diagonal of A holds the eigenvalues and the
 // columns of V the eigenvectors (unsorted).
-template <int N>
-__device__ void jacobi_eigh(float* A, float* V, int sweeps) {
-  for (int i = 0; i < N * N; ++i) V[i] = (i / N == i % N) ? 1.f : 0.f;
+template <int N, typename T>
+__device__ void jacobi_eigh(T* A, T* V, int sweeps) {
+  for (int i = 0; i < N * N; ++i) V[i] = (i / N == i % N) ? T(1) : T(0);
   for (int i = 0; i < N; ++i)
     for (int j = i + 1; j < N; ++j) {
-      const float m = 0.5f * (A[i * N + j] + A[j * N + i]);
+      const T m = T(0.5) * (A[i * N + j] + A[j * N + i]);
       A[i * N + j] = m;
       A[j * N + i] = m;
     }
   for (int sweep = 0; sweep < sweeps; ++sweep) {
     for (int p = 0; p < N - 1; ++p) {
       for (int q = p + 1; q < N; ++q) {
-        const float apq = A[p * N + q];
-        const float diff = A[q * N + q] - A[p * N + p];
-        if (apq == 0.f || fabsf(apq) * 1e12f < fabsf(diff)) continue;
-        const float tau = diff / (2.f * apq);
-        float t = tau == 0.f ? 1.f : sgnf(tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
-        const float c = rsqrtf(1.f + t * t);
-        const float s = t * c;
+        const T apq = A[p * N + q];
+        const T diff = A[q * N + q] - A[p * N + p];
+        if (apq == T(0) || fabs_t(apq) * T(1e12) < fabs_t(diff)) continue;
+        const T tau = diff / (T(2) * apq);
+        T t = tau == T(0) ? T(1) : sgn(tau) / (fabs_t(tau) + sqrt_t(T(1) + tau * tau));
+        const T c = rsqrt_t(T(1) + t * t);
+        const T s = t * c;
         // A <- A J (columns p, q), then A <- J^T A (rows p, q); V <- V J.
         for (int k = 0; k < N; ++k) {
-          const float akp = A[k * N + p], akq = A[k * N + q];
+          const T akp = A[k * N + p], akq = A[k * N + q];
           A[k * N + p] = c * akp - s * akq;
           A[k * N + q] = s * akp + c * akq;
         }
         for (int k = 0; k < N; ++k) {
-          const float apk = A[p * N + k], aqk = A[q * N + k];
+          const T apk = A[p * N + k], aqk = A[q * N + k];
           A[p * N + k] = c * apk - s * aqk;
           A[q * N + k] = s * apk + c * aqk;
         }
         for (int k = 0; k < N; ++k) {
-          const float vkp = V[k * N + p], vkq = V[k * N + q];
+          const T vkp = V[k * N + p], vkq = V[k * N + q];
           V[k * N + p] = c * vkp - s * vkq;
           V[k * N + q] = s * vkp + c * vkq;
         }
@@ -62,8 +75,8 @@ __device__ void jacobi_eigh(float* A, float* V, int sweeps) {
 }
 
 // Index of the smallest diagonal entry (the first on ties, as a stable sort).
-template <int N>
-__device__ __forceinline__ int argmin_diag(const float* A) {
+template <int N, typename T>
+__device__ __forceinline__ int argmin_diag(const T* A) {
   int best = 0;
   for (int i = 1; i < N; ++i)
     if (A[i * N + i] < A[best * N + best]) best = i;
@@ -71,12 +84,42 @@ __device__ __forceinline__ int argmin_diag(const float* A) {
 }
 
 // Unit eigenvector (column of V) of the smallest eigenvalue of symmetric A.
-template <int N>
-__device__ void smallest_eigvec(float* A, float* out, int sweeps) {
-  float V[N * N];
+template <int N, typename T>
+__device__ void smallest_eigvec(T* A, T* out, int sweeps) {
+  T V[N * N];
   jacobi_eigh<N>(A, V, sweeps);
   const int k = argmin_diag<N>(A);
   for (int i = 0; i < N; ++i) out[i] = V[i * N + k];
+}
+
+// Solves A x = b in place for symmetric positive definite A (row-major,
+// only the lower triangle read) by Cholesky: on return b holds x. Returns
+// false, with b undefined, where a pivot is not positive.
+template <int N, typename T>
+__device__ bool cholesky_solve(T* A, T* b) {
+  for (int j = 0; j < N; ++j) {
+    T d = A[j * N + j];
+    for (int k = 0; k < j; ++k) d -= A[j * N + k] * A[j * N + k];
+    if (!(d > T(0))) return false;
+    const T l = sqrt_t(d);
+    A[j * N + j] = l;
+    for (int i = j + 1; i < N; ++i) {
+      T s = A[i * N + j];
+      for (int k = 0; k < j; ++k) s -= A[i * N + k] * A[j * N + k];
+      A[i * N + j] = s / l;
+    }
+  }
+  for (int i = 0; i < N; ++i) {  // L y = b
+    T s = b[i];
+    for (int k = 0; k < i; ++k) s -= A[i * N + k] * b[k];
+    b[i] = s / A[i * N + i];
+  }
+  for (int i = N - 1; i >= 0; --i) {  // L^T x = y
+    T s = b[i];
+    for (int k = i + 1; k < N; ++k) s -= A[k * N + i] * b[k];
+    b[i] = s / A[i * N + i];
+  }
+  return true;
 }
 
 __device__ __forceinline__ void cross3(const float* a, const float* b, float* c) {

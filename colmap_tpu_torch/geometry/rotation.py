@@ -1,4 +1,4 @@
-"""Batched quaternion utilities (the subset bundle adjustment and the mapper use).
+"""Batched quaternion utilities.
 
 Counterpart of colmap_tpu/geometry/rotation.py. Quaternions are ``(..., 4)``
 tensors in Hamilton convention, scalar first ``(w, x, y, z)``, as in the
@@ -9,6 +9,12 @@ built from elementwise ops, so they work under ``torch.func.vmap``/``jacfwd``.
 from __future__ import annotations
 
 import torch
+
+
+def quat_identity(batch_shape=(), dtype=torch.float64, device=None):
+    q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
 
 
 def quat_normalize(q):
@@ -101,3 +107,51 @@ def quat_from_axis_angle(axis, angle):
                               min=torch.finfo(axis.dtype).tiny)
     half = 0.5 * torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
     return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def quat_angle(q1, q2=None):
+    """Rotation angle (radians) of q1, or of the relative rotation q1⁻¹ q2."""
+    q = q1 if q2 is None else quat_multiply(quat_conjugate(q1), q2)
+    w = torch.clamp(torch.abs(quat_normalize(q)[..., 0]), 0.0, 1.0)
+    return 2.0 * torch.arccos(w)
+
+
+def quat_slerp(q1, q2, t):
+    """Spherical linear interpolation between unit quaternions (lerp where
+    they are nearly parallel)."""
+    t = torch.as_tensor(t, dtype=q1.dtype, device=q1.device)
+    dot = (q1 * q2).sum(-1, keepdim=True)
+    q2 = torch.where(dot < 0, -q2, q2)
+    theta = torch.arccos(torch.clamp(torch.abs(dot), -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe = torch.where(small, 1.0, sin_theta)
+    w1 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w2 = torch.where(small, t, torch.sin(t * theta) / safe)
+    return quat_normalize(w1 * q1 + w2 * q2)
+
+
+def average_quaternions(quats, weights=None):
+    """Weighted chordal-L2 mean of (N, 4) quaternions: the eigenvector of the
+    largest eigenvalue of sum w q qᵀ (Markley's method), with w >= 0.
+
+    reference behavior: src/colmap/geometry/pose.h:69-78 (AverageQuaternions).
+    """
+    quats = quat_normalize(quats)
+    if weights is None:
+        weights = torch.ones(quats.shape[:-1], dtype=quats.dtype, device=quats.device)
+    a = torch.einsum("...i,...j,...->ij", quats, quats, weights)
+    q = torch.linalg.eigh(a)[1][..., -1]
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def rotation_between_vectors(a, b):
+    """Smallest rotation quaternion taking direction a to direction b (a
+    half turn about an axis orthogonal to a when they are antiparallel)."""
+    a = a / torch.clamp(torch.linalg.vector_norm(a, dim=-1, keepdim=True), min=1e-30)
+    b = b / torch.clamp(torch.linalg.vector_norm(b, dim=-1, keepdim=True), min=1e-30)
+    w = 1.0 + (a * b).sum(-1, keepdim=True)
+    ortho = torch.stack([-a[..., 1] - a[..., 2], a[..., 0], a[..., 0]], dim=-1)
+    q = torch.cat([w, _cross(a, b)], dim=-1)
+    q_anti = torch.cat([torch.zeros_like(w), ortho], dim=-1)
+    return quat_normalize(torch.where(w < 1e-6, q_anti, q))

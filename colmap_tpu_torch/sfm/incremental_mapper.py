@@ -8,14 +8,16 @@ filtering (ObservationManager, sfm/observation_manager.h:50). Host Python
 drives the loop; every heavy step (two-view RANSAC, P3P RANSAC, pose
 refinement, triangulation, LM+Schur BA, filtering) is a batched device call.
 
-Counterpart of colmap_tpu/sfm/incremental_mapper.py for single-sensor
-frames, on an explicit device: the initial pair's essential RANSAC runs in
-K7, registration's P3P RANSAC in K6, camera maps in K5, new tracks in K8,
-point filtering in K9, and every BA (init, local, global, pose refinement)
-in the packed LM solver over K1-K4 (kernels/); structure-less registration
-runs as torch ops (estimators/generalized_pose.py). Rig frames and mixed
-camera models are not ported yet (ROADMAP queue 1): those paths raise
-NotImplementedError.
+Counterpart of colmap_tpu/sfm/incremental_mapper.py on an explicit device:
+the initial pair's essential RANSAC runs in K7, registration's P3P RANSAC in
+K6, camera maps in K5, new tracks in K8, point filtering in K9, and every BA
+of single-sensor frames (init, local, global, pose refinement) in the packed
+LM solver over K1-K4 (kernels/); structure-less registration runs as torch
+ops (estimators/generalized_pose.py). Frames of several cameras register
+through the generalized absolute pose (K27) and, once the model holds one,
+every local and global BA is the rig BA over K24-K26
+(estimators/bundle_adjustment_rig.py). Mixed camera models are not ported
+yet (ROADMAP queue 1) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,7 +29,19 @@ import numpy as np
 import torch
 
 from colmap_tpu_torch.estimators import bundle_adjustment as ba
-from colmap_tpu_torch.estimators.ba_setup import problem_from_reconstruction, update_reconstruction
+from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+from colmap_tpu_torch.estimators.ba_setup import (
+    problem_from_reconstruction,
+    rig_problem_from_reconstruction,
+    update_reconstruction,
+    update_reconstruction_rig,
+)
+from colmap_tpu_torch.estimators.generalized_pose import (
+    GeneralizedAbsolutePoseOptions,
+    estimate_generalized_absolute_pose,
+    refine_generalized_absolute_pose,
+    refit_generalized_absolute_pose,
+)
 from colmap_tpu_torch.estimators.pose import (
     AbsolutePoseOptions,
     RefinePoseOptions,
@@ -55,6 +69,7 @@ from colmap_tpu_torch.scene.types import (
     Image,
     Pose,
     Rig,
+    SensorType,
     TrackElement,
 )
 from colmap_tpu_torch.sensor import models as camera_models
@@ -310,7 +325,57 @@ class IncrementalMapper:
                 X[i], [TrackElement(id1, p1_idx), TrackElement(id2, p2_idx)]
             )
             n_created += 1
-        return n_created >= options.init_min_num_inliers // 2
+        if n_created < options.init_min_num_inliers // 2:
+            return False
+        self._metric_initial_scale(id1, id2, options)
+        return True
+
+    def _metric_initial_scale(self, id1: int, id2: int, options: IncrementalMapperOptions):
+        """Bring a two-view initialization to the rig's metric scale.
+
+        The pair's relative pose fixes the baseline at 1, while the other
+        images of a calibrated rig frame sit at metric sensor offsets: left
+        so, triangulating them and the first rig BA meet a model whose scale
+        disagrees with its rig, and converge away from the truth (colmap_tpu
+        upgrades the scale only at the next rig registration, and only by a
+        factor within (0.2, 5)). Here one initial frame with several images
+        and known sensors is registered again by the generalized absolute
+        pose with the scale free, against the pair's points, and refit over
+        all its inliers; the model is scaled by that factor about the other
+        initial camera, which keeps its pose, and the frame takes the refined
+        metric pose.
+        """
+        recon = self.recon
+        for anchor, other in ((id1, id2), (id2, id1)):
+            frame = recon.frames[recon.images[other].frame_id]
+            if len(frame.image_ids()) > 1 and self._general_frame_ready(frame, options):
+                break
+        else:
+            return
+        cams_from_rig, cameras, pts2d, pts3d, cam_idxs, _ = self._general_frame_correspondences(
+            frame)
+        if len(pts2d) < options.abs_pose_min_num_inliers:
+            return
+        pose, inlier_mask, scale = estimate_generalized_absolute_pose(
+            pts2d, pts3d, cam_idxs, cams_from_rig, cameras,
+            GeneralizedAbsolutePoseOptions(max_error_px=options.abs_pose_max_error,
+                                           min_inlier_ratio=options.abs_pose_min_inlier_ratio),
+            seed=options.seed, estimate_scale=True, device=self.device,
+        )
+        if pose is None or int(inlier_mask.sum()) < options.abs_pose_min_num_inliers:
+            return
+        pose, scale = refit_generalized_absolute_pose(
+            pts2d, pts3d, cam_idxs, cams_from_rig, cameras, inlier_mask, device=self.device)
+        if pose is None or not 0.0 < scale < np.inf:
+            return
+        anchor_pose = recon.cam_from_world(anchor)
+        recon.transform(scale, np.array([1.0, 0, 0, 0]), np.zeros(3))
+        recon.set_cam_from_world(anchor, Pose(anchor_pose.quat, scale * anchor_pose.t))
+        pose, ok = refine_generalized_absolute_pose(
+            pose, pts2d, pts3d * scale, cam_idxs, cams_from_rig, cameras, inlier_mask,
+            device=self.device)
+        if ok:
+            frame.rig_from_world = pose
 
     # ------------------------------------------------------------------
     def find_next_images(self, options: IncrementalMapperOptions) -> List[int]:
@@ -432,13 +497,14 @@ class IncrementalMapper:
     def register_next_image(self, image_id: int, options: IncrementalMapperOptions) -> bool:
         """2D-3D correspondences -> P3P LO-RANSAC -> LM refine -> continue
         tracks (reference: RegisterNextImage, incremental_mapper.cc:233-490).
-        Frames with several cameras go to generalized rig registration
-        (incremental_mapper.cc:253-270), which is not ported yet.
+        Frames with several cameras whose focal lengths are sound and whose
+        sensor_from_rig are known go to generalized rig registration
+        (incremental_mapper.cc:253-270).
         """
         recon = self.recon
         image = recon.images[image_id]
         frame = recon.frames[image.frame_id]
-        if len(frame.image_ids()) > 1:
+        if len(frame.image_ids()) > 1 and self._general_frame_ready(frame, options):
             return self.register_next_general_frame(frame, options)
 
         self.num_reg_trials[image_id] = self.num_reg_trials.get(image_id, 0) + 1
@@ -519,13 +585,109 @@ class IncrementalMapper:
         return True
 
     # ------------------------------------------------------------------
+    def _general_frame_ready(self, frame: Frame, options: IncrementalMapperOptions) -> bool:
+        """Every camera of the frame has a prior focal length or one refined
+        by a registered image, none is bogus, and every sensor_from_rig is
+        known."""
+        recon = self.recon
+        rig = recon.rigs[frame.rig_id]
+        for iid in frame.image_ids():
+            cam = recon.cameras[recon.images[iid].camera_id]
+            if not cam.has_prior_focal_length and self.num_reg_images_per_camera.get(
+                    cam.camera_id, 0) == 0:
+                return False
+            if camera_models.has_bogus_params(
+                cam.model_id, cam.params, cam.width, cam.height,
+                options.min_focal_length_ratio, options.max_focal_length_ratio,
+                options.max_extra_param,
+            ):
+                return False
+            if rig.sensor_from_rig((int(SensorType.CAMERA), cam.camera_id)) is None:
+                return False
+        return True
+
+    def _general_frame_correspondences(self, frame: Frame):
+        """The 2D-3D correspondences of all the frame's images: (cams_from_rig,
+        cameras, points2D (n, 2), points3D (n, 3), camera index of each row
+        (n,), [(image_id, point2D_idx, point3D_id)])."""
+        recon = self.recon
+        rig = recon.rigs[frame.rig_id]
+        cams_from_rig, cameras = [], []
+        pts2d, pts3d, cam_idxs, corrs = [], [], [], []
+        for k, iid in enumerate(frame.image_ids()):
+            image = recon.images[iid]
+            cams_from_rig.append(rig.sensor_from_rig((int(SensorType.CAMERA), image.camera_id)))
+            cameras.append(recon.cameras[image.camera_id])
+            for p2d_idx, p3d_id in zip(*self._collect_2d3d_for_image(iid)):
+                pts2d.append(image.points2D_xy[p2d_idx])
+                pts3d.append(recon.points3D[p3d_id].xyz)
+                cam_idxs.append(k)
+                corrs.append((iid, p2d_idx, p3d_id))
+        return (cams_from_rig, cameras, np.asarray(pts2d).reshape(-1, 2),
+                np.asarray(pts3d).reshape(-1, 3), np.asarray(cam_idxs, dtype=np.int64), corrs)
+
     def register_next_general_frame(
         self, frame: Frame, options: IncrementalMapperOptions
     ) -> bool:
-        """Generalized (multi-camera) rig registration (reference:
-        RegisterNextGeneralFrame, incremental_mapper.cc:492-672)."""
-        raise NotImplementedError(
-            "rig frames are not ported yet (ROADMAP queue 1, item 10: rigs)")
+        """Generalized (multi-camera) rig registration: 2D-3D correspondences
+        of all the frame's images -> gDLT LO-RANSAC (K27) -> rig-tangent LM
+        refinement -> continued tracks.
+
+        reference: RegisterNextGeneralFrame (incremental_mapper.cc:492-672,
+        GP3P via EstimateGeneralizedAbsolutePose at :608).
+        """
+        recon = self.recon
+        for iid in frame.image_ids():
+            self.num_reg_trials[iid] = self.num_reg_trials.get(iid, 0) + 1
+        cams_from_rig, cameras, pts2d, pts3d, cam_idxs, corrs = (
+            self._general_frame_correspondences(frame))
+        if len(pts2d) < options.abs_pose_min_num_inliers:
+            return False
+        # The world scale is estimated with the pose: a monocular-seeded model
+        # has an arbitrary scale that conflicts with the metric rig baselines,
+        # so the first rig registration upgrades the model to the rig's scale.
+        pose, inlier_mask, scale = estimate_generalized_absolute_pose(
+            pts2d, pts3d, cam_idxs, cams_from_rig, cameras,
+            GeneralizedAbsolutePoseOptions(max_error_px=options.abs_pose_max_error,
+                                           min_inlier_ratio=options.abs_pose_min_inlier_ratio),
+            seed=options.seed, estimate_scale=True, device=self.device,
+        )
+        if pose is None or int(inlier_mask.sum()) < options.abs_pose_min_num_inliers:
+            return False
+        if 0.2 < scale < 5.0 and abs(scale - 1.0) > 1e-6:
+            recon.transform(scale, np.array([1.0, 0, 0, 0]), np.zeros(3))
+            pts3d = pts3d * scale
+        pose, ok = refine_generalized_absolute_pose(
+            pose, pts2d, pts3d, cam_idxs, cams_from_rig, cameras, inlier_mask,
+            device=self.device)
+        if not ok:
+            return False
+
+        frame.rig_from_world = pose
+        recon.register_frame(frame.frame_id)
+        self._register_frame_event(frame.frame_id)
+
+        # Continue tracks with the inliers, image by image, each group
+        # checked in one batched reprojection call.
+        by_image: Dict[int, List[Tuple[int, int]]] = {}
+        for i in np.nonzero(inlier_mask)[0]:
+            iid, p2d_idx, p3d_id = corrs[i]
+            if recon.images[iid].points2D_p3d[p2d_idx] != INVALID_POINT3D:
+                continue
+            if p3d_id not in recon.points3D:
+                continue
+            by_image.setdefault(iid, []).append((p2d_idx, p3d_id))
+        for iid, jobs in by_image.items():
+            image = recon.images[iid]
+            errs = self.triangulator._reproj_errors_px(
+                recon.cameras[image.camera_id], recon.cam_from_world(iid),
+                np.stack([recon.points3D[p].xyz for (_i, p) in jobs]),
+                np.stack([image.points2D_xy[i] for (i, _p) in jobs]),
+            )
+            for (p2d_idx, p3d_id), err in zip(jobs, errs):
+                if err <= options.filter_max_reproj_error:
+                    recon.add_observation(p3d_id, TrackElement(iid, p2d_idx))
+        return True
 
     # ------------------------------------------------------------------
     def register_next_structure_less_image(
@@ -615,7 +777,7 @@ class IncrementalMapper:
         if ba_options is None:
             ba_options = PIPELINE_BA_OPTIONS
         if self._has_nontrivial_rigs():
-            self._rig_ba(local_ids, ba_options)
+            self._rig_local_bundle_adjustment(local_ids, ba_options)
             return
         image_set = list(local_ids)
         problem, index = problem_from_reconstruction(self.recon, image_set, device=self.device)
@@ -660,10 +822,46 @@ class IncrementalMapper:
             for fid in self.recon.reg_frame_ids()
         )
 
-    def _rig_ba(self, frame_ids: List[int], ba_options: ba.BAOptions):
-        """Rig-aware BA over frames (reference: rig-aware CeresBundleAdjuster
-        with constant sensor_from_rig, estimators/bundle_adjustment_ceres.cc)."""
-        raise NotImplementedError("rig BA is not ported yet (ROADMAP queue 1, item 10: rigs)")
+    def _rig_ba(self, frame_ids: List[int], ba_options: ba.BAOptions,
+                const_frames: Optional[List[int]] = None):
+        """Rig-aware BA over frames: every sensor_from_rig held constant (the
+        calibrated baselines fix the metric scale), the first frame fixed
+        (the gauge), ``const_frames`` fixed too; frame poses and points
+        refined. reference: rig-aware CeresBundleAdjuster with constant
+        sensor_from_rig (estimators/bundle_adjustment_ceres.cc)."""
+        recon = self.recon
+        problem, index = rig_problem_from_reconstruction(recon, frame_ids, device=self.device)
+        if problem.obs_xy.shape[0] < 10 or problem.points.shape[0] < 4:
+            return
+        model_id = index["model_id"]
+        const_rows = None
+        if const_frames:
+            const_rows = [index["frame_ids"].index(f) for f in const_frames
+                          if f in index["frame_ids"]]
+        masks = rba.default_masks(problem, model_id, ba_options,
+                                  ref_sensors=index["ref_sensor_rows"], const_frames=const_rows)
+        fm, ftm = masks.frame_mask.clone(), masks.frame_trans_mask.clone()
+        fm[0] = 0.0
+        ftm[0] = 0.0
+        masks = masks._replace(frame_mask=fm, frame_trans_mask=ftm,
+                               sensor_mask=torch.zeros_like(masks.sensor_mask))
+        solved, _ = rba.solve(problem, model_id, ba_options, masks)
+        update_reconstruction_rig(recon, solved, index)
+
+    def _rig_local_frames(self, local_ids: List[int]):
+        """The registered frames of the local bundle's images, and the
+        smallest of them as the constant frame when the model holds more
+        frames (colmap_tpu's _rig_local_bundle_adjustment)."""
+        recon = self.recon
+        frame_ids = sorted({recon.images[iid].frame_id for iid in local_ids})
+        frame_ids = [f for f in frame_ids if recon.is_frame_registered(f)]
+        const = [min(frame_ids)] if frame_ids and recon.num_reg_frames() > len(frame_ids) else None
+        return frame_ids, const
+
+    def _rig_local_bundle_adjustment(self, local_ids: List[int], ba_options: ba.BAOptions):
+        frame_ids, const_frames = self._rig_local_frames(local_ids)
+        if frame_ids:
+            self._rig_ba(frame_ids, ba_options, const_frames=const_frames)
 
     def global_bundle_adjustment(self, ba_options: Optional[ba.BAOptions] = None):
         """reference behavior: AdjustGlobalBundle."""

@@ -96,7 +96,10 @@ class IncrementalPipeline:
             ok = self._reconstruct_sub_model(mapper, recon)
             if ok and recon.num_reg_frames() >= 2:
                 self.reconstructions.append(recon)
-            reg_total = sum(r.num_reg_frames() for r in self.reconstructions)
+            # Registered images against images: colmap_tpu counts frames
+            # here, so a rig scene (frames of several images) never reaches
+            # its image count and reconstructs the same frames again.
+            reg_total = sum(len(r.reg_image_ids()) for r in self.reconstructions)
             if reg_total >= num_images or not ok:
                 break
             # Mark registered images as used (cannot seed a new model).

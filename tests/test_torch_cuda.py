@@ -22,7 +22,11 @@ from their thresholds (float32 similarities against float64); K11 and K12
 count and refit as K6 and K7 do; a block of pairs through K7, K11 and K12
 gives each pair exactly what the one-pair entry gives it. The PatchMatch
 kernels K17-K20 run on colmap_tpu_torch/kernels/mvs_cases.py's plane case
-(their tolerances are stated above their tests).
+(their tolerances are stated above their tests). The rig kernels K24-K27 run
+on colmap_tpu_torch/kernels/rig_cases.py: K24 to 1e-5 (1e-4 under Cauchy),
+K25 and K26 (float32 sums in a fixed order, the same in every run) to 1e-4,
+K27 counts each model's inliers within its rows near the threshold and
+picks the float64 version's best sample or a near-tie.
 """
 
 import numpy as np
@@ -846,3 +850,111 @@ def test_view_graph_calibration_kernel_matches_plain_on_cuda():
         _close(g2, 2.0 * grad, 1e-7, "K23 backward")
         torch.cuda.synchronize()
         assert G.LAUNCHES["view_graph_calibration"] == 2
+
+
+def _rig_case(model_id, empty_sensor):
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    p, _, _ = RC.rig_ba_problem(8, 3, 300, 5, model_id=model_id, seed=model_id, device="cuda")
+    if empty_sensor:
+        p = RC.with_empty_sensor(p)
+    opts = ba.BAOptions(loss="cauchy", refine_principal_point=True)
+    masks = rba.default_masks(p, model_id, opts, const_frames=[2])
+    masks = rba.fix_gauge_two_frames(masks, 0, 1)
+    return p, opts, rba._obs_masks(masks, opts), rba._obs(p), rba._layout(p)
+
+
+@pytest.mark.parametrize("model_id", range(5))
+def test_rig_ba_kernels_match_plain_on_cuda(model_id):
+    """K24-K26 against their float64 plain versions: models 0-4, Cauchy, a
+    constant frame, the reference sensor and (model 2) an empty sensor and
+    camera row; the reductions are the same in two runs."""
+    _need_card()
+    from colmap_tpu_torch.kernels import rig as KR
+
+    p, opts, om, obs, layout = _rig_case(model_id, empty_sensor=model_id == 2)
+    p64 = type(p)(*_f64(*p))
+    om64 = type(om)(*_f64(*om))
+    args = (model_id, opts.loss, opts.loss_scale)
+    KR.reset_launches()
+    jac = KR.rig_obs_jacobians(*p[:6], obs, *om, *args)
+    ref = KR.rig_obs_jacobians_plain(*p64[:6], type(obs)(*_f64(*obs)), *om64, *args)
+    for name, a, b in zip(KR.RigJacobians._fields, jac, ref):
+        _close(a, b, 1e-4, f"K24 {name}")
+    _close(KR.rig_obs_cost(*p[:6], obs, *args),
+           KR.rig_obs_cost_plain(*p64[:6], type(obs)(*_f64(*obs)), *args), 1e-5, "K24 cost")
+    jac64 = KR.RigJacobians(*_f64(*jac))
+    red = KR.rig_lm_reduce(jac, obs, layout, 1e-3)
+    red64 = KR.rig_lm_reduce_plain(jac64, obs, layout, 1e-3)
+    for name in KR.RigReduction._fields:
+        _close(getattr(red, name), getattr(red64, name), 1e-4, f"K25 {name}")
+    again = KR.rig_lm_reduce(jac, obs, layout, 1e-3)
+    for a, b in zip(red, again):
+        assert torch.equal(a, b)
+    x = torch.randn(layout.num_frames + layout.num_sensors + layout.num_cams, KR.W,
+                    device="cuda") * (red.diag != 0)
+    red64 = KR.RigReduction(*_f64(*red))
+    out = KR.rig_schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, x)
+    _close(out, KR.rig_schur_matvec_plain(jac64, obs, layout, red64.Hpp_inv, red64.lam_diag,
+                                          x.double()), 1e-4, "K26 matvec")
+    assert torch.equal(out, KR.rig_schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, x))
+    _close(KR.rig_back_substitute(jac, obs, layout, red.Hpp_inv, red.gx, x),
+           KR.rig_back_substitute_plain(jac64, obs, layout, red64.Hpp_inv, red64.gx,
+                                        x.double()), 1e-4, "K26 back-substitution")
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES == {"rig_ba_jacobians": 2, "rig_ba_reduce": 2, "rig_ba_matvec": 3,
+                           "gen_abs_ransac": 0}
+
+
+def test_rig_solve_matches_plain_on_cuda():
+    """rig BA solve, 5 LM iterations, through K24-K26 and through the
+    float64 plain versions on the card: final costs within 1e-3."""
+    _need_card()
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    p, _, model_id = RC.rig_ba_problem(10, 3, 500, 5, seed=3, device="cuda")
+    opts = ba.BAOptions(max_iterations=5, pcg_iterations=20, loss="cauchy",
+                        function_tolerance=0.0)
+    masks = rba.fix_gauge_two_frames(rba.default_masks(p, model_id, opts), 0, 1)
+    _, cost, _ = rba._lm_loop(p, model_id, opts, masks)
+    p64 = type(p)(*_f64(*p))
+    masks64 = type(masks)(*_f64(*masks))
+    _, cost64, _ = rba._lm_loop(p64, model_id, opts, masks64, kernels=KR.PLAIN)
+    assert abs(cost - cost64) <= 1e-3 * cost64
+
+
+@pytest.mark.parametrize("world_scale", [1.0, 0.37])
+def test_gen_abs_ransac_matches_plain_on_cuda(world_scale):
+    """K27 on 256 injected samples against its float64 plain version: every
+    count within the rows near the threshold, the same best sample or a
+    near-tie, all-inlier models to 1e-3, inlier masks equal off the near
+    rows."""
+    _need_card()
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    data64, _, inl = RC.gen_abs_case(500, seed=9, world_scale=world_scale, device="cuda")
+    data = KR.GenAbsData(*(t.float() if t.is_floating_point() else t for t in data64))
+    samples = RC.injected_samples(500, 256, 10, inl, device="cuda")
+    max_sq = 144.0
+    KR.reset_launches()
+    m, c, b = KR.gen_abs_propose_score(data, samples, max_sq, True)
+    m64, c64, b64 = KR.gen_abs_propose_score_plain(data64, samples, max_sq, True)
+    count_ok, best_ok, near, tie = RC.ransac_agreement(
+        c, unpack_best(int(b[0])), m64, c64, unpack_best(int(b64[0])), data64, max_sq)
+    assert count_ok and best_ok, (near, tie)
+    full = c64 >= 0.9 * c64.max()
+    _close(m[full], m64[full], 1e-3, "K27 models")
+    best = unpack_best(int(b64[0]))[1]
+    inl_k = KR.gen_abs_inliers(data, m64[best].float(), max_sq)
+    res = KR.gen_abs_residuals(m64[best][None], data64)[0]
+    far = (res - max_sq).abs() > 1e-3 * max_sq
+    assert torch.equal(inl_k[far], (res <= max_sq)[far])
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES["gen_abs_ransac"] == 2

@@ -8,7 +8,8 @@ with the port's renderer and extracts their features with
 plane case: PatchMatch with the consistency filter, the map, graph, PLY and
 .vis files, the workspace's PNG bitmaps and fusion; then ``global_mapper``
 on a four-frame scene and ``view_graph_calibrator``, both with
-``--device cpu``.
+``--device cpu``; then the rig BA solve and a batch of the generalized
+absolute pose's RANSAC on small cases.
 """
 
 import os
@@ -99,6 +100,23 @@ CHILD = textwrap.dedent("""
     focals = cli.main(["view_graph_calibrator", "--database_path", os.path.join(root, "vgc.db"),
                        "--device", "cpu"])
     print("GLOBAL", sum(pipe.timer.calls.values()), len(focals))
+
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.geometry.rigid3 import Rigid3
+    from colmap_tpu_torch.kernels import rig, rig_cases
+
+    p, gt, mid = rig_cases.rig_ba_problem(4, 2, 80, 4, seed=1, dtype=torch.float64)
+    opts = ba.BAOptions(max_iterations=3, pcg_iterations=10, loss="cauchy")
+    solved, summary = rba.solve(p, mid, opts, rba.fix_gauge_two_frames(
+        rba.default_masks(p, mid, opts), 0, 1))
+    assert summary["final_cost"] < summary["initial_cost"]
+    data, Rt, inl = rig_cases.gen_abs_case(60, seed=2)
+    samples = rig_cases.injected_samples(60, 8, 3, inl)
+    models, counts, best = rig.gen_abs_propose_score(data, samples, 144.0, True)
+    assert int(counts.max()) == int(inl.sum())
+    assert Rigid3(p.quat, p.t).inverse().compose(Rigid3(p.quat, p.t)).t.abs().max() < 1e-12
+    print("RIG", summary["num_iterations"], int(counts.max()))
 """)
 
 
@@ -108,3 +126,4 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
+    assert "RIG" in out.stdout
