@@ -93,7 +93,28 @@ Phases; any failure exits non-zero:
      cameras x 10 frames x 1000 points, f = 2500, seed 3) stripped to
      features, each through `exhaustive_matcher` and `mapper` on cuda (the
      mapper under torch.profiler): frames, errors against the truth, wall
-     time, time by phase and the device's idle share.
+     time, time by phase and the device's idle share;
+ 20. retrieval kernels (phase `retrieval_kernels`): K28-K31
+     (colmap_tpu_torch/kernels/retrieval.py) against float64 plain versions
+     on a collection of 1000 images x 2000 uint8 descriptors with a known
+     neighbour structure (BASELINE.json config 3's scale): K28 with a flat
+     1024-word vocabulary over all 2M rows, K28 and K29 over level 4 of a
+     branching-8, depth-5 tree (4096 nodes x 8 children; K29 the same bits
+     in two runs), K30 through that tree; indices equal except at near-ties
+     marked from float64, each chosen centroid within 1e-5 of the nearest's
+     float64 distance; K31 (S = W Wᵀ of rank_images_bow) on the W of that
+     tree's words, 1000 x 32 768, within 1e-5, exactly symmetric, the same
+     bits twice; timed with CUDA events;
+ 21. retrieval (phase `retrieval`): the collection written to a database,
+     `vocab_tree_builder --depth 5 --branching 8`, `vocab_tree_retriever
+     --num_images 10`, `vocab_tree_matcher --num_images 10` up to its pair
+     list (verification stubbed: the collection has no geometry), each
+     under torch.profiler, and `vocab_tree_pairs`: recall@10 of the true
+     neighbours >= 0.8, the first 100 images' top-10 lists against the
+     float64 plain path's, K31 on the W that `vocab_tree_pairs` built; then the 12 rendered frames of phase 13 through
+     `feature_extractor`, `vocab_tree_builder` (flat, then depth 3),
+     `vocab_tree_matcher --num_images 5` and `mapper`, held to the images ->
+     model gates.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
 the dense solver), the matcher K5, K7 and K10-K12, the mapper K1-K3 and
@@ -101,12 +122,14 @@ K5-K9 (its BA is PCG, so K4 is not on its path), the extractor K13-K16,
 `image_undistorter` K5, `patch_match_stereo` K17-K20, `global_mapper` K1-K3,
 K5, K21 and K22, `rotation_averager` K21, `view_graph_calibrator` K23, the
 rig solve K24-K26 and the rig mapper K5, K7 and K24-K27 (and on the
-full-size rig scene K8 and K9).
+full-size rig scene K8 and K9), `vocab_tree_builder` K28 and K29,
+`vocab_tree_pairs` K28, K29 and K31, `vocab_tree_retriever` and `vocab_tree_matcher` K30 (the
+matcher also K5, K7 and K10-K12 on the rendered frames).
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
-global_kernels,global` or `--phases rig_kernels,rig` (or any subset of the
-phases) runs a subset while developing and prints no result; the kernels
-line needs them all.
+global_kernels,global`, `--phases rig_kernels,rig` or `--phases
+retrieval_kernels,retrieval` (or any subset of the phases) runs a subset
+while developing and prints no result; the kernels line needs them all.
 """
 
 from __future__ import annotations
@@ -417,6 +440,38 @@ RIG_FULL_CAMS, RIG_FULL_FRAMES = 4, 10
 RIG_K24_OBS_OPS, RIG_K25_OBS_OPS, RIG_K25_POINT_OPS, RIG_K26_OBS_OPS, RIG_K26_POINT_OPS = (
     320, 200, 45, 150, 15)
 GDLT_OPS, GEN_ABS_ROW_OPS = 4100, 45
+
+
+RETRIEVAL_SOURCES = {
+    "retrieval_assign": ("colmap_tpu_torch/csrc/retrieval_assign.cu",
+                         "colmap_tpu/retrieval/visual_index.py:56"),
+    "retrieval_update": ("colmap_tpu_torch/csrc/retrieval_update.cu",
+                         "colmap_tpu/retrieval/visual_index.py:39"),
+    "retrieval_descend": ("colmap_tpu_torch/csrc/retrieval_descend.cu",
+                          "colmap_tpu/retrieval/visual_index.py:117"),
+    "retrieval_gram": ("colmap_tpu_torch/csrc/retrieval_gram.cu",
+                       "colmap_tpu/retrieval/visual_index.py:487"),
+}
+# Retrieval at BASELINE.json config 3's scale: an unordered collection of
+# 1000 images x 2000 uint8 descriptors (the matchers' default
+# --max_features_per_image), a flat vocabulary of 1024 words (the builder's
+# default), a tree of branching 8 and depth 5 (32 768 leaves, the size COLMAP
+# ships for 1k-10k images) trained on the builder's default 200 000-row sample.
+RET_IMAGES, RET_PER_IMAGE, RET_WORDS, RET_BRANCHING, RET_DEPTH, RET_SAMPLE = (
+    1000, 2000, 1024, 8, 5, 200000)
+# Gates: recall@10 of the generator's true neighbours (the 10 images nearest
+# in index, which share the most of its pool window); the retriever's top-10
+# against the float64 plain path's on 100 query images; K29 within 2e-7 of
+# the scale (float64 sums rounded once to float32); K31 within 1e-5 of the
+# scale (float32 sums of up to 32 768 products of normalized histograms).
+RET_RECALL, RET_SUBSET, K29_RTOL, K31_RTOL = 0.8, 100, 2e-7, 1e-5
+# f32 operations (an FMA is 2): K28 and K30 3 per (row, centroid, dim), a
+# subtraction and an FMA; K29 1 per (row, dim), its float64 add counted at
+# the float32 rate; K31 in gram_work, from the run's W.
+RET_DIST_OPS, RET_SUM_OPS = 3, 1
+# Retrieval on the images -> model scene: 5 neighbours an image, so that
+# retrieval chooses among the 66 pairs.
+RET_IMG_NEIGHBORS = 5
 
 
 def pm_plane_ops(taps, views, geometric):
@@ -1144,10 +1199,11 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import rig as KR
     from colmap_tpu_torch.kernels import matching as KM
     from colmap_tpu_torch.kernels import mvs as KV
+    from colmap_tpu_torch.kernels import retrieval as KT
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
 
-    return KB, K, KM, KS, KV, KG, KR
+    return KB, K, KM, KS, KV, KG, KR, KT
 
 
 def all_launch_counts():
@@ -1254,7 +1310,7 @@ def run_mapper(db_path, out, label, min_launches=True):
     log(f"  launches: {counts}")
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
-              and k not in RIG_SOURCES]
+              and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -3132,8 +3188,372 @@ def phase_rig(launches):
     return results
 
 
+RETRIEVAL_STATE = {}
+
+
+def _retrieval_corpus():
+    """The 1000-image corpus (made once, shared by both retrieval phases)."""
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+
+    if "corpus" not in RETRIEVAL_STATE:
+        t0 = time.perf_counter()
+        RETRIEVAL_STATE["corpus"] = TC.corpus(RET_IMAGES, RET_PER_IMAGE, seed=0)
+        log(f"retrieval corpus: {RET_IMAGES} images x {RET_PER_IMAGE} uint8 descriptors, windows "
+            f"of {RETRIEVAL_STATE['corpus'].window} pool rows every "
+            f"{RETRIEVAL_STATE['corpus'].step} (set-up {time.perf_counter() - t0:.1f} s)")
+    return RETRIEVAL_STATE["corpus"]
+
+
+def _builder_sample(n):
+    """The rows vocab_tree_builder trains on (its rng(0) subsample)."""
+    return np.random.default_rng(0).choice(n, RET_SAMPLE, replace=False)
+
+
+def gram_work(W):
+    """(bytes, f32 operations) that S = W Wᵀ needs on this W: W read once and
+    S written once; an FMA for each pair i <= j of images and each word both
+    hold (S is symmetric, and a product with a zero adds nothing)."""
+    c = (W != 0).sum(0).double()
+    return nbytes(W) + 4 * W.shape[0] ** 2, float((c * (c + 1)).sum())
+
+
+def _nonzero(W):
+    return f"{float((W != 0).double().mean()):.4f} of it nonzero"
+
+
+def gram_check(name, W, errs):
+    """K31 on W against its float64 plain version: within K31_RTOL of the
+    scale, exactly symmetric, the same bits in two runs."""
+    from colmap_tpu_torch.kernels import retrieval as KT
+
+    got, again = KT.gram(W), KT.gram(W)
+    if not (torch.equal(got, again) and torch.equal(got, got.T)):
+        raise AssertionError(f"{name}: two runs differ, or S is not symmetric")
+    check(f"{name} ({_nonzero(W)}), exactly symmetric, the same bits in two runs", got,
+          KT.gram_plain(W.double()), K31_RTOL, errs)
+
+
+def phase_retrieval_kernels():
+    """K28-K31 against their float64 plain versions on the same inputs, on
+    the 1000-image corpus (2M rows): K28 with a flat 1024-word vocabulary;
+    K28 and K29 over level 4 of a branching-8, depth-5 tree built from the
+    builder's sample (4096 nodes x 8 children); K29 the same bits in two
+    runs; K30 through that tree; K31 on rank_images_bow's W of that tree's
+    words (1000 x 32 768). Indices equal except at near-ties marked from
+    float64; errs of K28 and K30: how far beyond the nearest the chosen
+    centroids lie, in float64. Timed with CUDA events. Returns (errs,
+    rows)."""
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+    from colmap_tpu_torch.retrieval.visual_index import bow_matrix, build_vocabulary_tree
+
+    errs = {k: [] for k in RETRIEVAL_SOURCES}
+    rows = {}
+    corpus = _retrieval_corpus()
+    x = torch.from_numpy(corpus.descriptors.reshape(-1, 128)).to("cuda").float()
+    N, D = x.shape
+    rng = np.random.default_rng(1)
+    log(f"retrieval kernels vs plain (float64 on the same inputs), {N} rows:")
+
+    def indices(name, got, want_near, excess):
+        """got against float64's indices; errs: the float64 distance to the
+        centroid got chose, beyond the nearest (abs, and over the nearest)."""
+        want, near = (t.cpu().numpy() for t in want_near)
+        n, nn, nd = TC.agree(got.cpu().numpy(), want, near, name)
+        a, r = (float(t.max()) for t in excess(got))
+        log(f"  {name}: {n} rows, {nn} near-ties ({nd} of them differ); every other row equal; "
+            f"the chosen centroids' float64 squared distance beyond the nearest: {a:.4e} "
+            f"({r:.3e} of it, limit {KT.NEAR_TIE:g})")
+        if not r <= KT.NEAR_TIE:
+            raise AssertionError(f"{name}: a chosen centroid {r:.3e} beyond the nearest")
+        errs[name.split()[0]].append((a, r))
+
+    vocab = (x[torch.as_tensor(rng.choice(N, RET_WORDS, replace=False), device="cuda")]
+             + torch.as_tensor(rng.normal(0, 8.0, (RET_WORDS, D)), dtype=torch.float32,
+                               device="cuda")).contiguous()
+    indices("retrieval_assign flat", KT.assign(x, vocab), KT.nearest64(x, vocab),
+            lambda got: KT.excess64(x, vocab, got))
+
+    t0 = time.perf_counter()
+    tree = build_vocabulary_tree(corpus.descriptors.reshape(-1, D)[_builder_sample(N)],
+                                 RET_BRANCHING, RET_DEPTH, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  tree {RET_BRANCHING}^{RET_DEPTH} = {tree.num_words} leaves built on the kernels in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flat = tree.concatenated
+    top = sum(RET_BRANCHING ** (lv + 1) for lv in range(RET_DEPTH - 1))
+    nodes = KT.descend(x, flat[:top].contiguous(), RET_BRANCHING, RET_DEPTH - 1)
+    cents = tree.levels[-1].reshape(-1, D).float().contiguous()
+    child = KT.assign(x, cents, nodes, RET_BRANCHING)
+    indices("retrieval_assign level 4", child, KT.nearest64(x, cents, nodes, RET_BRANCHING),
+            lambda got: KT.excess64(x, cents, got, nodes, RET_BRANCHING))
+    seg = nodes.long() * RET_BRANCHING + child.long()
+    new, counts = KT.update(x, seg, cents)
+    new2, counts2 = KT.update(x, seg, cents)
+    ref, ref_counts = KT.update_plain(x, seg, cents.double())
+    if not (torch.equal(new, new2) and torch.equal(counts, counts2)):
+        raise AssertionError("K29: two runs differ")
+    if not torch.equal(counts, ref_counts):
+        raise AssertionError("K29: counts differ from the plain version's")
+    check(f"retrieval_update over {len(counts)} segments ({int((counts == 0).sum())} empty), "
+          "the same bits in two runs", new, ref, K29_RTOL, errs["retrieval_update"])
+    indices("retrieval_descend", KT.descend(x, flat, RET_BRANCHING, RET_DEPTH),
+            KT.descend64(x, flat, RET_BRANCHING, RET_DEPTH),
+            lambda got: KT.descend_excess64(x, flat, RET_BRANCHING, RET_DEPTH, got))
+    # K31 on rank_images_bow's W for this tree: the images' words by K30
+    # (TreeVocabulary.assign), weighted and normalized by bow_matrix.
+    W = bow_matrix(tree.assign(x), [RET_PER_IMAGE] * RET_IMAGES, tree.num_words)
+    gram_check(f"retrieval_gram, W {RET_IMAGES} x {tree.num_words}", W, errs["retrieval_gram"])
+
+    S = len(counts)
+    B, L = RET_BRANCHING, RET_DEPTH
+    log("  times:")
+    rows["retrieval_assign"] = _global_row(
+        f"retrieval_assign flat, {N} rows x {RET_WORDS} words", lambda: KT.assign(x, vocab),
+        lambda: KT.assign_plain(x, vocab), nbytes(x, vocab) + 4 * N,
+        RET_DIST_OPS * N * RET_WORDS * D, library=lambda: torch.cdist(x, vocab).argmin(1),
+        plain_reps=1)
+    rows["retrieval_assign"]["entries"] = {"level 4": dict(
+        ms=time_ms(lambda: KT.assign(x, cents, nodes, B), reps=10),
+        plain_ms=time_ms(lambda: KT.assign_plain(x, cents, nodes, B), reps=1))}
+
+    def library_update():
+        sums = torch.zeros_like(cents).index_add_(0, seg, x)
+        cnt = torch.bincount(seg, minlength=S)
+        return torch.where(cnt[:, None] > 0, sums / cnt.clamp(min=1)[:, None], cents)
+
+    rows["retrieval_update"] = _global_row(
+        f"retrieval_update, {N} rows into {S} segments (with its stable sort)",
+        lambda: KT.update(x, seg, cents), lambda: KT.update_plain(x, seg, cents),
+        nbytes(x, seg, cents, new, counts), RET_SUM_OPS * N * D, library=library_update,
+        plain_reps=1)
+    rows["retrieval_descend"] = _global_row(
+        f"retrieval_descend, {N} rows through {B}^{L}", lambda: KT.descend(x, flat, B, L),
+        lambda: KT.descend_plain(x, flat, B, L), nbytes(x, flat) + 4 * N,
+        RET_DIST_OPS * N * B * L * D, plain_reps=1)
+    b, ops = gram_work(W)
+    rows["retrieval_gram"] = _global_row(
+        f"retrieval_gram, W {RET_IMAGES} x {tree.num_words} ({_nonzero(W)})",
+        lambda: KT.gram(W), lambda: KT.gram_plain(W), b, ops,
+        library=lambda: torch.matmul(W, W.T))
+    del x, W
+    torch.cuda.synchronize()
+    return errs, rows
+
+
+RETRIEVAL_QUERY_KERNELS = ("retrieval_descend",)
+RETRIEVAL_BUILD_KERNELS = ("retrieval_assign", "retrieval_update")
+
+
+def _write_corpus_database(path, corpus):
+    """The corpus as a database: one SIMPLE_RADIAL camera, images
+    img0000.png... in order (ids 1..1000), random keypoints."""
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.types import Camera
+
+    rng = np.random.default_rng(2)
+    db = Database(path)
+    cid = db.write_camera(Camera.create(1, "SIMPLE_RADIAL", 1200.0, 1600, 1200))
+    for i, desc in enumerate(corpus.descriptors):
+        iid = db.write_image(f"img{i:04d}.png", cid)
+        n = len(desc)
+        db.write_keypoints(iid, np.column_stack([rng.uniform(0, 1600, n), rng.uniform(0, 1200, n),
+                                                 rng.uniform(1, 6, n), rng.uniform(-3, 3, n)]))
+        db.write_descriptors(iid, desc)
+    db.commit()
+    db.close()
+
+
+def _top10_against_plain(tree_path, corpus, ranked):
+    """The retriever's lists of the first RET_SUBSET images against an index
+    whose words come from K30's float64 plain version on the card. Every
+    image's words are held against the float64 ones (equal but at
+    near-ties); a list may differ only where the query or a differing image
+    has a word that K30 put elsewhere. Returns (lists equal, lists excused,
+    images with such a word)."""
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+    from colmap_tpu_torch.retrieval.visual_index import VisualIndex, load_vocab_tree
+
+    class PlainIndex(VisualIndex):
+        def _assign(self, desc):
+            return KT.descend_plain(desc, self.tree.concatenated, self.tree.branching,
+                                    self.tree.depth)
+
+    tree = load_vocab_tree(tree_path, "cuda")
+    args = (tree.concatenated, tree.branching, tree.depth)
+    plain = PlainIndex(tree, device="cuda")
+    moved = []
+    for i, desc in enumerate(corpus.descriptors):
+        d = torch.from_numpy(desc).to("cuda").float()
+        plain.add(i + 1, d)
+        want, near = (t.cpu().numpy() for t in KT.descend64(d, *args))
+        got = KT.descend(d, *args).cpu().numpy()
+        TC.agree(got, want, near, f"retrieval_descend, image {i + 1}")
+        moved.append(bool((got != want).any()))
+    equal = excused = 0
+    for i in range(RET_SUBSET):
+        want = [r.image_id for r in plain.query(corpus.descriptors[i], 10, exclude_image_id=i + 1)]
+        got = [r.image_id for r in ranked[i + 1]]
+        if got == want:
+            equal += 1
+            continue
+        differ = {a for a, b in zip(got, want) if a != b} | {b for a, b in zip(got, want) if a != b}
+        if moved[i] or any(moved[j - 1] for j in differ):
+            excused += 1
+            continue
+        raise AssertionError(f"image {i + 1}: top-10 {got} differs from the plain path's {want} "
+                             "with the same words")
+    return equal, excused, sum(moved)
+
+
+def phase_retrieval(launches, errs, rows):
+    """The retrieval commands on cuda, each under torch.profiler: (a) the
+    1000-image corpus written to a database, `vocab_tree_builder --depth 5
+    --branching 8`, `vocab_tree_retriever --num_images 10`,
+    `vocab_tree_matcher --num_images 10` up to its pair list (its
+    verification replaced by a stub that records the pairs: the corpus has
+    no geometry) and `vocab_tree_pairs`; recall@10 of the true neighbours
+    held at RET_RECALL, the top-10 lists against the float64 plain path;
+    (b) images -> model: the 12 rendered frames through `feature_extractor`,
+    `vocab_tree_builder` (flat, then --depth 3 --branching 8),
+    `vocab_tree_matcher --num_images 5` and `mapper`, held to the images ->
+    model gates."""
+    import colmap_tpu_torch.controllers.feature_pipeline as FP
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+    from colmap_tpu_torch.kernels import sift_cases as SC
+    from colmap_tpu_torch.retrieval.visual_index import vocab_tree_pairs
+
+    results = {}
+    corpus = _retrieval_corpus()
+    truth = TC.true_neighbors(RET_IMAGES, 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path, tree = os.path.join(tmp, "corpus.db"), os.path.join(tmp, "tree.npz")
+        t0 = time.perf_counter()
+        _write_corpus_database(db_path, corpus)
+        log(f"retrieval, corpus: database written in {time.perf_counter() - t0:.1f} s")
+        seconds, idles = {}, {}
+        _, seconds["vocab_tree_builder"], idles["vocab_tree_builder"] = _profiled_command(
+            ["vocab_tree_builder", "--database_path", db_path, "--vocab_tree_path", tree,
+             "--depth", str(RET_DEPTH), "--branching", str(RET_BRANCHING)],
+            "vocab_tree_builder, corpus", RETRIEVAL_BUILD_KERNELS, launches)
+        ranked, seconds["vocab_tree_retriever"], idles["vocab_tree_retriever"] = _profiled_command(
+            ["vocab_tree_retriever", "--database_path", db_path, "--vocab_tree_path", tree,
+             "--num_images", "10"], "vocab_tree_retriever, corpus", RETRIEVAL_QUERY_KERNELS,
+            launches)
+        rec = TC.recall({i - 1: [r.image_id - 1 for r in res] for i, res in ranked.items()}, truth)
+        pairs = []
+        real = FP.run_matches_import
+        FP.run_matches_import = lambda db, p, *a, **k: pairs.extend(p) or 0
+        try:
+            _, seconds["vocab_tree_matcher (pairs)"], idles["vocab_tree_matcher (pairs)"] = (
+                _profiled_command(["vocab_tree_matcher", "--database_path", db_path,
+                                   "--vocab_tree_path", tree, "--num_images", "10"],
+                                  "vocab_tree_matcher up to its pair list, corpus",
+                                  RETRIEVAL_QUERY_KERNELS, launches))
+        finally:
+            FP.run_matches_import = real
+        near_pairs = sum(abs(a - b) <= 5 for a, b in pairs)
+        seen = []
+        real_gram = KT.gram
+        KT.gram = lambda w: seen.append(w) or real_gram(w)  # keeps the path's W
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        try:
+            bow_pairs = vocab_tree_pairs({i: d for i, d in enumerate(corpus.descriptors)},
+                                         device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            KT.gram = real_gram
+        seconds["vocab_tree_pairs"] = time.perf_counter() - t0
+        counts = all_launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        if not (counts["retrieval_assign"] and counts["retrieval_update"]
+                and counts["retrieval_gram"]):
+            raise AssertionError("vocab_tree_pairs: launched no K28, K29 or K31")
+        # K31 on the W that vocab_tree_pairs handed it (its flat vocabulary).
+        W = seen[0]
+        name = f"retrieval_gram, vocab_tree_pairs' W {W.shape[0]} x {W.shape[1]}"
+        gram_check(name, W, errs.setdefault("retrieval_gram", []))
+        if "retrieval_gram" in rows:
+            rows["retrieval_gram"]["entries"] = {name: dict(
+                ms=time_ms(lambda: KT.gram(W), reps=20),
+                plain_ms=time_ms(lambda: KT.gram_plain(W), reps=3),
+                library_ms=time_ms(lambda: torch.matmul(W, W.T), reps=20))}
+        del seen, W
+        bow_near = sum(abs(a - b) <= 5 for a, b in bow_pairs)
+        t0 = time.perf_counter()
+        equal, excused, moved = _top10_against_plain(tree, corpus, ranked)
+        log(f"  corpus: recall@10 {rec:.4f} (>= {RET_RECALL}); matcher pairs {len(pairs)}, "
+            f"{near_pairs} within 5 images; vocab_tree_pairs {len(bow_pairs)} pairs "
+            f"({bow_near} within 5 images) in {seconds['vocab_tree_pairs']:.3f} s; top-10 of "
+            f"{RET_SUBSET} images equal to the float64 plain path's: {equal}, excused by "
+            f"near-ties {excused} ({moved} images hold a word that K30 put elsewhere at a "
+            f"near-tie; check {time.perf_counter() - t0:.1f} s)")
+        if rec < RET_RECALL:
+            raise AssertionError(f"retrieval: recall@10 {rec:.4f} < {RET_RECALL}")
+        results["corpus"] = dict(seconds=seconds, idle=idles, recall=rec, pairs=len(pairs),
+                                 top10_equal=equal, top10_excused=excused)
+
+        # (b) images -> model through retrieval.
+        root = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        gt, _, params = SC.render_scene(os.path.join(root, "images"), IMG_FRAMES, IMG_POINTS,
+                                        1024, 768, IMG_FOCAL, patch_world=IMG_PATCH_WORLD)
+        log(f"retrieval, images -> model: {IMG_FRAMES} rendered frames (set-up "
+            f"{time.perf_counter() - t0:.1f} s)")
+        db_path = os.path.join(root, "db.db")
+        seconds = {}
+        steps = (
+            ("feature_extractor", ["--image_path", os.path.join(root, "images"), "--camera_model",
+                                   "PINHOLE", "--camera_params",
+                                   ",".join(repr(float(v)) for v in params)], SIFT_SOURCES),
+            ("vocab_tree_builder", ["--vocab_tree_path", os.path.join(root, "flat.npz")],
+             RETRIEVAL_BUILD_KERNELS),
+            ("vocab_tree_builder", ["--vocab_tree_path", os.path.join(root, "tree.npz"),
+                                    "--depth", "3", "--branching", "8"], RETRIEVAL_BUILD_KERNELS),
+            ("vocab_tree_matcher", ["--vocab_tree_path", os.path.join(root, "tree.npz"),
+                                    "--num_images", str(RET_IMG_NEIGHBORS)],
+             RETRIEVAL_QUERY_KERNELS + MATCHER_KERNELS),
+            ("mapper", ["--output_path", os.path.join(root, "sparse"), "--quiet"],
+             ("camera_map", "p3p_ransac", *list(BA_SOURCES)[:3])),
+        )
+        for k, (cmd, extra, kernels) in enumerate(steps):
+            label = f"{cmd} ({k})"
+            _, seconds[label], counts = run_command([cmd, "--database_path", db_path] + extra,
+                                                    f"{cmd}, images -> model", kernels)
+            for name, v in counts.items():
+                launches[name] += v
+        from colmap_tpu_torch.estimators.alignment import compare_reconstructions
+        from colmap_tpu_torch.scene.database import Database
+        from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+        db = Database(db_path, must_exist=True)
+        matched = len(db.read_all_matches())
+        db.close()
+        recon = read_model(os.path.join(root, "sparse", "0"))
+        cmp = compare_reconstructions(recon, gt)
+        n, rot, ctr = (cmp["num_common_images"], cmp["max_rotation_error_deg"],
+                       cmp["max_center_error"])
+        log(f"  images -> model through retrieval: {matched} of 66 pairs matched; "
+            f"{recon.num_reg_frames()}/{IMG_FRAMES} frames, {recon.num_points3D()} points; max "
+            f"rotation error {rot:.4f} deg, max center error {ctr:.5f} (bounds {IMG_MAX_ROT_DEG} "
+            f"deg, {IMG_MAX_CENTER}); seconds by command "
+            f"{ {k: round(v, 3) for k, v in seconds.items()} }")
+        if not (n == IMG_FRAMES and rot < IMG_MAX_ROT_DEG and ctr < IMG_MAX_CENTER
+                and matched < 66):
+            raise AssertionError(f"retrieval, images -> model: {n}/{IMG_FRAMES} frames, {rot} deg, "
+                                 f"{ctr}, {matched} pairs")
+        results["images_to_model"] = dict(seconds=seconds, frames=n, max_rot_deg=rot,
+                                          max_center=ctr, pairs=matched)
+    return results
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
-              "global_kernels", "global", "rig_kernels", "rig")
+              "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval")
 
 
 def main():
@@ -3211,10 +3631,16 @@ def main():
         agree.update(r_agree)
     if "rig" in phases:
         run("rig", lambda: phase_rig(launches))
+    if "retrieval_kernels" in phases:
+        t_errs, t_rows = run("retrieval_kernels", phase_retrieval_kernels)
+        errs.update(t_errs)
+        rows.update(t_rows)
+    if "retrieval" in phases:
+        run("retrieval", lambda: phase_retrieval(launches, errs, rows))
     log(f"seconds by phase: {seconds}")
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
-               **GLOBAL_SOURCES, **RIG_SOURCES}
+               **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

@@ -12,6 +12,9 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     spatial_matcher     match and verify pairs of nearby pose priors (GPS)
     transitive_matcher  match and verify the pairs that close A-B, B-C
     geometric_verifier  verify again every pair that has matches
+    vocab_tree_builder  train a flat or tree vocabulary on a database's descriptors
+    vocab_tree_matcher  match and verify each image's retrieved neighbours
+    vocab_tree_retriever  print each image's retrieved neighbours and scores
     rig_configurator    group a database's images into rigs and frames
     mapper            incremental SfM: database -> sparse model(s)
     global_mapper     global SfM: database -> one sparse model
@@ -238,6 +241,123 @@ def _cmd_geometric_verifier(args):
     print(f"Verified {n} of {len(pairs)} matched pairs")
     db.close()
     return n
+
+
+def _read_all_descriptors(db, max_per_image=None):
+    out = {}
+    for (iid, _, _) in db.read_images():
+        d = db.read_descriptors(iid)
+        if max_per_image and len(d) > max_per_image:
+            d = d[:max_per_image]
+        out[iid] = d
+    return out
+
+
+def _npz_path(path):
+    """np.savez appends .npz when missing; normalize so builder and loader
+    agree on the on-disk name."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _cmd_vocab_tree_builder(args):
+    """Writes ``level_<i>`` arrays (a tree, --depth > 1) or ``vocabulary``
+    (flat) in float32, the .npz layout colmap_tpu reads and writes."""
+    import numpy as np
+    import torch
+
+    from colmap_tpu_torch.retrieval.visual_index import build_vocabulary, build_vocabulary_tree
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    args.vocab_tree_path = _npz_path(args.vocab_tree_path)
+    db = Database(args.database_path, must_exist=True)
+    desc = _read_all_descriptors(db, max_per_image=args.max_features_per_image)
+    db.close()
+    all_desc = np.concatenate([d for d in desc.values() if len(d)])
+    rng = np.random.default_rng(0)
+    if len(all_desc) > args.max_num_descriptors:
+        all_desc = all_desc[rng.choice(len(all_desc), args.max_num_descriptors, replace=False)]
+    if args.depth > 1:
+        tree = build_vocabulary_tree(all_desc, branching=args.branching, depth=args.depth,
+                                     device=device)
+        np.savez(args.vocab_tree_path, **{f"level_{i}": lv.to(torch.float32).cpu().numpy()
+                                          for i, lv in enumerate(tree.levels)})
+        print(f"Built hierarchical vocabulary ({args.branching}^{args.depth} = "
+              f"{tree.num_words} words) -> {args.vocab_tree_path}")
+        return tree
+    vocab = build_vocabulary(all_desc, num_words=args.num_words, device=device)
+    np.savez(args.vocab_tree_path, vocabulary=vocab.to(torch.float32).cpu().numpy())
+    print(f"Built vocabulary of {args.num_words} words -> {args.vocab_tree_path}")
+    return vocab
+
+
+def _load_or_train_index(vocab_tree_path, desc_by_image, device):
+    """The index of a built vocabulary file (a tree or a flat vocabulary),
+    with every image added. Without one, the shipped small tree, with a
+    warning, as colmap_tpu does."""
+    import numpy as np
+
+    from colmap_tpu_torch.retrieval.visual_index import (
+        VisualIndex,
+        default_vocab_tree_path,
+        load_vocab_tree,
+    )
+
+    if vocab_tree_path and not os.path.exists(vocab_tree_path):
+        # The builder writes <path>.npz when the suffix is missing.
+        if os.path.exists(_npz_path(vocab_tree_path)):
+            vocab_tree_path = _npz_path(vocab_tree_path)
+    if vocab_tree_path and os.path.exists(vocab_tree_path):
+        data = np.load(vocab_tree_path)
+        vocab = (load_vocab_tree(vocab_tree_path, device) if "level_0" in data
+                 else data["vocabulary"])
+        index = VisualIndex(vocab, device=device)
+    else:
+        from colmap_tpu_torch.utils import logging
+
+        if vocab_tree_path:
+            logging.warning("vocab tree file %s not found; falling back to the shipped small "
+                            "tree", vocab_tree_path)
+        index = VisualIndex(load_vocab_tree(default_vocab_tree_path(), device), device=device)
+    for iid, d in desc_by_image.items():
+        index.add(iid, d)
+    return index
+
+
+def _cmd_vocab_tree_matcher(args):
+    from colmap_tpu_torch.controllers.feature_pipeline import run_matches_import
+    from colmap_tpu_torch.utils.types import image_pair_to_pair_id
+
+    db, device = _open_for_matching(args)
+    desc = _read_all_descriptors(db, max_per_image=args.max_features_per_image)
+    index = _load_or_train_index(args.vocab_tree_path, desc, device)
+    pairs, seen = [], set()
+    for iid, d in desc.items():
+        for r in index.query(d, args.num_images, exclude_image_id=iid):
+            key = image_pair_to_pair_id(iid, r.image_id)
+            if key not in seen:
+                seen.add(key)
+                pairs.append((min(iid, r.image_id), max(iid, r.image_id)))
+    n = run_matches_import(db, pairs, device=device)
+    print(f"Verified {n} of {len(pairs)} vocab-tree pairs")
+    db.close()
+    return n
+
+
+def _cmd_vocab_tree_retriever(args):
+    """Returns {image_id: [QueryResult]}."""
+    db, device = _open_for_matching(args)
+    names = {iid: name for (iid, name, _) in db.read_images()}
+    desc = _read_all_descriptors(db, max_per_image=args.max_features_per_image)
+    db.close()
+    index = _load_or_train_index(args.vocab_tree_path, desc, device)
+    out = {}
+    for iid, d in desc.items():
+        out[iid] = index.query(d, args.num_images, exclude_image_id=iid)
+        for r in out[iid]:
+            print(f"{names[iid]} {names[r.image_id]} {r.score:.4f}")
+    return out
 
 
 def _cmd_mapper(args):
@@ -568,6 +688,29 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--guided_matching", action="store_true")
     c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=_cmd_geometric_verifier)
+
+    c = sub.add_parser("vocab_tree_builder")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--vocab_tree_path", required=True)
+    c.add_argument("--num_words", type=int, default=1024)
+    c.add_argument("--branching", type=int, default=10)
+    c.add_argument("--depth", type=int, default=1,
+                   help="depth > 1 builds a hierarchical k-means tree with "
+                        "branching**depth effective words")
+    c.add_argument("--max_num_descriptors", type=int, default=200000)
+    c.add_argument("--max_features_per_image", type=int, default=2000)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_vocab_tree_builder)
+
+    for name, fn in (("vocab_tree_matcher", _cmd_vocab_tree_matcher),
+                     ("vocab_tree_retriever", _cmd_vocab_tree_retriever)):
+        c = sub.add_parser(name)
+        c.add_argument("--database_path", required=True)
+        c.add_argument("--vocab_tree_path", default=None)
+        c.add_argument("--num_images", type=int, default=10)
+        c.add_argument("--max_features_per_image", type=int, default=2000)
+        c.add_argument("--device", default="cuda", help=device_help)
+        c.set_defaults(fn=fn)
 
     c = sub.add_parser("rig_configurator")
     c.add_argument("--database_path", required=True)

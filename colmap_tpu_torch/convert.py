@@ -25,6 +25,11 @@ GlobalPositioningOptions (frozen), ViewGraphCalibrationOptions,
 GlobalMapperOptions (with its nested rotation_averaging, positioning and
 ba) and GlobalPipelineOptions, both ways.
 
+Retrieval: ``tree_vocabulary_from_numpy`` builds the port's TreeVocabulary
+from colmap_tpu's levels, and ``visual_index_from_numpy`` the port's index
+(postings in CSR order by word) from the numpy state of a colmap_tpu
+VisualIndex, so that both packages can query one index state.
+
 Nothing here imports colmap_tpu: callers pass its objects and, for the way
 back, its classes.
 """
@@ -191,3 +196,46 @@ def convert_fusion_image(fi, cls=None):
     color = None if fi.color is None else np.array(fi.color)
     return cls(fi.image_id, np.array(fi.K), np.array(fi.R), np.array(fi.t), np.array(fi.depth),
                np.array(fi.normal), color)
+
+
+def tree_vocabulary_from_numpy(levels, device=None):
+    """The port's TreeVocabulary of (B^l, B, D) level arrays, in the device's
+    float type (float64 on the CPU)."""
+    from colmap_tpu_torch.retrieval.visual_index import TreeVocabulary, _rows
+    from colmap_tpu_torch.utils.dtypes import floatx, resolve_device
+
+    device = resolve_device(device)
+    return TreeVocabulary([_rows(lv, device, floatx(device)) for lv in levels])
+
+
+def visual_index_from_numpy(vocabulary, thresholds, inverted, image_word_counts, num_images,
+                            device=None):
+    """The port's VisualIndex holding a colmap_tpu VisualIndex's state:
+    ``vocabulary`` its (W, D) vocabulary or its tree's list of levels,
+    ``thresholds`` its signature_thresholds, ``inverted`` its {word: [(image
+    id, uint64 signature)]} in posting order, ``image_word_counts`` its
+    {image id: {word: count}} and ``num_images``. Signatures become eight
+    little-endian bytes."""
+    import torch
+
+    from colmap_tpu_torch.retrieval.visual_index import VisualIndex
+
+    if isinstance(vocabulary, (list, tuple)):
+        vocabulary = tree_vocabulary_from_numpy(vocabulary, device)
+    index = VisualIndex(vocabulary, device=device)
+    dev = index.device
+    index.signature_thresholds = torch.as_tensor(np.asarray(thresholds, np.float32), device=dev)
+    words = [w for w in sorted(inverted) for _ in inverted[w]]
+    images = [iid for w in sorted(inverted) for iid, _ in inverted[w]]
+    sigs = np.array([int(s) for w in sorted(inverted) for _, s in inverted[w]], dtype="<u8")
+    if words:
+        index._added = [(torch.as_tensor(words, dtype=torch.long, device=dev),
+                         torch.as_tensor(images, dtype=torch.long, device=dev),
+                         torch.as_tensor(sigs.view(np.uint8).reshape(-1, 8), device=dev))]
+    for iid, counts in image_word_counts.items():
+        ws = sorted(counts)
+        index.image_word_counts[iid] = (torch.as_tensor(ws, dtype=torch.long, device=dev),
+                                        torch.as_tensor([counts[w] for w in ws],
+                                                        dtype=torch.long, device=dev))
+    index.num_images = int(num_images)
+    return index

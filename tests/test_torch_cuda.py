@@ -26,7 +26,9 @@ kernels K17-K20 run on colmap_tpu_torch/kernels/mvs_cases.py's plane case
 on colmap_tpu_torch/kernels/rig_cases.py: K24 to 1e-5 (1e-4 under Cauchy),
 K25 and K26 (float32 sums in a fixed order, the same in every run) to 1e-4,
 K27 counts each model's inliers within its rows near the threshold and
-picks the float64 version's best sample or a near-tie.
+picks the float64 version's best sample or a near-tie. The retrieval kernels
+K28-K31 run on colmap_tpu_torch/kernels/retrieval_cases.py (their tolerances
+are stated above their tests).
 """
 
 import numpy as np
@@ -958,3 +960,159 @@ def test_gen_abs_ransac_matches_plain_on_cuda(world_scale):
     assert torch.equal(inl_k[far], (res <= max_sq)[far])
     torch.cuda.synchronize()
     assert KR.LAUNCHES["gen_abs_ransac"] == 2
+
+
+# K28-K31 against their float64 plain versions on the same float32 inputs, on
+# colmap_tpu_torch/kernels/retrieval_cases.py's cases. K28 and K30 take
+# Σ (x - c)² directly in float32: every index equals the float64 one except
+# at near-ties (best two float64 distances within 1e-5 of the best), each
+# chosen centroid within 1e-5 of the nearest's float64 distance, and on
+# planted exact ties (two equal centroids) the lowest index wins. K29 sums
+# in float64 in a fixed order: within half a float32 ulp of the float64 mean
+# (2e-7 of the scale), the same counts, and the same bits in two runs. K31
+# sums float32 products in k order: within 1e-5 of the scale.
+
+
+def _retrieval_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng, rng.integers(0, 256, (n, 128)).astype(np.float32)
+
+
+def test_retrieval_assign_flat_matches_plain_on_cuda():
+    """K28 on 20 000 uint8-valued rows and 1024 words, word 900 a copy of
+    word 5 and 50 rows at word 5."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+
+    rng, x = _retrieval_rows(20000, 11)
+    vocab = (x[rng.choice(20000, 1024, replace=False)]
+             + rng.normal(0, 8.0, (1024, 128))).astype(np.float32)
+    vocab[900] = vocab[5]
+    x[:50] = vocab[5]
+    xt, vt = torch.as_tensor(x, device="cuda"), torch.as_tensor(vocab, device="cuda")
+    KT.reset_launches()
+    got = KT.assign(xt, vt).cpu().numpy()
+    want, near = (t.cpu().numpy() for t in KT.nearest64(xt, vt))
+    TC.agree(got, want, near, "K28 flat")
+    assert float(KT.excess64(xt, vt, torch.as_tensor(got, device="cuda"))[1].max()) <= KT.NEAR_TIE
+    assert (got[:50] == 5).all() and (want[:50] == 5).all()
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_assign"] == 1
+
+
+def test_retrieval_level_step_matches_plain_on_cuda():
+    """K28 and K29 over one tree level's segments: 512 nodes x 8 children,
+    rows of 400 nodes (other nodes and some children empty), node 7's
+    children 2 and 6 equal."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+
+    rng, x = _retrieval_rows(30000, 12)
+    nodes = rng.integers(0, 400, 30000).astype(np.int32)
+    cents = rng.integers(0, 256, (512 * 8, 128)).astype(np.float32)
+    cents[7 * 8 + 6] = cents[7 * 8 + 2]
+    x[nodes == 7] = cents[7 * 8 + 2]
+    xt, ct = torch.as_tensor(x, device="cuda"), torch.as_tensor(cents, device="cuda")
+    gt = torch.as_tensor(nodes, device="cuda")
+    KT.reset_launches()
+    child = KT.assign(xt, ct, gt, 8)
+    want, near = (t.cpu().numpy() for t in KT.nearest64(xt, ct, gt, 8))
+    TC.agree(child.cpu().numpy(), want, near, "K28 grouped")
+    assert float(KT.excess64(xt, ct, child, gt, 8)[1].max()) <= KT.NEAR_TIE
+    assert (child.cpu().numpy()[nodes == 7] == 2).all()
+    seg = gt.long() * 8 + child.long()
+    new, counts = KT.update(xt, seg, ct)
+    new2, counts2 = KT.update(xt, seg, ct)
+    ref, ref_counts = KT.update_plain(xt, seg, ct.double())
+    _close(new, ref, 2e-7, "K29 centroids")
+    assert torch.equal(counts, ref_counts) and torch.equal(new, new2) and torch.equal(counts, counts2)
+    empty = counts == 0
+    assert empty[400 * 8:].all() and torch.equal(new[empty], ct[empty])
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_assign"] == 1 and KT.LAUNCHES["retrieval_update"] == 2
+
+
+def test_retrieval_descend_matches_plain_on_cuda():
+    """K30 on a branching-8, depth-5 tree (32 768 leaves) with 40 planted
+    exact ties, on 20 000 rows beside its leaves and the planted rows."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+
+    rng = np.random.default_rng(13)
+    levels = TC.random_tree(rng, 8, 5)
+    tied, first, lvl, node = TC.plant_ties(rng, levels, 40)
+    x = np.concatenate([TC.near_leaves(rng, levels, 20000), tied])
+    flat = torch.cat([torch.as_tensor(lv, device="cuda").reshape(-1, 128) for lv in levels])
+    xt = torch.as_tensor(x, device="cuda")
+    KT.reset_launches()
+    got = KT.descend(xt, flat, 8, 5).cpu().numpy()
+    want, near = (t.cpu().numpy() for t in KT.descend64(xt, flat, 8, 5))
+    TC.agree(got, want, near, "K30")
+    got_t = torch.as_tensor(got, device="cuda")
+    assert float(KT.descend_excess64(xt, flat, 8, 5, got_t)[1].max()) <= KT.NEAR_TIE
+    assert (got[20000:] == want[20000:]).all()
+    at_node = want[20000:] // 8 ** (5 - lvl) == node
+    assert at_node.sum() >= 30
+    digit = want[20000:] // 8 ** (4 - lvl) % 8
+    assert (digit[at_node] == first[at_node]).all()
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_descend"] == 1
+
+
+def test_retrieval_gram_matches_plain_on_cuda():
+    """K31 on a sparse 300 x 5000 W (neither a multiple of the 32-wide tiles)
+    with rows 7 and 250 equal: within 1e-5 of the scale, exactly symmetric,
+    the same bits in two runs, rows 7 and 250 of S equal."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+
+    rng = np.random.default_rng(14)
+    w = rng.random((300, 5000)) * (rng.random((300, 5000)) < 0.06)
+    w[250] = w[7]
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    wt = torch.as_tensor(w, dtype=torch.float32, device="cuda")
+    KT.reset_launches()
+    got, again = KT.gram(wt), KT.gram(wt)
+    _close(got, KT.gram_plain(wt.double()), 1e-5, "K31")
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    assert torch.equal(got[7], got[250])
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_gram"] == 2
+
+
+def test_query_ranks_a_duplicate_as_on_the_cpu_on_cuda():
+    """An index on cuda and on the CPU over one flat vocabulary, image 6 a
+    copy of image 2 added after it: the same ids in the same order, scores
+    within 1e-12, images 2 and 6 tied to the bit with 2 first, in every one
+    of three runs."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.retrieval.visual_index import VisualIndex
+
+    rng = np.random.default_rng(15)
+    centers = rng.uniform(0, 255, (40, 128))
+    images = {i: np.clip(np.rint(centers[rng.choice(10 * (i % 3) + np.arange(12), 300)]
+                                 + rng.normal(0, 3.0, (300, 128))), 0, 255).astype(np.float32)
+              for i in range(1, 6)}
+    images[6] = images[2].copy()
+    vocab = (centers + rng.normal(0, 2.0, (40, 128))).astype(np.float32)
+    every = np.concatenate(list(images.values()))
+    assert not KT.nearest64(torch.as_tensor(every), torch.as_tensor(vocab))[1].any()
+    cpu, gpu = VisualIndex(vocab, device="cpu"), VisualIndex(vocab, device="cuda")
+    for iid in sorted(images):
+        cpu.add(iid, images[iid])
+        gpu.add(iid, images[iid])
+    for q in (1, 2, 4):
+        want = cpu.query(images[q], num_images=6)
+        for _ in range(3):
+            got = gpu.query(images[q], num_images=6)
+            assert [r.image_id for r in got] == [r.image_id for r in want]
+            for g, w in zip(got, want):
+                assert abs(g.score - w.score) <= 1e-12 * abs(w.score)
+            ranks = [r.image_id for r in got]
+            assert got[ranks.index(2)].score == got[ranks.index(6)].score
+            assert ranks.index(2) < ranks.index(6)
+

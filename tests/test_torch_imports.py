@@ -9,7 +9,8 @@ plane case: PatchMatch with the consistency filter, the map, graph, PLY and
 .vis files, the workspace's PNG bitmaps and fusion; then ``global_mapper``
 on a four-frame scene and ``view_graph_calibrator``, both with
 ``--device cpu``; then the rig BA solve and a batch of the generalized
-absolute pose's RANSAC on small cases.
+absolute pose's RANSAC on small cases; then ``vocab_tree_builder`` and
+``vocab_tree_matcher`` with ``--device cpu`` on the extracted database.
 """
 
 import os
@@ -117,6 +118,16 @@ CHILD = textwrap.dedent("""
     assert int(counts.max()) == int(inl.sum())
     assert Rigid3(p.quat, p.t).inverse().compose(Rigid3(p.quat, p.t)).t.abs().max() < 1e-12
     print("RIG", summary["num_iterations"], int(counts.max()))
+
+    tree = os.path.join(root, "tree.npz")
+    cli.main(["vocab_tree_builder", "--database_path", db_path, "--vocab_tree_path", tree,
+              "--depth", "2", "--branching", "4", "--device", "cpu"])
+    n = cli.main(["vocab_tree_matcher", "--database_path", db_path, "--vocab_tree_path", tree,
+                  "--device", "cpu"])
+    db = Database(db_path, must_exist=True)
+    assert len(db.read_all_matches()) == 1 and n in (0, 1)
+    db.close()
+    print("RETRIEVAL", np.load(tree)["level_1"].shape, n)
 """)
 
 
@@ -126,4 +137,4 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
-    assert "RIG" in out.stdout
+    assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout
