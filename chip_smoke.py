@@ -31,8 +31,9 @@ Phases; any failure exits non-zero:
      database (seed 3) stripped to keypoints and descriptors, then the
      `exhaustive_matcher` and `mapper` commands on cuda, held to the ground
      truth (8/8 frames within 1e-2 deg and 1e-4 units);
-  9. features -> model, full-size scene: 40 frames x 1000 points
-     (SIMPLE_RADIAL, 1024 x 768, f = 2500, noise-free, seed 3), the same two
+  9. features -> model, full-size scene: 10 frames x 1000 points
+     (SIMPLE_RADIAL, 1024 x 768, f = 2500, noise-free, seed 3; cut from 40
+     frames, which phase 23 runs with OPENCV_FISHEYE), the same two
      commands, `mapper` run once under torch.profiler: frames, errors
      against the ground truth, wall time, time by phase, launches of every
      kernel, and the device's idle share, all from that run;
@@ -46,7 +47,7 @@ Phases; any failure exits non-zero:
      (about 8192 keypoints an image, 66 pairs), stripped to features, through
      `exhaustive_matcher` on cuda under torch.profiler; every pair's matches
      hold the generator's correspondences and equal the plain version's
-     (float64, CPU), and its two-view geometry is CALIBRATED with at least
+     (float64, run on the card), and its two-view geometry is CALIBRATED with at least
      99% of them as inliers and no other;
  12. SIFT kernels (phase `sift`): K13-K16 against float64 plain versions
      at octave 0 of a rendered 3072 x 2304 view;
@@ -73,10 +74,12 @@ Phases; any failure exits non-zero:
      card, held to the truth and to each other;
  17. global SfM (phase `global`): `global_mapper` on the verify scene, the
      full-size scene (both with relative poses decomposed from E) and an
-     8-frame gravity-prior scene, `rotation_averager` on the verify scene
+     8-frame gravity-prior scene (the full-size scene at 10 frames, as in
+     phase 9), `rotation_averager` on the verify scene
      and `view_graph_calibrator` on a database of UNCALIBRATED pairs, each
-     under torch.profiler: frames, errors against the truth, wall time,
-     time by phase and the device's idle share;
+     under torch.profiler but the verify and gravity-prior scenes' mapper:
+     frames, errors against the truth, wall time, time by phase and the
+     device's idle share;
  18. rig kernels (phase `rig_kernels`): K24-K27
      (colmap_tpu_torch/kernels/rig.py) against float64 plain versions on the
      rig BA headline (50 frames x 4 sensors x 50 000 points x 300 000
@@ -90,9 +93,10 @@ Phases; any failure exits non-zero:
  19. rig mapper (phase `rig`): the verify rig scene (2 cameras x 6 frames x
      200 points, seed 4) stripped to features, its rigs and frames emptied
      and rebuilt by `rig_configurator`, and the full-size rig scene (4
-     cameras x 10 frames x 1000 points, f = 2500, seed 3) stripped to
+     cameras x 5 frames x 1000 points, f = 2500, seed 3; cut from 10
+     frames) stripped to
      features, each through `exhaustive_matcher` and `mapper` on cuda (the
-     mapper under torch.profiler): frames, errors against the truth, wall
+     full-size scene's mapper under torch.profiler): frames, errors against the truth, wall
      time, time by phase and the device's idle share;
  20. retrieval kernels (phase `retrieval_kernels`): K28-K31
      (colmap_tpu_torch/kernels/retrieval.py) against float64 plain versions
@@ -111,10 +115,29 @@ Phases; any failure exits non-zero:
      list (verification stubbed: the collection has no geometry), each
      under torch.profiler, and `vocab_tree_pairs`: recall@10 of the true
      neighbours >= 0.8, the first 100 images' top-10 lists against the
-     float64 plain path's, K31 on the W that `vocab_tree_pairs` built; then the 12 rendered frames of phase 13 through
+     float64 plain path's, K31 on the W that `vocab_tree_pairs` built; then 12
+     rendered frames (phase 13's scene) through
      `feature_extractor`, `vocab_tree_builder` (flat, then depth 3),
      `vocab_tree_matcher --num_images 5` and `mapper`, held to the images ->
-     model gates.
+     model gates;
+ 22. camera kernels (phase `camera_kernels`): K5 in its three modes
+     (project, the z = 1 lift, unit rays) for camera models 5-17 on one
+     image's points and over a 185-degree lens's whole image, K1 for each
+     model at the BA headline, K9 on 1000 points and K24 at the rig BA
+     headline (K24-K26 through the 17-column camera rows of the 16-parameter
+     model), the same for a problem mixing SIMPLE_RADIAL and OPENCV_FISHEYE
+     (K1, K9 and K24 once per model), against float64 plain versions; K32
+     and K33 on 360-degree rays (injected samples of an 8192-ray pair against
+     float64, a block of 64 pairs x 8192 rays against the one-pair entries),
+     timed;
+ 23. cameras (phase `cameras`): `mapper` on the full-size scene with
+     OPENCV_FISHEYE and on a full-size mixed scene (2 rigs x 20 frames,
+     SIMPLE_RADIAL + OPENCV_FISHEYE), `global_mapper` on the fisheye scene,
+     `image_undistorter` on a 12 MP fisheye still against the float64
+     undistortion, and `exhaustive_matcher` on 24 EQUIRECTANGULAR frames at
+     5760 x 2880 (276 pairs, a rotation-only pair, planted outliers) held to
+     colmap_tpu's spherical bounds on every pair's relative pose; each but
+     the mixed scene's mapper under torch.profiler.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
 the dense solver), the matcher K5, K7 and K10-K12, the mapper K1-K3 and
@@ -124,11 +147,14 @@ K5, K21 and K22, `rotation_averager` K21, `view_graph_calibrator` K23, the
 rig solve K24-K26 and the rig mapper K5, K7 and K24-K27 (and on the
 full-size rig scene K8 and K9), `vocab_tree_builder` K28 and K29,
 `vocab_tree_pairs` K28, K29 and K31, `vocab_tree_retriever` and `vocab_tree_matcher` K30 (the
-matcher also K5, K7 and K10-K12 on the rendered frames).
+matcher also K5, K7 and K10-K12 on the rendered frames), the fisheye and
+mixed mappers K1-K3 and K5-K9, `exhaustive_matcher` on 360-degree frames K5,
+K10, K32 and K33.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
-retrieval_kernels,retrieval` (or any subset of the phases) runs a subset
+retrieval_kernels,retrieval` or `--phases camera_kernels,cameras` (or any
+subset of the phases) runs a subset
 while developing and prints no result; the kernels line needs them all.
 """
 
@@ -186,6 +212,11 @@ MAX_ROT_DEG, MAX_CENTER = 1e-2, 1e-4
 # default 1280 px every frame sees every point, the initial pair
 # triangulates them all and the triangulator never creates a track.
 FULL_FRAMES, FULL_FOCAL = 40, 2500.0
+# The SIMPLE_RADIAL full-size scene of phases mapper and global runs at a
+# quarter of its depth (10 frames), to keep the script within its time:
+# phase cameras runs the 40-frame scene through `mapper` and
+# `global_mapper` with OPENCV_FISHEYE, the same paths at full depth.
+CUT_FRAMES = 10
 # K10: float32 similarities against float64; a row's accept decision may
 # differ only where one of its arccos tests lies within this margin (rad).
 K10_SIM_TOL = 1e-5
@@ -417,10 +448,10 @@ GEN_ABS_ROWS, GEN_ABS_SAMPLES, GEN_ABS_BATCH, GEN_ABS_MARGIN = 2000, 1024, 64, 1
 # by 0.01 units and 0.1 deg a component), the kernels' within 1.1x the plain
 # path's + 1e-4 units / 1e-3 deg.
 RIG_SOLVE_RTOL, RIG_SENSOR_GAIN, RIG_SENSOR_FACTOR = 1e-3, 4.0, 1.1
-# The full-size rig scene: 1 rig x 4 cameras x 10 frames (40 images, as
-# many as the full-size mono scene) x 1000 points, SIMPLE_RADIAL 1024 x 768,
-# f = 2500, seed 3.
-RIG_FULL_CAMS, RIG_FULL_FRAMES = 4, 10
+# The full-size rig scene: 1 rig x 4 cameras x 5 frames (20 images, cut from
+# 10 frames to keep the script within its time) x 1000 points, SIMPLE_RADIAL
+# 1024 x 768, f = 2500, seed 3.
+RIG_FULL_CAMS, RIG_FULL_FRAMES = 4, 5
 # f32 operations (an FMA is 2) of the rig kernels' functions:
 #  - K24 per observation: two quaternion rotations (2 x 18), the
 #    projection on duals of 3 + P directions (about 20 x (3 + P)), B = A Rs
@@ -472,6 +503,74 @@ RET_DIST_OPS, RET_SUM_OPS = 3, 1
 # Retrieval on the images -> model scene: 5 neighbours an image, so that
 # retrieval chooses among the 66 pairs.
 RET_IMG_NEIGHBORS = 5
+
+CAMERA_SOURCES = {
+    "spherical_e_ransac": ("colmap_tpu_torch/csrc/spherical_e_ransac.cu",
+                           "colmap_tpu/estimators/spherical.py:84"),
+    "spherical_h_ransac": ("colmap_tpu_torch/csrc/spherical_h_ransac.cu",
+                           "colmap_tpu/estimators/spherical.py:103"),
+}
+# K5 on models 5-17 against float64, per row of the output's scale: up to 25
+# float32 Newton steps through up to 12 distortion terms. Rows whose float64
+# ray lies within 1 degree of 90 degrees off axis are left out of the value
+# check (the z = 1 lift diverges there), not of the validity check.
+K5_NEW_RTOL = 1e-4
+# K1 and K24 on models 5-17 and on mixed problems against float64: the
+# projection through up to 12 distortion terms and the fisheye atan in
+# float32 (Cauchy's weight carries the residual's rounding, as K1's robust
+# tolerance says).
+K1_NEW_RTOL = 1e-4
+# ... checked on the first 60 000 observations of each headline (a fifth;
+# the kernels compute each observation alone), timed on all 300 000.
+K1_CHECK_OBS = 60000
+# K32 / K33 on 360-degree rays: a block of 64 pairs x 8192 rays, as the
+# 360-degree matcher of phase cameras sends them (blocks of up to 64 pairs;
+# 8192 keypoints a frame, all of them matched), 128 samples a pair; one pair
+# of injected samples at 8192 rays against float64. The plain version's
+# time on the block is taken over pieces of SPH_PLAIN_PAIRS pairs (one
+# piece of E's (pairs, 1280 models, 8192 rays, 3) intermediates is 1 GB).
+SPH_PAIRS, SPH_ROWS, SPH_SAMPLES, SPH_PLAIN_PAIRS = 64, 8192, 128, 8
+# f32 operations (an FMA is 2): K32 per sample K7's 5-point count (see phase
+# sfm: null space and elimination 6e3, the grid 2050 x 25, the bisections
+# 1000 x 60, the models 3e3), per model and ray the angular Sampson error
+# (80); K33 per sample the 12 DLT rows into the normal matrix (1080) and 10
+# Jacobi sweeps of 36 rotations of the 9 x 9 (~1.3e5), per ray the angular
+# transfer error (45).
+SPH_E_SAMPLE_OPS, SPH_E_ROW_OPS = 6000 + 2050 * 25 + 1000 * 60 + 3000, 80
+SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS = 1080 + 130000, 45
+# Phase cameras. The full-size scene (40 x 1000, 1024 x 768) with an
+# action camera's OPENCV_FISHEYE: colmap_tpu's mixed-model test's
+# distortion (0.01, -0.005, 0.001, 0) at the full-size scene's focal length
+# of 2500 px (at the test's 900 px every frame sees every point and the
+# triangulator has no track to create); the mixed scene: 2 rigs of one
+# camera, SIMPLE_RADIAL and that OPENCV_FISHEYE, 20 frames each.
+FISHEYE_PARAMS = (FULL_FOCAL, FULL_FOCAL, 512.0, 384.0, 0.01, -0.005, 0.001, 0.0)
+MIXED_FRAMES = 20
+# image_undistorter on a 12 MP action-camera still: OPENCV_FISHEYE 4000 x
+# 3000 with a 120-degree horizontal field of view (f = 2000 px / 60 deg).
+UND_W, UND_H = 4000, 3000
+UND_PARAMS = (1910.0, 1910.0, 2000.0, 1500.0, 0.01, -0.005, 0.001, 0.0)
+# Its output against the float64 plain undistortion on the CPU: pixels (8-bit,
+# truncated) within 1 level, at most this share off by exactly 1 (float32
+# sampling positions move a truncation across a level).
+UND_MAX_OFF_BY_ONE = 0.02
+# exhaustive_matcher on 360-degree frames: 24 EQUIRECTANGULAR frames of a
+# consumer 360 camera's still (5760 x 2880), 8192 points each (all seen by
+# every frame, 0.25 px of noise, 3% of each frame's keypoints moved to
+# random pixels), 276 pairs, frames 0 and 1 at one center: that pair is
+# PLANAR or PANORAMIC (with noise colmap_tpu gives PLANAR too: its H is a
+# rotation only to the noise's accuracy), the others CALIBRATED.
+# colmap_tpu's test bounds on the relative pose
+# (tests/test_ransac_two_view.py:440-500), and a bound on the share of
+# planted outlier matches among the inliers: colmap_tpu keeps 1.10% (42 of
+# 3820) on eight pairs of this database, the port 1.13%
+# (tests/spherical_noise_witness.py; a random match lies within the 4 px
+# band of E's great circles with a chance of ~0.6%, and RANSAC's largest
+# support favours the models that hold a few more of them); 1.5% leaves
+# room for the spread over 276 pairs.
+PANO_FRAMES, PANO_POINTS = 24, 8192
+PANO_ROT_TOL, PANO_T_TOL, PANO_MAX_OUTLIER_SHARE = 0.02, 0.05, 0.015
+PANO_KERNELS = ("camera_map", "match_top2", "spherical_e_ransac", "spherical_h_ransac")
 
 
 def pm_plane_ops(taps, views, geometric):
@@ -1202,8 +1301,9 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import retrieval as KT
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import spherical as KQ
 
-    return KB, K, KM, KS, KV, KG, KR, KT
+    return KB, K, KM, KS, KV, KG, KR, KT, KQ
 
 
 def all_launch_counts():
@@ -1310,7 +1410,8 @@ def run_mapper(db_path, out, label, min_launches=True):
     log(f"  launches: {counts}")
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
-              and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES]
+              and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
+              and k not in CAMERA_SOURCES]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -1356,7 +1457,7 @@ def phase_mapper(launches):
         # full-size scene is the path every kernel must run on.
         for label, frames, points, focal, full in (
                 ("mapper, verify scene", 8, 120, 1280.0, False),
-                ("mapper, full-size scene", FULL_FRAMES, 1000, FULL_FOCAL, True)):
+                ("mapper, full-size scene", CUT_FRAMES, 1000, FULL_FOCAL, True)):
             root = os.path.join(tmp, f"{frames}x{points}")
             os.makedirs(root)
             db_path, gt = make_scene(root, frames, points, focal)
@@ -1573,7 +1674,7 @@ def phase_matching_kernels():
 def phase_matcher_full(launches):
     """The full-width matcher scene through `exhaustive_matcher` on cuda,
     under torch.profiler, every pair held to the generator's
-    correspondences and to the plain version (float64, CPU)."""
+    correspondences and to the plain version (float64, run on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     from colmap_tpu_torch.feature.matcher import MatchingOptions
@@ -1609,7 +1710,8 @@ def phase_matcher_full(launches):
             f"{nvidia_smi_line()}; launches { {k: counts[k] for k in MATCHER_KERNELS} }; "
             f"idle share {'not measured' if idle is None else f'{idle:.4f}'}")
         db = Database(db_path, must_exist=True)
-        desc = {iid: torch.from_numpy(db.read_descriptors(iid)) for iid, _, _ in db.read_images()}
+        desc = {iid: torch.from_numpy(db.read_descriptors(iid)).cuda()
+                for iid, _, _ in db.read_images()}
         t0 = time.perf_counter()
         worst = 1.0
         for (a, b), gen in sorted(truth.items()):
@@ -1617,8 +1719,9 @@ def phase_matcher_full(launches):
             gen = {tuple(r) for r in gen.tolist()}
             na, nb = len(desc[a]), len(desc[b])
             idx2, ok, _, _ = KM.match_similarity_plain(
-                desc[a], desc[b], torch.ones(na, dtype=torch.bool),
-                torch.ones(nb, dtype=torch.bool), MatchingOptions(), dtype=torch.float64)
+                desc[a], desc[b], torch.ones(na, dtype=torch.bool, device="cuda"),
+                torch.ones(nb, dtype=torch.bool, device="cuda"), MatchingOptions(),
+                dtype=torch.float64)
             rows = torch.nonzero(ok).flatten()
             plain = set(zip(rows.tolist(), idx2[rows].tolist()))
             g = db.read_two_view_geometry(a, b)
@@ -1634,7 +1737,7 @@ def phase_matcher_full(launches):
             worst = min(worst, len(inl) / len(gen))
         db.close()
         log(f"  all {len(truth)} pairs: the written matches hold the generator's and equal the "
-            f"plain version's (float64, CPU, {time.perf_counter() - t0:.1f} s); CALIBRATED with "
+            f"plain version's (float64, on the card, {time.perf_counter() - t0:.1f} s); CALIBRATED with "
             f"at least {worst:.4f} of them as inliers and no other")
         if verified != len(truth):
             raise AssertionError(f"verified {verified} of {len(truth)} pairs")
@@ -2791,19 +2894,32 @@ GLOBAL_MAPPER_KERNELS = ("rotation_averaging", "global_positioning", "camera_map
                          "ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec")
 
 
-def _profiled_command(argv, label, kernels, launches):
+def _profiled_command(argv, label, kernels, launches, profiled=True):
     """run_command under torch.profiler; adds the launches to ``launches``
-    and logs the device's idle share and its top items."""
+    and logs the device's idle share and its top items. With ``profiled``
+    False (to keep the script's time: the profiler's stop and the reading
+    of its trace cost ~15 s on a small scene, ~60 s on a 40-frame mapper
+    run) it runs the command alone and gives no idle share."""
     from torch.profiler import ProfilerActivity, profile
 
+    if not profiled:
+        out, seconds, counts = run_command(argv, label, kernels)
+        for k, v in counts.items():
+            launches[k] += v
+        return out, seconds, None
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
         torch.cuda.synchronize()
         out, seconds, counts = run_command(argv, label, kernels)
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
     for k, v in counts.items():
         launches[k] += v
     busy_ms, by_name = device_busy(prof)
     idle = log_busy(label, busy_ms, by_name, seconds * 1e3, top=8)
+    log(f"  (the profiler's stop {t2 - t1:.1f} s, reading its trace "
+        f"{time.perf_counter() - t2:.1f} s, {time.perf_counter() - t0:.1f} s in all)")
     return out, seconds, idle
 
 
@@ -2821,7 +2937,7 @@ def phase_global(launches):
         scenes = (
             ("verify scene", 8, dict(num_points=120, focal=1280.0, seed=3),
              MAX_ROT_DEG, MAX_CENTER),
-            ("full-size scene", FULL_FRAMES, dict(num_points=1000, focal=FULL_FOCAL, seed=3),
+            ("full-size scene", CUT_FRAMES, dict(num_points=1000, focal=FULL_FOCAL, seed=3),
              MAX_ROT_DEG, MAX_CENTER),
             ("gravity-prior scene", 8, dict(num_points=120, seed=11, prior_gravity=True,
                                             num_points2D_without_point3D=5),
@@ -2838,7 +2954,8 @@ def phase_global(launches):
             out = os.path.join(root, "sparse")
             pipeline, seconds, idle = _profiled_command(
                 ["global_mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
-                f"global_mapper, {label}", GLOBAL_MAPPER_KERNELS, launches)
+                f"global_mapper, {label}", GLOBAL_MAPPER_KERNELS, launches,
+                profiled=label == "full-size scene")
             cmp = check_against_gt(out, gt, frames, f"global_mapper, {label}", max_rot, max_ctr)
             phases = {k: (round(pipeline.timer.seconds[k], 3), pipeline.timer.calls[k])
                       for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
@@ -3175,7 +3292,8 @@ def phase_rig(launches):
             pipeline, seconds, idle = _profiled_command(
                 ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
                 f"mapper, {label}",
-                RIG_VERIFY_KERNELS if label.startswith("verify") else RIG_MAPPER_KERNELS, launches)
+                RIG_VERIFY_KERNELS if label.startswith("verify") else RIG_MAPPER_KERNELS, launches,
+                profiled=not label.startswith("verify"))
             cmp = check_against_gt(out, gt, frames, f"mapper, {label}", num_images=images)
             phases = {k: (round(pipeline.timer.seconds[k], 3), pipeline.timer.calls[k])
                       for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
@@ -3552,8 +3670,532 @@ def phase_retrieval(launches, errs, rows):
     return results
 
 
+def check_rows(name, got, ref, rtol, errs):
+    """Per row: max |got - ref| over max(|ref| of the row, 1), for maps whose
+    rows differ in scale (z = 1 lifts near 90 degrees off axis)."""
+    d = (got.double() - ref.double()).abs().amax(-1)
+    r = d / torch.clamp(ref.double().abs().amax(-1), min=1.0)
+    a, rr = (float(d.max()), float(r.max())) if d.numel() else (0.0, 0.0)
+    log(f"  {name}: max_abs_err {a:.3e} rel (per row) {rr:.3e} (tol {rtol:g})")
+    if not rr <= rtol:
+        raise AssertionError(f"{name}: relative error {rr:.3e} > {rtol:g}")
+    errs.append((a, rr))
+
+
+def _same_valid(name, got, ref):
+    n = int((got != ref).sum())
+    if n:
+        raise AssertionError(f"{name}: {n} of {got.numel()} validity flags differ from float64")
+
+
+def _k5_new_models(errs, entries):
+    """K5's three modes on models 5-17 against float64: one image's points
+    and, for the lenses that see beyond 90 degrees, a 185-degree lens's
+    whole image (a 129 x 97 grid from corner to corner)."""
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.sensor import models as M
+
+    for m in range(5, 18):
+        name = M.MODEL_ID_TO_NAME[m]
+        p, uvw, xy = C.camera_map_case(m, 1010, m, "cuda")
+        got, ok = K.img_from_cam(m, p, uvw)
+        ref, ok_ref = M.img_from_cam(m, p.double(), uvw.double())
+        _same_valid(f"K5 project {name}", ok, ok_ref)
+        check_rows(f"K5 project {name}", got[ok_ref], ref[ok_ref], K5_NEW_RTOL, errs)
+        grids = [("points", p, xy)]
+        if m in C.WIDE_MODELS:
+            gp, gxy = C.wide_grid_case(m, 129, "cuda")
+            grids.append(("185-degree grid", gp, gxy[: 129 * 97]))
+        for where, prm, pix in grids:
+            ray, ok_r = K.cam_ray_from_img(m, prm, pix)
+            ray_ref, ok_rr = M.cam_ray_from_img(m, prm.double(), pix.double())
+            _same_valid(f"K5 ray {name} {where}", ok_r, ok_rr)
+            away = (ray_ref[:, 2].abs() > math.sin(math.radians(1.0))) & ok_rr
+            check_rows(f"K5 ray {name} {where}", ray[away], ray_ref[away], K5_NEW_RTOL, errs)
+            uv, ok_u = K.cam_from_img(m, prm, pix)
+            uv_ref, ok_ur = M.cam_from_img(m, prm.double(), pix.double())
+            _same_valid(f"K5 unproject {name} {where}", ok_u, ok_ur)
+            check_rows(f"K5 unproject {name} {where} ({int(away.sum())} of {len(away)} rows "
+                       "away from 90 deg)", uv[away], uv_ref[away], K5_NEW_RTOL, errs)
+    # Times at the shapes of their paths: a 360-degree frame's 8192 keypoints
+    # to rays, a fisheye frame's 1010 keypoints through the Newton undistortion.
+    p = torch.tensor([5760.0, 2880.0], device="cuda")
+    xy = torch.rand(8192, 2, device="cuda") * p
+    entries["ray, EQUIRECTANGULAR, 8192 keypoints"] = _entry_times(
+        lambda: K.cam_ray_from_img(17, p, xy), lambda: M.cam_ray_from_img(17, p, xy))
+    p, _, xy = C.camera_map_case(5, 1010, 5, "cuda")
+    entries["unproject, OPENCV_FISHEYE, 1010 keypoints"] = _entry_times(
+        lambda: K.cam_from_img(5, p, xy), lambda: M.cam_from_img(5, p, xy))
+    log(f"  K5 times: {entries}")
+
+
+def _k1_models(errs, entries):
+    """K1 for each of models 5-17 and for a mixed problem at the BA
+    headline's shape (200 frames x 50k points x 300k observations, Cauchy)
+    against float64 (Jacobians and cost), timed. The headline's poses,
+    points and measurements with the cases' camera parameters of each
+    model (the mixed problem: frames alternate a SIMPLE_RADIAL and an
+    OPENCV_FISHEYE camera)."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as KB
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+    from colmap_tpu_torch.sensor import models as M
+
+    headline, _, _ = synthetic_ba_problem(200, 50000, 6, seed=0, device="cuda")
+    options = ba.BAOptions(loss="cauchy")
+
+    def problem_of(model_id):
+        if isinstance(model_id, tuple):
+            p = headline._replace(cam_params=_mixed_rows(),
+                                  obs_cam=(headline.obs_frame % 2).to(torch.int32))
+        else:
+            p = headline._replace(cam_params=torch.as_tensor(
+                C.camera_params(model_id), dtype=torch.float32, device="cuda")[None].contiguous())
+        return p, options, ba._obs_masks(ba.default_masks(p, model_id, options), options)
+
+    def run(label, model_id, problem, options, om):
+        p = problem
+        args = (p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam, p.obs_point,
+                p.obs_xy, p.obs_w)
+        rest = (model_id, options.loss, options.loss_scale)
+        # Against float64 on the first K1_CHECK_OBS observations (the
+        # function is per observation); timed on all of them.
+        sl = tuple(a[:K1_CHECK_OBS] if a.shape[0] == p.obs_xy.shape[0] else a for a in args)
+        KB.reset_launches()
+        J = KB.obs_jacobians(*sl, *om, *rest)
+        launches = KB.LAUNCHES["ba_obs_jacobians"]
+        ref = KB.obs_jacobians_plain(*f64(*sl), *f64(*om), *rest)
+        for n, a, b in zip(("r", "Jp", "Jc", "Jx"), J, ref):
+            check(f"K1 {label} {n}", a, b, K1_NEW_RTOL, errs)
+        check(f"K1 {label} cost", KB.obs_cost(*sl, *rest), KB.obs_cost_plain(*f64(*sl), *rest),
+              K1_NEW_RTOL, errs)
+        del ref
+        # Timed as the solver calls it: a mixed problem's groups built once.
+        groups = KB.model_groups(model_id, p.cam_params, p.obs_cam)
+        J = KB.obs_jacobians(*args, *om, *rest, groups)
+        O, P = p.obs_xy.shape[0], p.cam_params.shape[1]
+        ms = time_ms(lambda: KB.obs_jacobians(*args, *om, *rest, groups), reps=10)
+        plain_ms = time_ms(lambda: KB.obs_jacobians_plain(*args, *om, *rest, groups), reps=3)
+        b_ms, by = bound(nbytes(*args, *om) + nbytes(*J), O * (40 + (7 + P) * 20 + 6 * (9 + P)))
+        entries[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                              launches_per_call=launches)
+        log(f"  K1 {label}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by}; "
+            f"{launches} launches a call)")
+
+    for m in range(5, 18):
+        run(M.MODEL_ID_TO_NAME[m], m, *problem_of(m))
+    run("mixed SIMPLE_RADIAL + OPENCV_FISHEYE", (2, 5), *problem_of((2, 5)))
+    if entries["mixed SIMPLE_RADIAL + OPENCV_FISHEYE"]["launches_per_call"] != 2:
+        raise AssertionError("mixed K1: not one launch per model")
+
+
+def _mixed_rows():
+    """Camera rows of SIMPLE_RADIAL and OPENCV_FISHEYE padded to 9 columns
+    (the widest model's 8 and the model position), on the card."""
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.sensor import models as M
+
+    _, rows = M.pack_mixed_params([C.camera_params(2), C.camera_params(5)], [2, 5])
+    return torch.as_tensor(rows, dtype=torch.float32, device="cuda")
+
+
+def _k9_k24_models(errs, entries):
+    """K9 for each of models 5-17 and for mixed rows on 1000 points of 2-32
+    views; K24 for each of them at the rig BA headline's shape (Cauchy), and
+    K24-K26 through _rig_compare on RAD_TAN_THIN_PRISM_FISHEYE (16
+    parameters, the 17-column camera-side rows) and on the mixed rows."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import ba as KB
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.sensor import models as M
+
+    keys = ("quat", "t", "cam_params", "xyz", "obs_xy", "valid")
+    cams = _mixed_rows()
+    for m in list(range(5, 18)) + [(2, 5)]:
+        label = "mixed" if isinstance(m, tuple) else M.MODEL_ID_TO_NAME[m]
+        c = C.filter_case(1000, 0, "cuda", model_id=2 if isinstance(m, tuple) else m)
+        if isinstance(m, tuple):
+            pick = torch.as_tensor(np.random.default_rng(3).integers(0, 2, tuple(c["valid"].shape)),
+                                   device="cuda")
+            c["cam_params"] = cams[pick].contiguous()
+        d = C.as_double(c)
+        ek, dk, mk = K.filter_points(m, *(c[k] for k in keys))
+        ep, dp, mp = K.filter_points_plain(m, *(d[k] for k in keys))
+        fin = torch.isfinite(ep)
+        _same_valid(f"K9 {label} infinite errors", torch.isfinite(ek), fin)
+        # Errors in front of the camera: behind it the filter deletes the
+        # observation by its depth whatever its error, and the division
+        # models, which have no cheirality test, put such points 1e5-1e6 px
+        # off, where float32 keeps a residual to ~0.1 px only.
+        front = fin & (dp > 0)
+        check(f"K9 {label} errors", ek[front], ep[front], K9_RTOL, errs["filter_points"])
+        check(f"K9 {label} depths", dk, dp, K9_RTOL, errs["filter_points"])
+        check(f"K9 {label} min |cos|", mk, mp, K9_RTOL, errs["filter_points"])
+    options = ba.BAOptions(loss="cauchy", function_tolerance=0.0)
+    headline, _, _ = RC.rig_ba_problem(RIG_FRAMES, RIG_SENSORS, RIG_POINTS, RIG_TRACK, seed=0,
+                                       device="cuda")
+    for m in list(range(5, 18)) + [(2, 5)]:
+        label = "mixed" if isinstance(m, tuple) else M.MODEL_ID_TO_NAME[m]
+        problem = headline
+        if isinstance(m, tuple):
+            rows = cams[torch.arange(RIG_SENSORS, device="cuda") % 2]
+        else:
+            rows = torch.as_tensor(C.camera_params(m), dtype=torch.float32,
+                                   device="cuda").expand(RIG_SENSORS, -1)
+        problem = problem._replace(cam_params=rows.contiguous())
+        masks = rba.fix_gauge_two_frames(rba.default_masks(problem, m, options), 0, 1)
+        if m in (11, (2, 5)):
+            ctx = _rig_compare(problem, m, options, masks, errs, f"rig headline, {label}")
+            params, obs, om, rest = ctx["params"], ctx["obs"], ctx["om"], ctx["rest"]
+        else:
+            om, obs = rba._obs_masks(masks, options), rba._obs(problem)
+            params, rest = tuple(problem[:6]), (m, options.loss, options.loss_scale)
+            sl = type(obs)(*(a[:K1_CHECK_OBS] for a in obs))  # as K1: a slice against float64
+            jac = KR.rig_obs_jacobians(*params, sl, *om, *rest)
+            ref = KR.rig_obs_jacobians_plain(*f64(*params), type(obs)(*f64(*sl)), *f64(*om),
+                                             *rest)
+            for n, a, b in zip(KR.RigJacobians._fields, jac, ref):
+                check(f"K24 {label} {n}", a, b, K1_NEW_RTOL, errs["rig_ba_jacobians"])
+            del ref
+        O, P = problem.obs_xy.shape[0], problem.cam_params.shape[1]
+        groups = KB.model_groups(m, problem.cam_params, obs.obs_cam)  # once, as the solver
+        jac = KR.rig_obs_jacobians(*params, obs, *om, *rest, groups)
+        ms = time_ms(lambda: KR.rig_obs_jacobians(*params, obs, *om, *rest, groups), reps=10)
+        plain_ms = time_ms(lambda: KR.rig_obs_jacobians_plain(*params, obs, *om, *rest, groups),
+                           reps=3)
+        b_ms, by = bound(nbytes(*params, *obs, *om) + nbytes(*jac),
+                         O * (RIG_K24_OBS_OPS + 20 * (P - 4)))
+        entries[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+        log(f"  K24 {label}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
+
+
+def _spherical_kernels(errs, rows, agree):
+    """K32 and K33: injected samples of one 8192-ray pair against float64
+    (the same best, supports, near-best models), the inlier mask and the
+    refit; a block of 64 pairs x 8192 rays against the one-pair entries on
+    three of its pairs; times of the block at that shape."""
+    from colmap_tpu_torch.geometry.spherical import (angular_sampson_error,
+                                                     homography_ray_angular_error)
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+    from colmap_tpu_torch.kernels.sfm_cases import as_double
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    def same_mask(name, a, b, res, max_sq):
+        diff = a != b
+        border = (res - max_sq).abs() <= 0.02 * max_sq
+        log(f"  {name}: {int(diff.sum())} of {a.numel()} differ, {int((diff & border).sum())} "
+            "of them borderline")
+        if bool((diff & ~border).any()):
+            raise AssertionError(f"{name}: kernel and plain version disagree off the threshold")
+
+    for kind, name, tag, m, sols, residual, sample_ops, row_ops in (
+            ("E", "spherical_e", "K32", 5, KQ.E_SOLUTIONS, angular_sampson_error,
+             SPH_E_SAMPLE_OPS, SPH_E_ROW_OPS),
+            ("H", "spherical_h", "K33", 4, KQ.H_SOLUTIONS, homography_ray_angular_error,
+             SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS)):
+        propose, refit, inliers = (getattr(KQ, f"{name}_{e}") for e in
+                                   ("propose_score", "refit", "inliers"))
+        plain = [getattr(KQ, f"{name}_{e}_plain") for e in ("propose_score", "refit", "inliers")]
+        c = Q.ray_case(kind, SPH_ROWS, SPH_SAMPLES, 0, "cuda")
+        d = as_double(c)
+        args = (c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+        mk, ck, bk = propose(*args)
+        mp, cp, bp = plain[0](d["x1"], d["x2"], d["mask"], d["samples"], d["max_sq"])
+        agree[f"{name}_ransac"] = _check_ransac_batch(
+            tag, mk, ck, bk, mp, cp, bp, SPH_ROWS, SPH_SAMPLES, errs[f"{name}_ransac"],
+            unpack_best,
+            lambda mm: torch.where(d["mask"], residual(mm[:, None], d["x1"][None], d["x2"][None]),
+                                   torch.inf),
+            d["max_sq"], sign_free=True, exact_best=False)
+        best = unpack_best(int(bp.item()))[1]
+        model = mp[best].float()
+        same_mask(f"{tag} inlier mask", inliers(c["x1"], c["x2"], c["mask"], model, c["max_sq"]),
+                  plain[2](d["x1"], d["x2"], d["mask"], model.double(), d["max_sq"]),
+                  residual(model.double(), d["x1"], d["x2"]), d["max_sq"])
+        start = model.clone()
+        start[0, 1] += 0.01 * float(model.abs().max())
+        n0 = int(plain[2](d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"]).sum())
+        rk, nk = refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0)
+        rp, np_ = plain[1](d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"], n0)
+        log(f"  {tag} refit: support {n0} -> kernel {nk}, plain {np_}")
+        if abs(nk - np_) > SPH_ROWS // 1000:
+            raise AssertionError(f"{tag} refit support: kernel {nk}, plain {np_}")
+        check(f"{tag} refit model", rk * torch.sign((rk.double() * rp).sum()), rp, K67_RTOL,
+              errs[f"{name}_ransac"])
+        # The block: 64 pairs of 8192 rays (valid counts 8192 down to 4096).
+        blk = Q.ray_block_case(kind, SPH_PAIRS, SPH_ROWS, SPH_SAMPLES, 1, "cuda")
+        bargs = (blk["x1"], blk["x2"], blk["mask"], blk["samples"], blk["max_sq"])
+        mb, cb, bb = propose(*bargs)
+        for b in (0, SPH_PAIRS // 2, SPH_PAIRS - 1):
+            sq = float(blk["max_sq"][b])
+            m1, c1, b1 = propose(blk["x1"][b], blk["x2"][b], blk["mask"][b], blk["samples"][b], sq)
+            if not (int(b1) == int(bb[b]) and torch.equal(c1, cb[b])
+                    and torch.equal(torch.nan_to_num(m1), torch.nan_to_num(mb[b]))):
+                raise AssertionError(f"{tag}: pair {b} of the block differs from its one-pair run")
+        log(f"  {tag}: a block of {SPH_PAIRS} pairs gives pairs 0, {SPH_PAIRS // 2}, "
+            f"{SPH_PAIRS - 1} exactly what the one-pair entry gives")
+        rays = int(blk["mask"].sum())
+        pieces = [tuple(a[i:i + SPH_PLAIN_PAIRS] for a in bargs)
+                  for i in range(0, SPH_PAIRS, SPH_PLAIN_PAIRS)]
+        rows[f"{name}_ransac"] = _global_row(
+            f"{name}_ransac", lambda: propose(*bargs),
+            lambda: [plain[0](*piece) for piece in pieces],
+            nbytes(*bargs[:4], mb, cb, bb),
+            SPH_PAIRS * SPH_SAMPLES * sample_ops + SPH_SAMPLES * sols * rays * row_ops)
+        picks = [unpack_best(int(v)) for v in bb.tolist()]
+        idx = torch.tensor([p[1] for p in picks], device="cuda")
+        start = torch.nan_to_num(mb[torch.arange(SPH_PAIRS, device="cuda"), idx])
+        counts = torch.tensor([p[0] for p in picks], dtype=torch.int32, device="cuda")
+        rows[f"{name}_ransac"]["entries"] = {
+            "refit": _entry_times(lambda: refit(*bargs[:3], start, bargs[4], counts),
+                                  lambda: plain[1](*bargs[:3], start, bargs[4], counts)),
+            "inliers": _entry_times(lambda: inliers(*bargs[:3], start, bargs[4]),
+                                    lambda: plain[2](*bargs[:3], start, bargs[4]))}
+
+
+def phase_camera_kernels():
+    """Phase camera_kernels: K5 (three modes), K1, K9 and K24 for camera
+    models 5-17 and for a problem that mixes SIMPLE_RADIAL and
+    OPENCV_FISHEYE, against float64 plain versions at the shapes of the
+    existing phases (K1 and K24 at the BA and rig BA headlines); K32 and K33
+    against theirs on 360-degree rays. Returns (errs, rows, agree, entries):
+    entries holds per-model times to add to the K1, K5 and K24 rows."""
+    errs = {k: [] for k in ("camera_map", "ba_obs_jacobians", "filter_points",
+                            "rig_ba_jacobians", "rig_ba_reduce", "rig_ba_matvec",
+                            *CAMERA_SOURCES)}
+    rows, agree = {}, {}
+    entries = {"camera_map": {}, "ba_obs_jacobians": {}, "rig_ba_jacobians": {}}
+    log("camera kernels vs plain (float64 on the same inputs), models 5-17 and mixed models:")
+    for label, step in (
+            ("K5", lambda: _k5_new_models(errs["camera_map"], entries["camera_map"])),
+            ("K1", lambda: _k1_models(errs["ba_obs_jacobians"], entries["ba_obs_jacobians"])),
+            ("K9 and K24", lambda: _k9_k24_models(errs, entries["rig_ba_jacobians"])),
+            ("K32 and K33 on 5760 x 2880 rays", lambda: _spherical_kernels(errs, rows, agree))):
+        t0 = time.perf_counter()
+        step()
+        log(f"  ({label}: {time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    return errs, rows, agree, entries
+
+
+def _fisheye_scene(root, frames_per_rig, num_rigs=1, mixed=False, **options):
+    """A full-size database (1000 points, 1024 x 768, prior focal lengths)
+    of OPENCV_FISHEYE cameras, or with ``mixed`` of rigs alternating
+    SIMPLE_RADIAL and OPENCV_FISHEYE, and its ground truth."""
+    kw = dict(camera_model_ids=(2, 5) if mixed else (5,),
+              camera_params_list=((FULL_FOCAL, 512.0, 384.0, 0.05), FISHEYE_PARAMS) if mixed
+              else (FISHEYE_PARAMS,))
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
+
+    db_path = os.path.join(root, "db.db")
+    db = Database(db_path)
+    gt = synthesize_dataset(SyntheticDatasetOptions(
+        num_rigs=num_rigs, num_cameras_per_rig=1, num_frames_per_rig=frames_per_rig,
+        num_points3D=1000, camera_has_prior_focal_length=True, **kw, **options),
+        db, rng=np.random.default_rng(3))
+    db.close()
+    return db_path, gt
+
+
+# The camera mappers must launch K1-K3 and K5-K9.
+CAMERA_MAPPER_KERNELS = ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "camera_map",
+                         "p3p_ransac", "essential_ransac", "triangulate_tracks", "filter_points")
+
+
+def _camera_mapper(root, label, num_frames, launches, results, profiled, **scene):
+    """A fisheye (or mixed) scene stripped to features through
+    `exhaustive_matcher` and `mapper` (under torch.profiler when
+    ``profiled``), held to the ground truth."""
+    t0 = time.perf_counter()
+    db_path, gt = _fisheye_scene(root, **scene)
+    pairs = strip_to_features(db_path)
+    log(f"{label}: set-up {time.perf_counter() - t0:.1f} s")
+    verified, m_sec, m_counts = run_matcher(db_path, f"exhaustive_matcher, {label}")
+    expected = sum(len(m) >= 15 for m in pairs.values())
+    if verified != expected:
+        raise AssertionError(f"{label}: verified {verified} of {expected} pairs")
+    for k, v in m_counts.items():
+        launches[k] += v
+    out = os.path.join(root, "sparse")
+    pipeline, seconds, idle = _profiled_command(
+        ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
+        f"mapper, {label}", CAMERA_MAPPER_KERNELS, launches, profiled=profiled)
+    cmp = check_against_gt(out, gt, num_frames, f"mapper, {label}")
+    phases = {k: (round(pipeline.timer.seconds[k], 3), pipeline.timer.calls[k])
+              for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
+                              reverse=True)}
+    log("  time by phase (s, calls): " + ", ".join(
+        f"{k} {v[0]:.3f}/{v[1]}" for k, v in phases.items()))
+    results[label] = dict(matcher_seconds=m_sec, seconds=seconds, idle=idle, phases=phases,
+                          max_rot_deg=cmp["max_rotation_error_deg"],
+                          max_center=cmp["max_center_error"])
+
+
+def _undistorter(root, launches, results):
+    """`image_undistorter` on a 12 MP OPENCV_FISHEYE still against the
+    float64 plain undistortion on the CPU."""
+    from colmap_tpu_torch.image.undistortion import undistort_camera, undistort_image
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+    from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
+    from colmap_tpu_torch.utils.image_io import read_image, write_png
+
+    recon = synthesize_dataset(SyntheticDatasetOptions(
+        num_rigs=1, num_frames_per_rig=1, num_points3D=20, camera_model_id=5,
+        camera_params=UND_PARAMS, camera_width=UND_W, camera_height=UND_H), None,
+        rng=np.random.default_rng(5))
+    cam = recon.cameras[1]
+    name = recon.images[1].name
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:UND_H, 0:UND_W].astype(np.float64)
+    img = 128.0 + 40.0 * np.sin(xx / 37.0) * np.cos(yy / 23.0)
+    for _ in range(6):
+        a, b, ph = rng.uniform(0.005, 0.05, 3)
+        img += 12.0 * np.sin(a * xx + b * yy + 10 * ph)
+    img = np.clip(img + rng.normal(0, 4.0, img.shape), 0, 255).astype(np.uint8)
+    os.makedirs(os.path.join(root, "images"))
+    write_png(os.path.join(root, "images", name), img)
+    os.makedirs(os.path.join(root, "sparse"))
+    write_model(recon, os.path.join(root, "sparse"))
+    ws = os.path.join(root, "ws")
+    _, seconds, idle = _profiled_command(
+        ["image_undistorter", "--image_path", os.path.join(root, "images"), "--input_path",
+         os.path.join(root, "sparse"), "--output_path", ws],
+        "image_undistorter, 12 MP OPENCV_FISHEYE still", ("camera_map",), launches)
+    got = read_image(os.path.join(ws, "images", name))
+    t0 = time.perf_counter()
+    ucam = undistort_camera(cam, device="cpu")
+    ref = undistort_image(img, cam, ucam, device="cpu")
+    out_cam = read_model(os.path.join(ws, "sparse")).cameras[1]
+    cam_err = float(np.abs(np.asarray(out_cam.params) - ucam.params).max()
+                    / np.abs(ucam.params).max())
+    diff = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    off1 = float((diff == 1).mean())
+    log(f"  undistorted {got.shape} against float64 on the CPU ({time.perf_counter() - t0:.1f} s):"
+        f" camera params within {cam_err:.3e}, max level difference {int(diff.max())}, share "
+        f"off by 1 {off1:.5f} (<= {UND_MAX_OFF_BY_ONE})")
+    if not (got.shape == ref.shape and int(diff.max()) <= 1 and off1 <= UND_MAX_OFF_BY_ONE
+            and cam_err <= 1e-5):
+        raise AssertionError("image_undistorter: outside its gate")
+    results["image_undistorter"] = dict(seconds=seconds, idle=idle, off_by_one=off1)
+
+
+def _pano_matcher(root, launches, results):
+    """`exhaustive_matcher` on the 360-degree database under torch.profiler,
+    then every pair's verified geometry and relative pose against the truth
+    (recover_spherical_pose on the card, float64)."""
+    from colmap_tpu_torch.estimators.spherical import recover_spherical_pose
+    from colmap_tpu_torch.geometry import rotation as rot
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.types import TwoViewGeometryConfig as CFG
+
+    db_path = os.path.join(root, "pano.db")
+    t0 = time.perf_counter()
+    poses, outliers = Q.write_database(db_path, PANO_FRAMES, PANO_POINTS, seed=9)
+    log(f"360-degree database: {PANO_FRAMES} EQUIRECTANGULAR frames {Q.WIDTH} x {Q.HEIGHT}, "
+        f"{PANO_POINTS} keypoints each (set-up {time.perf_counter() - t0:.1f} s)")
+    verified, seconds, idle = _profiled_command(
+        ["exhaustive_matcher", "--database_path", db_path],
+        "exhaustive_matcher, 360-degree frames", PANO_KERNELS, launches)
+    db = Database(db_path, must_exist=True)
+    cam = db.read_camera(1)
+    kps = {i + 1: db.read_keypoints(i + 1)[:, :2] for i in range(PANO_FRAMES)}
+    t0 = time.perf_counter()
+    planted = planted_in = 0
+    worst_r = worst_t = 0.0
+    configs = {}
+    for i1, i2, g in db.read_all_two_view_geometries():
+        matches = db.read_matches(i1, i2)
+        planted += int((outliers[i1][matches[:, 0]] | outliers[i2][matches[:, 1]]).sum())
+        inl = g.inlier_matches
+        planted_in += int((outliers[i1][inl[:, 0]] | outliers[i2][inl[:, 1]]).sum())
+        rotation_only = (i1, i2) == (1, 2)
+        expected = CFG.PLANAR_OR_PANORAMIC if rotation_only else CFG.CALIBRATED
+        if g.config != int(expected):
+            raise AssertionError(f"pair {i1}-{i2}: {CFG(g.config).name}, expected {expected.name}")
+        recover_spherical_pose(g, cam, kps[i1], cam, kps[i2], device="cuda")
+        if rotation_only:
+            log(f"  rotation-only pair: {CFG(g.config).name} after pose recovery")
+        configs[CFG(g.config).name] = configs.get(CFG(g.config).name, 0) + 1
+        (R1, t1), (R2, t2) = poses[i1 - 1], poses[i2 - 1]
+        R = R2 @ R1.T
+        R_est = rot.quat_to_rotmat(torch.as_tensor(g.cam2_from_cam1.quat)).numpy()
+        worst_r = max(worst_r, float(np.abs(R_est - R).max()))
+        if rotation_only:
+            if g.config not in (int(CFG.PLANAR), int(CFG.PANORAMIC)):
+                raise AssertionError(f"rotation-only pair: {CFG(g.config).name}")
+            continue
+        t = t2 - R @ t1
+        t /= np.linalg.norm(t)
+        worst_t = max(worst_t, float(min(np.abs(g.cam2_from_cam1.t - t).max(),
+                                         np.abs(g.cam2_from_cam1.t + t).max())))
+    db.close()
+    share = planted_in / max(planted, 1)
+    log(f"  360-degree pairs: {verified} verified, configurations after pose recovery {configs}; "
+        f"largest rotation error {worst_r:.3e} (<= {PANO_ROT_TOL}), translation direction "
+        f"{worst_t:.3e} (<= {PANO_T_TOL}); {planted_in} of {planted} planted outlier matches among "
+        f"the inliers, {share:.5f} (<= {PANO_MAX_OUTLIER_SHARE}); pose recovery "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_pairs = PANO_FRAMES * (PANO_FRAMES - 1) // 2
+    if not (sum(configs.values()) == n_pairs and configs.get("CALIBRATED") == n_pairs - 1
+            and worst_r <= PANO_ROT_TOL and worst_t <= PANO_T_TOL
+            and share <= PANO_MAX_OUTLIER_SHARE):
+        raise AssertionError("360-degree matcher: outside its gates")
+    results["360 matcher"] = dict(seconds=seconds, idle=idle, pairs=n_pairs, max_rot=worst_r,
+                                  max_t=worst_t, outlier_share=share)
+
+
+def phase_cameras(launches):
+    """Phase cameras: `mapper` on the full-size scene with OPENCV_FISHEYE and
+    on a full-size mixed scene (2 rigs x 20 frames, SIMPLE_RADIAL +
+    OPENCV_FISHEYE), `global_mapper` on the fisheye scene, `image_undistorter`
+    on a 12 MP fisheye still and `exhaustive_matcher` on 24 360-degree
+    frames, each but the mixed scene's mapper under torch.profiler, each
+    held to its gates."""
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The mixed scene's mapper runs unprofiled: the profiler's stop and
+        # the reading of its trace cost ~60 s on a 40-frame mapper run.
+        for label, frames, profiled, scene in (
+                ("full-size OPENCV_FISHEYE scene", FULL_FRAMES, True,
+                 dict(frames_per_rig=FULL_FRAMES)),
+                ("full-size mixed scene", 2 * MIXED_FRAMES, False,
+                 dict(frames_per_rig=MIXED_FRAMES, num_rigs=2, mixed=True))):
+            root = os.path.join(tmp, label.split()[1])
+            os.makedirs(root)
+            _camera_mapper(root, label, frames, launches, results, profiled, **scene)
+        root = os.path.join(tmp, "global")
+        os.makedirs(root)
+        db_path, gt = _fisheye_scene(root, FULL_FRAMES, two_view_geometry_has_relative_pose=False)
+        out = os.path.join(root, "sparse")
+        pipeline, seconds, idle = _profiled_command(
+            ["global_mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
+            "global_mapper, full-size OPENCV_FISHEYE scene", GLOBAL_MAPPER_KERNELS, launches)
+        cmp = check_against_gt(out, gt, FULL_FRAMES, "global_mapper, OPENCV_FISHEYE scene")
+        results["global_mapper"] = dict(seconds=seconds, idle=idle,
+                                        max_rot_deg=cmp["max_rotation_error_deg"],
+                                        max_center=cmp["max_center_error"])
+        root = os.path.join(tmp, "undistort")
+        os.makedirs(root)
+        _undistorter(root, launches, results)
+        _pano_matcher(tmp, launches, results)
+    log(f"cameras phase on {nvidia_smi_line()}: " + "; ".join(
+        f"{k}: {round(v['seconds'], 3)} s, idle {None if v.get('idle') is None else round(v['idle'], 4)}"
+        for k, v in results.items()))
+    return results
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
-              "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval")
+              "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
+              "camera_kernels", "cameras")
 
 
 def main():
@@ -3637,10 +4279,22 @@ def main():
         rows.update(t_rows)
     if "retrieval" in phases:
         run("retrieval", lambda: phase_retrieval(launches, errs, rows))
+    cam_entries = {}
+    if "camera_kernels" in phases:
+        c_errs, c_rows, c_agree, cam_entries = run("camera_kernels", phase_camera_kernels)
+        for k, v in c_errs.items():
+            errs.setdefault(k, []).extend(v)
+        rows.update(c_rows)
+        agree.update(c_agree)
+    if "cameras" in phases:
+        run("cameras", lambda: phase_cameras(launches))
     log(f"seconds by phase: {seconds}")
+    for name, ents in cam_entries.items():  # models 5-17 and mixed: the kernel's other inputs
+        if name in rows and ents:
+            rows[name].setdefault("entries", {}).update(ents)
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
-               **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES}
+               **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

@@ -4,7 +4,12 @@
 // (with make_residual_fn, _fetch_obs_params and the masks of
 // _packed_obs_masks) and, in cost mode, compute_cost_packed.
 //
-// One thread per observation slot. It gathers the slot's pose, camera row,
+// One thread per observation slot, of one camera model. A problem that mixes
+// models (colmap_tpu's padded parameter rows with a trailing model-position
+// column) takes one launch per model present, each over that model's slots
+// (``slots``, a CSR order by model): the camera rows, masks and Jc are
+// ``cam_stride`` wide (the widest model's P plus 1), the thread writes its
+// model's P columns of Jc and zeros in the others. One thread gathers the slot's pose, camera row,
 // point and measurement with plain indexed loads (the one-hot matmul fetches
 // of the TPU version are not needed on this card), forms
 // Xc = R(q) X + t and projects Xc with project<MODEL> on a forward-mode dual
@@ -31,7 +36,8 @@
 namespace ctt {
 
 template <int MODEL, bool COST>
-__global__ void obs_kernel(long long n, int loss, float scale, const float* __restrict__ quat,
+__global__ void obs_kernel(long long n, int loss, float scale, int cam_stride,
+                           const int* __restrict__ slots, const float* __restrict__ quat,
                            const float* __restrict__ tvec, const float* __restrict__ cam,
                            const float* __restrict__ points, const int* __restrict__ fids,
                            const int* __restrict__ cids, const int* __restrict__ pids,
@@ -42,9 +48,10 @@ __global__ void obs_kernel(long long n, int loss, float scale, const float* __re
                            float* __restrict__ jp_out, float* __restrict__ jc_out,
                            float* __restrict__ jx_out, double* __restrict__ cost) {
   constexpr int P = ModelInfo<MODEL>::P;
-  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   double my_cost = 0.0;
-  if (s < n) {
+  if (tid < n) {
+    const long long s = slots != nullptr ? (long long)slots[tid] : tid;
     const int f = fids[s], c = cids[s], p = pids[s];
     const float qw = quat[4 * f], qx = quat[4 * f + 1], qy = quat[4 * f + 2],
                 qz = quat[4 * f + 3];
@@ -60,7 +67,7 @@ __global__ void obs_kernel(long long n, int loss, float scale, const float* __re
     if constexpr (COST) {
       float prm[P];
 #pragma unroll
-      for (int j = 0; j < P; ++j) prm[j] = cam[c * P + j];
+      for (int j = 0; j < P; ++j) prm[j] = cam[(long long)c * cam_stride + j];
       float px, py;
       project<MODEL, float>(prm, u, v, w, px, py);
       const float rx = px - ox, ry = py - oy;
@@ -75,7 +82,7 @@ __global__ void obs_kernel(long long n, int loss, float scale, const float* __re
       W.d[2] = 1.f;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
-        prm[j] = Dual<ND>(cam[c * P + j]);
+        prm[j] = Dual<ND>(cam[(long long)c * cam_stride + j]);
         prm[j].d[3 + j] = 1.f;
       }
       Dual<ND> px, py;
@@ -126,7 +133,9 @@ __global__ void obs_kernel(long long n, int loss, float scale, const float* __re
           jp_out[12 * s + 6 * i + j] = finite ? Jp[i][j] * sw * pose_mask[6 * f + j] : 0.f;
 #pragma unroll
         for (int j = 0; j < P; ++j)
-          jc_out[2 * P * s + P * i + j] = finite ? Jc[i][j] * sw * cam_mask[P * c + j] : 0.f;
+          jc_out[2 * cam_stride * s + cam_stride * i + j] =
+              finite ? Jc[i][j] * sw * cam_mask[(long long)cam_stride * c + j] : 0.f;
+        for (int j = P; j < cam_stride; ++j) jc_out[2 * cam_stride * s + cam_stride * i + j] = 0.f;
 #pragma unroll
         for (int j = 0; j < 3; ++j) jx_out[6 * s + 3 * i + j] = finite ? Jx[i][j] * pm : 0.f;
       }
@@ -147,8 +156,9 @@ __global__ void obs_kernel(long long n, int loss, float scale, const float* __re
 }
 
 template <int MODEL>
-cudaError_t launch(int mode, int loss, float scale, long long n, const float* quat,
-                   const float* t, const float* cam, const float* points, const int* fids,
+cudaError_t launch(int mode, int loss, float scale, long long n, int cam_stride, const int* slots,
+                   const float* quat, const float* t, const float* cam, const float* points,
+                   const int* fids,
                    const int* cids, const int* pids, const float* xy, const float* w,
                    const float* pose_mask, const float* cam_mask, const float* point_mask,
                    float* r, float* jp, float* jc, float* jx, double* cost,
@@ -157,12 +167,12 @@ cudaError_t launch(int mode, int loss, float scale, long long n, const float* qu
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (mode == 0) {
     obs_kernel<MODEL, false><<<blocks, kThreads, 0, stream>>>(
-        n, loss, scale, quat, t, cam, points, fids, cids, pids, xy, w, pose_mask, cam_mask,
-        point_mask, r, jp, jc, jx, cost);
+        n, loss, scale, cam_stride, slots, quat, t, cam, points, fids, cids, pids, xy, w,
+        pose_mask, cam_mask, point_mask, r, jp, jc, jx, cost);
   } else {
     obs_kernel<MODEL, true><<<blocks, kThreads, 0, stream>>>(
-        n, loss, scale, quat, t, cam, points, fids, cids, pids, xy, w, pose_mask, cam_mask,
-        point_mask, r, jp, jc, jx, cost);
+        n, loss, scale, cam_stride, slots, quat, t, cam, points, fids, cids, pids, xy, w,
+        pose_mask, cam_mask, point_mask, r, jp, jc, jx, cost);
   }
   return cudaGetLastError();
 }
@@ -170,9 +180,12 @@ cudaError_t launch(int mode, int loss, float scale, long long n, const float* qu
 }  // namespace ctt
 
 // mode 0: r, Jp, Jc, Jx; mode 1: add the cost into *cost (zeroed by the caller).
-// loss: 0 trivial, 1 huber, 2 cauchy. P must be the model's parameter count.
+// loss: 0 trivial, 1 huber, 2 cauchy. P must be the model's parameter count;
+// cam_stride (>= P) is the row width of cam, cam_mask and Jc. With slots
+// not null the launch covers the n slots listed there, else slots 0..n-1.
 extern "C" int ba_obs_jacobians_f32(int model_id, int mode, int loss, float loss_scale,
-                                    long long n, int P, const float* quat, const float* t,
+                                    long long n, int P, int cam_stride, const int* slots,
+                                    const float* quat, const float* t,
                                     const float* cam, const float* points, const int* fids,
                                     const int* cids, const int* pids, const float* xy,
                                     const float* w, const float* pose_mask,
@@ -182,16 +195,12 @@ extern "C" int ba_obs_jacobians_f32(int model_id, int mode, int loss, float loss
   if (n == 0) return (int)cudaGetLastError();
 #define CTT_K1(M)                                                                          \
   case M:                                                                                  \
-    if (P != ctt::ModelInfo<M>::P) return (int)cudaErrorInvalidValue;                      \
-    return (int)ctt::launch<M>(mode, loss, loss_scale, n, quat, t, cam, points, fids, cids, \
-                               pids, xy, w, pose_mask, cam_mask, point_mask, r, jp, jc, jx, \
-                               cost, stream);
+    if (P != ctt::ModelInfo<M>::P || cam_stride < P) return (int)cudaErrorInvalidValue;    \
+    return (int)ctt::launch<M>(mode, loss, loss_scale, n, cam_stride, slots, quat, t, cam, \
+                               points, fids, cids, pids, xy, w, pose_mask, cam_mask,       \
+                               point_mask, r, jp, jc, jx, cost, stream);
   switch (model_id) {
-    CTT_K1(0)
-    CTT_K1(1)
-    CTT_K1(2)
-    CTT_K1(3)
-    CTT_K1(4)
+    CTT_FOR_EACH_MODEL(CTT_K1)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,14 +1,19 @@
 // K9 filter_points: the per-observation checks of point filtering.
 //
-// Replaces colmap_tpu/sfm/filtering.py _filter_kernel (l.24) for one camera
-// model (ids 0-4).
+// Replaces colmap_tpu/sfm/filtering.py _filter_kernel (l.24), for any of
+// the 18 camera models. A reconstruction that mixes models (parameter rows
+// padded to the widest model with a trailing model-position column, as
+// colmap_tpu packs them) takes one launch per model present over the points
+// that have a slot of that model (``points``, a CSR order by model); a
+// launch writes the errors and depths of its model's slots only, and every
+// launch writes the same smallest |cos| of its points.
 //
 // One warp per point, lane v for view slot v (V <= 32 slots):
 //   - Xc = R(q) X + t (q as stored, colmap_tpu's quat_rotate), the depth
 //     Xc.z, the projection through project<MODEL> (camera_models.cuh, the
 //     formulas K1 and K5 use) and the error |proj - xy|; inf when the
-//     projection fails the cheirality test (z >= FLT_EPSILON), 0 on
-//     padding (l.44-46);
+//     projection is not valid (img_from_cam's test: z >= FLT_EPSILON for
+//     the perspective and fisheye models), 0 on padding (l.44-46);
 //   - the unit ray from the camera center -R(q̂)^T t to the point, and the
 //     smallest |cos| between the rays of two distinct valid views by
 //     shuffles over the warp and a warp min (1 when there is no such pair).
@@ -40,7 +45,9 @@ __device__ __forceinline__ void quat_rotate3(const float* q, const float* v, flo
 }
 
 template <int MODEL>
-__global__ void filter_points_kernel(int p, int V, const float* __restrict__ quat,
+__global__ void filter_points_kernel(int p, int V, int K, int model_pos,
+                                     const int* __restrict__ points,
+                                     const float* __restrict__ quat,
                                      const float* __restrict__ tvec,
                                      const float* __restrict__ params,
                                      const float* __restrict__ xyz,
@@ -50,8 +57,9 @@ __global__ void filter_points_kernel(int p, int V, const float* __restrict__ qua
                                      float* __restrict__ min_cos) {
   constexpr int P = ModelInfo<MODEL>::P;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int point = blockIdx.x * kFilterWarps + warp;
-  if (point >= p) return;  // whole warps leave together
+  const int item = blockIdx.x * kFilterWarps + warp;
+  if (item >= p) return;  // whole warps leave together
+  const int point = points != nullptr ? points[item] : item;
   const float X[3] = {xyz[point * 3], xyz[point * 3 + 1], xyz[point * 3 + 2]};
   const bool ok_slot = lane < V;
   const long long o = (long long)point * V + lane;
@@ -60,18 +68,20 @@ __global__ void filter_points_kernel(int p, int V, const float* __restrict__ qua
   if (ok_slot) {
     const float q[4] = {quat[o * 4], quat[o * 4 + 1], quat[o * 4 + 2], quat[o * 4 + 3]};
     const float t[3] = {tvec[o * 3], tvec[o * 3 + 1], tvec[o * 3 + 2]};
-    float prm[P];
-    for (int k = 0; k < P; ++k) prm[k] = params[o * P + k];
     float Xc[3];
     quat_rotate3(q, X, Xc);
     for (int i = 0; i < 3; ++i) Xc[i] += t[i];
-    float x, y;
-    project<MODEL, float>(prm, Xc[0], Xc[1], Xc[2], x, y);
-    const float ex = x - obs_xy[o * 2], ey = y - obs_xy[o * 2 + 1];
-    const bool cheiral = Xc[2] >= FLT_EPSILON;
-    const float e = sqrtf(ex * ex + ey * ey);
-    err_out[o] = val ? (cheiral ? e : INFINITY) : 0.f;
-    depth_out[o] = Xc[2];
+    const bool mine = model_pos < 0 || (int)rintf(params[o * K + K - 1]) == model_pos;
+    if (mine) {
+      float prm[P];
+      for (int k = 0; k < P; ++k) prm[k] = params[o * K + k];
+      float x, y;
+      const bool ok = project<MODEL, float>(prm, Xc[0], Xc[1], Xc[2], x, y);
+      const float ex = x - obs_xy[o * 2], ey = y - obs_xy[o * 2 + 1];
+      const float e = sqrtf(ex * ex + ey * ey);
+      err_out[o] = val ? (ok ? e : INFINITY) : 0.f;
+      depth_out[o] = Xc[2];
+    }
     // Camera center -R(q̂)^T t = -rotate(conj(q̂), t).
     const float qn = fmaxf(sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]), FLT_MIN);
     const float qc[4] = {q[0] / qn, -q[1] / qn, -q[2] / qn, -q[3] / qn};
@@ -94,34 +104,38 @@ __global__ void filter_points_kernel(int p, int V, const float* __restrict__ qua
 }
 
 template <int MODEL>
-int launch_filter(int p, int V, const float* quat, const float* t, const float* params,
-                  const float* xyz, const float* obs_xy, const unsigned char* valid, float* err,
-                  float* depth, float* min_cos, cudaStream_t stream) {
+int launch_filter(int p, int V, int K, int model_pos, const int* points, const float* quat,
+                  const float* t, const float* params, const float* xyz, const float* obs_xy,
+                  const unsigned char* valid, float* err, float* depth, float* min_cos,
+                  cudaStream_t stream) {
+  if (K < ModelInfo<MODEL>::P + (model_pos >= 0 ? 1 : 0)) return (int)cudaErrorInvalidValue;
+  if (model_pos < 0 && K != ModelInfo<MODEL>::P) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((p + kFilterWarps - 1) / kFilterWarps);
   filter_points_kernel<MODEL><<<blocks, 32 * kFilterWarps, 0, stream>>>(
-      p, V, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos);
+      p, V, K, model_pos, points, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos);
   return (int)cudaGetLastError();
 }
 
 }  // namespace ctt
 
-extern "C" int filter_points_f32(int model_id, int p, int V, int num_params, const float* quat,
-                                 const float* t, const float* params, const float* xyz,
-                                 const float* obs_xy, const unsigned char* valid, float* err,
-                                 float* depth, float* min_cos, void* stream) {
+// K is the row width of params: the model's P, or with model_pos >= 0 the
+// widest model's P plus the model-position column. points (nullable) lists
+// the launch's p points.
+extern "C" int filter_points_f32(int model_id, int p, int V, int K, int model_pos,
+                                 const int* points, const float* quat, const float* t,
+                                 const float* params, const float* xyz, const float* obs_xy,
+                                 const unsigned char* valid, float* err, float* depth,
+                                 float* min_cos, void* stream) {
   using namespace ctt;
   cudaStream_t s = (cudaStream_t)stream;
   if (V > 32) return (int)cudaErrorInvalidValue;
-  const int expected[5] = {ModelInfo<0>::P, ModelInfo<1>::P, ModelInfo<2>::P, ModelInfo<3>::P,
-                           ModelInfo<4>::P};
-  if (model_id < 0 || model_id > 4 || num_params != expected[model_id])
-    return (int)cudaErrorInvalidValue;
+#define CTT_K9(M)                                                                           \
+  case M:                                                                                   \
+    return launch_filter<M>(p, V, K, model_pos, points, quat, t, params, xyz, obs_xy, valid, \
+                            err, depth, min_cos, s);
   switch (model_id) {
-    case 0: return launch_filter<0>(p, V, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos, s);
-    case 1: return launch_filter<1>(p, V, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos, s);
-    case 2: return launch_filter<2>(p, V, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos, s);
-    case 3: return launch_filter<3>(p, V, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos, s);
-    case 4: return launch_filter<4>(p, V, quat, t, params, xyz, obs_xy, valid, err, depth, min_cos, s);
+    CTT_FOR_EACH_MODEL(CTT_K9)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CTT_K9
 }

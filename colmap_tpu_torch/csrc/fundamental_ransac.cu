@@ -40,6 +40,8 @@ __device__ __forceinline__ float det3(const float* M) {
 
 struct Fundamental {
   static constexpr int kSample = 7, kSolutions = 3;
+  static constexpr int kDim = 2;
+  static constexpr bool kHartley = true;
 
   __device__ static void solve(float* s1, float* s2, float* models) {
     const Hartley T1 = hartley_sample<7>(s1), T2 = hartley_sample<7>(s2);

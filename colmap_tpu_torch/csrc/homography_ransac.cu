@@ -31,6 +31,8 @@ namespace ctt {
 
 struct Homography {
   static constexpr int kSample = 4, kSolutions = 1;
+  static constexpr int kDim = 2;
+  static constexpr bool kHartley = true;
 
   // The two DLT rows of a normalized correspondence.
   __device__ __forceinline__ static void dlt_rows(float u1, float v1, float u2, float v2,

@@ -7,7 +7,10 @@
 //   cam_from_world = sensor_from_rig o rig_from_world
 // with each rotation updated by quat_exp(delta) * q.
 //
-// One thread per observation, in K1's pattern with the extra sensor block.
+// One thread per observation, in K1's pattern with the extra sensor block,
+// and as K1 one launch per camera model over that model's observations
+// (``slots``) when a problem mixes models: rows of ``cam_stride`` columns,
+// Jc's columns beyond the model's P written as zeros.
 // It forms a = Rf X, X_rig = a + tf, b = Rs X_rig, Xc = b + ts, and projects
 // Xc with project<MODEL> on a forward-mode dual type carrying 3 + P
 // directions (d proj / d(Xc, params) exactly, A = d proj / d Xc). The
@@ -64,6 +67,8 @@ __device__ __forceinline__ void rot_cols(const float* B, const float* a, float* 
 }
 
 struct Inputs {
+  int cam_stride;    // row width of cam, cam_mask and Jc (>= P)
+  const int* slots;  // the observations of the launch, or null for 0..n-1
   const float *quat, *t, *squat, *st, *cam, *points;
   const int *fids, *sids, *cids, *pids;
   const float *xy, *w;
@@ -77,9 +82,11 @@ rig_obs_kernel(long long n, int loss, float scale, Inputs in, float* __restrict_
                float* __restrict__ jc_out, float* __restrict__ jx_out,
                double* __restrict__ partials) {
   constexpr int P = ModelInfo<MODEL>::P;
-  const long long o = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long tid = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long cs = in.cam_stride;
   double my_cost = 0.0;
-  if (o < n) {
+  if (tid < n) {
+    const long long o = in.slots != nullptr ? (long long)in.slots[tid] : tid;
     const int f = in.fids[o], g = in.sids[o], c = in.cids[o], p = in.pids[o];
     const float qf[4] = {in.quat[4 * f], in.quat[4 * f + 1], in.quat[4 * f + 2],
                          in.quat[4 * f + 3]};
@@ -96,7 +103,7 @@ rig_obs_kernel(long long n, int loss, float scale, Inputs in, float* __restrict_
     if constexpr (COST) {
       float prm[P];
 #pragma unroll
-      for (int j = 0; j < P; ++j) prm[j] = in.cam[c * P + j];
+      for (int j = 0; j < P; ++j) prm[j] = in.cam[c * cs + j];
       float px, py;
       project<MODEL, float>(prm, u, v, w, px, py);
       const float rx = px - ox, ry = py - oy;
@@ -111,7 +118,7 @@ rig_obs_kernel(long long n, int loss, float scale, Inputs in, float* __restrict_
       Wd.d[2] = 1.f;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
-        prm[j] = Dual<ND>(in.cam[c * P + j]);
+        prm[j] = Dual<ND>(in.cam[c * cs + j]);
         prm[j].d[3 + j] = 1.f;
       }
       Dual<ND> px, py;
@@ -160,7 +167,8 @@ rig_obs_kernel(long long n, int loss, float scale, Inputs in, float* __restrict_
         }
 #pragma unroll
         for (int j = 0; j < P; ++j)
-          jc_out[2 * P * o + P * i + j] = finite ? Jc[i][j] * sw * in.cam_mask[P * c + j] : 0.f;
+          jc_out[2 * cs * o + cs * i + j] = finite ? Jc[i][j] * sw * in.cam_mask[cs * c + j] : 0.f;
+        for (int j = P; j < cs; ++j) jc_out[2 * cs * o + cs * i + j] = 0.f;
 #pragma unroll
         for (int j = 0; j < 3; ++j) jx_out[6 * o + 3 * i + j] = finite ? Jx[i][j] * pm : 0.f;
       }
@@ -222,9 +230,12 @@ cudaError_t launch(int mode, int loss, float scale, long long n, const Inputs& i
 
 // mode 0: r, Jf, Js, Jc, Jx (the masks are read); mode 1: the cost into
 // *cost, with ceil(n / 256) block sums in partials. loss: 0 trivial, 1 huber,
-// 2 cauchy. P must be the model's parameter count.
+// 2 cauchy. P must be the model's parameter count; cam_stride (>= P) is the
+// row width of cam, cam_mask and Jc; with slots not null the launch covers
+// the n observations listed there.
 extern "C" int rig_ba_jacobians_f32(int model_id, int mode, int loss, float loss_scale,
-                                    long long n, int P, const float* quat, const float* t,
+                                    long long n, int P, int cam_stride, const int* slots,
+                                    const float* quat, const float* t,
                                     const float* squat, const float* st, const float* cam,
                                     const float* points, const int* fids, const int* sids,
                                     const int* cids, const int* pids, const float* xy,
@@ -233,19 +244,15 @@ extern "C" int rig_ba_jacobians_f32(int model_id, int mode, int loss, float loss
                                     const float* point_mask, float* r, float* jf, float* js,
                                     float* jc, float* jx, double* partials, double* cost,
                                     cudaStream_t stream) {
-  const ctt::rigj::Inputs in{quat, t, squat, st, cam, points, fids, sids, cids, pids,
-                             xy, w, pose_mask, sensor_mask, cam_mask, point_mask};
+  const ctt::rigj::Inputs in{cam_stride, slots, quat, t, squat, st, cam, points, fids, sids,
+                             cids, pids, xy, w, pose_mask, sensor_mask, cam_mask, point_mask};
 #define CTT_K24(M)                                                                         \
   case M:                                                                                  \
-    if (P != ctt::ModelInfo<M>::P) return (int)cudaErrorInvalidValue;                      \
+    if (P != ctt::ModelInfo<M>::P || cam_stride < P) return (int)cudaErrorInvalidValue;    \
     return (int)ctt::rigj::launch<M>(mode, loss, loss_scale, n, in, r, jf, js, jc, jx,     \
                                      partials, cost, stream);
   switch (model_id) {
-    CTT_K24(0)
-    CTT_K24(1)
-    CTT_K24(2)
-    CTT_K24(3)
-    CTT_K24(4)
+    CTT_FOR_EACH_MODEL(CTT_K24)
     default:
       return (int)cudaErrorInvalidValue;
   }

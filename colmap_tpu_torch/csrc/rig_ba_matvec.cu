@@ -4,7 +4,7 @@
 // Replaces colmap_tpu/estimators/bundle_adjustment_rig.py _schur_matvec
 // (l.255-278, once per _pcg iteration) and lm_step's back-substitution of dx
 // (l.364-370), on the three camera-side families (frames, sensors,
-// cameras). Two modes, like K3's; x is the (R, 8) camera-side vector:
+// cameras). Two modes, like K3's; x is the (R, W) camera-side vector:
 //   u = Jf x_f + Js x_s + Jc x_c per observation (one thread each), then per
 //   point (one thread walks its observations) w = sum JxT u and
 //   mode 0 (matvec)    y = Hpp^-1 w, z = u - Jx y written over u, then per
@@ -32,14 +32,15 @@ struct Ids {
   const int *f, *s, *c, *p;
 };
 
+template <int KW>
 __global__ void __launch_bounds__(kBlock)
 apply_kernel(long long O, int F, int G, int P, Jac J, Ids ids, const float* __restrict__ x,
              float* __restrict__ u) {
   const long long o = blockIdx.x * (long long)kBlock + threadIdx.x;
   if (o >= O) return;
-  const float* xf = x + (long long)kW * ids.f[o];
-  const float* xs = x + (long long)kW * (F + ids.s[o]);
-  const float* xc = x + (long long)kW * (F + G + ids.c[o]);
+  const float* xf = x + (long long)KW * ids.f[o];
+  const float* xs = x + (long long)KW * (F + ids.s[o]);
+  const float* xc = x + (long long)KW * (F + G + ids.c[o]);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float acc = 0.f;
@@ -88,37 +89,39 @@ point_kernel(int mode, int N, const float* __restrict__ jx, Layout L,
   }
 }
 
+template <int KW>
 __global__ void __launch_bounds__(kBlock)
 chunk_kernel(int F, int G, int P, Jac J, const float* __restrict__ z, Layout L,
              float* __restrict__ partials) {
-  __shared__ float scratch[kW * kBlock / 32];
+  __shared__ float scratch[KW * kBlock / 32];
   const int k = blockIdx.x;
   const int row = L.chunk_row[k];
-  float acc[kW];
+  float acc[KW];
 #pragma unroll
-  for (int j = 0; j < kW; ++j) acc[j] = 0.f;
+  for (int j = 0; j < KW; ++j) acc[j] = 0.f;
   for (int e = L.chunk_start[k] + threadIdx.x; e < L.chunk_end[k]; e += kBlock) {
     const long long o = L.seg_obs[e];
     int width;
     const float* B = row_block(J, row, F, G, P, o, width);
     const float z0 = z[2 * o], z1 = z[2 * o + 1];
 #pragma unroll
-    for (int j = 0; j < kW; ++j)
+    for (int j = 0; j < KW; ++j)
       if (j < width) acc[j] += B[j] * z0 + B[width + j] * z1;
   }
-  chunk_sum<kW>(acc, scratch, partials + (long long)kW * k);
+  chunk_sum<KW>(acc, scratch, partials + (long long)KW * k);
 }
 
+template <int KW>
 __global__ void finalize_kernel(int R, const int* __restrict__ row_chunks,
                                 const float* __restrict__ partials,
                                 const float* __restrict__ lam_d, const float* __restrict__ x,
                                 float* __restrict__ out) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
-  for (int j = 0; j < kW; ++j) {
+  for (int j = 0; j < KW; ++j) {
     float s = 0.f;
-    for (int k = row_chunks[row]; k < row_chunks[row + 1]; ++k) s += partials[(long long)kW * k + j];
-    const int i = row * kW + j;
+    for (int k = row_chunks[row]; k < row_chunks[row + 1]; ++k) s += partials[(long long)KW * k + j];
+    const int i = row * KW + j;
     out[i] = s + lam_d[i] * x[i];
   }
 }
@@ -126,10 +129,39 @@ __global__ void finalize_kernel(int R, const int* __restrict__ row_chunks,
 }  // namespace rigba
 }  // namespace ctt
 
-// mode 0: out (R, 8) = the reduced system's product with x (lam_diag read);
-// mode 1: out (N, 3) = dx (gx read). uz (O, 2) and partials (K, 8) are
-// scratch.
+// mode 0: out (R, W) = the reduced system's product with x (R, W; lam_diag
+// read); mode 1: out (N, 3) = dx (gx read). uz (O, 2) and partials (K, W)
+// are scratch. W is kW or kWideW.
+template <int KW>
+static int rig_ba_matvec_w(int mode, long long O, int N, int F, int G, int C, int P, int K,
+                           const ctt::rigba::Jac& J, const ctt::rigba::Ids& ids,
+                           const ctt::rigba::Layout& L, const float* hinv, const float* lam_diag,
+                           const float* gx, const float* x, float* uz, float* partials,
+                           float* out, cudaStream_t stream) {
+  using namespace ctt::rigba;
+  const int* row_chunks = L.row_chunks;
+  if (O > 0)
+    apply_kernel<KW><<<(unsigned)((O + kBlock - 1) / kBlock), kBlock, 0, stream>>>(O, F, G, P, J,
+                                                                                 ids, x, uz);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (N > 0)
+    point_kernel<<<(N + kBlock - 1) / kBlock, kBlock, 0, stream>>>(mode, N, J.jx, L, hinv, gx, uz,
+                                                                    out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || mode == 1) return (int)err;
+  if (K > 0) chunk_kernel<KW><<<K, kBlock, 0, stream>>>(F, G, P, J, uz, L, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int R = F + G + C;
+  if (R > 0)
+    finalize_kernel<KW><<<(R + 127) / 128, 128, 0, stream>>>(R, row_chunks, partials, lam_diag, x,
+                                                              out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rig_ba_matvec_f32(int mode, long long O, int N, int F, int G, int C, int P, int K,
+                                 int W,
                                  const float* jf, const float* js, const float* jc,
                                  const float* jx, const int* fids, const int* sids,
                                  const int* cids, const int* pids, const int* pt_offsets,
@@ -142,22 +174,11 @@ extern "C" int rig_ba_matvec_f32(int mode, long long O, int N, int F, int G, int
   const Layout L{pt_offsets, pt_obs, seg_obs, chunk_row, chunk_start, chunk_end, row_chunks};
   const Jac J{jf, js, jc, jx};
   const Ids ids{fids, sids, cids, pids};
-  if (O > 0)
-    apply_kernel<<<(unsigned)((O + kBlock - 1) / kBlock), kBlock, 0, stream>>>(O, F, G, P, J, ids,
-                                                                             x, uz);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0)
-    point_kernel<<<(N + kBlock - 1) / kBlock, kBlock, 0, stream>>>(mode, N, jx, L, hinv, gx, uz,
-                                                                    out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || mode == 1) return (int)err;
-  if (K > 0) chunk_kernel<<<K, kBlock, 0, stream>>>(F, G, P, J, uz, L, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int R = F + G + C;
-  if (R > 0)
-    finalize_kernel<<<(R + 127) / 128, 128, 0, stream>>>(R, row_chunks, partials, lam_diag, x,
-                                                          out);
-  return (int)cudaGetLastError();
+  if (W == kW)
+    return rig_ba_matvec_w<kW>(mode, O, N, F, G, C, P, K, J, ids, L, hinv, lam_diag, gx, x, uz,
+                               partials, out, stream);
+  if (W == kWideW)
+    return rig_ba_matvec_w<kWideW>(mode, O, N, F, G, C, P, K, J, ids, L, hinv, lam_diag, gx, x,
+                                   uz, partials, out, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -75,47 +75,49 @@ reduce_point_kernel(int N, float lam, const float* __restrict__ r, const float* 
   }
 }
 
+template <int KW>
 __global__ void __launch_bounds__(kBlock)
 reduce_chunk_kernel(int F, int G, int P, Jac J, const float* __restrict__ r,
                     const float* __restrict__ q, Layout L, float* __restrict__ partials) {
-  __shared__ float scratch[3 * kW * kBlock / 32];
+  __shared__ float scratch[3 * KW * kBlock / 32];
   const int k = blockIdx.x;
   const int row = L.chunk_row[k];
-  float acc[3 * kW];  // -sum JT r | -sum JT q | sum J^2
+  float acc[3 * KW];  // -sum JT r | -sum JT q | sum J^2
 #pragma unroll
-  for (int j = 0; j < 3 * kW; ++j) acc[j] = 0.f;
+  for (int j = 0; j < 3 * KW; ++j) acc[j] = 0.f;
   for (int e = L.chunk_start[k] + threadIdx.x; e < L.chunk_end[k]; e += kBlock) {
     const long long o = L.seg_obs[e];
     int width;
     const float* B = row_block(J, row, F, G, P, o, width);
     const float r0 = r[2 * o], r1 = r[2 * o + 1], q0 = q[2 * o], q1 = q[2 * o + 1];
 #pragma unroll
-    for (int j = 0; j < kW; ++j) {
+    for (int j = 0; j < KW; ++j) {
       if (j < width) {
         const float b0 = B[j], b1 = B[width + j];
         acc[j] -= b0 * r0 + b1 * r1;
-        acc[kW + j] -= b0 * q0 + b1 * q1;
-        acc[2 * kW + j] += b0 * b0 + b1 * b1;
+        acc[KW + j] -= b0 * q0 + b1 * q1;
+        acc[2 * KW + j] += b0 * b0 + b1 * b1;
       }
     }
   }
-  chunk_sum<3 * kW>(acc, scratch, partials + 3LL * kW * k);
+  chunk_sum<3 * KW>(acc, scratch, partials + 3LL * KW * k);
 }
 
+template <int KW>
 __global__ void reduce_finalize_kernel(int R, float lam, const int* __restrict__ row_chunks,
                                        const float* __restrict__ partials, float* __restrict__ g,
                                        float* __restrict__ b, float* __restrict__ d,
                                        float* __restrict__ lam_d, float* __restrict__ precond) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
-  for (int j = 0; j < kW; ++j) {
+  for (int j = 0; j < KW; ++j) {
     float sg = 0.f, sb = 0.f, sd = 0.f;
     for (int k = row_chunks[row]; k < row_chunks[row + 1]; ++k) {
-      sg += partials[3LL * kW * k + j];
-      sb += partials[3LL * kW * k + kW + j];
-      sd += partials[3LL * kW * k + 2 * kW + j];
+      sg += partials[3LL * KW * k + j];
+      sb += partials[3LL * KW * k + KW + j];
+      sd += partials[3LL * KW * k + 2 * KW + j];
     }
-    const int i = row * kW + j;
+    const int i = row * KW + j;
     const float ld = lam * sd;
     const float damped = sd + ld;
     g[i] = sg;
@@ -129,9 +131,10 @@ __global__ void reduce_finalize_kernel(int R, float lam, const int* __restrict__
 }  // namespace rigba
 }  // namespace ctt
 
-// Outputs in the order of colmap_tpu_torch.kernels.rig.RigReduction; q
-// (O, 2) and partials (K, 24) are scratch.
-extern "C" int rig_ba_reduce_f32(int N, int F, int G, int C, int P, int K, float lam,
+// Outputs in the order of colmap_tpu_torch.kernels.rig.RigReduction, the
+// camera-side ones (R, W); q (O, 2) and partials (K, 3W) are scratch. W is
+// kW or kWideW.
+extern "C" int rig_ba_reduce_f32(int N, int F, int G, int C, int P, int K, int W, float lam,
                                  const float* r, const float* jf, const float* js,
                                  const float* jc, const float* jx, const int* pt_offsets, const int* pt_obs, const int* seg_obs,
                                  const int* chunk_row, const int* chunk_start,
@@ -147,12 +150,24 @@ extern "C" int rig_ba_reduce_f32(int N, int F, int G, int C, int P, int K, float
                                                                            hinv, diag_x);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (K > 0) reduce_chunk_kernel<<<K, kBlock, 0, stream>>>(F, G, P, J, r, q, L, partials);
+  if (W != kW && W != kWideW) return (int)cudaErrorInvalidValue;
+  if (K > 0) {
+    if (W == kW)
+      reduce_chunk_kernel<kW><<<K, kBlock, 0, stream>>>(F, G, P, J, r, q, L, partials);
+    else
+      reduce_chunk_kernel<kWideW><<<K, kBlock, 0, stream>>>(F, G, P, J, r, q, L, partials);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int R = F + G + C;
-  if (R > 0)
-    reduce_finalize_kernel<<<(R + 127) / 128, 128, 0, stream>>>(R, lam, row_chunks, partials, g,
-                                                                b, diag, lam_diag, precond);
+  if (R > 0) {
+    const unsigned blocks = (unsigned)((R + 127) / 128);
+    if (W == kW)
+      reduce_finalize_kernel<kW><<<blocks, 128, 0, stream>>>(R, lam, row_chunks, partials, g, b,
+                                                             diag, lam_diag, precond);
+    else
+      reduce_finalize_kernel<kWideW><<<blocks, 128, 0, stream>>>(R, lam, row_chunks, partials, g,
+                                                                 b, diag, lam_diag, precond);
+  }
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,10 @@
 //
 // The camera side of a rig problem has R = F + G + C rows: frames (6
 // columns, rotation then translation), sensors (6) and cameras (P), kept in
-// (R, kW) arrays whose unused columns are 0. CSR lists built once per solve
+// (R, W) arrays whose unused columns are 0: W = kW (8) when P <= 8, else
+// kWideW (17: the 16 parameters of RAD_TAN_THIN_PRISM_FISHEYE plus the
+// model-position column of a problem that mixes models). The kernels take W
+// as a template parameter. CSR lists built once per solve
 // (colmap_tpu_torch/kernels/rig.py rig_layout) give each point's
 // observations and each row's observations cut into chunks; a block sums a
 // chunk in a fixed tree and one thread per row adds its chunks in order.
@@ -17,6 +20,7 @@ namespace ctt {
 namespace rigba {
 
 constexpr int kW = 8;
+constexpr int kWideW = 17;
 using gsfm::kBlock;
 
 struct Layout {

@@ -1,5 +1,9 @@
 // The three entries of a two-view LO-RANSAC over a block of pairs, written
-// once for a model family (K11 fundamental matrix, K12 homography):
+// once for a model family (K11 fundamental matrix, K12 homography on image
+// points; K33 homography on unit bearing rays). A Model gives kDim, the
+// floats of a row (2 for image points, 3 for rays), and kHartley, whether
+// its refit conditions the rows (image points) or takes them as they are
+// (unit rays need no conditioning):
 //
 //   propose_score: grid (ceil(K / warps), B); one warp per (pair, sample).
 //     Lane 0 gathers the minimal sample and solves it (Model::solve: up to
@@ -20,7 +24,7 @@
 //     on near-degenerate inlier sets.
 //   inliers: grid (ceil(N / 256), B), the inlier mask of one model per pair.
 //
-// A pair is a row of x1, x2 (B, N, 2) and mask (B, N); rows beyond a pair's
+// A pair is a row of x1, x2 (B, N, kDim) and mask (B, N); rows beyond a pair's
 // match count carry mask 0. max_sq is one float for all pairs or, when
 // max_sq_arr is not null, one per pair. Pairs whose ``active`` byte is 0
 // are skipped by propose_score (their outputs are not written). The
@@ -133,6 +137,22 @@ __device__ inline void nullspace9(float (*B)[R], float* ns) {
   }
 }
 
+// The residual of one row: (u1, v1, u2, v2) for image points, the two rays
+// for bearing rows.
+template <class Model>
+__device__ __forceinline__ float row_residual(const float* m, const float* a, const float* b) {
+  if constexpr (Model::kDim == 2)
+    return Model::residual(m, a[0], a[1], b[0], b[1]);
+  else
+    return Model::residual(m, a, b);
+}
+
+template <class Model>
+__device__ __forceinline__ void load_row(const float* x, long long i, float* out) {
+#pragma unroll
+  for (int d = 0; d < Model::kDim; ++d) out[d] = x[Model::kDim * i + d];
+}
+
 template <class Model, int WARPS>
 __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
                                               const float* __restrict__ max_sq_arr,
@@ -144,26 +164,23 @@ __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
                                               float* __restrict__ models_out,
                                               int* __restrict__ counts_out,
                                               unsigned long long* __restrict__ best) {
-  constexpr int S = Model::kSolutions, M = Model::kSample;
+  constexpr int S = Model::kSolutions, M = Model::kSample, D = Model::kDim;
   __shared__ float models[WARPS][S * 9];
   const int pair = blockIdx.y;
   if (active != nullptr && !active[pair]) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sample = blockIdx.x * WARPS + warp;
   if (sample >= k) return;  // whole warps leave together
-  x1 += (size_t)pair * n * 2;
-  x2 += (size_t)pair * n * 2;
+  x1 += (size_t)pair * n * D;
+  x2 += (size_t)pair * n * D;
   mask += (size_t)pair * n;
   if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
   if (lane == 0) {
-    float s1[2 * M], s2[2 * M];
+    float s1[D * M], s2[D * M];
     const int* rows = samples + ((size_t)pair * k + sample) * M;
     for (int r = 0; r < M; ++r) {
-      const int row = rows[r];
-      s1[2 * r] = x1[2 * row];
-      s1[2 * r + 1] = x1[2 * row + 1];
-      s2[2 * r] = x2[2 * row];
-      s2[2 * r + 1] = x2[2 * row + 1];
+      load_row<Model>(x1, rows[r], s1 + D * r);
+      load_row<Model>(x2, rows[r], s2 + D * r);
     }
     Model::solve(s1, s2, models[warp]);
   }
@@ -177,16 +194,15 @@ __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
   for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
     const bool ok = i < n && mask[i];
-    float u1 = 0.f, v1 = 0.f, u2 = 0.f, v2 = 0.f;
+    float a[D], b[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) a[d] = b[d] = 0.f;
     if (ok) {
-      u1 = x1[2 * i];
-      v1 = x1[2 * i + 1];
-      u2 = x2[2 * i];
-      v2 = x2[2 * i + 1];
+      load_row<Model>(x1, i, a);
+      load_row<Model>(x2, i, b);
     }
     for (int r = 0; r < S; ++r) {
-      const bool in =
-          ok && finite[r] && Model::residual(models[warp] + 9 * r, u1, v1, u2, v2) <= max_sq;
+      const bool in = ok && finite[r] && row_residual<Model>(models[warp] + 9 * r, a, b) <= max_sq;
       cnt[r] += __popc(__ballot_sync(kFull, in));
     }
   }
@@ -212,12 +228,13 @@ __global__ void two_view_refit_kernel(int n, float max_sq, const float* __restri
                                       const unsigned char* __restrict__ mask,
                                       const float* __restrict__ model_in,
                                       float* __restrict__ model_out, int* __restrict__ count_out) {
+  constexpr int D = Model::kDim;
   __shared__ float scratch[32 * 45];
   __shared__ float refined[9];
   __shared__ bool refined_ok;
   const int pair = blockIdx.x;
-  x1 += (size_t)pair * n * 2;
-  x2 += (size_t)pair * n * 2;
+  x1 += (size_t)pair * n * D;
+  x2 += (size_t)pair * n * D;
   mask += (size_t)pair * n;
   if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
   if (count_arr != nullptr) count_in = count_arr[pair];
@@ -226,39 +243,48 @@ __global__ void two_view_refit_kernel(int n, float max_sq, const float* __restri
   auto fit_row = [&](int i) {
     if (!mask[i]) return false;
     if (FIT_ONLY) return true;
-    return Model::residual(m, x1[2 * i], x1[2 * i + 1], x2[2 * i], x2[2 * i + 1]) <= max_sq;
+    return row_residual<Model>(m, x1 + D * i, x2 + D * i) <= max_sq;
   };
-  // Hartley normalization of both point sets over the rows to fit.
-  float c[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // W, sum x1, sum x2
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (!fit_row(i)) continue;
-    c[0] += 1.f;
-    c[1] += x1[2 * i];
-    c[2] += x1[2 * i + 1];
-    c[3] += x2[2 * i];
-    c[4] += x2[2 * i + 1];
-  }
-  block_sum<5>(c, scratch);
-  const float W = fmaxf(c[0], 1e-30f);
-  Hartley T1{1.f, c[1] / W, c[2] / W}, T2{1.f, c[3] / W, c[4] / W};
-  float d[2] = {0.f, 0.f};
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (!fit_row(i)) continue;
-    const float a = x1[2 * i] - T1.cx, b = x1[2 * i + 1] - T1.cy;
-    const float e = x2[2 * i] - T2.cx, f = x2[2 * i + 1] - T2.cy;
-    d[0] += sqrtf(a * a + b * b);
-    d[1] += sqrtf(e * e + f * f);
-  }
-  block_sum<2>(d, scratch);
-  T1.s = kSqrt2F / fmaxf(d[0] / W, 1e-30f);
-  T2.s = kSqrt2F / fmaxf(d[1] / W, 1e-30f);
+  Hartley T1{1.f, 0.f, 0.f}, T2{1.f, 0.f, 0.f};
   // The normal matrix over the rows to fit (upper triangle, 45 entries).
   float ata[45];
   for (int q = 0; q < 45; ++q) ata[q] = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (!fit_row(i)) continue;
-    Model::accumulate((x1[2 * i] - T1.cx) * T1.s, (x1[2 * i + 1] - T1.cy) * T1.s,
-                      (x2[2 * i] - T2.cx) * T2.s, (x2[2 * i + 1] - T2.cy) * T2.s, ata);
+  if constexpr (Model::kHartley) {
+    // Hartley normalization of both point sets over the rows to fit.
+    float c[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // W, sum x1, sum x2
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      if (!fit_row(i)) continue;
+      c[0] += 1.f;
+      c[1] += x1[2 * i];
+      c[2] += x1[2 * i + 1];
+      c[3] += x2[2 * i];
+      c[4] += x2[2 * i + 1];
+    }
+    block_sum<5>(c, scratch);
+    const float W = fmaxf(c[0], 1e-30f);
+    T1 = Hartley{1.f, c[1] / W, c[2] / W};
+    T2 = Hartley{1.f, c[3] / W, c[4] / W};
+    float d[2] = {0.f, 0.f};
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      if (!fit_row(i)) continue;
+      const float a = x1[2 * i] - T1.cx, b = x1[2 * i + 1] - T1.cy;
+      const float e = x2[2 * i] - T2.cx, f = x2[2 * i + 1] - T2.cy;
+      d[0] += sqrtf(a * a + b * b);
+      d[1] += sqrtf(e * e + f * f);
+    }
+    block_sum<2>(d, scratch);
+    T1.s = kSqrt2F / fmaxf(d[0] / W, 1e-30f);
+    T2.s = kSqrt2F / fmaxf(d[1] / W, 1e-30f);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      if (!fit_row(i)) continue;
+      Model::accumulate((x1[2 * i] - T1.cx) * T1.s, (x1[2 * i + 1] - T1.cy) * T1.s,
+                        (x2[2 * i] - T2.cx) * T2.s, (x2[2 * i + 1] - T2.cy) * T2.s, ata);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      if (!fit_row(i)) continue;
+      Model::accumulate(x1 + D * i, x2 + D * i, ata);
+    }
   }
   block_sum<45>(ata, scratch);
   if (threadIdx.x == 0) {
@@ -283,9 +309,7 @@ __global__ void two_view_refit_kernel(int n, float max_sq, const float* __restri
   float cnt[1] = {0.f};
   if (refined_ok)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      if (mask[i] &&
-          Model::residual(r, x1[2 * i], x1[2 * i + 1], x2[2 * i], x2[2 * i + 1]) <= max_sq)
-        cnt[0] += 1.f;
+      if (mask[i] && row_residual<Model>(r, x1 + D * i, x2 + D * i) <= max_sq) cnt[0] += 1.f;
   block_sum<1>(cnt, scratch);
   if (threadIdx.x == 0) {
     const int count_r = (int)cnt[0];
@@ -308,8 +332,8 @@ __global__ void two_view_inliers_kernel(int n, float max_sq, const float* __rest
   float m[9];
   for (int e = 0; e < 9; ++e) m[e] = model[pair * 9 + e];
   const size_t row = (size_t)pair * n + i;
-  inl[row] = mask[row] && Model::residual(m, x1[2 * row], x1[2 * row + 1], x2[2 * row],
-                                          x2[2 * row + 1]) <= max_sq;
+  inl[row] = mask[row] &&
+             row_residual<Model>(m, x1 + Model::kDim * row, x2 + Model::kDim * row) <= max_sq;
 }
 
 }  // namespace ctt

@@ -19,7 +19,8 @@ predicted decrease); colmap_tpu runs the same loop on the device.
 
 Problem layout (struct-of-arrays tensors; padding rows carry weight 0):
     frame poses:  quat (F, 4), t (F, 3)           cam_from_world
-    cameras:      cam_params (C, P)                one model id per problem
+    cameras:      cam_params (C, P)                one model id per problem, or
+                                                   rows (C, Pmax + 1) of mixed models
     points:       points (N, 3)
     observations: obs_frame/obs_cam/obs_point (O,) int32, obs_xy (O, 2), obs_w (O,)
 
@@ -27,7 +28,9 @@ Parameterization: rotation by a left-multiplied quaternion exponential,
 translation, masked camera parameters and points additive. Gauge and
 constant blocks via per-block masks (reference: BundleAdjustmentConfig).
 The residual model (make_residual_fn, quat_exp, the robust losses) is in
-``ba_residual.py``. Mixed camera models in one problem are not ported yet.
+``ba_residual.py``. A problem that mixes camera models has a tuple of
+model ids and colmap_tpu's padded rows with a trailing model-position column
+(sensor/models.py pack_mixed_params); K1 runs once per model present.
 """
 
 from __future__ import annotations
@@ -100,20 +103,26 @@ class PackedMaps(NamedTuple):
     cam_pm: torch.Tensor  # (N, capp) int32 camera id per slot (dummy -> 0)
 
 
-def _single_model(model_id) -> int:
-    if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "problems that mix camera models are not ported yet; "
-            "colmap_tpu handles them"
-        )
-    return int(model_id)
+def camera_mask(cam_params, model_id, options: BAOptions):
+    """(C, P) freedom of each camera row's parameters by its model; a mixed
+    problem's padding and model-position column stay constant."""
+    C, P = cam_params.shape
+    mask = torch.zeros(C, P, dtype=cam_params.dtype)
+    for row, m in enumerate(camera_models.row_models(model_id, cam_params)):
+        idxs = []
+        if options.refine_focal_length:
+            idxs += list(camera_models.focal_length_idxs(m))
+        if options.refine_principal_point:
+            idxs += list(camera_models.principal_point_idxs(m))
+        if options.refine_extra_params:
+            idxs += list(camera_models.extra_params_idxs(m))
+        mask[row, idxs] = 1.0
+    return mask.to(cam_params.device)
 
 
-def default_masks(problem: BAProblem, model_id: int, options: BAOptions,
+def default_masks(problem: BAProblem, model_id, options: BAOptions,
                   const_frames=None, const_points=None) -> BAMasks:
-    model_id = _single_model(model_id)
     F = problem.quat.shape[0]
-    C, P = problem.cam_params.shape
     N = problem.points.shape[0]
     like = dict(dtype=problem.points.dtype, device=problem.points.device)
     frame_mask = torch.ones(F, **like)
@@ -122,13 +131,7 @@ def default_masks(problem: BAProblem, model_id: int, options: BAOptions,
     if not options.refine_poses:
         frame_mask = torch.zeros(F, **like)
     frame_trans_mask = torch.ones(F, 3, **like) * frame_mask[:, None]
-    cam_mask = torch.zeros(C, P, **like)
-    if options.refine_focal_length:
-        cam_mask[:, list(camera_models.focal_length_idxs(model_id))] = 1.0
-    if options.refine_principal_point:
-        cam_mask[:, list(camera_models.principal_point_idxs(model_id))] = 1.0
-    if options.refine_extra_params:
-        cam_mask[:, list(camera_models.extra_params_idxs(model_id))] = 1.0
+    cam_mask = camera_mask(problem.cam_params, model_id, options)
     point_mask = torch.ones(N, **like) if options.refine_points else torch.zeros(N, **like)
     if const_points is not None:
         point_mask[torch.as_tensor(const_points, device=point_mask.device)] = 0.0
@@ -200,16 +203,16 @@ def pack_problem(problem: BAProblem, align: int = 2, capp: Optional[int] = None)
     return packed, maps, {"capf": capf, "capp": capp}
 
 
-def compute_cost(problem: BAProblem, model_id: int, options: BAOptions):
+def compute_cost(problem: BAProblem, model_id, options: BAOptions):
     """½ Σ ρ(‖r‖²)·w as a 0-d tensor (K1, cost mode)."""
     return _cost(problem, model_id, options, ba_kernels.KERNELS)
 
 
-def _cost(problem: BAProblem, model_id: int, options: BAOptions, kernels):
+def _cost(problem: BAProblem, model_id, options: BAOptions, kernels, groups=None):
     p = problem
     return kernels.obs_cost(p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam,
-                             p.obs_point, p.obs_xy, p.obs_w, _single_model(model_id),
-                             options.loss, options.loss_scale)
+                             p.obs_point, p.obs_xy, p.obs_w, model_id, options.loss,
+                             options.loss_scale, groups)
 
 
 # K1 reads each slot's point id, so the packed layout needs no separate path.
@@ -296,20 +299,21 @@ def _use_dense(problem: BAProblem, options: BAOptions) -> bool:
     )
 
 
-def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id: int,
+def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id,
                          options: BAOptions, obs_masks: _ObsMasks, lam: float,
                          nu: float, cost: float, kernels, use_dense: bool,
-                         block_jacobi: bool):
+                         block_jacobi: bool, groups):
     """One LM iteration in the point-major layout; ``cost`` is the cost at the
-    current state. Returns (problem, lam, nu, cost, new_cost, accepted,
-    out_cost) with Python scalars."""
+    current state; ``groups`` the slots of each model (model_groups).
+    Returns (problem, lam, nu, cost, new_cost, accepted, out_cost) with
+    Python scalars."""
     p = problem
     F = p.quat.shape[0]
     C = p.cam_params.shape[0]
     r, Jp, Jc, Jx = kernels.obs_jacobians(
         p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam, p.obs_point,
         p.obs_xy, p.obs_w, obs_masks.pose, obs_masks.cam, obs_masks.point,
-        model_id, options.loss, options.loss_scale,
+        model_id, options.loss, options.loss_scale, groups,
     )
     red = kernels.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, C, lam)
     lam_dp = lam * red.diag_pose
@@ -346,7 +350,7 @@ def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id: int,
     dx = kernels.back_substitute(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
                                   red.Hpp_inv, red.gx, dp, dc)
     new_problem = _apply_update(problem, dp, dc, dx)
-    new_cost = float(_cost(new_problem, model_id, options, kernels))
+    new_cost = float(_cost(new_problem, model_id, options, kernels, groups))
     pred = 0.5 * float(
         (dp * red.gp).sum() + (dc * red.gc).sum() + (dx * red.gx).sum()
         + lam * (
@@ -365,15 +369,15 @@ def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id: int,
     return problem, new_lam, nu * 2.0, cost, new_cost, False, cost
 
 
-def lm_step_packed(problem: BAProblem, maps: PackedMaps, model_id: int,
+def lm_step_packed(problem: BAProblem, maps: PackedMaps, model_id,
                    options: BAOptions, masks: BAMasks, lam: float, nu: float):
     """One LM iteration in the packed layout (same semantics as colmap_tpu's
     lm_step_packed). Returns (problem, lam, nu, cost, new_cost, accepted)."""
-    model_id = _single_model(model_id)
-    cost = float(compute_cost(problem, model_id, options))
+    groups = ba_kernels.model_groups(model_id, problem.cam_params, problem.obs_cam)
+    cost = float(_cost(problem, model_id, options, ba_kernels.KERNELS, groups))
     out = _lm_step_packed_impl(problem, maps, model_id, options, _obs_masks(masks, options),
                                lam, nu, cost, ba_kernels.KERNELS,
-                               _use_dense(problem, options), True)
+                               _use_dense(problem, options), True, groups)
     return out[:6]
 
 
@@ -382,15 +386,16 @@ def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
     """The LM loop of every solve. ``kernels`` is ``ba_kernels.KERNELS``;
     a check on the card passes ``ba_kernels.PLAIN`` to run the same solve
     through the plain versions."""
-    model_id = _single_model(model_id)
     obs_masks = _obs_masks(masks, options)
+    # The slots of each model of a mixed problem, once per solve.
+    groups = ba_kernels.model_groups(model_id, problem.cam_params, problem.obs_cam)
     lam, nu = float(options.initial_lambda), 2.0
-    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels))
+    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels, groups))
     it, done = 0, False
     while not done and it < options.max_iterations:
         problem, lam, nu, cost, new_cost, accepted, cur_cost = _lm_step_packed_impl(
             problem, maps, model_id, options, obs_masks, lam, nu, cur_cost,
-            kernels, use_dense, block_jacobi,
+            kernels, use_dense, block_jacobi, groups,
         )
         if verbose:
             print(f"  LM it {it}: cost {cost:.6e} -> {new_cost:.6e} "
@@ -405,7 +410,7 @@ def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
     return problem, cur_cost, it
 
 
-def lm_solve_fused_packed(problem: BAProblem, maps: PackedMaps, model_id: int,
+def lm_solve_fused_packed(problem: BAProblem, maps: PackedMaps, model_id,
                           options: BAOptions, masks: BAMasks):
     """Full packed LM solve. Returns (problem, final_cost, num_iterations).
 
@@ -420,7 +425,7 @@ def _unpack(problem: BAProblem, solved: BAProblem) -> BAProblem:
                             cam_params=solved.cam_params, points=solved.points)
 
 
-def solve_packed(problem: BAProblem, model_id: int,
+def solve_packed(problem: BAProblem, model_id,
                  options: Optional[BAOptions] = None,
                  masks: Optional[BAMasks] = None):
     """Pack + solve + unpack. Parameters keep their layout (only the
@@ -439,7 +444,7 @@ def solve_packed(problem: BAProblem, model_id: int,
     }
 
 
-def solve(problem: BAProblem, model_id: int, options: Optional[BAOptions] = None,
+def solve(problem: BAProblem, model_id, options: Optional[BAOptions] = None,
           masks: Optional[BAMasks] = None, verbose: bool = False):
     """Run LM to convergence with colmap_tpu's ``solve`` semantics: always
     PCG, with the scalar Jacobi preconditioner, whatever ``solver_type`` says.

@@ -14,8 +14,8 @@ Each LM step runs the rig kernels of ``colmap_tpu_torch.kernels.rig``:
     K26 rig_schur_matvec                   the reduced system in PCG;
         rig_back_substitute                the point update
 
-and plain torch for PCG's vector updates on the (F + G + C, 8) camera-side
-tensor, the quaternion update and the damping rule (the same rule,
+and plain torch for PCG's vector updates on the (F + G + C, W) camera-side
+tensor (kernels/rig.py row_width), the quaternion update and the damping rule (the same rule,
 acceptance test and stopping rule as colmap_tpu's lm_step and
 lm_solve_fused). The loop runs on the host and reads two scalars per
 iteration (the new cost and the predicted decrease).
@@ -23,7 +23,9 @@ iteration (the new cost and the predicted decrease).
 Problem layout:
     frames:       quat (F, 4), t (F, 3)                rig_from_world
     sensors:      sensor_quat (G, 4), sensor_t (G, 3)  sensor_from_rig
-    cameras:      cam_params (C, P)                    one model id per problem
+    cameras:      cam_params (C, P)                    one model id per problem, or
+                                                       mixed models' padded rows
+                                                       (as estimators/bundle_adjustment.py)
     points:       points (N, 3)
     observations: obs_frame/obs_sensor/obs_cam/obs_point (O,) int32,
                   obs_xy (O, 2), obs_w (O,)
@@ -36,9 +38,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from colmap_tpu_torch.estimators.ba_residual import quat_exp
-from colmap_tpu_torch.estimators.bundle_adjustment import BAOptions
+from colmap_tpu_torch.estimators.bundle_adjustment import BAOptions, camera_mask
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import rig as rig_kernels
+from colmap_tpu_torch.kernels.ba import model_groups
 from colmap_tpu_torch.sensor import models as camera_models
 
 
@@ -67,20 +70,11 @@ class RigBAMasks(NamedTuple):
     point_mask: torch.Tensor  # (N,)
 
 
-def _single_model(model_id) -> int:
-    if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "rig problems that mix camera models are not ported yet; colmap_tpu handles them")
-    return int(model_id)
-
-
-def default_masks(problem: RigBAProblem, model_id: int, options: BAOptions,
+def default_masks(problem: RigBAProblem, model_id, options: BAOptions,
                   ref_sensors=(0,), const_frames=None) -> RigBAMasks:
     """All frames, non-reference sensors and points free; the camera
     parameters the options name free (colmap_tpu's default_masks)."""
-    model_id = _single_model(model_id)
     F, G = problem.quat.shape[0], problem.sensor_quat.shape[0]
-    C, P = problem.cam_params.shape
     like = dict(dtype=problem.points.dtype, device=problem.points.device)
     frame_mask = torch.ones(F, **like)
     if const_frames is not None:
@@ -89,13 +83,7 @@ def default_masks(problem: RigBAProblem, model_id: int, options: BAOptions,
     sensor_mask = torch.ones(G, **like)
     for s in ref_sensors:
         sensor_mask[s] = 0.0
-    cam_mask = torch.zeros(C, P, **like)
-    if options.refine_focal_length:
-        cam_mask[:, list(camera_models.focal_length_idxs(model_id))] = 1.0
-    if options.refine_principal_point:
-        cam_mask[:, list(camera_models.principal_point_idxs(model_id))] = 1.0
-    if options.refine_extra_params:
-        cam_mask[:, list(camera_models.extra_params_idxs(model_id))] = 1.0
+    cam_mask = camera_mask(problem.cam_params, model_id, options)
     return RigBAMasks(frame_mask, frame_mask[:, None] * torch.ones(F, 3, **like), sensor_mask,
                       cam_mask, torch.ones(problem.points.shape[0], **like))
 
@@ -116,25 +104,29 @@ def _obs(problem: RigBAProblem) -> rig_kernels.RigObs:
                               p.obs_w)
 
 
-def _cost(problem: RigBAProblem, model_id: int, options: BAOptions, kernels):
+def _cost(problem: RigBAProblem, model_id, options: BAOptions, kernels, groups=None):
     p = problem
     return kernels.obs_cost(p.quat, p.t, p.sensor_quat, p.sensor_t, p.cam_params, p.points,
-                            _obs(p), model_id, options.loss, options.loss_scale)
+                            _obs(p), model_id, options.loss, options.loss_scale, groups)
 
 
-def compute_cost(problem: RigBAProblem, model_id: int, options: BAOptions):
+def compute_cost(problem: RigBAProblem, model_id, options: BAOptions):
     """½ Σ ρ(‖r‖²)·w as a 0-d tensor (K24, cost mode)."""
-    return _cost(problem, _single_model(model_id), options, rig_kernels.KERNELS)
+    return _cost(problem, model_id, options, rig_kernels.KERNELS)
 
 
-def compute_residuals(problem: RigBAProblem, model_id: int):
+def compute_residuals(problem: RigBAProblem, model_id):
     """Unweighted residuals (O, 2) of every observation."""
     p = problem
     f, s = p.obs_frame.long(), p.obs_sensor.long()
     X_rig = rot.quat_rotate(p.quat[f], p.points[p.obs_point.long()]) + p.t[f]
     Xc = rot.quat_rotate(p.sensor_quat[s], X_rig) + p.sensor_t[s]
-    proj, _ = camera_models.img_from_cam(_single_model(model_id), p.cam_params[p.obs_cam.long()],
-                                         Xc, check_cheirality=False)
+    rows = p.cam_params[p.obs_cam.long()]
+    if isinstance(model_id, tuple):
+        proj, _ = camera_models.img_from_cam_switch(model_id, torch.round(rows[:, -1]).long(),
+                                                    rows[:, :-1], Xc, check_cheirality=False)
+    else:
+        proj, _ = camera_models.img_from_cam(model_id, rows, Xc, check_cheirality=False)
     return proj - p.obs_xy
 
 
@@ -178,7 +170,7 @@ def _pcg(matvec, precond, b, iterations: int):
 
 
 def _apply_update(problem: RigBAProblem, x, dx) -> RigBAProblem:
-    """x: the (F + G + C, 8) camera-side step; dx: (N, 3)."""
+    """x: the (F + G + C, W) camera-side step; dx: (N, 3)."""
     F, G = problem.quat.shape[0], problem.sensor_quat.shape[0]
     P = problem.cam_params.shape[1]
     df, ds, dc = x[:F, :6], x[F:F + G, :6], x[F + G:, :P]
@@ -200,21 +192,23 @@ def _layout(problem: RigBAProblem) -> rig_kernels.RigLayout:
                                   p.points.shape[0], p.cam_params.shape[1])
 
 
-def _lm_step(problem: RigBAProblem, layout, model_id: int, options: BAOptions,
-             obs_masks: _ObsMasks, lam: float, nu: float, cost: float, kernels):
-    """One LM iteration; ``cost`` is the cost at the current state. Returns
+def _lm_step(problem: RigBAProblem, layout, model_id, options: BAOptions,
+             obs_masks: _ObsMasks, lam: float, nu: float, cost: float, kernels, groups):
+    """One LM iteration; ``cost`` is the cost at the current state;
+    ``groups`` the observations of each model (model_groups). Returns
     (problem, lam, nu, new_cost, accepted, out_cost) with Python scalars."""
     p = problem
     obs = _obs(p)
     jac = kernels.obs_jacobians(p.quat, p.t, p.sensor_quat, p.sensor_t, p.cam_params, p.points,
                                 obs, obs_masks.pose, obs_masks.sensor, obs_masks.cam,
-                                obs_masks.point, model_id, options.loss, options.loss_scale)
+                                obs_masks.point, model_id, options.loss, options.loss_scale,
+                                groups)
     red = kernels.lm_reduce(jac, obs, layout, lam)
     x = _pcg(lambda v: kernels.schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, v),
              red.precond, red.b, options.pcg_iterations)
     dx = kernels.back_substitute(jac, obs, layout, red.Hpp_inv, red.gx, x)
     new_problem = _apply_update(problem, x, dx)
-    new_cost = float(_cost(new_problem, model_id, options, kernels))
+    new_cost = float(_cost(new_problem, model_id, options, kernels, groups))
     pred = 0.5 * float(
         (x * red.g).sum() + (dx * red.gx).sum()
         + lam * ((red.diag * x * x).sum() + (red.diag_x * dx * dx).sum())
@@ -227,21 +221,22 @@ def _lm_step(problem: RigBAProblem, layout, model_id: int, options: BAOptions,
     return problem, min(lam * nu, options.max_lambda), nu * 2.0, new_cost, False, cost
 
 
-def _lm_loop(problem: RigBAProblem, model_id: int, options: BAOptions, masks: RigBAMasks,
+def _lm_loop(problem: RigBAProblem, model_id, options: BAOptions, masks: RigBAMasks,
              kernels=rig_kernels.KERNELS):
     """The LM loop of every rig solve (colmap_tpu's lm_solve_fused).
     ``kernels`` is ``rig_kernels.KERNELS``; a check on the card passes
     ``rig_kernels.PLAIN`` to run the same solve through the plain versions.
     Returns (problem, final cost, iterations)."""
-    model_id = _single_model(model_id)
     obs_masks = _obs_masks(masks, options)
     layout = _layout(problem)
+    # The observations of each model of a mixed problem, once per solve.
+    groups = model_groups(model_id, problem.cam_params, problem.obs_cam)
     lam, nu = float(options.initial_lambda), 2.0
-    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels))
+    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels, groups))
     it, done = 0, False
     while not done and it < options.max_iterations:
         problem, lam, nu, new_cost, accepted, cur_cost = _lm_step(
-            problem, layout, model_id, options, obs_masks, lam, nu, cur_cost, kernels)
+            problem, layout, model_id, options, obs_masks, lam, nu, cur_cost, kernels, groups)
         rel = abs(last_cost - new_cost) / max(new_cost, 1e-30)
         done = (accepted and rel < options.function_tolerance) or (
             not accepted and lam >= options.max_lambda)
@@ -251,7 +246,7 @@ def _lm_loop(problem: RigBAProblem, model_id: int, options: BAOptions, masks: Ri
     return problem, cur_cost, it
 
 
-def solve(problem: RigBAProblem, model_id: int, options: Optional[BAOptions] = None,
+def solve(problem: RigBAProblem, model_id, options: Optional[BAOptions] = None,
           masks: Optional[RigBAMasks] = None):
     """Run LM to convergence (colmap_tpu's ``solve``). Returns (problem,
     summary dict with initial_cost, final_cost, num_iterations)."""

@@ -16,6 +16,12 @@ derivative extrema and polished by bisection, then x(z), y(z) by least
 squares and a Newton-Schulz projection onto the essential manifold. These
 are the plain versions of the CUDA kernel K7 (csrc/essential_ransac.cu),
 batched over a leading sample dimension.
+
+The ray solvers of spherical (360-degree) pairs take unit bearing rays
+(..., N, 3) and no Hartley conditioning: ``essential_five_point_rays``
+(the same Nistér solve on the rows r2 ⊗ r1), ``essential_eight_point_rays``
+and ``homography_ray_dlt``, the plain versions of K32 and K33
+(csrc/spherical_e_ransac.cu, csrc/spherical_h_ransac.cu).
 """
 
 from __future__ import annotations
@@ -198,6 +204,42 @@ def essential_eight_point(x1, x2, weights=None):
     return U @ (S_proj[..., None] * Vt)
 
 
+def _ray_constraint_matrix(r1, r2):
+    """Rows r2_i ⊗ r1_i of the system r2ᵀ E r1 = 0 for bearing rays
+    (..., N, 3)."""
+    return (r2[..., :, None] * r1[..., None, :]).reshape(r1.shape[:-1] + (9,))
+
+
+def essential_eight_point_rays(r1, r2, weights=None):
+    """Weighted N-point essential matrix from bearing rays (..., N, 3),
+    projected to singular values (1, 1, 0); unit rays need no Hartley
+    conditioning (colmap_tpu's essential_eight_point_rays)."""
+    A = _ray_constraint_matrix(r1, r2)
+    if weights is not None:
+        A = A * weights[..., None]
+    f = _smallest_right_singular(A)
+    U, S, Vt = svd3x3(f.reshape(f.shape[:-1] + (3, 3)))
+    S_proj = torch.cat([torch.ones_like(S[..., :2]), torch.zeros_like(S[..., :1])], dim=-1)
+    return U @ (S_proj[..., None] * Vt)
+
+
+def homography_ray_dlt(r1, r2, weights=None):
+    """Ray-space homography r2 ~ H r1 of unit Frobenius norm from rays
+    (..., N, 3): each correspondence adds the three rows of [r2]ₓ H r1 = 0
+    (colmap_tpu's homography_ray_dlt)."""
+    x2, y2, z2 = r2[..., 0], r2[..., 1], r2[..., 2]
+    z = torch.zeros_like(z2)
+    cross = torch.stack([torch.stack([z, -z2, y2], dim=-1),
+                         torch.stack([z2, z, -x2], dim=-1),
+                         torch.stack([-y2, x2, z], dim=-1)], dim=-2)  # (..., N, 3, 3)
+    A = (cross[..., :, :, None] * r1[..., None, None, :]).reshape(
+        r1.shape[:-2] + (3 * r1.shape[-2], 9))
+    if weights is not None:
+        A = A * torch.repeat_interleave(weights, 3, dim=-1)[..., None]
+    h = _smallest_right_singular(A)
+    return _unit_frobenius(h.reshape(h.shape[:-1] + (3, 3)))
+
+
 def _polymul(a, b):
     """Full convolution of descending-power coefficient vectors (..., m), (..., n)."""
     m, n = a.shape[-1], b.shape[-1]
@@ -228,6 +270,13 @@ def essential_five_point(x1, x2):
     """Nistér 5-point essential matrices: x1, x2 (..., 5, 2) normalized
     coordinates. Returns (..., 10, 3, 3), NaN where a slot holds no root."""
     return _essential_five_point_from_constraints(_epipolar_constraint_matrix(x1, x2))
+
+
+def essential_five_point_rays(r1, r2):
+    """Nistér 5-point essential matrices from bearing rays (..., 5, 3):
+    only the constraint rows differ from ``essential_five_point``. Returns
+    (..., 10, 3, 3), NaN where a slot holds no root."""
+    return _essential_five_point_from_constraints(_ray_constraint_matrix(r1, r2))
 
 
 def _essential_five_point_from_constraints(A):

@@ -7,8 +7,9 @@ the inlier counts picks the configuration (CALIBRATED / UNCALIBRATED /
 PLANAR_OR_PANORAMIC / DEGENERATE, :57-118). Every model family is a
 hypothesis-batch LO-RANSAC (optim/ransac.py) whose batches, refits and
 inlier masks run in CUDA kernels: K7 (E, kernels/sfm.py), K11 (F) and K12
-(H, kernels/matching.py). ``_ransac_f``, ``_ransac_h`` and ``_ransac_e``
-verify one pair; the ``*_block`` forms verify a block of pairs in lockstep
+(H, kernels/matching.py). A pair with a spherical camera (EQUIRECTANGULAR)
+goes to estimators/spherical.py: E and H on bearing rays in K32 and K33.
+``_ransac_f``, ``_ransac_h`` and ``_ransac_e`` verify one pair; the ``*_block`` forms verify a block of pairs in lockstep
 (estimators/two_view_batch.py) and give each pair what the one-pair form
 gives it. The decision tree, watermark detection, pose recovery and focal
 recovery are host code.
@@ -43,16 +44,13 @@ from colmap_tpu_torch.optim.ransac import (
     ransac,
     ransac_block,
 )
+from colmap_tpu_torch.estimators.spherical import (  # noqa: F401 (is_spherical: this module's API)
+    estimate_spherical_two_view_geometry,
+    is_spherical,
+)
 from colmap_tpu_torch.scene.types import Camera, Pose, TwoViewGeometry, TwoViewGeometryConfig
 from colmap_tpu_torch.sensor import models as camera_models
 from colmap_tpu_torch.utils.dtypes import floatx, resolve_device
-
-
-
-def is_spherical(camera: Camera) -> bool:
-    """Spherical cameras have no image-space F or H; their ray-space
-    verification is not ported yet."""
-    return int(camera.model_id) == int(camera_models.CameraModelId.EQUIRECTANGULAR)
 
 
 @dataclasses.dataclass
@@ -285,8 +283,10 @@ def estimate_two_view_geometry(
         return estimate_multiple_two_view_geometries(camera1, points1, camera2, points2, matches,
                                                      sub, seed=seed, device=device)
     if is_spherical(camera1) or is_spherical(camera2):
-        raise NotImplementedError(
-            "two-view geometry of spherical cameras is not ported yet (ROADMAP queue 1)")
+        # No meaningful F or H in image space: bearing-ray E and H
+        # (EstimateSphericalTwoViewGeometry, two_view_geometry.cc:394-528).
+        return estimate_spherical_two_view_geometry(camera1, points1, camera2, points2, matches,
+                                                    options, seed=seed, device=device)
 
     g = TwoViewGeometry()
     n_matches = len(matches)

@@ -7,8 +7,8 @@ constraints; UndistortImage warps via inverse mapping: one cam_from_img
 output grid.
 
 Both camera maps go through the camera-map wrappers of kernels/sfm.py: on
-the card they launch K5 (models 0-4; the others raise there), on the CPU
-they run the port's sensor/models.py. The gather is torch ops on the
+the card they launch K5 (all 18 models), on the CPU they run the port's
+sensor/models.py. The gather is torch ops on the
 device the caller names; float64 on the CPU, float32 on the card.
 """
 

@@ -21,6 +21,16 @@ Layouts (point-major, as ``pack_problem`` builds them; Opm = N * capp):
     frame_pm / cam_pm (N, capp) int32 frame / camera id per slot.
 K1 also takes any observation layout: it reads the point id of each slot.
 
+Mixed camera models: ``model_id`` is then the sorted tuple of the models
+present and cam_params (C, Pmax + 1) holds rows padded to the widest model
+with a trailing model-position column (sensor/models.py
+pack_mixed_params). K1 runs once per model over that model's slots
+(``model_groups``, a CSR order by model) into one set of outputs, Jc
+(O, 2, Pmax + 1) with zeros in the columns a slot's model does not have;
+K2-K4 take P = Pmax + 1 as they take any P. The groups do not change
+during a solve: the solver builds them once and passes them as ``groups``
+(without it each call builds them: an argsort and a host read).
+
 Sum order: the kernels reduce frame and camera sums with atomics, so the
 order of those sums, and their last bits, vary from run to run.
 """
@@ -44,8 +54,8 @@ LAUNCHES = {
     "ba_dense_schur_assemble": 0,
 }
 
-# Camera models that csrc/camera_models.cuh implements.
-CUDA_MODELS = frozenset(range(5))
+# Camera models that csrc/camera_models.cuh implements: all 18.
+CUDA_MODELS = frozenset(range(18))
 LOSSES = {"trivial": 0, "huber": 1, "cauchy": 2}
 
 
@@ -90,17 +100,60 @@ def _residual_jacobians(quat, t, cam_params, points, fids, cids, pids, xy, model
     return r, Jp, Jc, Jx
 
 
+def model_groups(model_id, cam_params, obs_cam):
+    """[(model id, slots)]: one group of all slots (slots None) for one
+    model; for a tuple of models, each model present with the int32 ids of
+    its slots in order (a CSR order by the model-position column). A
+    solve builds them once and hands them to K1 and K24 as ``groups``."""
+    if not isinstance(model_id, tuple):
+        return [(int(model_id), None)]
+    pos = torch.round(cam_params[:, -1]).long()[obs_cam.long()]
+    order = torch.argsort(pos, stable=True).to(torch.int32)
+    counts = torch.bincount(pos, minlength=len(model_id)).tolist()
+    groups, start = [], 0
+    for m, c in zip(model_id, counts):
+        if c:
+            groups.append((int(m), order[start:start + c]))
+        start += c
+    return groups
+
+
+def _groups(groups, model_id, cam_params, obs_cam):
+    return model_groups(model_id, cam_params, obs_cam) if groups is None else groups
+
+
+def _row_width(model_id) -> int:
+    """Columns of a parameter row: P, or Pmax + 1 for a tuple of models."""
+    if isinstance(model_id, tuple):
+        return max(camera_models.model_num_params(m) for m in model_id) + 1
+    return camera_models.model_num_params(model_id)
+
+
 def obs_jacobians_plain(quat, t, cam_params, points, obs_frame, obs_cam, obs_point,
                         obs_xy, obs_w, pose_mask, cam_mask, point_mask,
-                        model_id: int, loss: str, loss_scale: float):
+                        model_id, loss: str, loss_scale: float, groups=None):
     """Weighted residuals and Jacobian blocks per observation (K1's function).
 
     jacfwd + vmap over the residual, as colmap_tpu's _obs_jacobians_packed;
     then the robust IRLS weight times obs_w, zeroing of non-finite rows,
     √w scaling and the variability masks (pose_mask (F, 6) rotation and
     translation columns, cam_mask (C, P), point_mask (N,)).
-    Returns r (O, 2), Jp (O, 2, 6), Jc (O, 2, P), Jx (O, 2, 3).
+    Returns r (O, 2), Jp (O, 2, 6), Jc (O, 2, P), Jx (O, 2, 3). A tuple of
+    models runs each model on its slots (``groups``, as model_groups
+    gives them), as K1 does.
     """
+    if isinstance(model_id, tuple):
+        O, W = obs_xy.shape[0], cam_params.shape[1]
+        z = obs_xy.new_zeros
+        r, Jp, Jc, Jx = z(O, 2), z(O, 2, 6), z(O, 2, W), z(O, 2, 3)
+        for m, slots in _groups(groups, model_id, cam_params, obs_cam):
+            P, s = camera_models.model_num_params(m), slots.long()
+            out = obs_jacobians_plain(quat, t, cam_params[:, :P], points, obs_frame[s],
+                                      obs_cam[s], obs_point[s], obs_xy[s], obs_w[s], pose_mask,
+                                      cam_mask[:, :P], point_mask, m, loss, loss_scale)
+            r[s], Jp[s], Jx[s] = out[0], out[1], out[3]
+            Jc[s, :, :P] = out[2]
+        return r, Jp, Jc, Jx
     r, Jp, Jc, Jx = _residual_jacobians(
         quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, model_id
     )
@@ -123,8 +176,16 @@ def obs_jacobians_plain(quat, t, cam_params, points, obs_frame, obs_cam, obs_poi
 
 
 def obs_cost_plain(quat, t, cam_params, points, obs_frame, obs_cam, obs_point,
-                   obs_xy, obs_w, model_id: int, loss: str, loss_scale: float):
+                   obs_xy, obs_w, model_id, loss: str, loss_scale: float, groups=None):
     """½ Σ ρ(‖r‖²)·w over all observations, non-finite terms dropped (K1 cost mode)."""
+    if isinstance(model_id, tuple):
+        total = obs_xy.new_zeros(())
+        for m, slots in _groups(groups, model_id, cam_params, obs_cam):
+            s = slots.long()
+            total = total + obs_cost_plain(
+                quat, t, cam_params[:, :camera_models.model_num_params(m)], points,
+                obs_frame[s], obs_cam[s], obs_point[s], obs_xy[s], obs_w[s], m, loss, loss_scale)
+        return total
     Xc = rot.quat_rotate(quat[obs_frame], points[obs_point]) + t[obs_frame]
     proj, _ = camera_models.img_from_cam(
         model_id, cam_params[obs_cam], Xc, check_cheirality=False
@@ -273,7 +334,7 @@ _F = ctypes.c_float
 # Argument types of the C entries: sizes, then tensor pointers in the order
 # the wrappers pass them, then (except K1) the SM count, then the stream.
 _SIGNATURES = {
-    "ba_obs_jacobians_f32": [_I, _I, _I, _F, _LL, _I] + [_P] * 17 + [_P],
+    "ba_obs_jacobians_f32": [_I, _I, _I, _F, _LL, _I, _I, _P] + [_P] * 17 + [_P],
     "ba_lm_reduce_f32": [_LL, _I, _I, _I, _I, _F] + [_P] * 17 + [_I, _P],
     "ba_schur_matvec_f32": [_I, _LL, _I, _I, _I, _I] + [_P] * 10 + [_I, _P],
     "ba_dense_schur_assemble_f32": [_LL, _I, _I, _I, _I] + [_P] * 8 + [_I, _P],
@@ -328,11 +389,9 @@ def _require_cuda(x):
 
 
 def _check_model(model_id):
-    if int(model_id) not in CUDA_MODELS:
-        raise NotImplementedError(
-            f"camera model {camera_models.MODEL_ID_TO_NAME[int(model_id)]} has no "
-            "CUDA projection yet (csrc/camera_models.cuh implements models 0-4)"
-        )
+    for m in model_id if isinstance(model_id, tuple) else (model_id,):
+        if int(m) not in CUDA_MODELS:
+            raise ValueError(f"no camera model with id {m}")
 
 
 def _k1_checks(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
@@ -351,19 +410,34 @@ def _k1_checks(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_x
         ("obs_w", obs_w, f32, (O,)),
     ):
         _check(name, x, dt, shape, dev)
-    if P != camera_models.model_num_params(model_id):
+    if P != _row_width(model_id):
         raise ValueError(f"cam_params has {P} columns for model {model_id}")
     return dev, F, C, P, N, O
 
 
+def _k1_launches(mode, quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, obs_w,
+                 masks, outs, cost, model_id, loss, loss_scale, groups):
+    """One K1 launch per model group; every launch writes its slots of the
+    shared outputs (or adds into ``cost``)."""
+    dev, W, O = points.device, cam_params.shape[1], obs_xy.shape[0]
+    for m, slots in _groups(groups, model_id, cam_params, obs_cam):
+        n = O if slots is None else slots.shape[0]
+        _call("ba_obs_jacobians_f32", m, mode, LOSSES[loss], float(loss_scale), n,
+              camera_models.model_num_params(m), W, _ptr(slots),
+              *map(_ptr, (quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
+                          obs_w, *masks, *outs, cost)),
+              _stream(dev))
+        LAUNCHES["ba_obs_jacobians"] += 1
+
+
 def obs_jacobians(quat, t, cam_params, points, obs_frame, obs_cam, obs_point,
                   obs_xy, obs_w, pose_mask, cam_mask, point_mask,
-                  model_id: int, loss: str, loss_scale: float):
+                  model_id, loss: str, loss_scale: float, groups=None):
     """K1, Jacobian mode. See obs_jacobians_plain for the function."""
     if points.device.type == "cpu":
         return obs_jacobians_plain(quat, t, cam_params, points, obs_frame, obs_cam,
                                    obs_point, obs_xy, obs_w, pose_mask, cam_mask,
-                                   point_mask, model_id, loss, loss_scale)
+                                   point_mask, model_id, loss, loss_scale, groups)
     dev, F, C, P, N, O = _k1_checks(quat, t, cam_params, points, obs_frame, obs_cam,
                                     obs_point, obs_xy, obs_w, model_id, loss)
     _check("pose_mask", pose_mask, torch.float32, (F, 6), dev)
@@ -373,29 +447,25 @@ def obs_jacobians(quat, t, cam_params, points, obs_frame, obs_cam, obs_point,
     Jp = torch.empty(O, 2, 6, dtype=torch.float32, device=dev)
     Jc = torch.empty(O, 2, P, dtype=torch.float32, device=dev)
     Jx = torch.empty(O, 2, 3, dtype=torch.float32, device=dev)
-    _call("ba_obs_jacobians_f32", int(model_id), 0, LOSSES[loss], float(loss_scale), O, P,
-          *map(_ptr, (quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
-                      obs_w, pose_mask, cam_mask, point_mask, r, Jp, Jc, Jx, None)),
-          _stream(dev))
-    LAUNCHES["ba_obs_jacobians"] += 1
+    _k1_launches(0, quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, obs_w,
+                 (pose_mask, cam_mask, point_mask), (r, Jp, Jc, Jx), None, model_id, loss,
+                 loss_scale, groups)
     return r, Jp, Jc, Jx
 
 
 def obs_cost(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
-             obs_w, model_id: int, loss: str, loss_scale: float):
+             obs_w, model_id, loss: str, loss_scale: float, groups=None):
     """K1, cost mode: ½ Σ ρ(‖r‖²)·w as a 0-d tensor. See obs_cost_plain."""
     if points.device.type == "cpu":
         return obs_cost_plain(quat, t, cam_params, points, obs_frame, obs_cam,
-                              obs_point, obs_xy, obs_w, model_id, loss, loss_scale)
+                              obs_point, obs_xy, obs_w, model_id, loss, loss_scale, groups)
     dev, F, C, P, N, O = _k1_checks(quat, t, cam_params, points, obs_frame, obs_cam,
                                     obs_point, obs_xy, obs_w, model_id, loss)
     # Block sums are added in float64; the cost comes back in float32.
     cost = torch.zeros((), dtype=torch.float64, device=dev)
-    _call("ba_obs_jacobians_f32", int(model_id), 1, LOSSES[loss], float(loss_scale), O, P,
-          *map(_ptr, (quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
-                      obs_w, None, None, None, None, None, None, None, cost)),
-          _stream(dev))
-    LAUNCHES["ba_obs_jacobians"] += 1
+    _k1_launches(1, quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, obs_w,
+                 (None, None, None), (None, None, None, None), cost, model_id, loss, loss_scale,
+                 groups)
     return cost.to(torch.float32)
 
 

@@ -23,8 +23,13 @@ takes.
 
 The camera side of a rig problem: R = F + G + C rows, frames (F, 6 columns:
 rotation then translation), sensors (G, 6) and cameras (C, P), kept in one
-(R, 8) tensor whose unused columns are 0 (P <= 8 for models 0-4). PCG runs
-on that one tensor. ``rig_layout`` builds the CSR lists the kernels sum over
+(R, W) tensor whose unused columns are 0: W = 8 when P <= 8, else 17 (the 16
+parameters of RAD_TAN_THIN_PRISM_FISHEYE, or a mixed problem's widest model
+and its model-position column; ``row_width``). PCG runs on that one tensor.
+A problem that mixes camera models runs K24 once per model over that
+model's observations, as K1 does (kernels/ba.py model_groups; the solver
+builds the groups once and passes them as ``groups``). ``rig_layout``
+builds the CSR lists the kernels sum over
 once per solve: each point's observations, and each camera-side row's
 observations cut into chunks of at most ``CHUNK`` entries; every sum is a
 gather in a fixed order and a fixed tree, never a float atomic, so two runs
@@ -42,7 +47,14 @@ import torch
 from colmap_tpu_torch.estimators.ba_residual import quat_exp, robust_cost, robust_weight
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import sfm as S
-from colmap_tpu_torch.kernels.ba import CUDA_MODELS, LOSSES, _segment_sum, inv3x3_spd
+from colmap_tpu_torch.kernels.ba import (
+    LOSSES,
+    _check_model,
+    _groups,
+    _row_width,
+    _segment_sum,
+    inv3x3_spd,
+)
 from colmap_tpu_torch.kernels.global_sfm import csr
 from colmap_tpu_torch.optim.ransac import pack_best
 from colmap_tpu_torch.sensor import models as camera_models
@@ -55,6 +67,7 @@ LAUNCHES = {
 }
 
 W = 8  # columns of a camera-side row: 6 for frames and sensors, P <= 8 for cameras
+WIDE_W = 17  # the camera-side row width when P > 8
 CHUNK = 1024  # camera-side entries one block of K25 / K26 sums
 GDLT_SAMPLE = 6
 
@@ -87,6 +100,11 @@ class RigLayout(NamedTuple):
     num_cams: int
     num_points: int
     num_params: int
+
+
+def row_width(P: int) -> int:
+    """Columns of the camera-side tensor for camera rows of P columns."""
+    return W if P <= W else WIDE_W
 
 
 def rig_layout(obs_frame, obs_sensor, obs_cam, obs_point, num_frames: int, num_sensors: int,
@@ -162,10 +180,22 @@ def rig_residual(dframe, dsensor, dcam, dX, fq, ft, sq, st, cam_params, X, xy, m
     return proj - xy
 
 
+def _subset(obs: RigObs, slots) -> RigObs:
+    s = slots.long()
+    return RigObs(*(x[s] for x in obs))
+
+
 def rig_obs_cost_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs,
-                       model_id: int, loss: str, loss_scale: float):
+                       model_id, loss: str, loss_scale: float, groups=None):
     """½ Σ ρ(‖r‖²)·w over all observations, non-finite terms dropped (K24
-    cost mode; colmap_tpu's compute_cost)."""
+    cost mode; colmap_tpu's compute_cost); a tuple of models by model."""
+    if isinstance(model_id, tuple):
+        total = obs.obs_xy.new_zeros(())
+        for m, slots in _groups(groups, model_id, cam_params, obs.obs_cam):
+            total = total + rig_obs_cost_plain(
+                quat, t, sensor_quat, sensor_t, cam_params[:, :camera_models.model_num_params(m)],
+                points, _subset(obs, slots), m, loss, loss_scale)
+        return total
     f, s = obs.obs_frame.long(), obs.obs_sensor.long()
     X_rig = rot.quat_rotate(quat[f], points[obs.obs_point.long()]) + t[f]
     Xc = rot.quat_rotate(sensor_quat[s], X_rig) + sensor_t[s]
@@ -178,13 +208,26 @@ def rig_obs_cost_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs: 
 
 
 def rig_obs_jacobians_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs,
-                            pose_mask, sensor_mask, cam_mask, point_mask, model_id: int,
-                            loss: str, loss_scale: float) -> RigJacobians:
+                            pose_mask, sensor_mask, cam_mask, point_mask, model_id,
+                            loss: str, loss_scale: float, groups=None) -> RigJacobians:
     """K24's function: jacfwd + vmap over ``rig_residual`` (colmap_tpu's
     _obs_jacobians), the robust IRLS weight times obs_w, zero rows where
     anything is not finite, √w scaling, then the masks of _apply_masks:
     pose_mask (F, 6) rotation and translation columns, sensor_mask (G,),
-    cam_mask (C, P), point_mask (N,)."""
+    cam_mask (C, P), point_mask (N,). A tuple of models runs each model on
+    its observations, Jc zero in the columns the model does not have."""
+    if isinstance(model_id, tuple):
+        O, Wc = obs.obs_xy.shape[0], cam_params.shape[1]
+        z = obs.obs_xy.new_zeros
+        out = RigJacobians(z(O, 2), z(O, 2, 6), z(O, 2, 6), z(O, 2, Wc), z(O, 2, 3))
+        for m, slots in _groups(groups, model_id, cam_params, obs.obs_cam):
+            P, s = camera_models.model_num_params(m), slots.long()
+            jac = rig_obs_jacobians_plain(quat, t, sensor_quat, sensor_t, cam_params[:, :P],
+                                          points, _subset(obs, slots), pose_mask, sensor_mask,
+                                          cam_mask[:, :P], point_mask, m, loss, loss_scale)
+            out.r[s], out.Jf[s], out.Js[s], out.Jx[s] = jac.r, jac.Jf, jac.Js, jac.Jx
+            out.Jc[s, :, :P] = jac.Jc
+        return out
     f, s = obs.obs_frame.long(), obs.obs_sensor.long()
     c, p = obs.obs_cam.long(), obs.obs_point.long()
     P = cam_params.shape[1]
@@ -219,10 +262,11 @@ def rig_obs_jacobians_plain(quat, t, sensor_quat, sensor_t, cam_params, points, 
 
 
 def _family_blocks(jac: RigJacobians):
-    """The three camera-side Jacobian blocks padded to W columns."""
-    pad = W - jac.Jc.shape[-1]
-    return (torch.nn.functional.pad(jac.Jf, (0, 2)), torch.nn.functional.pad(jac.Js, (0, 2)),
-            torch.nn.functional.pad(jac.Jc, (0, pad)))
+    """The three camera-side Jacobian blocks padded to the row width."""
+    P = jac.Jc.shape[-1]
+    w = row_width(P)
+    pad = torch.nn.functional.pad
+    return pad(jac.Jf, (0, w - 6)), pad(jac.Js, (0, w - 6)), pad(jac.Jc, (0, w - P))
 
 
 def _cam_side_sum(jac: RigJacobians, obs: RigObs, layout: RigLayout, v):
@@ -399,10 +443,10 @@ def gen_abs_inliers_plain(data: GenAbsData, model, max_sq):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _LAYOUT = [_P] * 7  # pt_offsets, pt_obs, seg_obs, chunk_row, chunk_start, chunk_end, row_chunks
 _SIGNATURES = {
-    "rig_ba_jacobians_f32": [_I, _I, _I, _F, _LL, _I] + [_P] * 23 + [_P],
-    "rig_ba_reduce_f32": [_I] * 6 + [_F] + [_P] * 5 + _LAYOUT + [_P] * 10 + [_P],
-    "rig_ba_matvec_f32": [_I, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 8 + _LAYOUT + [_P] * 7
-                         + [_P],
+    "rig_ba_jacobians_f32": [_I, _I, _I, _F, _LL, _I, _I, _P] + [_P] * 23 + [_P],
+    "rig_ba_reduce_f32": [_I] * 7 + [_F] + [_P] * 5 + _LAYOUT + [_P] * 10 + [_P],
+    "rig_ba_matvec_f32": [_I, _LL, _I, _I, _I, _I, _I, _I, _I] + [_P] * 8 + _LAYOUT
+                         + [_P] * 7 + [_P],
     "gen_abs_propose_score_f32": [_I, _I, _I, _F] + [_P] * 12 + [_P],
     "gen_abs_inliers_f32": [_I, _F] + [_P] * 8 + [_P],
 }
@@ -430,24 +474,14 @@ def _opt(x):
     return S._P(0) if x is None else S._ptr(x)
 
 
-def _check_model(model_id, P):
-    if isinstance(model_id, tuple):
-        raise NotImplementedError("rig problems that mix camera models are not ported yet; "
-                                  "colmap_tpu handles them")
-    if int(model_id) not in CUDA_MODELS:
-        raise NotImplementedError(
-            f"camera model {camera_models.MODEL_ID_TO_NAME[int(model_id)]} has no CUDA "
-            "projection yet (csrc/camera_models.cuh implements models 0-4)")
-    if P != camera_models.model_num_params(int(model_id)):
-        raise ValueError(f"cam_params has {P} columns for model {model_id}")
-
-
 def _k24_checks(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs, model_id, loss):
     dev = S._require_cuda(points)
     F, G = quat.shape[0], sensor_quat.shape[0]
     C, P = cam_params.shape
     N, O = points.shape[0], obs.obs_xy.shape[0]
-    _check_model(model_id, P)
+    _check_model(model_id)
+    if P != _row_width(model_id):
+        raise ValueError(f"cam_params has {P} columns for model {model_id}")
     if loss not in LOSSES:
         raise ValueError(loss)
     for name, x, dt, shape in (
@@ -467,14 +501,21 @@ def _k24_args(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs):
                               obs.obs_sensor, obs.obs_cam, obs.obs_point, obs.obs_xy, obs.obs_w)))
 
 
+def _k24_launch(mode, model, slots, n, cam_params, args, rest, loss, loss_scale, dev):
+    _call("rig_ba_jacobians_f32", model, mode, LOSSES[loss], float(loss_scale), n,
+          camera_models.model_num_params(model), cam_params.shape[1], _opt(slots), *args, *rest,
+          S._stream(dev))
+    LAUNCHES["rig_ba_jacobians"] += 1
+
+
 def rig_obs_jacobians(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs,
-                      pose_mask, sensor_mask, cam_mask, point_mask, model_id: int, loss: str,
-                      loss_scale: float) -> RigJacobians:
+                      pose_mask, sensor_mask, cam_mask, point_mask, model_id, loss: str,
+                      loss_scale: float, groups=None) -> RigJacobians:
     """K24, Jacobian mode. See rig_obs_jacobians_plain for the function."""
     if points.device.type == "cpu":
         return rig_obs_jacobians_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
                                        pose_mask, sensor_mask, cam_mask, point_mask, model_id,
-                                       loss, loss_scale)
+                                       loss, loss_scale, groups)
     dev, F, G, C, P, N, O = _k24_checks(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
                                         model_id, loss)
     for name, x, shape in (("pose_mask", pose_mask, (F, 6)), ("sensor_mask", sensor_mask, (G,)),
@@ -482,33 +523,40 @@ def rig_obs_jacobians(quat, t, sensor_quat, sensor_t, cam_params, points, obs: R
         S._check(name, x, f32, shape, dev)
     e = functools.partial(torch.empty, dtype=f32, device=dev)
     out = RigJacobians(e(O, 2), e(O, 2, 6), e(O, 2, 6), e(O, 2, P), e(O, 2, 3))
-    _call("rig_ba_jacobians_f32", int(model_id), 0, LOSSES[loss], float(loss_scale), O, P,
-          *_k24_args(quat, t, sensor_quat, sensor_t, cam_params, points, obs),
-          *map(S._ptr, (pose_mask, sensor_mask, cam_mask, point_mask, *out)), _P(0), _P(0),
-          S._stream(dev))
-    LAUNCHES["rig_ba_jacobians"] += 1
+    if O == 0:
+        return out
+    args = _k24_args(quat, t, sensor_quat, sensor_t, cam_params, points, obs)
+    rest = (*map(S._ptr, (pose_mask, sensor_mask, cam_mask, point_mask, *out)), _P(0), _P(0))
+    for m, slots in _groups(groups, model_id, cam_params, obs.obs_cam):
+        n = O if slots is None else slots.shape[0]
+        _k24_launch(0, m, slots, n, cam_params, args, rest, loss, loss_scale, dev)
     return out
 
 
 K24_COST_BLOCK = 256
 
 
-def rig_obs_cost(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs, model_id: int,
-                 loss: str, loss_scale: float):
+def rig_obs_cost(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs, model_id,
+                 loss: str, loss_scale: float, groups=None):
     """K24, cost mode: ½ Σ ρ(‖r‖²)·w as a 0-d float32 tensor, summed in
-    double by blocks in a fixed tree. See rig_obs_cost_plain."""
+    double by blocks in a fixed tree (and over the models of a mixed
+    problem in their order). See rig_obs_cost_plain."""
     if points.device.type == "cpu":
         return rig_obs_cost_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
-                                  model_id, loss, loss_scale)
+                                  model_id, loss, loss_scale, groups)
     dev, F, G, C, P, N, O = _k24_checks(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
                                         model_id, loss)
-    partials = torch.empty(max(1, -(-O // K24_COST_BLOCK)), dtype=f64, device=dev)
-    cost = torch.empty((), dtype=f64, device=dev)
-    _call("rig_ba_jacobians_f32", int(model_id), 1, LOSSES[loss], float(loss_scale), O, P,
-          *_k24_args(quat, t, sensor_quat, sensor_t, cam_params, points, obs),
-          *([_P(0)] * 9), S._ptr(partials), S._ptr(cost), S._stream(dev))
-    LAUNCHES["rig_ba_jacobians"] += 1
-    return cost.to(f32)
+    args = _k24_args(quat, t, sensor_quat, sensor_t, cam_params, points, obs)
+    costs = []
+    for m, slots in _groups(groups, model_id, cam_params, obs.obs_cam):
+        n = O if slots is None else slots.shape[0]
+        partials = torch.empty(max(1, -(-n // K24_COST_BLOCK)), dtype=f64, device=dev)
+        costs.append(torch.empty((), dtype=f64, device=dev))
+        _k24_launch(1, m, slots, n, cam_params, args,
+                    (*([_P(0)] * 9), S._ptr(partials), S._ptr(costs[-1])), loss, loss_scale, dev)
+    if not costs:
+        return torch.zeros((), dtype=f32, device=dev)
+    return sum(costs[1:], costs[0]).to(f32)
 
 
 def _layout_checks(layout: RigLayout, dev, O):
@@ -544,12 +592,12 @@ def rig_lm_reduce(jac: RigJacobians, obs: RigObs, layout: RigLayout, lam: float)
     if jac.Jx.device.type == "cpu":
         return rig_lm_reduce_plain(jac, obs, layout, lam)
     dev, O, P, K, R, lay, ids = _jac_checks(jac, obs, layout)
-    N = layout.num_points
+    N, w = layout.num_points, row_width(P)
     e = functools.partial(torch.empty, dtype=f32, device=dev)
-    out = RigReduction(g=e(R, W), b=e(R, W), diag=e(R, W), lam_diag=e(R, W), precond=e(R, W),
+    out = RigReduction(g=e(R, w), b=e(R, w), diag=e(R, w), lam_diag=e(R, w), precond=e(R, w),
                        gx=e(N, 3), Hpp_inv=e(N, 3, 3), diag_x=e(N, 3))
-    q, partials = e(O, 2), e(K, 3 * W)
-    _call("rig_ba_reduce_f32", N, layout.num_frames, layout.num_sensors, layout.num_cams, P, K,
+    q, partials = e(O, 2), e(K, 3 * w)
+    _call("rig_ba_reduce_f32", N, layout.num_frames, layout.num_sensors, layout.num_cams, P, K, w,
           float(lam), *map(S._ptr, (jac.r, jac.Jf, jac.Js, jac.Jc, jac.Jx)), *lay,
           *map(S._ptr, (q, partials, out.gx, out.Hpp_inv, out.diag_x, out.g, out.b, out.diag,
                         out.lam_diag, out.precond)), S._stream(dev))
@@ -559,20 +607,20 @@ def rig_lm_reduce(jac: RigJacobians, obs: RigObs, layout: RigLayout, lam: float)
 
 def _k26(mode, jac: RigJacobians, obs: RigObs, layout: RigLayout, Hpp_inv, lam_diag, gx, x):
     dev, O, P, K, R, lay, ids = _jac_checks(jac, obs, layout)
-    N = layout.num_points
+    N, w = layout.num_points, row_width(P)
     x = x.contiguous()
-    S._check("x", x, f32, (R, W), dev)
+    S._check("x", x, f32, (R, w), dev)
     S._check("Hpp_inv", Hpp_inv, f32, (N, 3, 3), dev)
     if mode == 0:
-        S._check("lam_diag", lam_diag, f32, (R, W), dev)
-        out = torch.empty(R, W, dtype=f32, device=dev)
+        S._check("lam_diag", lam_diag, f32, (R, w), dev)
+        out = torch.empty(R, w, dtype=f32, device=dev)
     else:
         S._check("gx", gx, f32, (N, 3), dev)
         out = torch.empty(N, 3, dtype=f32, device=dev)
     uz = torch.empty(O, 2, dtype=f32, device=dev)
-    partials = torch.empty(K, W, dtype=f32, device=dev)
+    partials = torch.empty(K, w, dtype=f32, device=dev)
     _call("rig_ba_matvec_f32", mode, O, N, layout.num_frames, layout.num_sensors,
-          layout.num_cams, P, K, *map(S._ptr, (jac.Jf, jac.Js, jac.Jc, jac.Jx)), *ids, *lay,
+          layout.num_cams, P, K, w, *map(S._ptr, (jac.Jf, jac.Js, jac.Jc, jac.Jx)), *ids, *lay,
           S._ptr(Hpp_inv), _opt(lam_diag), _opt(gx), S._ptr(x), S._ptr(uz), S._ptr(partials),
           S._ptr(out), S._stream(dev))
     LAUNCHES["rig_ba_matvec"] += 1

@@ -58,8 +58,8 @@ LAUNCHES = {
     "filter_points": 0,
 }
 
-# Camera models that csrc/camera_models.cuh implements.
-CUDA_MODELS = frozenset(range(5))
+# Camera models that csrc/camera_models.cuh implements: all 18.
+CUDA_MODELS = frozenset(range(18))
 P3P_SOLUTIONS = 4
 E_SOLUTIONS = 10
 TRACK_VIEWS = 8  # views per track row of K8 (the triangulator's MAX_V)
@@ -245,9 +245,11 @@ def triangulate_multi_view_tracks_plain(R, t, x, mask):
 
 
 def filter_points_plain(model_id, quat, t, cam_params, xyz, obs_xy, valid):
-    """K9: colmap_tpu's _filter_kernel for one camera model.
+    """K9: colmap_tpu's _filter_kernel.
 
-    quat/t (P, V, 4/3) cam_from_world per observation; cam_params (P, V, K);
+    quat/t (P, V, 4/3) cam_from_world per observation; cam_params (P, V, K),
+    or for a tuple of models the padded rows with their model-position
+    column (through img_from_cam_switch);
     xyz (P, 3); obs_xy (P, V, 2); valid (P, V). Returns (errors (P, V) px,
     inf where the projection is invalid and 0 on padding; depths (P, V);
     min_cos (P,), the smallest |cos| between the viewing rays of two valid
@@ -255,7 +257,11 @@ def filter_points_plain(model_id, quat, t, cam_params, xyz, obs_xy, valid):
     """
     Xc = rot.quat_rotate(quat, xyz[:, None, :]) + t
     depth = Xc[..., 2]
-    proj, ok = camera_models.img_from_cam(model_id, cam_params, Xc)
+    if isinstance(model_id, tuple):
+        proj, ok = camera_models.img_from_cam_switch(
+            model_id, torch.round(cam_params[..., -1]).long(), cam_params[..., :-1], Xc)
+    else:
+        proj, ok = camera_models.img_from_cam(model_id, cam_params, Xc)
     err = torch.linalg.vector_norm(proj - obs_xy, dim=-1)
     err = torch.where(ok & valid, err, torch.inf)
     err = torch.where(valid, err, 0.0)
@@ -290,7 +296,7 @@ _SIGNATURES = {
     "essential_refit_f32": [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
     "essential_inliers_f32": [_I, _I, _F] + [_P] * 6 + [_P],
     "triangulate_tracks_f32": [_I, _I, _F, _F] + [_P] * 7 + [_P],
-    "filter_points_f32": [_I, _I, _I, _I] + [_P] * 9 + [_P],
+    "filter_points_f32": [_I, _I, _I, _I, _I] + [_P] * 10 + [_P],
 }
 
 
@@ -338,11 +344,9 @@ def _require_cuda(x):
 
 
 def _check_model(model_id):
-    if int(model_id) not in CUDA_MODELS:
-        raise NotImplementedError(
-            f"camera model {camera_models.MODEL_ID_TO_NAME[int(model_id)]} has no "
-            "CUDA camera map yet (csrc/camera_models.cuh implements models 0-4)"
-        )
+    for m in model_id if isinstance(model_id, tuple) else (model_id,):
+        if int(m) not in CUDA_MODELS:
+            raise ValueError(f"no camera model with id {m}")
 
 
 f32, i32, u8 = torch.float32, torch.int32, torch.bool
@@ -351,7 +355,7 @@ f32, i32, u8 = torch.float32, torch.int32, torch.bool
 # K5 ------------------------------------------------------------------------
 
 
-def _camera_map(mode, model_id, params, pts, d_in):
+def _camera_map(mode, model_id, params, pts, d_in, d_out=2):
     dev = _require_cuda(pts)
     _check_model(model_id)
     n_par = camera_models.model_num_params(model_id)
@@ -366,38 +370,40 @@ def _camera_map(mode, model_id, params, pts, d_in):
         prm = torch.broadcast_to(params, batch + (n_par,)).reshape(-1, n_par).contiguous()
         _check("params", prm, f32, (n, n_par), dev)
     _check("points", flat, f32, (n, d_in), dev)
-    out = torch.empty(n, 2, dtype=f32, device=dev)
+    out = torch.empty(n, d_out, dtype=f32, device=dev)
     valid = torch.empty(n, dtype=u8, device=dev)
     if n:
         _call("camera_map_f32", int(model_id), mode, n, stride,
               *map(_ptr, (prm, flat, out, valid)), _stream(dev))
         LAUNCHES["camera_map"] += 1
-    return out.reshape(batch + (2,)), valid.reshape(batch)
+    return out.reshape(batch + (d_out,)), valid.reshape(batch)
 
 
 def img_from_cam(model_id, params, uvw):
     """K5 project mode: camera-frame points (..., 3) -> pixels (..., 2) and
-    the cheirality mask. params (P,) or (..., P) per row."""
+    img_from_cam's validity (the cheirality test and the model's own).
+    params (P,) or (..., P) per row."""
     if uvw.device.type == "cpu":
         return camera_models.img_from_cam(model_id, params, uvw)
     return _camera_map(0, model_id, params, uvw, 3)
 
 
 def cam_from_img(model_id, params, xy):
-    """K5 unproject mode: pixels (..., 2) -> the z = 1 plane (..., 2), with
-    _newton_undistort's 25 trust-region Newton steps for models with
-    distortion."""
+    """K5 unproject mode: pixels (..., 2) -> the z = 1 plane (..., 2) and
+    cam_from_img's validity: the closed forms where the model has one, else
+    _newton_undistort's 25 trust-region Newton steps."""
     if xy.device.type == "cpu":
         return camera_models.cam_from_img(model_id, params, xy)
     return _camera_map(1, model_id, params, xy, 2)
 
 
 def cam_ray_from_img(model_id, params, xy):
-    """Unit bearings (..., 3): K5 unproject, then normalization of (u, v, 1)."""
+    """K5 ray mode: pixels (..., 2) -> unit bearings (..., 3) and their
+    validity; EQUIRECTANGULAR's closed form, the normalized z = 1 lift for
+    the other models."""
     if xy.device.type == "cpu":
         return camera_models.cam_ray_from_img(model_id, params, xy)
-    uv, valid = cam_from_img(model_id, params, xy)
-    return camera_models.ray_from_plane(uv), valid
+    return _camera_map(2, model_id, params, xy, 2, 3)
 
 
 # K6 ------------------------------------------------------------------------
@@ -475,25 +481,26 @@ def _max_sq_args(max_sq, b, dev):
     return float(max_sq), None
 
 
-def _check_two_view(x1, x2, mask):
-    """Device, problem count and leading shape of one problem (N, 2) or a
-    block (B, N, 2)."""
+def _check_two_view(x1, x2, mask, dim=2):
+    """Device, problem count and leading shape of one problem (N, dim) or a
+    block (B, N, dim); dim is 2 for image points, 3 for bearing rays."""
     dev = _require_cuda(x1)
     lead = tuple(x1.shape[:-2])
     if len(lead) > 1:
-        raise ValueError(f"x1 has shape {tuple(x1.shape)}, expected (N, 2) or (B, N, 2)")
+        raise ValueError(f"x1 has shape {tuple(x1.shape)}, expected (N, {dim}) or (B, N, {dim})")
     n = x1.shape[-2]
-    _check("x1", x1, f32, lead + (n, 2), dev)
-    _check("x2", x2, f32, lead + (n, 2), dev)
+    _check("x1", x1, f32, lead + (n, dim), dev)
+    _check("x2", x2, f32, lead + (n, dim), dev)
     _check("mask", mask, u8, lead + (n,), dev)
     return dev, (lead[0] if lead else 1), lead, n
 
 
-def two_view_propose_score(call, name, m, solutions, x1, x2, mask, samples, max_sq, active):
+def two_view_propose_score(call, name, m, solutions, x1, x2, mask, samples, max_sq, active,
+                           dim=2):
     """Launch ``<name>_propose_score_f32``: samples (K, m) or (B, K, m) int32.
     Returns models (.., K * solutions, 3, 3), counts (.., K * solutions),
     packed best (B,) int64."""
-    dev, b, lead, n = _check_two_view(x1, x2, mask)
+    dev, b, lead, n = _check_two_view(x1, x2, mask, dim)
     k = samples.shape[-2]
     _check("samples", samples, i32, lead + (k, m), dev)
     if active is not None:
@@ -508,10 +515,10 @@ def two_view_propose_score(call, name, m, solutions, x1, x2, mask, samples, max_
     return models, counts, best
 
 
-def two_view_refit(call, name, x1, x2, mask, model, max_sq, count):
+def two_view_refit(call, name, x1, x2, mask, model, max_sq, count, dim=2):
     """Launch ``<name>_refit_f32``. One problem: count an int, returns
     (model, int); a block: count (B,) int32 on the device, returns tensors."""
-    dev, b, lead, n = _check_two_view(x1, x2, mask)
+    dev, b, lead, n = _check_two_view(x1, x2, mask, dim)
     model = model.contiguous()
     _check("model", model, f32, lead + (3, 3), dev)
     sq, sq_ptr = _max_sq_args(max_sq, b, dev)
@@ -527,9 +534,9 @@ def two_view_refit(call, name, x1, x2, mask, model, max_sq, count):
     return out, (out_count if lead else int(out_count.item()))
 
 
-def two_view_inliers(call, name, x1, x2, mask, model, max_sq):
+def two_view_inliers(call, name, x1, x2, mask, model, max_sq, dim=2):
     """Launch ``<name>_inliers_f32``: the inlier mask (.., N) of one model per problem."""
-    dev, b, lead, n = _check_two_view(x1, x2, mask)
+    dev, b, lead, n = _check_two_view(x1, x2, mask, dim)
     model = model.contiguous()
     _check("model", model, f32, lead + (3, 3), dev)
     sq, sq_ptr = _max_sq_args(max_sq, b, dev)
@@ -617,7 +624,12 @@ def filter_points(model_id, quat, t, cam_params, xyz, obs_xy, valid):
     dev = _require_cuda(xyz)
     _check_model(model_id)
     P, V = valid.shape
-    K = camera_models.model_num_params(model_id)
+    K = cam_params.shape[-1]
+    if isinstance(model_id, tuple):
+        if K != max(camera_models.model_num_params(m) for m in model_id) + 1:
+            raise ValueError(f"cam_params has {K} columns for models {model_id}")
+    elif K != camera_models.model_num_params(model_id):
+        raise ValueError(f"cam_params has {K} columns for model {model_id}")
     if V > FILTER_VIEWS:
         raise ValueError(f"K9 takes at most {FILTER_VIEWS} views per point, got {V}")
     for name, a, dt, shape in (("quat", quat, f32, (P, V, 4)), ("t", t, f32, (P, V, 3)),
@@ -628,9 +640,20 @@ def filter_points(model_id, quat, t, cam_params, xyz, obs_xy, valid):
     err = torch.empty(P, V, dtype=f32, device=dev)
     depth = torch.empty(P, V, dtype=f32, device=dev)
     min_cos = torch.empty(P, dtype=f32, device=dev)
-    if P:
-        _call("filter_points_f32", int(model_id), P, V, K,
-              *map(_ptr, (quat, t, cam_params, xyz, obs_xy, valid, err, depth, min_cos)),
-              _stream(dev))
-        LAUNCHES["filter_points"] += 1
+    if not P:
+        return err, depth, min_cos
+    if isinstance(model_id, tuple):
+        # One launch per model over the points with a slot of that model.
+        pos = torch.round(cam_params[..., -1]).long()
+        groups = [(int(m), k, (pos == k).any(1).nonzero()[:, 0].to(i32))
+                  for k, m in enumerate(model_id)]
+    else:
+        groups = [(int(model_id), -1, None)]
+    for m, k, pts in groups:
+        n = P if pts is None else pts.shape[0]
+        if n:
+            _call("filter_points_f32", m, n, V, K, k, _opt_ptr(pts),
+                  *map(_ptr, (quat, t, cam_params, xyz, obs_xy, valid, err, depth, min_cos)),
+                  _stream(dev))
+            LAUNCHES["filter_points"] += 1
     return err, depth, min_cos

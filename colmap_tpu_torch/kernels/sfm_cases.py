@@ -49,22 +49,60 @@ def _quat(R):
     return rot.rotmat_to_quat(torch.from_numpy(R)).numpy()
 
 
-def camera_params(model_id):
-    """Parameters of model ``model_id`` with distortion where it has some."""
-    p = camera_models.initialize_params(model_id, FOCAL, WIDTH, HEIGHT)
-    extra = {2: [0.05], 3: [0.05, -0.02], 4: [0.05, -0.02, 0.001, -0.002]}.get(int(model_id), [])
-    for i, v in zip(camera_models.extra_params_idxs(model_id), extra):
+# Extra parameters of each model in the cases: distortion of the size real
+# lenses have (an action camera's OPENCV_FISHEYE, a 90-degree FOV lens, an
+# EUCM fit of a 190-degree lens).
+EXTRA_PARAMS = {
+    2: [0.05], 3: [0.05, -0.02], 4: [0.05, -0.02, 0.001, -0.002],
+    5: [0.01, -0.005, 0.001, 0.0],
+    6: [0.05, -0.02, 0.001, -0.002, 0.003, 0.01, -0.005, 0.002],
+    7: [0.9],
+    8: [0.02], 9: [0.02, -0.005],
+    10: [0.01, -0.005, 0.001, -0.001, 0.0005, -0.0002, 0.0005, -0.0003],
+    11: [0.01, -0.005, 0.001, -0.0005, 0.0002, -0.0001, 0.001, -0.001, 0.0005, -0.0002,
+         0.0003, -0.0001],
+    12: [-0.05], 13: [-0.05],
+    16: [0.6, 1.1],
+}
+
+
+def camera_params(model_id, focal=FOCAL, width=WIDTH, height=HEIGHT):
+    """Parameters of model ``model_id`` with distortion where it has some
+    (EQUIRECTANGULAR: width and height)."""
+    p = camera_models.initialize_params(model_id, focal, width, height)
+    for i, v in zip(camera_models.extra_params_idxs(model_id), EXTRA_PARAMS.get(int(model_id), [])):
         p[i] = v
     return p
 
 
+# Models whose lenses see beyond 90 degrees off axis, with the focal length
+# that puts 92.5 degrees (a 185-degree lens) at the corners of the image.
+WIDE_MODELS = (5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+WIDE_FOCAL = 400.0
+
+
+def wide_grid_case(model_id, side, device):
+    """K5 over a whole image of a wide lens: params (P,) with
+    ``WIDE_FOCAL`` (OPENCV_FISHEYE at this focal reaches 92 degrees at the
+    corners), and a side x side grid of pixels (side², 2) from corner to
+    corner."""
+    u = np.linspace(0.5, WIDTH - 0.5, side)
+    v = np.linspace(0.5, HEIGHT - 0.5, side)
+    xy = np.stack(np.meshgrid(u, v, indexing="xy"), axis=-1).reshape(-1, 2)
+    return _t(camera_params(model_id, WIDE_FOCAL), device), _t(xy, device)
+
+
 def camera_map_case(model_id, n, seed, device):
     """K5: params (P,), camera-frame points uvw (n, 3) in front of the
-    camera, pixels xy (n, 2) inside the image."""
+    camera (for EQUIRECTANGULAR, the tenth of them behind it too, and one on
+    its vertical axis), pixels xy (n, 2) inside the image."""
     rng = np.random.default_rng(seed)
     uvw = np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.3, 0.3, n),
                     rng.uniform(0.5, 3.0, n)], axis=1)
     uvw[:, :2] *= uvw[:, 2:]
+    if int(model_id) == int(camera_models.CameraModelId.EQUIRECTANGULAR):
+        uvw[: n // 10, 2] *= -1.0
+        uvw[n // 10] = [0.0, -1.0, 0.0]
     xy = np.stack([rng.uniform(0, WIDTH, n), rng.uniform(0, HEIGHT, n)], axis=1)
     return _t(camera_params(model_id), device), _t(uvw, device), _t(xy, device)
 
@@ -155,27 +193,33 @@ def filter_case(p, seed, device, model_id=2, views=32):
         a = 2 * np.pi * i / 40
         cams.append(_look_at(np.array([5 * np.cos(a), 0.5 * np.sin(3 * a), 5 * np.sin(a)])))
     flip = np.diag([-1.0, 1.0, -1.0])
+    quats = [(_quat(R), _quat(flip @ R)) for R, _ in cams]
     quat = np.zeros((p, views, 4))
     quat[..., 0] = 1.0
     tvec = np.zeros((p, views, 3))
     prm = np.zeros((p, views, len(params)))
     prm[..., 0] = 1.0
     xyz = rng.uniform(-1, 1, (p, 3))
-    obs = np.zeros((p, views, 2))
+    Xc = np.zeros((p, views, 3))
+    noise = np.zeros((p, views, 2))
     valid = np.zeros((p, views), dtype=bool)
     for i in range(p):
         nv = int(rng.integers(2, views + 1))
         for v, c in enumerate(rng.choice(len(cams), nv, replace=False)):
             Rc, tc = cams[c]
-            if rng.random() < 0.02:
+            flipped = rng.random() < 0.02
+            if flipped:
                 Rc, tc = flip @ Rc, flip @ tc
-            xy, _ = camera_models.img_from_cam(model_id, torch.from_numpy(params),
-                                               torch.from_numpy(Rc @ xyz[i] + tc),
-                                               check_cheirality=False)
-            noise = 10.0 if rng.random() < 0.05 else 0.5
-            quat[i, v], tvec[i, v], prm[i, v] = _quat(Rc), tc, params
-            obs[i, v] = xy.numpy() + rng.normal(0, noise, 2)
+            sigma = 10.0 if rng.random() < 0.05 else 0.5
+            quat[i, v], tvec[i, v], prm[i, v] = quats[c][int(flipped)], tc, params
+            Xc[i, v] = Rc @ xyz[i] + tc
+            noise[i, v] = rng.normal(0, sigma, 2)
             valid[i, v] = True
+    # The observations: every valid slot's projection in one call, plus its noise.
+    xy, _ = camera_models.img_from_cam(model_id, torch.from_numpy(params),
+                                       torch.from_numpy(Xc[valid]), check_cheirality=False)
+    obs = np.zeros((p, views, 2))
+    obs[valid] = xy.numpy() + noise[valid]
     return dict(quat=_t(quat, device), t=_t(tvec, device), cam_params=_t(prm, device),
                 xyz=_t(xyz, device), obs_xy=_t(obs, device), valid=_t(valid, device, torch.bool))
 

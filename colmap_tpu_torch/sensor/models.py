@@ -9,6 +9,13 @@ Jacobian kernel differentiates it) and on any device.
     img_from_cam(model_id, params, uvw) -> (xy, valid)
     cam_from_img(model_id, params, xy) -> (uv, valid)   (z = 1 plane)
     cam_ray_from_img(model_id, params, xy) -> (ray, valid)   (unit bearing)
+    img_from_cam_switch(model_ids, idx, params, uvw) -> (xy, valid)   (mixed models)
+
+Problems that mix camera models (bundle adjustment, filtering) carry one
+parameter row per camera padded to the widest model plus a trailing
+model-position column, the camera's position in the sorted tuple of the
+models present, as colmap_tpu packs them (``pack_mixed_params``); the
+``model_id`` of such a problem is that tuple.
 
 These are the plain versions. The mapper reaches them through the camera
 map wrappers of ``colmap_tpu_torch/kernels/sfm.py``, which launch the CUDA
@@ -414,6 +421,63 @@ def _newton_undistort(dist_fn, extra, u0, v0, num_iterations=25):
         scale = torch.clamp(max_step / torch.clamp(step_norm, min=1e-30), max=1.0)
         u, v = u - dx0 * scale, v - dx1 * scale
     return u, v
+
+
+def img_from_cam_switch(model_ids: tuple, idx, params, uvw, check_cheirality=True):
+    """Mixed-model projection (colmap_tpu's img_from_cam_switch, a
+    lax.switch over the models present): each row through the model
+    ``model_ids[idx]`` with its first model_num_params columns of params.
+
+    Args:
+        model_ids: tuple of the distinct model ids present.
+        idx: int position into model_ids, or a tensor of positions (...,)
+            broadcast against the rows.
+        params: (..., Pmax) rows padded to the widest model (without the
+            model-position column).
+        uvw: (..., 3) camera-frame points.
+    Returns (xy (..., 2), valid (...,)).
+    """
+    if not torch.is_tensor(idx):
+        m = int(model_ids[int(idx)])
+        return img_from_cam(m, params[..., :model_num_params(m)], uvw, check_cheirality)
+    batch = torch.broadcast_shapes(idx.shape, params.shape[:-1], uvw.shape[:-1])
+    idx = idx.expand(batch)
+    params = params.expand(batch + params.shape[-1:])
+    uvw = uvw.expand(batch + (3,))
+    xy = uvw.new_zeros(batch + (2,))
+    valid = torch.zeros(batch, dtype=torch.bool, device=uvw.device)
+    for k, m in enumerate(model_ids):
+        sel = idx == k
+        if bool(sel.any()):
+            P = model_num_params(m)
+            xy[sel], valid[sel] = img_from_cam(int(m), params[sel][..., :P], uvw[sel],
+                                               check_cheirality)
+    return xy, valid
+
+
+def pack_mixed_params(cameras_params, camera_model_ids):
+    """colmap_tpu's packing of a problem's cameras: (model_id, rows). One
+    model: its id and the rows as they are; several: the sorted tuple of
+    the models present and rows (C, Pmax + 1) padded with zeros to the
+    widest model, the last column the camera's position in that tuple."""
+    ids = sorted({int(m) for m in camera_model_ids})
+    if len(ids) == 1:
+        return ids[0], np.stack([np.asarray(p, dtype=np.float64) for p in cameras_params])
+    pos = {m: k for k, m in enumerate(ids)}
+    p_max = max(model_num_params(m) for m in ids)
+    rows = np.zeros((len(cameras_params), p_max + 1))
+    for row, (params, m) in enumerate(zip(cameras_params, camera_model_ids)):
+        rows[row, : len(params)] = params
+        rows[row, -1] = pos[int(m)]
+    return tuple(ids), rows
+
+
+def row_models(model_id, cam_params):
+    """The model id of each row (C,) of cam_params, host ints."""
+    if not isinstance(model_id, tuple):
+        return [int(model_id)] * cam_params.shape[0]
+    pos = torch.round(cam_params[:, -1]).long().tolist()
+    return [int(model_id[k]) for k in pos]
 
 
 def cam_from_img(model_id, params, xy):

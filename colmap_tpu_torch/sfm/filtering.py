@@ -3,8 +3,10 @@
 Counterpart of colmap_tpu/sfm/filtering.py (reference behavior:
 src/colmap/sfm/observation_manager.h:50-200, FilterPoints3D: reprojection
 error, triangulation angle, negative depth). The per-observation math runs
-in one launch of the CUDA kernel K9 (kernels/sfm.py) over (point x view)
-arrays of up to 32 views per point.
+in the CUDA kernel K9 (kernels/sfm.py) over (point x view) arrays of up to
+32 views per point: one launch, or one per camera model when the cameras mix
+models (parameter rows padded to the widest model plus a model-position
+column, as colmap_tpu packs them).
 """
 
 from __future__ import annotations
@@ -39,13 +41,11 @@ def filter_points3D(
     point_ids = [p for p in point_ids if p in recon.points3D]
     if not point_ids:
         return 0
-    model_ids = sorted({int(c.model_id) for c in recon.cameras.values()})
-    if len(model_ids) != 1:
-        raise NotImplementedError(
-            f"the reconstruction mixes camera models {model_ids}; mixed models are not "
-            "ported yet (ROADMAP queue 1)")
-    model_id = model_ids[0]
-    n_params = camera_models.model_num_params(model_id)
+    cam_ids = sorted(recon.cameras)
+    model_id, rows = camera_models.pack_mixed_params(
+        [recon.cameras[c].params for c in cam_ids], [recon.cameras[c].model_id for c in cam_ids])
+    cam_row = {c: rows[i] for i, c in enumerate(cam_ids)}
+    n_params = rows.shape[1]
 
     P, V = len(point_ids), max_views
     quat = np.zeros((P, V, 4))
@@ -68,7 +68,7 @@ def filter_points3D(
                 pose = recon.cam_from_world(el.image_id)
                 pose_cache[el.image_id] = (pose.quat, pose.t)
             quat[i, v], tvec[i, v] = pose_cache[el.image_id]
-            params[i, v] = recon.cameras[img.camera_id].params
+            params[i, v] = cam_row[img.camera_id]
             obs_xy[i, v] = img.points2D_xy[el.point2D_idx]
             valid[i, v] = True
             refs.append(el)

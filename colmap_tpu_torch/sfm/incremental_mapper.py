@@ -16,8 +16,9 @@ LM solver over K1-K4 (kernels/); structure-less registration runs as torch
 ops (estimators/generalized_pose.py). Frames of several cameras register
 through the generalized absolute pose (K27) and, once the model holds one,
 every local and global BA is the rig BA over K24-K26
-(estimators/bundle_adjustment_rig.py). Mixed camera models are not ported
-yet (ROADMAP queue 1) and raise NotImplementedError.
+(estimators/bundle_adjustment_rig.py). Cameras of different models share a
+problem as colmap_tpu packs them (estimators/ba_setup.py): the BA kernels
+run once per model present.
 """
 
 from __future__ import annotations

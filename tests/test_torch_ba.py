@@ -395,12 +395,20 @@ def test_mixed_camera_models_raise(tmp_path):
                                   camera_model_ids=(0, 2),
                                   camera_params_list=((1000.0, 512.0, 384.0),
                                                       (1000.0, 512.0, 384.0, 0.01)))
-    jio.write_model(synthesize_dataset(opt), str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="mixed"):
-        problem_from_reconstruction(tio.read_model(str(tmp_path / "m")), device="cpu")
-    _, _, tpk, _ = _problem(0, seed=1)
-    with pytest.raises(NotImplementedError, match="mix camera models"):
-        tba.default_masks(tpk, (0, 2), tba.BAOptions())
+    # Mixed models no longer raise: the port packs them as colmap_tpu does
+    # (the tuple of models, rows padded to the widest model plus the model
+    # position), and the masks keep the padding and that column constant.
+    recon = synthesize_dataset(opt)
+    jio.write_model(recon, str(tmp_path / "m"))
+    from colmap_tpu.estimators.ba_setup import problem_from_reconstruction as jproblem
+
+    jp, jindex = jproblem(recon, bucket=False)
+    tp, tindex = problem_from_reconstruction(tio.read_model(str(tmp_path / "m")), device="cpu")
+    assert tindex["model_id"] == jindex["model_id"] == (0, 2)
+    np.testing.assert_array_equal(tp.cam_params.numpy(), _np(jp.cam_params))
+    masks = tba.default_masks(tp, tindex["model_id"], tba.BAOptions())
+    np.testing.assert_array_equal(masks.cam_mask.numpy(), _np(jba.default_masks(
+        jp, jindex["model_id"], jba.BAOptions()).cam_mask))
 
 
 def test_convert_round_trip():

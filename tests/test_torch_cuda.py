@@ -28,7 +28,11 @@ K25 and K26 (float32 sums in a fixed order, the same in every run) to 1e-4,
 K27 counts each model's inliers within its rows near the threshold and
 picks the float64 version's best sample or a near-tie. The retrieval kernels
 K28-K31 run on colmap_tpu_torch/kernels/retrieval_cases.py (their tolerances
-are stated above their tests).
+are stated above their tests). Camera models 5-17 run through K5 (three
+modes, and a 185-degree lens's whole image), K1 and K9, a problem that mixes
+models through K1, K9 and K24 once per model, and the spherical RANSACs K32
+and K33 on colmap_tpu_torch/kernels/spherical_cases.py (tolerances stated
+above their tests).
 """
 
 import numpy as np
@@ -166,12 +170,166 @@ def test_camera_map_matches_plain_on_cuda(model_id):
 
 
 def test_camera_map_raises_for_models_without_cuda():
+    """Every model 0-17 has a CUDA camera map; an id outside them raises."""
     _need_card()
     from colmap_tpu_torch.kernels import sfm as K
 
     xy = torch.zeros(4, 2, device="cuda")
-    with pytest.raises(NotImplementedError):
-        K.cam_from_img(5, torch.ones(8, device="cuda"), xy)
+    assert K.CUDA_MODELS == frozenset(range(18))
+    with pytest.raises(ValueError):
+        K.cam_from_img(18, torch.ones(8, device="cuda"), xy)
+
+
+def _rows_close(got, ref, tol, name):
+    """Per row: max |got - ref| <= tol * max(|ref| of the row, 1)."""
+    err = (got.double() - ref.double()).abs().amax(-1)
+    scale = torch.clamp(ref.double().abs().amax(-1), min=1.0)
+    worst = float((err / scale).max()) if err.numel() else 0.0
+    assert worst <= tol, f"{name}: {worst:.3e} > {tol:g}"
+
+
+@pytest.mark.parametrize("model_id", range(5, 18))
+def test_camera_maps_of_models_5_17_match_plain_on_cuda(model_id):
+    """K5's three modes for models 5-17 against the float64 plain versions:
+    project 1e-5, unproject and ray 1e-4 of each row's scale (25 float32
+    Newton steps), validity equal; over a 185-degree lens's whole image
+    (sfm_cases.wide_grid_case) the same validity, rays within 1e-4 and z = 1
+    points within 1e-4 of their row where the float64 ray lies more than 1
+    degree from 90 degrees off axis (the lift diverges there)."""
+    _need_card()
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.sensor import models as M
+
+    p, uvw, xy = C.camera_map_case(model_id, 300, model_id, "cuda")
+    got, ok = K.img_from_cam(model_id, p, uvw)
+    ref, ok_ref = M.img_from_cam(model_id, p.double(), uvw.double())
+    assert torch.equal(ok, ok_ref)
+    _rows_close(got[ok_ref], ref[ok_ref], 1e-5, "K5 project")
+    grids = [(p, xy)]
+    if model_id in C.WIDE_MODELS:
+        grids.append(C.wide_grid_case(model_id, 61, "cuda"))
+    for prm, pix in grids:
+        ray, ok_r = K.cam_ray_from_img(model_id, prm, pix)
+        ray_ref, ok_rr = M.cam_ray_from_img(model_id, prm.double(), pix.double())
+        assert torch.equal(ok_r, ok_rr)
+        away = (ray_ref[:, 2].abs() > np.sin(np.deg2rad(1.0))) & ok_rr
+        _rows_close(ray[away], ray_ref[away], 1e-4, "K5 ray")
+        uv, ok_u = K.cam_from_img(model_id, prm, pix)
+        uv_ref, ok_ur = M.cam_from_img(model_id, prm.double(), pix.double())
+        assert torch.equal(ok_u, ok_ur)
+        _rows_close(uv[away], uv_ref[away], 1e-4, "K5 unproject")
+        rows, _ = K.cam_from_img(model_id, prm.expand(pix.shape[0], -1).contiguous(), pix)
+        assert torch.equal(rows, uv)
+
+
+@pytest.mark.parametrize("model_id", range(5, 18))
+def test_obs_jacobians_of_models_5_17_match_plain_on_cuda(model_id):
+    """K1 for models 5-17 (Dual<3 + P>, up to 19 directions) against its
+    float64 plain version on a 20 x 2000 problem with the cases' distortion:
+    r, Jp, Jc, Jx to 1e-4 of each block's scale (float32 through up to 12
+    distortion terms), the cost to 1e-5; K9 on its case to 1e-4 (errors in
+    front of the camera: behind it the filter deletes an observation by its
+    depth, and the division models, without a cheirality test, project such
+    points 1e5-1e6 px off, where a float32 residual keeps ~0.1 px)."""
+    _need_card()
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import sfm as KS
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    p, _, _ = synthetic_ba_problem(20, 2000, 6, model_id=model_id, seed=1, device="cuda")
+    p = p._replace(cam_params=torch.as_tensor(C.camera_params(model_id), dtype=torch.float32,
+                                              device="cuda")[None].contiguous())
+    opts = ba.BAOptions(loss="cauchy", loss_scale=2.0)
+    om = ba._obs_masks(ba.default_masks(p, model_id, opts), opts)
+    args = (p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam, p.obs_point, p.obs_xy,
+            p.obs_w)
+    J = K.obs_jacobians(*args, *om, model_id, opts.loss, opts.loss_scale)
+    ref = K.obs_jacobians_plain(*_f64(*args), *_f64(*om), model_id, opts.loss, opts.loss_scale)
+    for name, a, b in zip(("r", "Jp", "Jc", "Jx"), J, ref):
+        _close(a, b, 1e-4, f"K1 {name}")
+    _close(K.obs_cost(*args, model_id, opts.loss, opts.loss_scale),
+           K.obs_cost_plain(*_f64(*args), model_id, opts.loss, opts.loss_scale), 1e-5, "K1 cost")
+    c = C.filter_case(200, 1, "cuda", model_id=model_id)
+    d = C.as_double(c)
+    keys = ("quat", "t", "cam_params", "xyz", "obs_xy", "valid")
+    err, depth, mc = KS.filter_points(model_id, *(c[k] for k in keys))
+    err_p, depth_p, mc_p = KS.filter_points_plain(model_id, *(d[k] for k in keys))
+    fin = torch.isfinite(err_p)
+    assert torch.equal(torch.isfinite(err), fin)
+    front = fin & (depth_p > 0)
+    _close(err[front], err_p[front], 1e-4, "K9 errors")
+    _close(depth, depth_p, 1e-4, "K9 depths")
+
+
+def test_mixed_models_match_plain_on_cuda():
+    """A problem of SIMPLE_RADIAL and OPENCV_FISHEYE cameras (rows padded to
+    9 columns): K1 launched once per model against the float64 plain path
+    (1e-5; Jc's padded columns exactly 0), a solve through the kernels
+    against the plain one (1e-3), K9 per model (1e-4), and K24 per model on a
+    mixed rig problem (1e-4)."""
+    _need_card()
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.kernels import sfm as KS
+    from colmap_tpu_torch.kernels import sfm_cases as C
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+    from colmap_tpu_torch.sensor import models as M
+
+    mixed = (2, 5)
+    _, rows = M.pack_mixed_params([C.camera_params(2), C.camera_params(5)], [2, 5])
+    p, _, _ = synthetic_ba_problem(20, 2000, 6, seed=2, device="cuda")
+    cams = torch.as_tensor(rows, dtype=torch.float32, device="cuda")
+    p = p._replace(cam_params=cams, obs_cam=(p.obs_frame % 2).to(torch.int32))
+    opts = ba.BAOptions(max_iterations=3, pcg_iterations=10)
+    masks = ba.fix_gauge_two_frames(ba.default_masks(p, mixed, opts), 0, 1)
+    pk, maps, _ = ba.pack_problem(p)
+    om = ba._obs_masks(masks, opts)
+    args = (pk.quat, pk.t, pk.cam_params, pk.points, pk.obs_frame, pk.obs_cam, pk.obs_point,
+            pk.obs_xy, pk.obs_w)
+    K.reset_launches()
+    J = K.obs_jacobians(*args, *om, mixed, "trivial", 1.0)
+    assert K.LAUNCHES["ba_obs_jacobians"] == 2
+    ref = K.obs_jacobians_plain(*_f64(*args), *_f64(*om), mixed, "trivial", 1.0)
+    for name, a, b in zip(("r", "Jp", "Jc", "Jx"), J, ref):
+        _close(a, b, 1e-5, f"mixed K1 {name}")
+    simple = (pk.cam_params[pk.obs_cam.long(), -1] == 0)
+    assert bool((J[2][simple][:, :, 4:] == 0).all()) and bool((J[2][..., -1] == 0).all())
+    _, cost, _ = ba.lm_solve_fused_packed(pk, maps, mixed, opts, masks)
+    _, cost_plain, _ = ba._lm_loop(pk, maps, mixed, opts, masks, ba._use_dense(pk, opts), True,
+                                   kernels=K.PLAIN)
+    assert abs(cost - cost_plain) <= 1e-3 * cost_plain
+    c = C.filter_case(200, 1, "cuda", model_id=2)
+    pick = torch.as_tensor(np.random.default_rng(3).integers(0, 2, tuple(c["valid"].shape)),
+                           device="cuda")
+    c["cam_params"] = cams[pick].contiguous()
+    d = C.as_double(c)
+    keys = ("quat", "t", "cam_params", "xyz", "obs_xy", "valid")
+    err, depth, mc = KS.filter_points(mixed, *(c[k] for k in keys))
+    err_p, depth_p, mc_p = KS.filter_points_plain(mixed, *(d[k] for k in keys))
+    fin = torch.isfinite(err_p)
+    assert torch.equal(torch.isfinite(err), fin)
+    _close(err[fin], err_p[fin], 1e-4, "mixed K9 errors")
+    _close(depth, depth_p, 1e-4, "mixed K9 depths")
+    _close(mc, mc_p, 1e-4, "mixed K9 min |cos|")
+    rp, _, _ = RC.rig_ba_problem(6, 2, 400, 4, seed=4, device="cuda")
+    rp = rp._replace(cam_params=cams.clone())
+    rmasks = rba.fix_gauge_two_frames(rba.default_masks(rp, mixed, opts), 0, 1)
+    rom = rba._obs_masks(rmasks, opts)
+    jac = KR.rig_obs_jacobians(*rp[:6], rba._obs(rp), *rom, mixed, "trivial", 1.0)
+    p64 = type(rp)(*_f64(*rp))
+    jref = KR.rig_obs_jacobians_plain(*p64[:6], rba._obs(p64), *_f64(*rom), mixed, "trivial",
+                                      1.0)
+    for name, a, b in zip(KR.RigJacobians._fields, jac, jref):
+        _close(a, b, 1e-4, f"mixed K24 {name}")
+    _, rcost, _ = rba._lm_loop(rp, mixed, opts, rmasks)
+    _, rcost_p, _ = rba._lm_loop(rp, mixed, opts, rmasks, kernels=KR.PLAIN)
+    assert abs(rcost - rcost_p) <= 1e-3 * rcost_p
 
 
 def _counts_match(counts, models, residuals, mask, max_sq):
@@ -1116,3 +1274,67 @@ def test_query_ranks_a_duplicate_as_on_the_cpu_on_cuda():
             assert got[ranks.index(2)].score == got[ranks.index(6)].score
             assert ranks.index(2) < ranks.index(6)
 
+
+
+@pytest.mark.parametrize("kind", ["E", "H"])
+def test_spherical_ransac_matches_plain_on_cuda(kind):
+    """K32 (E) and K33 (H) on 5760 x 2880 rays: each kernel model's support
+    equals a float64 count of the same model up to rows within 2% of the
+    threshold, the inlier mask equals the plain one off the threshold, the
+    refit reaches the plain refit's support (within one row) and model
+    (1e-3); a block of 7 pairs (one not active) gives each pair what the
+    one-pair entries give it."""
+    _need_card()
+    from colmap_tpu_torch.geometry.spherical import (angular_sampson_error,
+                                                     homography_ray_angular_error)
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+    from colmap_tpu_torch.kernels.sfm_cases import as_double
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    residual = angular_sampson_error if kind == "E" else homography_ray_angular_error
+    name = "spherical_e" if kind == "E" else "spherical_h"
+    propose, refit, inliers = (getattr(KQ, f"{name}_{e}") for e in ("propose_score", "refit",
+                                                                   "inliers"))
+    refit_p, inliers_p = getattr(KQ, f"{name}_refit_plain"), getattr(KQ, f"{name}_inliers_plain")
+    c = Q.ray_case(kind, 600, 48, 1, "cuda")
+    d = as_double(c)
+    models, counts, best = propose(c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+    _counts_match(counts, models, lambda m: residual(m[:, None], d["x1"][None], d["x2"][None]),
+                  d["mask"], d["max_sq"])
+    support, idx = unpack_best(int(best.item()))
+    assert support == int(counts.max()) and counts[idx] == support and support > 300
+    model = models[idx]
+    got = inliers(c["x1"], c["x2"], c["mask"], model, c["max_sq"])
+    ref = inliers_p(d["x1"], d["x2"], d["mask"], model.double(), d["max_sq"])
+    border = (residual(model.double(), d["x1"], d["x2"]) - d["max_sq"]).abs() <= 0.02 * d["max_sq"]
+    assert not bool(((got != ref) & ~border).any())
+    start = model.clone()
+    start[0, 1] += 0.01 * model.abs().max()
+    n0 = int(inliers_p(d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"]).sum())
+    got, n_got = refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0)
+    ref, n_ref = refit_p(d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"], n0)
+    assert abs(n_got - n_ref) <= 1
+    _close(got * torch.sign((got.double() * ref).sum()), ref, 1e-3, f"{kind} refit")
+    B = 7
+    c = Q.ray_block_case(kind, B, 500, 16, 2, "cuda")
+    sq = c["max_sq"]
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    active[3] = False
+    mb, cb, bb = propose(c["x1"], c["x2"], c["mask"], c["samples"], sq, active)
+    assert int(bb[3]) == 0
+    picks = [unpack_best(int(v)) for v in bb.tolist()]
+    idx = torch.tensor([0 if b == 3 else p[1] for b, p in enumerate(picks)], device="cuda")
+    start = torch.nan_to_num(mb[torch.arange(B, device="cuda"), idx])
+    cnt = torch.tensor([p[0] for p in picks], dtype=torch.int32, device="cuda")
+    rb, nb = refit(c["x1"], c["x2"], c["mask"], start, sq, cnt)
+    ib = inliers(c["x1"], c["x2"], c["mask"], rb, sq)
+    for b in range(B):
+        one = (c["x1"][b], c["x2"][b], c["mask"][b])
+        r1, n1 = refit(*one, start[b], float(sq[b]), int(cnt[b]))
+        assert torch.equal(r1, rb[b]) and n1 == int(nb[b])
+        assert torch.equal(inliers(*one, rb[b], float(sq[b])), ib[b])
+        if b != 3:
+            m1, c1, b1 = propose(*one, c["samples"][b], float(sq[b]))
+            assert int(b1) == int(bb[b]) and torch.equal(c1, cb[b])
+            assert torch.equal(torch.nan_to_num(m1), torch.nan_to_num(mb[b]))

@@ -10,7 +10,9 @@ plane case: PatchMatch with the consistency filter, the map, graph, PLY and
 on a four-frame scene and ``view_graph_calibrator``, both with
 ``--device cpu``; then the rig BA solve and a batch of the generalized
 absolute pose's RANSAC on small cases; then ``vocab_tree_builder`` and
-``vocab_tree_matcher`` with ``--device cpu`` on the extracted database.
+``vocab_tree_matcher`` with ``--device cpu`` on the extracted database; then
+a batch of the spherical homography RANSAC (K33's plain version) on rays of
+a 360-degree pair and the packing of a problem that mixes camera models.
 """
 
 import os
@@ -128,6 +130,18 @@ CHILD = textwrap.dedent("""
     assert len(db.read_all_matches()) == 1 and n in (0, 1)
     db.close()
     print("RETRIEVAL", np.load(tree)["level_1"].shape, n)
+
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as QC
+    from colmap_tpu_torch.sensor import models as M
+
+    c = QC.ray_case("H", 64, 16, 0, "cpu")
+    _, counts, _ = KQ.spherical_h_propose_score(c["x1"].double(), c["x2"].double(), c["mask"],
+                                                c["samples"], c["max_sq"])
+    mid, rows = M.pack_mixed_params([[900.0, 32, 24, 0.1], [900.0, 900, 32, 24, 0, 0, 0, 0]],
+                                    [2, 5])
+    assert mid == (2, 5) and rows.shape == (2, 9) and int(counts.max()) > 30
+    print("CAMERAS", int(counts.max()))
 """)
 
 
@@ -137,4 +151,4 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
-    assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout
+    assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout and "CAMERAS" in out.stdout

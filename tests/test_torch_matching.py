@@ -459,10 +459,13 @@ def test_two_view_geometry_options_and_helpers():
         cam1, x1, cam2, x2, matches, ttvg.TwoViewGeometryOptions(multiple_models=True),
         device="cpu")
     assert multi.config in (int(CONFIG.CALIBRATED), int(CONFIG.MULTIPLE))
-    spherical = dataclasses.replace(cam1, model_id=17)
+    spherical = dataclasses.replace(cam1, model_id=17, params=np.array([1024.0, 768.0]))
     assert ttvg.is_spherical(spherical) and not ttvg.is_spherical(cam1)
-    with pytest.raises(NotImplementedError, match="spherical"):
-        ttvg.estimate_two_view_geometry(spherical, x1, cam2, x2, matches, device="cpu")
+    # A pair with a spherical camera takes the ray path: E and H on bearing
+    # rays, never an image-space F (tests/test_torch_cameras.py holds it
+    # against colmap_tpu).
+    g = ttvg.estimate_two_view_geometry(spherical, x1, cam2, x2, matches, device="cpu")
+    assert g.F is None
 
 
 def _focal_pair(seed, f1, f2, quat, t):
