@@ -16,12 +16,17 @@ Phases; any failure exits non-zero:
      events;
   4. headline solve: lm_solve_fused_packed for 10 LM iterations with the
      dense Schur solver ("auto") and with PCG, counting kernel launches, held
-     against the colmap_tpu reference cost and against the same solve
-     through the plain versions;
+     against the colmap_tpu reference cost and against the same loop
+     through the plain versions (cost within K234_RTOL, iterations within
+     1); the device-resident loop's host reads per solve and its CUDA
+     graph's record and instantiate times; with "auto", the dense path's
+     Cholesky and ridge LU solves timed alone; one chunk of graph replays
+     and one of eager iterations under torch.cuda.set_sync_debug_mode("error");
   5. CLI: bundle_adjuster on a synthetic 120-frame model on cuda, then
      model_analyzer;
-  6. profile: device time by kernel and the device's idle share in a warm
-     LM iteration of each solver (torch.profiler);
+  6. profile: device time by kernel, the device's idle share and the
+     launches of other device kernels (torch ops) in a warm LM iteration of
+     each solver (torch.profiler);
   7. mapper kernels: K5-K9 (colmap_tpu_torch/kernels/sfm.py) against their
      plain versions (float64, same inputs) at the mapper's shapes, on the
      cases of colmap_tpu_torch/kernels/sfm_cases.py (K6 and K7 on batches of
@@ -137,24 +142,35 @@ Phases; any failure exits non-zero:
      undistortion, and `exhaustive_matcher` on 24 EQUIRECTANGULAR frames at
      5760 x 2880 (276 pairs, a rotation-only pair, planted outliers) held to
      colmap_tpu's spherical bounds on every pair's relative pose; each but
-     the mixed scene's mapper under torch.profiler.
+     the mixed scene's mapper under torch.profiler;
+ 24. solver kernels (phase `solver_kernels`): K34 (PCG's set-up in both
+     preconditioner modes and its step) and K35 (the LM candidate and
+     accept) against float64 plain versions at a mapper-sized local BA
+     (15 x 1500) and at the BA headline, K36 (cheirality and refinement)
+     on the initial pair's 3 seeds x 8192 rows and cheirality on 780 pose
+     graph edges x 200 rows, K37 on 16 injected samples at the rendered
+     scene's shape (2000 rows, 11 registered cameras), timed; at both BA
+     shapes the loop's costs that the graph's size rule and the done
+     flag's chunk weigh (an eager iteration, recording and instantiating a
+     graph, a replay, one flag read, a whole solve).
 Each path is driven with the launch counts set to 0 just before it and
-read just after: the BA paths (phases 4-5) must launch K1-K3 (and K4 with
-the dense solver), the matcher K5, K7 and K10-K12, the mapper K1-K3 and
-K5-K9 (its BA is PCG, so K4 is not on its path), the extractor K13-K16,
+read just after: the BA paths (phases 4-5) must launch K1-K3 and K35 (and
+K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
+the mapper K1-K3, K5-K9 and K34-K36 (its BA is PCG, so K4 is not on its
+path), the rendered 12-frame mapper K37 too, the extractor K13-K16,
 `image_undistorter` K5, `patch_match_stereo` K17-K20, `global_mapper` K1-K3,
-K5, K21 and K22, `rotation_averager` K21, `view_graph_calibrator` K23, the
+K5, K21, K22 and K34-K36, `rotation_averager` K21, `view_graph_calibrator` K23, the
 rig solve K24-K26 and the rig mapper K5, K7 and K24-K27 (and on the
 full-size rig scene K8 and K9), `vocab_tree_builder` K28 and K29,
 `vocab_tree_pairs` K28, K29 and K31, `vocab_tree_retriever` and `vocab_tree_matcher` K30 (the
 matcher also K5, K7 and K10-K12 on the rendered frames), the fisheye and
-mixed mappers K1-K3 and K5-K9, `exhaustive_matcher` on 360-degree frames K5,
-K10, K32 and K33.
+mixed mappers K1-K3, K5-K9 and K34-K36, `exhaustive_matcher` on 360-degree
+frames K5, K10, K32 and K33.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
-retrieval_kernels,retrieval` or `--phases camera_kernels,cameras` (or any
-subset of the phases) runs a subset
+retrieval_kernels,retrieval`, `--phases camera_kernels,cameras` or
+`--phases solver_kernels` (or any subset of the phases) runs a subset
 while developing and prints no result; the kernels line needs them all.
 """
 
@@ -162,6 +178,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import io
 import json
 import math
@@ -538,6 +556,66 @@ SPH_PAIRS, SPH_ROWS, SPH_SAMPLES, SPH_PLAIN_PAIRS = 64, 8192, 128, 8
 # transfer error (45).
 SPH_E_SAMPLE_OPS, SPH_E_ROW_OPS = 6000 + 2050 * 25 + 1000 * 60 + 3000, 80
 SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS = 1080 + 130000, 45
+# Phase solver_kernels (K34-K37) and the device-resident LM loop.
+SOLVER_SOURCES = {
+    "ba_pcg": ("colmap_tpu_torch/csrc/ba_pcg.cu",
+               "colmap_tpu/estimators/bundle_adjustment.py:986"),
+    "ba_lm_update": ("colmap_tpu_torch/csrc/ba_lm_update.cu",
+                     "colmap_tpu/estimators/bundle_adjustment.py:435"),
+    "relative_pose": ("colmap_tpu_torch/csrc/relative_pose.cu",
+                      "colmap_tpu/geometry/essential.py:94"),
+    "structure_less_ransac": ("colmap_tpu_torch/csrc/structure_less_ransac.cu",
+                              "colmap_tpu/estimators/generalized_pose.py:552"),
+}
+# Published float64 peak of one H100 SXM outside the tensor cores (NVIDIA
+# data sheet): the bound of K36, which computes in float64.
+PEAK_F64_OPS_PER_S = 34e12
+# K34 against float64 on the same float32 inputs: float32 vectors and 6x6
+# blocks, float64 dot products; K35's candidate: one float32 update per entry.
+K34_RTOL = K234_RTOL
+K35_RTOL = 1e-5
+# K36: float64 arithmetic from float32 inputs, float32 outputs; a row whose
+# depth lies at a limit (an outlier triangulated at infinity) may flip: at
+# most K36_FLIP_SHARE of the rows.
+K36_RTOL = 1e-5
+K36_FLIP_SHARE = 1e-3
+# The mapper-sized local BA of phase solver_kernels (the 40-frame mapper's
+# local BAs hold 10-20 frames and 1-2k points) and K36's shapes: the initial
+# pair's 3 seeds at 8192 rows (the matcher's keypoints per image), 780
+# edges of 200 rows (the 40-frame pose graph); K37 at the rendered scene's
+# shape: 2000 correspondences against 11 registered cameras, one batch of
+# 16 samples.
+LOCAL_BA = (15, 1500)
+EARLY_LOCAL_BA = (8, 600)  # the mapper's first local BAs
+REL_ROWS, REL_SEEDS, GRAPH_EDGES, GRAPH_ROWS = 8192, 3, 780, 200
+SL_ROWS, SL_CAMS, SL_SAMPLES = 2000, 11, 16
+# K37's check: four batches of injected samples (a stable share of
+# agreeing near-best models). The float32 five-point solve misses the root
+# of some ill-conditioned samples, which K37's float64 polish cannot mend
+# (emulated on the CPU with the float32 plain version and the polish,
+# seeds 3 and 6-9: 79-97% of the near-best models agree), so 70% must
+# agree; all-inlier samples tie, so the best supports may differ by
+# SL_ROWS // 500 rows.
+SL_CHECK_SAMPLES, K37_AGREE = 64, 0.7
+# Operations (an FMA is 2). K34's step per vector entry: lam D p, two dots,
+# two axpys, z = M r (12 for a pose entry), p = z + beta p: ~24, plus 72 per
+# frame. K35's candidate per frame: the exponential, the product and its
+# norm (~90), per camera parameter 5, per point 15. K36 (a), in float64,
+# per DLT triangulation (four to vote on each masked row, the winner again
+# on every row): the 4x4 DLT (16), A^T A (128), its symmetrization (12), 10
+# sweeps of 6 skip tests (240) and the point and depth test (~25); per
+# Jacobi rotation the skip rule lets through, c and s (~13) and three
+# 4-entry row or column pairs (72): _k36_ops counts these rotations on this
+# run's rows. Its refinement per row and step: the residual and 5
+# derivatives (~160) and the normal equations (40), then the cost pass
+# (~40), 15 steps. K37
+# per sample the 5-point solve (as K32, SPH_E_SAMPLE_OPS) and per model and
+# row the generalized Sampson error (~110).
+K34_ENTRY_OPS, K34_FRAME_OPS = 24, 72
+K35_FRAME_OPS, K35_CAM_OPS, K35_POINT_OPS = 90, 5, 15
+K36_TRI_OPS, K36_ROTATION_OPS = 420, 85
+K36_REFINE_ROW_OPS = 15 * (160 + 40 + 40)
+K37_ROW_OPS = 110
 # Phase cameras. The full-size scene (40 x 1000, 1024 x 768) with an
 # action camera's OPENCV_FISHEYE: colmap_tpu's mixed-model test's
 # distortion (0.01, -0.005, 0.001, 0) at the full-size scene's focal length
@@ -666,9 +744,9 @@ def compare_kernels(problem, maps, model_id, options, masks, errs, label):
     check("K1 cost", c_k, c_p, k1_rtol, errs["ba_obs_jacobians"])
 
     r, Jp, Jc, Jx = out_k
-    lam = 1e-3
+    lam = torch.tensor(1e-3, device="cuda")
     red_k = K.lm_reduce(r, Jp, Jc, Jx, fpm, cpm, F, C, lam)
-    red_p = K.lm_reduce_plain(*f64(r, Jp, Jc, Jx), fpm, cpm, F, C, lam)
+    red_p = K.lm_reduce_plain(*f64(r, Jp, Jc, Jx), fpm, cpm, F, C, lam.double())
     for n, a, b in zip(red_k._fields, red_k, red_p):
         check(f"K2 {n}", a, b, K234_RTOL, errs["ba_lm_reduce"])
 
@@ -846,6 +924,71 @@ def time_kernels(ctx, maps, model_id):
     return rows
 
 
+def sync_free_chunk(headline, solver):
+    """One chunk of DONE_CHUNK iterations of the device-resident LM loop at
+    the headline under torch.cuda.set_sync_debug_mode("error"), as the loop
+    runs them: graph replays for PCG (and eager launches, as the size rule
+    runs short solves), eager launches for the dense solver. Any host read
+    inside the chunk raises."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+
+    _, model_id, packed, maps, masks = headline
+    options = ba.BAOptions(max_iterations=10, pcg_iterations=20, function_tolerance=0.0,
+                           solver_type=solver)
+    use_dense = ba._use_dense(packed, options)
+    state, sc, groups = ba._start(packed, model_id, options, options.initial_lambda, 2.0,
+                                  K.KERNELS)
+    obs_masks = ba._obs_masks(masks, options)
+
+    def step():
+        ba._lm_iteration(state, maps, model_id, options, obs_masks, sc, K.KERNELS, use_dense,
+                         True, groups)
+
+    step()
+    replay = None if use_dense else ba._capture(step, torch.device("cuda"))[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for run in (step,) if replay is None else (replay, step):
+            for _ in range(ba.DONE_CHUNK):
+                run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    it, chunks = int(sc.S[3].item()), 1 if replay is None else 2
+    log(f"  sync debug mode 'error': {'a chunk of graph replays and ' if replay else ''}a chunk "
+        f"of eager iterations ({solver}, {ba.DONE_CHUNK} each) ran without a host read; {it} "
+        "iterations")
+    if it != 1 + chunks * ba.DONE_CHUNK:
+        raise AssertionError(f"the checked chunks ran {it} iterations")
+
+
+def _dense_solve_ms(packed):
+    """The dense path's library solves at this problem's size D = 6F + C P
+    (bundle_adjustment.py _dense_schur_solve): the Cholesky route and the
+    ridge LU that runs beside it every iteration, on an SPD S of the
+    problem's type. Returns the ridge's ms."""
+    F = packed.quat.shape[0]
+    C, P = packed.cam_params.shape
+    D, dtype = 6 * F + C * P, packed.points.dtype
+    g = torch.Generator(device="cuda").manual_seed(0)
+    M = torch.randn(D, D, generator=g, device="cuda", dtype=dtype)
+    S = M @ M.T / D + torch.eye(D, device="cuda", dtype=dtype)
+    b = torch.randn(D, generator=g, device="cuda", dtype=dtype)
+    eye = torch.eye(D, device="cuda", dtype=dtype)
+
+    def chol():
+        L, info = torch.linalg.cholesky_ex(S)
+        torch.cholesky_solve(b[:, None], L)
+        return (info != 0) | ~torch.isfinite(L).all()
+
+    chol_ms = time_ms(chol, reps=10)
+    ridge_ms = time_ms(lambda: torch.linalg.solve_ex(S + 1e-6 * eye, b), reps=10)
+    log(f"  dense path at D = {D}: Cholesky route {chol_ms:.4f} ms, the ridge LU beside it "
+        f"{ridge_ms:.4f} ms an iteration")
+    return ridge_ms
+
+
 def phase_headline_solve(headline, gt_cost, launches):
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
@@ -856,17 +999,20 @@ def phase_headline_solve(headline, gt_cost, launches):
         options = ba.BAOptions(max_iterations=10, pcg_iterations=20, function_tolerance=0.0,
                                solver_type=solver)
         torch.cuda.synchronize()
-        K.reset_launches()
+        reset_all_launches()
         t0 = time.perf_counter()
         solved, cost, iters = ba.lm_solve_fused_packed(packed, maps, model_id, options, masks)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = dict(K.LAUNCHES)
+        counts = {k: v for k, v in all_launch_counts().items() if k in BA_SOURCES
+                  or k in ("ba_pcg", "ba_lm_update")}
         for k, v in counts.items():
             launches[k] += v
         log(f"headline solve ({solver}): final cost {cost:.6e} after {iters} iterations in "
-            f"{dt:.3f} s = {iters / dt:.3f} LM iter/s; launches {counts}")
-        needed = [k for k in K.LAUNCHES if k != "ba_dense_schur_assemble" or solver == "auto"]
+            f"{dt:.3f} s = {iters / dt:.3f} LM iter/s; launches {counts}; K3 launches per "
+            f"solve {counts['ba_schur_matvec']}")
+        needed = [k for k in counts if (k != "ba_dense_schur_assemble" or solver == "auto")
+                  and (k != "ba_pcg" or solver == "pcg")]
         missing = [k for k in needed if counts[k] == 0]
         if missing:
             raise AssertionError(f"the {solver} solve launched no {missing}")
@@ -882,23 +1028,37 @@ def phase_headline_solve(headline, gt_cost, launches):
             if not bool(torch.isfinite(x).all()):
                 raise AssertionError("non-finite parameters after the solve")
         # The first solve also pays for loading what the path calls the first
-        # time (cuSOLVER, cuBLAS); a second one times the steady state.
+        # time (cuSOLVER, cuBLAS); a second one, the loop lm_solve_fused_packed
+        # runs, times the steady state and reports what the loop did.
+        use_dense = ba._use_dense(packed, options)
         t0 = time.perf_counter()
-        _, cost_warm, _ = ba.lm_solve_fused_packed(packed, maps, model_id, options, masks)
+        _, cost_warm, _, warm_info = ba._lm_loop(packed, maps, model_id, options, masks,
+                                                 use_dense, True, with_info=True)
         torch.cuda.synchronize()
         dt_warm = time.perf_counter() - t0
-        log(f"  warm: the same solve again in {dt_warm:.3f} s = {iters / dt_warm:.3f} LM iter/s "
-            f"(final cost {cost_warm:.6e})")
+        log(f"  warm: the same solve again in {dt_warm:.3f} s = {iters / dt_warm:.3f} LM iter/s, "
+            f"{dt_warm / iters * 1e3:.3f} ms per iteration (final cost {cost_warm:.6e}); "
+            f"device-resident loop: {warm_info['host_reads']} host reads per solve (the done "
+            f"flag every {ba.DONE_CHUNK} iterations, then the result), graph "
+            f"{warm_info['graph']}: recorded in {warm_info['record_s'] * 1e3:.2f} ms, "
+            f"instantiated in {warm_info['instantiate_s'] * 1e3:.2f} ms")
+        ridge_ms = _dense_solve_ms(packed) if use_dense else None
         _, cost_plain, iters_plain = ba._lm_loop(packed, maps, model_id, options, masks,
                                                  ba._use_dense(packed, options), True,
                                                  kernels=K.PLAIN)
         rel = abs(cost - cost_plain) / cost_plain
-        log(f"  same solve through the plain versions: {cost_plain:.6e} "
-            f"({iters_plain} iterations), relative difference {rel:.3e}")
-        if not rel <= 1e-3:
-            raise AssertionError(f"kernel vs plain solve differ by {rel:.3e} > 1e-3")
+        log(f"  same loop through the plain versions: {cost_plain:.6e} "
+            f"({iters_plain} iterations), relative difference {rel:.3e} (tol {K234_RTOL:g})")
+        if not (rel <= K234_RTOL and abs(iters - iters_plain) <= 1):
+            raise AssertionError(f"device loop vs plain loop: {rel:.3e}, {iters} vs "
+                                 f"{iters_plain} iterations")
+        sync_free_chunk(headline, solver)
         results[solver] = dict(final_cost=cost, iters=iters, iter_per_s=iters / dt,
-                               warm_iter_per_s=iters / dt_warm)
+                               warm_iter_per_s=iters / dt_warm, ridge_ms=ridge_ms,
+                               host_reads=warm_info["host_reads"],
+                               record_ms=warm_info["record_s"] * 1e3,
+                               instantiate_ms=warm_info["instantiate_s"] * 1e3,
+                               plain_cost=cost_plain, plain_iters=iters_plain)
     return results
 
 
@@ -931,9 +1091,15 @@ def phase_profile(headline, solves):
             log(f"profile ({solver}): the profiler recorded no device time; not measured")
             continue
         busy_ms = sum(r[0] for r in rows)
+        ours = sum(n for _, n, key in rows if "ctt::" in key)
+        others = sum(n for _, n, key in rows) - ours
         log(f"profile ({solver}), per LM iteration: device busy {busy_ms:.3f} ms of "
-            f"{wall_ms:.3f} ms warm wall time, idle share {1 - busy_ms / wall_ms:.3f}")
-        for ms, n, key in sorted(rows, reverse=True)[:10]:
+            f"{wall_ms:.3f} ms warm wall time, idle share {1 - busy_ms / wall_ms:.3f}; "
+            f"{ours:.1f} launches of the port's kernels, {others:.1f} of other device kernels "
+            "(torch ops, memsets, cuSOLVER)")
+        solves[solver]["idle_share"] = 1 - busy_ms / wall_ms
+        solves[solver]["other_kernels_per_iter"] = others
+        for ms, n, key in sorted(rows, reverse=True)[:12]:
             log(f"    {ms:9.4f} ms  {n:6.1f} launches  {key[:90]}")
 
 
@@ -985,7 +1151,6 @@ def model_cost(path):
 
 def phase_cli(launches):
     from colmap_tpu_torch.cli import main as cli
-    from colmap_tpu_torch.kernels import ba as K
     from colmap_tpu_torch.scene.reconstruction_io import write_model
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -995,7 +1160,7 @@ def phase_cli(launches):
         log(f"CLI: model with {recon.num_reg_frames()} frames, {recon.num_points3D()} points, "
             f"{recon.compute_num_observations()} observations")
         torch.cuda.synchronize()
-        K.reset_launches()
+        reset_all_launches()
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1003,12 +1168,12 @@ def phase_cli(launches):
                       "--device", "cuda"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = dict(K.LAUNCHES)
+        counts = {k: v for k, v in all_launch_counts().items() if v}
         for k, v in counts.items():
             launches[k] += v
         log(buf.getvalue().strip() + f"  ({dt:.2f} s; launches {counts})")
-        missing = [k for k in ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec")
-                   if counts[k] == 0]
+        missing = [k for k in ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "ba_pcg",
+                               "ba_lm_update") if not counts.get(k)]
         if missing:
             raise AssertionError(f"bundle_adjuster launched no {missing}")
         c0, c1 = model_cost(src), model_cost(dst)
@@ -1301,9 +1466,10 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import retrieval as KT
     from colmap_tpu_torch.kernels import sfm as K
     from colmap_tpu_torch.kernels import sift as KS
+    from colmap_tpu_torch.kernels import solver as KL
     from colmap_tpu_torch.kernels import spherical as KQ
 
-    return KB, K, KM, KS, KV, KG, KR, KT, KQ
+    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL
 
 
 def all_launch_counts():
@@ -1411,7 +1577,7 @@ def run_mapper(db_path, out, label, min_launches=True):
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
-              and k not in CAMERA_SOURCES]
+              and k not in CAMERA_SOURCES and k != "structure_less_ransac"]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -2097,9 +2263,11 @@ def phase_extractor(launches):
         for k, v in counts.items():
             launches[k] += v
         out = os.path.join(root, "sparse")
+        # The rendered scene registers a frame from 2D-2D correspondences
+        # alone (structure-less, K37).
         _, seconds["mapper"], counts = run_command(
             ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"], "mapper",
-            ())
+            ("structure_less_ransac", "ba_pcg", "ba_lm_update", "relative_pose"))
         for k, v in counts.items():
             launches[k] += v
         from colmap_tpu_torch.estimators.alignment import compare_reconstructions
@@ -2891,7 +3059,8 @@ def phase_global_kernels():
 
 
 GLOBAL_MAPPER_KERNELS = ("rotation_averaging", "global_positioning", "camera_map",
-                         "ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec")
+                         "ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "ba_pcg",
+                         "ba_lm_update", "relative_pose")
 
 
 def _profiled_command(argv, label, kernels, launches, profiled=True):
@@ -4005,9 +4174,10 @@ def _fisheye_scene(root, frames_per_rig, num_rigs=1, mixed=False, **options):
     return db_path, gt
 
 
-# The camera mappers must launch K1-K3 and K5-K9.
+# The camera mappers must launch K1-K3, K5-K9 and K34-K36.
 CAMERA_MAPPER_KERNELS = ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "camera_map",
-                         "p3p_ransac", "essential_ransac", "triangulate_tracks", "filter_points")
+                         "p3p_ransac", "essential_ransac", "triangulate_tracks", "filter_points",
+                         "ba_pcg", "ba_lm_update", "relative_pose")
 
 
 def _camera_mapper(root, label, num_frames, launches, results, profiled, **scene):
@@ -4193,9 +4363,440 @@ def phase_cameras(launches):
     return results
 
 
+def bound64(bytes_moved, ops64):
+    """bound() for work in float64 operations (K36)."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops64 / PEAK_F64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _solver_row(name, ms, plain_ms, b):
+    log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b[0]:.5f} ms by {b[1]})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def _k34_k35(label, problem, model_id, maps, masks, errs, timed):
+    """K34's set-up (both preconditioners) and step, K35's candidate and
+    accept against their float64 plain versions on the same inputs (one LM
+    step's state at lam = 1e-3); with ``timed`` their times at these shapes.
+    Returns {name: row} when timed."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KL
+
+    log(f"K34, K35 vs float64 plain: {label}")
+    options = ba.BAOptions(loss="cauchy")
+    om = ba._obs_masks(masks, options)
+    p = problem
+    F, (C, P), N = p.quat.shape[0], p.cam_params.shape, p.points.shape[0]
+    fpm, cpm = maps.frame_pm, maps.cam_pm
+    J = K.obs_jacobians(*p, om.pose, om.cam, om.point, model_id, options.loss,
+                        options.loss_scale)
+    lam = torch.tensor(1e-3, device="cuda")
+    red = K.lm_reduce(*J, fpm, cpm, F, C, lam)
+    red64 = _as64(red)
+    for bj in (True, False):
+        tag = "block-Jacobi" if bj else "scalar Jacobi"
+        st = KL.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, bj)
+        ref = KL.pcg_setup_plain(red64.Hcc_pose, red64.diag_pose, red64.diag_cam, red64.bp,
+                                 red64.bc, lam.double(), bj)
+        for n, a, b in zip(KL.PCGState._fields, st, ref):
+            check(f"K34 set-up ({tag}) {n}", a, b, K34_RTOL, errs["ba_pcg"])
+        Ap_p, Ap_c = K.schur_matvec(*J[1:], fpm, cpm, red.Hpp_inv, st.p[:6 * F].view(F, 6),
+                                    st.p[6 * F:].view(C, P))
+        ref = KL.pcg_step_plain(_as64(st), Ap_p.double(), Ap_c.double(), lam.double(),
+                                red64.diag_pose, red64.diag_cam)
+        st = KL.pcg_step(st, Ap_p, Ap_c, lam, red.diag_pose, red.diag_cam)
+        for n, a, b in zip(KL.PCGState._fields, st, ref):
+            if n != "M":
+                check(f"K34 step ({tag}) {n}", a, b, K34_RTOL, errs["ba_pcg"])
+    dp, dc = st.x[:6 * F].view(F, 6), st.x[6 * F:].view(C, P)
+    dx = K.back_substitute(*J[1:], fpm, cpm, red.Hpp_inv, red.gx, dp, dc)
+    params = (p.quat, p.t, p.cam_params, p.points)
+    cand, pred = KL.lm_candidate(*params, dp, dc, dx, red, lam)
+    cand64, pred64 = KL.lm_candidate_plain(*f64(*params, dp, dc, dx), red64, lam.double())
+    for n, a, b in zip(("quat", "t", "cam_params", "points"), cand, cand64):
+        check(f"K35 candidate {n}", a, b, K35_RTOL, errs["ba_lm_update"])
+    check("K35 candidate pred", pred, pred64, K35_RTOL, errs["ba_lm_update"])
+    new_cost = K.obs_cost64(*cand, *p[4:], model_id, options.loss, options.loss_scale)
+    cost = K.obs_cost64(*p, model_id, options.loss, options.loss_scale)
+    S0 = torch.tensor([2.0, 0, 0, 0, 0, 0, 0, 0, 0], dtype=torch.float64, device="cuda")
+    S0[1:3] = cost
+    state = tuple(x.clone() for x in params)
+    state64 = tuple(x.double() for x in params)
+    S, S64 = S0.clone(), S0.clone()
+    lam_k, lam64 = lam.clone(), lam.double()
+    flag, flag64 = (torch.zeros(1, dtype=torch.uint8, device="cuda") for _ in range(2))
+    KL.lm_accept(lam_k, S, new_cost, pred, state, cand, 1e-10, 1e10, 1e-6, flag)
+    KL.lm_accept_plain(lam64, S64, new_cost, pred, state64, cand64, 1e-10, 1e10, 1e-6, flag64)
+    log(f"  K35 accept: S {S.tolist()} (plain {S64.tolist()}), lam {lam_k.item():.6e} (plain "
+        f"{lam64.item():.6e})")
+    if not (torch.equal(S[[0, 3, 4, 5, 6]], S64[[0, 3, 4, 5, 6]]) and torch.equal(flag, flag64)):
+        raise AssertionError("K35 accept: nu, the count or the flags differ from float64")
+    check("K35 accept costs", S[1:3], S64[1:3], 1e-12, errs["ba_lm_update"])
+    check("K35 accept lam", lam_k, lam64, 1e-6, errs["ba_lm_update"])
+    for n, a, b in zip(("quat", "t", "cam_params", "points"), state, state64):
+        check(f"K35 accept state {n}", a, b, K35_RTOL, errs["ba_lm_update"])
+    if not timed:
+        return {}
+    n_vec = 6 * F + C * P
+    vec_bytes = 4 * (11 * n_vec + 36 * F)
+    st_t = KL.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, True)
+    Ap_p, Ap_c = K.schur_matvec(*J[1:], fpm, cpm, red.Hpp_inv, st_t.p[:6 * F].view(F, 6),
+                                st_t.p[6 * F:].view(C, P))
+    st64 = _as64(st_t)
+    rows = {}
+    rows["ba_pcg"] = _solver_row(
+        "ba_pcg step", time_ms(lambda: KL.pcg_step(st_t, Ap_p, Ap_c, lam, red.diag_pose,
+                                                   red.diag_cam)),
+        time_ms(lambda: KL.pcg_step_plain(st64, Ap_p.double(), Ap_c.double(), lam.double(),
+                                          red64.diag_pose, red64.diag_cam), reps=10),
+        bound(vec_bytes, K34_ENTRY_OPS * n_vec + K34_FRAME_OPS * F))
+    rows["ba_pcg"]["entries"] = {"setup": _entry_times(
+        lambda: KL.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, True),
+        lambda: KL.pcg_setup_plain(red64.Hcc_pose, red64.diag_pose, red64.diag_cam, red64.bp,
+                                   red64.bc, lam.double(), True))}
+    state_bytes = 4 * (7 * F + C * P + 3 * N)
+    rows["ba_lm_update"] = _solver_row(
+        "ba_lm_update candidate",
+        time_ms(lambda: KL.lm_candidate(*params, dp, dc, dx, red, lam)),
+        time_ms(lambda: KL.lm_candidate_plain(*f64(*params, dp, dc, dx), red64, lam.double()),
+                reps=10),
+        bound(2 * state_bytes + 4 * (18 * F + 4 * C * P + 9 * N),
+              K35_FRAME_OPS * F + K35_CAM_OPS * C * P + K35_POINT_OPS * N))
+
+    def accept():
+        S.copy_(S0)  # an accepted step each time: the copy runs
+        KL.lm_accept(lam_k, S, new_cost, pred, state, cand, 1e-10, 1e10, 1e-6, flag)
+
+    def accept_plain():
+        S64.copy_(S0)
+        KL.lm_accept_plain(lam64, S64, new_cost, pred, state64, cand64, 1e-10, 1e10, 1e-6,
+                           flag64)
+
+    rows["ba_lm_update"]["entries"] = {"accept": _entry_times(accept, accept_plain)}
+    return rows
+
+
+def _loop_costs(label, problem, model_id, maps, masks, dense=False, reps=10):
+    """What bundle_adjustment.py's size rule (GRAPH_MIN_ITERATIONS) and the
+    flag's chunk (DONE_CHUNK) weigh, at these shapes with the mapper's BA
+    options (with ``dense``, its dense Schur solver instead of PCG): an
+    eager iteration's wall, recording and instantiating its graph, a
+    replay's wall (T_i), one read of the done flag (T_r: a read after every
+    replay against one after all of them), and a whole solve."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.sfm.incremental_mapper import PIPELINE_BA_OPTIONS
+
+    options = PIPELINE_BA_OPTIONS
+    if dense:
+        options = dataclasses.replace(options, solver_type="dense_schur")
+    state, sc, groups = ba._start(problem, model_id, options, options.initial_lambda, 2.0,
+                                  K.KERNELS)
+    om = ba._obs_masks(masks, options)
+
+    def step():
+        ba._lm_iteration(state, maps, model_id, options, om, sc, K.KERNELS, dense, True, groups)
+
+    def wall_ms(fn, read_each=False):
+        sc.done.item()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            if read_each:
+                sc.done.item()
+        sc.done.item()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    gc_ms = [0.0, 0.0]  # Python's garbage collection: ms in it, start of a pass
+
+    def gc_timer(phase, _):
+        if phase == "start":
+            gc_ms[1] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_ms[1]) * 1e3
+
+    def capture():
+        gc_ms[0] = 0.0
+        gc.callbacks.append(gc_timer)
+        try:
+            out = ba._capture(step, torch.device("cuda"))
+        finally:
+            gc.callbacks.remove(gc_timer)
+        return out + (gc_ms[0],)
+
+    step()  # loads what the first call needs, as the loop's eager iteration
+    eager = wall_ms(step)
+    # The first capture at a shape may pay one-off costs; every solve of a
+    # running mapper records its own graph, so the second one is weighed.
+    _, first_s, _, first_gc = capture()
+    replay, rec_s, inst_s, rec_gc = capture()
+    rep = wall_ms(replay)
+    t_r = wall_ms(replay, read_each=True) - rep
+    rec_ms = (rec_s + inst_s) * 1e3
+    even = 1 + rec_ms / (eager - rep) if eager > rep else math.inf
+    t0 = time.perf_counter()
+    _, _, n, info = ba._lm_loop(problem, maps, model_id, options, masks, dense, True,
+                                with_info=True)
+    solve_s = time.perf_counter() - t0
+    k_star = math.sqrt(2 * n * max(t_r, 0.0) / rep)
+    log(f"  loop costs, {label} (the mapper's BA options{', dense Schur' if dense else ''}): "
+        f"eager iteration {eager:.3f} ms, "
+        f"graph recorded in {rec_s * 1e3:.2f} ms (the first at this shape "
+        f"{first_s * 1e3:.2f} ms; Python's garbage collection inside them {rec_gc:.2f} and "
+        f"{first_gc:.2f} ms) and instantiated in {inst_s * 1e3:.2f} ms, "
+        f"replay {rep:.3f} ms (T_i), flag read {t_r * 1e3:.1f} us (T_r); the graph pays from "
+        f"iteration {even:.2f} (GRAPH_MIN_ITERATIONS {ba.GRAPH_MIN_ITERATIONS}); a solve ran "
+        f"{n} iterations in {solve_s * 1e3:.1f} ms with {info['host_reads']} host reads, "
+        f"k* = sqrt(2 n T_r / T_i) = {k_star:.2f} (DONE_CHUNK {ba.DONE_CHUNK})")
+
+
+def _k36_ops(c64, R, t):
+    """Float64 operations of K36 (a) on these rows: K36_TRI_OPS per DLT
+    triangulation and K36_ROTATION_OPS per Jacobi rotation that the skip
+    rule lets through. The rotations are counted by running small_linalg.cuh's
+    cyclic Jacobi (10 sweeps, the same skip rule) in torch on each
+    triangulation's A^T A, under E's four candidates (masked rows) and the
+    winner R, t (every row). Returns (operations, triangulations,
+    rotations)."""
+    from colmap_tpu_torch.geometry.essential import decompose_essential_matrix
+
+    E, x1, x2, mask = c64["E"], c64["x1"], c64["x2"], c64["mask"]
+    sizes = torch.tensor(c64["offsets"], device=E.device).diff()
+    pid = torch.repeat_interleave(torch.arange(E.shape[0], device=E.device), sizes)
+    R1, R2, t0 = decompose_essential_matrix(E)
+    Rs = [R1, R2, R1, R2, R.double()]
+    ts = [t0, t0, -t0, -t0, t.double()]
+    mats = []
+    for c in range(5):
+        rows = mask if c < 4 else torch.ones_like(mask)
+        Rr, tr = Rs[c][pid][rows], ts[c][pid][rows]
+        u1, w1 = x1[rows, 0], x1[rows, 1]
+        u2, w2 = x2[rows, 0, None], x2[rows, 1, None]
+        A = torch.zeros(Rr.shape[0], 4, 4, dtype=torch.float64, device=E.device)
+        A[:, 0, 0] = -1.0
+        A[:, 0, 2] = u1
+        A[:, 1, 1] = -1.0
+        A[:, 1, 2] = w1
+        A[:, 2, :3] = u2 * Rr[:, 2] - Rr[:, 0]
+        A[:, 3, :3] = w2 * Rr[:, 2] - Rr[:, 1]
+        A[:, 2, 3] = u2[:, 0] * tr[:, 2] - tr[:, 0]
+        A[:, 3, 3] = w2[:, 0] * tr[:, 2] - tr[:, 1]
+        mats.append(A.transpose(1, 2) @ A)
+    A = torch.cat(mats)
+    A = 0.5 * (A + A.transpose(1, 2))
+    turns = 0
+    for _ in range(10):
+        for p in range(3):
+            for q in range(p + 1, 4):
+                apq, diff = A[:, p, q], A[:, q, q] - A[:, p, p]
+                go = (apq != 0) & ~(apq.abs() * 1e12 < diff.abs())
+                turns += int(go.sum())
+                tau = diff / torch.where(go, 2.0 * apq, 1.0)
+                tt = torch.where(tau == 0, 1.0,
+                                 torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau)))
+                cc = torch.where(go, torch.rsqrt(1.0 + tt * tt), 1.0)[:, None]
+                ss = torch.where(go, tt * torch.rsqrt(1.0 + tt * tt), 0.0)[:, None]
+                cp, cq = A[:, :, p].clone(), A[:, :, q].clone()
+                A[:, :, p], A[:, :, q] = cc * cp - ss * cq, ss * cp + cc * cq
+                rp, rq = A[:, p, :].clone(), A[:, q, :].clone()
+                A[:, p, :], A[:, q, :] = cc * rp - ss * rq, ss * rp + cc * rq
+    return K36_TRI_OPS * A.shape[0] + K36_ROTATION_OPS * turns, A.shape[0], turns
+
+
+def _k36(errs, rows):
+    """K36's cheirality entry on the initial pair's 3 seeds x 8192 rows and
+    on 780 pose-graph edges x 200 rows, its refinement on the 3 seeds,
+    against float64 plain versions; timed."""
+    from colmap_tpu_torch.kernels import solver as KL
+    from colmap_tpu_torch.kernels import solver_cases as SC
+
+    def cheirality(label, sizes, seed):
+        c = SC.relative_pose_case(sizes, seed, "cuda")
+        c64 = SC.as_double(c)
+        args = (c["E"], c["x1"], c["x2"], c["mask"], c["offsets"])
+        args64 = (c64["E"], c64["x1"], c64["x2"], c64["mask"], c["offsets"])
+        out = KL.poses_from_essentials(*args)
+        ref, plain_s = _timed(lambda: KL.poses_from_essentials_plain(*args64))
+        check(f"K36 {label} R", out[0], ref[0], K36_RTOL, errs["relative_pose"])
+        check(f"K36 {label} t", out[1], ref[1], K36_RTOL, errs["relative_pose"])
+        flips = int((out[4] != ref[4]).sum())
+        dcount = int((out[3].long() - ref[3]).abs().max())
+        rows_n = out[4].numel()
+        log(f"  K36 {label}: {flips} of {rows_n} rows flip their cheirality, counts within "
+            f"{dcount} (at most {K36_FLIP_SHARE:g} of the rows)")
+        if flips > K36_FLIP_SHARE * rows_n or dcount > K36_FLIP_SHARE * rows_n:
+            raise AssertionError(f"K36 {label}: cheirality differs from float64")
+        keep = (out[4] & ref[4])[:, None]
+        check(f"K36 {label} points", torch.where(keep, out[2], 0.0),
+              torch.where(keep, ref[2], 0.0), 1e-4, errs["relative_pose"])
+        ms = time_ms(lambda: KL.poses_from_essentials(*args), reps=10)
+        ops, tris, turns = _k36_ops(c64, ref[0], ref[1])
+        b = bound64(nbytes(c["E"], c["x1"], c["x2"], c["mask"], *out), ops)
+        log(f"  K36 {label}: {ops:.4e} float64 operations ({tris} triangulations, {turns} "
+            f"Jacobi rotations, {turns / tris:.2f} each), bound {b[0]:.5f} ms by {b[1]}")
+        return c, c64, ms, plain_s * 1e3, b
+
+    c, c64, ms, plain_ms, b = cheirality("initial pair, 3 seeds x 8192 rows",
+                                         [REL_ROWS] * REL_SEEDS, 1)
+    rows["relative_pose"] = _solver_row("relative_pose cheirality, 3 x 8192", ms, plain_ms, b)
+    _, _, g_ms, g_plain_ms, _ = cheirality(f"pose graph, {GRAPH_EDGES} edges x {GRAPH_ROWS} rows",
+                                           [GRAPH_ROWS] * GRAPH_EDGES, 2)
+    args = (c["q0"], c["t0"], c["x1"], c["x2"], c["weights"], c["offsets"])
+    args64 = (c64["q0"], c64["t0"], c64["x1"], c64["x2"], c64["weights"], c["offsets"])
+    q, t, rms = KL.refine_relative_poses(*args)
+    (q64, t64, rms64), r_plain_s = _timed(lambda: KL.refine_relative_poses_plain(*args64))
+    check("K36 refine q", q, q64, K36_RTOL, errs["relative_pose"])
+    check("K36 refine t", t, t64, K36_RTOL, errs["relative_pose"])
+    check("K36 refine rms", rms, rms64, 1e-4, errs["relative_pose"])
+    r_ms = time_ms(lambda: KL.refine_relative_poses(*args), reps=10)
+    log(f"    relative_pose pose graph: {g_ms:.4f} ms (plain {g_plain_ms:.1f} ms); refine, 3 x "
+        f"8192: {r_ms:.4f} ms (plain {r_plain_s * 1e3:.1f} ms, bound "
+        f"{bound64(0, K36_REFINE_ROW_OPS * REL_ROWS * REL_SEEDS)[0]:.5f} ms by operations)")
+    rows["relative_pose"]["entries"] = {
+        "pose_graph_780_edges": dict(ms=g_ms, plain_ms=g_plain_ms),
+        "refine_3x8192": dict(ms=r_ms, plain_ms=r_plain_s * 1e3)}
+
+
+def _k37(errs, rows, agree):
+    """K37 on 64 injected samples at the rendered scene's shape against the
+    float64 plain version (_check_k37), and its inlier entry; timed on one
+    batch of 16 samples."""
+    from colmap_tpu_torch.kernels import solver as KL
+    from colmap_tpu_torch.kernels import solver_cases as SC
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    c = SC.structure_less_case(SL_ROWS, SL_CAMS, SL_CHECK_SAMPLES, 3, "cuda")
+    c64 = SC.as_double(c)
+    a = [c[k] for k in SC.STRUCTURE_LESS_ARGS]
+    a64 = [c64[k] for k in SC.STRUCTURE_LESS_ARGS]
+    smp = [c[k] for k in SC.SAMPLE_ARGS]
+    mk, ck, bk = KL.structure_less_score(*a, *smp, 36.0)
+    mp, cp, bp = KL.structure_less_score_plain(*a64, *smp, 36.0)
+    agreeing, near, agreeing_rel = _check_k37(
+        mk, ck, bk, mp, cp, bp, lambda models: KL.structure_less_residuals_plain(models, *a64),
+        errs["structure_less_ransac"])
+    agree["structure_less_ransac"] = (agreeing, near)
+    batch = [x[:SL_SAMPLES] for x in smp]  # one batch, as the mapper sends it
+    _, plain_s = _timed(lambda: KL.structure_less_score_plain(*a64, *batch, 36.0))
+    _, ip = unpack_best(int(bp.item()))
+    inl = KL.structure_less_inliers(*a, mp[ip].float(), 36.0)
+    res = KL.structure_less_residuals_plain(mp[ip][None], *a64)[0]
+    flips = int((inl != (res <= 36.0)).sum())
+    border = int(((res - 36.0).abs() <= 0.02 * 36.0).sum())
+    log(f"  K37 inliers of the best model: {int(inl.sum())} rows, {flips} differ from float64 "
+        f"({border} within 2% of the threshold)")
+    if flips > border:
+        raise AssertionError("K37 inliers differ from float64")
+    ms = time_ms(lambda: KL.structure_less_score(*a, *batch, 36.0))
+    rows["structure_less_ransac"] = _solver_row(
+        "structure_less_ransac score, 16 samples x 2000 rows x 11 cameras", ms, plain_s * 1e3,
+        bound(nbytes(*a, *batch) + SL_SAMPLES * 10 * (12 + 1) * 4 + 8,
+              SL_SAMPLES * (SPH_E_SAMPLE_OPS + 10 * SL_ROWS * K37_ROW_OPS)))
+    rows["structure_less_ransac"]["extra"] = {"agreeing_max_rel_err": agreeing_rel}
+    rows["structure_less_ransac"]["entries"] = {"inliers": _entry_times(
+        lambda: KL.structure_less_inliers(*a, mp[ip].float(), 36.0),
+        lambda: KL.structure_less_inliers_plain(*a64, mp[ip], 36.0))}
+
+
+def _check_k37(mk, ck, bk, mp, cp, bp, residuals, errs, max_sq=36.0):
+    """K37's batch (float32) against float64 on the same samples; returns
+    the (agreeing, near-best) model counts and the agreeing ones' largest
+    relative error.
+
+    - the kernel's support of each of its models equals a float64 count of
+      the same model, up to the rows within 2% of the threshold; NaN models
+      score 0;
+    - the best supports agree within SL_ROWS // 500 rows (all-inlier
+      samples tie: which of them is first may differ);
+    - of the plain models with at least 90% of the best support, at least
+      K37_AGREE have a kernel solution of the same sample whose float64
+      support lies within 1% of the rows of theirs: the float32 five-point
+      solve moves the models of ill-conditioned samples, which the scale
+      from one row amplifies, and the score is what the RANSAC keeps.
+
+    The error that goes into ``errs`` is over every near-best model: the
+    closest finite kernel solution of its sample, or, where the sample has
+    none, the model's own size (relative error 1, as if the kernel returned
+    zeros). Also returns the largest relative error over the agreeing ones.
+    """
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    n, per = SL_ROWS, 10  # 10 model slots a sample
+    (sk, ik), (sp, ip) = unpack_best(int(bk.item())), unpack_best(int(bp.item()))
+    log(f"  K37 best: kernel support {sk} at {ik}, plain support {sp} at {ip}")
+    if abs(sk - sp) > n // 500:
+        raise AssertionError(f"K37: best support {sk} vs plain {sp}")
+    fin = torch.isfinite(mk.flatten(1)).all(1)
+    res = residuals(mk[fin].double())
+    counts64 = torch.zeros(mk.shape[0], dtype=torch.long, device=mk.device)
+    counts64[fin] = (res <= max_sq).sum(-1)
+    borderline = ((res - max_sq).abs() <= 0.02 * max_sq).sum(-1)
+    diff = (ck[fin] - counts64[fin]).abs()
+    log(f"  K37: {int(fin.sum())} finite kernel models ({int(torch.isfinite(mp.flatten(1)).all(1).sum())}"
+        f" plain); support against a float64 count of the same models differs on "
+        f"{int((diff > 0).sum())} by at most {int(diff.max())} (borderline rows: at most "
+        f"{int(borderline.max())})")
+    if bool((diff > borderline).any()) or bool((ck[~fin] != 0).any()):
+        raise AssertionError("K37: kernel support differs from the float64 count")
+    near_best = torch.nonzero(cp >= 0.9 * sp).flatten().tolist()
+    all_errs, agreeing_rel, none = [], [], 0
+    for i in near_best:
+        lo = (i // per) * per
+        scale = float(mp[i].abs().max())
+        if not bool(fin[lo:lo + per].any()):
+            none += 1
+            all_errs.append((scale, 1.0))
+            continue
+        gap = torch.nan_to_num((mk[lo:lo + per].double() - mp[i]).abs().flatten(1).amax(1),
+                               nan=math.inf)
+        a = float(gap.min())
+        all_errs.append((a, a / scale))
+        if int((counts64[lo:lo + per][fin[lo:lo + per]] - int(cp[i])).abs().min()) <= n // 100:
+            agreeing_rel.append(a / scale)
+    agreeing = len(agreeing_rel)
+    if agreeing < K37_AGREE * len(near_best):
+        raise AssertionError(f"K37: {agreeing} of {len(near_best)} near-best models agree")
+    errs.append((max(a for a, _ in all_errs), max(r for _, r in all_errs)))
+    rel = sorted(agreeing_rel)
+    log(f"  K37: {len(near_best)} plain models with >= 90% of the best support; {agreeing} have "
+        f"a kernel solution of their sample within {n // 100} rows of their float64 support "
+        f"(the closest one's error: median {rel[len(rel) // 2]:.3e}, largest {rel[-1]:.3e}); "
+        f"over all {len(near_best)}: largest {errs[-1][1]:.3e} ({none} samples with no finite "
+        "kernel model)")
+    return agreeing, len(near_best), rel[-1]
+
+
+def phase_solver_kernels():
+    """K34-K37 against their float64 plain versions: K34 and K35 at the BA
+    headline and at a mapper-sized local BA, K36 on the initial pair's seeds
+    and on a pose graph's edges, K37 on injected samples at the rendered
+    scene's shape; timed with CUDA events. Returns (errs, rows, agree)."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    errs = {k: [] for k in SOLVER_SOURCES}
+    rows, agree = {}, {}
+    for (F, N), timed in ((EARLY_LOCAL_BA, False), (LOCAL_BA, False), ((200, 50000), True)):
+        problem, _, model_id = synthetic_ba_problem(F, N, 6, seed=0, device="cuda")
+        masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, ba.BAOptions()), 0, 1)
+        packed, maps, _ = ba.pack_problem(problem)
+        label = "headline 200 x 50000" if timed else f"local BA {F} x {N}"
+        if timed:
+            log("K34, K35 times at the headline shapes (median of CUDA-event-timed launches):")
+        rows.update(_k34_k35(label, packed, model_id, maps, masks, errs, timed))
+        _loop_costs(label, packed, model_id, maps, masks)
+        if timed:
+            _loop_costs(label, packed, model_id, maps, masks, dense=True)
+    _k36(errs, rows)
+    _k37(errs, rows, agree)
+    return errs, rows, agree
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
               "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
-              "camera_kernels", "cameras")
+              "camera_kernels", "cameras", "solver_kernels")
 
 
 def main():
@@ -4288,13 +4889,19 @@ def main():
         agree.update(c_agree)
     if "cameras" in phases:
         run("cameras", lambda: phase_cameras(launches))
+    if "solver_kernels" in phases:
+        l_errs, l_rows, l_agree = run("solver_kernels", phase_solver_kernels)
+        errs.update(l_errs)
+        rows.update(l_rows)
+        agree.update(l_agree)
     log(f"seconds by phase: {seconds}")
     for name, ents in cam_entries.items():  # models 5-17 and mixed: the kernel's other inputs
         if name in rows and ents:
             rows[name].setdefault("entries", {}).update(ents)
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
-               **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES}
+               **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
+               **SOLVER_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:
@@ -4309,6 +4916,7 @@ def main():
         ))
         if name in agree:  # near-best models that agree, of all near-best models
             kernels[-1]["near_best_agree"] = list(agree[name])
+        kernels[-1].update(rows[name].get("extra", {}))
         if "entries" in rows[name]:  # the kernel's other entries: ms and plain ms
             kernels[-1]["entries"] = rows[name]["entries"]
     complete = phases >= set(ALL_PHASES)
@@ -4319,7 +4927,12 @@ def main():
     if solves:
         log("headline LM iter/s on " + smi + ": " + ", ".join(
             f"{k} {v['iter_per_s']:.3f}, warm {v['warm_iter_per_s']:.3f} "
-            f"(final cost {v['final_cost']:.6e})" for k, v in solves.items()))
+            f"({1e3 / v['warm_iter_per_s']:.3f} ms an iteration, idle share "
+            f"{v.get('idle_share', float('nan')):.3f}, {v['host_reads']} host reads, graph "
+            f"{v['record_ms']:.2f} + {v['instantiate_ms']:.2f} ms"
+            + ("" if v["ridge_ms"] is None else f", ridge LU {v['ridge_ms']:.4f} ms") + "; final cost "
+            f"{v['final_cost']:.6e} in {v['iters']} iterations, plain loop "
+            f"{v['plain_cost']:.6e} in {v['plain_iters']})" for k, v in solves.items()))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     if not complete:

@@ -11,7 +11,8 @@
 // G lanes (G = capp rounded up to a power of two, at most 32) owns a point:
 //   phase 1  Hpp = sum JxT Jx and gx = -sum JxT r, summed over the group by
 //            shuffles; the damped inverse (Hpp + lam diag(Hpp) + 1e-12)^-1
-//            and y = Hpp^-1 gx follow in registers;
+//            and y = Hpp^-1 gx follow in registers (lam is read from device
+//            memory, so that the LM loop keeps its damping on the card);
 //   phase 2  per slot v = Jx y, and the frame / camera sums
 //            gp = -sum JpT r, bp = -sum JpT (r + v), H = sum JpT Jp (upper
 //            triangle), gc, bc, diag_cam.
@@ -35,7 +36,8 @@ namespace ctt {
 constexpr int kFrameStride = 33;  // gp 6, bp 6, upper-triangular JpT Jp 21
 
 template <bool SMEM>
-__global__ void lm_reduce_kernel(long long N, int capp, int F, int C, int P, int G, float lam,
+__global__ void lm_reduce_kernel(long long N, int capp, int F, int C, int P, int G,
+                                 const float* __restrict__ lam_ptr,
                                  const float* __restrict__ r, const float* __restrict__ Jp,
                                  const float* __restrict__ Jc, const float* __restrict__ Jx,
                                  const int* __restrict__ fids, const int* __restrict__ cids,
@@ -48,6 +50,7 @@ __global__ void lm_reduce_kernel(long long N, int capp, int F, int C, int P, int
     for (int i = threadIdx.x; i < table_size; i += blockDim.x) smem[i] = 0.f;
     __syncthreads();
   }
+  const float lam = *lam_ptr;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int gpw = 32 / G;  // points per warp
@@ -169,9 +172,9 @@ __global__ void lm_reduce_finalize(int F, int C, int P, const float* __restrict_
 
 }  // namespace ctt
 
-// scratch: 33 F + 3 P C floats, zeroed by the caller. Outputs in the order of
-// colmap_tpu_torch.kernels.ba.LMReduction.
-extern "C" int ba_lm_reduce_f32(long long N, int capp, int F, int C, int P, float lam,
+// scratch: 33 F + 3 P C floats, zeroed by the caller; lam: one float in device
+// memory. Outputs in the order of colmap_tpu_torch.kernels.ba.LMReduction.
+extern "C" int ba_lm_reduce_f32(long long N, int capp, int F, int C, int P, const float* lam,
                                 const float* r, const float* Jp, const float* Jc,
                                 const float* Jx, const int* fids, const int* cids,
                                 float* scratch, float* gp, float* gc, float* bp, float* bc,

@@ -4,18 +4,21 @@ Counterpart of colmap_tpu/estimators/bundle_adjustment.py (reference:
 src/colmap/estimators/bundle_adjustment{.h,_ceres.h,_caspar.h}). The solver
 works in the point-major packed layout of ``pack_problem``: observations
 sorted by point and padded to a common per-point capacity ``capp``, so every
-point-side sum is a contiguous run of slots. Each LM step runs the four
-kernels of ``colmap_tpu_torch.kernels.ba``:
+point-side sum is a contiguous run of slots. Each LM step runs the kernels of
+``colmap_tpu_torch.kernels.ba`` and ``kernels.solver``:
 
     K1 obs_jacobians / obs_cost    residuals, Jacobians, robust weights; cost
     K2 lm_reduce                   gradients, Hpp⁻¹, reduced right-hand side
     K3 schur_matvec                reduced-system matvec in PCG; back-substitution
     K4 dense_schur_assemble        explicit S for the dense Cholesky solve
+    K34 pcg_setup / pcg_step       PCG's preconditioner, vectors and scalars
+    K35 lm_candidate / lm_accept   the update, predicted decrease, damping rule
 
-and plain torch for the rest: PCG's vector updates on (F, 6) + (C, P)
-tensors, the Cholesky of S, the quaternion update and the damping rule. The
-loop runs on the host and reads three scalars per iteration (costs and the
-predicted decrease); colmap_tpu runs the same loop on the device.
+and library calls for the Cholesky (or ridge) solve of S. The loop is
+device-resident, as colmap_tpu's while_loop: lam, nu, the costs, the
+iteration count and ``done`` live in device memory, a PCG solve captures
+one iteration as a CUDA graph and replays it (GRAPH_MIN_ITERATIONS), and
+the host reads a 1-byte done flag once per DONE_CHUNK iterations.
 
 Problem layout (struct-of-arrays tensors; padding rows carry weight 0):
     frame poses:  quat (F, 4), t (F, 3)           cam_from_world
@@ -36,14 +39,14 @@ model ids and colmap_tpu's padded rows with a trailing model-position column
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from colmap_tpu_torch.estimators.ba_residual import quat_exp
-from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import ba as ba_kernels
+from colmap_tpu_torch.kernels import solver
 from colmap_tpu_torch.sensor import models as camera_models
 
 
@@ -234,61 +237,19 @@ def _obs_masks(masks: BAMasks, options: BAOptions) -> _ObsMasks:
                      masks.point_mask.contiguous())
 
 
-def _dot(ap, ac, bp, bc):
-    return (ap * bp).sum() + (ac * bc).sum()
-
-
-def _where0(cond, x):
-    return torch.where(cond, x, torch.zeros_like(x))
-
-
-def _pcg(matvec, precond, lam_dp, lam_dc, bp, bc, iterations: int):
-    """Preconditioned CG on (S + λD) x = b with a fixed iteration count."""
-    xp, xc = torch.zeros_like(bp), torch.zeros_like(bc)
-    rp, rc = bp, bc
-    zp, zc = precond(rp, rc)
-    pp, pc = zp, zc
-    rz = _dot(rp, rc, zp, zc)
-    for _ in range(iterations):
-        Ap, Ac = matvec(pp, pc)
-        Ap = Ap + lam_dp * pp
-        Ac = Ac + lam_dc * pc
-        pAp = _dot(pp, pc, Ap, Ac)
-        alpha = _where0(pAp.abs() > 1e-30, rz / pAp)
-        xp = xp + alpha * pp
-        xc = xc + alpha * pc
-        rp = rp - alpha * Ap
-        rc = rc - alpha * Ac
-        zp, zc = precond(rp, rc)
-        rz_new = _dot(rp, rc, zp, zc)
-        beta = _where0(rz.abs() > 1e-30, rz_new / rz)
-        pp = zp + beta * pp
-        pc = zc + beta * pc
-        rz = rz_new
-    return xp, xc
-
-
 def _dense_schur_solve(S, bp, bc):
-    """Cholesky solve of the assembled S; ridge solve if S is not SPD."""
+    """Cholesky solve of the assembled S, or the ridge solve of
+    S + 1e-6 I where S is not SPD, chosen on the device as colmap_tpu does
+    (l.1636-1642): both are computed, no host read."""
     F, C = bp.shape[0], bc.shape[0]
     b = torch.cat([bp.reshape(-1), bc.reshape(-1)])
     L, info = torch.linalg.cholesky_ex(S)
-    if int(info) == 0 and bool(torch.isfinite(L).all()):
-        d = torch.cholesky_solve(b[:, None], L)[:, 0]
-    else:
-        eye = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
-        d = torch.linalg.solve(S + 1e-6 * eye, b)
+    d = torch.cholesky_solve(b[:, None], L)[:, 0]
+    bad = (info != 0) | ~torch.isfinite(L).all()
+    eye = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
+    d_ridge = torch.linalg.solve_ex(S + 1e-6 * eye, b)[0]
+    d = torch.where(bad, d_ridge, d)
     return d[: 6 * F].reshape(F, 6), d[6 * F:].reshape(C, -1)
-
-
-def _apply_update(problem: BAProblem, dp, dc, dx) -> BAProblem:
-    quat = rot.quat_normalize(rot.quat_multiply(quat_exp(dp[:, :3]), problem.quat))
-    return problem._replace(
-        quat=quat,
-        t=problem.t + dp[:, 3:],
-        cam_params=problem.cam_params + dc,
-        points=problem.points + dx,
-    )
 
 
 def _use_dense(problem: BAProblem, options: BAOptions) -> bool:
@@ -299,115 +260,218 @@ def _use_dense(problem: BAProblem, options: BAOptions) -> bool:
     )
 
 
-def _lm_step_packed_impl(problem: BAProblem, maps: PackedMaps, model_id,
-                         options: BAOptions, obs_masks: _ObsMasks, lam: float,
-                         nu: float, cost: float, kernels, use_dense: bool,
-                         block_jacobi: bool, groups):
-    """One LM iteration in the point-major layout; ``cost`` is the cost at the
-    current state; ``groups`` the slots of each model (model_groups).
-    Returns (problem, lam, nu, cost, new_cost, accepted, out_cost) with
-    Python scalars."""
-    p = problem
+def _pcg(kernels, Jp, Jc, Jx, maps: PackedMaps, red, lam, block_jacobi: bool, iterations: int):
+    """PCG on (S + λD) x = b with a fixed iteration count: K34's set-up,
+    then per iteration K3's matvec and K34's step. Returns (dp, dc)."""
+    F = red.bp.shape[0]
+    C, P = red.bc.shape
+    st = kernels.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam,
+                           block_jacobi)
+    for _ in range(iterations):
+        Ap_p, Ap_c = kernels.schur_matvec(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, red.Hpp_inv,
+                                          st.p[:6 * F].view(F, 6), st.p[6 * F:].view(C, P))
+        st = kernels.pcg_step(st, Ap_p, Ap_c, lam, red.diag_pose, red.diag_cam)
+    return st.x[:6 * F].view(F, 6), st.x[6 * F:].view(C, P)
+
+
+class _LMScalars(NamedTuple):
+    """The loop's scalars in device memory: lam (0-d, the problem's type),
+    K35's state S (float64, ``solver.LM_FIELDS``) and the 1-byte done flag."""
+
+    lam: torch.Tensor
+    S: torch.Tensor
+    done: torch.Tensor
+
+
+def _lm_scalars(cost, lam: float, nu: float, dtype) -> _LMScalars:
+    """Scalars at the start of a solve; ``cost`` is a 0-d float64 tensor on
+    the problem's device (no host read)."""
+    dev = cost.device
+    S = torch.zeros(len(solver.LM_FIELDS), dtype=torch.float64, device=dev)
+    S[0] = nu
+    S[1:3] = cost
+    return _LMScalars(torch.full((), lam, dtype=dtype, device=dev), S,
+                      torch.zeros(1, dtype=torch.uint8, device=dev))
+
+
+def _lm_iteration(state: BAProblem, maps: PackedMaps, model_id, options: BAOptions,
+                  obs_masks: _ObsMasks, sc: _LMScalars, kernels, use_dense: bool,
+                  block_jacobi: bool, groups) -> None:
+    """One LM iteration in the point-major layout, in place on ``state``'s
+    parameter tensors and ``sc``: K1, K2, the dense solve (K4 + Cholesky) or
+    PCG (K34, K3), K3's back-substitution, K35's candidate, K1's cost and
+    K35's accept. It reads nothing back to the host, so it can be captured
+    as a CUDA graph; once ``done`` is set it changes nothing."""
+    p = state
     F = p.quat.shape[0]
     C = p.cam_params.shape[0]
+    lam = sc.lam
     r, Jp, Jc, Jx = kernels.obs_jacobians(
         p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam, p.obs_point,
         p.obs_xy, p.obs_w, obs_masks.pose, obs_masks.cam, obs_masks.point,
         model_id, options.loss, options.loss_scale, groups,
     )
     red = kernels.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, C, lam)
-    lam_dp = lam * red.diag_pose
-    lam_dc = lam * red.diag_cam
-
     if use_dense:
-        lam_diag = torch.cat([lam_dp.reshape(-1), lam_dc.reshape(-1)])
+        lam_diag = torch.cat([(lam * red.diag_pose).reshape(-1), (lam * red.diag_cam).reshape(-1)])
         S = kernels.dense_schur_assemble(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
                                           red.Hpp_inv, lam_diag, F)
         dp, dc = _dense_schur_solve(S, red.bp, red.bc)
     else:
-        if block_jacobi:
-            # 6x6 pose blocks of H_cc (Ceres SCHUR_JACOBI), scalar Jacobi for
-            # the camera parameters.
-            Mp = torch.linalg.inv(red.Hcc_pose + torch.diag_embed(lam_dp + 1e-10))
-        else:
-            diag_p = red.diag_pose + lam_dp
-            Mp = _where0(diag_p > 1e-12, 1.0 / diag_p)
-        diag_c = red.diag_cam + lam_dc
-        Mc = _where0(diag_c > 1e-12, 1.0 / diag_c)
-
-        def precond(rp, rc):
-            if block_jacobi:
-                return (Mp @ rp[..., None])[..., 0], Mc * rc
-            return Mp * rp, Mc * rc
-
-        def matvec(xp, xc):
-            return kernels.schur_matvec(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
-                                         red.Hpp_inv, xp, xc)
-
-        dp, dc = _pcg(matvec, precond, lam_dp, lam_dc, red.bp, red.bc,
-                      options.pcg_iterations)
-
+        dp, dc = _pcg(kernels, Jp, Jc, Jx, maps, red, lam, block_jacobi, options.pcg_iterations)
     dx = kernels.back_substitute(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
                                   red.Hpp_inv, red.gx, dp, dc)
-    new_problem = _apply_update(problem, dp, dc, dx)
-    new_cost = float(_cost(new_problem, model_id, options, kernels, groups))
-    pred = 0.5 * float(
-        (dp * red.gp).sum() + (dc * red.gc).sum() + (dx * red.gx).sum()
-        + lam * (
-            (red.diag_pose * dp * dp).sum()
-            + (red.diag_cam * dc * dc).sum()
-            + (red.diag_pt * dx * dx).sum()
-        )
-    )
-    rho = (cost - new_cost) / max(pred, 1e-30)
-    accepted = new_cost < cost and pred > 0
-    if accepted:
-        shrink = max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-        new_lam = min(max(lam * shrink, options.min_lambda), options.max_lambda)
-        return new_problem, new_lam, 2.0, cost, new_cost, True, new_cost
-    new_lam = min(lam * nu, options.max_lambda)
-    return problem, new_lam, nu * 2.0, cost, new_cost, False, cost
+    cand, pred = kernels.lm_candidate(p.quat, p.t, p.cam_params, p.points, dp, dc, dx, red, lam)
+    new_cost = kernels.obs_cost64(*cand, p.obs_frame, p.obs_cam, p.obs_point, p.obs_xy, p.obs_w,
+                                  model_id, options.loss, options.loss_scale, groups)
+    kernels.lm_accept(lam, sc.S, new_cost, pred, (p.quat, p.t, p.cam_params, p.points), cand,
+                      options.min_lambda, options.max_lambda, options.function_tolerance,
+                      sc.done)
+
+
+def _own_state(problem: BAProblem) -> BAProblem:
+    """The parameter tensors the loop updates in place: copies, so the
+    caller's problem stays as it was."""
+    return problem._replace(quat=problem.quat.clone(), t=problem.t.clone(),
+                            cam_params=problem.cam_params.clone(),
+                            points=problem.points.clone())
+
+
+def _start(problem: BAProblem, model_id, options: BAOptions, lam: float, nu: float, kernels):
+    """(state, scalars, groups) at the start of a solve: the model groups of
+    a mixed problem (once per solve), the state's copy, its cost on the
+    device."""
+    groups = ba_kernels.model_groups(model_id, problem.cam_params, problem.obs_cam)
+    p = _own_state(problem)
+    cost = kernels.obs_cost64(p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam,
+                              p.obs_point, p.obs_xy, p.obs_w, model_id, options.loss,
+                              options.loss_scale, groups)
+    return p, _lm_scalars(cost, lam, nu, problem.points.dtype), groups
 
 
 def lm_step_packed(problem: BAProblem, maps: PackedMaps, model_id,
                    options: BAOptions, masks: BAMasks, lam: float, nu: float):
     """One LM iteration in the packed layout (same semantics as colmap_tpu's
-    lm_step_packed). Returns (problem, lam, nu, cost, new_cost, accepted)."""
-    groups = ba_kernels.model_groups(model_id, problem.cam_params, problem.obs_cam)
-    cost = float(_cost(problem, model_id, options, ba_kernels.KERNELS, groups))
-    out = _lm_step_packed_impl(problem, maps, model_id, options, _obs_masks(masks, options),
-                               lam, nu, cost, ba_kernels.KERNELS,
-                               _use_dense(problem, options), True, groups)
-    return out[:6]
+    lm_step_packed). Returns (problem, lam, nu, cost, new_cost, accepted)
+    with Python scalars."""
+    kernels = ba_kernels.KERNELS
+    state, sc, groups = _start(problem, model_id, options, lam, nu, kernels)
+    cost = sc.S[1].item()
+    _lm_iteration(state, maps, model_id, options, _obs_masks(masks, options), sc, kernels,
+                  _use_dense(problem, options), True, groups)
+    S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
+    return (state, float(sc.lam), S["nu"], cost, S["new_cost"], bool(S["accepted"]))
+
+
+# Host reads of the done flag on the card: one per DONE_CHUNK iterations.
+# A read drains the queue and costs T_r; an iteration past ``done`` is a
+# frozen no-op that costs its device time T_i. For n iterations the
+# overhead n T_r / k + (k - 1) T_i / 2 is least near k = sqrt(2 n T_r / T_i),
+# 0.5-1.4 at the mapper's local BAs and at the BA headline (T_r 17-69 us,
+# T_i 0.8-2.2 ms, n 10-22: chip_smoke.py phase solver_kernels, "loop
+# costs"; PERF.md §6).
+DONE_CHUNK = 1
+# The graph's size rule: a PCG solve captures one iteration as a CUDA graph
+# and replays it when it may run at least GRAPH_MIN_ITERATIONS iterations.
+# The first iteration runs eagerly; recording and instantiating cost R, a
+# replay saves s = (eager - replay) per iteration, so the graph pays for
+# itself from iteration 1 + R / s on: 2.3-7.5 at the shapes the same lines
+# measure, from 8 x 600 to the headline. Below that count, and on the dense
+# path (its iteration is bound by the card: a replay saves nothing), the
+# same kernels launch without a graph.
+GRAPH_MIN_ITERATIONS = 8
+
+
+def _capture(step, device):
+    """One call of ``step`` captured as a CUDA graph on a side stream.
+
+    Recording launches nothing, so the launch counts it added are taken
+    back; ``replay`` adds them once per replay, as the graph launches each
+    recorded kernel once. Returns (replay, record seconds, instantiate
+    seconds)."""
+    counts = [m.LAUNCHES for m in (ba_kernels, solver)]
+    before = [dict(c) for c in counts]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        t0 = time.perf_counter()
+        # thread_local: a synchronizing call in another thread of the
+        # pipeline does not invalidate this capture.
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            t1 = time.perf_counter()
+            graph.capture_end()
+    t2 = time.perf_counter()
+    torch.cuda.current_stream(device).wait_stream(side)
+    recorded = [(c, k, c[k] - b[k]) for c, b in zip(counts, before) for k in c if c[k] != b[k]]
+    for c, k, n in recorded:
+        c[k] -= n
+
+    def replay():
+        graph.replay()
+        for c, k, n in recorded:
+            c[k] += n
+
+    return replay, t1 - t0, t2 - t1
 
 
 def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
-             verbose=False, kernels=ba_kernels.KERNELS):
-    """The LM loop of every solve. ``kernels`` is ``ba_kernels.KERNELS``;
-    a check on the card passes ``ba_kernels.PLAIN`` to run the same solve
-    through the plain versions."""
+             verbose=False, kernels=ba_kernels.KERNELS, with_info=False):
+    """The LM loop of every solve: (state, final cost, iterations), and with
+    ``with_info`` a fourth value, a dict of what the solve did (whether it
+    replayed a graph, the seconds to record and instantiate it, its host
+    reads, its iterations). ``kernels`` is ``ba_kernels.KERNELS``; a check on
+    the card passes ``ba_kernels.PLAIN`` to run the same solve through the
+    plain versions.
+
+    Everything between two reads of the 1-byte done flag stays on the
+    device: on the card the host runs DONE_CHUNK iterations (the first one
+    eagerly, the rest as replays of a CUDA graph of one iteration, captured
+    once per solve, under the size rule GRAPH_MIN_ITERATIONS) and then
+    reads the flag.
+    Iterations past ``done`` change nothing (K35), so the chunk's last ones
+    are frozen no-ops. ``verbose`` reads and prints every iteration."""
+    dev = problem.points.device
     obs_masks = _obs_masks(masks, options)
-    # The slots of each model of a mixed problem, once per solve.
-    groups = ba_kernels.model_groups(model_id, problem.cam_params, problem.obs_cam)
-    lam, nu = float(options.initial_lambda), 2.0
-    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels, groups))
-    it, done = 0, False
-    while not done and it < options.max_iterations:
-        problem, lam, nu, cost, new_cost, accepted, cur_cost = _lm_step_packed_impl(
-            problem, maps, model_id, options, obs_masks, lam, nu, cur_cost,
-            kernels, use_dense, block_jacobi, groups,
-        )
-        if verbose:
-            print(f"  LM it {it}: cost {cost:.6e} -> {new_cost:.6e} "
-                  f"accepted={accepted} lam={lam:.2e}")
-        rel = abs(last_cost - new_cost) / max(new_cost, 1e-30)
-        done = (accepted and rel < options.function_tolerance) or (
-            not accepted and lam >= options.max_lambda
-        )
-        if accepted:
-            last_cost = new_cost
-        it += 1
-    return problem, cur_cost, it
+    state, sc, groups = _start(problem, model_id, options, options.initial_lambda, 2.0,
+                               kernels)
+
+    def step():
+        _lm_iteration(state, maps, model_id, options, obs_masks, sc, kernels, use_dense,
+                      block_jacobi, groups)
+
+    on_card = dev.type == "cuda"
+    graph_wanted = (on_card and kernels is ba_kernels.KERNELS and not use_dense
+                    and options.max_iterations >= GRAPH_MIN_ITERATIONS)
+    chunk = DONE_CHUNK if on_card and not verbose else 1
+    info = dict(graph=False, record_s=0.0, instantiate_s=0.0, host_reads=0)
+    run, n = step, 0
+    while n < options.max_iterations:
+        for _ in range(min(chunk, options.max_iterations - n)):
+            if n == 1 and graph_wanted:
+                # After the first iteration ran eagerly, which also loads what
+                # its library calls need.
+                run, info["record_s"], info["instantiate_s"] = _capture(step, dev)
+                info["graph"] = True
+            cost = sc.S[1].item() if verbose else None
+            run()
+            n += 1
+            if verbose:
+                S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
+                print(f"  LM it {n - 1}: cost {cost:.6e} -> {S['new_cost']:.6e} "
+                      f"accepted={bool(S['accepted'])} lam={float(sc.lam):.2e}")
+        info["host_reads"] += 1
+        if sc.done.item():
+            break
+    S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
+    info["host_reads"] += 1
+    info["iterations"] = int(S["it"])
+    if with_info:
+        return state, S["cost"], int(S["it"]), info
+    return state, S["cost"], int(S["it"])
 
 
 def lm_solve_fused_packed(problem: BAProblem, maps: PackedMaps, model_id,

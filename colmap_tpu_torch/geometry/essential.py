@@ -4,8 +4,8 @@ Counterpart of colmap_tpu/geometry/essential.py (reference behavior:
 src/colmap/geometry/essential_matrix.h:53-81). Functions broadcast over
 leading batch dimensions; the convention is ``x2ᵀ E x1 = 0`` with E built
 from ``cam2_from_cam1`` as [t]x R. They run as torch ops on the device of
-their inputs: the initial pair calls them a few times per candidate pair, on
-at most a few thousand matches.
+their inputs. The pose of an essential matrix, K36's cheirality entry, is
+estimators/relative_pose.py pose_from_essential_matrix.
 """
 
 from __future__ import annotations
@@ -82,34 +82,6 @@ def calc_depth(proj, X):
     Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
     z = (proj[..., 2, :] * Xh).sum(-1)
     return z * torch.linalg.vector_norm(proj[..., 2, :3], dim=-1)
-
-
-def pose_from_essential_matrix(E, x1, x2, mask=None):
-    """Recover cam2_from_cam1 from E and matched normalized points.
-
-    Tests the four (R, t) candidates and keeps the one with the most points
-    in front of both cameras (reference: PoseFromEssentialMatrix).
-    E: (3, 3); x1, x2: (N, 2); mask: optional (N,) validity, padded rows
-    excluded from the vote. Returns (R, t, points3D (N, 3), num_valid
-    (0-dim int tensor), valid_mask (N,)).
-    """
-    if mask is None:
-        mask = torch.ones(x1.shape[:-1], dtype=torch.bool, device=x1.device)
-    R1, R2, t = decompose_essential_matrix(E)
-    eye34 = torch.eye(3, 4, dtype=E.dtype, device=E.device)
-    best = None
-    for R, tt in ((R1, t), (R2, t), (R1, -t), (R2, -t)):
-        proj2 = torch.cat([R, tt[:, None]], dim=1)
-        X = triangulate_point_dlt(eye34, proj2, x1, x2)
-        d1 = calc_depth(eye34, X)
-        d2 = calc_depth(proj2, X)
-        max_depth = 1000.0 * torch.linalg.vector_norm(tt)
-        ok = (d1 > 1e-12) & (d1 < max_depth) & (d2 > 1e-12) & (d2 < max_depth) & mask
-        count = ok.sum()
-        # argmax semantics: the first candidate with the largest count.
-        if best is None or bool(count > best[3]):
-            best = (R, tt, X, count, ok)
-    return best
 
 
 def sampson_error(E, x1, x2):

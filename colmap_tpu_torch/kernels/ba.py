@@ -3,18 +3,24 @@
 Four CUDA kernels carry the packed Levenberg-Marquardt solver of
 ``estimators/bundle_adjustment.py`` (sources in ``colmap_tpu_torch/csrc``):
 
-    K1 ba_obs_jacobians         obs_jacobians, obs_cost
+    K1 ba_obs_jacobians         obs_jacobians, obs_cost, obs_cost64
     K2 ba_lm_reduce             lm_reduce
     K3 ba_schur_matvec          schur_matvec, back_substitute
     K4 ba_dense_schur_assemble  dense_schur_assemble
 
+and K34 (PCG) and K35 (the LM update) of ``kernels/solver.py`` run the
+rest of the solve on the card.
+
 Each wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; on a CUDA tensor it
 launches or raises, it never falls back. ``LAUNCHES`` counts kernel launches
-by kernel name (a wrapper adds one where it launches, nowhere else).
+by kernel name (a wrapper adds one where it launches, nowhere else; a
+replay of the LM loop's CUDA graph adds the launches the graph holds, and
+recording it adds none).
 ``KERNELS`` bundles the wrappers, which the solver runs, and ``PLAIN`` the
 plain versions, which only the solver's private loop takes, so that a
-check on the card can run the same solve through both.
+check on the card can run the same solve through both. The damping lam is
+a 0-d tensor on the problem's device, which K2 reads there.
 
 Layouts (point-major, as ``pack_problem`` builds them; Opm = N * capp):
     r (Opm, 2), Jp (Opm, 2, 6), Jc (Opm, 2, P), Jx (Opm, 2, 3),
@@ -45,6 +51,7 @@ import torch
 
 from colmap_tpu_torch.estimators.ba_residual import make_residual_fn, robust_cost, robust_weight
 from colmap_tpu_torch.geometry import rotation as rot
+from colmap_tpu_torch.kernels import solver
 from colmap_tpu_torch.sensor import models as camera_models
 
 LAUNCHES = {
@@ -219,8 +226,9 @@ def _segment_sum(contrib, ids, n):
 
 
 def lm_reduce_plain(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames: int,
-                    num_cams: int, lam: float) -> LMReduction:
-    """One LM step's reductions over the point-major slots (K2's function)."""
+                    num_cams: int, lam) -> LMReduction:
+    """One LM step's reductions over the point-major slots (K2's function);
+    lam is a 0-d tensor."""
     N, capp = frame_pm.shape
     fids, cids = frame_pm.reshape(-1), cam_pm.reshape(-1)
     F, C = num_frames, num_cams
@@ -335,7 +343,7 @@ _F = ctypes.c_float
 # the wrappers pass them, then (except K1) the SM count, then the stream.
 _SIGNATURES = {
     "ba_obs_jacobians_f32": [_I, _I, _I, _F, _LL, _I, _I, _P] + [_P] * 17 + [_P],
-    "ba_lm_reduce_f32": [_LL, _I, _I, _I, _I, _F] + [_P] * 17 + [_I, _P],
+    "ba_lm_reduce_f32": [_LL, _I, _I, _I, _I] + [_P] * 18 + [_I, _P],
     "ba_schur_matvec_f32": [_I, _LL, _I, _I, _I, _I] + [_P] * 10 + [_I, _P],
     "ba_dense_schur_assemble_f32": [_LL, _I, _I, _I, _I] + [_P] * 8 + [_I, _P],
 }
@@ -459,14 +467,31 @@ def obs_cost(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
     if points.device.type == "cpu":
         return obs_cost_plain(quat, t, cam_params, points, obs_frame, obs_cam,
                               obs_point, obs_xy, obs_w, model_id, loss, loss_scale, groups)
-    dev, F, C, P, N, O = _k1_checks(quat, t, cam_params, points, obs_frame, obs_cam,
-                                    obs_point, obs_xy, obs_w, model_id, loss)
     # Block sums are added in float64; the cost comes back in float32.
-    cost = torch.zeros((), dtype=torch.float64, device=dev)
+    return obs_cost64(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, obs_w,
+                      model_id, loss, loss_scale, groups).to(torch.float32)
+
+
+def obs_cost64_plain(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
+                     obs_w, model_id, loss: str, loss_scale: float, groups=None):
+    """obs_cost_plain as a 0-d float64 tensor."""
+    return obs_cost_plain(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
+                          obs_w, model_id, loss, loss_scale, groups).double()
+
+
+def obs_cost64(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
+               obs_w, model_id, loss: str, loss_scale: float, groups=None):
+    """K1, cost mode, as its float64 sum (the LM loop's costs)."""
+    if points.device.type == "cpu":
+        return obs_cost64_plain(quat, t, cam_params, points, obs_frame, obs_cam, obs_point,
+                                obs_xy, obs_w, model_id, loss, loss_scale, groups)
+    _k1_checks(quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, obs_w,
+               model_id, loss)
+    cost = torch.zeros((), dtype=torch.float64, device=points.device)
     _k1_launches(1, quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy, obs_w,
                  (None, None, None), (None, None, None, None), cost, model_id, loss, loss_scale,
                  groups)
-    return cost.to(torch.float32)
+    return cost
 
 
 def _j_checks(Jp, Jc, Jx, frame_pm, cam_pm):
@@ -483,12 +508,14 @@ def _j_checks(Jp, Jc, Jx, frame_pm, cam_pm):
 
 
 def lm_reduce(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames: int, num_cams: int,
-              lam: float) -> LMReduction:
-    """K2. See lm_reduce_plain for the function."""
+              lam) -> LMReduction:
+    """K2. See lm_reduce_plain for the function; lam is a 0-d float32 tensor
+    on the card, read there by the kernel."""
     if Jp.device.type == "cpu":
         return lm_reduce_plain(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames, num_cams, lam)
     dev, N, capp, P = _j_checks(Jp, Jc, Jx, frame_pm, cam_pm)
     _check("r", r, torch.float32, (N * capp, 2), dev)
+    _check("lam", lam, torch.float32, (), dev)
     F, C = int(num_frames), int(num_cams)
     e = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     out = LMReduction(
@@ -498,8 +525,8 @@ def lm_reduce(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames: int, num_cams: int,
     )
     # Frame/camera partial sums: 33 floats per frame, 3P per camera.
     scratch = torch.zeros(33 * F + 3 * P * C, dtype=torch.float32, device=dev)
-    _call("ba_lm_reduce_f32", N, capp, F, C, P, float(lam),
-          *map(_ptr, (r, Jp, Jc, Jx, frame_pm, cam_pm, scratch, *out)),
+    _call("ba_lm_reduce_f32", N, capp, F, C, P,
+          *map(_ptr, (lam, r, Jp, Jc, Jx, frame_pm, cam_pm, scratch, *out)),
           _I(_num_sms(dev)), _stream(dev))
     LAUNCHES["ba_lm_reduce"] += 1
     return out
@@ -564,13 +591,21 @@ def dense_schur_assemble(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
 class BAKernels(NamedTuple):
     obs_jacobians: object
     obs_cost: object
+    obs_cost64: object
     lm_reduce: object
     schur_matvec: object
     back_substitute: object
     dense_schur_assemble: object
+    pcg_setup: object
+    pcg_step: object
+    lm_candidate: object
+    lm_accept: object
 
 
-KERNELS = BAKernels(obs_jacobians, obs_cost, lm_reduce, schur_matvec,
-                    back_substitute, dense_schur_assemble)
-PLAIN = BAKernels(obs_jacobians_plain, obs_cost_plain, lm_reduce_plain,
-                  schur_matvec_plain, back_substitute_plain, dense_schur_assemble_plain)
+KERNELS = BAKernels(obs_jacobians, obs_cost, obs_cost64, lm_reduce, schur_matvec,
+                    back_substitute, dense_schur_assemble, solver.pcg_setup, solver.pcg_step,
+                    solver.lm_candidate, solver.lm_accept)
+PLAIN = BAKernels(obs_jacobians_plain, obs_cost_plain, obs_cost64_plain, lm_reduce_plain,
+                  schur_matvec_plain, back_substitute_plain, dense_schur_assemble_plain,
+                  solver.pcg_setup_plain, solver.pcg_step_plain, solver.lm_candidate_plain,
+                  solver.lm_accept_plain)

@@ -4,7 +4,7 @@ Counterpart of colmap_tpu/scene/pose_graph.py (reference behavior:
 src/colmap/scene/pose_graph.h:11): per-pair relative poses loaded from the
 database's two_view_geometries, with the largest connected component that
 global SfM keeps. Pairs without a stored pose get one by decomposing E, F
-or H with the port's ``_recover_pose`` (reference:
+or H with the port's ``recover_poses`` (reference:
 controllers/global_pipeline.cc relative-pose decomposition), on ``device``.
 """
 
@@ -91,13 +91,14 @@ class PoseGraph:
     def load(database, min_num_inliers: int = 15, decompose_missing: bool = True,
              device=None) -> "PoseGraph":
         """Build from a database's verified pairs (reference: PoseGraph::Load);
-        missing poses are decomposed on ``device`` (default cuda)."""
-        from colmap_tpu_torch.estimators.two_view_geometry import _recover_pose
+        missing poses are decomposed together on ``device`` (default cuda)."""
+        from colmap_tpu_torch.estimators.two_view_geometry import recover_poses
 
         graph = PoseGraph()
         cameras = database.read_cameras()
         images = {iid: cid for (iid, _, cid) in database.read_images()}
         kps: Dict[int, np.ndarray] = {}
+        kept, missing = [], []
         for (id1, id2, g) in database.read_all_two_view_geometries():
             if g is None or len(g.inlier_matches) < min_num_inliers or g.config not in _POSED_CONFIGS:
                 continue
@@ -107,8 +108,13 @@ class PoseGraph:
                 for iid in (id1, id2):
                     if iid not in kps:
                         kps[iid] = database.read_keypoints(iid)
-                _recover_pose(g, cameras[images[id1]], kps[id1][:, :2], cameras[images[id2]],
-                              kps[id2][:, :2], device=device)
+                missing.append((g, cameras[images[id1]], kps[id1][:, :2], cameras[images[id2]],
+                                kps[id2][:, :2]))
+            kept.append((id1, id2, g))
+        # The edges without a pose, decomposed together (K36, one launch per
+        # block of edges).
+        recover_poses(missing, device=device)
+        for id1, id2, g in kept:
             if g.cam2_from_cam1 is None:
                 continue
             graph.add_edge(PoseGraphEdge(image_id1=id1, image_id2=id2,

@@ -49,17 +49,16 @@ from colmap_tpu_torch.estimators.pose import (
     estimate_absolute_pose,
     refine_absolute_pose,
 )
-from colmap_tpu_torch.estimators.relative_pose import refine_relative_pose
 from colmap_tpu_torch.estimators.two_view_geometry import _ransac_e
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.geometry.essential import (
     cross_product_matrix,
-    pose_from_essential_matrix,
     sampson_error,
     triangulate_point_dlt,
 )
 from colmap_tpu_torch.geometry.triangulation import triangulation_angle
 from colmap_tpu_torch.kernels import sfm as K
+from colmap_tpu_torch.kernels import solver as KS
 from colmap_tpu_torch.optim.ransac import RansacOptions
 from colmap_tpu_torch.scene.database_cache import DatabaseCache
 from colmap_tpu_torch.scene.reconstruction import Reconstruction
@@ -216,29 +215,37 @@ class IncrementalMapper:
         # points in front of both cameras. Run RANSAC from a few seeds,
         # Sampson-refine each candidate, and select by the number of
         # CHEIRALITY-VALID inliers (the reference's init check, which counts
-        # triangulated points, is the same discriminator).
-        best = None
+        # triangulated points, is the same discriminator). The seeds'
+        # candidates go through K36 together: cheirality of the RANSAC
+        # models, one refinement launch, cheirality of the refined models.
+        results = []
         for trial_seed in range(3):
             gen = torch.Generator().manual_seed(options.seed + 7919 * trial_seed)
             res = _ransac_e(gen, x1n, x2n, mask, thresh_n, ransac_opts)
-            if not res.success:
-                continue
-            R, t, _, _, _ = pose_from_essential_matrix(res.model, x1n, x2n, mask=res.inlier_mask)
-            q0 = rot.rotmat_to_quat(R)
-            weights = res.inlier_mask.to(x1n.dtype)
-            q_ref, t_ref, _ = refine_relative_pose(q0, t, x1n, x2n, weights)
-            E_ref = cross_product_matrix(t_ref) @ rot.quat_to_rotmat(q_ref)
-            inl = (sampson_error(E_ref, x1n, x2n) <= float(thresh_n) ** 2) & mask
-            R2, t2, points3D, num_valid, cheir_ok = pose_from_essential_matrix(
-                E_ref, x1n, x2n, mask=inl)
-            score = int(num_valid)
-            if best is None or score > best[0]:
-                best = (score, R2, t2, points3D, cheir_ok.cpu().numpy(), inl.cpu().numpy())
-        if best is None:
+            if res.success:
+                results.append(res)
+        if not results:
             return None
-        score, R2, t2, points3D, cheir_ok, inl = best
+        n, k = x1n.shape[0], len(results)
+        offsets = [n * i for i in range(k + 1)]
+        X1, X2 = x1n.repeat(k, 1), x2n.repeat(k, 1)
+        inl0 = torch.cat([res.inlier_mask for res in results])
+        R, t, _, _, _ = KS.poses_from_essentials(torch.stack([res.model for res in results]),
+                                                 X1, X2, inl0, offsets)
+        q_ref, t_ref, _ = KS.refine_relative_poses(rot.rotmat_to_quat(R), t, X1, X2,
+                                                   inl0.to(x1n.dtype), offsets)
+        E_ref = cross_product_matrix(t_ref) @ rot.quat_to_rotmat(q_ref)
+        inl = (sampson_error(E_ref[:, None], x1n[None], x2n[None]) <= float(thresh_n) ** 2) & mask
+        R2, t2, points3D, num_valid, cheir_ok = KS.poses_from_essentials(
+            E_ref, X1, X2, inl.reshape(-1), offsets)
+        scores = num_valid.tolist()
+        b = max(range(k), key=lambda i: (scores[i], -i))  # the first seed of the best score
+        score = scores[b]
         if score < options.init_min_num_inliers:
             return None
+        R2, t2, points3D = R2[b], t2[b], points3D[b * n:(b + 1) * n]
+        cheir_ok = cheir_ok[b * n:(b + 1) * n].cpu().numpy()
+        inl = inl[b].cpu().numpy()
 
         pose21 = Pose(rot.rotmat_to_quat(R2).double().cpu().numpy(), t2.double().cpu().numpy())
         # Median triangulation angle over cheirality-valid inliers.

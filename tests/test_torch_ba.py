@@ -157,7 +157,8 @@ def _reduced(long_track=0):
     J = tuple(_t(x) for x in (r, Jp, Jc, Jx))
     return dict(model_id=model_id, lam=lam, jpk=jpk, jmaps=jmaps, tmaps=tmaps, F=F, C=C,
                 jax_J=(r, Jp, Jc, Jx), J=J, jax_red=jax_red,
-                red=K.lm_reduce(*J, tmaps.frame_pm, tmaps.cam_pm, F, C, lam))
+                red=K.lm_reduce(*J, tmaps.frame_pm, tmaps.cam_pm, F, C,
+                                torch.tensor(lam, dtype=torch.float64)))
 
 
 @pytest.fixture(scope="module")
@@ -384,7 +385,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
          torch.zeros(4, 2, 4, device="meta"), torch.zeros(4, 2, 3, device="meta"))
     ids = torch.zeros(2, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
-        K.lm_reduce(*J, ids, ids, 1, 1, 1e-3)
+        K.lm_reduce(*J, ids, ids, 1, 1, torch.tensor(1e-3, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device"):
         K.schur_matvec(*J[1:], ids, ids, torch.zeros(2, 3, 3, device="meta"),
                        torch.zeros(1, 6, device="meta"), torch.zeros(1, 4, device="meta"))

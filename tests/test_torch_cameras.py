@@ -258,8 +258,10 @@ def test_mixed_solve_groups_slots_once(solver, monkeypatch):
     def regroup(fn):  # drops the solver's groups: each call builds its own
         return lambda *args: fn(*args[:-1], None)
 
+    # The BA loop's costs are float64 sums (obs_cost64); the rig loop's obs_cost.
+    costs = [f for f in ("obs_cost", "obs_cost64") if f in kern.PLAIN._fields]
     per_call = kern.PLAIN._replace(obs_jacobians=regroup(kern.PLAIN.obs_jacobians),
-                                   obs_cost=regroup(kern.PLAIN.obs_cost))
+                                   **{f: regroup(getattr(kern.PLAIN, f)) for f in costs})
     _, cost_per_call, _ = run(per_call)
     assert len(calls) > 1 + 2 * iters
     assert abs(cost - cost_per_call) <= 1e-12 * max(cost_per_call, 1e-30)

@@ -107,8 +107,9 @@ def test_kernels_match_plain_on_cuda(shape):
         _close(a, b, 1e-5, f"K1 {name}")
     F, C = pk.quat.shape[0], pk.cam_params.shape[0]
     fpm, cpm = maps.frame_pm, maps.cam_pm
-    red = K.lm_reduce(*J, fpm, cpm, F, C, 1e-3)
-    ref = K.lm_reduce_plain(*_f64(*J), fpm, cpm, F, C, 1e-3)
+    lam = torch.tensor(1e-3, device="cuda")
+    red = K.lm_reduce(*J, fpm, cpm, F, C, lam)
+    ref = K.lm_reduce_plain(*_f64(*J), fpm, cpm, F, C, lam.double())
     for name, a, b in zip(K.LMReduction._fields, red, ref):
         _close(a, b, 1e-4, f"K2 {name}")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1338,3 +1339,166 @@ def test_spherical_ransac_matches_plain_on_cuda(kind):
             m1, c1, b1 = propose(*one, c["samples"][b], float(sq[b]))
             assert int(b1) == int(bb[b]) and torch.equal(c1, cb[b])
             assert torch.equal(torch.nan_to_num(m1), torch.nan_to_num(mb[b]))
+
+
+# K34-K37 (kernels/solver.py). K34 (float32 vectors and 6x6 blocks, float64
+# dots) and K35's candidate (one float32 update per entry) are held to 1e-4
+# and 1e-5 of each output's scale against float64 on the same inputs; K35's
+# accept to the same decisions. The device-resident loop runs no host read
+# inside a chunk (torch.cuda.set_sync_debug_mode("error")) and ends within
+# 1e-4 of the loop through the plain versions, its iterations after done
+# frozen. K36 (float64 arithmetic) to 1e-5, with at most 0.1% of the rows
+# flipping their cheirality; K37 counts each of its models' inliers as a
+# float64 count of the same model does, up to rows within 2% of the
+# threshold.
+
+
+def test_pcg_and_lm_update_match_plain_on_cuda(problem):
+    """K34's set-up (both modes) and step, K35's candidate and accept."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KS
+
+    pk, maps, model_id, opts, masks = problem
+    om = ba._obs_masks(masks, opts)
+    J = K.obs_jacobians(*pk, om.pose, om.cam, om.point, model_id, "trivial", 1.0)
+    F, (C, P) = pk.quat.shape[0], pk.cam_params.shape
+    lam = torch.tensor(1e-3, device="cuda")
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red64 = K.LMReduction(*_f64(*red))
+    for bj in (True, False):
+        st = KS.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, bj)
+        ref = KS.pcg_setup_plain(*[getattr(red64, n) for n in ("Hcc_pose", "diag_pose",
+                                                              "diag_cam", "bp", "bc")],
+                                 lam.double(), bj)
+        for name, a, b in zip(KS.PCGState._fields, st, ref):
+            _close(a, b, 1e-4, f"K34 set-up {name}")
+        Ap = K.schur_matvec(*J[1:], maps.frame_pm, maps.cam_pm, red.Hpp_inv,
+                            st.p[:6 * F].view(F, 6), st.p[6 * F:].view(C, P))
+        ref = KS.pcg_step_plain(KS.PCGState(*_f64(*st)), *_f64(*Ap), lam.double(),
+                                red64.diag_pose, red64.diag_cam)
+        st = KS.pcg_step(st, *Ap, lam, red.diag_pose, red.diag_cam)
+        for name, a, b in zip(KS.PCGState._fields, st, ref):
+            _close(a, b, 1e-4, f"K34 step {name}")
+    dp, dc = st.x[:6 * F].view(F, 6), st.x[6 * F:].view(C, P)
+    dx = K.back_substitute(*J[1:], maps.frame_pm, maps.cam_pm, red.Hpp_inv, red.gx, dp, dc)
+    params = tuple(pk[:4])
+    cand, pred = KS.lm_candidate(*params, dp, dc, dx, red, lam)
+    cand64, pred64 = KS.lm_candidate_plain(*_f64(*params, dp, dc, dx), red64, lam.double())
+    for name, a, b in zip(("quat", "t", "cam", "points", "pred"), (*cand, pred),
+                          (*cand64, pred64)):
+        _close(a, b, 1e-5, f"K35 candidate {name}")
+    new_cost = K.obs_cost64(*cand, *pk[4:], model_id, "trivial", 1.0)
+    S = torch.zeros(9, dtype=torch.float64, device="cuda")
+    S[0], S[1:3] = 2.0, K.obs_cost64(*pk, model_id, "trivial", 1.0)
+    S64, lam64 = S.clone(), lam.double()
+    state, state64 = tuple(x.clone() for x in params), tuple(_f64(*params))
+    flags = [torch.zeros(1, dtype=torch.uint8, device="cuda") for _ in range(2)]
+    KS.lm_accept(lam, S, new_cost, pred, state, cand, 1e-10, 1e10, 1e-6, flags[0])
+    KS.lm_accept_plain(lam64, S64, new_cost, pred, state64, cand64, 1e-10, 1e10, 1e-6, flags[1])
+    assert torch.equal(S[[0, 3, 4, 5, 6]], S64[[0, 3, 4, 5, 6]]) and bool(S[5] == 1)
+    assert torch.equal(flags[0], flags[1])
+    _close(lam, lam64, 1e-6, "K35 lam")
+    for a, b in zip(state, state64):
+        _close(a, b, 1e-5, "K35 state")
+
+
+@pytest.mark.parametrize("solver", ["dense_schur", "pcg"])
+def test_device_loop_reads_no_host_inside_a_chunk_on_cuda(problem, solver):
+    """The LM loop on the card: one graph replay chunk and one eager chunk
+    under sync debug mode "error"; once the function tolerance sets done,
+    a replay and an eager iteration change nothing; a solve of 8
+    iterations without a tolerance ends within 1e-4 of the plain loop's
+    cost, in as many iterations."""
+    import dataclasses
+
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+
+    pk, maps, model_id, opts, masks = problem
+    opts = dataclasses.replace(opts, solver_type=solver, max_iterations=30)
+    state, sc, groups = ba._start(pk, model_id, opts, 1e-4, 2.0, K.KERNELS)
+    om = ba._obs_masks(masks, opts)
+
+    def step():
+        ba._lm_iteration(state, maps, model_id, opts, om, sc, K.KERNELS, solver != "pcg", True,
+                         groups)
+
+    step()
+    replay, _, _ = ba._capture(step, torch.device("cuda"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+        replay()
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    while not sc.done.item() and sc.S[3].item() < opts.max_iterations:
+        replay()
+    assert sc.done.item() == 1
+    before = [x.clone() for x in (*state[:4], sc.lam, sc.S)]
+    before[-1][6] = 0.0  # the copy flag is cleared; nothing else moves
+    replay()
+    step()
+    for a, b in zip(before, (*state[:4], sc.lam, sc.S)):
+        assert torch.equal(a, b)
+    # Without a function tolerance: near the optimum float32 sums decide its
+    # test either way, so the two loops' iteration counts could differ.
+    opts = dataclasses.replace(opts, max_iterations=8, function_tolerance=0.0)
+    _, cost, iters = ba.lm_solve_fused_packed(pk, maps, model_id, opts, masks)
+    _, cost_p, iters_p = ba._lm_loop(pk, maps, model_id, opts, masks, solver != "pcg", True,
+                                     kernels=K.PLAIN)
+    assert abs(cost - cost_p) <= 1e-4 * cost_p and iters == iters_p == 8
+
+
+def test_relative_pose_matches_plain_on_cuda():
+    """K36: cheirality on 3 x 2048 rows and 50 edges x 200 rows, and the
+    refinement on the 3 pairs, against float64."""
+    _need_card()
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.kernels import solver_cases as SC
+
+    for sizes in ([2048] * 3, [200] * 50):
+        c = SC.relative_pose_case(sizes, 4, "cuda")
+        d = SC.as_double(c)
+        out = KS.poses_from_essentials(c["E"], c["x1"], c["x2"], c["mask"], c["offsets"])
+        ref = KS.poses_from_essentials_plain(d["E"], d["x1"], d["x2"], d["mask"], c["offsets"])
+        _close(out[0], ref[0], 1e-5, "K36 R")
+        _close(out[1], ref[1], 1e-5, "K36 t")
+        assert int((out[4] != ref[4]).sum()) <= 1e-3 * out[4].numel()
+        assert int((out[3].long() - ref[3]).abs().max()) <= 1e-3 * out[4].numel()
+    c = SC.relative_pose_case([2048] * 3, 5, "cuda")
+    d = SC.as_double(c)
+    got = KS.refine_relative_poses(c["q0"], c["t0"], c["x1"], c["x2"], c["weights"],
+                                   c["offsets"])
+    ref = KS.refine_relative_poses_plain(d["q0"], d["t0"], d["x1"], d["x2"], d["weights"],
+                                         c["offsets"])
+    for name, a, b in zip(("q", "t", "rms"), got, ref):
+        _close(a, b, 1e-4, f"K36 refine {name}")
+
+
+def test_structure_less_ransac_matches_plain_on_cuda():
+    """K37: each model's support equals a float64 count of the same model up
+    to rows within 2% of the threshold, NaN models score 0, the packed best
+    is the first largest count; the inlier entry likewise."""
+    _need_card()
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.kernels import solver_cases as SC
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    c = SC.structure_less_case(1000, 5, 16, 6, "cuda")
+    d = SC.as_double(c)
+    a = [c[k] for k in SC.STRUCTURE_LESS_ARGS]
+    a64 = [d[k] for k in SC.STRUCTURE_LESS_ARGS]
+    models, counts, best = KS.structure_less_score(*a, *(c[k] for k in SC.SAMPLE_ARGS), 36.0)
+    fin = torch.isfinite(models.flatten(1)).all(1)
+    assert int(fin.sum()) >= 10 and not bool(fin[:20].any())
+    res = KS.structure_less_residuals_plain(models[fin].double(), *a64)
+    border = ((res - 36.0).abs() <= 0.72).sum(-1)
+    assert bool(((counts[fin] - (res <= 36.0).sum(-1)).abs() <= border).all())
+    assert bool((counts[~fin] == 0).all())
+    support, idx = unpack_best(int(best.item()))
+    assert support == int(counts.max()) and int(counts[idx]) == support
+    inl = KS.structure_less_inliers(*a, models[idx], 36.0)
+    r = KS.structure_less_residuals_plain(models[idx][None].double(), *a64)[0]
+    assert bool(((inl != (r <= 36.0)) <= ((r - 36.0).abs() <= 0.72)).all())

@@ -24,6 +24,7 @@ from colmap_tpu.geometry import triangulation as jtri
 from colmap_tpu.optim import polynomial as jpoly
 from colmap_tpu.optim import small_linalg as jla
 from colmap_tpu.sensor import models as jm
+from colmap_tpu_torch.estimators.relative_pose import pose_from_essential_matrix as t_pose_from_e
 from colmap_tpu_torch.estimators.relative_pose import refine_relative_pose as t_refine_rel
 from colmap_tpu_torch.estimators.solvers import epipolar as te
 from colmap_tpu_torch.estimators.solvers import p3p as tp
@@ -223,7 +224,7 @@ def test_essential_geometry_matches_jax():
     mask[-5:] = False
     out_j = jess.pose_from_essential_matrix(jnp.asarray(E), jnp.asarray(x1), jnp.asarray(x2),
                                             mask=jnp.asarray(mask))
-    out_t = tess.pose_from_essential_matrix(_T(E), _T(x1), _T(x2), mask=torch.from_numpy(mask))
+    out_t = t_pose_from_e(_T(E), _T(x1), _T(x2), mask=torch.from_numpy(mask))
     for a, b in zip(out_t, out_j):
         np.testing.assert_allclose(np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64),
                                    atol=1e-9)
