@@ -76,7 +76,10 @@ Phases; any failure exits non-zero:
      on 50 cameras and 2000 F edges; timed with CUDA events; then
      estimate_rotations, solve_global_positioning and calibrate_view_graph
      through the kernels and through the plain versions in float64 on the
-     card, held to the truth and to each other;
+     card, held to the truth and to each other; then K39 (the CG step, both
+     modes) against float64 on the same graph and problem, timed, and one
+     round of each solver's CG replayed from its CUDA graph under sync debug
+     mode "error", equal to the eager round to the bit;
  17. global SfM (phase `global`): `global_mapper` on the verify scene, the
      full-size scene (both with relative poses decomposed from E) and an
      8-frame gravity-prior scene (the full-size scene at 10 frames, as in
@@ -92,9 +95,14 @@ Phases; any failure exits non-zero:
      over camera models 0-4 with a constant frame and an empty sensor row
      (K25, K26: the same bits in two runs), K27 on 1024 injected samples of a
      2000-row rig frame (the same best sample or a near-tie marked from
-     float64), timed with CUDA events; then 10 LM iterations of the rig solve
+     float64), timed with CUDA events; K34's rig set-up (c) and undamped
+     step and K38 (the rig LM candidate and accept) against float64 on the
+     headline's first step, timed; then 10 LM iterations of the rig solve
      through the kernels and through the float64 plain versions, held to
-     each other and to the true sensor_from_rig;
+     each other and to the true sensor_from_rig; then the device-resident
+     rig loop: a replay and an eager iteration under sync debug mode
+     "error", a warm solve under torch.profiler (wall per iteration, idle
+     share, host reads, the graph's record and instantiate times);
  19. rig mapper (phase `rig`): the verify rig scene (2 cameras x 6 frames x
      200 points, seed 4) stripped to features, its rigs and frames emptied
      and rebuilt by `rig_configurator`, and the full-size rig scene (4
@@ -149,7 +157,9 @@ Phases; any failure exits non-zero:
      (15 x 1500) and at the BA headline, K36 (cheirality and refinement)
      on the initial pair's 3 seeds x 8192 rows and cheirality on 780 pose
      graph edges x 200 rows, K37 on 16 injected samples at the rendered
-     scene's shape (2000 rows, 11 registered cameras), timed; at both BA
+     scene's shape (2000 rows, 11 registered cameras; every near-best model
+     of its check within 1e-6 of float64), K40 (the rig pose refinement
+     and refit) on 2000 rows x 4 cameras in float64, timed; at both BA
      shapes the loop's costs that the graph's size rule and the done
      flag's chunk weigh (an eager iteration, recording and instantiating a
      graph, a replay, one flag read, a whole solve).
@@ -159,9 +169,9 @@ K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
 the mapper K1-K3, K5-K9 and K34-K36 (its BA is PCG, so K4 is not on its
 path), the rendered 12-frame mapper K37 too, the extractor K13-K16,
 `image_undistorter` K5, `patch_match_stereo` K17-K20, `global_mapper` K1-K3,
-K5, K21, K22 and K34-K36, `rotation_averager` K21, `view_graph_calibrator` K23, the
-rig solve K24-K26 and the rig mapper K5, K7 and K24-K27 (and on the
-full-size rig scene K8 and K9), `vocab_tree_builder` K28 and K29,
+K5, K21, K22 and K34-K36 and K39, `rotation_averager` K21, `view_graph_calibrator` K23,
+the rig solve K24-K26 and K38 and the rig mapper K5, K7, K24-K27, K34, K38
+and K40 (and on the full-size rig scene K8 and K9), `vocab_tree_builder` K28 and K29,
 `vocab_tree_pairs` K28, K29 and K31, `vocab_tree_retriever` and `vocab_tree_matcher` K30 (the
 matcher also K5, K7 and K10-K12 on the rendered frames), the fisheye and
 mixed mappers K1-K3, K5-K9 and K34-K36, `exhaustive_matcher` on 360-degree
@@ -393,6 +403,8 @@ GLOBAL_SOURCES = {
                            "colmap_tpu/estimators/global_positioning.py:48"),
     "view_graph_calibration": ("colmap_tpu_torch/csrc/view_graph_calibration.cu",
                                "colmap_tpu/estimators/view_graph_calibration.py:76"),
+    "global_cg": ("colmap_tpu_torch/csrc/global_cg.cu",
+                  "colmap_tpu/estimators/rotation_averaging.py:123"),
 }
 # Global SfM at the scale its users run (1DSfM's collections: about 1000
 # registered images, tens of thousands of view-graph edges): rotation
@@ -433,6 +445,13 @@ GRAVITY_MAX_ROT_DEG, GRAVITY_MAX_CENTER, RA_CLI_MAX_DEG, VGC_CLI_RTOL = 0.5, 0.0
 RA_EDGE_OPS, RA_NODE_OPS, RA_PROJ_OPS = 15, 3, 15
 GP_OBS_OPS, GP_POINT_OPS, GP_CAM_OPS = 34, 15, 18
 VGC_EDGE_OPS = 420
+# K39 against float64 on the same float32 inputs, each step fed the float32
+# matvec: float32 vectors, float64 dots; r, z and p shrink as CG converges
+# and r - alpha Ap cancels, so each vector is held to the larger of its own
+# scale and its set-up's. K39_STEPS steps in each mode. Operations per
+# vector entry of a step: two dots (4), two axpys (4), z = M r (1), p =
+# z + beta p (2): 11.
+K39_RTOL, K39_STEPS, K39_ENTRY_OPS = 1e-4, 40, 11
 
 RIG_SOURCES = {
     "rig_ba_jacobians": ("colmap_tpu_torch/csrc/rig_ba_jacobians.cu",
@@ -443,6 +462,8 @@ RIG_SOURCES = {
                       "colmap_tpu/estimators/bundle_adjustment_rig.py:255"),
     "gen_abs_ransac": ("colmap_tpu_torch/csrc/gen_abs_ransac.cu",
                        "colmap_tpu/estimators/generalized_pose.py:113"),
+    "rig_lm_update": ("colmap_tpu_torch/csrc/rig_lm_update.cu",
+                      "colmap_tpu/estimators/bundle_adjustment_rig.py:319"),
 }
 # The rig BA headline: bench.py:101's problem grouped into a 4-camera rig,
 # 50 frames x 4 sensors (200 images) x 50 000 points x 300 000
@@ -566,6 +587,8 @@ SOLVER_SOURCES = {
                       "colmap_tpu/geometry/essential.py:94"),
     "structure_less_ransac": ("colmap_tpu_torch/csrc/structure_less_ransac.cu",
                               "colmap_tpu/estimators/generalized_pose.py:552"),
+    "gen_abs_refine": ("colmap_tpu_torch/csrc/gen_abs_refine.cu",
+                       "colmap_tpu/estimators/generalized_pose.py:262"),
 }
 # Published float64 peak of one H100 SXM outside the tensor cores (NVIDIA
 # data sheet): the bound of K36, which computes in float64.
@@ -589,14 +612,13 @@ LOCAL_BA = (15, 1500)
 EARLY_LOCAL_BA = (8, 600)  # the mapper's first local BAs
 REL_ROWS, REL_SEEDS, GRAPH_EDGES, GRAPH_ROWS = 8192, 3, 780, 200
 SL_ROWS, SL_CAMS, SL_SAMPLES = 2000, 11, 16
-# K37's check: four batches of injected samples (a stable share of
-# agreeing near-best models). The float32 five-point solve misses the root
-# of some ill-conditioned samples, which K37's float64 polish cannot mend
-# (emulated on the CPU with the float32 plain version and the polish,
-# seeds 3 and 6-9: 79-97% of the near-best models agree), so 70% must
-# agree; all-inlier samples tie, so the best supports may differ by
-# SL_ROWS // 500 rows.
-SL_CHECK_SAMPLES, K37_AGREE = 64, 0.7
+# K37's check: four batches of injected samples. Its five-point solve runs
+# in float64 (in float32 it missed the roots of ill-conditioned samples: 35
+# of 42 near-best models agreed on the card), so every near-best model must
+# have a kernel solution of its sample within 1% of the rows of its support
+# and within K37_MODEL_RTOL of it; all-inlier samples tie, so the best
+# supports may differ by SL_ROWS // 500 rows.
+SL_CHECK_SAMPLES, K37_AGREE, K37_MODEL_RTOL = 64, 1.0, 1e-6
 # Operations (an FMA is 2). K34's step per vector entry: lam D p, two dots,
 # two axpys, z = M r (12 for a pose entry), p = z + beta p: ~24, plus 72 per
 # frame. K35's candidate per frame: the exponential, the product and its
@@ -616,6 +638,18 @@ K35_FRAME_OPS, K35_CAM_OPS, K35_POINT_OPS = 90, 5, 15
 K36_TRI_OPS, K36_ROTATION_OPS = 420, 85
 K36_REFINE_ROW_OPS = 15 * (160 + 40 + 40)
 K37_ROW_OPS = 110
+# K38 against float64: K35's tolerance. Its candidate's operations per
+# frame or sensor row as K35's per frame, per camera-side entry (W a row)
+# 5, per point 15.
+K38_RTOL = K35_RTOL
+# K40 in float64 against float64: 1e-9 of each output's scale. Its
+# float64 operations per row: in a refinement iteration the residual (two
+# quaternion rotations ~60, the projection and the weight ~16), the 2 x 6
+# Jacobian (6 columns of a cross product and a rotation, ~250), the normal
+# equations (2 x 28 FMA, 112) and the candidate's residual (~76): ~510,
+# times the iterations this run's data takes; in the refit the three rows of
+# the 12 x 12 normal equations (3 x ~210) and the second pass (~60): ~700.
+K40_RTOL, K40_ROW_OPS, K40_REFIT_ROW_OPS = 1e-9, 510, 700
 # Phase cameras. The full-size scene (40 x 1000, 1024 x 768) with an
 # action camera's OPENCV_FISHEYE: colmap_tpu's mixed-model test's
 # distortion (0.01, -0.005, 0.001, 0) at the full-size scene's focal length
@@ -932,6 +966,8 @@ def sync_free_chunk(headline, solver):
     inside the chunk raises."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KL
+    from colmap_tpu_torch.utils import cuda_graph
 
     _, model_id, packed, maps, masks = headline
     options = ba.BAOptions(max_iterations=10, pcg_iterations=20, function_tolerance=0.0,
@@ -946,7 +982,8 @@ def sync_free_chunk(headline, solver):
                          True, groups)
 
     step()
-    replay = None if use_dense else ba._capture(step, torch.device("cuda"))[0]
+    replay = None if use_dense else cuda_graph.capture(step, torch.device("cuda"),
+                                                       (K, KL))[0]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1577,7 +1614,8 @@ def run_mapper(db_path, out, label, min_launches=True):
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
-              and k not in CAMERA_SOURCES and k != "structure_less_ransac"]
+              and k not in CAMERA_SOURCES
+              and k not in ("structure_less_ransac", "gen_abs_refine")]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -2854,6 +2892,7 @@ def _k21(errs, rows):
                                lambda: G.ra_update_plain(q.double(), delta.double())),
     }
     log(f"    K21 (a) edge pass, (c) update: {rows['rotation_averaging']['entries']}")
+    GLOBAL_STATE["ra"] = (g32, g64, q, sigma)
 
     # Whole solves.
     out = {}
@@ -2965,7 +3004,122 @@ def _k22(errs, rows):
             lambda: G.gp_back_substitute_plain(p64, sys64, sys64.b, c32.double(), X32.double())),
     }
     log(f"    K22 (a) setup, (c) back-substitution: {rows['global_positioning']['entries']}")
+    GLOBAL_STATE["gp"] = (p32, p64, c32, X32)
     return out
+
+
+GLOBAL_STATE = {}
+
+
+def _cg_steps(tag, mode, setup_args, matvec, steps, errs):
+    """K39's set-up and ``steps`` steps against float64, each step fed the
+    float32 matvec of the kernel's p; returns the kernel's state after the
+    set-up (for timing) and the step at which the freeze rule fired."""
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    st = G.cg_setup(mode, *setup_args)
+    ref = G.cg_setup_plain(mode, setup_args[0].double(), setup_args[1].double(),
+                           *setup_args[2:])
+    for f in G.CGState._fields:
+        check(f"K39 {tag} set-up {f}", getattr(st, f), getattr(ref, f), K39_RTOL,
+              errs["global_cg"])
+    first = G.CGState(*(x.clone() for x in st))
+    scale = {f: float(getattr(ref, f).abs().max()) for f in ("r", "z", "p")}
+    frozen = None
+    worst = [0.0, 0.0]
+    for k in range(steps):
+        if frozen is None and not bool(st.scal[0] > 1e-12 * st.scal[1]):
+            frozen = k
+        Ap = matvec(st.p)
+        ref = G.cg_step_plain(mode, _as64(st), Ap.double())
+        st = G.cg_step(mode, st, Ap)
+        for f in G.CGState._fields:
+            a = float((getattr(st, f).double() - getattr(ref, f)).abs().max())
+            r = a / max(float(getattr(ref, f).abs().max()), scale.get(f, 0.0), 1e-300)
+            worst = [max(worst[0], a), max(worst[1], r)]
+    log(f"  K39 {tag}: {steps} steps, largest error {worst[1]:.3e} of each vector's scale "
+        f"(tol {K39_RTOL:g}); freeze rule fired at step {frozen}")
+    if not worst[1] <= K39_RTOL:
+        raise AssertionError(f"K39 {tag}: {worst[1]:.3e} > {K39_RTOL:g}")
+    errs["global_cg"].append(tuple(worst))
+    return first, frozen
+
+
+def _k39(errs, rows):
+    """K39 in both modes against float64 on _k21's graph (1000 nodes x
+    25 000 edges, the spanning tree's rotations, Geman-McClure weights) and
+    _k22's problem (1000 cameras, the first round's state), each step fed
+    the float32 matvec; timed. Then one iteration of each solver with its CG
+    replayed from a CUDA graph (the replay under sync debug mode "error")
+    against the same round run eagerly through the kernels (the same bits)
+    and through the plain versions in float64 (logged)."""
+    from colmap_tpu_torch.estimators import global_positioning as GPm
+    from colmap_tpu_torch.estimators import rotation_averaging as RAm
+    from colmap_tpu_torch.kernels import global_sfm as G
+    from colmap_tpu_torch.utils import cuda_graph
+
+    g32, g64, q, sigma = GLOBAL_STATE["ra"]
+    p32, p64, c32, X32 = GLOBAL_STATE["gp"]
+    dev = torch.device("cuda")
+    step = G.ra_edge_pass(g32, q, False, sigma)
+    st_ra, _ = _cg_steps("rotation mode", G.CG_ROTATION, (step.b, step.deg),
+                         lambda x: G.ra_matvec(g32, step.ew, x), K39_STEPS, errs)
+    sys = G.gp_setup(p32, c32, X32)
+    st_gp, frozen = _cg_steps("positioning mode", G.CG_POSITIONING,
+                              (sys.b, sys.diag_c, p32.eps_rel),
+                              lambda x: G.gp_schur_matvec(p32, sys, x), K39_STEPS, errs)
+    Ap = G.ra_matvec(g32, step.ew, st_ra.p)
+    n = st_ra.x.numel()
+    rows["global_cg"] = _global_row(
+        "K39 step, rotation mode", lambda: G.cg_step(G.CG_ROTATION, st_ra, Ap),
+        lambda: G.cg_step_plain(G.CG_ROTATION, _as64(st_ra), Ap.double()),
+        4 * 8 * n + 16, K39_ENTRY_OPS * n, plain_reps=10)
+    Ap_gp = G.gp_schur_matvec(p32, sys, st_gp.p)
+    rows["global_cg"]["entries"] = {
+        "setup_rotation": _entry_times(lambda: G.cg_setup(G.CG_ROTATION, step.b, step.deg),
+                                       lambda: G.cg_setup_plain(G.CG_ROTATION, step.b.double(),
+                                                                step.deg.double())),
+        "step_positioning": _entry_times(
+            lambda: G.cg_step(G.CG_POSITIONING, st_gp, Ap_gp),
+            lambda: G.cg_step_plain(G.CG_POSITIONING, _as64(st_gp), Ap_gp.double()))}
+    log(f"    K39 entries: {rows['global_cg']['entries']}")
+
+    # One round of each solver through its CG graph.
+    N, E = q.shape[0], g32.edges.shape[0]
+    buf = G.ra_step_buffers(N, E, dev)
+    cg = cuda_graph.StepGraph(lambda: RAm.solve_tangent_cg(g32, buf, 50), dev, (G,), True)
+    for _ in range(2):  # eager, then recorded and replayed
+        G.ra_edge_pass(g32, q, False, sigma, out=buf)
+        cg()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_graph = cg()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    x_eager = RAm.solve_tangent_cg(g32, G.ra_edge_pass(g32, q, False, sigma), 50)
+    x_plain = RAm.solve_tangent_cg(g64, G.ra_edge_pass_plain(g64, q.double(), False, sigma), 50,
+                                   G.PLAIN)
+    gbuf = G.gp_system_buffers(p32)
+    gcg = cuda_graph.StepGraph(lambda: GPm._cg(p32, gbuf, 100, G.KERNELS), dev, (G,), True)
+    for _ in range(2):
+        GPm._irls_round(p32, c32, X32, 100, G.KERNELS, gcg, gbuf)
+    G.gp_setup(p32, c32, X32, out=gbuf)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        xc_graph = gcg()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    xc_eager = GPm._cg(p32, G.gp_setup(p32, c32, X32), 100, G.KERNELS)
+    xc_plain = GPm._cg(p64, G.gp_setup_plain(p64, c32.double(), X32.double()), 100, G.PLAIN)
+    same = torch.equal(x_graph, x_eager) and torch.equal(xc_graph, xc_eager)
+    log(f"  CG graphs (recorded in {cg.record_s * 1e3:.2f} and {gcg.record_s * 1e3:.2f} ms, "
+        f"instantiated in {cg.instantiate_s * 1e3:.2f} and {gcg.instantiate_s * 1e3:.2f} ms): "
+        f"a replay of each ran under sync debug mode \"error\"; rotation CG (50 steps) and "
+        f"positioning CG (100 steps) replayed equal the eager rounds bit for bit: {same}; "
+        f"against the float64 plain rounds: {rel_err(x_graph, x_plain)[1]:.3e} and "
+        f"{rel_err(xc_graph, xc_plain)[1]:.3e} of the step's scale (logged)")
+    if not same:
+        raise AssertionError("K39: a CG replayed from its graph differs from the eager round")
 
 
 def _gp_term_scales(prob, sys, centers, points):
@@ -3048,17 +3202,19 @@ def phase_global_kernels():
     """K21-K23 against their float64 plain versions on the same inputs at
     the scale global SfM users run, timed with CUDA events beside their
     plain versions; then the three solvers through the kernels and through
-    the plain versions in float64 on the card. Returns (errs, rows, solves)."""
+    the plain versions in float64 on the card; then K39 (_k39). Returns
+    (errs, rows, solves)."""
     errs = {k: [] for k in GLOBAL_SOURCES}
     rows = {}
     log("global-SfM kernels vs plain (float64 on the same inputs):")
     solves = dict(rotations=_k21(errs, rows), positioning=_k22(errs, rows),
                   calibration=_k23(errs, rows))
+    _k39(errs, rows)
     torch.cuda.synchronize()
     return errs, rows, solves
 
 
-GLOBAL_MAPPER_KERNELS = ("rotation_averaging", "global_positioning", "camera_map",
+GLOBAL_MAPPER_KERNELS = ("rotation_averaging", "global_positioning", "global_cg", "camera_map",
                          "ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "ba_pcg",
                          "ba_lm_update", "relative_pose")
 
@@ -3330,6 +3486,150 @@ def _rig_rows(ctx, k27):
     return rows
 
 
+def _k38(problem, model_id, options, masks, errs):
+    """K34's rig set-up (c) and step and K38's candidate and accept against
+    their float64 plain versions on the rig headline's first LM step (lam
+    1e-3), the padding columns 0; timed. Returns (K38's row, K34's rig
+    entries, K34's errors)."""
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.kernels import solver as KL
+
+    log("K34 (c), K38 vs float64 plain: rig headline")
+    k34_errs = []
+    lam = torch.tensor(1e-3, device="cuda")
+    c = RC.lm_step_inputs(problem, model_id, options, masks, lam, KR.KERNELS)
+    red = c["red"]
+    R, W = red.b.shape
+    red64 = _as64(red)
+    M, b = red.precond.reshape(-1), red.b.reshape(-1)
+    st = KL.pcg_setup_diag(M, b)
+    ref = KL.pcg_setup_diag_plain(M.double(), b.double())
+    for n, a, r in zip(KL.PCGState._fields, st, ref):
+        check(f"K34 (c) set-up {n}", a, r, K34_RTOL, k34_errs)
+    no_poses = torch.zeros(0, 6, device="cuda")
+    Ap = KR.rig_schur_matvec(c["jac"], c["obs"], c["layout"], red.Hpp_inv, red.lam_diag,
+                             st.p.view(R, W))
+    ref = KL.pcg_step_plain(_as64(st), no_poses.double(), Ap.double(), None, None, None)
+    st_t = KL.pcg_step(KL.PCGState(*(x.clone() for x in st)), no_poses, Ap.clone(), None, None,
+                       None)
+    for n, a, r in zip(KL.PCGState._fields, st_t, ref):
+        check(f"K34 rig step {n}", a, r, K34_RTOL, k34_errs)
+    pad = red.precond == 0
+    if not all(bool((v.view(R, W)[pad] == 0).all()) for v in (st_t.x, st_t.r, st_t.z, st_t.p)):
+        raise AssertionError("K34 rig step: a padding column is not 0")
+    params = tuple(problem[:6])
+    x, dx = c["x"], c["dx"]
+    cand, pred = KR.rig_lm_candidate(params, x, dx, red, lam)
+    cand64, pred64 = KR.rig_lm_candidate_plain(tuple(f64(*params)), x.double(), dx.double(),
+                                               red64, lam.double())
+    for n, a, r in zip(("quat", "t", "sensor_quat", "sensor_t", "cam_params", "points", "pred"),
+                       (*cand, pred), (*cand64, pred64)):
+        check(f"K38 candidate {n}", a, r, K38_RTOL, errs["rig_lm_update"])
+    rest = (model_id, options.loss, options.loss_scale)
+    new_cost = KR.rig_obs_cost64(*cand, c["obs"], *rest)
+    S0 = torch.tensor([2.0, 0, 0, 0, 0, 0, 0, 0, 0], dtype=torch.float64, device="cuda")
+    S0[1:3] = KR.rig_obs_cost64(*params, c["obs"], *rest)
+    state = tuple(t.clone() for t in params)
+    state64 = tuple(f64(*params))
+    S, S64 = S0.clone(), S0.clone()
+    lam_k, lam64 = lam.clone(), lam.double()
+    flag, flag64 = (torch.zeros(1, dtype=torch.uint8, device="cuda") for _ in range(2))
+    KR.rig_lm_accept(lam_k, S, new_cost, pred, state, cand, 1e-10, 1e10, 1e-6, flag)
+    KR.rig_lm_accept_plain(lam64, S64, new_cost, pred, state64, cand64, 1e-10, 1e10, 1e-6,
+                           flag64)
+    log(f"  K38 accept: S {S.tolist()} (plain {S64.tolist()})")
+    if not (torch.equal(S[[0, 3, 4, 5, 6]], S64[[0, 3, 4, 5, 6]]) and torch.equal(flag, flag64)):
+        raise AssertionError("K38 accept: nu, the count or the flags differ from float64")
+    check("K38 accept lam", lam_k, lam64, 1e-6, errs["rig_lm_update"])
+    for n, a, r in zip(("quat", "t", "sensor_quat", "sensor_t", "cam_params", "points"), state,
+                       state64):
+        check(f"K38 accept state {n}", a, r, K38_RTOL, errs["rig_lm_update"])
+    before = [t.clone() for t in state]
+    KR.rig_lm_accept(lam_k, S, S[1].clone(), pred, state, cand, 1e-10, 1e10, 1e-6, flag)
+    if not (S[5].item() == 0 and all(torch.equal(a, r) for a, r in zip(before, state))):
+        raise AssertionError("K38 accept: a rejected step moved the state")
+    F, G, N = problem.quat.shape[0], problem.sensor_quat.shape[0], problem.points.shape[0]
+    CP = problem.cam_params.numel()
+    state_bytes = 4 * (7 * (F + G) + CP + 3 * N)
+    row = _solver_row(
+        "rig_lm_update candidate",
+        time_ms(lambda: KR.rig_lm_candidate(params, x, dx, red, lam)),
+        time_ms(lambda: KR.rig_lm_candidate_plain(tuple(f64(*params)), x.double(), dx.double(),
+                                                  red64, lam.double()), reps=10),
+        bound(2 * state_bytes + 4 * (3 * R * W + 9 * N),
+              K35_FRAME_OPS * (F + G) + K35_CAM_OPS * R * W + K35_POINT_OPS * N))
+
+    def accept():
+        S.copy_(S0)  # an accepted step each time: the copy runs
+        KR.rig_lm_accept(lam_k, S, new_cost, pred, state, cand, 1e-10, 1e10, 1e-6, flag)
+
+    def accept_plain():
+        S64.copy_(S0)
+        KR.rig_lm_accept_plain(lam64, S64, new_cost, pred, state64, cand64, 1e-10, 1e10, 1e-6,
+                               flag64)
+
+    row["entries"] = {"accept": _entry_times(accept, accept_plain)}
+    st64 = _as64(st)
+    k34 = {"rig_setup_diag": _entry_times(lambda: KL.pcg_setup_diag(M, b),
+                                          lambda: KL.pcg_setup_diag_plain(M.double(), b.double())),
+           "rig_step": _entry_times(
+               lambda: KL.pcg_step(st_t, no_poses, Ap, None, None, None),
+               lambda: KL.pcg_step_plain(st64, no_poses.double(), Ap.double(), None, None, None))}
+    log(f"    rig_lm_update accept, K34's rig entries: {row['entries']}, {k34}")
+    return row, k34, k34_errs
+
+
+def _rig_loop_costs(problem, model_id, options, masks):
+    """The device-resident rig LM loop on the headline: one graph replay
+    and one eager iteration under sync debug mode "error" (no host read),
+    then a warm solve under the profiler: its wall per iteration, idle
+    share, host reads, and its graph's record and instantiate times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import solver as KL
+    from colmap_tpu_torch.kernels.ba import model_groups
+    from colmap_tpu_torch.utils import cuda_graph
+
+    om, layout = rba._obs_masks(masks, options), rba._layout(problem)
+    groups = model_groups(model_id, problem.cam_params, problem.obs_cam)
+    state = problem._replace(**{k: getattr(problem, k).clone() for k in
+                                ("quat", "t", "sensor_quat", "sensor_t", "cam_params",
+                                 "points")})
+    cost = KR.rig_obs_cost64(*state[:6], rba._obs(state), model_id, options.loss,
+                             options.loss_scale)
+    sc = ba._lm_scalars(cost, options.initial_lambda, 2.0, torch.float32)
+
+    def step():
+        rba._lm_iteration(state, layout, model_id, options, om, sc, KR.KERNELS, groups)
+
+    step()
+    replay, _, _, _ = cuda_graph.capture(step, torch.device("cuda"), (KR, KL))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  rig loop: a graph replay and an eager iteration ran under sync debug mode \"error\"")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        (_, cost, iters, info), wall = _timed(lambda: rba._lm_loop(problem, model_id, options,
+                                                                     masks, with_info=True))
+    busy_ms, by_name = device_busy(prof)
+    idle = log_busy("rig solve, warm", busy_ms, by_name, wall * 1e3, top=8)
+    log(f"  rig solve, warm: {iters} LM iterations in {wall:.3f} s, {wall / iters * 1e3:.3f} ms "
+        f"an iteration (the host loop it replaced: 0.090 s for 10), {info['host_reads']} host reads, graph "
+        f"{info['graph']}: recorded in {info['record_s'] * 1e3:.2f} ms, instantiated in "
+        f"{info['instantiate_s'] * 1e3:.2f} ms; final cost {cost:.6e}")
+    return dict(seconds=wall, iters=iters, idle=idle, **info)
+
+
 def _sensor_errors(solved, gt):
     """Largest sensor_from_rig errors against the truth: (units, deg)."""
     from colmap_tpu_torch.geometry import rotation as rot
@@ -3344,7 +3644,9 @@ def phase_rig_kernels():
     headline, models 0-4 at a small size, K27 on injected samples), timed
     beside their plain versions; then 10 LM iterations of the rig solve on
     the headline through the kernels and through the float64 plain versions.
-    Returns (errs, rows, agree)."""
+    Then K34's rig entries and K38 against float64 and the device-resident
+    loop's costs. Returns (errs, rows, agree, K34's rig entries and
+    errors)."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
     from colmap_tpu_torch.kernels import rig as KR
@@ -3370,6 +3672,7 @@ def phase_rig_kernels():
     log("K27 vs plain (float64 on the same inputs), injected samples:")
     k27 = _k27(errs, agree)
     rows = _rig_rows(ctx, k27)
+    rows["rig_lm_update"], k34_entries, k34_errs = _k38(problem, model_id, options, masks, errs)
 
     KR.reset_launches()
     (solved, cost, iters), seconds = _timed(lambda: rba._lm_loop(problem, model_id, options,
@@ -3394,20 +3697,21 @@ def phase_rig_kernels():
             and st <= RIG_SENSOR_FACTOR * st64 + 1e-4
             and sdeg <= RIG_SENSOR_FACTOR * sdeg64 + 1e-3):
         raise AssertionError("rig solve: sensor_from_rig outside its gate")
-    missing = [k for k in ("rig_ba_jacobians", "rig_ba_reduce", "rig_ba_matvec")
+    missing = [k for k in ("rig_ba_jacobians", "rig_ba_reduce", "rig_ba_matvec", "rig_lm_update")
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"rig solve: launched no {missing}")
+    _rig_loop_costs(problem, model_id, options, masks)
     torch.cuda.synchronize()
-    return errs, rows, agree
+    return errs, rows, agree, dict(entries={"ba_pcg": k34_entries}, errs={"ba_pcg": k34_errs})
 
 
 # The kernels each rig scene's mapper must launch: the verify scene's initial
 # pair triangulates most points, so K8 and K9 may find no work there; the
 # full-size scene runs every one.
-RIG_VERIFY_KERNELS = ("camera_map", "essential_ransac", *RIG_SOURCES)
+RIG_VERIFY_KERNELS = ("camera_map", "essential_ransac", "ba_pcg", "gen_abs_refine", *RIG_SOURCES)
 RIG_MAPPER_KERNELS = ("camera_map", "essential_ransac", "triangulate_tracks", "filter_points",
-                      *RIG_SOURCES)
+                      "ba_pcg", "gen_abs_refine", *RIG_SOURCES)
 
 
 def phase_rig(launches):
@@ -4487,7 +4791,9 @@ def _loop_costs(label, problem, model_id, maps, masks, dense=False, reps=10):
     replay against one after all of them), and a whole solve."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KL
     from colmap_tpu_torch.sfm.incremental_mapper import PIPELINE_BA_OPTIONS
+    from colmap_tpu_torch.utils import cuda_graph
 
     options = PIPELINE_BA_OPTIONS
     if dense:
@@ -4521,10 +4827,10 @@ def _loop_costs(label, problem, model_id, maps, masks, dense=False, reps=10):
         gc_ms[0] = 0.0
         gc.callbacks.append(gc_timer)
         try:
-            out = ba._capture(step, torch.device("cuda"))
+            replay, _, rec_s, inst_s = cuda_graph.capture(step, torch.device("cuda"), (K, KL))
         finally:
             gc.callbacks.remove(gc_timer)
-        return out + (gc_ms[0],)
+        return replay, rec_s, inst_s, gc_ms[0]
 
     step()  # loads what the first call needs, as the loop's eager iteration
     eager = wall_ms(step)
@@ -4701,9 +5007,9 @@ def _k37(errs, rows, agree):
 
 
 def _check_k37(mk, ck, bk, mp, cp, bp, residuals, errs, max_sq=36.0):
-    """K37's batch (float32) against float64 on the same samples; returns
-    the (agreeing, near-best) model counts and the agreeing ones' largest
-    relative error.
+    """K37's batch (a float64 solve, float32 models) against float64 on the
+    same samples; returns the (agreeing, near-best) model counts and the
+    agreeing ones' largest relative error.
 
     - the kernel's support of each of its models equals a float64 count of
       the same model, up to the rows within 2% of the threshold; NaN models
@@ -4711,10 +5017,9 @@ def _check_k37(mk, ck, bk, mp, cp, bp, residuals, errs, max_sq=36.0):
     - the best supports agree within SL_ROWS // 500 rows (all-inlier
       samples tie: which of them is first may differ);
     - of the plain models with at least 90% of the best support, at least
-      K37_AGREE have a kernel solution of the same sample whose float64
-      support lies within 1% of the rows of theirs: the float32 five-point
-      solve moves the models of ill-conditioned samples, which the scale
-      from one row amplifies, and the score is what the RANSAC keeps.
+      K37_AGREE (all) have a kernel solution of the same sample whose
+      float64 support lies within 1% of the rows of theirs and which lies
+      within K37_MODEL_RTOL of the model (relative to its largest entry).
 
     The error that goes into ``errs`` is over every near-best model: the
     closest finite kernel solution of its sample, or, where the sample has
@@ -4741,7 +5046,7 @@ def _check_k37(mk, ck, bk, mp, cp, bp, residuals, errs, max_sq=36.0):
     if bool((diff > borderline).any()) or bool((ck[~fin] != 0).any()):
         raise AssertionError("K37: kernel support differs from the float64 count")
     near_best = torch.nonzero(cp >= 0.9 * sp).flatten().tolist()
-    all_errs, agreeing_rel, none = [], [], 0
+    all_errs, agreeing_rel, none, missed = [], [], 0, []
     for i in near_best:
         lo = (i // per) * per
         scale = float(mp[i].abs().max())
@@ -4753,26 +5058,73 @@ def _check_k37(mk, ck, bk, mp, cp, bp, residuals, errs, max_sq=36.0):
                                nan=math.inf)
         a = float(gap.min())
         all_errs.append((a, a / scale))
-        if int((counts64[lo:lo + per][fin[lo:lo + per]] - int(cp[i])).abs().min()) <= n // 100:
+        if (int((counts64[lo:lo + per][fin[lo:lo + per]] - int(cp[i])).abs().min()) <= n // 100
+                and a / scale <= K37_MODEL_RTOL):
             agreeing_rel.append(a / scale)
+        else:
+            missed.append((i // per, i, a / scale))
     agreeing = len(agreeing_rel)
+    if missed:
+        log(f"  K37: near-best models without an agreeing kernel solution (sample, model, "
+            f"closest relative error): {missed}")
     if agreeing < K37_AGREE * len(near_best):
         raise AssertionError(f"K37: {agreeing} of {len(near_best)} near-best models agree")
     errs.append((max(a for a, _ in all_errs), max(r for _, r in all_errs)))
     rel = sorted(agreeing_rel)
     log(f"  K37: {len(near_best)} plain models with >= 90% of the best support; {agreeing} have "
-        f"a kernel solution of their sample within {n // 100} rows of their float64 support "
+        f"a kernel solution of their sample within {n // 100} rows of their float64 support and "
+        f"{K37_MODEL_RTOL:g} of the model "
         f"(the closest one's error: median {rel[len(rel) // 2]:.3e}, largest {rel[-1]:.3e}); "
         f"over all {len(near_best)}: largest {errs[-1][1]:.3e} ({none} samples with no finite "
         "kernel model)")
     return agreeing, len(near_best), rel[-1]
 
 
+def _k40(errs, rows):
+    """K40 against its float64 plain versions at a rig registration's
+    scale (2000 rows of one 4-camera frame, 30% outliers): (a) the
+    refinement from a start 3 degrees and 0.05 off, every row weighted (the
+    Cauchy loss meets the outliers); (b) the weighted refit over the true
+    inliers, with and without the scale; timed."""
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    log(f"K40 vs float64 plain: {GEN_ABS_ROWS} rows x 4 cameras")
+    rows_, q0, t0, Rt = RC.refine_case(GEN_ABS_ROWS, 3, device="cuda")
+    q, t = KR.gen_abs_refine(*rows_, q0, t0)
+    trace = []
+    (q64, t64), plain_s = _timed(lambda: KR.gen_abs_refine_plain(*rows_, q0, t0, trace=trace))
+    check("K40 refine q", q, q64, K40_RTOL, errs["gen_abs_refine"])
+    check("K40 refine t", t, t64, K40_RTOL, errs["gen_abs_refine"])
+    log(f"  K40 refine: {len(trace)} iterations ({trace.count(False)} rejected) in the plain "
+        f"loop; t against the truth {float((t.cpu() - torch.as_tensor(Rt[:, 3])).abs().max()):.3e}")
+    data, _, inl = RC.gen_abs_case(GEN_ABS_ROWS, seed=4, world_scale=0.37, device="cuda")
+    w = torch.as_tensor(inl, dtype=torch.float64, device="cuda")
+    for scale in (False, True):
+        m, ok = KR.gen_abs_refit(data.X, data.centers, data.dirs, w, scale)
+        m64, ok64 = KR.gen_abs_refit_plain(data.X, data.centers, data.dirs, w, scale)
+        if not (bool(ok[0]) and bool(ok64[0])):
+            raise AssertionError(f"K40 refit (scale {scale}): flags {bool(ok[0])}, plain "
+                                 f"{bool(ok64[0])}")
+        check(f"K40 refit (scale {scale})", m, m64, K40_RTOL, errs["gen_abs_refine"])
+    n = GEN_ABS_ROWS
+    ms = time_ms(lambda: KR.gen_abs_refine(*rows_, q0, t0), reps=10)
+    rows["gen_abs_refine"] = _solver_row(
+        f"gen_abs_refine (a), {n} rows x 4 cameras, {len(trace)} iterations", ms, plain_s * 1e3,
+        bound64(nbytes(*rows_, q0, t0) + 7 * 8, K40_ROW_OPS * n * len(trace)))
+    rows["gen_abs_refine"]["entries"] = {"refit": _entry_times(
+        lambda: KR.gen_abs_refit(data.X, data.centers, data.dirs, w, True),
+        lambda: KR.gen_abs_refit_plain(data.X, data.centers, data.dirs, w, True))}
+    log(f"    gen_abs_refine (b) refit: {rows['gen_abs_refine']['entries']} (bound "
+        f"{bound64(nbytes(data.X, data.centers, data.dirs, w), K40_REFIT_ROW_OPS * n)[0]:.5f} ms)")
+
+
 def phase_solver_kernels():
-    """K34-K37 against their float64 plain versions: K34 and K35 at the BA
-    headline and at a mapper-sized local BA, K36 on the initial pair's seeds
-    and on a pose graph's edges, K37 on injected samples at the rendered
-    scene's shape; timed with CUDA events. Returns (errs, rows, agree)."""
+    """K34-K37 and K40 against their float64 plain versions: K34 and K35 at
+    the BA headline and at a mapper-sized local BA, K36 on the initial
+    pair's seeds and on a pose graph's edges, K37 on injected samples at the
+    rendered scene's shape, K40 at a rig registration's; timed with CUDA
+    events. Returns (errs, rows, agree)."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
 
@@ -4791,6 +5143,7 @@ def phase_solver_kernels():
             _loop_costs(label, packed, model_id, maps, masks, dense=True)
     _k36(errs, rows)
     _k37(errs, rows, agree)
+    _k40(errs, rows)
     return errs, rows, agree
 
 
@@ -4867,8 +5220,9 @@ def main():
         rows.update(g_rows)
     if "global" in phases:
         run("global", lambda: phase_global(launches))
+    extra = dict(entries={}, errs={})
     if "rig_kernels" in phases:
-        r_errs, r_rows, r_agree = run("rig_kernels", phase_rig_kernels)
+        r_errs, r_rows, r_agree, extra = run("rig_kernels", phase_rig_kernels)
         errs.update(r_errs)
         rows.update(r_rows)
         agree.update(r_agree)
@@ -4895,9 +5249,12 @@ def main():
         rows.update(l_rows)
         agree.update(l_agree)
     log(f"seconds by phase: {seconds}")
-    for name, ents in cam_entries.items():  # models 5-17 and mixed: the kernel's other inputs
+    # Models 5-17 and mixed: the kernel's other inputs; K34's rig entries.
+    for name, ents in (*cam_entries.items(), *extra["entries"].items()):
         if name in rows and ents:
             rows[name].setdefault("entries", {}).update(ents)
+    for name, e in extra["errs"].items():
+        errs.setdefault(name, []).extend(e)
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
                **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,

@@ -33,20 +33,9 @@
 // pass; the reduction is two-stage with a fixed order (no float atomics).
 #include <cuda_runtime.h>
 
+#include "lm_common.cuh"
+
 namespace ctt {
-
-constexpr int kLmThreads = 256;
-
-__device__ __forceinline__ double block_sum_lm(double v, double* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  double s = 0.0;
-  for (int w = 0; w < nwarps; ++w) s += scratch[w];
-  __syncthreads();
-  return s;
-}
 
 // Items of the candidate and copy passes: F frames, then C*P camera
 // parameters, then N points.
@@ -72,20 +61,7 @@ __global__ void lm_candidate_kernel(int F, int CP, long long N, const float* __r
       const float* d = dp + 6 * f;
       for (int a = 0; a < 6; ++a)
         acc += (double)d[a] * gp[6 * f + a] + lam * diag_pose[6 * f + a] * d[a] * d[a];
-      // quat_exp (ba_residual.py): so(3) tangent -> unit quaternion.
-      const float w0 = d[0], w1 = d[1], w2 = d[2];
-      const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
-      const float th = sqrtf(th2 + 1e-30f);
-      const float half = 0.5f * th;
-      const float sinc = th2 > 1e-12f ? sinf(half) / th : 0.5f - th2 / 48.f;
-      const float aw = cosf(half), ax = sinc * w0, ay = sinc * w1, az = sinc * w2;
-      const float bw = quat[4 * f], bx = quat[4 * f + 1], by = quat[4 * f + 2],
-                  bz = quat[4 * f + 3];
-      float q[4] = {aw * bw - ax * bx - ay * by - az * bz, aw * bx + ax * bw + ay * bz - az * by,
-                    aw * by - ax * bz + ay * bw + az * bx, aw * bz + ax * by - ay * bx + az * bw};
-      const float nrm =
-          fmaxf(sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]), 1.17549435e-38f);
-      for (int k = 0; k < 4; ++k) quat_o[4 * f + k] = q[k] / nrm;
+      quat_exp_update(d, quat + 4 * f, quat_o + 4 * f);
       for (int k = 0; k < 3; ++k) t_o[3 * f + k] = t[3 * f + k] + d[3 + k];
     } else if (i < (long long)F + CP) {
       const int c = (int)(i - F);
@@ -119,38 +95,8 @@ __global__ void lm_accept_kernel(float* __restrict__ lam_p, double* __restrict__
                                  const double* __restrict__ pred_p, double min_lambda,
                                  double max_lambda, double function_tolerance,
                                  unsigned char* __restrict__ done_flag) {
-  if (S[4] != 0.0) {  // done: a frozen no-op
-    S[6] = 0.0;
-    return;
-  }
-  const double cost = S[1], last = S[2], nu = S[0];
-  const double nc = *new_cost_p, pred = *pred_p, lam = (double)*lam_p;
-  const double rho = (cost - nc) / fmax(pred, 1e-30);
-  const bool acc = nc < cost && pred > 0.0;
-  double new_lam, new_nu;
-  if (acc) {
-    const double u = 2.0 * rho - 1.0;
-    const double shrink = fmax(1.0 / 3.0, 1.0 - u * u * u);
-    new_lam = fmin(fmax(lam * shrink, min_lambda), max_lambda);
-    new_nu = 2.0;
-  } else {
-    new_lam = fmin(lam * nu, max_lambda);
-    new_nu = nu * 2.0;
-  }
-  const float lam_f = (float)new_lam;
-  const double rel = fabs(last - nc) / fmax(nc, 1e-30);
-  const bool done = (acc && rel < function_tolerance) || (!acc && (double)lam_f >= max_lambda);
-  *lam_p = lam_f;
-  S[0] = new_nu;
-  S[1] = acc ? nc : cost;
-  S[2] = acc ? nc : last;
-  S[3] += 1.0;
-  S[4] = done ? 1.0 : 0.0;
-  S[5] = acc ? 1.0 : 0.0;
-  S[6] = acc ? 1.0 : 0.0;
-  S[7] = nc;
-  S[8] = pred;
-  *done_flag = done ? 1 : 0;
+  lm_accept_scalars(lam_p, S, *new_cost_p, *pred_p, min_lambda, max_lambda, function_tolerance,
+                    done_flag);
 }
 
 __global__ void lm_copy_kernel(int F, int CP, long long N, const double* __restrict__ S,
@@ -174,13 +120,6 @@ __global__ void lm_copy_kernel(int F, int CP, long long N, const double* __restr
   }
 }
 
-inline int lm_blocks(int F, int CP, long long N, int num_sms) {
-  const long long total = (long long)F + CP + N;
-  long long b = (total + kLmThreads - 1) / kLmThreads;
-  if (b > 2LL * num_sms) b = 2LL * num_sms;
-  return b < 1 ? 1 : (int)b;
-}
-
 }  // namespace ctt
 
 // State quat (F, 4), t (F, 3), cam (C*P), points (N, 3); the step dp (F, 6),
@@ -195,7 +134,7 @@ extern "C" int ba_lm_candidate_f32(int F, int CP, long long N, const float* lam,
                                    const float* diag_cam, const float* diag_pt, float* quat_o,
                                    float* t_o, float* cam_o, float* pts_o, double* partial,
                                    double* pred, int num_sms, cudaStream_t stream) {
-  const int blocks = ctt::lm_blocks(F, CP, N, num_sms);
+  const int blocks = ctt::lm_blocks((long long)F + CP + N, num_sms);
   ctt::lm_candidate_kernel<<<blocks, ctt::kLmThreads, 0, stream>>>(
       F, CP, N, lam, quat, t, cam, pts, dp, dc, dx, gp, gc, gx, diag_pose, diag_cam, diag_pt,
       quat_o, t_o, cam_o, pts_o, partial);
@@ -219,7 +158,7 @@ extern "C" int ba_lm_accept_f32(int F, int CP, long long N, float* lam, double* 
                                              function_tolerance, done_flag);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int blocks = ctt::lm_blocks(F, CP, N, num_sms);
+  const int blocks = ctt::lm_blocks((long long)F + CP + N, num_sms);
   ctt::lm_copy_kernel<<<blocks, ctt::kLmThreads, 0, stream>>>(F, CP, N, S, quat, t, cam, pts,
                                                                quat_c, t_c, cam_c, pts_c);
   return (int)cudaGetLastError();

@@ -10,16 +10,24 @@
 // second mode.
 //
 // The vectors are flat float32 arrays of n = 6F + CP entries, poses first:
-// x, r, z, p, and K3's product Ap (its pose and camera parts). Two entries:
+// x, r, z, p, and K3's product Ap (its pose and camera parts). Three entries:
 //   ba_pcg_setup  M (36F + CP floats: one 6x6 block per frame, a diagonal
 //                 block in scalar mode, then the camera entries), x = 0,
 //                 r = b, z = M r, p = z and rz = r.z into scal[0];
+//   ba_pcg_setup_diag  (c), the rig BA's set-up (colmap_tpu/estimators/
+//                 bundle_adjustment_rig.py _pcg, l.281-296): M given (K25's
+//                 Jacobi preconditioner of the (R, W) camera-side tensor, R W
+//                 scalars), x = 0, r = b, z = M r, p = z, rz into scal[0];
 //   ba_pcg_step   after K3 wrote Ap = S p: Ap += lam D p, pAp = p.Ap,
 //                 alpha = rz / pAp (0 where |pAp| <= 1e-30), x += alpha p,
 //                 r -= alpha Ap, z = M r, rz_new = r.z, beta = rz_new / rz (0
 //                 where |rz| <= 1e-30), p = z + beta p, scal[0] = rz_new.
 // A PCG iteration is then two launches (K3, step) with alpha, beta and rz in
-// device memory, where the torch version took about 17.
+// device memory, where the torch version took about 17. The rig's PCG runs
+// the step with F = 0 (every entry a scalar of M) and no D: K26's product
+// already holds its damping, so the step skips Ap += lam D p where the
+// diagonal pointers are null. Its padding columns are 0 in b and M, so they
+// stay 0 in x, r, z and p.
 //
 // One block strides over the whole vector and takes both dot products as
 // block reductions: each thread sums its entries in a fixed order, then a
@@ -164,15 +172,19 @@ __global__ void pcg_step_kernel(int F, int CP, const float* __restrict__ lam_p,
                                 float* __restrict__ r, float* __restrict__ z,
                                 float* __restrict__ p, double* __restrict__ scal) {
   __shared__ double scratch[32];
-  const float lam = *lam_p;
+  const bool damped = diag_cam != nullptr;
+  const float lam = damped ? *lam_p : 0.f;
   const int n_pose = 6 * F, n = n_pose + CP;
   double acc = 0.0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     float* ap_i = i < n_pose ? Ap_p + i : Ap_c + (i - n_pose);
-    const float d = i < n_pose ? diag_pose[i] : diag_cam[i - n_pose];
     const float pi = p[i];
-    const float ap = *ap_i + lam * d * pi;
-    *ap_i = ap;
+    float ap = *ap_i;
+    if (damped) {
+      const float d = i < n_pose ? diag_pose[i] : diag_cam[i - n_pose];
+      ap += lam * d * pi;
+      *ap_i = ap;
+    }
     acc += (double)pi * (double)ap;
   }
   const double pAp = block_sum_d(acc, scratch);
@@ -195,7 +207,33 @@ __global__ void pcg_step_kernel(int F, int CP, const float* __restrict__ lam_p,
   if (threadIdx.x == 0) scal[0] = rz_new;
 }
 
+__global__ void pcg_setup_diag_kernel(int n, const float* __restrict__ M,
+                                      const float* __restrict__ b, float* __restrict__ x,
+                                      float* __restrict__ r, float* __restrict__ z,
+                                      float* __restrict__ p, double* __restrict__ scal) {
+  __shared__ double scratch[32];
+  double acc = 0.0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float ri = b[i];
+    const float zi = M[i] * ri;
+    x[i] = 0.f;
+    r[i] = ri;
+    z[i] = zi;
+    p[i] = zi;
+    acc += (double)ri * (double)zi;
+  }
+  const double rz = block_sum_d(acc, scratch);
+  if (threadIdx.x == 0) scal[0] = rz;
+}
+
 }  // namespace ctt
+
+// (c): M and b (n), x, r, z, p (n) written; scal one double.
+extern "C" int ba_pcg_setup_diag_f32(int n, const float* M, const float* b, float* x, float* r,
+                                     float* z, float* p, double* scal, cudaStream_t stream) {
+  ctt::pcg_setup_diag_kernel<<<1, ctt::kPcgSetupThreads, 0, stream>>>(n, M, b, x, r, z, p, scal);
+  return (int)cudaGetLastError();
+}
 
 // hcc (F, 6, 6), diag_pose / bp (F, 6), diag_cam / bc (C*P); lam one float and
 // scal one double in device memory; M (36F + CP), x, r, z, p (6F + CP).
@@ -208,7 +246,9 @@ extern "C" int ba_pcg_setup_f32(int F, int CP, int block_jacobi, const float* la
   return (int)cudaGetLastError();
 }
 
-// Ap_p (6F), Ap_c (CP): K3's product S p, updated in place to (S + lam D) p.
+// Ap_p (6F), Ap_c (CP): K3's product S p, updated in place to (S + lam D) p;
+// with diag_pose, diag_cam and lam null, S p as it is (the rig's K26
+// product, F = 0).
 extern "C" int ba_pcg_step_f32(int F, int CP, const float* lam, const float* diag_pose,
                                const float* diag_cam, const float* M, float* Ap_p, float* Ap_c,
                                float* x, float* r, float* z, float* p, double* scal,

@@ -14,7 +14,8 @@
 //     Jacobi eigenvectors of M^T M, the proper rotation
 //     u0 v0^T + u1 v1^T + (u0 x u1)(v0 x v1)^T, the scale as the mean
 //     singular value when asked, and t re-solved from
-//     sum D^T D t = sum D^T D (c - s R X) (small_linalg.cuh). Double,
+//     sum D^T D t = sum D^T D (c - s R X) (gdlt.cuh, small_linalg.cuh;
+//     K40's refit shares the rotation step). Double,
 //     because with rig baselines short next to the scene the raw block is
 //     poorly conditioned in float32, and the first rig registration reads
 //     the world scale from its singular values. The warp then scores the
@@ -39,6 +40,7 @@
 #include <cuda_runtime.h>
 
 #include "sfm_common.cuh"
+#include "gdlt.cuh"
 #include "small_linalg.cuh"
 
 namespace ctt {
@@ -89,45 +91,8 @@ __device__ bool gdlt(const Rows& in, const int* idx, bool estimate_scale, float*
     }
   }
   for (int p = 0; p < 12; ++p) AtA[13 * p] += 1e-10;
-  if (!cholesky_solve<12>(AtA, Atb)) return false;
-  // The raw rotation block M = Atb[0..8] (row-major); M^T M = V diag(s^2) V^T.
-  const double* M = Atb;
-  double S[9], V[9];
-  for (int p = 0; p < 3; ++p)
-    for (int q = 0; q < 3; ++q)
-      S[3 * p + q] = M[p] * M[q] + M[3 + p] * M[3 + q] + M[6 + p] * M[6 + q];
-  jacobi_eigh<3>(S, V, 12);
-  const int lo = argmin_diag<3>(S);
-  int i0 = lo == 0 ? 1 : 0;
-  int i1 = 3 - lo - i0;
-  if (S[4 * i1] > S[4 * i0]) {
-    const int tmp = i0;
-    i0 = i1;
-    i1 = tmp;
-  }
-  const double s0 = sqrt(fmax(S[4 * i0], 0.0)), s1 = sqrt(fmax(S[4 * i1], 0.0)),
-               s2 = sqrt(fmax(S[4 * lo], 0.0));
-  double v0[3], v1[3], u0[3], u1[3];
-  for (int r = 0; r < 3; ++r) {
-    v0[r] = V[3 * r + i0];
-    v1[r] = V[3 * r + i1];
-  }
-  for (int r = 0; r < 3; ++r) {
-    u0[r] = (M[3 * r] * v0[0] + M[3 * r + 1] * v0[1] + M[3 * r + 2] * v0[2]) / fmax(s0, 1e-300);
-    u1[r] = (M[3 * r] * v1[0] + M[3 * r + 1] * v1[1] + M[3 * r + 2] * v1[2]) / fmax(s1, 1e-300);
-  }
-  const double dd = u0[0] * u1[0] + u0[1] * u1[1] + u0[2] * u1[2];
-  for (int r = 0; r < 3; ++r) u1[r] -= dd * u0[r];
-  const double nu = fmax(sqrt(u1[0] * u1[0] + u1[1] * u1[1] + u1[2] * u1[2]), 1e-300);
-  for (int r = 0; r < 3; ++r) u1[r] /= nu;
-  const double u2[3] = {u0[1] * u1[2] - u0[2] * u1[1], u0[2] * u1[0] - u0[0] * u1[2],
-                        u0[0] * u1[1] - u0[1] * u1[0]};
-  const double v2[3] = {v0[1] * v1[2] - v0[2] * v1[1], v0[2] * v1[0] - v0[0] * v1[2],
-                        v0[0] * v1[1] - v0[1] * v1[0]};
-  double R[9];
-  for (int p = 0; p < 3; ++p)
-    for (int q = 0; q < 3; ++q) R[3 * p + q] = u0[p] * v0[q] + u1[p] * v1[q] + u2[p] * v2[q];
-  const double s = estimate_scale ? (s0 + s1 + s2) / 3.0 : 1.0;
+  double R[9], s;
+  if (!gdlt_rotation(AtA, Atb, estimate_scale, R, &s)) return false;
   // t from sum D^T D t = sum D^T D (c - s R X); D^T D = M_n^T M_n summed above.
   double Mtb[3] = {0.0, 0.0, 0.0};
   for (int n = 0; n < kSample; ++n) {

@@ -19,7 +19,9 @@
 //             JT Jx y, diag, lam diag and the preconditioner
 //             1 / (diag + lam diag) (0 where that is <= 1e-12).
 // A row with no observations (a sensor held constant, an unused camera)
-// has no chunk and gets zeros.
+// has no chunk and gets zeros. lam is one float in device memory, which the
+// rig LM loop's accept (K38) updates, so a captured CUDA graph of an LM
+// iteration reads the current value at each replay.
 //
 // Bound on the card: memory. It reads r, Jx and the point ids once per
 // observation on the point side, and each observation's three blocks (Jf,
@@ -35,11 +37,12 @@ namespace ctt {
 namespace rigba {
 
 __global__ void __launch_bounds__(kBlock)
-reduce_point_kernel(int N, float lam, const float* __restrict__ r, const float* __restrict__ jx,
+reduce_point_kernel(int N, const float* __restrict__ lam_p, const float* __restrict__ r, const float* __restrict__ jx,
                     Layout L, float* __restrict__ q, float* __restrict__ gx_out,
                     float* __restrict__ hinv_out, float* __restrict__ diag_out) {
   const int p = blockIdx.x * kBlock + threadIdx.x;
   if (p >= N) return;
+  const float lam = *lam_p;
   float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, g[3] = {0.f, 0.f, 0.f};
   const int beg = L.pt_offsets[p], end = L.pt_offsets[p + 1];
   for (int k = beg; k < end; ++k) {
@@ -104,12 +107,14 @@ reduce_chunk_kernel(int F, int G, int P, Jac J, const float* __restrict__ r,
 }
 
 template <int KW>
-__global__ void reduce_finalize_kernel(int R, float lam, const int* __restrict__ row_chunks,
+__global__ void reduce_finalize_kernel(int R, const float* __restrict__ lam_p,
+                                       const int* __restrict__ row_chunks,
                                        const float* __restrict__ partials, float* __restrict__ g,
                                        float* __restrict__ b, float* __restrict__ d,
                                        float* __restrict__ lam_d, float* __restrict__ precond) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
+  const float lam = *lam_p;
   for (int j = 0; j < KW; ++j) {
     float sg = 0.f, sb = 0.f, sd = 0.f;
     for (int k = row_chunks[row]; k < row_chunks[row + 1]; ++k) {
@@ -133,8 +138,8 @@ __global__ void reduce_finalize_kernel(int R, float lam, const int* __restrict__
 
 // Outputs in the order of colmap_tpu_torch.kernels.rig.RigReduction, the
 // camera-side ones (R, W); q (O, 2) and partials (K, 3W) are scratch. W is
-// kW or kWideW.
-extern "C" int rig_ba_reduce_f32(int N, int F, int G, int C, int P, int K, int W, float lam,
+// kW or kWideW; lam one float in device memory.
+extern "C" int rig_ba_reduce_f32(int N, int F, int G, int C, int P, int K, int W, const float* lam,
                                  const float* r, const float* jf, const float* js,
                                  const float* jc, const float* jx, const int* pt_offsets, const int* pt_obs, const int* seg_obs,
                                  const int* chunk_row, const int* chunk_start,

@@ -14,14 +14,15 @@
 //
 // Two entries:
 //   structure_less_score  one warp per sample (the host draws the samples:
-//     camera, five indices, scale index). Lane 0 builds the 5 x 9
-//     constraint rows and eliminates, the warp finds the <= 10 roots and
-//     models; lanes 0-9 take one model each through the cheirality of its
-//     five points, a float64 polish of the pose (4 Newton steps on the five
-//     epipolar constraints: the float32 root of an ill-conditioned sample
-//     can be percents off, and the scale from one row amplifies that; the
-//     float64 plain version's roots are exact to rounding) and the scale
-//     (float64); the warp scores the 10 models on
+//     camera, five indices, scale index). The five-point solve runs in
+//     double (FivePointT<double>): lane 0 builds the 5 x 9 constraint rows
+//     and eliminates, the warp finds the <= 10 roots and models. In float32
+//     the elimination of an ill-conditioned sample missed roots (7 of 42
+//     near-best models on the card's check) and moved the others by
+//     percents, which the scale from one row amplifies. Lanes 0-9 take one
+//     model each through the cheirality of its five points, a float64
+//     polish of the pose (4 Newton steps on the five epipolar constraints)
+//     and the scale (float64); the warp scores the 10 models on
 //     all N rows in one strided pass (__popc(__ballot_sync)), writes models
 //     (NaN where a slot holds none) and supports, and keeps the batch's best
 //     with one 64-bit atomicMax on (support, 0xFFFFFFFF - index): one
@@ -29,7 +30,7 @@
 //   structure_less_inliers  one thread per row: the inlier mask of one model.
 //
 // Bound on the card: operations. Per sample the five-point solve (~10^5
-// flops, as K7) and 10 x N Sampson errors against per-row cameras (~110
+// float64 operations, K7's count) and 10 x N Sampson errors against per-row cameras (~110
 // flops each: the relative pose of the row's camera, E and the residual).
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -75,12 +76,12 @@ __device__ __forceinline__ float sl_residual(const float* M, const float* __rest
 // The (R, t) of E's four decompositions with the most of the five points
 // in front of both cameras (|t| = 1: depths in (1e-12, 1000)); returns that
 // count (generalized_pose.py _poses_from_essentials, float64).
-__device__ int five_cheirality(const float* Ef, const double (*xw)[2], const double (*xn)[2],
+__device__ int five_cheirality(const double* Ef, const double (*xw)[2], const double (*xn)[2],
                                double* R_best, double* t_best) {
   double E[9], R1[9], R2[9], t[3];
   bool finite = true;
   for (int i = 0; i < 9; ++i) finite = finite && isfinite(Ef[i]);
-  for (int i = 0; i < 9; ++i) E[i] = finite ? (double)Ef[i] : (i % 4 == 0 ? 1.0 : 0.0);
+  for (int i = 0; i < 9; ++i) E[i] = finite ? Ef[i] : (i % 4 == 0 ? 1.0 : 0.0);
   decompose_essential(E, R1, R2, t);
   int best_n = -1;
   for (int c = 0; c < 4; ++c) {
@@ -102,7 +103,7 @@ __device__ int five_cheirality(const float* Ef, const double (*xw)[2], const dou
 }
 
 struct SlShared {
-  FivePoint S;
+  FivePointT<double> S;
   float models[10][12];
 };
 
@@ -126,12 +127,12 @@ __global__ void structure_less_score_kernel(int n, int k, float max_sq,
   SlShared& W = shared[warp];
   if (lane == 0) {
     // x1 = the registered camera's points, x2 = the new camera's.
-    float B[9][5];
+    double B[9][5];
     for (int r = 0; r < 5; ++r) {
       const int row = idx5[sample * 5 + r];
-      const float u1 = uv_w[2 * row], v1 = uv_w[2 * row + 1], u2 = uv[2 * row],
-                  v2 = uv[2 * row + 1];
-      const float rw[9] = {u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, 1.f};
+      const double u1 = uv_w[2 * row], v1 = uv_w[2 * row + 1], u2 = uv[2 * row],
+                   v2 = uv[2 * row + 1];
+      const double rw[9] = {u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, 1.0};
       for (int c = 0; c < 9; ++c) B[c][r] = rw[c];
     }
     five_point_setup(B, W.S);

@@ -39,7 +39,6 @@ model ids and colmap_tpu's padded rows with a trailing model-position column
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -48,6 +47,7 @@ import torch
 from colmap_tpu_torch.kernels import ba as ba_kernels
 from colmap_tpu_torch.kernels import solver
 from colmap_tpu_torch.sensor import models as camera_models
+from colmap_tpu_torch.utils import cuda_graph
 
 
 class BAProblem(NamedTuple):
@@ -382,40 +382,37 @@ DONE_CHUNK = 1
 GRAPH_MIN_ITERATIONS = 8
 
 
-def _capture(step, device):
-    """One call of ``step`` captured as a CUDA graph on a side stream.
-
-    Recording launches nothing, so the launch counts it added are taken
-    back; ``replay`` adds them once per replay, as the graph launches each
-    recorded kernel once. Returns (replay, record seconds, instantiate
-    seconds)."""
-    counts = [m.LAUNCHES for m in (ba_kernels, solver)]
-    before = [dict(c) for c in counts]
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        t0 = time.perf_counter()
-        # thread_local: a synchronizing call in another thread of the
-        # pipeline does not invalidate this capture.
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            step()
-        finally:
-            t1 = time.perf_counter()
-            graph.capture_end()
-    t2 = time.perf_counter()
-    torch.cuda.current_stream(device).wait_stream(side)
-    recorded = [(c, k, c[k] - b[k]) for c, b in zip(counts, before) for k in c if c[k] != b[k]]
-    for c, k, n in recorded:
-        c[k] -= n
-
-    def replay():
-        graph.replay()
-        for c, k, n in recorded:
-            c[k] += n
-
-    return replay, t1 - t0, t2 - t1
+def drive(step, sc: _LMScalars, device, max_iterations: int, graph_wanted: bool, modules,
+          verbose_step=None):
+    """The host side of a device-resident LM loop (the packed and the rig
+    solves): run ``step`` (one in-place LM iteration) until ``sc.done`` or
+    ``max_iterations``. On the card the host runs DONE_CHUNK iterations
+    between two reads of the 1-byte done flag; with ``graph_wanted`` the
+    first iteration runs eagerly (it loads what its library calls need) and
+    the rest replay a CUDA graph of one iteration, captured once
+    (utils/cuda_graph.py; ``modules`` are the kernel modules whose launch
+    counts a replay moves). Iterations past ``done`` change nothing (K35,
+    K38). ``verbose_step(n, cost_before)``, if given, runs after every
+    iteration, which then reads the cost each time. Returns the info dict:
+    whether a graph was replayed, its record and instantiate seconds, the
+    host reads, the iterations taken, and the final scalar state ``S``."""
+    chunk = DONE_CHUNK if device.type == "cuda" and verbose_step is None else 1
+    run = cuda_graph.StepGraph(step, device, modules, graph_wanted)
+    reads, n = 0, 0
+    while n < max_iterations:
+        for _ in range(min(chunk, max_iterations - n)):
+            cost = sc.S[1].item() if verbose_step is not None else None
+            run()
+            n += 1
+            if verbose_step is not None:
+                verbose_step(n, cost)
+        reads += 1
+        if sc.done.item():
+            break
+    S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
+    return dict(graph=run.replay is not None, record_s=run.record_s,
+                instantiate_s=run.instantiate_s, host_reads=reads + 1, S=S,
+                iterations=int(S["it"]))
 
 
 def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
@@ -428,12 +425,9 @@ def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
     plain versions.
 
     Everything between two reads of the 1-byte done flag stays on the
-    device: on the card the host runs DONE_CHUNK iterations (the first one
-    eagerly, the rest as replays of a CUDA graph of one iteration, captured
-    once per solve, under the size rule GRAPH_MIN_ITERATIONS) and then
-    reads the flag.
-    Iterations past ``done`` change nothing (K35), so the chunk's last ones
-    are frozen no-ops. ``verbose`` reads and prints every iteration."""
+    device (``drive``): a PCG solve replays a CUDA graph of one iteration
+    under the size rule GRAPH_MIN_ITERATIONS; the dense path launches
+    eagerly. ``verbose`` reads and prints every iteration."""
     dev = problem.points.device
     obs_masks = _obs_masks(masks, options)
     state, sc, groups = _start(problem, model_id, options, options.initial_lambda, 2.0,
@@ -443,32 +437,16 @@ def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
         _lm_iteration(state, maps, model_id, options, obs_masks, sc, kernels, use_dense,
                       block_jacobi, groups)
 
-    on_card = dev.type == "cuda"
-    graph_wanted = (on_card and kernels is ba_kernels.KERNELS and not use_dense
+    def verbose_step(n, cost):
+        S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
+        print(f"  LM it {n - 1}: cost {cost:.6e} -> {S['new_cost']:.6e} "
+              f"accepted={bool(S['accepted'])} lam={float(sc.lam):.2e}")
+
+    graph_wanted = (dev.type == "cuda" and kernels is ba_kernels.KERNELS and not use_dense
                     and options.max_iterations >= GRAPH_MIN_ITERATIONS)
-    chunk = DONE_CHUNK if on_card and not verbose else 1
-    info = dict(graph=False, record_s=0.0, instantiate_s=0.0, host_reads=0)
-    run, n = step, 0
-    while n < options.max_iterations:
-        for _ in range(min(chunk, options.max_iterations - n)):
-            if n == 1 and graph_wanted:
-                # After the first iteration ran eagerly, which also loads what
-                # its library calls need.
-                run, info["record_s"], info["instantiate_s"] = _capture(step, dev)
-                info["graph"] = True
-            cost = sc.S[1].item() if verbose else None
-            run()
-            n += 1
-            if verbose:
-                S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
-                print(f"  LM it {n - 1}: cost {cost:.6e} -> {S['new_cost']:.6e} "
-                      f"accepted={bool(S['accepted'])} lam={float(sc.lam):.2e}")
-        info["host_reads"] += 1
-        if sc.done.item():
-            break
-    S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
-    info["host_reads"] += 1
-    info["iterations"] = int(S["it"])
+    info = drive(step, sc, dev, options.max_iterations, graph_wanted, (ba_kernels, solver),
+                 verbose_step if verbose else None)
+    S = info.pop("S")
     if with_info:
         return state, S["cost"], int(S["it"]), info
     return state, S["cost"], int(S["it"])

@@ -6,19 +6,26 @@ reprojection chain is cam_from_world = sensor_from_rig ∘ rig_from_world:
 frames own rig_from_world, each (rig, sensor) pair owns one sensor_from_rig
 shared by all its frames, and every rotation is updated by ``quat_exp(δ) · q``.
 
-Each LM step runs the rig kernels of ``colmap_tpu_torch.kernels.rig``:
+Each LM step runs the rig kernels of ``colmap_tpu_torch.kernels.rig`` and
+K34 of ``kernels.solver``:
 
-    K24 rig_obs_jacobians / rig_obs_cost   residuals, four Jacobian blocks, cost
+    K24 rig_obs_jacobians / rig_obs_cost64 residuals, four Jacobian blocks, cost
     K25 rig_lm_reduce                      gradients, Hpp⁻¹, reduced right-hand
                                            side, damping and Jacobi diagonals
+    K34 pcg_setup_diag / pcg_step          PCG's vectors and scalars on the
+                                           flattened (F + G + C, W) camera-side
+                                           tensor (kernels/rig.py row_width)
     K26 rig_schur_matvec                   the reduced system in PCG;
         rig_back_substitute                the point update
+    K38 rig_lm_candidate / rig_lm_accept   the update, predicted decrease,
+                                           damping rule and stopping test
 
-and plain torch for PCG's vector updates on the (F + G + C, W) camera-side
-tensor (kernels/rig.py row_width), the quaternion update and the damping rule (the same rule,
-acceptance test and stopping rule as colmap_tpu's lm_step and
-lm_solve_fused). The loop runs on the host and reads two scalars per
-iteration (the new cost and the predicted decrease).
+(the same rule, acceptance test and stopping rule as colmap_tpu's lm_step
+and lm_solve_fused). The loop is device-resident, as the packed solve's
+(estimators/bundle_adjustment.py ``drive``): lam, nu, the costs, the
+iteration count and ``done`` live in device memory, a solve captures one
+iteration as a CUDA graph and replays it, and the host reads a 1-byte done
+flag once per DONE_CHUNK iterations.
 
 Problem layout:
     frames:       quat (F, 4), t (F, 3)                rig_from_world
@@ -37,10 +44,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from colmap_tpu_torch.estimators.ba_residual import quat_exp
+from colmap_tpu_torch.estimators import bundle_adjustment as ba
 from colmap_tpu_torch.estimators.bundle_adjustment import BAOptions, camera_mask
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import rig as rig_kernels
+from colmap_tpu_torch.kernels import solver
 from colmap_tpu_torch.kernels.ba import model_groups
 from colmap_tpu_torch.sensor import models as camera_models
 
@@ -146,45 +154,6 @@ def _obs_masks(masks: RigBAMasks, options: BAOptions) -> _ObsMasks:
                      masks.cam_mask.contiguous(), masks.point_mask.contiguous())
 
 
-def _pcg(matvec, precond, b, iterations: int):
-    """Jacobi-preconditioned CG with a fixed iteration count on the
-    camera-side tensor (colmap_tpu's _pcg over the three families)."""
-    x = torch.zeros_like(b)
-    r = b
-    z = precond * r
-    p = z
-    rz = (r * z).sum()
-    zero = torch.zeros_like(rz)
-    for _ in range(iterations):
-        Ap = matvec(p)
-        pAp = (p * Ap).sum()
-        alpha = torch.where(pAp.abs() > 1e-30, rz / pAp, zero)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond * r
-        rz_new = (r * z).sum()
-        beta = torch.where(rz.abs() > 1e-30, rz_new / rz, zero)
-        p = z + beta * p
-        rz = rz_new
-    return x
-
-
-def _apply_update(problem: RigBAProblem, x, dx) -> RigBAProblem:
-    """x: the (F + G + C, W) camera-side step; dx: (N, 3)."""
-    F, G = problem.quat.shape[0], problem.sensor_quat.shape[0]
-    P = problem.cam_params.shape[1]
-    df, ds, dc = x[:F, :6], x[F:F + G, :6], x[F + G:, :P]
-    return problem._replace(
-        quat=rot.quat_normalize(rot.quat_multiply(quat_exp(df[:, :3]), problem.quat)),
-        t=problem.t + df[:, 3:],
-        sensor_quat=rot.quat_normalize(rot.quat_multiply(quat_exp(ds[:, :3]),
-                                                         problem.sensor_quat)),
-        sensor_t=problem.sensor_t + ds[:, 3:],
-        cam_params=problem.cam_params + dc,
-        points=problem.points + dx,
-    )
-
-
 def _layout(problem: RigBAProblem) -> rig_kernels.RigLayout:
     p = problem
     return rig_kernels.rig_layout(p.obs_frame, p.obs_sensor, p.obs_cam, p.obs_point,
@@ -192,58 +161,78 @@ def _layout(problem: RigBAProblem) -> rig_kernels.RigLayout:
                                   p.points.shape[0], p.cam_params.shape[1])
 
 
-def _lm_step(problem: RigBAProblem, layout, model_id, options: BAOptions,
-             obs_masks: _ObsMasks, lam: float, nu: float, cost: float, kernels, groups):
-    """One LM iteration; ``cost`` is the cost at the current state;
-    ``groups`` the observations of each model (model_groups). Returns
-    (problem, lam, nu, new_cost, accepted, out_cost) with Python scalars."""
-    p = problem
+def _pcg(kernels, jac, obs, layout, red, iterations: int):
+    """Jacobi-preconditioned CG with a fixed iteration count on the flattened
+    camera-side tensor (colmap_tpu's _pcg over the three families): K34's
+    set-up (c) from K25's preconditioner, then per iteration K26's matvec
+    (its product holds λD) and K34's step with F = 0 and no damping term.
+    Returns x (R, W)."""
+    R, W = red.b.shape
+    st = kernels.pcg_setup(red.precond.reshape(-1), red.b.reshape(-1))
+    no_poses = red.b.new_zeros(0, 6)
+    for _ in range(iterations):
+        Ap = kernels.schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, st.p.view(R, W))
+        st = kernels.pcg_step(st, no_poses, Ap, None, None, None)
+    return st.x.view(R, W)
+
+
+def _params(state: RigBAProblem):
+    return (state.quat, state.t, state.sensor_quat, state.sensor_t, state.cam_params,
+            state.points)
+
+
+def _lm_iteration(state: RigBAProblem, layout, model_id, options: BAOptions,
+                  obs_masks: _ObsMasks, sc, kernels, groups) -> None:
+    """One LM iteration, in place on ``state``'s parameter tensors and the
+    scalars ``sc`` (bundle_adjustment._LMScalars): K24, K25, PCG (K34, K26),
+    K26's back-substitution, K38's candidate, K24's cost and K38's accept.
+    It reads nothing back to the host, so it can be captured as a CUDA
+    graph; once ``done`` is set it changes nothing."""
+    p = state
     obs = _obs(p)
-    jac = kernels.obs_jacobians(p.quat, p.t, p.sensor_quat, p.sensor_t, p.cam_params, p.points,
-                                obs, obs_masks.pose, obs_masks.sensor, obs_masks.cam,
-                                obs_masks.point, model_id, options.loss, options.loss_scale,
-                                groups)
-    red = kernels.lm_reduce(jac, obs, layout, lam)
-    x = _pcg(lambda v: kernels.schur_matvec(jac, obs, layout, red.Hpp_inv, red.lam_diag, v),
-             red.precond, red.b, options.pcg_iterations)
+    jac = kernels.obs_jacobians(*_params(p), obs, obs_masks.pose, obs_masks.sensor,
+                                obs_masks.cam, obs_masks.point, model_id, options.loss,
+                                options.loss_scale, groups)
+    red = kernels.lm_reduce(jac, obs, layout, sc.lam)
+    x = _pcg(kernels, jac, obs, layout, red, options.pcg_iterations)
     dx = kernels.back_substitute(jac, obs, layout, red.Hpp_inv, red.gx, x)
-    new_problem = _apply_update(problem, x, dx)
-    new_cost = float(_cost(new_problem, model_id, options, kernels, groups))
-    pred = 0.5 * float(
-        (x * red.g).sum() + (dx * red.gx).sum()
-        + lam * ((red.diag * x * x).sum() + (red.diag_x * dx * dx).sum())
-    )
-    rho = (cost - new_cost) / max(pred, 1e-30)
-    if new_cost < cost and pred > 0:
-        shrink = max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-        new_lam = min(max(lam * shrink, options.min_lambda), options.max_lambda)
-        return new_problem, new_lam, 2.0, new_cost, True, new_cost
-    return problem, min(lam * nu, options.max_lambda), nu * 2.0, new_cost, False, cost
+    cand, pred = kernels.lm_candidate(_params(p), x, dx, red, sc.lam)
+    new_cost = kernels.obs_cost64(*cand, obs, model_id, options.loss, options.loss_scale, groups)
+    kernels.lm_accept(sc.lam, sc.S, new_cost, pred, _params(p), cand, options.min_lambda,
+                      options.max_lambda, options.function_tolerance, sc.done)
 
 
 def _lm_loop(problem: RigBAProblem, model_id, options: BAOptions, masks: RigBAMasks,
-             kernels=rig_kernels.KERNELS):
+             kernels=rig_kernels.KERNELS, with_info=False):
     """The LM loop of every rig solve (colmap_tpu's lm_solve_fused).
     ``kernels`` is ``rig_kernels.KERNELS``; a check on the card passes
     ``rig_kernels.PLAIN`` to run the same solve through the plain versions.
-    Returns (problem, final cost, iterations)."""
+    Returns (problem, final cost, iterations), and with ``with_info`` the
+    loop's info dict (bundle_adjustment.drive). On the card the host reads
+    the done flag once per DONE_CHUNK iterations and replays a CUDA graph of
+    one iteration under the size rule GRAPH_MIN_ITERATIONS."""
+    dev = problem.points.device
     obs_masks = _obs_masks(masks, options)
     layout = _layout(problem)
     # The observations of each model of a mixed problem, once per solve.
     groups = model_groups(model_id, problem.cam_params, problem.obs_cam)
-    lam, nu = float(options.initial_lambda), 2.0
-    cur_cost = last_cost = float(_cost(problem, model_id, options, kernels, groups))
-    it, done = 0, False
-    while not done and it < options.max_iterations:
-        problem, lam, nu, new_cost, accepted, cur_cost = _lm_step(
-            problem, layout, model_id, options, obs_masks, lam, nu, cur_cost, kernels, groups)
-        rel = abs(last_cost - new_cost) / max(new_cost, 1e-30)
-        done = (accepted and rel < options.function_tolerance) or (
-            not accepted and lam >= options.max_lambda)
-        if accepted:
-            last_cost = new_cost
-        it += 1
-    return problem, cur_cost, it
+    state = problem._replace(**{k: getattr(problem, k).clone() for k in
+                                ("quat", "t", "sensor_quat", "sensor_t", "cam_params",
+                                 "points")})
+    cost = kernels.obs_cost64(*_params(state), _obs(state), model_id, options.loss,
+                              options.loss_scale, groups)
+    sc = ba._lm_scalars(cost, options.initial_lambda, 2.0, problem.points.dtype)
+
+    def step():
+        _lm_iteration(state, layout, model_id, options, obs_masks, sc, kernels, groups)
+
+    graph_wanted = (dev.type == "cuda" and kernels is rig_kernels.KERNELS
+                    and options.max_iterations >= ba.GRAPH_MIN_ITERATIONS)
+    info = ba.drive(step, sc, dev, options.max_iterations, graph_wanted, (rig_kernels, solver))
+    S = info.pop("S")
+    if with_info:
+        return state, S["cost"], int(S["it"]), info
+    return state, S["cost"], int(S["it"])
 
 
 def solve(problem: RigBAProblem, model_id, options: Optional[BAOptions] = None,

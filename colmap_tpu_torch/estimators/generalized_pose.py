@@ -10,10 +10,11 @@ behavior: estimators/generalized_pose.{h,cc}). Ported here:
   constraint d × (R X + t - c) = 0, each scored by its reprojection error
   through every correspondence's camera. The batches run in the CUDA kernel
   K27 (kernels/rig.py) on the card, the host loop in optim/ransac.py, the
-  local refit (weighted gDLT over the inliers) in float64 torch ops;
-- ``refine_generalized_absolute_pose``: 30 Cauchy-weighted LM iterations
-  in float64 over the rig's 6-DoF tangent, as torch ops with the Jacobian
-  from torch.func.jacfwd;
+  local refit (weighted gDLT over the inliers) in K40 (b), float64, one
+  launch and one host read (the refit's support);
+- ``refine_generalized_absolute_pose``: up to 30 Cauchy-weighted LM
+  iterations in float64 over the rig's 6-DoF tangent with the analytic
+  Jacobian, all of them in one launch of K40 (a) and one host read;
 - ``estimate_structure_less_absolute_pose``: a new camera from 2D-2D
   correspondences (EstimateStructureLessAbsolutePose, the mapper's fallback
   when an image has too few 2D-3D correspondences,
@@ -101,14 +102,14 @@ def gen_abs_data(points2D, points3D, camera_idxs, cams_from_rig: Sequence[Pose],
 
 
 def _gen_abs_refit(data: KR.GenAbsData, model, max_sq, count, estimate_scale):
-    """``_try_refine``: weighted gDLT (float64 torch ops) on the inliers of
-    ``model``, kept where it is finite and its support (K27) is larger."""
+    """``_try_refine``: weighted gDLT (K40 (b), float64) on the inliers of
+    ``model``, kept where it is finite and its support (K27) is larger; the
+    finite test stays on the device, the host reads the support once."""
     inl = KR.gen_abs_inliers(data, model, max_sq)
     X, c, d = (x.double() for x in (data.X, data.centers, data.dirs))
-    refined = KR.gdlt_pose(X, c, d, inl.double(), estimate_scale).to(model.dtype)
-    if not bool(torch.isfinite(refined).all()):
-        return model, count
-    count_r = int(KR.gen_abs_inliers(data, refined, max_sq).sum())
+    refined, ok = KR.gen_abs_refit(X, c, d, inl.double(), estimate_scale)
+    refined = refined.to(model.dtype)
+    count_r = int(torch.where(ok[0], KR.gen_abs_inliers(data, refined, max_sq).sum(), -1))
     return (refined, count_r) if count_r > count else (model, count)
 
 
@@ -166,17 +167,19 @@ def refit_generalized_absolute_pose(
     device=None,
 ) -> Tuple[Optional[Pose], float]:
     """gDLT over all the inliers in float64 (the LO step's refit, taken
-    whatever its support): (rig_from_world | None, world scale). A RANSAC
-    estimate keeps its best 6-point model where the refit adds no inlier,
-    and with short baselines that model's scale is uncertain by about
-    1e-3; the refit over every inlier is not."""
+    whatever its support; K40 (b), one host read): (rig_from_world | None,
+    world scale). A RANSAC estimate keeps its best 6-point model where the
+    refit adds no inlier, and with short baselines that model's scale is
+    uncertain by about 1e-3; the refit over every inlier is not."""
     device = torch.device(device or "cuda")
     data = gen_abs_data(points2D, points3D, camera_idxs, cams_from_rig, cameras, device,
                         torch.float64)
     w = torch.as_tensor(np.asarray(inlier_mask, dtype=np.float64)).to(device)
-    model = KR.gdlt_pose(data.X, data.centers, data.dirs, w, estimate_scale).cpu()
-    if not bool(torch.isfinite(model).all()):
+    model, ok = KR.gen_abs_refit(data.X, data.centers, data.dirs, w, estimate_scale)
+    out = torch.cat([model.flatten(), ok.double()]).cpu()
+    if not bool(out[-1]):
         return None, 1.0
+    model = out[:-1].reshape(3, 5)
     return Pose(rot.rotmat_to_quat(model[:, :3]).numpy(), model[:, 3].numpy()), float(model[0, 4])
 
 
@@ -193,7 +196,8 @@ def refine_generalized_absolute_pose(
     device=None,
 ) -> Tuple[Pose, bool]:
     """Cauchy-weighted LM refinement of rig_from_world over the reprojection
-    errors, in float64 on ``device`` (colmap_tpu's loop, l.262-342).
+    errors, in float64 on ``device`` (colmap_tpu's loop, l.262-342): K40 (a),
+    the whole loop in one launch, and one host read of (q, t).
 
     reference: RefineGeneralizedAbsolutePose (estimators/generalized_pose.cc).
     """
@@ -207,47 +211,12 @@ def refine_generalized_absolute_pose(
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device)
 
-    w_in = dev(inlier_mask)
-
-    def residuals(delta, q_base, t_base):
-        dq = rot.quat_normalize(torch.cat([torch.ones_like(delta[:1]), 0.5 * delta[:3]]))
-        q = rot.quat_multiply(dq, q_base)
-        Xr = rot.quat_rotate(q.expand(n, 4), data.X) + t_base + delta[3:]
-        Xc = rot.quat_rotate(data.cam_q, Xr) + data.cam_t
-        z = torch.clamp(Xc[:, 2], min=1e-8)
-        return ((Xc[:, :2] / z[:, None] - data.uv) * data.focal[:, None]).reshape(-1)
-
-    def robust_weights(r):
-        e2 = (r.reshape(-1, 2) ** 2).sum(1)
-        w = 1.0 / (1.0 + e2 / loss_scale_px ** 2)
-        return torch.repeat_interleave(torch.sqrt(w) * torch.sqrt(w_in), 2)
-
-    q, t = dev(rig_from_world.quat), dev(rig_from_world.t)
-    lam, prev_cost = 1e-4, None
-    zero = torch.zeros(6, dtype=torch.float64, device=device)
-    jac = torch.func.jacfwd(residuals)
-    for _ in range(num_iterations):
-        r = residuals(zero, q, t)
-        wts = robust_weights(r)
-        Jw = jac(zero, q, t) * wts[:, None]
-        rw = r * wts
-        cost = float((rw ** 2).sum())
-        H = Jw.T @ Jw
-        step = torch.linalg.solve(H + lam * torch.diag(torch.diagonal(H) + 1e-12), -(Jw.T @ rw))
-        r_new = residuals(step, q, t)
-        new_cost = float(((r_new * robust_weights(r_new)) ** 2).sum())
-        if new_cost < cost:
-            dq = rot.quat_normalize(torch.cat([torch.ones_like(step[:1]), 0.5 * step[:3]]))
-            q = rot.quat_multiply(dq, q)
-            t = t + step[3:]
-            lam = max(lam * 0.3, 1e-10)
-            if prev_cost is not None and abs(prev_cost - new_cost) < 1e-12 * max(prev_cost, 1.0):
-                break
-            prev_cost = new_cost
-        else:
-            lam = min(lam * 10.0, 1e8)
-    q, t = q.cpu().numpy(), t.cpu().numpy()
-    return Pose(q, t), bool(np.isfinite(q).all() and np.isfinite(t).all())
+    q, t = KR.gen_abs_refine(data.X, data.uv, data.cam_q, data.cam_t, data.focal,
+                             dev(inlier_mask), dev(rig_from_world.quat), dev(rig_from_world.t),
+                             num_iterations, loss_scale_px)
+    qt = torch.cat([q, t]).cpu().numpy()
+    q, t = qt[:4], qt[4:]
+    return Pose(q, t), bool(np.isfinite(qt).all())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,11 +10,13 @@ pinned to 1 (scale, weight relative to the mean observation weight) and the
 best-covered camera's centre held fixed (translation). See colmap_tpu's
 module for the derivation.
 
-One round runs on K22 (kernels/global_sfm.py): setup, up to
-``cg_iterations`` Schur matvecs and the back-substitution; CG's vector
-updates are torch ops on the device with colmap_tpu's freeze rule
-(``live = rz > 1e-12 rz0``) and no host read. The host reads the cost once
-per round. The relative ridge and the mean-relative anchor weight are float32
+One round runs on K22 and K39 (kernels/global_sfm.py): setup, the CG
+(K39's set-up, then ``cg_iterations`` x (K22's Schur matvec, K39's step
+with colmap_tpu's freeze rule ``live = rz > 1e-12 rz0``)) and the
+back-substitution. On the card the CG is one CUDA graph: the setup writes
+into the solve's own buffers, the first round's CG runs eagerly, the
+second's is captured, and every later one replays it; no CG step reads the
+host. The host reads the cost once per round. The relative ridge and the mean-relative anchor weight are float32
 numerics, kept as they are.
 """
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from colmap_tpu_torch.kernels import global_sfm as K
+from colmap_tpu_torch.utils import cuda_graph
 from colmap_tpu_torch.utils.dtypes import floatx, resolve_device
 
 
@@ -41,28 +44,27 @@ class GlobalPositioningOptions:
     anchor_weight: float = 100.0
 
 
-def _irls_round(prob: K.GPProblem, centers, points, cg_iterations: int, kernels=K.KERNELS):
-    """One IRLS round; returns ((centers, points), cost at the input state)."""
-    sys = kernels.gp_setup(prob, centers, points)
-    M = 1.0 / (sys.diag_c + prob.eps_rel * sys.diag_c.mean() + 1e-30)
-    xc = torch.zeros_like(sys.b)
-    rr = sys.b
-    z = M * rr
-    p = z
-    rz = (rr * z).sum()
-    rz0 = rz
+def _cg(prob: K.GPProblem, sys: K.GPSystem, cg_iterations: int, kernels):
+    """The round's CG on the Schur system: K39's set-up (M from diag_c with
+    the relative ridge), then cg_iterations x (K22 (b), K39's step in
+    positioning mode). Returns xc (C, 3)."""
+    st = kernels.cg_setup(K.CG_POSITIONING, sys.b, sys.diag_c, prob.eps_rel)
     for _ in range(cg_iterations):
-        # Freeze once converged: f32 CG past convergence breaks down.
-        live = (rz > 1e-12 * rz0).to(rr.dtype)
-        Ap = kernels.gp_schur_matvec(prob, sys, p)
-        alpha = live * rz / torch.clamp((p * Ap).sum(), min=1e-30)
-        xc = xc + alpha * p
-        rr = rr - alpha * Ap
-        z = M * rr
-        rz_new = (rr * z).sum()
-        beta = live * rz_new / torch.clamp(rz, min=1e-30)
-        p = live * (z + beta * p) + (1.0 - live) * p
-        rz = live * rz_new + (1.0 - live) * rz
+        st = kernels.cg_step(K.CG_POSITIONING, st, kernels.gp_schur_matvec(prob, sys, st.p))
+    return st.x
+
+
+def _irls_round(prob: K.GPProblem, centers, points, cg_iterations: int, kernels=K.KERNELS,
+                cg=None, buf=None):
+    """One IRLS round; returns ((centers, points), cost at the input state).
+    With ``cg`` (a cuda_graph.StepGraph of ``_cg`` over the buffers ``buf``)
+    the setup writes into ``buf`` and ``cg`` runs the CG."""
+    if cg is None:
+        sys = kernels.gp_setup(prob, centers, points)
+        xc = _cg(prob, sys, cg_iterations, kernels)
+    else:
+        sys = kernels.gp_setup(prob, centers, points, out=buf)
+        xc = cg()
     return kernels.gp_back_substitute(prob, sys, xc, centers, points), sys.cost
 
 
@@ -115,16 +117,24 @@ def solve_global_positioning(
                         anchor_obs, options.anchor_weight * float(ow.mean()), num_cams,
                         num_points, options.huber_scale)
     centers, points = dev(init_centers), dev(init_points)
+    cg = buf = None
+    if device.type == "cuda" and kernels is K.KERNELS:
+        buf = K.gp_system_buffers(prob)
+        cg = cuda_graph.StepGraph(lambda: _cg(prob, buf, options.cg_iterations, kernels), device,
+                                  (K,), True)
     prev = np.inf
     rounds = 0
     for _ in range(options.max_num_iterations):
         (centers, points), cost = _irls_round(prob, centers, points, options.cg_iterations,
-                                              kernels)
+                                              kernels, cg, buf)
         rounds += 1
         c = float(cost)
         if abs(prev - c) < options.function_tolerance * max(c, 1e-12):
             break
         prev = c
     if stats is not None:
-        stats.update(irls_iterations=rounds, cost=c if rounds else None)
+        stats.update(irls_iterations=rounds, cost=c if rounds else None,
+                     cg_graph=cg is not None and cg.replay is not None,
+                     record_s=0.0 if cg is None else cg.record_s,
+                     instantiate_s=0.0 if cg is None else cg.instantiate_s)
     return centers.double().cpu().numpy(), points.double().cpu().numpy()

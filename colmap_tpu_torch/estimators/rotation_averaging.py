@@ -5,10 +5,13 @@ behavior: src/colmap/estimators/rotation_averaging.h:25-102): a
 maximum-spanning-tree initialization, an L1 phase, then IRLS with
 Geman-McClure weights, each iteration a 3N tangent-space solve by
 conjugate gradients on the weighted graph Laplacian. One iteration runs on
-K21 (kernels/global_sfm.py): the edge pass, 50 CG matvecs and the node
-update; CG's dots and axpys are torch ops on the solve's device, and no CG
-iteration reads anything back to the host. The host reads the cost once per
-IRLS iteration, as the reference does. The spanning tree, the gravity snap
+K21 and K39 (kernels/global_sfm.py): the edge pass, then the CG (K39's
+set-up and 50 x (K21's matvec, K39's step)), then the node update. On the
+card the CG is one CUDA graph: the edge pass writes into the solve's own
+buffers, the first iteration's CG runs eagerly, the second's is captured,
+and every later one replays it; no CG iteration reads anything back to the
+host. The host reads the cost once per IRLS iteration, as the reference
+does. The spanning tree, the gravity snap
 and their quaternion arithmetic are host numpy.
 """
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from colmap_tpu_torch.kernels import global_sfm as K
+from colmap_tpu_torch.utils import cuda_graph
 from colmap_tpu_torch.utils.dtypes import floatx, resolve_device
 
 
@@ -133,24 +137,13 @@ def _snap_to_gravity(quats: np.ndarray, gravity_cam: np.ndarray,
 
 def solve_tangent_cg(graph: K.RAGraph, step: K.RAStep, iterations: int, kernels=K.KERNELS):
     """CG on constrain(Lᵀ W L) δ = b with the Jacobi preconditioner 1 / deg
-    (colmap_tpu's _solve_tangent_cg); the matvec is K21 (b), the rest torch
-    ops on the device with no host read. Returns δ (N, 3)."""
-    M = torch.where(step.deg > 1e-12, 1.0 / step.deg, 0.0)[:, None]
-    x = torch.zeros_like(step.b)
-    rr = step.b
-    z = M * rr
-    p = z
-    rz = (rr * z).sum()
+    (colmap_tpu's _solve_tangent_cg): K39's set-up, then per iteration K21
+    (b)'s matvec and K39's step (rotation mode); no host read. Returns
+    δ (N, 3)."""
+    st = kernels.cg_setup(K.CG_ROTATION, step.b, step.deg)
     for _ in range(iterations):
-        Ap = kernels.ra_matvec(graph, step.ew, p)
-        alpha = rz / torch.clamp((p * Ap).sum(), min=1e-30)
-        x = x + alpha * p
-        rr = rr - alpha * Ap
-        z = M * rr
-        rz_new = (rr * z).sum()
-        p = z + rz_new / torch.clamp(rz, min=1e-30) * p
-        rz = rz_new
-    return x
+        st = kernels.cg_step(K.CG_ROTATION, st, kernels.ra_matvec(graph, step.ew, st.p))
+    return st.x
 
 
 def estimate_rotations(
@@ -176,7 +169,8 @@ def estimate_rotations(
     unless fixed_nodes are given. Runs on ``device`` (default cuda) in
     ``dtype`` (default its floatx). ``kernels`` is the kernels' bundle
     (global_sfm.PLAIN runs the plain versions, for checks); ``stats``, if
-    given, receives the number of iterations and the last cost.
+    given, receives the number of iterations, the last cost and the CG
+    graph's record and instantiate seconds.
     """
     if options is None:
         options = RotationAveragingOptions()
@@ -213,9 +207,18 @@ def estimate_rotations(
     quats = dev(initial_quats).contiguous()
     sigma = float(options.irls_loss_width)
 
+    on_card = device.type == "cuda" and kernels is K.KERNELS
+    buf = K.ra_step_buffers(num_nodes, len(edges), device) if on_card else None
+    cg = cuda_graph.StepGraph(lambda: solve_tangent_cg(graph, buf, options.cg_iterations, kernels),
+                              device, (K,), on_card)
+
     def iteration(quats, use_l1):
-        step = kernels.ra_edge_pass(graph, quats, use_l1, sigma)
-        delta = solve_tangent_cg(graph, step, options.cg_iterations, kernels)
+        if on_card:
+            step = kernels.ra_edge_pass(graph, quats, use_l1, sigma, out=buf)
+            delta = cg()
+        else:
+            step = kernels.ra_edge_pass(graph, quats, use_l1, sigma)
+            delta = solve_tangent_cg(graph, step, options.cg_iterations, kernels)
         return kernels.ra_update(quats, delta), step.cost
 
     cost = None
@@ -232,5 +235,6 @@ def estimate_rotations(
         prev_cost = c
     if stats is not None:
         stats.update(l1_iterations=options.max_num_l1_iterations, irls_iterations=n_irls,
-                     cost=None if cost is None else float(cost))
+                     cost=None if cost is None else float(cost), cg_graph=cg.replay is not None,
+                     record_s=cg.record_s, instantiate_s=cg.instantiate_s)
     return quats.double().cpu().numpy()

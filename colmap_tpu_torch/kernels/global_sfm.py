@@ -1,11 +1,14 @@
 """Global-SfM kernels: wrappers, plain PyTorch versions, launch counts.
 
-Three CUDA kernels carry the device programs of the global mapper
+Four CUDA kernels carry the device programs of the global mapper
 (sources in ``colmap_tpu_torch/csrc``):
 
     K21 rotation_averaging      ra_edge_pass, ra_matvec, ra_update
     K22 global_positioning      gp_setup, gp_schur_matvec, gp_back_substitute
     K23 view_graph_calibration  vgc_loss_grad (and vgc_loss, its autograd form)
+    K39 global_cg               cg_setup, cg_step: the Jacobi-preconditioned CG
+                                around K21 (b) (rotation mode) and K22 (b)
+                                (positioning mode, with the freeze rule)
 
 Each wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; on a CUDA tensor it
@@ -35,6 +38,7 @@ LAUNCHES = {
     "rotation_averaging": 0,
     "global_positioning": 0,
     "view_graph_calibration": 0,
+    "global_cg": 0,
 }
 
 f32, f64, i32 = torch.float32, torch.float64, torch.int32
@@ -303,6 +307,59 @@ def gp_back_substitute_plain(prob: GPProblem, sys: GPSystem, xc, centers, points
 
 
 # ---------------------------------------------------------------------------
+# K39: the CG step of both solves.
+# ---------------------------------------------------------------------------
+
+CG_ROTATION, CG_POSITIONING = 0, 1
+
+
+class CGState(NamedTuple):
+    """K39's state: the preconditioner M, iterate x, residual r,
+    preconditioned residual z and direction p, all shaped like the
+    right-hand side ((N, 3) or (C, 3)), and scal (2,) float64 [rz, rz0]."""
+
+    M: torch.Tensor
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    scal: torch.Tensor
+
+
+def cg_setup_plain(mode: int, b, diag, eps_rel: float = 0.0) -> CGState:
+    """K39 set-up. Rotation mode (colmap_tpu's _solve_tangent_cg, l.155-162):
+    diag is deg (N,), M = 1 / deg where deg > 1e-12, else 0. Positioning mode
+    (_irls_solve, l.139-146): diag is diag_c (C, 3), M = 1 / (diag_c +
+    eps_rel mean(diag_c) + 1e-30). Then x = 0, r = b, z = p = M r, rz = rz0
+    = r.z."""
+    if mode == CG_ROTATION:
+        M = torch.where(diag > 1e-12, 1.0 / diag, 0.0)[:, None].expand_as(b).contiguous()
+    else:
+        M = 1.0 / (diag + eps_rel * diag.mean() + 1e-30)
+    z = M * b
+    rz = (b * z).sum().double()
+    return CGState(M, torch.zeros_like(b), b, z, z.clone(), torch.stack([rz, rz]))
+
+
+def cg_step_plain(mode: int, st: CGState, Ap) -> CGState:
+    """K39 step after Ap = A p: rotation mode the fori_loop body of
+    _solve_tangent_cg (l.164-173); positioning mode that of _irls_solve
+    (l.148-162) with the freeze rule live = rz > 1e-12 rz0."""
+    dt = st.x.dtype
+    rz, rz0 = st.scal[0].to(dt), st.scal[1].to(dt)
+    live = (rz > 1e-12 * rz0).to(dt) if mode == CG_POSITIONING else torch.ones_like(rz)
+    alpha = live * rz / torch.clamp((st.p * Ap).sum(), min=1e-30)
+    x = st.x + alpha * st.p
+    r = st.r - alpha * Ap
+    z = st.M * r
+    rz_new = (r * z).sum()
+    beta = live * rz_new / torch.clamp(rz, min=1e-30)
+    p = live * (z + beta * st.p) + (1.0 - live) * st.p
+    rz = live * rz_new + (1.0 - live) * rz
+    return CGState(st.M, x, r, z, p, torch.stack([rz.double(), st.scal[1]]))
+
+
+# ---------------------------------------------------------------------------
 # K23: view-graph calibration.
 # ---------------------------------------------------------------------------
 
@@ -419,6 +476,8 @@ _SIGNATURES = {
     "gp_schur_matvec_f32": _GP_OBS + [_P] * 7,
     "gp_back_substitute_f32": _GP_OBS + [_P] * 9,
     "vgc_loss_grad_f32": [_I, _I] + [_P] * 13,
+    "global_cg_setup_f32": [_I, _I, _F] + [_P] * 8 + [_P],
+    "global_cg_step_f32": [_I, _I] + [_P] * 7 + [_P],
 }
 
 
@@ -458,22 +517,34 @@ def _ra_checks(graph: RAGraph, quats):
     return dev, N, E
 
 
-def ra_edge_pass(graph: RAGraph, quats, use_l1: bool, sigma: float) -> RAStep:
-    """K21 (a). See ra_edge_pass_plain for the function."""
+def ra_step_buffers(N: int, E: int, device) -> RAStep:
+    """Buffers K21 (a) writes in place (``ra_edge_pass``'s ``out``): float32
+    ew, b, deg and a float64 cost."""
+    e = functools.partial(torch.empty, dtype=f32, device=device)
+    return RAStep(e(E, 4), e(N, 3), e(N), torch.empty((), dtype=f64, device=device))
+
+
+def ra_edge_pass(graph: RAGraph, quats, use_l1: bool, sigma: float,
+                 out: Optional[RAStep] = None) -> RAStep:
+    """K21 (a). On the card ``out`` (``ra_step_buffers``) takes the results in
+    place, so that a captured CG reads them at fixed addresses; the returned
+    step holds out's tensors and the cost rounded to float32. See
+    ra_edge_pass_plain for the function."""
     if quats.device.type == "cpu":
         return ra_edge_pass_plain(graph, quats, use_l1, sigma)
     dev, N, E = _ra_checks(graph, quats)
-    ew = torch.empty(E, 4, dtype=f32, device=dev)
+    if out is None:
+        out = ra_step_buffers(N, E, dev)
+    for name, t, dt, shape in (("ew", out.ew, f32, (E, 4)), ("b", out.b, f32, (N, 3)),
+                               ("deg", out.deg, f32, (N,)), ("cost", out.cost, f64, ())):
+        S._check(name, t, dt, shape, dev)
     rn = torch.empty(E, dtype=f32, device=dev)
-    b = torch.empty(N, 3, dtype=f32, device=dev)
-    deg = torch.empty(N, dtype=f32, device=dev)
-    cost = torch.empty((), dtype=f64, device=dev)
     _call("ra_edge_pass_f32", N, E, int(bool(use_l1)), float(sigma),
           *map(S._ptr, (graph.edges, quats, graph.rel_quats, graph.offsets, graph.inc,
                         graph.free)), _opt(graph.proj),
-          *map(S._ptr, (ew, rn, b, deg, cost)), S._stream(dev))
+          *map(S._ptr, (out.ew, rn, out.b, out.deg, out.cost)), S._stream(dev))
     LAUNCHES["rotation_averaging"] += 1
-    return RAStep(ew, b, deg, cost.to(f32))
+    return out._replace(cost=out.cost.to(f32))
 
 
 def ra_matvec(graph: RAGraph, ew, x):
@@ -530,15 +601,32 @@ def _gp_checks(prob: GPProblem, **tensors):
     return dev, args
 
 
-def gp_setup(prob: GPProblem, centers, points) -> GPSystem:
-    """K22 (a). See gp_setup_plain for the function."""
+def gp_system_buffers(prob: GPProblem) -> GPSystem:
+    """Buffers K22 (a) writes in place (``gp_setup``'s ``out``): float32
+    arrays and a float64 cost on the problem's device."""
+    O, C, P = prob.dirs.shape[0], prob.num_cams, prob.num_points
+    e = functools.partial(torch.empty, dtype=f32, device=prob.dirs.device)
+    return GPSystem(w=e(O), Hpp_inv=e(P, 3, 3), g_x=e(P, 3), Hcc=e(C, 3, 3), b=e(C, 3),
+                    diag_c=e(C, 3), cost=torch.empty((), dtype=f64, device=prob.dirs.device))
+
+
+def gp_setup(prob: GPProblem, centers, points, out: Optional[GPSystem] = None) -> GPSystem:
+    """K22 (a). On the card ``out`` (``gp_system_buffers``) takes the results
+    in place, so that a captured CG reads them at fixed addresses; the
+    returned system holds out's tensors and the cost rounded to float32.
+    See gp_setup_plain for the function."""
     if prob.dirs.device.type == "cpu":
         return gp_setup_plain(prob, centers, points)
     dev, args = _gp_checks(prob, centers=centers, points=points)
     O, C, P = args[:3]
     e = functools.partial(torch.empty, dtype=f32, device=dev)
-    out = GPSystem(w=e(O), Hpp_inv=e(P, 3, 3), g_x=e(P, 3), Hcc=e(C, 3, 3), b=e(C, 3),
-                   diag_c=e(C, 3), cost=torch.empty((), dtype=f64, device=dev))
+    if out is None:
+        out = gp_system_buffers(prob)
+    for name, t, dt, shape in (("w", out.w, f32, (O,)), ("Hpp_inv", out.Hpp_inv, f32, (P, 3, 3)),
+                               ("g_x", out.g_x, f32, (P, 3)), ("Hcc", out.Hcc, f32, (C, 3, 3)),
+                               ("b", out.b, f32, (C, 3)), ("diag_c", out.diag_c, f32, (C, 3)),
+                               ("cost", out.cost, f64, ())):
+        S._check(name, t, dt, shape, dev)
     wpr, cost_term, cost_cam, y0 = e(O, 3), e(O), e(C), e(P, 3)
     _call("gp_setup_f32", *args, prob.huber_scale, prob.eps_rel,
           *map(S._ptr, (centers, points, out.w, wpr, cost_term, cost_cam, out.Hpp_inv, out.g_x,
@@ -583,6 +671,41 @@ def gp_back_substitute(prob: GPProblem, sys: GPSystem, xc, centers, points):
     return new_c, new_p
 
 
+def cg_setup(mode: int, b, diag, eps_rel: float = 0.0) -> CGState:
+    """K39 set-up. b (n, 3) float32 on the card; diag deg (n,) in rotation
+    mode, diag_c (n, 3) in positioning mode. See cg_setup_plain."""
+    if b.device.type == "cpu":
+        return cg_setup_plain(mode, b, diag, eps_rel)
+    dev = S._require_cuda(b)
+    n = b.shape[0]
+    S._check("b", b, f32, (n, 3), dev)
+    S._check("diag", diag, f32, (n,) if mode == CG_ROTATION else (n, 3), dev)
+    e = functools.partial(torch.empty, dtype=f32, device=dev)
+    st = CGState(e(n, 3), e(n, 3), e(n, 3), e(n, 3), e(n, 3),
+                 torch.empty(2, dtype=f64, device=dev))
+    _call("global_cg_setup_f32", int(mode), 3 * n, float(eps_rel),
+          *map(S._ptr, (b, diag, st.M, st.x, st.r, st.z, st.p, st.scal)), S._stream(dev))
+    LAUNCHES["global_cg"] += 1
+    return st
+
+
+def cg_step(mode: int, st: CGState, Ap) -> CGState:
+    """K39 step, in place on the card after Ap = A p (K21 (b) or K22 (b));
+    returns ``st``. See cg_step_plain."""
+    if Ap.device.type == "cpu":
+        return cg_step_plain(mode, st, Ap)
+    dev = S._require_cuda(Ap)
+    n = Ap.shape[0]
+    for name, t in (("Ap", Ap), ("M", st.M), ("x", st.x), ("r", st.r), ("z", st.z),
+                    ("p", st.p)):
+        S._check(name, t, f32, (n, 3), dev)
+    S._check("scal", st.scal, f64, (2,), dev)
+    _call("global_cg_step_f32", int(mode), 3 * n,
+          *map(S._ptr, (st.M, Ap, st.x, st.r, st.z, st.p, st.scal)), S._stream(dev))
+    LAUNCHES["global_cg"] += 1
+    return st
+
+
 class GlobalKernels(NamedTuple):
     ra_edge_pass: object
     ra_matvec: object
@@ -591,12 +714,15 @@ class GlobalKernels(NamedTuple):
     gp_schur_matvec: object
     gp_back_substitute: object
     vgc_loss: object
+    cg_setup: object
+    cg_step: object
 
 
 # The wrappers, which the solvers run, and the plain versions, which only a
 # solver's ``kernels`` argument takes, so that a check on the card can run
 # the same solve through both.
 KERNELS = GlobalKernels(ra_edge_pass, ra_matvec, ra_update, gp_setup, gp_schur_matvec,
-                        gp_back_substitute, vgc_loss)
+                        gp_back_substitute, vgc_loss, cg_setup, cg_step)
 PLAIN = GlobalKernels(ra_edge_pass_plain, ra_matvec_plain, ra_update_plain, gp_setup_plain,
-                      gp_schur_matvec_plain, gp_back_substitute_plain, vgc_loss_plain)
+                      gp_schur_matvec_plain, gp_back_substitute_plain, vgc_loss_plain,
+                      cg_setup_plain, cg_step_plain)

@@ -1,25 +1,30 @@
 """Rig kernels: wrappers, plain PyTorch versions, launch counts.
 
-Four CUDA kernels carry the device programs of the rig paths of the
+Six CUDA kernels carry the device programs of the rig paths of the
 incremental mapper (sources in ``colmap_tpu_torch/csrc``):
 
     K24 rig_ba_jacobians   rig_obs_jacobians, rig_obs_cost
     K25 rig_ba_reduce      rig_lm_reduce
     K26 rig_ba_matvec      rig_schur_matvec, rig_back_substitute
     K27 gen_abs_ransac     gen_abs_propose_score, gen_abs_inliers
+    K38 rig_lm_update      rig_lm_candidate, rig_lm_accept
+    K40 gen_abs_refine     gen_abs_refine, gen_abs_refit
 
-K24-K26 carry colmap_tpu/estimators/bundle_adjustment_rig.py (``lm_step``
-and ``lm_solve_fused``); K27 carries ``_gen_abs_ransac`` of
-colmap_tpu/estimators/generalized_pose.py. As the other kernel modules do,
+K24-K26 and K38 carry colmap_tpu/estimators/bundle_adjustment_rig.py
+(``lm_step`` and ``lm_solve_fused``; the PCG between them is K34 of
+kernels/solver.py); K27 carries ``_gen_abs_ransac`` of
+colmap_tpu/estimators/generalized_pose.py, K40 its
+``refine_generalized_absolute_pose`` and the weighted ``gdlt_pose`` of the
+LO refit, in float64. As the other kernel modules do,
 each wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; on a CUDA tensor it
 launches or raises, it never falls back. ``LAUNCHES`` counts kernel launches
 by kernel name (a wrapper adds one where it launches, nowhere else). The
 plain versions are written for any float dtype: the tests run them in
 float64 against colmap_tpu, and a check on the card holds the kernels
-against them. ``KERNELS`` bundles the BA wrappers, which the solver runs,
-and ``PLAIN`` their plain versions, which only the solver's private loop
-takes.
+against them. ``KERNELS`` bundles the BA wrappers (with K34's, which the
+rig's PCG runs), which the solver runs, and ``PLAIN`` their plain versions,
+which only the solver's private loop takes.
 
 The camera side of a rig problem: R = F + G + C rows, frames (F, 6 columns:
 rotation then translation), sensors (G, 6) and cameras (C, P), kept in one
@@ -56,6 +61,14 @@ from colmap_tpu_torch.kernels.ba import (
     inv3x3_spd,
 )
 from colmap_tpu_torch.kernels.global_sfm import csr
+from colmap_tpu_torch.kernels.solver import (
+    LM_FIELDS,
+    lm_accept_plain,
+    pcg_setup_diag,
+    pcg_setup_diag_plain,
+    pcg_step,
+    pcg_step_plain,
+)
 from colmap_tpu_torch.optim.ransac import pack_best
 from colmap_tpu_torch.sensor import models as camera_models
 
@@ -64,6 +77,8 @@ LAUNCHES = {
     "rig_ba_reduce": 0,
     "rig_ba_matvec": 0,
     "gen_abs_ransac": 0,
+    "rig_lm_update": 0,
+    "gen_abs_refine": 0,
 }
 
 W = 8  # columns of a camera-side row: 6 for frames and sensors, P <= 8 for cameras
@@ -290,10 +305,11 @@ def _cam_side_apply(jac: RigJacobians, obs: RigObs, layout: RigLayout, x):
 
 
 def rig_lm_reduce_plain(jac: RigJacobians, obs: RigObs, layout: RigLayout,
-                        lam: float) -> RigReduction:
+                        lam) -> RigReduction:
     """K25's function: lm_step's gradients (l.350-353), _build_schur's
     point blocks and damping (l.238-252), the reduced right-hand side
-    (l.356-361) and _pcg's Jacobi preconditioner (l.284-290)."""
+    (l.356-361) and _pcg's Jacobi preconditioner (l.284-290). lam a float
+    or a 0-d tensor."""
     N = layout.num_points
     p = obs.obs_point.long()
     gx = -_segment_sum((jac.Jx * jac.r[..., None]).sum(1), p, N)
@@ -436,19 +452,120 @@ def gen_abs_inliers_plain(data: GenAbsData, model, max_sq):
     return (gen_abs_residuals(model[None], data)[0] <= max_sq) & data.mask
 
 
+# K38's and K40's plain versions -------------------------------------------
+
+
+def rig_lm_candidate_plain(state, x, dx, red: RigReduction, lam):
+    """K38 candidate: colmap_tpu's _apply_update (l.319) on the state
+    (quat, t, sensor_quat, sensor_t, cam_params, points) with the (R, W)
+    camera-side step x and the point step dx, and lm_step's predicted
+    decrease (l.378-387) 0.5 (x.g + dx.gx + lam (diag x^2 + diag_x dx^2)).
+    Returns (the candidate state, pred 0-d float64)."""
+    quat, t, squat, st, cam, points = state
+    F, G, P = quat.shape[0], squat.shape[0], cam.shape[1]
+    df, ds, dc = x[:F, :6], x[F:F + G, :6], x[F + G:, :P]
+    cand = (rot.quat_normalize(rot.quat_multiply(quat_exp(df[:, :3]), quat)), t + df[:, 3:],
+            rot.quat_normalize(rot.quat_multiply(quat_exp(ds[:, :3]), squat)), st + ds[:, 3:],
+            cam + dc, points + dx)
+    pred = 0.5 * ((x * red.g).sum() + (dx * red.gx).sum()
+                  + lam * ((red.diag * x * x).sum() + (red.diag_x * dx * dx).sum()))
+    return cand, pred.double()
+
+
+# K38 accept, in place: K35's rule (the gain ratio, the damping update, the
+# last accepted cost, the done test of lm_solve_fused l.409-424, frozen once
+# done) on the six state tensors; solver.lm_accept_plain takes any state.
+rig_lm_accept_plain = lm_accept_plain
+
+
+def _gen_abs_row_terms(data64, q, t, loss_scale: float, w_in, jacobian: bool):
+    """Residuals (n, 2), weights (n,) and, with ``jacobian``, the analytic
+    Jacobians (n, 2, 6) at delta = 0 of refine_generalized_absolute_pose's
+    residual (colmap_tpu l.296-306): rotation columns -[R X]x, translation
+    I, through cam_from_rig; 0 in z where the depth is clamped."""
+    X, uv, cam_q, cam_t, focal = data64
+    n = X.shape[0]
+    Y = rot.quat_rotate(q.expand(n, 4), X)
+    Xc = rot.quat_rotate(cam_q, Y + t) + cam_t
+    clamped = ~(Xc[:, 2] > 1e-8)
+    z = torch.where(clamped, 1e-8, Xc[:, 2])
+    proj = Xc[:, :2] / z[:, None]
+    r = (proj - uv) * focal[:, None]
+    e2 = (r * r).sum(1)
+    wt = torch.sqrt(1.0 / (1.0 + e2 / loss_scale ** 2)) * torch.sqrt(w_in)
+    if not jacobian:
+        return r, wt, None
+    eye = torch.eye(3, dtype=X.dtype, device=X.device)
+    cols = torch.cat([torch.linalg.cross(eye[None].expand(n, 3, 3),
+                                         Y[:, None, :].expand(n, 3, 3), dim=-1),
+                      eye[None].expand(n, 3, 3)], dim=1)  # (n, 6, 3): dXr / d delta_c
+    dXc = rot.quat_rotate(cam_q[:, None, :].expand(n, 6, 4), cols)  # (n, 6, 3)
+    dz = torch.where(clamped[:, None], 0.0, dXc[..., 2])
+    J = torch.stack([dXc[..., 0] - proj[:, :1] * dz, dXc[..., 1] - proj[:, 1:] * dz], dim=1)
+    return r, wt, J * (focal / z)[:, None, None]
+
+
+def gen_abs_refine_plain(X, uv, cam_q, cam_t, focal, w_in, q0, t0, num_iterations: int = 30,
+                         loss_scale: float = 1.0, trace=None):
+    """K40 (a): colmap_tpu's refine_generalized_absolute_pose loop (l.262-345)
+    with the analytic Jacobian: Cauchy x inlier weights, LM on the 6-DoF rig
+    tangent, accept / reject with lam x 0.3 (>= 1e-10) / x 10 (<= 1e8), the
+    1e-12 relative early stop. Rows float64. Returns (q (4,), t (3,)); a
+    ``trace`` list receives each iteration's accept decision."""
+    data = (X, uv, cam_q, cam_t, focal)
+    q, t = q0, t0
+    lam, prev_cost = 1e-4, None
+    for _ in range(num_iterations):
+        r, wt, J = _gen_abs_row_terms(data, q, t, loss_scale, w_in, True)
+        Jw = (J * wt[:, None, None]).reshape(-1, 6)
+        rw = (r * wt[:, None]).reshape(-1)
+        cost = float((rw ** 2).sum())
+        H = Jw.T @ Jw
+        step = torch.linalg.solve(H + lam * torch.diag(torch.diagonal(H) + 1e-12), -(Jw.T @ rw))
+        dq = rot.quat_normalize(torch.cat([torch.ones_like(step[:1]), 0.5 * step[:3]]))
+        qc, tc = rot.quat_multiply(dq, q), t + step[3:]
+        r_new, wt_new, _ = _gen_abs_row_terms(data, qc, tc, loss_scale, w_in, False)
+        new_cost = float(((r_new * wt_new[:, None]) ** 2).sum())
+        if trace is not None:
+            trace.append(new_cost < cost)
+        if new_cost < cost:
+            q, t = qc, tc
+            lam = max(lam * 0.3, 1e-10)
+            if prev_cost is not None and abs(prev_cost - new_cost) < 1e-12 * max(prev_cost, 1.0):
+                break
+            prev_cost = new_cost
+        else:
+            lam = min(lam * 10.0, 1e8)
+    return q, t
+
+
+def gen_abs_refit_plain(X, centers, dirs, weights, estimate_scale: bool):
+    """K40 (b): the weighted gdlt_pose (l.54-109) over every row with its
+    weight, and whether the model is finite. Returns (model (3, 5), ok (1,)
+    bool)."""
+    model = gdlt_pose(X, centers, dirs, weights, estimate_scale)
+    ok = torch.isfinite(model).all().reshape(1)
+    return torch.where(ok, model, torch.nan), ok
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                       ctypes.c_double)
 _LAYOUT = [_P] * 7  # pt_offsets, pt_obs, seg_obs, chunk_row, chunk_start, chunk_end, row_chunks
 _SIGNATURES = {
     "rig_ba_jacobians_f32": [_I, _I, _I, _F, _LL, _I, _I, _P] + [_P] * 23 + [_P],
-    "rig_ba_reduce_f32": [_I] * 7 + [_F] + [_P] * 5 + _LAYOUT + [_P] * 10 + [_P],
+    "rig_ba_reduce_f32": [_I] * 7 + [_P] + [_P] * 5 + _LAYOUT + [_P] * 10 + [_P],
     "rig_ba_matvec_f32": [_I, _LL, _I, _I, _I, _I, _I, _I, _I] + [_P] * 8 + _LAYOUT
                          + [_P] * 7 + [_P],
     "gen_abs_propose_score_f32": [_I, _I, _I, _F] + [_P] * 12 + [_P],
     "gen_abs_inliers_f32": [_I, _F] + [_P] * 8 + [_P],
+    "rig_lm_candidate_f32": [_I] * 5 + [_LL] + [_P] * 21 + [_I, _P],
+    "rig_lm_accept_f32": [_I, _I, _I, _LL] + [_P] * 4 + [_D] * 3 + [_P] * 13 + [_I, _P],
+    "gen_abs_refine_f64": [_I, _I, _D] + [_P] * 10 + [_P],
+    "gen_abs_refit_f64": [_I, _I] + [_P] * 6 + [_P],
 }
 
 
@@ -536,14 +653,15 @@ def rig_obs_jacobians(quat, t, sensor_quat, sensor_t, cam_params, points, obs: R
 K24_COST_BLOCK = 256
 
 
-def rig_obs_cost(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs, model_id,
-                 loss: str, loss_scale: float, groups=None):
-    """K24, cost mode: ½ Σ ρ(‖r‖²)·w as a 0-d float32 tensor, summed in
+def rig_obs_cost64(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs, model_id,
+                   loss: str, loss_scale: float, groups=None):
+    """K24, cost mode: ½ Σ ρ(‖r‖²)·w as a 0-d float64 tensor, summed in
     double by blocks in a fixed tree (and over the models of a mixed
-    problem in their order). See rig_obs_cost_plain."""
+    problem in their order); the LM loop keeps it on the card. See
+    rig_obs_cost_plain."""
     if points.device.type == "cpu":
         return rig_obs_cost_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
-                                  model_id, loss, loss_scale, groups)
+                                  model_id, loss, loss_scale, groups).double()
     dev, F, G, C, P, N, O = _k24_checks(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
                                         model_id, loss)
     args = _k24_args(quat, t, sensor_quat, sensor_t, cam_params, points, obs)
@@ -555,8 +673,19 @@ def rig_obs_cost(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs
         _k24_launch(1, m, slots, n, cam_params, args,
                     (*([_P(0)] * 9), S._ptr(partials), S._ptr(costs[-1])), loss, loss_scale, dev)
     if not costs:
-        return torch.zeros((), dtype=f32, device=dev)
-    return sum(costs[1:], costs[0]).to(f32)
+        return torch.zeros((), dtype=f64, device=dev)
+    return sum(costs[1:], costs[0])
+
+
+def rig_obs_cost(quat, t, sensor_quat, sensor_t, cam_params, points, obs: RigObs, model_id,
+                 loss: str, loss_scale: float, groups=None):
+    """K24, cost mode as a 0-d float32 tensor (rig_obs_cost64 rounded). See
+    rig_obs_cost_plain for the function."""
+    if points.device.type == "cpu":
+        return rig_obs_cost_plain(quat, t, sensor_quat, sensor_t, cam_params, points, obs,
+                                  model_id, loss, loss_scale, groups)
+    return rig_obs_cost64(quat, t, sensor_quat, sensor_t, cam_params, points, obs, model_id,
+                          loss, loss_scale, groups).to(f32)
 
 
 def _layout_checks(layout: RigLayout, dev, O):
@@ -587,18 +716,23 @@ def _jac_checks(jac: RigJacobians, obs: RigObs, layout: RigLayout):
     return dev, O, P, K, R, lay, ids
 
 
-def rig_lm_reduce(jac: RigJacobians, obs: RigObs, layout: RigLayout, lam: float) -> RigReduction:
-    """K25. See rig_lm_reduce_plain for the function."""
+def rig_lm_reduce(jac: RigJacobians, obs: RigObs, layout: RigLayout, lam) -> RigReduction:
+    """K25. lam a 0-d float32 tensor on the card (the LM loop's, which K38
+    updates; a float is copied to the card first). See rig_lm_reduce_plain
+    for the function."""
     if jac.Jx.device.type == "cpu":
         return rig_lm_reduce_plain(jac, obs, layout, lam)
     dev, O, P, K, R, lay, ids = _jac_checks(jac, obs, layout)
+    if not torch.is_tensor(lam):
+        lam = torch.full((), float(lam), dtype=f32, device=dev)
+    S._check("lam", lam, f32, (), dev)
     N, w = layout.num_points, row_width(P)
     e = functools.partial(torch.empty, dtype=f32, device=dev)
     out = RigReduction(g=e(R, w), b=e(R, w), diag=e(R, w), lam_diag=e(R, w), precond=e(R, w),
                        gx=e(N, 3), Hpp_inv=e(N, 3, 3), diag_x=e(N, 3))
     q, partials = e(O, 2), e(K, 3 * w)
     _call("rig_ba_reduce_f32", N, layout.num_frames, layout.num_sensors, layout.num_cams, P, K, w,
-          float(lam), *map(S._ptr, (jac.r, jac.Jf, jac.Js, jac.Jc, jac.Jx)), *lay,
+          S._ptr(lam), *map(S._ptr, (jac.r, jac.Jf, jac.Js, jac.Jc, jac.Jx)), *lay,
           *map(S._ptr, (q, partials, out.gx, out.Hpp_inv, out.diag_x, out.g, out.b, out.diag,
                         out.lam_diag, out.precond)), S._stream(dev))
     LAUNCHES["rig_ba_reduce"] += 1
@@ -687,15 +821,134 @@ def gen_abs_inliers(data: GenAbsData, model, max_sq):
     return inl
 
 
+# K38 -----------------------------------------------------------------------
+
+
+def _state_checks(state, dev):
+    quat, _, squat, _, cam, points = state
+    F, G, N = quat.shape[0], squat.shape[0], points.shape[0]
+    shapes = ((F, 4), (F, 3), (G, 4), (G, 3), tuple(cam.shape), (N, 3))
+    for k, (x, shape) in enumerate(zip(state, shapes)):
+        S._check(f"state[{k}]", x, f32, shape, dev)
+    return shapes
+
+
+def rig_lm_candidate(state, x, dx, red: RigReduction, lam):
+    """K38 candidate. state (quat, t, sensor_quat, sensor_t, cam_params,
+    points); x (R, W), dx (N, 3); lam a 0-d float32 tensor. See
+    rig_lm_candidate_plain for the function."""
+    if x.device.type == "cpu":
+        return rig_lm_candidate_plain(state, x, dx, red, lam)
+    dev = S._require_cuda(x)
+    shapes = _state_checks(state, dev)
+    (F, _), (G, _), (C, P), (N, _) = shapes[0], shapes[2], shapes[4], shapes[5]
+    R, w = F + G + C, row_width(P)
+    for name, t, shape in (("x", x, (R, w)), ("dx", dx, (N, 3)), ("g", red.g, (R, w)),
+                           ("gx", red.gx, (N, 3)), ("diag", red.diag, (R, w)),
+                           ("diag_x", red.diag_x, (N, 3)), ("lam", lam, ())):
+        S._check(name, t, f32, shape, dev)
+    cand = tuple(torch.empty(sh, dtype=f32, device=dev) for sh in shapes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty(max(1, 2 * sms), dtype=f64, device=dev)
+    pred = torch.empty((), dtype=f64, device=dev)
+    _call("rig_lm_candidate_f32", F, G, C, P, w, N,
+          *map(S._ptr, (lam, *state, x, dx, red.g, red.gx, red.diag, red.diag_x, *cand, partial,
+                        pred)), _I(sms), S._stream(dev))
+    LAUNCHES["rig_lm_update"] += 1
+    return cand, pred
+
+
+def rig_lm_accept(lam, S_, new_cost, pred, state, cand, min_lambda: float, max_lambda: float,
+                  function_tolerance: float, done_flag) -> None:
+    """K38 accept, in place on lam, the state S_ (solver.LM_FIELDS), done_flag
+    and the six state tensors. See rig_lm_accept_plain for the function."""
+    if S_.device.type == "cpu":
+        return rig_lm_accept_plain(lam, S_, new_cost, pred, state, cand, min_lambda, max_lambda,
+                                   function_tolerance, done_flag)
+    dev = S._require_cuda(S_)
+    shapes = _state_checks(state, dev)
+    for k, (c, shape) in enumerate(zip(cand, shapes)):
+        S._check(f"cand[{k}]", c, f32, shape, dev)
+    S._check("lam", lam, f32, (), dev)
+    S._check("S", S_, f64, (len(LM_FIELDS),), dev)
+    S._check("new_cost", new_cost, f64, (), dev)
+    S._check("pred", pred, f64, (), dev)
+    S._check("done_flag", done_flag, torch.uint8, (1,), dev)
+    (F, _), (G, _), (C, P), (N, _) = shapes[0], shapes[2], shapes[4], shapes[5]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _call("rig_lm_accept_f32", F, G, C * P, N, *map(S._ptr, (lam, S_, new_cost, pred)),
+          _D(min_lambda), _D(max_lambda), _D(function_tolerance),
+          *map(S._ptr, (done_flag, *state, *cand)), _I(sms), S._stream(dev))
+    LAUNCHES["rig_lm_update"] += 1
+
+
+# K40 -----------------------------------------------------------------------
+
+
+def gen_abs_refine(X, uv, cam_q, cam_t, focal, w_in, q0, t0, num_iterations: int = 30,
+                   loss_scale: float = 1.0):
+    """K40 (a): the whole refinement in one launch; every tensor float64 on
+    the card (rows (n, 3), (n, 2), (n, 4), (n, 3), (n,), (n,); q0 (4,), t0
+    (3,)). Returns (q, t) on the card. See gen_abs_refine_plain."""
+    if X.device.type == "cpu":
+        return gen_abs_refine_plain(X, uv, cam_q, cam_t, focal, w_in, q0, t0, num_iterations,
+                                    loss_scale)
+    dev = S._require_cuda(X)
+    n = X.shape[0]
+    q0, t0 = q0.contiguous(), t0.contiguous()
+    for name, t, shape in (("X", X, (n, 3)), ("uv", uv, (n, 2)), ("cam_q", cam_q, (n, 4)),
+                           ("cam_t", cam_t, (n, 3)), ("focal", focal, (n,)),
+                           ("w_in", w_in, (n,)), ("q0", q0, (4,)), ("t0", t0, (3,))):
+        S._check(name, t, f64, shape, dev)
+    q = torch.empty(4, dtype=f64, device=dev)
+    t = torch.empty(3, dtype=f64, device=dev)
+    _call("gen_abs_refine_f64", n, int(num_iterations), _D(loss_scale),
+          *map(S._ptr, (X, uv, cam_q, cam_t, focal, w_in, q0, t0, q, t)), S._stream(dev))
+    LAUNCHES["gen_abs_refine"] += 1
+    return q, t
+
+
+def gen_abs_refit(X, centers, dirs, weights, estimate_scale: bool):
+    """K40 (b): the weighted gDLT in one launch; X, centers, dirs (n, 3),
+    weights (n,) float64 on the card. Returns (model (3, 5) float64, NaN
+    where a solve failed; ok (1,) bool), both on the card. See
+    gen_abs_refit_plain."""
+    if X.device.type == "cpu":
+        return gen_abs_refit_plain(X, centers, dirs, weights, estimate_scale)
+    dev = S._require_cuda(X)
+    n = X.shape[0]
+    for name, t, shape in (("X", X, (n, 3)), ("centers", centers, (n, 3)),
+                           ("dirs", dirs, (n, 3)), ("weights", weights, (n,))):
+        S._check(name, t, f64, shape, dev)
+    model = torch.empty(3, 5, dtype=f64, device=dev)
+    ok = torch.empty(1, dtype=torch.bool, device=dev)
+    _call("gen_abs_refit_f64", n, int(bool(estimate_scale)),
+          *map(S._ptr, (X, centers, dirs, weights, model, ok)), S._stream(dev))
+    LAUNCHES["gen_abs_refine"] += 1
+    return model, ok
+
+
 class RigKernels(NamedTuple):
     obs_jacobians: object
     obs_cost: object
+    obs_cost64: object
     lm_reduce: object
     schur_matvec: object
     back_substitute: object
+    pcg_setup: object
+    pcg_step: object
+    lm_candidate: object
+    lm_accept: object
 
 
-KERNELS = RigKernels(rig_obs_jacobians, rig_obs_cost, rig_lm_reduce, rig_schur_matvec,
-                     rig_back_substitute)
-PLAIN = RigKernels(rig_obs_jacobians_plain, rig_obs_cost_plain, rig_lm_reduce_plain,
-                   rig_schur_matvec_plain, rig_back_substitute_plain)
+def _rig_obs_cost64_plain(*args, **kwargs):
+    return rig_obs_cost_plain(*args, **kwargs).double()
+
+
+KERNELS = RigKernels(rig_obs_jacobians, rig_obs_cost, rig_obs_cost64, rig_lm_reduce,
+                     rig_schur_matvec, rig_back_substitute, pcg_setup_diag, pcg_step,
+                     rig_lm_candidate, rig_lm_accept)
+PLAIN = RigKernels(rig_obs_jacobians_plain, rig_obs_cost_plain, _rig_obs_cost64_plain,
+                   rig_lm_reduce_plain, rig_schur_matvec_plain, rig_back_substitute_plain,
+                   pcg_setup_diag_plain, pcg_step_plain, rig_lm_candidate_plain,
+                   rig_lm_accept_plain)

@@ -8,8 +8,11 @@ offset by a baseline), one camera per sensor, each point seen by
 ``obs_per_point`` random (frame, sensor) pairs. ``gen_abs_case`` is one rig
 frame's 2D-3D correspondences for the generalized absolute pose, with
 outliers, and ``ransac_agreement`` the check K27 and its float64 plain
-version are held to on injected samples. ``write_rig_config`` writes the
-``rig_configurator`` JSON of a synthetic scene's true rig.
+version are held to on injected samples. ``lm_step_inputs`` runs one rig LM
+step up to K38 (the inputs of K34's set-up (c) and step, and of K38), and
+``refine_case`` is a perturbed start for K40's refinement with the outliers
+kept in. ``write_rig_config`` writes the ``rig_configurator`` JSON of a
+synthetic scene's true rig.
 """
 
 from __future__ import annotations
@@ -195,6 +198,39 @@ def ransac_agreement(counts, best, models64, counts64, best64, data64: GenAbsDat
     tie = ip != ik and abs(int(counts64[ik]) - cp) <= int(near_n[ik]) + int(near_n[ip])
     best_ok = ik == ip or tie
     return count_ok, best_ok, int(near_n.max()), tie
+
+
+def lm_step_inputs(problem: RigBAProblem, model_id, options, masks, lam, kernels):
+    """One rig LM step's tensors up to K38, through ``kernels`` (rig.KERNELS
+    or rig.PLAIN): K24's Jacobians, K25's reduction at ``lam`` (a 0-d tensor),
+    PCG's step x (R, W) (K34, K26) and the point step dx (K26). Returns a
+    dict with those and the observations and layout."""
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+
+    om, obs, layout = rba._obs_masks(masks, options), rba._obs(problem), rba._layout(problem)
+    jac = kernels.obs_jacobians(*problem[:6], obs, *om, model_id, options.loss,
+                                options.loss_scale)
+    red = kernels.lm_reduce(jac, obs, layout, lam)
+    x = rba._pcg(kernels, jac, obs, layout, red, options.pcg_iterations)
+    dx = kernels.back_substitute(jac, obs, layout, red.Hpp_inv, red.gx, x)
+    return dict(obs=obs, layout=layout, jac=jac, red=red, x=x, dx=dx)
+
+
+def refine_case(n: int, seed: int, device="cpu", angle: float = 0.05, shift: float = 0.05):
+    """K40's inputs on gen_abs_case's rig (float64, 30% outliers, all rows
+    weighted 1, so the Cauchy loss meets the outliers): the rows (X, uv,
+    cam_q, cam_t, focal, w_in), a start pose (q0, t0) turned by ``angle``
+    rad and moved by ``shift`` from the truth, and the true (3, 4) pose."""
+    data, Rt, _ = gen_abs_case(n, seed=seed, device=device)
+    rng = np.random.default_rng(seed + 1)
+    q_true = rot.rotmat_to_quat(torch.as_tensor(Rt[:, :3]))
+    axis = rng.standard_normal(3)
+    dq = rot.quat_from_axis_angle(torch.as_tensor(axis / np.linalg.norm(axis)), angle)
+    q0 = rot.quat_multiply(dq, q_true).to(device)
+    t0 = torch.as_tensor(Rt[:, 3] + shift * rng.standard_normal(3)).to(device)
+    rows = (data.X, data.uv, data.cam_q, data.cam_t, data.focal,
+            torch.ones(n, dtype=torch.float64, device=device))
+    return rows, q0, t0, Rt
 
 
 def write_rig_config(gt, path):

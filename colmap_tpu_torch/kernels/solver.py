@@ -3,7 +3,7 @@
 Four CUDA kernels carry what the mapper's solvers ran as host loops of
 small torch ops (sources in ``colmap_tpu_torch/csrc``):
 
-    K34 ba_pcg                 pcg_setup, pcg_step
+    K34 ba_pcg                 pcg_setup, pcg_step, pcg_setup_diag
     K35 ba_lm_update           lm_candidate, lm_accept
     K36 relative_pose          poses_from_essentials, refine_relative_poses
     K37 structure_less_ransac  structure_less_score, structure_less_inliers
@@ -12,7 +12,10 @@ K34 and K35 make the packed LM solve of ``estimators/bundle_adjustment.py``
 device-resident: between two reads of its 1-byte done flag, one LM
 iteration is K1, K2, K34's set-up, pcg_iterations x (K3, K34's step), K3's
 back-substitution, K35's candidate, K1's cost and K35's accept, with lam, nu,
-the costs and the iteration count in device memory.
+the costs and the iteration count in device memory. The rig BA's PCG
+(estimators/bundle_adjustment_rig.py) runs K34 too: its set-up (c) from
+K25's Jacobi preconditioner, and the step with F = 0 and no damping term
+(K26's product holds it).
 
 Each wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; on a CUDA tensor it
@@ -113,12 +116,23 @@ def pcg_setup_plain(Hcc_pose, diag_pose, diag_cam, bp, bc, lam, block_jacobi: bo
     return PCGState(M, torch.zeros_like(b), b, z, z.clone(), rz)
 
 
+def pcg_setup_diag_plain(M, b) -> PCGState:
+    """K34 set-up (c), the rig BA's (colmap_tpu's bundle_adjustment_rig.py
+    _pcg, l.281-296): the given scalar preconditioner M, x = 0, r = b,
+    z = p = M r, rz = r.z; M and b flat (n,)."""
+    z = M * b
+    rz = (b.double() * z.double()).sum().reshape(1)
+    return PCGState(M, torch.zeros_like(b), b, z, z.clone(), rz)
+
+
 def pcg_step_plain(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam) -> PCGState:
     """K34 step, after Ap = S p (K3): the fori_loop body of _packed_pcg
-    (l.1015-1032) with the lam D p term of _packed_matvec."""
+    (l.1015-1032) with the lam D p term of _packed_matvec; with diag_pose
+    and diag_cam None (the rig's step, F = 0), Ap as it is."""
     F = Ap_p.shape[0]
-    D = torch.cat([diag_pose.reshape(-1), diag_cam.reshape(-1)])
-    Ap = torch.cat([Ap_p.reshape(-1), Ap_c.reshape(-1)]) + lam * D * st.p
+    Ap = torch.cat([Ap_p.reshape(-1), Ap_c.reshape(-1)])
+    if diag_cam is not None:
+        Ap = Ap + lam * torch.cat([diag_pose.reshape(-1), diag_cam.reshape(-1)]) * st.p
     pAp = (st.p.double() * Ap.double()).sum()
     rz = st.rz[0]
     alpha = torch.where(pAp.abs() > 1e-30, rz / pAp, 0.0).to(st.x.dtype)
@@ -386,6 +400,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ba_pcg_setup_f32": [_I, _I, _I] + [_P] * 12 + [_P],
     "ba_pcg_step_f32": [_I, _I] + [_P] * 11 + [_P],
+    "ba_pcg_setup_diag_f32": [_I] + [_P] * 7 + [_P],
     "ba_lm_candidate_f32": [_I, _I, _LL] + [_P] * 20 + [_I, _P],
     "ba_lm_accept_f32": [_I, _I, _LL] + [_P] * 4 + [_D, _D, _D] + [_P] * 9 + [_I, _P],
     "relative_pose_cheirality_f32": [_I] + [_P] * 10 + [_P],
@@ -467,23 +482,47 @@ def pcg_setup(Hcc_pose, diag_pose, diag_cam, bp, bc, lam, block_jacobi: bool) ->
     return st
 
 
+def pcg_setup_diag(M, b) -> PCGState:
+    """K34 set-up (c): M and b flat float32 (n,) on the card; the state's M
+    is M itself. See pcg_setup_diag_plain for the function."""
+    if b.device.type == "cpu":
+        return pcg_setup_diag_plain(M, b)
+    dev = _require_cuda(b)
+    n = b.shape[0]
+    _check("M", M, f32, (n,), dev)
+    _check("b", b, f32, (n,), dev)
+    e = functools.partial(torch.empty, dtype=f32, device=dev)
+    st = PCGState(M, e(n), e(n), e(n), e(n), torch.empty(1, dtype=f64, device=dev))
+    _call("ba_pcg_setup_diag_f32", n, *map(_ptr, (M, b, *st[1:])), _stream(dev))
+    LAUNCHES["ba_pcg"] += 1
+    return st
+
+
+def _opt_ptr(x):
+    return _P(0) if x is None else _ptr(x)
+
+
 def pcg_step(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam) -> PCGState:
     """K34 step: updates ``st`` (and Ap) in place on the card and returns it.
-    See pcg_step_plain for the function."""
+    With diag_pose, diag_cam (and lam) None the step adds no damping (the
+    rig's). See pcg_step_plain for the function."""
     if Ap_p.device.type == "cpu":
         return pcg_step_plain(st, Ap_p, Ap_c, lam, diag_pose, diag_cam)
     dev = _require_cuda(Ap_p)
     F, (C, P) = Ap_p.shape[0], Ap_c.shape
     n = 6 * F + C * P
-    for name, x, shape in (("Ap_p", Ap_p, (F, 6)), ("Ap_c", Ap_c, (C, P)), ("lam", lam, ()),
-                           ("diag_pose", diag_pose, (F, 6)), ("diag_cam", diag_cam, (C, P)),
-                           ("M", st.M, (36 * F + C * P,)), ("x", st.x, (n,)), ("r", st.r, (n,)),
-                           ("z", st.z, (n,)), ("p", st.p, (n,))):
+    checks = [("Ap_p", Ap_p, (F, 6)), ("Ap_c", Ap_c, (C, P)), ("M", st.M, (36 * F + C * P,)),
+              ("x", st.x, (n,)), ("r", st.r, (n,)), ("z", st.z, (n,)), ("p", st.p, (n,))]
+    if diag_cam is not None:
+        checks += [("lam", lam, ()), ("diag_pose", diag_pose, (F, 6)),
+                   ("diag_cam", diag_cam, (C, P))]
+    for name, x, shape in checks:
         _check(name, x, f32, shape, dev)
     _check("rz", st.rz, f64, (1,), dev)
+    damped = diag_cam is not None
     _call("ba_pcg_step_f32", F, C * P,
-          *map(_ptr, (lam, diag_pose, diag_cam, st.M, Ap_p, Ap_c, st.x, st.r, st.z, st.p,
-                      st.rz)), _stream(dev))
+          *map(_opt_ptr, (lam if damped else None, diag_pose if damped else None, diag_cam)),
+          *map(_ptr, (st.M, Ap_p, Ap_c, st.x, st.r, st.z, st.p, st.rz)), _stream(dev))
     LAUNCHES["ba_pcg"] += 1
     return st
 

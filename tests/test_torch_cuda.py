@@ -32,7 +32,9 @@ are stated above their tests). Camera models 5-17 run through K5 (three
 modes, and a 185-degree lens's whole image), K1 and K9, a problem that mixes
 models through K1, K9 and K24 once per model, and the spherical RANSACs K32
 and K33 on colmap_tpu_torch/kernels/spherical_cases.py (tolerances stated
-above their tests).
+above their tests). The solver kernels K34-K40 (the packed and rig LM
+loops, global SfM's CG, relative poses, structure-less and generalized
+pose refinement) are held as stated above their tests.
 """
 
 import numpy as np
@@ -1066,7 +1068,7 @@ def test_rig_ba_kernels_match_plain_on_cuda(model_id):
                                         x.double()), 1e-4, "K26 back-substitution")
     torch.cuda.synchronize()
     assert KR.LAUNCHES == {"rig_ba_jacobians": 2, "rig_ba_reduce": 2, "rig_ba_matvec": 3,
-                           "gen_abs_ransac": 0}
+                           "gen_abs_ransac": 0, "rig_lm_update": 0, "gen_abs_refine": 0}
 
 
 def test_rig_solve_matches_plain_on_cuda():
@@ -1414,6 +1416,8 @@ def test_device_loop_reads_no_host_inside_a_chunk_on_cuda(problem, solver):
 
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.utils import cuda_graph
 
     pk, maps, model_id, opts, masks = problem
     opts = dataclasses.replace(opts, solver_type=solver, max_iterations=30)
@@ -1425,7 +1429,7 @@ def test_device_loop_reads_no_host_inside_a_chunk_on_cuda(problem, solver):
                          groups)
 
     step()
-    replay, _, _ = ba._capture(step, torch.device("cuda"))
+    replay, _, _, _ = cuda_graph.capture(step, torch.device("cuda"), (K, KS))
     torch.cuda.set_sync_debug_mode("error")
     try:
         replay()
@@ -1502,3 +1506,264 @@ def test_structure_less_ransac_matches_plain_on_cuda():
     inl = KS.structure_less_inliers(*a, models[idx], 36.0)
     r = KS.structure_less_residuals_plain(models[idx][None].double(), *a64)[0]
     assert bool(((inl != (r <= 36.0)) <= ((r - 36.0).abs() <= 0.72)).all())
+
+
+# K34 (c), K38, K39, K40 and K37 in float64 (this slice). K34 (c) and its
+# step on the rig's flattened camera side to 1e-4 of each vector's scale,
+# padding columns exactly 0; K38's candidate to 1e-5, its accept to the same
+# decisions, a rejected step leaving the state bit for bit; the rig loop
+# with no host read inside a replay or an eager iteration, frozen after
+# done, and within 1e-4 of the plain loop; K39 (both modes) to 1e-4 over 40
+# steps; one IRLS round through each CG graph to 1e-5 of the eager round;
+# K40 (a) and (b) to 1e-9 (float64 against float64); K37's models within
+# 1e-6 of float64 for every near-best model.
+
+
+def _rig_lm_case():
+    _need_card()
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    p, _, model_id = RC.rig_ba_problem(10, 3, 500, 5, seed=3, device="cuda")
+    opts = ba.BAOptions(max_iterations=20, pcg_iterations=15, loss="cauchy")
+    masks = rba.fix_gauge_two_frames(rba.default_masks(p, model_id, opts), 0, 1)
+    return p, model_id, opts, masks
+
+
+def test_rig_pcg_and_lm_update_match_plain_on_cuda():
+    """K34's set-up (c) and step (F = 0, no damping term) on the rig's
+    camera side, K38's candidate and accept (accepted, then rejected)."""
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.kernels import solver as KS
+
+    p, model_id, opts, masks = _rig_lm_case()
+    lam = torch.tensor(1e-3, device="cuda")
+    c = RC.lm_step_inputs(p, model_id, opts, masks, lam, KR.KERNELS)
+    red, R, W = c["red"], *c["red"].b.shape
+    red64 = KR.RigReduction(*_f64(*red))
+    st = KS.pcg_setup_diag(red.precond.reshape(-1), red.b.reshape(-1))
+    ref = KS.pcg_setup_diag_plain(red64.precond.reshape(-1), red64.b.reshape(-1))
+    for name, a, b in zip(KS.PCGState._fields, st, ref):
+        _close(a, b, 1e-4, f"K34 (c) {name}")
+    pad = red.precond == 0
+    for _ in range(5):
+        Ap = KR.rig_schur_matvec(c["jac"], c["obs"], c["layout"], red.Hpp_inv, red.lam_diag,
+                                 st.p.view(R, W))
+        ref = KS.pcg_step_plain(KS.PCGState(*_f64(*st)), torch.zeros(0, 6, device="cuda"),
+                                Ap.double(), None, None, None)
+        st = KS.pcg_step(st, torch.zeros(0, 6, device="cuda"), Ap, None, None, None)
+        for name, a, b in zip(KS.PCGState._fields, st, ref):
+            _close(a, b, 1e-4, f"K34 rig step {name}")
+        for v in (st.x, st.r, st.z, st.p):
+            assert bool((v.view(R, W)[pad] == 0).all())
+    params = tuple(p[:6])
+    cand, pred = KR.rig_lm_candidate(params, c["x"], c["dx"], red, lam)
+    cand64, pred64 = KR.rig_lm_candidate_plain(tuple(_f64(*params)), c["x"].double(),
+                                               c["dx"].double(), red64, lam.double())
+    for k, (a, b) in enumerate(zip((*cand, pred), (*cand64, pred64))):
+        _close(a, b, 1e-5, f"K38 candidate {k}")
+    obs, rest = c["obs"], (model_id, opts.loss, opts.loss_scale)
+    new_cost = KR.rig_obs_cost64(*cand, obs, *rest)
+    S = torch.zeros(9, dtype=torch.float64, device="cuda")
+    S[0], S[1:3] = 2.0, KR.rig_obs_cost64(*params, obs, *rest)
+    S64, lam64 = S.clone(), lam.double()
+    state, state64 = tuple(x.clone() for x in params), tuple(_f64(*params))
+    flags = [torch.zeros(1, dtype=torch.uint8, device="cuda") for _ in range(2)]
+    KR.rig_lm_accept(lam, S, new_cost, pred, state, cand, 1e-10, 1e10, 1e-6, flags[0])
+    KR.rig_lm_accept_plain(lam64, S64, new_cost, pred, state64, cand64, 1e-10, 1e10, 1e-6,
+                           flags[1])
+    assert torch.equal(S[[0, 3, 4, 5, 6]], S64[[0, 3, 4, 5, 6]]) and bool(S[5] == 1)
+    _close(lam, lam64, 1e-6, "K38 lam")
+    for a, b in zip(state, state64):
+        _close(a, b, 1e-5, "K38 state")
+    # The same candidate again from the accepted state: its cost is no
+    # longer lower, so the step is rejected and the state stays bit for bit.
+    before = [x.clone() for x in state]
+    KR.rig_lm_accept(lam, S, S[1].clone(), pred, state, cand, 1e-10, 1e10, 1e-6, flags[0])
+    assert bool(S[5] == 0) and S[0].item() == 4.0
+    for a, b in zip(before, state):
+        assert torch.equal(a, b)
+
+
+def test_rig_device_loop_reads_no_host_on_cuda():
+    """The rig LM loop: a graph replay and an eager iteration under sync
+    debug mode "error"; frozen after done; a solve of 8 iterations without
+    a tolerance within 1e-4 of the plain loop's cost."""
+    import dataclasses
+
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import bundle_adjustment_rig as rba
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.kernels.ba import model_groups
+    from colmap_tpu_torch.utils import cuda_graph
+
+    p, model_id, opts, masks = _rig_lm_case()
+    om, layout = rba._obs_masks(masks, opts), rba._layout(p)
+    groups = model_groups(model_id, p.cam_params, p.obs_cam)
+    state = p._replace(**{k: getattr(p, k).clone() for k in
+                          ("quat", "t", "sensor_quat", "sensor_t", "cam_params", "points")})
+    cost = KR.rig_obs_cost64(*state[:6], rba._obs(state), model_id, opts.loss, opts.loss_scale)
+    sc = ba._lm_scalars(cost, opts.initial_lambda, 2.0, torch.float32)
+
+    def step():
+        rba._lm_iteration(state, layout, model_id, opts, om, sc, KR.KERNELS, groups)
+
+    step()
+    replay, _, _, _ = cuda_graph.capture(step, torch.device("cuda"), (KR, KS))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    while not sc.done.item() and sc.S[3].item() < 60:
+        replay()
+    assert sc.done.item() == 1
+    before = [x.clone() for x in (*state[:6], sc.lam, sc.S)]
+    before[-1][6] = 0.0
+    replay()
+    step()
+    for a, b in zip(before, (*state[:6], sc.lam, sc.S)):
+        assert torch.equal(a, b)
+    opts = dataclasses.replace(opts, max_iterations=8, function_tolerance=0.0)
+    _, cost, iters, info = rba._lm_loop(p, model_id, opts, masks, with_info=True)
+    p64, m64 = type(p)(*_f64(*p)), type(masks)(*_f64(*masks))
+    _, cost_p, iters_p = rba._lm_loop(p64, model_id, opts, m64, kernels=KR.PLAIN)
+    assert info["graph"] and iters == iters_p == 8
+    assert abs(cost - cost_p) <= 1e-4 * cost_p
+
+
+@pytest.mark.parametrize("case", ["rotation", "rotation_gravity", "positioning"])
+def test_global_cg_matches_plain_on_cuda(case):
+    """K39 set-up and its steps (matvecs K21 (b) / K22 (b) on the card in
+    float32, fed to both) against float64: 40 in rotation mode; 100 in
+    positioning mode on 30 x 3 unknowns, where the freeze rule fires before
+    the last step."""
+    _need_card()
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+
+    if case.startswith("rotation"):
+        _, g32, _, q32 = _ra_case(case.endswith("gravity"))
+        step = G.ra_edge_pass(g32, q32, False, np.deg2rad(5.0))
+        mode, args = G.CG_ROTATION, (step.b, step.deg)
+        matvec = lambda x: G.ra_matvec(g32, step.ew, x)  # noqa: E731
+    else:
+        case_ = C.positioning_case(30, 400, 5, seed=4)
+        t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device="cuda")  # noqa: E731
+        prob = G.gp_problem(t(case_.dirs), t(case_.obs_cam).int(), t(case_.obs_point).int(),
+                            t(np.ones(len(case_.dirs))), 7, 100.0, 30, 400, 0.1)
+        rng = np.random.default_rng(5)
+        sys = G.gp_setup(prob, t(rng.standard_normal((30, 3))), t(rng.standard_normal((400, 3))))
+        mode, args = G.CG_POSITIONING, (sys.b, sys.diag_c, prob.eps_rel)
+        matvec = lambda x: G.gp_schur_matvec(prob, sys, x)  # noqa: E731
+    st = G.cg_setup(mode, *args)
+    ref = G.cg_setup_plain(mode, *(_f64(*args[:2])), *args[2:])
+    for name, a, b in zip(G.CGState._fields, st, ref):
+        _close(a, b, 1e-5, f"K39 set-up {name}")
+    # r, z and p shrink as CG converges, and r - alpha Ap cancels: each is
+    # held to its set-up scale.
+    scale = {n: float(getattr(ref, n).abs().max()) for n in ("r", "z", "p")}
+    frozen = False
+    for _ in range(40 if mode == G.CG_ROTATION else 100):
+        Ap = matvec(st.p)
+        ref = G.cg_step_plain(mode, G.CGState(*_f64(*st)), Ap.double())
+        st = G.cg_step(mode, st, Ap)
+        for name, a, b in zip(G.CGState._fields, st, ref):
+            err = float((a.double() - b).abs().max())
+            assert err <= 1e-4 * max(float(b.abs().max()), scale.get(name, 0.0)), name
+        frozen = frozen or not bool(st.scal[0] > 1e-12 * st.scal[1])
+    assert frozen or mode == G.CG_ROTATION
+
+
+def test_global_cg_graphs_match_eager_rounds_on_cuda():
+    """One rotation-averaging iteration and one positioning round with the
+    CG replayed from a graph (no host read inside the replay) against the
+    same rounds run eagerly."""
+    _need_card()
+    from colmap_tpu_torch.estimators import global_positioning as GP
+    from colmap_tpu_torch.estimators import rotation_averaging as RA
+    from colmap_tpu_torch.kernels import global_cases as C
+    from colmap_tpu_torch.kernels import global_sfm as G
+    from colmap_tpu_torch.utils import cuda_graph
+
+    dev = torch.device("cuda")
+    _, g32, _, q32 = _ra_case(False)
+    buf = G.ra_step_buffers(60, g32.edges.shape[0], dev)
+    cg = cuda_graph.StepGraph(lambda: RA.solve_tangent_cg(g32, buf, 50), dev, (G,), True)
+    for _ in range(2):
+        G.ra_edge_pass(g32, q32, False, 0.1, out=buf)
+        cg()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = cg()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _close(x, RA.solve_tangent_cg(g32, G.ra_edge_pass(g32, q32, False, 0.1), 50), 1e-5,
+           "rotation CG graph")
+    case = C.positioning_case(30, 400, 5, seed=4)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device="cuda")  # noqa: E731
+    prob = G.gp_problem(t(case.dirs), t(case.obs_cam).int(), t(case.obs_point).int(),
+                        t(np.ones(len(case.dirs))), 7, 100.0, 30, 400, 0.1)
+    rng = np.random.default_rng(5)
+    c0, X0 = t(rng.standard_normal((30, 3))), t(rng.standard_normal((400, 3)))
+    gbuf = G.gp_system_buffers(prob)
+    gcg = cuda_graph.StepGraph(lambda: GP._cg(prob, gbuf, 100, G.KERNELS), dev, (G,), True)
+    for _ in range(2):
+        GP._irls_round(prob, c0, X0, 100, G.KERNELS, gcg, gbuf)
+    (c1, X1), cost = GP._irls_round(prob, c0, X0, 100, G.KERNELS, gcg, gbuf)
+    (c2, X2), cost2 = GP._irls_round(prob, c0, X0, 100)
+    assert gcg.replay is not None
+    _close(c1, c2, 1e-5, "positioning centres")
+    _close(X1, X2, 1e-5, "positioning points")
+    assert float(cost) == float(cost2)
+
+
+def test_gen_abs_refine_and_refit_match_plain_on_cuda():
+    """K40 (a) against its plain version (30% outliers under the Cauchy
+    loss) and K40 (b) with and without the scale, float64 on both sides."""
+    _need_card()
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    rows, q0, t0, _ = RC.refine_case(2000, 3, device="cuda")
+    q, t = KR.gen_abs_refine(*rows, q0, t0)
+    cpu = [x.cpu() for x in (*rows, q0, t0)]
+    q64, t64 = KR.gen_abs_refine_plain(*cpu)
+    _close(q.cpu(), q64, 1e-9, "K40 refine q")
+    _close(t.cpu(), t64, 1e-9, "K40 refine t")
+    data, _, inl = RC.gen_abs_case(2000, seed=4, world_scale=0.37, device="cuda")
+    w = torch.as_tensor(inl, dtype=torch.float64, device="cuda")
+    for scale in (False, True):
+        m, ok = KR.gen_abs_refit(data.X, data.centers, data.dirs, w, scale)
+        m64, ok64 = KR.gen_abs_refit_plain(data.X.cpu(), data.centers.cpu(), data.dirs.cpu(),
+                                           w.cpu(), scale)
+        assert bool(ok) and bool(ok64)
+        _close(m.cpu(), m64, 1e-9, f"K40 refit (scale {scale})")
+
+
+def test_structure_less_ransac_agrees_with_float64_on_cuda():
+    """K37's five-point solve in float64: every plain model with at least
+    90% of the best support has a kernel solution of its sample within
+    1e-6 of it (relative to its largest entry)."""
+    _need_card()
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.kernels import solver_cases as SC
+
+    c = SC.structure_less_case(1000, 5, 32, 7, "cuda")
+    d = SC.as_double(c)
+    a = [c[k] for k in SC.STRUCTURE_LESS_ARGS]
+    a64 = [d[k] for k in SC.STRUCTURE_LESS_ARGS]
+    smp = [c[k] for k in SC.SAMPLE_ARGS]
+    mk, _, _ = KS.structure_less_score(*a, *smp, 36.0)
+    mp, cp, _ = KS.structure_less_score_plain(*a64, *smp, 36.0)
+    near = torch.nonzero(cp >= 0.9 * cp.max()).flatten().tolist()
+    assert near
+    for i in near:
+        lo = (i // 10) * 10
+        gap = torch.nan_to_num((mk[lo:lo + 10].double() - mp[i]).abs().flatten(1).amax(1),
+                               nan=float("inf"))
+        assert float(gap.min()) <= 1e-6 * float(mp[i].abs().max()), f"model {i}"

@@ -2,9 +2,10 @@
 
 The same inputs, made from a numpy seed, go through colmap_tpu (JAX in
 float64, as the suite runs it) and the port (its plain versions, float64 on
-the CPU): union-find, the pose graph, K21-K23's plain versions and the
-solvers they carry (rotation averaging, global positioning, view-graph
-calibration), clustering and pruning, and the global mapper through the
+the CPU): union-find, the pose graph, K21-K23's and K39's plain versions
+and the solvers they carry (rotation averaging's CG with and without
+gravity projectors, a global-positioning round whose CG freezes before its
+last step, view-graph calibration), clustering and pruning, and the global mapper through the
 port's CLI. Both packages run the same float64 algorithm in another
 summation order, so the solvers agree to far below their convergence
 tolerances; each tolerance is stated in its test.
@@ -204,6 +205,56 @@ def test_solve_global_positioning_matches():
     assert np.abs(tp - np.asarray(jp)).max() < 1e-6 * 5.0
     assert np.linalg.norm(C.similarity_aligned(tc, centers_gt) - centers_gt, axis=1).max() < 5e-3
     assert stats["irls_iterations"] >= 1
+
+
+def test_irls_round_with_the_freeze_rule_matches():
+    """One IRLS round of the port (K22's and K39's plain versions in
+    _irls_round) against colmap_tpu's _irls_solve on a smaller case of the
+    same kind (6 cameras, 60 points seen 5 times, the start 0.1 off the
+    truth: a round whose result moves less than 1e-10 under a 1e-15 change
+    of its input, so the two summation orders may be held to 1e-9 of the
+    scene scale) and its cost; with 100 CG steps on 6 x 3 unknowns the
+    freeze rule fires before the last step."""
+    rng = np.random.default_rng(2)
+    n_cams, n_pts = 6, 60
+    centers_gt = 5.0 * rng.standard_normal((n_cams, 3))
+    points_gt = rng.standard_normal((n_pts, 3))
+    obs_cam, obs_point, dirs = [], [], []
+    for p in range(n_pts):
+        for c in rng.choice(n_cams, 5, replace=False):
+            d = points_gt[p] - centers_gt[c]
+            dirs.append(d / np.linalg.norm(d))
+            obs_cam.append(c)
+            obs_point.append(p)
+    obs_cam, obs_point, dirs = np.asarray(obs_cam), np.asarray(obs_point), np.asarray(dirs)
+    c0 = centers_gt + 0.1 * rng.standard_normal((n_cams, 3))
+    X0 = points_gt + 0.1 * rng.standard_normal((n_pts, 3))
+    counts = np.bincount(obs_cam, minlength=n_cams)
+    a = int(np.nonzero(obs_cam == int(np.argmax(counts)))[0][0])
+    opts = jgp.GlobalPositioningOptions()
+    (jc, jx), jcost = jgp._irls_solve(
+        jnp.asarray(dirs), jnp.asarray(obs_cam, dtype=jnp.int32),
+        jnp.asarray(obs_point, dtype=jnp.int32), jnp.ones(len(dirs)),
+        (jnp.asarray(c0), jnp.asarray(X0)),
+        (jnp.asarray(int(obs_cam[a])), jnp.asarray(int(obs_point[a])), jnp.asarray(dirs[a])),
+        n_cams, n_pts, opts)
+    t = torch.as_tensor
+    prob = G.gp_problem(t(dirs), t(obs_cam), t(obs_point), torch.ones(len(dirs),
+                                                                      dtype=torch.float64),
+                        a, opts.anchor_weight, n_cams, n_pts, opts.huber_scale)
+    (tc, tx), tcost = tgp._irls_round(prob, t(c0), t(X0), opts.cg_iterations, G.PLAIN)
+    assert np.abs(tc.numpy() - np.asarray(jc)).max() < 1e-9 * 5.0
+    assert np.abs(tx.numpy() - np.asarray(jx)).max() < 1e-9 * 5.0
+    assert abs(float(tcost) - float(jcost)) <= 1e-12 * float(jcost)
+    sys = G.gp_setup_plain(prob, t(c0), t(X0))
+    st = G.cg_setup_plain(G.CG_POSITIONING, sys.b, sys.diag_c, prob.eps_rel)
+    frozen_at = None
+    for k in range(opts.cg_iterations):
+        if frozen_at is None and not bool(st.scal[0] > 1e-12 * st.scal[1]):
+            frozen_at = k
+        st = G.cg_step_plain(G.CG_POSITIONING, st,
+                             G.gp_schur_matvec_plain(prob, sys, st.p))
+    assert frozen_at is not None and frozen_at < opts.cg_iterations - 1
 
 
 def _jax_vgc_loss(f0, pp, Fs, e1, e2):

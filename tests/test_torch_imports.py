@@ -12,7 +12,10 @@ on a four-frame scene and ``view_graph_calibrator``, both with
 absolute pose's RANSAC on small cases; then ``vocab_tree_builder`` and
 ``vocab_tree_matcher`` with ``--device cpu`` on the extracted database; then
 a batch of the spherical homography RANSAC (K33's plain version) on rays of
-a 360-degree pair and the packing of a problem that mixes camera models.
+a 360-degree pair and the packing of a problem that mixes camera models;
+then rig registration's refinement and refit (K40's plain versions). A
+second test reads every line of the port and of chip_smoke.py for an
+import of jax or colmap_tpu.
 """
 
 import os
@@ -121,6 +124,13 @@ CHILD = textwrap.dedent("""
     assert Rigid3(p.quat, p.t).inverse().compose(Rigid3(p.quat, p.t)).t.abs().max() < 1e-12
     print("RIG", summary["num_iterations"], int(counts.max()))
 
+    rows, q0, t0, _ = rig_cases.refine_case(100, 3)
+    q, t = rig.gen_abs_refine(*rows, q0, t0)
+    model, ok = rig.gen_abs_refit(data.X, data.centers, data.dirs,
+                                  torch.as_tensor(inl, dtype=torch.float64), True)
+    assert bool(ok[0]) and abs(float(q.norm()) - 1.0) < 1e-9
+    print("SOLVERS", float(model[0, 4]))
+
     tree = os.path.join(root, "tree.npz")
     cli.main(["vocab_tree_builder", "--database_path", db_path, "--vocab_tree_path", tree,
               "--depth", "2", "--branching", "4", "--device", "cpu"])
@@ -152,3 +162,20 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
     assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout and "CAMERAS" in out.stdout
+    assert "SOLVERS" in out.stdout
+
+
+def test_no_module_of_the_port_imports_jax_or_colmap_tpu():
+    """No line of colmap_tpu_torch (its solver loops and kernels included)
+    or of chip_smoke.py imports jax or colmap_tpu, even lazily inside a
+    function."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from) (jax|jaxlib|colmap_tpu)(\.|\s|$)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "colmap_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 100
+    hits = [f"{f}:{i + 1}" for f in files for i, line in enumerate(open(f, encoding="utf-8"))
+            if pattern.match(line)]
+    assert not hits, hits

@@ -4,8 +4,12 @@ The same inputs, made from a numpy seed, go through colmap_tpu (JAX in
 float64, as the suite runs it) and the port (its plain versions, float64 on
 the CPU): K24-K26's plain versions against the rig BA's _obs_jacobians,
 _apply_masks, _build_schur, _schur_matvec and lm_step's sums, the rig
-solve, gdlt_pose and K27's plain version on injected samples, the
-generalized absolute pose and its refinement, the rig problem set-up,
+solve, the device-resident rig LM loop through K34 (c)'s and K38's plain
+versions against lm_step and lm_solve_fused (accepted and rejected steps),
+K34 (c)'s padding columns against _pcg, gdlt_pose and K27's plain version
+on injected samples, the generalized absolute pose and its refinement (K40
+(a)'s analytic plain version, with outliers) and refit (K40 (b)), the rig
+problem set-up,
 ``rig_configurator``'s tables, the local rig BA's frame set, and the port's
 ``mapper`` on the verify rig scene against the ground truth. Both packages
 run the same float64 formulas in another summation order; each tolerance
@@ -15,6 +19,7 @@ compared by outcome (pose against the truth, inlier set), never by sample
 stream.
 """
 
+import dataclasses
 import json
 import shutil
 import sqlite3
@@ -46,6 +51,8 @@ from colmap_tpu_torch.geometry import rigid3
 from colmap_tpu_torch.geometry import rotation as trot
 from colmap_tpu_torch.kernels import rig as KR
 from colmap_tpu_torch.kernels import rig_cases as RC
+from colmap_tpu_torch.kernels import solver as KS
+from colmap_tpu_torch.kernels.ba import model_groups
 from colmap_tpu_torch.optim.ransac import unpack_best
 from colmap_tpu_torch.scene import database as tdb
 from colmap_tpu_torch.scene import synthetic as tsyn
@@ -246,6 +253,127 @@ def test_rig_solve_matches(loss="cauchy"):
     np.testing.assert_allclose(solved.sensor_quat[0].numpy(), [1, 0, 0, 0], atol=1e-12)
 
 
+def _lm_case(seed, pose_noise):
+    """A rig problem (5 frames x 3 sensors x 200 points, 6 observations a
+    point) whose rotations are pose_noise x ~11 degrees and points 0.3 off
+    their truth, under a Cauchy loss, with the intrinsics held (the
+    principal point and the rig's short baselines make them near-degenerate,
+    and PCG's 60 iterations, more than the 48 unknowns, then resolve the
+    step to float64 rounding only where the system is conditioned). Returns
+    (problem, options, masks, colmap_tpu's options and masks)."""
+    p, _, _ = RC.rig_ba_problem(5, 3, 200, 6, model_id=2, seed=seed, dtype=torch.float64,
+                                pose_noise=pose_noise, sensor_noise=0.1, point_noise=0.3)
+    opts = tba.BAOptions(loss="cauchy", loss_scale=2.0, max_iterations=15, pcg_iterations=60,
+                         refine_focal_length=False, refine_extra_params=False)
+    masks = trba.fix_gauge_two_frames(trba.default_masks(p, 2, opts), 0, 1)
+    jopts = dataclasses.replace(_jax_options(opts), max_iterations=15, refine_focal_length=False,
+                                refine_extra_params=False)
+    return p, opts, masks, jopts, _jax_masks(_to_jax(p), 2, jopts)
+
+
+def _lm_steps(p, opts, masks, jopts, jm, num_steps):
+    """Yields, after each of ``num_steps`` iterations, (the port's state,
+    scalars and state dict S, colmap_tpu's (problem, lam, nu, new_cost,
+    accepted)): the port's _lm_iteration through the plain versions (K24-K26,
+    K34 (c), K38) and colmap_tpu's lm_step in lm_solve_fused's order."""
+    om, layout = trba._obs_masks(masks, opts), trba._layout(p)
+    groups = model_groups(2, p.cam_params, p.obs_cam)
+    state = p._replace(**{k: getattr(p, k).clone() for k in
+                          ("quat", "t", "sensor_quat", "sensor_t", "cam_params", "points")})
+    cost = KR.PLAIN.obs_cost64(*state[:6], trba._obs(state), 2, opts.loss, opts.loss_scale)
+    sc = tba._lm_scalars(cost, opts.initial_lambda, 2.0, torch.float64)
+    jp, lam, nu = _to_jax(p), jnp.asarray(opts.initial_lambda), jnp.asarray(2.0)
+    for _ in range(num_steps):
+        jp, lam, nu, _, new_cost, acc = jrba.lm_step(jp, 2, jopts, jm, lam, nu)
+        trba._lm_iteration(state, layout, 2, opts, om, sc, KR.PLAIN, groups)
+        yield state, sc, dict(zip(KS.LM_FIELDS, sc.S.tolist())), (jp, lam, nu, new_cost, acc)
+
+
+def test_rig_lm_candidate_and_accept_plain_match_lm_step():
+    # K38's plain candidate and accept, inside _lm_iteration, against
+    # lm_step: from a start 22 degrees off, the first three steps overshoot
+    # and are rejected (the state stays bit for bit, lam grows by nu and nu
+    # doubles, as lm_step's), the fourth is accepted: the same lam and nu,
+    # the parameters within 1e-10 of their scale.
+    p, opts, masks, jopts, jm = _lm_case(4, 2.0)
+    decisions = []
+    for state, sc, S, (jp, lam, nu, _, acc) in _lm_steps(p, opts, masks, jopts, jm, 4):
+        decisions.append(bool(acc))
+        assert bool(S["accepted"]) == bool(acc) and S["nu"] == float(nu)
+        assert float(sc.lam) == pytest.approx(float(lam), rel=1e-12)
+        for a, b in zip(state[:6], jp[:6]):
+            _close(a.numpy(), np.asarray(b), 1e-10, "parameters")
+        if not acc:
+            for a, b in zip(state[:6], p[:6]):
+                assert torch.equal(a, b)
+    assert decisions == [False, False, False, True]
+
+
+def test_rig_lm_loop_matches_lm_solve_fused():
+    # The loop through the plain versions against colmap_tpu's: each
+    # iteration's decision and nu the same and lam within 1e-5 (it follows
+    # the gain ratio, whose costs drift apart by ~1e-7 over the run: the
+    # rig's sensors make the reduced system ill-conditioned), including two
+    # rejected steps; then _lm_loop against lm_solve_fused: the same
+    # iteration count and final costs within 1e-6 relative.
+    p, opts, masks, jopts, jm = _lm_case(1, 1.0)
+    decisions = []
+    last = jrba.compute_cost(_to_jax(p), 2, jopts)
+    for state, sc, S, (jp, lam, nu, new_cost, acc) in _lm_steps(p, opts, masks, jopts, jm,
+                                                                 opts.max_iterations):
+        decisions.append(bool(acc))
+        assert bool(S["accepted"]) == bool(acc) and S["nu"] == float(nu)
+        assert float(sc.lam) == pytest.approx(float(lam), rel=1e-5)
+        rel = abs(float(last) - float(new_cost)) / max(float(new_cost), 1e-30)
+        done = (bool(acc) and rel < jopts.function_tolerance) or (
+            not bool(acc) and float(lam) >= jopts.max_lambda)
+        assert bool(S["done"]) == done
+        if bool(acc):
+            last = new_cost
+        if done:
+            break
+    assert decisions[:4] == [True, False, False, True] and done
+    _, jcost, jit = jrba.lm_solve_fused(_to_jax(p), 2, jopts, jm)
+    _, tcost, tit = trba._lm_loop(p, 2, opts, masks, kernels=KR.PLAIN)
+    assert tit == int(jit) == len(decisions)
+    assert abs(tcost - float(jcost)) <= 1e-6 * float(jcost)
+
+
+def test_rig_pcg_keeps_the_padding_columns_zero():
+    # K34's set-up (c) and step (plain) on the rig's (R, W) camera side:
+    # the padding columns (frames and sensors past 6, cameras past P) are 0
+    # in b and the preconditioner, so they stay 0 in x, r, z and p; and the
+    # PCG solution is colmap_tpu's _pcg's (1e-9; lam = 1e-2 conditions the
+    # system).
+    p, opts, masks, jopts, jm = _lm_case(1, 1.0)
+    c = RC.lm_step_inputs(p, 2, opts, masks, torch.tensor(1e-2, dtype=torch.float64), KR.PLAIN)
+    red, (R, W) = c["red"], c["red"].b.shape
+    pad = torch.zeros(R, W, dtype=torch.bool)
+    pad[:, 6:] = True
+    pad[R - p.cam_params.shape[0]:, :p.cam_params.shape[1]] = False
+    assert bool((red.b[pad] == 0).all()) and bool((red.precond[pad] == 0).all())
+    st = KS.pcg_setup_diag_plain(red.precond.reshape(-1), red.b.reshape(-1))
+    for _ in range(opts.pcg_iterations):
+        Ap = KR.rig_schur_matvec_plain(c["jac"], c["obs"], c["layout"], red.Hpp_inv,
+                                       red.lam_diag, st.p.view(R, W))
+        st = KS.pcg_step_plain(st, torch.zeros(0, 6, dtype=torch.float64), Ap, None, None, None)
+        for v in (st.x, st.r, st.z, st.p):
+            assert bool((v.view(R, W)[pad] == 0).all())
+    assert torch.equal(st.x.view(R, W), c["x"])
+    jp = _to_jax(p)
+    r, Jf, Js, Jc, Jx = jrba._obs_jacobians(jp, 2, jopts)
+    Jf, Js, Jc, Jx = jrba._apply_masks(Jf, Js, Jc, Jx, jp, jm, jopts)
+    ops = jrba._build_schur(jp, Jf, Js, Jc, Jx, 1e-2, jopts)
+    F, G, P = p.quat.shape[0], p.sensor_quat.shape[0], p.cam_params.shape[1]
+    b = red.b.numpy()
+    df, ds, dc = jrba._pcg(jp, ops, jnp.asarray(b[:F, :6]), jnp.asarray(b[F:F + G, :6]),
+                           jnp.asarray(b[F + G:, :P]), jopts)
+    x = c["x"].numpy()
+    _close(x[:F, :6], df, 1e-9, "frames")
+    _close(x[F:F + G, :6], ds, 1e-9, "sensors")
+    _close(x[F + G:, :P], dc, 1e-9, "cameras")
+
+
 @pytest.mark.parametrize("estimate_scale", [False, True])
 def test_gdlt_pose_matches(estimate_scale):
     # Noise-free rays of a 4-camera rig, the world shrunk by 0.37: both
@@ -364,6 +492,55 @@ def test_refine_generalized_absolute_pose_matches():
     assert okj and okt
     _close(pt.matrix3x4(), pj.matrix3x4(), 1e-9, "refined")
     _close(pt.matrix3x4(), Rt, 1e-8, "truth")
+
+
+def test_refine_generalized_absolute_pose_with_outliers_matches():
+    # K40 (a)'s plain version (the analytic Jacobian) against colmap_tpu's
+    # jacfwd loop with every row weighted, the 30% outliers included (the
+    # Cauchy loss keeps them from pulling the pose), from a start 3 degrees
+    # and 0.1 off: the refined poses agree to 1e-9, and the loop rejects
+    # steps on the way (the trace of the same plain loop shows them).
+    xy, X, cam_idx, cams, Rt, inl = _gen_abs_inputs(1.0, seed=25)
+    q0 = trot.rotmat_to_quat(torch.from_numpy(Rt[:, :3])).numpy()
+    dq = trot.quat_from_axis_angle(torch.tensor([0.3, -0.2, 0.9]), 0.05).numpy()
+    q_init = trot.quat_multiply(torch.from_numpy(dq), torch.from_numpy(q0)).numpy()
+    t_init = Rt[:, 3] + np.array([0.05, -0.08, 0.04])
+    everything = np.ones(len(xy), dtype=bool)
+    pj, okj = jgp.refine_generalized_absolute_pose(
+        jtypes.Pose(q_init, t_init), xy, X, cam_idx, cams["jax"][1], cams["jax"][0], everything)
+    pt, okt = tgp.refine_generalized_absolute_pose(
+        ttypes.Pose(q_init, t_init), xy, X, cam_idx, cams["port"][1], cams["port"][0],
+        everything, device="cpu")
+    assert okj and okt
+    _close(pt.matrix3x4(), pj.matrix3x4(), 1e-9, "refined")
+    data = tgp.gen_abs_data(xy, X, cam_idx, cams["port"][1], cams["port"][0], "cpu",
+                            torch.float64)
+    trace = []
+    KR.gen_abs_refine_plain(data.X, data.uv, data.cam_q, data.cam_t, data.focal,
+                            torch.ones(len(xy), dtype=torch.float64),
+                            torch.from_numpy(q_init), torch.from_numpy(t_init), trace=trace)
+    assert trace[0] and not all(trace)
+
+
+@pytest.mark.parametrize("estimate_scale", [False, True])
+def test_gen_abs_refit_plain_matches_gdlt_pose(estimate_scale):
+    # K40 (b)'s plain version on 200 rows with 0/1 inlier weights (30%
+    # outliers weighted 0) against colmap_tpu's weighted gdlt_pose (1e-9),
+    # its finite flag set; with every weight 0 the flag says what
+    # colmap_tpu's model's finiteness says.
+    data, _, inl = RC.gen_abs_case(200, seed=13, world_scale=0.37)
+    w = torch.from_numpy(inl.astype(np.float64))
+    model, ok = KR.gen_abs_refit_plain(data.X, data.centers, data.dirs, w, estimate_scale)
+    mj = jgp.gdlt_pose(*(jnp.asarray(x.numpy()) for x in (data.X, data.centers, data.dirs, w)),
+                       estimate_scale=estimate_scale)
+    assert bool(ok[0])
+    _close(model.numpy(), mj, 1e-9, "refit")
+    zero = torch.zeros(200, dtype=torch.float64)
+    model, ok = KR.gen_abs_refit_plain(data.X, data.centers, data.dirs, zero, estimate_scale)
+    mj = np.asarray(jgp.gdlt_pose(*(jnp.asarray(x.numpy()) for x in (data.X, data.centers,
+                                                                      data.dirs, zero)),
+                                  estimate_scale=estimate_scale))
+    assert bool(ok[0]) == bool(np.isfinite(mj).all())
 
 
 def _rig_scene(seed=3, **kw):

@@ -8,8 +8,10 @@ CPU tensors): K34 (PCG) against _packed_pcg and _pcg, K35 (the LM update)
 against _apply_update and lm_step_packed, the device-resident LM loop
 against lm_solve_fused_packed, K36 against pose_from_essential_matrix and
 refine_relative_pose, K37 against colmap_tpu's five-point solver, pose
-recovery and scale formula on injected samples. Tolerances are stated in
-each test; sums run in another order than JAX's.
+recovery and scale formula on injected samples; and the launch bookkeeping
+of the CUDA-graph helper the solver loops share (utils/cuda_graph.py), on a
+fake kernel module. Tolerances are stated in each test; sums run in another
+order than JAX's.
 """
 
 import dataclasses
@@ -470,3 +472,46 @@ def test_solver_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="no kernel for device"):
         KS.structure_less_inliers(z(4, 2, **m), z(4, 2, **m), z(4, dtype=torch.int32, **m),
                                   z(2, 3, 3, **m), z(2, 3, **m), z(4, **m), z(3, 4, **m), 1.0)
+
+
+def test_graph_recording_moves_launch_counts_to_each_replay():
+    # utils/cuda_graph.py's bookkeeping, which the packed and rig LM loops
+    # and both global CG loops share, with a fake kernel module and a graph
+    # that records nothing: recording runs the step between capture_begin
+    # (thread-local mode) and capture_end and takes back the launches it
+    # counted; each replay adds them again; a disabled StepGraph runs its
+    # step eagerly every time.
+    from colmap_tpu_torch.utils import cuda_graph
+
+    class FakeKernels:
+        LAUNCHES = {"k_a": 0, "k_b": 5}
+
+    class NoOpGraph:
+        def __init__(self):
+            self.events = []
+
+        def capture_begin(self, capture_error_mode=None):
+            self.events.append(("begin", capture_error_mode))
+
+        def capture_end(self):
+            self.events.append("end")
+
+        def replay(self):
+            self.events.append("replay")
+
+    def step():
+        FakeKernels.LAUNCHES["k_a"] += 3
+        return "out"
+
+    graph = NoOpGraph()
+    replay, out, seconds = cuda_graph.record(step, graph, (FakeKernels,))
+    assert out == "out" and seconds >= 0.0
+    assert FakeKernels.LAUNCHES == {"k_a": 0, "k_b": 5}
+    assert graph.events == [("begin", "thread_local"), "end"]
+    replay()
+    replay()
+    assert FakeKernels.LAUNCHES == {"k_a": 6, "k_b": 5}
+    assert graph.events[2:] == ["replay", "replay"]
+    eager = cuda_graph.StepGraph(step, torch.device("cpu"), (FakeKernels,), False)
+    assert eager() == eager() == "out"
+    assert eager.replay is None and FakeKernels.LAUNCHES["k_a"] == 12
