@@ -67,6 +67,21 @@ Phases; any failure exits non-zero:
      versions in float64 at full width and on a 640 x 480 crop of the dense
      workspace's first problem (K18: the same plane at >= 99.9% of the
      pixels), then timed at full width;
+ 15a. Poisson kernels (phase `mesh_kernels`, after `dense`): K41-K44 against
+     their plain versions on the dense phase's fused cloud (1.9M samples)
+     at depth 8 (N = 256, the path's) and 9, each run twice for the same
+     bits, timed with CUDA events beside the library call that computes the
+     same function (index_put_ with accumulate, conv3d, torch.div); the
+     whole indicator chi - iso against the plain path in float64 on the
+     card, twice for the same bits, under sync debug mode "error";
+ 15b. meshing and MVS tools (phase `mesh`, after `dense`): `poisson_mesher`
+     on the fused cloud (its vertices on the analytic surface, its counts
+     against the CPU path's), `mesh_simplifier --factor 0.1`,
+     `mesh_texturer` (labels and atlas against the CPU path's),
+     `delaunay_mesher` and `advancing_front_mesher` on every k-th fused
+     point, `image_rectifier` on two dense views (against the CPU path) and
+     `image_undistorter --output_type PMVS` and `CMP-MVS` (colmap_tpu's
+     file layout), each under torch.profiler;
  16. global-SfM kernels (phase `global_kernels`): K21-K23
      (colmap_tpu_torch/kernels/global_sfm.py) against float64 plain
      versions at the scale global SfM users run: K21 on a 1000-node view
@@ -168,7 +183,9 @@ read just after: the BA paths (phases 4-5) must launch K1-K3 and K35 (and
 K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
 the mapper K1-K3, K5-K9 and K34-K36 (its BA is PCG, so K4 is not on its
 path), the rendered 12-frame mapper K37 too, the extractor K13-K16,
-`image_undistorter` K5, `patch_match_stereo` K17-K20, `global_mapper` K1-K3,
+`image_undistorter` K5, `patch_match_stereo` K17-K20, `poisson_mesher`
+K41-K44, `mesh_texturer`, `image_rectifier` and both exports K5,
+`global_mapper` K1-K3,
 K5, K21, K22 and K34-K36 and K39, `rotation_averager` K21, `view_graph_calibrator` K23,
 the rig solve K24-K26 and K38 and the rig mapper K5, K7, K24-K27, K34, K38
 and K40 (and on the full-size rig scene K8 and K9), `vocab_tree_builder` K28 and K29,
@@ -178,6 +195,7 @@ mixed mappers K1-K3, K5-K9 and K34-K36, `exhaustive_matcher` on 360-degree
 frames K5, K10, K32 and K33.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
+dense,mesh_kernels,mesh`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
 retrieval_kernels,retrieval`, `--phases camera_kernels,cameras` or
 `--phases solver_kernels` (or any subset of the phases) runs a subset
@@ -320,6 +338,43 @@ MVS_SOURCES = {
     "pm_view_selection": ("colmap_tpu_torch/csrc/pm_view_selection.cu",
                           "colmap_tpu/mvs/patch_match.py:338"),
 }
+MESH_SOURCES = {
+    "poisson_splat": ("colmap_tpu_torch/csrc/poisson_splat.cu", "colmap_tpu/mvs/meshing.py:54"),
+    "poisson_stencil": ("colmap_tpu_torch/csrc/poisson_stencil.cu",
+                        "colmap_tpu/mvs/meshing.py:78"),
+    "poisson_spectral": ("colmap_tpu_torch/csrc/poisson_spectral.cu",
+                         "colmap_tpu/mvs/meshing.py:95"),
+    "poisson_iso": ("colmap_tpu_torch/csrc/poisson_iso.cu", "colmap_tpu/mvs/meshing.py:110"),
+}
+# Phase mesh_kernels: K41-K44 at the path's depth 8 (N = 256) and at depth
+# 9 (N = 512) to show how the time scales. K41 (b) sums in float64 in sorted
+# order, its plain version on the card by float64 index_add_ in another
+# order: 1e-6 of the grid's largest entry. K43's cosines come from two
+# libraries: 1e-6. K44 (a) sums in float64 in another order than the
+# float64 plain gather over the float32 chi: 1e-6 relative. The whole
+# indicator (float32 kernels, cuFFT in float32) against the plain path in
+# float64: 1e-4 of max |chi - iso|.
+MESH_DEPTHS = (8, 9)
+K41_RTOL, K43_RTOL, K44_RTOL, MESH_INDICATOR_RTOL = 1e-6, 1e-6, 1e-6, 1e-4
+# Phase mesh's gates. The Poisson mesh lies on the dense scene's surface:
+# median vertex distance at most half a voxel (scale / N), 90% within 1.5
+# voxels; the card's mesh and the CPU path's differ in counts by at most
+# 0.1% (a voxel within rounding of 0 may change sides between the paths).
+# The quadric simplifier keeps at most 12% of the faces at --factor 0.1
+# (colmap_tpu's test_simplify_mesh_quadric) within one voxel of the surface.
+# Texturing labels at least 90% of the faces, the card's labels equal the
+# CPU path's on 99.9% (its projections are float32), atlas texels within 1
+# count where they agree. Delaunay meshing and the advancing front run on
+# every k-th fused point, about MESH_SUBSAMPLE of them (their host loops and
+# Qhull at 1.9M points would not finish): face centroids within the fused
+# cloud's gate (DENSE_MAX_FUSED_ERR, over depth). Rectified pixels within 1
+# count of the CPU path's on 99.9%.
+MESH_MAX_MEDIAN_VOXELS, MESH_WITHIN_VOXELS, MESH_MIN_WITHIN = 0.5, 1.5, 0.9
+MESH_MAX_COUNT_DIFF = 1e-3
+SIMPLIFY_MAX_KEPT, SIMPLIFY_MAX_MEDIAN_VOXELS = 0.12, 1.0
+TEX_MIN_LABELLED, TEX_MIN_SAME_LABEL = 0.9, 0.999
+MESH_SUBSAMPLE = 20000
+RECT_MIN_SAME = 0.999
 # The dense scene: six SIMPLE_RADIAL views at south-building's resolution
 # (BASELINE.json config 1), f = 3840 px, k = -0.02, centres on a 3 x 2 grid
 # 0.5 apart, all looking along +z at two slanted textured planes with a step
@@ -1499,6 +1554,7 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import global_sfm as KG
     from colmap_tpu_torch.kernels import rig as KR
     from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import meshing as KP
     from colmap_tpu_torch.kernels import mvs as KV
     from colmap_tpu_torch.kernels import retrieval as KT
     from colmap_tpu_torch.kernels import sfm as K
@@ -1506,7 +1562,7 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import solver as KL
     from colmap_tpu_torch.kernels import spherical as KQ
 
-    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL
+    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP
 
 
 def all_launch_counts():
@@ -1614,7 +1670,7 @@ def run_mapper(db_path, out, label, min_launches=True):
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
-              and k not in CAMERA_SOURCES
+              and k not in CAMERA_SOURCES and k not in MESH_SOURCES
               and k not in ("structure_less_ransac", "gen_abs_refine")]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
@@ -2439,14 +2495,9 @@ def dense_gt_depth(K, centre):
 def fused_relative_error(pts):
     """Each fused point's distance to its surface piece (plane A for x < 0,
     B for x >= 0, or the wall) over its depth."""
-    (na, ca), (nb, cb) = DENSE_PLANES
-    da = np.abs(pts @ na - ca) / np.linalg.norm(na)
-    db = np.abs(pts @ nb - cb) / np.linalg.norm(nb)
-    lo, hi = _wall_span(pts[:, 1])
-    on_wall = (pts[:, 2] >= lo) & (pts[:, 2] <= hi)
-    dist = np.where(pts[:, 0] < 0, da, db)
-    dist = np.where(on_wall, np.minimum(dist, np.abs(pts[:, 0])), dist)
-    return dist / np.abs(pts[:, 2])
+    from colmap_tpu_torch.kernels import meshing_cases as MC
+
+    return MC.surface_distance(pts) / np.abs(pts[:, 2])
 
 
 DENSE_STATE = {}
@@ -2776,6 +2827,427 @@ def _mvs_row(name, fn, plain, bytes_moved, ops):
     log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None)
 
+
+# ---------------------------------------------------------------------------
+# Phases mesh_kernels and mesh: the rest of MVS on the dense workspace.
+# ---------------------------------------------------------------------------
+
+
+def _mesh_inputs():
+    """The dense phase's fused cloud as poisson_mesh hands it to the
+    indicator: (points01, normals, weights) float32 on the card, and the
+    cloud's points, normals, colours and the bounding box's scale."""
+    from colmap_tpu_torch.kernels import meshing_cases as MC
+    from colmap_tpu_torch.utils.ply import read_ply
+
+    data = read_ply(os.path.join(DENSE_STATE["root"], "dense", "fused.ply"))
+    pts = np.asarray(data["points"], dtype=np.float64)
+    nrm = np.asarray(data["normals"], dtype=np.float64)
+    nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    p01, _, scale = MC.normalize(pts)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32).cuda().contiguous()  # noqa: E731
+    return (t(p01), t(nrm), torch.ones(len(pts), device="cuda"), pts, nrm, data.get("colors"),
+            scale)
+
+
+def _twice_equal(fn):
+    """fn's output and whether a second run gives the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a_t = a if isinstance(a, tuple) else (a,)
+    b_t = b if isinstance(b, tuple) else (b,)
+    return a, all(torch.equal(x, y) for x, y in zip(a_t, b_t))
+
+
+def _mesh_entry(name, fn, plain, bytes_moved, ops, library=None, plain_reps=3):
+    ms = time_ms(fn, reps=10)
+    plain_ms = time_ms(plain, reps=plain_reps)
+    library_ms = time_ms(library, reps=5) if library else None
+    b_ms, by = bound(bytes_moved, ops)
+    lib = f", library {library_ms:.4f} ms" if library else ""
+    log(f"    {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound {b_ms:.5f} ms by {by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+
+
+def _poisson_depth(KM, x, n, w, depth, errs, failed):
+    """K41-K44 at one depth: each entry against its plain version on the
+    same inputs on the card, twice for the same bits, and timed. Returns
+    {kernel: {entry: row}}."""
+    import torch.nn.functional as Fnn
+
+    N = 1 << depth
+    P = x.shape[0]
+    NNN, bins = N ** 3, N * N * (N // 2 + 1)
+    out = {k: {} for k in MESH_SOURCES}
+    tag = f"depth {depth} (N = {N})"
+    log(f"  {tag}, {P} samples, {8 * P} contributions:")
+
+    def record(kernel, label, ok, a=0.0, r=0.0):
+        errs[kernel].append((a, r))
+        if not ok:
+            failed.append(f"{tag}: {label}")
+
+    # K41 (a): corners and weights, equal to the plain version.
+    (keys, wk), same = _twice_equal(lambda: KM.splat_corners(x, w, N))
+    kp, wp = KM.splat_corners_plain(x, w, N)
+    ok = same and torch.equal(keys, kp) and torch.equal(wk, wp)
+    log(f"    K41 (a): keys and weights equal to the plain version: {ok}")
+    record("poisson_splat", "K41 (a)", ok)
+    sort_ms = time_ms(lambda: torch.sort(keys, stable=True), reps=5)
+    ks, perm = torch.sort(keys, stable=True)
+    runs = torch.unique_consecutive(ks, return_counts=True)[1]
+    # K41 (b): the sums in float64 in sorted order; the plain version's
+    # float64 index_add_ on the card adds in another order.
+    grid, same = _twice_equal(lambda: KM.splat_sum(ks, perm, wk, n, N))
+    a, r = rel_err(grid, KM.splat_sum_plain(ks, perm, wk, n, N))
+    ok = same and r <= K41_RTOL
+    log(f"    K41 (b): {len(runs)} voxels hit, longest run {int(runs.max())}; max_abs_err "
+        f"{a:.3e} rel {r:.3e} (tol {K41_RTOL:g}), same bits twice: {same}")
+    record("poisson_splat", "K41 (b)", ok, a, r)
+    # K42 (a) along x, y, z and (b): equal to the plain versions.
+    blurred = grid
+    for axis in (0, 1, 2):
+        nxt, same = _twice_equal(lambda: KM.blur(blurred, axis))
+        ok = same and torch.equal(nxt, KM.blur_plain(blurred, axis))
+        record("poisson_stencil", f"K42 (a) axis {axis}", ok)
+        blurred = nxt
+    div, same = _twice_equal(lambda: KM.divergence(blurred))
+    ok = same and torch.equal(div, KM.divergence_plain(blurred))
+    log(f"    K42 (a) x, y, z and (b): equal to the plain versions, same bits twice: "
+        f"{not any(f.startswith(tag + ': K42') for f in failed)}")
+    record("poisson_stencil", "K42 (b)", ok)
+    # K43: cosines of two libraries.
+    fft_ms = time_ms(lambda: torch.fft.rfftn(div), reps=5)
+    spec = torch.fft.rfftn(div)
+    got, same = _twice_equal(lambda: KM.spectral_divide_(spec.clone(), 1.0))
+    a, r = rel_err(torch.view_as_real(got),
+                   torch.view_as_real(KM.spectral_divide_plain(spec, 1.0)))
+    log(f"    K43: max_abs_err {a:.3e} rel {r:.3e} (tol {K43_RTOL:g}), same bits twice: {same}")
+    record("poisson_spectral", "K43", same and r <= K43_RTOL, a, r)
+    chi = torch.fft.irfftn(got, s=(N, N, N))
+    # K44 (a) against the float64 plain gather, (b) equal to chi - iso.
+    iso, same = _twice_equal(lambda: KM.iso_level(chi, x, w))
+    iso64 = KM.iso_level_plain(chi.double(), x.double(), w.double())
+    a, r = rel_err(iso, iso64)
+    log(f"    K44 (a): iso {float(iso):.9g} (float64 {float(iso64):.9g}), rel {r:.3e} (tol "
+        f"{K44_RTOL:g}), same bits twice: {same}")
+    record("poisson_iso", "K44 (a)", same and r <= K44_RTOL, a, r)
+    shifted = KM.shift_(chi.clone(), iso)
+    ok = torch.equal(shifted, chi - iso) and torch.equal(KM.shift_(chi.clone(), iso), shifted)
+    record("poisson_iso", "K44 (b)", ok)
+
+    # Times; bounds from this run's counts (16 bytes a sample in, 8 keys and
+    # weights out; the grid 16 N^3 bytes; the spectrum 8 bytes a bin).
+    log(f"    (the stable sort of the keys {sort_ms:.4f} ms, rfftn {fft_ms:.4f} ms)")
+    flat = [(c, ks.long()) for c in range(4)]
+    vals = torch.cat([n[perm // 8] * wk[perm][:, None], wk[perm][:, None]], 1).t().contiguous()
+    cidx = torch.cat([torch.full_like(i, c) for c, i in flat])
+    kidx = torch.cat([i for _, i in flat])
+    out["poisson_splat"]["(a)"] = _mesh_entry(
+        "K41 (a) corners", lambda: KM.splat_corners(x, w, N),
+        lambda: KM.splat_corners_plain(x, w, N), P * (16 + 64), P * (12 + 3 + 8 * 13))
+    out["poisson_splat"]["(b)"] = _mesh_entry(
+        "K41 (b) sums", lambda: KM.splat_sum(ks, perm, wk, n, N),
+        lambda: KM.splat_sum_plain(ks, perm, wk, n, N),
+        8 * P * (4 + 8 + 4) + 12 * P + 16 * NNN, 8 * P * 7,
+        library=lambda: torch.zeros((4, NNN), device="cuda").index_put_(
+            (cidx, kidx), vals.reshape(-1), accumulate=True))
+    weight = torch.tensor([0.25, 0.5, 0.25], device="cuda")
+    g5 = grid.reshape(4, 1, N, N, N)
+    out["poisson_stencil"]["(a)"] = _mesh_entry(
+        "K42 (a) one blur pass (x)", lambda: KM.blur(grid, 0), lambda: KM.blur_plain(grid, 0),
+        2 * 16 * NNN, 4 * 4 * NNN,
+        library=lambda: Fnn.conv3d(Fnn.pad(g5, (0, 0, 0, 0, 1, 1), mode="circular"),
+                                   weight.reshape(1, 1, 3, 1, 1)))
+    out["poisson_stencil"]["(b)"] = _mesh_entry(
+        "K42 (b) divergence", lambda: KM.divergence(blurred),
+        lambda: KM.divergence_plain(blurred), 16 * NNN, 6 * NNN)
+    lam = KM.laplacian_eigenvalues(N, "cuda") - np.float32(1e-4)
+    work = spec.clone()
+    out["poisson_spectral"]["(a)"] = _mesh_entry(
+        "K43 spectral divide", lambda: KM.spectral_divide_(work, 1.0),
+        lambda: KM.spectral_divide_plain(spec, 1.0), 16 * bins, 5 * bins,
+        library=lambda: torch.div(spec, lam))
+    shift_buf = chi.clone()
+    out["poisson_iso"]["(a)"] = _mesh_entry(
+        "K44 (a) iso level", lambda: KM.iso_level(chi, x, w),
+        lambda: KM.iso_level_plain(chi, x, w), 48 * P + 4, P * (15 + 8 * 16))
+    out["poisson_iso"]["(b)"] = _mesh_entry(
+        "K44 (b) shift", lambda: KM.shift_(shift_buf, iso), lambda: KM.shift_plain(chi, iso),
+        8 * NNN, NNN)
+    del grid, blurred, div, spec, got, chi, shifted, work, shift_buf, vals, cidx, kidx, lam, g5
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_kernels():
+    """K41-K44 against their plain versions on the dense phase's fused cloud
+    at depth 8 (the path's) and depth 9, each run twice for the same bits,
+    and timed; the whole indicator chi - iso against the plain path in
+    float64 on the card within MESH_INDICATOR_RTOL of its largest
+    magnitude, twice for the same bits, under sync debug mode "error".
+    Returns (errs, rows)."""
+    from colmap_tpu_torch.kernels import meshing as KM
+
+    errs = {k: [] for k in MESH_SOURCES}
+    failed = []
+    x, n, w, *_ = _mesh_inputs()
+    log(f"Poisson kernels vs plain on the dense scene's fused cloud ({x.shape[0]} samples):")
+    by_depth = {d: _poisson_depth(KM, x, n, w, d, errs, failed) for d in MESH_DEPTHS}
+    N = 1 << MESH_DEPTHS[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chi, dens = KM.poisson_indicator(x, n, w, N, 1.0)
+        chi2, dens2 = KM.poisson_indicator(x, n, w, N, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same = torch.equal(chi, chi2) and torch.equal(dens, dens2)
+    del chi2, dens2
+    chi64, dens64 = KM.poisson_indicator_plain(x.double(), n.double(), w.double(), N, 1.0)
+    a, r = rel_err(chi, chi64)
+    ad, rd = rel_err(dens, dens64)
+    log(f"  the indicator at depth {MESH_DEPTHS[0]}: chi - iso max_abs_err {a:.3e} rel {r:.3e} "
+        f"(tol {MESH_INDICATOR_RTOL:g}), W_s rel {rd:.3e}; same bits twice: {same}; no host "
+        "read between the splat and the shift (sync debug mode error)")
+    if not (same and r <= MESH_INDICATOR_RTOL and rd <= MESH_INDICATOR_RTOL):
+        failed.append("the indicator")
+    del chi, dens, chi64, dens64
+    for d in MESH_DEPTHS:
+        _, dt = _timed(lambda: KM.poisson_indicator(x, n, w, 1 << d, 1.0))
+        log(f"  the indicator at depth {d}: {dt * 1e3:.2f} ms wall (splat to shift)")
+    torch.cuda.empty_cache()
+    rows = {}
+    for kernel, main_entry in (("poisson_splat", "(b)"), ("poisson_stencil", "(a)"),
+                               ("poisson_spectral", "(a)"), ("poisson_iso", "(a)")):
+        row = dict(by_depth[MESH_DEPTHS[0]][kernel][main_entry])
+        row["entries"] = {f"{e} depth {d}": {k: v for k, v in ent.items() if k != "bound_by"}
+                          for d in MESH_DEPTHS for e, ent in by_depth[d][kernel].items()
+                          if not (d == MESH_DEPTHS[0] and e == main_entry)}
+        rows[kernel] = row
+    if failed:
+        raise AssertionError(f"Poisson kernels differ from their plain versions: {failed}")
+    return errs, rows
+
+
+def _mesh_stats(verts, voxel):
+    from colmap_tpu_torch.kernels import meshing_cases as MC
+
+    d = MC.surface_distance(np.asarray(verts, dtype=np.float64)) / voxel
+    return float(np.median(d)), float((d <= MESH_WITHIN_VOXELS).mean())
+
+
+def _atlas_faces(F, options):
+    """(A, A) face index of each atlas texel (-1 in the gutters), from the
+    port's layout."""
+    from colmap_tpu_torch.mvs.texturing import atlas_layout
+
+    s, cell, grid, A, placed = atlas_layout(F, options)
+    owner = np.full((A, A), -1, dtype=np.int64)
+    ii, jj = np.mgrid[0:s, 0:s]
+    lower = ii + jj <= s - 1
+    for fi in range(placed):
+        gy, gx = divmod(fi // 2, grid)
+        y0, x0 = gy * cell + 1, gx * cell + 1
+        mask = lower if fi % 2 == 0 else ~lower
+        owner[y0 + ii[mask], x0 + jj[mask]] = fi
+    return owner
+
+
+def _texture_views(sparse, images_dir):
+    from colmap_tpu_torch.mvs.workspace import _pinhole_K
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.image_io import read_image, to_rgb
+
+    recon = read_model(sparse)
+    views, images = [], {}
+    for iid in recon.reg_image_ids():
+        img = recon.images[iid]
+        cam = recon.cameras[img.camera_id]
+        pose = recon.cam_from_world(iid)
+        images[iid] = to_rgb(read_image(os.path.join(images_dir, img.name)))
+        views.append({"K": _pinhole_K(cam), "R": pose.rotmat(), "t": pose.t.copy(),
+                      "width": cam.width, "height": cam.height, "image_key": iid})
+    return views, images
+
+
+def _subsampled_workspace(ws, out, stride):
+    """Every stride-th fused point of ws with its normal, colour and .vis
+    list, and ws's sparse model, as a workspace at out."""
+    from colmap_tpu_torch.mvs.fusion import read_fused_vis, write_fused_vis
+    from colmap_tpu_torch.utils.ply import read_ply, write_ply
+
+    data = read_ply(os.path.join(ws, "fused.ply"))
+    vis = read_fused_vis(os.path.join(ws, "fused.ply.vis"))
+    os.makedirs(out, exist_ok=True)
+    keep = np.arange(0, len(data["points"]), stride)
+    write_ply(os.path.join(out, "fused.ply"), data["points"][keep], data["normals"][keep],
+              None if data.get("colors") is None else data["colors"][keep])
+    write_fused_vis(os.path.join(out, "fused.ply.vis"), [vis[i] for i in keep])
+    shutil.copytree(os.path.join(ws, "sparse"), os.path.join(out, "sparse"))
+    return len(keep)
+
+
+def phase_mesh(launches):
+    """The rest of MVS through the CLI on cuda, each command under
+    torch.profiler (wall time, idle share): `poisson_mesher` on the dense
+    workspace's fused cloud at depth 8, `mesh_simplifier --factor 0.1` on
+    its mesh, `mesh_texturer` on that, `delaunay_mesher` and
+    `advancing_front_mesher` on a subsampled workspace, `image_rectifier` on
+    two of the dense views, `image_undistorter --output_type PMVS` and
+    `CMP-MVS`; each held to its gates, the card's results against the CPU
+    path's where the slice names one."""
+    from colmap_tpu_torch.image.rectification import rectify_and_undistort_stereo_images
+    from colmap_tpu_torch.mvs import meshing as MM
+    from colmap_tpu_torch.mvs import texturing as MT
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.image_io import read_image
+    from colmap_tpu_torch.utils.ply import read_ply_mesh
+
+    root = DENSE_STATE["root"]
+    ws = os.path.join(root, "dense")
+    out = os.path.join(root, "mesh")
+    os.makedirs(out, exist_ok=True)
+    _, _, _, pts, nrm, colors, scale = _mesh_inputs()
+    N = 1 << MESH_DEPTHS[0]
+    voxel = scale / N
+    seconds, idle, failed = {}, {}, []
+
+    def command(label, argv, kernels=()):
+        res, seconds[label], idle[label] = _profiled_command(argv, label, kernels, launches)
+        return res
+
+    # 1. Poisson at depth 8, against the analytic surface and the CPU path.
+    poisson = os.path.join(out, "meshed-poisson.ply")
+    verts, faces, _ = command("poisson_mesher", [
+        "poisson_mesher", "--input_path", os.path.join(ws, "fused.ply"), "--output_path",
+        poisson], tuple(MESH_SOURCES))
+    med, within = _mesh_stats(verts, voxel)
+    t0 = time.perf_counter()
+    v_cpu, f_cpu, _ = MM.poisson_mesh(pts, nrm, colors, MM.PoissonMeshingOptions(depth=8),
+                                      device="cpu")
+    cpu_s = time.perf_counter() - t0
+    dv = abs(len(verts) - len(v_cpu)) / max(len(v_cpu), 1)
+    df = abs(len(faces) - len(f_cpu)) / max(len(f_cpu), 1)
+    log(f"  poisson_mesher: {len(verts)} vertices, {len(faces)} faces (the CPU path "
+        f"{len(v_cpu)}, {len(f_cpu)} in {cpu_s:.1f} s: differ by {dv:.2e}, {df:.2e}; tol "
+        f"{MESH_MAX_COUNT_DIFF:g}); voxel {voxel:.5f}: median distance to the surface "
+        f"{med:.4f} voxels (<= {MESH_MAX_MEDIAN_VOXELS}), {within:.4f} within "
+        f"{MESH_WITHIN_VOXELS} voxels (>= {MESH_MIN_WITHIN})")
+    if not (med <= MESH_MAX_MEDIAN_VOXELS and within >= MESH_MIN_WITHIN
+            and dv <= MESH_MAX_COUNT_DIFF and df <= MESH_MAX_COUNT_DIFF and len(faces)):
+        failed.append("poisson_mesher")
+
+    # 2. Quadric simplification to a tenth.
+    simple = os.path.join(out, "meshed-simple.ply")
+    sv, sf = command("mesh_simplifier", ["mesh_simplifier", "--input_path", poisson,
+                                         "--output_path", simple, "--factor", "0.1"])
+    s_med, _ = _mesh_stats(sv, voxel)
+    kept = len(sf) / max(len(faces), 1)
+    log(f"  mesh_simplifier: {len(faces)} -> {len(sf)} faces ({kept:.4f} kept, <= "
+        f"{SIMPLIFY_MAX_KEPT}), median distance {s_med:.4f} voxels (<= "
+        f"{SIMPLIFY_MAX_MEDIAN_VOXELS})")
+    if not (kept <= SIMPLIFY_MAX_KEPT and s_med <= SIMPLIFY_MAX_MEDIAN_VOXELS and len(sf)):
+        failed.append("mesh_simplifier")
+
+    # 3. Texturing, against the CPU path on the same views and images.
+    atlas, _, labels = command("mesh_texturer", [
+        "mesh_texturer", "--input_path", simple, "--sparse_path", os.path.join(ws, "sparse"),
+        "--image_path", os.path.join(ws, "images"), "--output_path",
+        os.path.join(out, "textured.obj")], ("camera_map",))
+    mesh = read_ply_mesh(simple)
+    views, images = _texture_views(os.path.join(ws, "sparse"), os.path.join(ws, "images"))
+    atlas_cpu, _, labels_cpu = MT.texture_mesh(mesh["vertices"], mesh["faces"], views, images,
+                                               device="cpu")
+    labelled = float((labels >= 0).mean())
+    same = float((labels == labels_cpu).mean())
+    owner = _atlas_faces(len(labels), MT.TextureMappingOptions())
+    agree = np.where(owner >= 0, (labels == labels_cpu)[np.maximum(owner, 0)], True)
+    texel = int(np.abs(atlas.astype(int) - atlas_cpu.astype(int))[agree].max())
+    log(f"  mesh_texturer: {labelled:.4f} of {len(labels)} faces labelled (>= "
+        f"{TEX_MIN_LABELLED}), labels equal to the CPU path's on {same:.5f} (>= "
+        f"{TEX_MIN_SAME_LABEL}), atlas {atlas.shape[0]}^2 within {texel} counts where they "
+        "agree (<= 1)")
+    if not (labelled >= TEX_MIN_LABELLED and same >= TEX_MIN_SAME_LABEL and texel <= 1):
+        failed.append("mesh_texturer")
+
+    # 4. Delaunay and the advancing front on a subsampled workspace.
+    stride = max(1, len(pts) // MESH_SUBSAMPLE)
+    sub = os.path.join(out, "sub")
+    n_sub = _subsampled_workspace(ws, sub, stride)
+    for label, argv in (
+            ("delaunay_mesher", ["delaunay_mesher", "--input_path", sub]),
+            ("advancing_front_mesher", ["advancing_front_mesher", "--input_path",
+                                        os.path.join(sub, "fused.ply")])):
+        v, f = command(label, argv + ["--output_path", os.path.join(out, label + ".ply")])
+        cen = np.asarray(v, dtype=np.float64)[f].mean(axis=1) if len(f) else np.zeros((0, 3))
+        err = float(np.median(fused_relative_error(cen))) if len(f) else 1.0
+        log(f"  {label}: every {stride}-th fused point ({n_sub}), {len(f)} faces, median "
+            f"face-centroid distance to the surface over depth {err:.5f} (<= "
+            f"{DENSE_MAX_FUSED_ERR})")
+        if not (len(f) and err <= DENSE_MAX_FUSED_ERR):
+            failed.append(label)
+
+    # 5. Rectification of two dense views, against the CPU path.
+    recon = read_model(os.path.join(root, "sparse"))
+    names = [recon.images[i].name for i in sorted(recon.reg_image_ids())[:2]]
+    with open(os.path.join(out, "pairs.txt"), "w") as fh:
+        fh.write(f"{names[0]} {names[1]}\n")
+    rect = os.path.join(out, "rectified")
+    command("image_rectifier", [
+        "image_rectifier", "--image_path", os.path.join(root, "images"), "--input_path",
+        os.path.join(root, "sparse"), "--output_path", rect, "--stereo_pairs_list",
+        os.path.join(out, "pairs.txt")], ("camera_map",))
+    stem = f"{os.path.splitext(names[0])[0]}-{os.path.splitext(names[1])[0]}"
+    Q = np.loadtxt(os.path.join(rect, stem, "Q.txt"))
+    ids = {recon.images[i].name: i for i in recon.reg_image_ids()}
+    c1 = recon.cameras[recon.images[ids[names[0]]].camera_id]
+    c2 = recon.cameras[recon.images[ids[names[1]]].camera_id]
+    rel = recon.cam_from_world(ids[names[1]]).compose(recon.cam_from_world(ids[names[0]]).inverse())
+    imgs = [read_image(os.path.join(root, "images", nm)) for nm in names]
+    r_cpu = rectify_and_undistort_stereo_images(*imgs, c1, c2, rel, device="cpu")[:2]
+    shares = []
+    for nm, ref in zip(names, r_cpu):
+        got = read_image(os.path.join(rect, stem, nm)).astype(int)
+        shares.append(float((np.abs(got - ref.astype(int)) <= 1).mean()))
+    log(f"  image_rectifier: Q finite {bool(np.isfinite(Q).all())}, pixels within 1 count of "
+        f"the CPU path's {[round(s_, 6) for s_ in shares]} (>= {RECT_MIN_SAME})")
+    if not (np.isfinite(Q).all() and min(shares) >= RECT_MIN_SAME):
+        failed.append("image_rectifier")
+
+    # 6. The PMVS and CMP-MVS exports: colmap_tpu's layout.
+    n_reg = len(recon.reg_image_ids())
+    for kind in ("PMVS", "CMP-MVS"):
+        dst = os.path.join(out, kind)
+        command(f"image_undistorter {kind}", [
+            "image_undistorter", "--image_path", os.path.join(root, "images"), "--input_path",
+            os.path.join(root, "sparse"), "--output_path", dst, "--output_type", kind],
+            ("camera_map",))
+        if kind == "PMVS":
+            base = os.path.join(dst, "pmvs")
+            txts = [os.path.join(base, "txt", f"{i:08d}.txt") for i in range(n_reg)]
+            files = txts + [os.path.join(base, "visualize", f"{i:08d}.jpg") for i in range(n_reg)]
+            files += [os.path.join(base, "option-all"), os.path.join(base, "vis.dat"),
+                      os.path.join(dst, "run-pmvs.sh")]
+            with open(os.path.join(base, "vis.dat")) as fh:
+                ok = fh.readline().strip() == "VISDATA" and int(fh.readline()) == n_reg
+        else:
+            txts = [os.path.join(dst, f"{i + 1:05d}_P.txt") for i in range(n_reg)]
+            files = txts + [os.path.join(dst, f"{i + 1:05d}.jpg") for i in range(n_reg)]
+            ok = True
+        ok = ok and all(os.path.exists(p) for p in files)
+        ok = ok and all(open(p).readline().strip() == "CONTOUR" for p in txts)
+        log(f"  image_undistorter --output_type {kind}: colmap_tpu's layout ({len(files)} "
+            f"files, CONTOUR headers): {ok}")
+        if not ok:
+            failed.append(f"image_undistorter {kind}")
+
+    log(f"  mesh phase on {nvidia_smi_line()}: seconds by command "
+        f"{ {k: round(v, 3) for k, v in seconds.items()} }; idle share "
+        f"{ {k: (None if v is None else round(v, 4)) for k, v in idle.items()} }")
+    if failed:
+        raise AssertionError(f"mesh: a gate failed: {failed}")
+    return dict(seconds=seconds, idle=idle)
 
 def _as64(nt):
     """A NamedTuple of tensors with its float tensors in float64."""
@@ -5148,7 +5620,7 @@ def phase_solver_kernels():
 
 
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
-              "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
+              "mesh_kernels", "mesh", "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
               "camera_kernels", "cameras", "solver_kernels")
 
 
@@ -5212,6 +5684,15 @@ def main():
         v_errs, v_rows = run("mvs", phase_mvs_kernels)
         errs.update(v_errs)
         rows.update(v_rows)
+    for phase in ("mesh_kernels", "mesh"):
+        if phase in phases and "dense" not in phases:
+            raise SystemExit(f"chip_smoke: phase {phase} reads the dense phase's workspace")
+    if "mesh_kernels" in phases:
+        p_errs, p_rows = run("mesh_kernels", phase_mesh_kernels)
+        errs.update(p_errs)
+        rows.update(p_rows)
+    if "mesh" in phases:
+        run("mesh", lambda: phase_mesh(launches))
     if "root" in DENSE_STATE:
         shutil.rmtree(DENSE_STATE["root"], ignore_errors=True)
     if "global_kernels" in phases:
@@ -5257,7 +5738,7 @@ def main():
         errs.setdefault(name, []).extend(e)
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
-               **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
+               **MESH_SOURCES, **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
                **SOLVER_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -23,9 +23,16 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     bundle_adjuster   read a model, run bundle adjustment, write the model
     model_analyzer    print a model's statistics
     image_undistorter   undistort a model's images into a dense workspace
-                        (--output_type COLMAP; PMVS and CMP-MVS raise)
+                        (--output_type COLMAP, PMVS or CMP-MVS)
     patch_match_stereo  depth and normal maps of every workspace image
     stereo_fusion       fuse the depth maps into a point cloud (PLY + .vis)
+    poisson_mesher      oriented cloud -> mesh (spectral Poisson on the card)
+    delaunay_mesher     fused cloud + visibility -> mesh (host scipy)
+    advancing_front_mesher  cloud -> mesh by an advancing front (host scipy)
+    mesh_simplifier     quadric edge collapse (native/mesh_ops.cpp)
+    mesh_texturer       view selection and a texture atlas -> OBJ + MTL + PNG
+    image_rectifier     rectify and undistort stereo pairs of a model
+    image_undistorter_standalone  undistort images listed with their cameras
 
 Commands return what they built (``main`` passes it on), so a caller that
 drives the CLI in-process can read it: ``mapper`` and ``global_mapper``
@@ -115,7 +122,7 @@ def _cmd_feature_extractor(args):
 
     if args.descriptor_type != "sift":
         raise NotImplementedError(
-            f"--descriptor_type {args.descriptor_type} is not ported yet (ROADMAP queue 1 item 14)")
+            f"--descriptor_type {args.descriptor_type} is not ported yet (ROADMAP queue 1 item 5)")
     device = resolve_device(args.device)
     db = Database(args.database_path)
     reader = ImageReaderOptions(
@@ -542,38 +549,28 @@ def _cmd_model_analyzer(args):
     print(f"Mean reprojection error: {recon.compute_mean_reprojection_error():.6f}px")
 
 
-def _write_image(path, img):
-    """PNG, PGM or PPM by the file's extension; another format through PIL
-    where it is installed."""
-    from colmap_tpu_torch.utils.image_io import write_png, write_pnm
-
-    ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        write_png(path, img)
-    elif ext in (".pgm", ".ppm"):
-        write_pnm(path, img)
-    else:
-        try:
-            from PIL import Image
-        except ImportError:
-            raise ValueError(f"{path}: writing {ext} images needs PIL, which is not installed "
-                             "(PNG, PGM and PPM are written without it)") from None
-        Image.fromarray(img).save(path)
-
-
 def _cmd_image_undistorter(args):
     import numpy as np
 
     from colmap_tpu_torch.image.undistortion import undistort_camera, undistort_image
     from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
     from colmap_tpu_torch.utils.dtypes import resolve_device
-    from colmap_tpu_torch.utils.image_io import read_image
+    from colmap_tpu_torch.utils.image_io import read_image, write_image
 
-    if args.output_type != "COLMAP":
-        raise NotImplementedError(
-            f"--output_type {args.output_type} is not ported yet (ROADMAP queue 1 item 13)")
     device = resolve_device(args.device)
     recon = read_model(args.input_path)
+    if args.output_type == "PMVS":
+        from colmap_tpu_torch.cli.export import export_pmvs
+
+        ids = export_pmvs(recon, args.image_path, args.output_path, device=device)
+        print(f"PMVS workspace -> {args.output_path}")
+        return len(ids)
+    if args.output_type == "CMP-MVS":
+        from colmap_tpu_torch.cli.export import export_cmp_mvs
+
+        ids = export_cmp_mvs(recon, args.image_path, args.output_path, device=device)
+        print(f"CMP-MVS workspace -> {args.output_path}")
+        return len(ids)
     os.makedirs(os.path.join(args.output_path, "images"), exist_ok=True)
     new_cams = {cid: undistort_camera(cam, device=device) for cid, cam in recon.cameras.items()}
     n = 0
@@ -586,7 +583,7 @@ def _cmd_image_undistorter(args):
                               new_cams[image.camera_id], device=device)
         dst = os.path.join(args.output_path, "images", image.name)
         os.makedirs(os.path.dirname(dst), exist_ok=True)
-        _write_image(dst, out.astype(np.uint8))
+        write_image(dst, out.astype(np.uint8))
         n += 1
     for cid in recon.cameras:
         recon.cameras[cid] = new_cams[cid]
@@ -624,6 +621,197 @@ def _cmd_stereo_fusion(args):
     pts, normals, vis = run_fusion_workspace(recon, ws, args.output_path, device=device)
     print(f"Fused {len(pts)} points -> {args.output_path}")
     return pts, normals, vis
+
+
+def _cmd_poisson_mesher(args):
+    import sys
+
+    from colmap_tpu_torch.mvs.meshing import PoissonMeshingOptions, poisson_mesh
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.ply import read_ply, write_ply_mesh
+
+    device = resolve_device(args.device)
+    data = read_ply(args.input_path)
+    if "normals" not in data:
+        print("Input PLY has no normals; Poisson meshing requires oriented points")
+        sys.exit(1)
+    options = PoissonMeshingOptions(depth=args.depth, point_weight=args.point_weight,
+                                    trim=args.trim)
+    verts, faces, colors = poisson_mesh(data["points"], data["normals"], data.get("colors"),
+                                        options, device=device)
+    write_ply_mesh(args.output_path, verts, faces, colors)
+    print(f"Meshed {len(verts)} vertices, {len(faces)} faces -> {args.output_path}")
+    return verts, faces, colors
+
+
+def _cmd_delaunay_mesher(args):
+    import sys
+
+    import numpy as np
+
+    from colmap_tpu_torch.mvs.fusion import read_fused_vis
+    from colmap_tpu_torch.mvs.meshing import DelaunayMeshingOptions, delaunay_meshing
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.ply import read_ply, write_ply_mesh
+
+    resolve_device(args.device)  # host scipy, as colmap_tpu
+    ws = args.input_path
+    fused = os.path.join(ws, "fused.ply")
+    if not os.path.exists(fused):
+        print(f"Missing {fused}; run stereo_fusion first")
+        sys.exit(1)
+    data = read_ply(fused)
+    vis_path = fused + ".vis"
+    vis = (read_fused_vis(vis_path) if os.path.exists(vis_path)
+           else [np.zeros(0, np.uint32)] * len(data["points"]))
+    recon = read_model(os.path.join(ws, "sparse"))
+    centers = {iid: np.asarray(recon.cam_from_world(iid).inverse().t)
+               for iid in recon.reg_image_ids()}
+    options = DelaunayMeshingOptions(quality_regularization=args.quality_regularization)
+    verts, faces = delaunay_meshing(data["points"], vis, centers, options)
+    write_ply_mesh(args.output_path, verts, faces)
+    print(f"Meshed {len(verts)} vertices, {len(faces)} faces -> {args.output_path}")
+    return verts, faces
+
+
+def _cmd_advancing_front_mesher(args):
+    from colmap_tpu_torch.mvs.meshing import AdvancingFrontMeshingOptions, advancing_front_mesh
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.ply import read_ply, write_ply_mesh
+
+    resolve_device(args.device)  # host scipy, as colmap_tpu
+    data = read_ply(args.input_path)
+    options = AdvancingFrontMeshingOptions(radius_ratio_bound=args.radius_ratio_bound)
+    verts, faces = advancing_front_mesh(data["points"], options)
+    write_ply_mesh(args.output_path, verts, faces, data.get("colors"))
+    print(f"Meshed {len(verts)} vertices, {len(faces)} faces -> {args.output_path}")
+    return verts, faces
+
+
+def _cmd_mesh_texturer(args):
+    from colmap_tpu_torch.mvs.texturing import TextureMappingOptions, texture_mesh, write_obj
+    from colmap_tpu_torch.mvs.workspace import _pinhole_K
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.image_io import read_image, to_rgb
+    from colmap_tpu_torch.utils.ply import read_ply_mesh
+
+    device = resolve_device(args.device)
+    m = read_ply_mesh(args.input_path)
+    recon = read_model(args.sparse_path)
+    views, images = [], {}
+    for iid in recon.reg_image_ids():
+        img = recon.images[iid]
+        cam = recon.cameras[img.camera_id]
+        pose = recon.cam_from_world(iid)
+        ipath = os.path.join(args.image_path, img.name)
+        if not os.path.exists(ipath):
+            continue
+        images[iid] = to_rgb(read_image(ipath))
+        views.append({"K": _pinhole_K(cam), "R": pose.rotmat(), "t": pose.t.copy(),
+                      "width": cam.width, "height": cam.height, "image_key": iid})
+    options = TextureMappingOptions(patch_size=args.patch_size)
+    atlas, uvs, labels = texture_mesh(m["vertices"], m["faces"], views, images, options,
+                                      device=device)
+    write_obj(args.output_path, m["vertices"], m["faces"], uvs, atlas)
+    n_tex = int((labels >= 0).sum())
+    print(f"Textured {n_tex}/{len(m['faces'])} faces -> {args.output_path}")
+    return atlas, uvs, labels
+
+
+def _cmd_mesh_simplifier(args):
+    from colmap_tpu_torch.mvs.simplification import simplify_mesh
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.ply import read_ply_mesh, write_ply_mesh
+
+    resolve_device(args.device)  # quadric collapse on the host, as colmap_tpu
+    m = read_ply_mesh(args.input_path)
+    verts, faces = simplify_mesh(m["vertices"], m["faces"], args.factor)
+    write_ply_mesh(args.output_path, verts, faces)
+    print(f"Simplified {len(m['faces'])} -> {len(faces)} faces "
+          f"({len(verts)} vertices) -> {args.output_path}")
+    return verts, faces
+
+
+def _undistort_options(args):
+    from colmap_tpu_torch.image.undistortion import UndistortOptions
+
+    return UndistortOptions(blank_pixels=args.blank_pixels, min_scale=args.min_scale,
+                            max_scale=args.max_scale, max_image_size=args.max_image_size)
+
+
+def _cmd_image_rectifier(args):
+    import numpy as np
+
+    from colmap_tpu_torch.image.rectification import rectify_and_undistort_stereo_images
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.image_io import read_image, write_image
+
+    device = resolve_device(args.device)
+    recon = read_model(args.input_path)
+    name_to_id = {img.name: iid for iid, img in recon.images.items()}
+    with open(args.stereo_pairs_list) as f:
+        pairs = [ln.split() for ln in f if ln.strip()]
+    options = _undistort_options(args)
+    n = 0
+    for name1, name2 in pairs:
+        if name1 not in name_to_id or name2 not in name_to_id:
+            print(f"SKIP: pair {name1} {name2} not in reconstruction")
+            continue
+        id1, id2 = name_to_id[name1], name_to_id[name2]
+        img1 = read_image(os.path.join(args.image_path, name1))
+        img2 = read_image(os.path.join(args.image_path, name2))
+        cam1 = recon.cameras[recon.images[id1].camera_id]
+        cam2 = recon.cameras[recon.images[id2].camera_id]
+        cam2_from_cam1 = recon.cam_from_world(id2).compose(recon.cam_from_world(id1).inverse())
+        r1, r2, _, Q = rectify_and_undistort_stereo_images(img1, img2, cam1, cam2,
+                                                           cam2_from_cam1, options, device)
+        stem = f"{os.path.splitext(name1)[0]}-{os.path.splitext(name2)[0]}"
+        outdir = os.path.join(args.output_path, stem)
+        os.makedirs(outdir, exist_ok=True)
+        write_image(os.path.join(outdir, os.path.basename(name1)), np.asarray(r1, dtype=np.uint8))
+        write_image(os.path.join(outdir, os.path.basename(name2)), np.asarray(r2, dtype=np.uint8))
+        np.savetxt(os.path.join(outdir, "Q.txt"), Q)
+        n += 1
+    print(f"Rectified {n} stereo pairs -> {args.output_path}")
+    return n
+
+
+def _cmd_image_undistorter_standalone(args):
+    import numpy as np
+
+    from colmap_tpu_torch.image.undistortion import undistort_camera, undistort_image
+    from colmap_tpu_torch.scene.types import Camera
+    from colmap_tpu_torch.sensor import models as camera_models
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+    from colmap_tpu_torch.utils.image_io import read_image, write_image
+
+    device = resolve_device(args.device)
+    options = _undistort_options(args)
+    os.makedirs(args.output_path, exist_ok=True)
+    n = 0
+    # Input line format (reference: exe/image.cc:465-468):
+    #   image_name CAMERA_MODEL camera_params...
+    with open(args.input_file) as f:
+        for ln in f:
+            parts = ln.split()
+            if not parts:
+                continue
+            name, model_name = parts[0], parts[1]
+            img = read_image(os.path.join(args.image_path, name))
+            h, w = img.shape[:2]
+            cam = Camera(camera_id=1, model_id=camera_models.MODEL_NAME_TO_ID[model_name],
+                         width=w, height=h, params=np.array([float(v) for v in parts[2:]]))
+            ucam = undistort_camera(cam, options, device=device)
+            out = undistort_image(img, cam, ucam, device=device)
+            dst = os.path.join(args.output_path, name)
+            os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+            write_image(dst, np.asarray(out, dtype=np.uint8))
+            n += 1
+    print(f"Undistorted {n} images -> {args.output_path}")
+    return n
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -783,6 +971,69 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--output_path", required=True)
     c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=_cmd_stereo_fusion)
+
+    c = sub.add_parser("poisson_mesher")
+    c.add_argument("--input_path", required=True, help="fused.ply with normals")
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--depth", type=int, default=8)
+    c.add_argument("--point_weight", type=float, default=1.0)
+    c.add_argument("--trim", type=float, default=3.0)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_poisson_mesher)
+
+    c = sub.add_parser("delaunay_mesher")
+    c.add_argument("--input_path", required=True,
+                   help="dense workspace with fused.ply(.vis) and sparse/")
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--quality_regularization", type=float, default=1.0)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_delaunay_mesher)
+
+    c = sub.add_parser("mesh_texturer")
+    c.add_argument("--input_path", required=True, help="mesh PLY")
+    c.add_argument("--sparse_path", required=True)
+    c.add_argument("--image_path", required=True)
+    c.add_argument("--output_path", required=True, help="output OBJ")
+    c.add_argument("--patch_size", type=int, default=16)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_mesh_texturer)
+
+    c = sub.add_parser("mesh_simplifier")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--factor", type=float, default=0.1, help="fraction of faces to keep")
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_mesh_simplifier)
+
+    c = sub.add_parser("image_rectifier")
+    c.add_argument("--image_path", required=True)
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--stereo_pairs_list", required=True)
+    c.add_argument("--blank_pixels", type=float, default=0.0)
+    c.add_argument("--min_scale", type=float, default=0.2)
+    c.add_argument("--max_scale", type=float, default=2.0)
+    c.add_argument("--max_image_size", type=int, default=-1)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_image_rectifier)
+
+    c = sub.add_parser("image_undistorter_standalone")
+    c.add_argument("--image_path", required=True)
+    c.add_argument("--input_file", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--blank_pixels", type=float, default=0.0)
+    c.add_argument("--min_scale", type=float, default=0.2)
+    c.add_argument("--max_scale", type=float, default=2.0)
+    c.add_argument("--max_image_size", type=int, default=-1)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_image_undistorter_standalone)
+
+    c = sub.add_parser("advancing_front_mesher")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--radius_ratio_bound", type=float, default=5.0)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_advancing_front_mesher)
     return p
 
 

@@ -67,7 +67,7 @@ class ImageReaderOptions:
     mask_path: Optional[str] = None
     # One mask for every image (reference: image_reader.h:57).
     camera_mask_path: Optional[str] = None
-    # "sift"; "aliked" is not ported yet (ROADMAP queue 1 item 14).
+    # "sift"; "aliked" is not ported yet (ROADMAP queue 1 item 5).
     extractor_type: str = "sift"
     aliked_weights_path: Optional[str] = None
 
@@ -117,7 +117,7 @@ def run_feature_extraction(
     if reader_options.extractor_type != "sift":
         raise NotImplementedError(
             f"extractor_type {reader_options.extractor_type!r} is not ported yet "
-            "(ROADMAP queue 1 item 14)")
+            "(ROADMAP queue 1 item 5)")
     device = resolve_device(device)
     if image_names is None:
         image_names = sorted(f for f in os.listdir(image_dir)
@@ -193,7 +193,7 @@ class MatchingPipelineOptions:
 def _require_bruteforce(options: MatchingPipelineOptions):
     if options.matcher_type != "bruteforce":
         raise NotImplementedError(
-            f"matcher_type {options.matcher_type!r} is not ported yet (ROADMAP queue 2)")
+            f"matcher_type {options.matcher_type!r} is not ported yet (ROADMAP queue 1 item 5)")
 
 
 def _match_and_verify_pairs(

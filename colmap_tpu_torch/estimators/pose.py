@@ -67,7 +67,7 @@ def estimate_absolute_pose(
     if options is None:
         options = AbsolutePoseOptions()
     if options.estimate_focal_length:
-        raise NotImplementedError("focal-length search is not ported yet (ROADMAP queue 1)")
+        raise NotImplementedError("focal-length search: colmap_tpu has none to port (ROADMAP §3)")
     n = len(points2D)
     if n < 4:
         return None, np.zeros(n, dtype=bool), None

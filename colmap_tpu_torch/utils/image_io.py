@@ -329,3 +329,33 @@ def read_image(path: str) -> np.ndarray:
             f"(PNG, PGM and PPM are read without it)") from None
     with Image.open(path) as im:
         return np.asarray(im)
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 of an 8-bit image as ``read_image`` gives it, as PIL's
+    ``convert("RGB")``: gray repeated, alpha dropped."""
+    img = np.asarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    if img.shape[2] in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Write a uint8 image by the file's extension: PNG, PGM or PPM by this
+    module; another format (JPEG, TIFF, BMP) through PIL, as colmap_tpu's
+    ``Image.fromarray(img).save(path)``, where PIL is installed."""
+    img = np.asarray(img, dtype=np.uint8)
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        write_png(path, img)
+    elif ext in (".pgm", ".ppm"):
+        write_pnm(path, img)
+    else:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ValueError(f"{path}: writing {ext} images needs PIL, which is not installed "
+                             "(PNG, PGM and PPM are written without it)") from None
+        Image.fromarray(img).save(path)

@@ -34,7 +34,8 @@ models through K1, K9 and K24 once per model, and the spherical RANSACs K32
 and K33 on colmap_tpu_torch/kernels/spherical_cases.py (tolerances stated
 above their tests). The solver kernels K34-K40 (the packed and rig LM
 loops, global SfM's CG, relative poses, structure-less and generalized
-pose refinement) are held as stated above their tests.
+pose refinement) and the spectral Poisson kernels K41-K44 are held as
+stated above their tests.
 """
 
 import numpy as np
@@ -1767,3 +1768,93 @@ def test_structure_less_ransac_agrees_with_float64_on_cuda():
         gap = torch.nan_to_num((mk[lo:lo + 10].double() - mp[i]).abs().flatten(1).amax(1),
                                nan=float("inf"))
         assert float(gap.min()) <= 1e-6 * float(mp[i].abs().max()), f"model {i}"
+
+
+# The spectral Poisson kernels K41-K44 on colmap_tpu_torch/kernels/
+# meshing_cases.py at N = 64 (a sphere, samples on the clip border, a voxel
+# of 100 contributions), each against its plain version on the same float32
+# inputs and run twice for the same bits. K41 (a), K42 and K44 (b) round
+# every float32 operation as their plain versions do: equal. K41 (b) sums
+# in float64 in the sorted order, as index_add_ over the sorted keys does on
+# the CPU: equal to the CPU's plain version. K43's cosines come from two
+# libraries: 1e-6 of the spectrum's largest entry. K44 (a) sums in float64
+# in another order than its plain version: 1e-6 relative.
+
+def _poisson_inputs(case):
+    _need_card()
+    from colmap_tpu_torch.kernels import meshing_cases as C
+
+    N = 64
+    if case == "sphere":
+        pts, nrm = C.sphere(20000, seed=1)
+        p01 = C.normalize(pts)[0]
+    elif case == "clip_border":
+        p01, nrm = C.clip_border(20000, seed=2)
+    else:
+        p01, nrm = C.crowded_voxel(20000, N, crowd=100, seed=3)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous()  # noqa
+    return t(p01), t(nrm), torch.ones(len(p01), device="cuda"), N
+
+
+def _twice(fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(x, y), "two runs differ"
+    return a
+
+
+@pytest.mark.parametrize("case", ["sphere", "clip_border", "crowded_voxel"])
+def test_poisson_splat_matches_plain_on_cuda(case):
+    """K41 (a) equal to its plain version; K41 (b) equal to the plain sums
+    taken on the CPU in sorted order."""
+    from colmap_tpu_torch.kernels import meshing as KM
+
+    x, n, w, N = _poisson_inputs(case)
+    KM.reset_launches()
+    keys, wk = _twice(lambda: KM.splat_corners(x, w, N))
+    kp, wp = KM.splat_corners_plain(x, w, N)
+    assert torch.equal(keys, kp) and torch.equal(wk, wp)
+    ks, perm = torch.sort(keys, stable=True)
+    grid = _twice(lambda: KM.splat_sum(ks, perm, wk, n, N))
+    ref = KM.splat_sum_plain(ks.cpu(), perm.cpu(), wk.cpu(), n.cpu(), N)
+    assert torch.equal(grid.cpu(), ref)
+    assert KM.LAUNCHES["poisson_splat"] == 4
+
+
+def test_poisson_stencil_spectral_and_iso_match_plain_on_cuda():
+    """K42 (a) along x, y, z and (b), K43 and K44 (a), (b) against their
+    plain versions; the whole indicator equals itself twice and agrees with
+    the plain path in float64 to 1e-5 of its largest magnitude."""
+    from colmap_tpu_torch.kernels import meshing as KM
+
+    x, n, w, N = _poisson_inputs("sphere")
+    grid = KM.splat(x, n, w, N)
+    for axis in (0, 1, 2):
+        out = _twice(lambda: KM.blur(grid, axis))
+        assert torch.equal(out, KM.blur_plain(grid, axis))
+        grid = out
+    div = _twice(lambda: KM.divergence(grid))
+    assert torch.equal(div, KM.divergence_plain(grid))
+    spec = torch.fft.rfftn(div)
+    ref = KM.spectral_divide_plain(spec, 1.0)
+    got = _twice(lambda: KM.spectral_divide_(spec.clone(), 1.0))
+    _close(torch.view_as_real(got), torch.view_as_real(ref), 1e-6, "K43")
+    chi = torch.fft.irfftn(got, s=(N, N, N))
+    iso = _twice(lambda: KM.iso_level(chi, x, w))
+    iso64 = KM.iso_level_plain(chi.double(), x.double(), w.double())
+    assert abs(float(iso) - float(iso64)) <= 1e-6 * abs(float(iso64))
+    shifted = KM.shift_(chi.clone(), iso)
+    assert torch.equal(shifted, chi - iso)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # no host read from the splat to the shift
+    try:
+        a, W = KM.poisson_indicator(x, n, w, N, 1.0)
+        a2, W2 = KM.poisson_indicator(x, n, w, N, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(a, a2) and torch.equal(W, W2), "two runs differ"
+    a64, W64 = KM.poisson_indicator(x.cpu().double(), n.cpu().double(), w.cpu().double(), N,
+                                    1.0)
+    _close(a.cpu(), a64, 1e-5, "chi - iso")
+    _close(W.cpu(), W64, 1e-6, "W_s")

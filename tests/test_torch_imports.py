@@ -13,9 +13,14 @@ absolute pose's RANSAC on small cases; then ``vocab_tree_builder`` and
 ``vocab_tree_matcher`` with ``--device cpu`` on the extracted database; then
 a batch of the spherical homography RANSAC (K33's plain version) on rays of
 a 360-degree pair and the packing of a problem that mixes camera models;
-then rig registration's refinement and refit (K40's plain versions). A
-second test reads every line of the port and of chip_smoke.py for an
-import of jax or colmap_tpu.
+then rig registration's refinement and refit (K40's plain versions); then
+the meshing slice on small cases: poisson_mesh (K41-K44's plain versions),
+Delaunay meshing and the advancing front, the quadric simplifier (built
+with g++ from native/mesh_ops.cpp), texturing, rectification and a CMP-MVS
+export. An audit hook records every file the child opens, every library it
+loads and every process it starts: none lies under colmap_tpu/. A second
+test reads every line of the port and of chip_smoke.py for an import of
+jax or colmap_tpu.
 """
 
 import os
@@ -37,6 +42,19 @@ CHILD = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+    REFERENCE = os.path.join(os.getcwd(), "colmap_tpu") + os.sep
+    TOUCHED = []
+
+    def audit(event, args):
+        if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.listdir"):
+            for a in (args[:2] if event == "subprocess.Popen" else args[:1]):
+                for x in (a if isinstance(a, (list, tuple)) else [a]):
+                    if isinstance(x, (str, bytes, os.PathLike)):
+                        x = os.path.abspath(os.fsdecode(x))
+                        if x.startswith(REFERENCE):
+                            TOUCHED.append((event, x))
+
+    sys.addaudithook(audit)
     import colmap_tpu_torch
 
     names = [m.name for m in pkgutil.walk_packages(colmap_tpu_torch.__path__,
@@ -152,6 +170,37 @@ CHILD = textwrap.dedent("""
                                     [2, 5])
     assert mid == (2, 5) and rows.shape == (2, 9) and int(counts.max()) > 30
     print("CAMERAS", int(counts.max()))
+
+    from colmap_tpu_torch.cli.export import export_cmp_mvs
+    from colmap_tpu_torch.image.rectification import rectify_stereo_cameras
+    from colmap_tpu_torch.kernels import meshing_cases as MC
+    from colmap_tpu_torch.mvs import meshing, simplification, texturing
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+    pts, nrm = MC.sphere(1500, seed=1)
+    v, f, _ = meshing.poisson_mesh(pts, nrm, options=meshing.PoissonMeshingOptions(depth=4),
+                                   device="cpu")
+    sv, sf = simplification.simplify_mesh(v, f, 0.3)
+    cams = {1: np.array([3.0, 0, 0]), 2: np.array([-3.0, 0, 0])}
+    _, df = meshing.delaunay_meshing(pts[:200], MC.visibility(pts[:200], cams), cams)
+    _, af = meshing.advancing_front_mesh(pts[:200])
+    view = {"K": np.array([[50.0, 0, 32], [0, 50, 24], [0, 0, 1]]), "R": np.eye(3),
+            "t": np.array([0.0, 0, 3]), "width": 64, "height": 48, "image_key": 1}
+    atlas, uvs, lab = texturing.texture_mesh(sv, sf, [view],
+                                             {1: np.zeros((48, 64, 3), np.uint8)},
+                                             device="cpu")
+    gmodel = read_model(os.path.join(root, "global", "0"))
+    from colmap_tpu_torch.scene.types import Camera, Pose
+    pin = Camera(1, 1, 64, 48, np.array([50.0, 50.0, 32.0, 24.0]))
+    H1, H2, Q = rectify_stereo_cameras(pin, pin, Pose(np.array([1.0, 0, 0, 0]),
+                                                      np.array([-0.5, 0.0, 0.0])))
+    assert abs(Q[2, 3] - 2.0) < 1e-12
+    export_cmp_mvs(gmodel, os.path.join(root, "no_images"), os.path.join(root, "cmp"),
+                   device="cpu")
+    assert len(df) > 0 and len(af) > 0 and len(sf) < len(f) and (lab >= 0).any()
+    assert sorted(os.listdir(os.path.join(root, "cmp")))[0] == "00001_P.txt"
+    assert not TOUCHED, TOUCHED
+    print("MESH", len(f), len(sf), len(df), len(af))
 """)
 
 
@@ -162,7 +211,7 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
     assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout and "CAMERAS" in out.stdout
-    assert "SOLVERS" in out.stdout
+    assert "SOLVERS" in out.stdout and "MESH" in out.stdout
 
 
 def test_no_module_of_the_port_imports_jax_or_colmap_tpu():

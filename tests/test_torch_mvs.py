@@ -502,11 +502,12 @@ def test_dense_cli_chain_on_the_plane_workspace(tmp_path):
     ["stereo_fusion", "--workspace_path", "w", "--output_path", "o"]])
 def test_dense_commands_default_to_cuda(command):
     """Without --device the dense commands ask for the card, and raise here
-    where there is none."""
+    where there is none (``image_undistorter`` with each output type)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(command)
     if command[0] == "image_undistorter":
-        with pytest.raises(NotImplementedError, match="PMVS"):
-            tcli.main(command + ["--output_type", "PMVS", "--device", "cpu"])
+        for output_type in ("PMVS", "CMP-MVS"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tcli.main(command + ["--output_type", output_type])
