@@ -177,7 +177,24 @@ Phases; any failure exits non-zero:
      and refit) on 2000 rows x 4 cameras in float64, timed; at both BA
      shapes the loop's costs that the graph's size rule and the done
      flag's chunk weigh (an eager iteration, recording and instantiating a
-     graph, a replay, one flag read, a whole solve).
+     graph, a replay, one flag read, a whole solve);
+ 25. option kernels (phase `options_kernels`): K45 (Baumberg affine
+     shapes) and K15 and K16 on its affine frames at octave 0 of a rendered
+     3072 x 2304 view, K46 (DEGENSAC's hypotheses) at 8192 rows x 256
+     hypotheses, the MSAC mode of K7, K11 and K12 on a matcher-phase block
+     (8 pairs x 8192 matches) and of K32 and K33 on a 64-pair x 8192-ray
+     360-degree block, K47 (the SPRT) at 256 hypotheses x 8192 rows, all
+     against float64 plain versions, timed with CUDA events;
+ 26. options (phase `options`): `run_feature_extraction` with
+     estimate_affine_shape on four rendered 3072 x 2304 views (6-column
+     frames; a 768 x 576 crop's count against the CPU path; a view
+     stretched 1.6x in x matches better with affine shapes than without),
+     64 planted plane + parallax pairs of 8192 matches through the block
+     verifier with use_degensac (each equal to the pair alone, its F
+     keeping the off-plane matches), the matcher scene of phase 11 with
+     MSAC support (CALIBRATED, >= 99% inliers), progressive sampling on one
+     of its pairs with a quality order by descriptor distance, and
+     `sprt_evaluate`, each under torch.profiler.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 and K35 (and
 K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
@@ -192,13 +209,16 @@ and K40 (and on the full-size rig scene K8 and K9), `vocab_tree_builder` K28 and
 `vocab_tree_pairs` K28, K29 and K31, `vocab_tree_retriever` and `vocab_tree_matcher` K30 (the
 matcher also K5, K7 and K10-K12 on the rendered frames), the fisheye and
 mixed mappers K1-K3, K5-K9 and K34-K36, `exhaustive_matcher` on 360-degree
-frames K5, K10, K32 and K33.
+frames K5, K10, K32 and K33, affine `run_feature_extraction` K13-K16 and
+K45, the DEGENSAC block K11, K12 and K46, the MSAC matcher K5, K7 and
+K10-K12, `sprt_evaluate` K47.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 dense,mesh_kernels,mesh`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
 retrieval_kernels,retrieval`, `--phases camera_kernels,cameras` or
-`--phases solver_kernels` (or any subset of the phases) runs a subset
+`--phases solver_kernels` or `--phases options_kernels,options` (or any
+subset of the phases) runs a subset
 while developing and prints no result; the kernels line needs them all.
 """
 
@@ -1561,8 +1581,9 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import sift as KS
     from colmap_tpu_torch.kernels import solver as KL
     from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import sprt as KW
 
-    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP
+    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP, KW
 
 
 def all_launch_counts():
@@ -1670,7 +1691,7 @@ def run_mapper(db_path, out, label, min_launches=True):
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
-              and k not in CAMERA_SOURCES and k not in MESH_SOURCES
+              and k not in CAMERA_SOURCES and k not in MESH_SOURCES and k not in OPTIONS_SOURCES
               and k not in ("structure_less_ransac", "gen_abs_refine")]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
@@ -5619,9 +5640,678 @@ def phase_solver_kernels():
     return errs, rows, agree
 
 
+# ---------------------------------------------------------------------------
+# Options of the front end and of RANSAC: K45-K47, the MSAC mode, shapes.
+# ---------------------------------------------------------------------------
+
+OPTIONS_SOURCES = {
+    "sift_affine_shape": ("colmap_tpu_torch/csrc/sift_affine_shape.cu",
+                          "colmap_tpu/feature/sift.py:472"),
+    "degensac": ("colmap_tpu_torch/csrc/degensac.cu", "colmap_tpu/estimators/degensac.py:70"),
+    "sprt": ("colmap_tpu_torch/csrc/sprt.cu", "colmap_tpu/optim/sprt.py:53"),
+}
+# K45 against float64: five Baumberg iterations feed float32 moment sums
+# back into A. Shapes within K45_ATOL, except keypoints whose float64 shape
+# (before the guard) has its largest entry within K45_GUARD_TIE of 8.
+K45_ATOL, K45_GUARD_TIE = 1e-3, 1e-3
+# Flops a sample and iteration of K45: the warped position (4), two
+# bilinear gradient samples (~28), A^T grad (6), the Gaussian weight (~12),
+# the three moments (6).
+K45_SAMPLE_OPS = 56
+# Phase options_kernels' shapes: 8192 rows (the matcher's keypoints a
+# frame); K46's 256 hypotheses (colmap_tpu's num_pair_hypotheses); MSAC on
+# a matcher-phase block of 8 pairs and on a 64-pair 360-degree block, 128
+# samples a pair; K47 on 256 hypotheses of that block's first pair.
+OPT_ROWS, DEG_HYPOTHESES, MSAC_PAIRS, MSAC_SAMPLES = 8192, 256, 8, 128
+# MSAC scores of the kernel's models against a float64 score of the same
+# models (float32 residuals summed in another order); two bests are a
+# near-tie where the float64 score of the kernel's pick lies within
+# MSAC_TIE of the plain best (K32's float32 five-point solve on noisy rays
+# moved a pick's score by 1.06e-3 of the best on an H100; its count check
+# allows n // 1000 rows),
+# K46's where their float64 supports lie within K46_TIE_ROWS rows; K47's
+# decisions may differ where a running float64 sum lies within K47_TIE of
+# log A.
+MSAC_RTOL, MSAC_TIE, K46_TIE_ROWS, K47_TIE = 1e-5, 2e-3, OPT_ROWS // 1000, 1e-9
+# K33 computes its residual as |h - q|^2 of float32 unit rays: at a 4 px
+# threshold (1.9e-5 rad^2) that holds ~1e-4 of a residual; an H100 run
+# measured 7.9e-5 of a near-best score.
+MSAC_RTOL_K33 = 5e-4
+# f32 operations: K46 per hypothesis (two parallax lines, the epipole,
+# [e]x H and its norm) ~150, per row the epipolar distance ~20; MSAC adds
+# two per row and model to K7's, K11's, K12's, K32's and K33's counts (see
+# phases sfm, matching, camera_kernels); K47 per evaluated row a compare, a
+# select and the scan's float64 adds (~8).
+K46_HYP_OPS, K46_ROW_OPS, K47_ROW_OPS = 150, 20, 8
+# Phase options: 64 uncalibrated pairs of 8192 matches, 80% on a dominant
+# plane, 15% off it, 5% random; the final F keeps at least DEG_KEEP_OFF of
+# the planted off-plane matches. Affine SIFT: the count within
+# AFFINE_COUNT_TOL of the CPU path's on a 768 x 576 crop; a view stretched
+# STRETCH times in x matches at least STRETCH_GAIN times as well with
+# affine shapes as without (tests/test_features.py:169's check).
+DEG_PAIRS, DEG_PLANE, DEG_OFF, DEG_KEEP_OFF = 64, 0.80, 0.15, 0.95
+AFFINE_CROP, AFFINE_COUNT_TOL, STRETCH, STRETCH_GAIN = (768, 576), 0.01, 1.6, 1.2
+OPTIONS_STATE = {}
+
+
+def _options_views():
+    """The four rendered 3072 x 2304 views of phases options_kernels and
+    options (BASELINE.json config 1's size), rendered once."""
+    if "dir" not in OPTIONS_STATE:
+        from colmap_tpu_torch.kernels import sift_cases as SC
+
+        d = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        _, names, _ = SC.render_scene(d, EXTRACT_VIEWS, SIFT_POINTS, SIFT_W, SIFT_H,
+                                      1.25 * SIFT_W)
+        OPTIONS_STATE.update(dir=d, names=names)
+        log(f"  {EXTRACT_VIEWS} rendered {SIFT_W} x {SIFT_H} views "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return OPTIONS_STATE["dir"], OPTIONS_STATE["names"]
+
+
+def _view(i):
+    from colmap_tpu_torch.utils.image_io import read_image_gray
+
+    d, names = _options_views()
+    return read_image_gray(os.path.join(d, names[i]))
+
+
+def _options_sift(errs, rows, entries):
+    """K45 and K15, K16 on affine frames at octave 0 of view 0."""
+    from colmap_tpu_torch.feature import sift as FS
+    from colmap_tpu_torch.kernels import sift as KS
+
+    img = torch.from_numpy(_view(0)).to("cuda").float() / 255.0
+    opts = FS.SiftOptions(estimate_affine_shape=True)
+    gauss, dog = KS.build_octave(KS.blur(KS.upsample2(img), opts.sigma0), opts)
+    ext = KS.detect_extrema(dog, opts)
+    del dog
+    sel = KS.select_candidates(ext, opts.max_candidates_per_octave)
+    x, y, lvl, sigma, resp = KS.selected_keypoints(ext, sel)
+    K_, g64 = len(sel), gauss.double()
+    x64, y64, s64 = x.double(), y.double(), sigma.double()
+    shapes = KS.affine_shapes(gauss, x, y, lvl, sigma, opts)
+    raw = KS.affine_shapes_plain(g64, x64, y64, lvl, s64, opts, guard=False)
+    ref = KS.affine_shapes_plain(g64, x64, y64, lvl, s64, opts)
+    near = torch.isfinite(raw).all(dim=(1, 2)) & (
+        (raw.abs().amax(dim=(1, 2)) - 8.0).abs() <= K45_GUARD_TIE)
+    err = (shapes.double() - ref).abs().amax(dim=(1, 2))
+    worst = float(err[~near].max())
+    errs["sift_affine_shape"].append((worst, worst / float(ref.abs().max())))
+    guarded = int((~(torch.isfinite(raw).all(dim=(1, 2)) & (raw.abs().amax(dim=(1, 2)) < 8))).sum())
+    log(f"  K45: {K_} keypoints of octave 0, {guarded} at the guard (identity), {int(near.sum())} "
+        f"within {K45_GUARD_TIE:g} of it; shapes within {worst:.3e} of float64 (tol "
+        f"{K45_ATOL:g}), median {float(err.median()):.3e}; largest |A| entry "
+        f"{float(ref.abs().max()):.3f}")
+    if not worst <= K45_ATOL:
+        raise AssertionError(f"K45: shapes differ from float64 by {worst:.3e}")
+    # K15 and K16 on the kernel's shapes.
+    n_ori = opts.max_num_orientations
+    theta, ok = KS.orientations(gauss, x, y, lvl, sigma, opts, shapes)
+    sh64 = shapes.double()
+    theta_p, ok_p = KS.orientations_plain(g64, x64, y64, lvl, s64, opts, sh64)
+    hist = KS.orientation_histograms_plain(g64, x64, y64, lvl, s64, sh64)
+    clear = orientation_margin(hist, n_ori) > 1e-4
+    agree = (ok == ok_p).all(dim=1)
+    dth = torch.remainder(theta.double() - theta_p + math.pi, 2 * math.pi) - math.pi
+    both = ok & ok_p & agree[:, None]
+    th_err = float(dth[both].abs().max())
+    errs["sift_orientation"].append((th_err, th_err / math.pi))
+    log(f"  K15 on affine frames: {int(ok.sum())} orientations; ok rows differ on "
+        f"{int((~agree).sum())} keypoints ({int((~agree & clear).sum())} with a margin above "
+        f"1e-4); theta max error {th_err:.3e} rad (tol {K15_RAD:g})")
+    if int((~agree & clear).sum()) or not th_err <= K15_RAD:
+        raise AssertionError("K15 on affine frames: orientations differ")
+    data, desc = KS.descriptors(gauss, x, y, lvl, sigma, resp, theta, ok, opts, shapes)
+    data_p, _, desc_p = KS.descriptors_plain(g64, x64, y64, lvl, s64, resp.double(),
+                                             theta.double(), opts, sh64)
+    okr = ok.reshape(-1)
+    dd = (desc[okr].int() - desc_p[okr].int()).abs()
+    counts = int(dd.max())
+    errs["sift_descriptor"].append((float(counts), counts / 255.0))
+    log(f"  K16 on affine frames: {int(okr.sum())} rows, descriptors within {counts} count "
+        f"(tol {K16_COUNTS}), {float((dd == 0).double().mean()):.6f} of entries equal")
+    check("K16 affine rows (x, y, sigma, theta, response, frame)", data[okr], data_p[okr], 1e-5,
+          errs["sift_descriptor"])
+    if counts > K16_COUNTS:
+        raise AssertionError("K16 on affine frames: descriptors differ by more than one count")
+    log("  times at octave 0 (6144 x 4608) with estimate_affine_shape:")
+    frames = sigma[:, None, None] * shapes
+    iters = opts.affine_shape_iterations
+    rows["sift_affine_shape"] = _sift_row(
+        "sift_affine_shape", lambda: KS.affine_shapes(gauss, x, y, lvl, sigma, opts),
+        lambda: KS.affine_shapes_plain(gauss, x, y, lvl, sigma, opts),
+        sampled_level_bytes(gauss.shape, x, y, lvl, frames) + 36 * K_,
+        K45_SAMPLE_OPS * 256 * iters * K_)
+    ori_bytes = sampled_level_bytes(gauss.shape, x, y, lvl, frames)
+    entries["sift_orientation"]["affine frames, octave 0"] = _entry_row(
+        "sift_orientation, affine frames", lambda: KS.orientations(gauss, x, y, lvl, sigma, opts, shapes),
+        lambda: KS.orientations_plain(gauss, x, y, lvl, sigma, opts, shapes),
+        ori_bytes + 36 * K_ + 5 * ok.numel(), SIFT_SAMPLE_OPS * 256 * K_)
+    rr = okr.nonzero().flatten() // n_ori
+    th = theta.reshape(-1)[okr]
+    c, s = torch.cos(th), torch.sin(th)
+    rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+    desc_bytes = sampled_level_bytes(gauss.shape, x[rr], y[rr], lvl[rr],
+                                     sigma[rr, None, None] * (shapes[rr] @ rot))
+    entries["sift_descriptor"]["affine frames, octave 0"] = _entry_row(
+        "sift_descriptor, affine frames", lambda: KS.descriptors(gauss, x, y, lvl, sigma, resp, theta, ok, opts, shapes),
+        lambda: KS.descriptors_plain(gauss, x, y, lvl, sigma, resp, theta, opts, shapes),
+        desc_bytes + 40 * K_ + 4 * theta.numel() + ok.numel() + (36 + 128) * theta.numel(),
+        (SIFT_SAMPLE_OPS * 256 + 8 * 4 * 256) * len(rr))
+
+
+def _entry_row(label, fn, plain, bytes_moved, ops, reps=10, plain_reps=3, ops64=0):
+    ms, plain_ms = time_ms(fn, reps=reps), time_ms(plain, reps=plain_reps)
+    b_ms, by = bound64(bytes_moved, ops64) if ops64 else bound(bytes_moved, ops)
+    log(f"    {label}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+
+
+def _msac_checks(tag, name, propose, propose_p, residual, case, errs, pieces, rtol=MSAC_RTOL):
+    """The MSAC mode of one propose-and-score kernel on a block, against
+    float64 in pieces of ``pieces`` pairs: the kernel's scores of its
+    near-best models (a float64 score of at least 90% of the pair's best)
+    against a float64 score of the same models, relative to each (a
+    degenerate model's float32 residuals can be off by px^2 on single rows,
+    so the largest error over all models is logged, not gated); its counts
+    against a float64 count (up to rows within 2% of the threshold); its
+    best against the plain version's (the same index or a near-tie).
+    Returns the block's args and (pairs with the same best, pairs)."""
+    from colmap_tpu_torch.kernels.sfm_cases import as_double
+    from colmap_tpu_torch.optim.ransac import score_models
+
+    c = case
+    args = (c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+    mk, ck, bk, sk = propose(*args, msac=True)
+    B = c["x1"].shape[0]
+    worst_s, worst_a, worst_all, moved, same, ties = 0.0, 0.0, 0.0, 0, 0, 0
+    for lo in range(0, B, pieces):
+        sl = slice(lo, min(B, lo + pieces))
+        piece = {k: (v[sl] if torch.is_tensor(v) and v.dim() else v) for k, v in c.items()}
+        d = as_double(piece)
+        sq = d["max_sq"]
+        mp, cp, bp, sp = propose_p(d["x1"], d["x2"], d["mask"], d["samples"], sq, msac=True)
+        for j, b in enumerate(range(sl.start, sl.stop)):
+            s_b = float(sq[j]) if torch.is_tensor(sq) else sq
+            m64 = mk[b].double()
+            res = residual(m64[:, None], d["x1"][j][None], d["x2"][j][None])
+            cnt64, s64 = score_models(m64, res, d["mask"][j], s_b, True)
+            err = (sk[b].double() - s64).abs()
+            rel = err / s64.clamp(min=1e-30)
+            top = s64 >= 0.9 * s64.max()
+            worst_a = max(worst_a, float(err[top].max()))
+            worst_s = max(worst_s, float(rel[top].max()))
+            worst_all = max(worst_all, float(err.max() / s64.max()))
+            fin = torch.isfinite(m64.flatten(1)).all(1)
+            border = ((torch.where(d["mask"][j], res, torch.inf) - s_b).abs()
+                      <= 0.02 * s_b).sum(-1)
+            moved += int(((ck[b] - cnt64).abs() > border)[fin].sum())
+            ik = 0xFFFFFFFF - (int(bk[b]) & 0xFFFFFFFF)
+            ip = 0xFFFFFFFF - (int(bp[j]) & 0xFFFFFFFF)
+            if ik != int(torch.argmax(sk[b])):
+                raise AssertionError(f"{tag} MSAC: pair {b}'s packed best is not the first "
+                                     "largest score")
+            if ik == ip:
+                same += 1
+            elif float(s64[ik]) >= (1 - MSAC_TIE) * float(sp[j, ip]):
+                ties += 1
+            else:
+                raise AssertionError(f"{tag} MSAC: pair {b}'s best {ik} (float64 score "
+                                     f"{float(s64[ik]):.6g}) vs plain {ip} ({float(sp[j, ip]):.6g})")
+        del mp, cp, bp, sp
+    errs[name].append((worst_a, worst_s))
+    log(f"  {tag} MSAC on {B} pairs x {c['x1'].shape[1]} rows x {c['samples'].shape[1]} samples: "
+        f"near-best scores within {worst_s:.3e} of float64 (tol {rtol:g}; all models "
+        f"{worst_all:.3e} of the best score); counts beyond the "
+        f"threshold's 2% on {moved} models; best: {same} pairs the same, {ties} near-ties")
+    if not worst_s <= rtol or moved:
+        raise AssertionError(f"{tag} MSAC: scores or counts differ from float64")
+    return args, [same, same + ties]
+
+
+def _options_msac(errs, entries):
+    """The MSAC mode of K7, K11, K12 (a matcher-phase block of 8 pairs x 8192
+    matches) and K32, K33 (a 64-pair x 8192-ray 360-degree block)."""
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_transfer_error
+    from colmap_tpu_torch.geometry.essential import sampson_error, squared_epipolar_line_distance
+    from colmap_tpu_torch.geometry.spherical import (angular_sampson_error,
+                                                     homography_ray_angular_error)
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.kernels import sfm as K
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+
+    out = {}
+    for tag, name, kind, propose, propose_p, residual, sample_ops, row_ops, sols in (
+            ("K7", "essential_ransac", "E", K.essential_propose_score,
+             K.essential_propose_score_plain, sampson_error, SPH_E_SAMPLE_OPS, 27, 10),
+            ("K11", "fundamental_ransac", "F", KM.fundamental_propose_score,
+             KM.fundamental_propose_score_plain, squared_epipolar_line_distance, 4000, 22, 3),
+            ("K12", "homography_ransac", "H", KM.homography_propose_score,
+             KM.homography_propose_score_plain, homography_transfer_error, 4000, 22, 1),
+            ("K32", "spherical_e_ransac", "sE", KQ.spherical_e_propose_score,
+             KQ.spherical_e_propose_score_plain, angular_sampson_error, SPH_E_SAMPLE_OPS,
+             SPH_E_ROW_OPS + 2, 10),
+            ("K33", "spherical_h_ransac", "sH", KQ.spherical_h_propose_score,
+             KQ.spherical_h_propose_score_plain, homography_ray_angular_error, SPH_H_SAMPLE_OPS,
+             SPH_H_ROW_OPS + 2, 1)):
+        if kind.startswith("s"):
+            case = Q.ray_block_case(kind[1], SPH_PAIRS, SPH_ROWS, MSAC_SAMPLES, 4, "cuda")
+            pieces = SPH_PLAIN_PAIRS
+        else:
+            case = C.two_view_block_case(kind, MSAC_PAIRS, OPT_ROWS, MSAC_SAMPLES, 3, "cuda")
+            pieces = MSAC_PAIRS
+        args, same_best = _msac_checks(tag, name, propose, propose_p, residual, case, errs,
+                                       pieces, MSAC_RTOL_K33 if tag == "K33" else MSAC_RTOL)
+        if kind == "F":
+            out["F"] = case
+        B, k = case["x1"].shape[0], case["samples"].shape[1]
+        valid = float(case["mask"].sum())
+        ms = time_ms(lambda: propose(*args, msac=True), reps=10)
+        plain_ms = 0.0
+        for lo in range(0, B, pieces):
+            piece = [a[lo:lo + pieces] if torch.is_tensor(a) and a.dim() else a for a in args]
+            plain_ms += time_ms(lambda: propose_p(*piece, msac=True), reps=1)
+        b_ms, by = bound(nbytes(*args[:4]) + B * k * sols * 48 + 8 * B,
+                         B * k * sample_ops + k * sols * valid * row_ops)
+        entries[name][f"msac, {B} pairs x {case['x1'].shape[1]} rows x {k} samples"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, same_best=same_best)
+        log(f"    {name} MSAC: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {by})")
+    return out
+
+
+def _degensac_case(n, seed):
+    """One uncalibrated pair of n pixel matches (1024 x 768): DEG_PLANE on
+    a plane, DEG_OFF off it, the rest random; returns x1, x2 (n, 2) float64
+    numpy, the planted rows' kind (0 plane, 1 off the plane, 2 random)."""
+    from colmap_tpu_torch.kernels import matching_cases as C
+
+    rng = np.random.default_rng(seed)
+    n_plane, n_off = int(DEG_PLANE * n), int(DEG_OFF * n)
+    p = C.two_view_case("H", n, 2, seed, "cpu", outliers=0.0, valid=n)
+    g = C.two_view_case("F", n, 2, seed + 1, "cpu", outliers=0.0, valid=n)
+    x1 = np.concatenate([p["x1"][:n_plane].numpy(), g["x1"][n_plane:].numpy()]).astype(np.float64)
+    x2 = np.concatenate([p["x2"][:n_plane].numpy(), g["x2"][n_plane:].numpy()]).astype(np.float64)
+    kind = np.zeros(n, dtype=np.int64)
+    kind[n_plane:n_plane + n_off] = 1
+    kind[n_plane + n_off:] = 2
+    x2[kind == 2] = rng.uniform(0, [C.WIDTH, C.HEIGHT], (int((kind == 2).sum()), 2))
+    perm = rng.permutation(n)
+    return x1[perm], x2[perm], kind[perm]
+
+
+def _options_degensac(errs, rows, agree):
+    """K46 at 8192 rows x 256 hypotheses against float64."""
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_dlt
+    from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels.matching_cases import MAX_SQ_PX
+
+    x1n, x2n, kind = _degensac_case(OPT_ROWS, 11)
+    rng = np.random.default_rng(12)
+    off = np.flatnonzero(kind != 0)  # the pool: rows the plane's H does not explain
+    ia = torch.from_numpy(off[rng.integers(0, len(off), DEG_HYPOTHESES)].astype(np.int32)).cuda()
+    ib = torch.from_numpy(off[rng.integers(0, len(off), DEG_HYPOTHESES)].astype(np.int32)).cuda()
+    x1d, x2d = torch.from_numpy(x1n).cuda(), torch.from_numpy(x2n).cuda()
+    mask = torch.ones(OPT_ROWS, dtype=torch.bool, device="cuda")
+    H64 = homography_dlt(x1d[torch.from_numpy(kind == 0).cuda()],
+                         x2d[torch.from_numpy(kind == 0).cuda()])
+    x1, x2, H = x1d.float().contiguous(), x2d.float().contiguous(), H64.float().contiguous()
+    Fs, counts, best = KM.degensac_propose_score(x1, x2, mask, H, ia, ib, MAX_SQ_PX)
+    Fp, cp, bp = KM.degensac_propose_score_plain(x1.double(), x2.double(), mask, H.double(), ia,
+                                                 ib, MAX_SQ_PX)
+    (sk, ik), (sp, ip) = [(int(v) >> 32, 0xFFFFFFFF - (int(v) & 0xFFFFFFFF)) for v in (best, bp)]
+    res = squared_epipolar_line_distance(Fs.double()[:, None], x1.double()[None],
+                                         x2.double()[None])
+    fin = torch.isfinite(Fs.flatten(1)).all(1) & (ia != ib)
+    border = ((res - MAX_SQ_PX).abs() <= 0.02 * MAX_SQ_PX).sum(-1)
+    moved = int(((counts - (res <= MAX_SQ_PX).sum(-1)).abs() > border)[fin].sum())
+    near = torch.nonzero(cp >= 0.9 * sp).flatten()
+    sign = torch.sign((Fs.double()[near] * Fp[near]).flatten(1).sum(1))[:, None, None]
+    e = (Fs.double()[near] * sign - Fp[near]).abs().flatten(1).amax(1)
+    good = int((e <= K67_RTOL).sum())
+    errs["degensac"].append((float(e.max()), float(e.max())))
+    agree["degensac"] = (good, len(near))
+    tie = abs(int(cp[ik]) - int(cp[ip])) <= K46_TIE_ROWS
+    log(f"  K46, {OPT_ROWS} rows x {DEG_HYPOTHESES} hypotheses: best {ik} (support {sk}) vs "
+        f"plain {ip} ({sp}){'' if ik == ip else f', a near-tie: {tie}'}; counts beyond the "
+        f"threshold's 2% on {moved} hypotheses; {good} of {len(near)} near-best hypotheses "
+        f"within {K67_RTOL:g} of float64 (largest {float(e.max()):.3e}); "
+        f"{int((ia == ib).sum())} with ia = ib")
+    if (ik != ip and not tie) or moved or good < 0.8 * len(near) or int(counts[ia == ib].sum()):
+        raise AssertionError("K46 differs from its float64 plain version")
+    ops = DEG_HYPOTHESES * K46_HYP_OPS + DEG_HYPOTHESES * OPT_ROWS * K46_ROW_OPS
+    rows["degensac"] = _entry_row(
+        "degensac", lambda: KM.degensac_propose_score(x1, x2, mask, H, ia, ib, MAX_SQ_PX),
+        lambda: KM.degensac_propose_score_plain(x1, x2, mask, H, ia, ib, MAX_SQ_PX),
+        nbytes(x1, x2, mask, H, ia, ib, Fs, counts, best), ops)
+    rows["degensac"]["library_ms"] = None
+
+
+def _options_sprt(errs, rows, case):
+    """K47 on 256 hypotheses x 8192 rows: F models of random 7-point samples
+    of the MSAC block's first pair and their squared epipolar distances."""
+    from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import sprt as KP
+    from colmap_tpu_torch.kernels.matching_cases import MAX_SQ_PX
+    from colmap_tpu_torch.optim.sprt import SPRTOptions, decision_threshold
+
+    x1, x2, mask = case["x1"][0], case["x2"][0], case["mask"][0]
+    valid = int(mask.sum())
+    samples = torch.from_numpy(np.random.default_rng(9).integers(
+        0, valid, (DEG_HYPOTHESES, 7)).astype(np.int32)).cuda()
+    models, _, _ = KM.fundamental_propose_score(x1, x2, mask, samples, MAX_SQ_PX)
+    models = models[torch.isfinite(models.flatten(1)).all(1)][:DEG_HYPOTHESES]
+    res = squared_epipolar_line_distance(models[:, None], x1[None], x2[None]).contiguous()
+    o = SPRTOptions()
+    args = (MAX_SQ_PX, math.log(decision_threshold(o)), math.log(o.delta / o.epsilon),
+            math.log((1 - o.delta) / (1 - o.epsilon)))
+    acc, num = KP.sprt(res, mask, *args)
+    acc_p, num_p = KP.sprt_plain(res, mask, *args)
+    steps = KP.sprt_steps(res, mask, MAX_SQ_PX, args[2], args[3])
+    near = ((torch.cumsum(steps, -1) - args[1]).abs() <= K47_TIE).any(-1)
+    diff = (acc != acc_p) | (num != num_p)
+    worst = float((num - num_p).abs()[~near].max())
+    errs["sprt"].append((worst, worst / res.shape[1]))
+    log(f"  K47, {res.shape[0]} hypotheses x {res.shape[1]} rows: {int(acc.sum())} accepted, "
+        f"rows evaluated {int(num.sum())} of {num.numel() * res.shape[1]}; decisions differ on "
+        f"{int(diff.sum())} ({int((diff & ~near).sum())} away from a near-tie, {int(near.sum())} "
+        f"near-ties)")
+    if int((diff & ~near).sum()):
+        raise AssertionError("K47 differs from its float64 plain version")
+
+    def library():
+        return torch.argmax((torch.cumsum(steps, -1) > args[1]).to(torch.uint8), -1)
+
+    bytes_moved = 4 * int(num.long().sum()) + mask.numel() + 5 * res.shape[0]
+    row = _entry_row("sprt", lambda: KP.sprt(res, mask, *args),
+                     lambda: KP.sprt_plain(res, mask, *args),
+                     bytes_moved, 0, ops64=K47_ROW_OPS * int(num.long().sum()))
+    row["library_ms"] = time_ms(library, reps=10)
+    log(f"    sprt: torch.cumsum + argmax on the float64 steps {row['library_ms']:.4f} ms")
+    rows["sprt"] = row
+
+
+def phase_options_kernels():
+    """K45 (and K15, K16 on affine frames), K46, the MSAC mode of K7, K11,
+    K12, K32 and K33, and K47 against their plain versions (float64 on the
+    same inputs), timed with CUDA events at the paths' shapes. Returns
+    (errs, rows, agree, entries); entries hold the extended kernels' new
+    modes."""
+    names = (*OPTIONS_SOURCES, "sift_orientation", "sift_descriptor", "essential_ransac",
+             "fundamental_ransac", "homography_ransac", "spherical_e_ransac",
+             "spherical_h_ransac")
+    errs = {k: [] for k in names}
+    entries = {k: {} for k in names[3:]}
+    rows, agree = {}, {}
+    log("option kernels vs plain (float64 on the same inputs):")
+    for label, step in (("K45, K15, K16 on affine frames", lambda: _options_sift(errs, rows,
+                                                                                  entries)),
+                        ("K46", lambda: _options_degensac(errs, rows, agree)),
+                        ("MSAC", lambda: OPTIONS_STATE.update(msac=_options_msac(errs, entries))),
+                        ("K47", lambda: _options_sprt(errs, rows, OPTIONS_STATE["msac"]["F"]))):
+        t0 = time.perf_counter()
+        step()
+        log(f"  ({label}: {time.perf_counter() - t0:.1f} s)")
+    OPTIONS_STATE.pop("msac", None)
+    torch.cuda.synchronize()
+    return errs, rows, agree, entries
+
+
+def _driven(label, fn, kernels, launches):
+    """Run fn with every launch count at 0 before, under torch.profiler;
+    adds its launches, fails if a kernel of ``kernels`` did not launch;
+    returns (result, seconds, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = all_launch_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    busy_ms, by_name = device_busy(prof)
+    idle = log_busy(label, busy_ms, by_name, dt * 1e3, top=6)
+    log(f"  {label}: {dt:.3f} s, idle share {'not measured' if idle is None else f'{idle:.4f}'}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: launched no {missing}")
+    return out, dt, idle
+
+
+def _stretch_rate(img, img_s, opts):
+    """tests/test_features.py:169's measure: matches (ratio 0.9) between a
+    view and the view stretched STRETCH times in x that land within 4 px of
+    the known stretch, over the view's keypoints."""
+    from colmap_tpu_torch.feature.matcher import MatchingOptions, match_descriptors
+    from colmap_tpu_torch.feature.sift import extract_sift
+
+    kp1, d1 = extract_sift(img, opts, device="cuda")
+    kp2, d2 = extract_sift(img_s, opts, device="cuda")
+    m = match_descriptors(d1, d2, MatchingOptions(max_ratio=0.9), device="cuda").astype(np.int64)
+    p1, p2 = kp1[m[:, 0], :2], kp2[m[:, 1], :2]
+    good = (np.abs(p1[:, 0] * STRETCH - p2[:, 0]) < 4.0) & (np.abs(p1[:, 1] - p2[:, 1]) < 4.0)
+    return float(good.sum()) / max(len(kp1), 1), len(kp1), len(m)
+
+
+def _options_affine(launches, results):
+    """run_feature_extraction with estimate_affine_shape on the four views,
+    the crop's count against the CPU path, and the stretch check."""
+    from colmap_tpu_torch.controllers.feature_pipeline import run_feature_extraction
+    from colmap_tpu_torch.feature.sift import SiftOptions, extract_sift
+    from colmap_tpu_torch.scene.database import Database
+
+    d, names = _options_views()
+    opts = SiftOptions(estimate_affine_shape=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        db = Database(os.path.join(tmp, "affine.db"))
+        _, dt, idle = _driven(
+            "run_feature_extraction, estimate_affine_shape, 4 views",
+            lambda: run_feature_extraction(db, d, sift_options=opts, device="cuda"),
+            (*SIFT_SOURCES, "sift_affine_shape"), launches)
+        kps = [db.read_keypoints(iid) for iid, _, _ in db.read_images()]
+        db.close()
+    if not all(k.shape[1] == 6 and len(k) > 1000 for k in kps):
+        raise AssertionError(f"affine extraction: keypoint shapes {[k.shape for k in kps]}")
+    log(f"  {len(kps)} images in {dt:.3f} s = {len(kps) / dt:.3f} images/s on "
+        f"{nvidia_smi_line()}; 6-column frames, keypoints per image {[len(k) for k in kps]}")
+    results["affine_extraction"] = dict(seconds=dt, idle_share=idle,
+                                        keypoints=[len(k) for k in kps])
+    view = _view(0)
+    w, h = AFFINE_CROP
+    y0, x0 = (view.shape[0] - h) // 2, (view.shape[1] - w) // 2
+    crop = np.ascontiguousarray(view[y0:y0 + h, x0:x0 + w])
+    t0 = time.perf_counter()
+    uncut = SiftOptions(estimate_affine_shape=True, max_num_features=1 << 20)
+    kc, _ = extract_sift(crop, uncut, device="cuda")
+    kp, _ = extract_sift(crop, uncut, device="cpu")
+    log(f"  a {w} x {h} crop of view 0, no cut to max_num_features: {len(kc)} affine keypoints "
+        f"on the card, {len(kp)} on the CPU path ({time.perf_counter() - t0:.1f} s)")
+    if abs(len(kc) - len(kp)) > AFFINE_COUNT_TOL * len(kp):
+        raise AssertionError("affine extraction: the crop's count differs from the CPU path's")
+    W = view.shape[1]
+    xs = np.arange(int(W * STRETCH)) / STRETCH
+    xi = np.clip(np.floor(xs).astype(int), 0, W - 2)
+    fx = (xs - xi).astype(np.float32)
+    v = view.astype(np.float32) / 255.0
+    stretched = v[:, xi] * (1 - fx) + v[:, xi + 1] * fx
+    t0 = time.perf_counter()
+    rate_a, n_a, m_a = _stretch_rate(v, stretched, opts)
+    rate_p, n_p, m_p = _stretch_rate(v, stretched, SiftOptions())
+    log(f"  stretch {STRETCH} in x at {W} x {view.shape[0]}: affine {rate_a:.4f} of {n_a} "
+        f"keypoints matched to the stretch ({m_a} matches), plain {rate_p:.4f} of {n_p} "
+        f"({m_p}); ratio {rate_a / max(rate_p, 1e-12):.3f} (gate > {STRETCH_GAIN}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    results["stretch"] = dict(affine=rate_a, plain=rate_p)
+    if not rate_a > STRETCH_GAIN * rate_p:
+        raise AssertionError("affine shapes do not match a stretched view better")
+
+
+def _options_degensac_pairs(launches, results):
+    """64 planted plane + parallax pairs through the block verifier with
+    use_degensac, each against estimate_two_view_geometry on it alone."""
+    from colmap_tpu_torch.estimators.two_view_batch import estimate_two_view_geometries_batched
+    from colmap_tpu_torch.estimators.two_view_geometry import (TwoViewGeometryOptions,
+                                                               estimate_two_view_geometry)
+    from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.scene.types import Camera
+
+    cam = Camera.create(1, 1, C.FOCAL, C.WIDTH, C.HEIGHT)  # PINHOLE, no prior focal length
+    items, kinds = [], []
+    for p in range(DEG_PAIRS):
+        x1, x2, kind = _degensac_case(OPT_ROWS, 100 + 2 * p)
+        items.append((cam, x1, cam, x2, np.stack([np.arange(OPT_ROWS)] * 2, 1).astype(np.uint32)))
+        kinds.append(kind)
+    opts = TwoViewGeometryOptions(use_degensac=True)
+    geoms, dt, idle = _driven(f"block verifier, use_degensac, {DEG_PAIRS} pairs x {OPT_ROWS}",
+                              lambda: estimate_two_view_geometries_batched(items, opts,
+                                                                           device="cuda"),
+                              ("degensac", "fundamental_ransac", "homography_ransac"), launches)
+    routed = all_launch_counts()["degensac"]
+    worst, configs = 1.0, {}
+    for (cam1, x1, cam2, x2, m), kind, g in zip(items, kinds, geoms):
+        if g.F is None:
+            raise AssertionError(f"DEGENSAC pair: config {g.config} without F")
+        d = squared_epipolar_line_distance(torch.from_numpy(g.F), torch.from_numpy(x1[kind == 1]),
+                                           torch.from_numpy(x2[kind == 1]))
+        worst = min(worst, float((d <= 16.0).double().mean()))
+        configs[g.config] = configs.get(g.config, 0) + 1
+    t0 = time.perf_counter()
+    for item, g in zip(items, geoms):
+        one = estimate_two_view_geometry(*item, opts, device="cuda")
+        if not (one.config == g.config and np.array_equal(one.inlier_matches, g.inlier_matches)
+                and np.array_equal(one.F, g.F)):
+            raise AssertionError("DEGENSAC pair: the block's result differs from the pair alone")
+    log(f"  {DEG_PAIRS} pairs ({DEG_PLANE:.0%} on a plane, {DEG_OFF:.0%} off it): {routed} "
+        f"H-degenerate pairs through DEGENSAC (one K46 launch each); configurations {configs}; "
+        f"the final F keeps at least {worst:.4f} of the planted off-plane matches (gate "
+        f"{DEG_KEEP_OFF}); each pair equals estimate_two_view_geometry alone "
+        f"({time.perf_counter() - t0:.1f} s)")
+    results["degensac"] = dict(seconds=dt, idle_share=idle, pairs_per_s=DEG_PAIRS / dt,
+                               degensac_pairs=routed, min_off_plane_kept=worst)
+    if routed != DEG_PAIRS or worst < DEG_KEEP_OFF:
+        raise AssertionError("DEGENSAC: a pair skipped DEGENSAC or lost its off-plane matches")
+
+
+def _options_matcher(launches, results):
+    """The matcher phase's scene with MSAC support, progressive sampling on
+    one pair, and the SPRT on that pair's hypotheses."""
+    from colmap_tpu_torch.controllers.feature_pipeline import (MatchingPipelineOptions,
+                                                               run_exhaustive_matching)
+    from colmap_tpu_torch.estimators.two_view_geometry import (TwoViewGeometryOptions,
+                                                               estimate_two_view_geometry)
+    from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.optim.sprt import sprt_evaluate
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.types import TwoViewGeometryConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        db_path, _ = make_scene(tmp, WIDE_FRAMES, WIDE_POINTS)
+        truth = strip_to_features(db_path)
+        log(f"  MSAC matcher: {WIDE_FRAMES} frames x {WIDE_POINTS} points, {len(truth)} pairs "
+            f"(set-up {time.perf_counter() - t0:.1f} s)")
+        base = TwoViewGeometryOptions()
+        msac = dataclasses.replace(base.ransac, support="m_estimator")
+        mopts = MatchingPipelineOptions(verification=dataclasses.replace(base, ransac=msac))
+        db = Database(db_path, must_exist=True)
+        verified, dt, idle = _driven("exhaustive matching, support m_estimator",
+                                     lambda: run_exhaustive_matching(db, mopts, device="cuda"),
+                                     MATCHER_KERNELS, launches)
+        worst = 1.0
+        for (a, b), gen in truth.items():
+            g = db.read_two_view_geometry(a, b)
+            gen = {tuple(r) for r in gen.tolist()}
+            inl = set() if g is None else {tuple(r) for r in g.inlier_matches.tolist()}
+            if not (g is not None and g.config == int(TwoViewGeometryConfig.CALIBRATED)
+                    and inl <= gen and len(inl) >= 0.99 * len(gen)):
+                raise AssertionError(f"MSAC pair ({a}, {b}): config {g and g.config}, "
+                                     f"{len(inl)} inliers of {len(gen)}")
+            worst = min(worst, len(inl) / len(gen))
+        log(f"  all {verified} pairs CALIBRATED with at least {worst:.4f} of the generator's "
+            f"matches as inliers and no other, in {dt:.3f} s = {verified / dt:.3f} pairs/s")
+        results["msac_matcher"] = dict(seconds=dt, idle_share=idle, pairs=verified,
+                                       min_inlier_share=worst)
+        # Progressive sampling on pair (1, 2), best first by descriptor distance.
+        cams = db.read_cameras()
+        imgs = {iid: cid for iid, _, cid in db.read_images()}
+        m = db.read_matches(1, 2).astype(np.int64)
+        kp1, kp2 = db.read_keypoints(1), db.read_keypoints(2)
+        d1, d2 = db.read_descriptors(1), db.read_descriptors(2)
+        dist = np.linalg.norm(d1[m[:, 0]].astype(np.float64) - d2[m[:, 1]].astype(np.float64),
+                              axis=1)
+        order = np.argsort(dist, kind="stable")
+        pair = (cams[imgs[1]], kp1, cams[imgs[2]], kp2, m.astype(np.uint32))
+        uniform = estimate_two_view_geometry(*pair, base, device="cuda")
+        prog_opts = dataclasses.replace(base, ransac=dataclasses.replace(
+            base.ransac, sampling="progressive"))
+        prog, dt_p, _ = _driven("progressive sampling, pair (1, 2)",
+                                lambda: estimate_two_view_geometry(*pair, prog_opts,
+                                                                   device="cuda",
+                                                                   quality_order=order),
+                                ("fundamental_ransac", "homography_ransac", "essential_ransac"),
+                                launches)
+        log(f"  progressive: config {prog.config} with {len(prog.inlier_matches)} inliers, "
+            f"uniform {uniform.config} with {len(uniform.inlier_matches)}, of {len(m)} matches")
+        if prog.config != uniform.config or prog.config != int(TwoViewGeometryConfig.CALIBRATED):
+            raise AssertionError("progressive sampling changed the configuration")
+        db.close()
+        # The SPRT on 256 F hypotheses of that pair (random 7-point samples).
+        x1 = torch.from_numpy(kp1[m[:, 0], :2]).cuda()
+        x2 = torch.from_numpy(kp2[m[:, 1], :2]).cuda()
+        mask = torch.ones(len(m), dtype=torch.bool, device="cuda")
+        samples = torch.from_numpy(np.random.default_rng(6).integers(
+            0, len(m), (DEG_HYPOTHESES, 7)).astype(np.int32)).cuda()
+        models, counts, _ = KM.fundamental_propose_score(x1, x2, mask, samples, 16.0)
+        fin = torch.isfinite(models.flatten(1)).all(1)
+        models, share = models[fin][:DEG_HYPOTHESES], (counts[fin][:DEG_HYPOTHESES] / len(m))
+        res = squared_epipolar_line_distance(models[:, None], x1[None], x2[None]).contiguous()
+        (acc, num), dt_s, _ = _driven("sprt_evaluate", lambda: sprt_evaluate(res, mask, 16.0),
+                                      ("sprt",), launches)
+        good, bad = share >= 0.5, share <= 0.02
+        log(f"  SPRT on {len(models)} F hypotheses x {len(m)} rows: {int(acc.sum())} accepted; "
+            f"all {int(good.sum())} with >= 50% support accepted: {bool(acc[good].all())}; all "
+            f"{int(bad.sum())} with <= 2% rejected: {bool((~acc[bad]).all())}, after "
+            f"{float(num[bad].double().mean()) if bad.any() else 0:.1f} rows on average")
+        if not (bool(acc[good].all()) and bool((~acc[bad]).all()) and good.any() and bad.any()):
+            raise AssertionError("SPRT: a good hypothesis rejected or a bad one accepted")
+        results["progressive"] = dict(seconds=dt_p, config=prog.config)
+        results["sprt"] = dict(seconds=dt_s, accepted=int(acc.sum()))
+
+
+def phase_options(launches):
+    """The options through the port's entry points on cuda: affine SIFT
+    through run_feature_extraction, DEGENSAC through the block verifier,
+    MSAC through the matcher, progressive sampling through
+    estimate_two_view_geometry, the SPRT through sprt_evaluate; each driven
+    with the launch counts at 0 before, under torch.profiler."""
+    results = {}
+    for label, step in (("affine SIFT", lambda: _options_affine(launches, results)),
+                        ("DEGENSAC", lambda: _options_degensac_pairs(launches, results)),
+                        ("MSAC, progressive, SPRT", lambda: _options_matcher(launches,
+                                                                             results))):
+        t0 = time.perf_counter()
+        step()
+        log(f"  ({label}: {time.perf_counter() - t0:.1f} s)")
+    return results
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
               "mesh_kernels", "mesh", "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
-              "camera_kernels", "cameras", "solver_kernels")
+              "camera_kernels", "cameras", "solver_kernels", "options_kernels", "options")
 
 
 def main():
@@ -5729,9 +6419,21 @@ def main():
         errs.update(l_errs)
         rows.update(l_rows)
         agree.update(l_agree)
+    opt_entries = {}
+    if "options_kernels" in phases:
+        o_errs, o_rows, o_agree, opt_entries = run("options_kernels", phase_options_kernels)
+        for k, v in o_errs.items():
+            errs.setdefault(k, []).extend(v)
+        rows.update(o_rows)
+        for k, v in o_agree.items():
+            agree.setdefault(k, v)
+    if "options" in phases:
+        run("options", lambda: phase_options(launches))
+    if "dir" in OPTIONS_STATE:
+        shutil.rmtree(OPTIONS_STATE["dir"], ignore_errors=True)
     log(f"seconds by phase: {seconds}")
     # Models 5-17 and mixed: the kernel's other inputs; K34's rig entries.
-    for name, ents in (*cam_entries.items(), *extra["entries"].items()):
+    for name, ents in (*cam_entries.items(), *extra["entries"].items(), *opt_entries.items()):
         if name in rows and ents:
             rows[name].setdefault("entries", {}).update(ents)
     for name, e in extra["errs"].items():
@@ -5739,7 +6441,7 @@ def main():
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
                **MESH_SOURCES, **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
-               **SOLVER_SOURCES}
+               **SOLVER_SOURCES, **OPTIONS_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

@@ -30,6 +30,13 @@
 //
 // Degenerate samples give NaN models, which score 0.
 //
+// MSAC (support="m_estimator"): propose_score and refit take an MSAC flag;
+// a model's score is then the sum of max(max_sq - r, 0) over its valid
+// rows, each lane summing its rows in order and the warp (refit: the block)
+// reducing in a fixed tree, packed as (score bits, index) and compared by
+// the refit, as in two_view_ransac.cuh. Without it the entries are the code
+// they were.
+//
 // Bound on the card: operations. Per sample the grid costs 1025 x 2
 // polynomial evaluations of degree 10 (~40 flops each) and the bisections
 // 9 x 24 + 28 x 28 evaluations with a sine and a cosine, about 10^5 flops;
@@ -57,6 +64,7 @@ __device__ __forceinline__ float sampson(const float* E, float u1, float v1, flo
   return r * r / fmaxf(a * a + b * b + at * at + bt * bt, 1e-30f);
 }
 
+template <bool MSAC>
 __global__ void essential_propose_score_kernel(int n, int k, float max_sq,
                                                const float* __restrict__ max_sq_arr,
                                                const float* __restrict__ x1,
@@ -66,7 +74,8 @@ __global__ void essential_propose_score_kernel(int n, int k, float max_sq,
                                                const unsigned char* __restrict__ active,
                                                float* __restrict__ models_out,
                                                int* __restrict__ counts_out,
-                                               unsigned long long* __restrict__ best) {
+                                               unsigned long long* __restrict__ best,
+                                               float* __restrict__ scores_out) {
   __shared__ FivePoint shared[kEWarps];
   const int pair = blockIdx.y;
   if (active != nullptr && !active[pair]) return;
@@ -79,6 +88,7 @@ __global__ void essential_propose_score_kernel(int n, int k, float max_sq,
   samples += (size_t)pair * k * 5;
   models_out += (size_t)pair * k * 90;
   counts_out += (size_t)pair * k * 10;
+  if (MSAC) scores_out += (size_t)pair * k * 10;
   best += pair;
   if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
   FivePoint& S = shared[warp];
@@ -105,7 +115,11 @@ __global__ void essential_propose_score_kernel(int n, int k, float max_sq,
   bool finite[10];
   for (int r = 0; r < 10; ++r) finite[r] = all_finite(S.models[r], 9);
   int cnt[10];
-  for (int r = 0; r < 10; ++r) cnt[r] = 0;
+  float sc[10];
+  for (int r = 0; r < 10; ++r) {
+    cnt[r] = 0;
+    sc[r] = 0.f;
+  }
   for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
     const bool ok = i < n && mask[i];
@@ -117,17 +131,35 @@ __global__ void essential_propose_score_kernel(int n, int k, float max_sq,
       v2 = x2[2 * i + 1];
     }
     for (int r = 0; r < 10; ++r) {
-      const bool in = ok && finite[r] && sampson(S.models[r], u1, v1, u2, v2) <= max_sq;
-      cnt[r] += __popc(__ballot_sync(kFull, in));
+      if constexpr (MSAC) {
+        const float res = ok && finite[r] ? sampson(S.models[r], u1, v1, u2, v2) : 0.f;
+        const bool in = ok && finite[r] && res <= max_sq;
+        cnt[r] += __popc(__ballot_sync(kFull, in));
+        sc[r] += in ? max_sq - res : 0.f;
+      } else {
+        const bool in = ok && finite[r] && sampson(S.models[r], u1, v1, u2, v2) <= max_sq;
+        cnt[r] += __popc(__ballot_sync(kFull, in));
+      }
     }
   }
+  if constexpr (MSAC)
+    for (int r = 0; r < 10; ++r) sc[r] = warp_sum(sc[r]);
   if (lane < 10) {
     int c = 0;
-    for (int r = 0; r < 10; ++r) c = r == lane ? cnt[r] : c;
+    float score = 0.f;
+    for (int r = 0; r < 10; ++r) {
+      c = r == lane ? cnt[r] : c;
+      score = r == lane ? sc[r] : score;
+    }
     const int idx = sample * 10 + lane;
     for (int e = 0; e < 9; ++e) models_out[idx * 9 + e] = S.models[lane][e];
     counts_out[idx] = c;
-    atomicMax(best, pack_best(c, idx));
+    if constexpr (MSAC) {
+      scores_out[idx] = score;
+      atomicMax(best, pack_best_score(score, idx));
+    } else {
+      atomicMax(best, pack_best(c, idx));
+    }
   }
 }
 
@@ -138,12 +170,15 @@ __device__ __forceinline__ bool e_inlier(const float* E, const float* x1, const 
   return mask[i] && sampson(E, x1[2 * i], x1[2 * i + 1], x2[2 * i], x2[2 * i + 1]) <= max_sq;
 }
 
+template <bool MSAC>
 __global__ void essential_refit_kernel(int n, float max_sq, const float* __restrict__ max_sq_arr,
                                        int count_in, const int* __restrict__ count_arr,
                                        const float* __restrict__ x1, const float* __restrict__ x2,
                                        const unsigned char* __restrict__ mask,
                                        const float* __restrict__ model_in,
-                                       float* __restrict__ model_out, int* __restrict__ count_out) {
+                                       float* __restrict__ model_out, int* __restrict__ count_out,
+                                       float score_in, const float* __restrict__ score_arr,
+                                       float* __restrict__ score_out) {
   __shared__ float scratch[32 * 45];
   __shared__ float refined[9];
   __shared__ bool refined_ok;
@@ -224,6 +259,27 @@ __global__ void essential_refit_kernel(int n, float max_sq, const float* __restr
   __syncthreads();
   float r[9];
   for (int e = 0; e < 9; ++e) r[e] = refined[e];
+  if constexpr (MSAC) {
+    if (score_arr != nullptr) score_in = score_arr[pair];
+    float sums[2] = {0.f, 0.f};  // count, score
+    if (refined_ok)
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        if (!mask[i]) continue;
+        const float res = sampson(r, x1[2 * i], x1[2 * i + 1], x2[2 * i], x2[2 * i + 1]);
+        if (res <= max_sq) {
+          sums[0] += 1.f;
+          sums[1] += max_sq - res;
+        }
+      }
+    block_sum<2>(sums, scratch);
+    if (threadIdx.x == 0) {
+      const bool take = refined_ok && sums[1] > score_in;
+      for (int e = 0; e < 9; ++e) model_out[e] = take ? r[e] : m[e];
+      count_out[0] = take ? (int)sums[0] : count_in;
+      score_out[pair] = take ? sums[1] : score_in;
+    }
+    return;
+  }
   float cnt[1] = {0.f};
   if (refined_ok)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
@@ -260,12 +316,16 @@ extern "C" int essential_propose_score_f32(int b, int n, int k, float max_sq,
                                            const float* x2, const unsigned char* mask,
                                            const int* samples, const unsigned char* active,
                                            float* models, int* counts, unsigned long long* best,
-                                           void* stream) {
+                                           int msac, float* scores, void* stream) {
   using namespace ctt;
   if (b == 0 || k == 0) return (int)cudaGetLastError();
   const dim3 grid((unsigned)((k + kEWarps - 1) / kEWarps), (unsigned)b);
-  essential_propose_score_kernel<<<grid, 32 * kEWarps, 0, (cudaStream_t)stream>>>(
-      n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best);
+  if (msac)
+    essential_propose_score_kernel<true><<<grid, 32 * kEWarps, 0, (cudaStream_t)stream>>>(
+        n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best, scores);
+  else
+    essential_propose_score_kernel<false><<<grid, 32 * kEWarps, 0, (cudaStream_t)stream>>>(
+        n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best, scores);
   return (int)cudaGetLastError();
 }
 
@@ -273,11 +333,18 @@ extern "C" int essential_refit_f32(int b, int n, float max_sq, const float* max_
                                    int count_in, const int* count_arr, const float* x1,
                                    const float* x2, const unsigned char* mask,
                                    const float* model_in, float* model_out, int* count_out,
-                                   void* stream) {
+                                   int msac, float score_in, const float* score_arr,
+                                   float* score_out, void* stream) {
   using namespace ctt;
   if (b == 0) return (int)cudaGetLastError();
-  essential_refit_kernel<<<b, kRefitThreads, 0, (cudaStream_t)stream>>>(
-      n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out);
+  if (msac)
+    essential_refit_kernel<true><<<b, kRefitThreads, 0, (cudaStream_t)stream>>>(
+        n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out,
+        score_in, score_arr, score_out);
+  else
+    essential_refit_kernel<false><<<b, kRefitThreads, 0, (cudaStream_t)stream>>>(
+        n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out,
+        0.f, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

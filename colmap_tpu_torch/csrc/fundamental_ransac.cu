@@ -29,6 +29,7 @@
 // read per batch leaves the card idle between launches; both are later work.
 #include <cuda_runtime.h>
 
+#include "epipolar.cuh"
 #include "two_view_ransac.cuh"
 
 namespace ctt {
@@ -88,11 +89,7 @@ struct Fundamental {
 
   __device__ __forceinline__ static float residual(const float* F, float u1, float v1, float u2,
                                                    float v2) {
-    const float a = F[0] * u1 + F[1] * v1 + F[2];
-    const float b = F[3] * u1 + F[4] * v1 + F[5];
-    const float c = F[6] * u1 + F[7] * v1 + F[8];
-    const float r = u2 * a + v2 * b + c;
-    return r * r / fmaxf(a * a + b * b, 1e-30f);
+    return epipolar_line_sq(F, u1, v1, u2, v2);
   }
 
   __device__ __forceinline__ static void accumulate(float u1, float v1, float u2, float v2,
@@ -126,8 +123,9 @@ CTT_TWO_VIEW_ENTRIES(fundamental, ctt::Fundamental, 4)
 extern "C" int fundamental_fit_f32(int b, int n, const float* x1, const float* x2,
                                    const unsigned char* rows, float* model_out, void* stream) {
   if (b == 0) return (int)cudaGetLastError();
-  ctt::two_view_refit_kernel<ctt::Fundamental, true>
+  ctt::two_view_refit_kernel<ctt::Fundamental, true, false>
       <<<b, ctt::kTwoViewRefitThreads, 0, (cudaStream_t)stream>>>(
-          n, 0.f, nullptr, 0, nullptr, x1, x2, rows, nullptr, model_out, nullptr);
+          n, 0.f, nullptr, 0, nullptr, x1, x2, rows, nullptr, model_out, nullptr, 0.f, nullptr,
+          nullptr);
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,14 @@ __device__ __forceinline__ unsigned long long pack_best(int count, int index) {
   return ((unsigned long long)(unsigned)count << 32) | (unsigned long long)(0xFFFFFFFFu - (unsigned)index);
 }
 
+// The packed best of an MSAC batch: the bits of the score (>= 0, so they
+// order as an unsigned int) in the high 32 bits, 0xFFFFFFFF - index in the
+// low 32 bits: one atomicMax keeps the first model of largest score.
+__device__ __forceinline__ unsigned long long pack_best_score(float score, int index) {
+  return ((unsigned long long)__float_as_uint(score) << 32) |
+         (unsigned long long)(0xFFFFFFFFu - (unsigned)index);
+}
+
 __device__ __forceinline__ bool all_finite(const float* x, int n) {
   bool ok = true;
   for (int i = 0; i < n; ++i) ok = ok && isfinite(x[i]);

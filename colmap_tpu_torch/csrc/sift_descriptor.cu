@@ -21,6 +21,11 @@
 //   - uint8: clip(rint(512 d), 0, 255) (rintf rounds half to even, as
 //     jnp.round);
 //   - the row (x, y, sigma, theta, response, F) for the host.
+// Affine frames (estimate_affine_shape): with a (K, 2, 2) ``shapes`` array
+// the frame is F = sigma A R(theta), A the keypoint's det-1 shape from K45
+// (colmap_tpu l.566-571), and the row carries that F; a null ``shapes`` is
+// the identity and runs the code above unchanged. Samples read the level
+// through L1, so a stretched frame needs no other load path.
 //
 // Bound on the card: bytes. A row reads its level's window (about
 // 16 sqrt(2) sigma + 4 px on a side, per DSP scale) once from device memory
@@ -46,6 +51,7 @@ __global__ void descriptor_kernel(int K, int H, int W, int n_ori, int l2, int n_
                                   const float* __restrict__ ys, const float* __restrict__ sigmas,
                                   const float* __restrict__ responses,
                                   const int* __restrict__ lvls, const float* __restrict__ thetas,
+                                  const float* __restrict__ shapes,
                                   const bool* __restrict__ ok, float* __restrict__ data,
                                   unsigned char* __restrict__ desc) {
   __shared__ float wmag[kDescWarps][kSamples];
@@ -57,7 +63,14 @@ __global__ void descriptor_kernel(int K, int H, int W, int n_ori, int l2, int n_
   const float* L = gauss + (size_t)lvls[k] * H * W;
   const float x = xs[k], y = ys[k], sg = sigmas[k], th = thetas[row];
   const float c = cosf(th), s = sinf(th);
-  const float f00 = sg * c, f01 = sg * -s, f10 = sg * s, f11 = sg * c;
+  float f00 = sg * c, f01 = sg * -s, f10 = sg * s, f11 = sg * c;
+  if (shapes != nullptr) {  // F = sigma A R(theta)
+    const float* A = shapes + (size_t)k * 4;
+    f00 = sg * (A[0] * c + A[1] * s);
+    f01 = sg * (A[0] * -s + A[1] * c);
+    f10 = sg * (A[2] * c + A[3] * s);
+    f11 = sg * (A[2] * -s + A[3] * c);
+  }
   const int v_bin = lane >> 3, o_bin = lane & 7;  // this lane's spatial column and orientation
   float acc[4] = {0.f, 0.f, 0.f, 0.f};  // spatial rows 0..3
   for (int sc = 0; sc < n_scales; ++sc) {
@@ -121,14 +134,15 @@ __global__ void descriptor_kernel(int K, int H, int W, int n_ori, int l2, int n_
 extern "C" int sift_descriptor_f32(int K, int H, int W, int n_ori, int l2, int n_scales,
                                    const float* scales, const float* gauss, const float* x,
                                    const float* y, const float* sigma, const float* response,
-                                   const int* lvl, const float* theta, const bool* ok,
-                                   float* data, unsigned char* desc, void* stream) {
+                                   const int* lvl, const float* theta, const float* shapes,
+                                   const bool* ok, float* data, unsigned char* desc,
+                                   void* stream) {
   using namespace ctt::sift;
   if (n_ori < 1 || n_scales < 1 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
   const int rows = K * n_ori;
   const int blocks = (rows + kDescWarps - 1) / kDescWarps;
   descriptor_kernel<<<blocks, 32 * kDescWarps, 0, (cudaStream_t)stream>>>(
-      K, H, W, n_ori, l2, n_scales, scales, gauss, x, y, sigma, response, lvl, theta, ok, data,
-      desc);
+      K, H, W, n_ori, l2, n_scales, scales, gauss, x, y, sigma, response, lvl, theta, shapes, ok,
+      data, desc);
   return (int)cudaGetLastError();
 }

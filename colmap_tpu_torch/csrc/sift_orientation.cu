@@ -18,6 +18,12 @@
 //     as the stable jnp.argsort), ok where the value is > 0, parabolic
 //     interpolation of each; theta = (b + 0.5 + di) / 36 2 pi - pi.
 // With upright, theta is 0 and only the first row is ok; no sampling runs.
+// Affine frames (estimate_affine_shape): with a (K, 2, 2) ``shapes`` array
+// the samples follow W = sigma A (the keypoint's det-1 shape from K45), as
+// colmap_tpu samples with sigmas * shapes (l.529-531); a null ``shapes`` is
+// the identity and runs the code above unchanged. The samples read the
+// level through L1 from device memory, never a staged window, so a frame
+// stretched up to 8x needs no other load path.
 // colmap_tpu's bf16 hat-function window sampling (a TPU gather workaround,
 // l.304-375) is not carried over: every sample is exact.
 //
@@ -39,7 +45,8 @@ constexpr int kMaxOrientations = 8;
 __global__ void orientation_kernel(int K, int H, int W, int n_ori, int upright,
                                    const float* __restrict__ gauss, const float* __restrict__ xs,
                                    const float* __restrict__ ys, const float* __restrict__ sigmas,
-                                   const int* __restrict__ lvls, float* __restrict__ theta,
+                                   const int* __restrict__ lvls,
+                                   const float* __restrict__ shapes, float* __restrict__ theta,
                                    unsigned char* __restrict__ ok) {
   __shared__ float part[kOriWarps][32 * kHistStride];
   __shared__ float hist[kOriWarps][2][kOriBins];
@@ -57,9 +64,20 @@ __global__ void orientation_kernel(int K, int H, int W, int n_ori, int upright,
   const float x = xs[k], y = ys[k], sg = sigmas[k];
   float* mine = part[warp] + lane * kHistStride;
   for (int b = 0; b < kOriBins; ++b) mine[b] = 0.f;
+  float w00 = sg, w01 = 0.f, w10 = 0.f, w11 = sg;  // W = sigma A
+  if (shapes != nullptr) {
+    const float* A = shapes + (size_t)k * 4;
+    w00 = sg * A[0];
+    w01 = sg * A[1];
+    w10 = sg * A[2];
+    w11 = sg * A[3];
+  }
   for (int s = lane; s < kSamples; s += 32) {
     float m, a;
-    warped_gradient(L, H, W, x, y, sg, 0.f, 0.f, sg, s, &m, &a);
+    if (shapes == nullptr)
+      warped_gradient(L, H, W, x, y, sg, 0.f, 0.f, sg, s, &m, &a);
+    else
+      warped_gradient(L, H, W, x, y, w00, w01, w10, w11, s, &m, &a);
     const float pu = (float)(s >> 4) - kR + 0.5f, pv = (float)(s & 15) - kR + 0.5f;
     const float wm = m * expf(-((pu * pu + pv * pv) / 32.f));  // 2 (1.5 R / 3)^2 = 32
     const float bin_f = (a + kPi) / kTwoPi * (float)kOriBins - 0.5f;
@@ -122,12 +140,12 @@ __global__ void orientation_kernel(int K, int H, int W, int n_ori, int upright,
 
 extern "C" int sift_orientation_f32(int K, int H, int W, int n_ori, int upright, const float* gauss,
                                     const float* x, const float* y, const float* sigma,
-                                    const int* lvl, float* theta, unsigned char* ok,
-                                    void* stream) {
+                                    const int* lvl, const float* shapes, float* theta,
+                                    unsigned char* ok, void* stream) {
   using namespace ctt::sift;
   if (n_ori < 1 || n_ori > kMaxOrientations || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
   const int blocks = (K + kOriWarps - 1) / kOriWarps;
   orientation_kernel<<<blocks, 32 * kOriWarps, 0, (cudaStream_t)stream>>>(
-      K, H, W, n_ori, upright, gauss, x, y, sigma, lvl, theta, ok);
+      K, H, W, n_ori, upright, gauss, x, y, sigma, lvl, shapes, theta, ok);
   return (int)cudaGetLastError();
 }

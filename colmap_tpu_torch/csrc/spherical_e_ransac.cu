@@ -23,7 +23,8 @@
 //     refit kernel of two_view_ransac.cuh over the model below.
 //   spherical_e_inliers: one thread per row, the inlier mask of one model.
 // The pair axis is K7's: B problems, one max_sq per problem or for all, and
-// propose_score's ``active`` byte per problem.
+// propose_score's ``active`` byte per problem. The MSAC mode of the
+// propose-and-score and refit entries is two_view_ransac.cuh's.
 //
 // Float32 at the thresholds of 360-degree cameras: a 4 px error at 5760 px
 // width is 4.4e-3 rad, a squared threshold of 1.9e-5 rad^2. The residual's
@@ -87,6 +88,7 @@ struct EssentialRays {
   }
 };
 
+template <bool MSAC>
 __global__ void spherical_e_propose_score_kernel(int n, int k, float max_sq,
                                                  const float* __restrict__ max_sq_arr,
                                                  const float* __restrict__ x1,
@@ -96,7 +98,8 @@ __global__ void spherical_e_propose_score_kernel(int n, int k, float max_sq,
                                                  const unsigned char* __restrict__ active,
                                                  float* __restrict__ models_out,
                                                  int* __restrict__ counts_out,
-                                                 unsigned long long* __restrict__ best) {
+                                                 unsigned long long* __restrict__ best,
+                                                 float* __restrict__ scores_out) {
   __shared__ FivePoint shared[kSphereEWarps];
   const int pair = blockIdx.y;
   if (active != nullptr && !active[pair]) return;
@@ -109,6 +112,7 @@ __global__ void spherical_e_propose_score_kernel(int n, int k, float max_sq,
   samples += (size_t)pair * k * 5;
   models_out += (size_t)pair * k * 90;
   counts_out += (size_t)pair * k * 10;
+  if (MSAC) scores_out += (size_t)pair * k * 10;
   best += pair;
   if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
   FivePoint& S = shared[warp];
@@ -128,7 +132,11 @@ __global__ void spherical_e_propose_score_kernel(int n, int k, float max_sq,
   bool finite[10];
   for (int r = 0; r < 10; ++r) finite[r] = all_finite(S.models[r], 9);
   int cnt[10];
-  for (int r = 0; r < 10; ++r) cnt[r] = 0;
+  float sc[10];
+  for (int r = 0; r < 10; ++r) {
+    cnt[r] = 0;
+    sc[r] = 0.f;
+  }
   for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
     const bool ok = i < n && mask[i];
@@ -139,17 +147,35 @@ __global__ void spherical_e_propose_score_kernel(int n, int k, float max_sq,
         b[d] = x2[3 * i + d];
       }
     for (int r = 0; r < 10; ++r) {
-      const bool in = ok && finite[r] && EssentialRays::residual(S.models[r], a, b) <= max_sq;
-      cnt[r] += __popc(__ballot_sync(kFull, in));
+      if constexpr (MSAC) {  // the MSAC mode of two_view_ransac.cuh
+        const float res = ok && finite[r] ? EssentialRays::residual(S.models[r], a, b) : 0.f;
+        const bool in = ok && finite[r] && res <= max_sq;
+        cnt[r] += __popc(__ballot_sync(kFull, in));
+        sc[r] += in ? max_sq - res : 0.f;
+      } else {
+        const bool in = ok && finite[r] && EssentialRays::residual(S.models[r], a, b) <= max_sq;
+        cnt[r] += __popc(__ballot_sync(kFull, in));
+      }
     }
   }
+  if constexpr (MSAC)
+    for (int r = 0; r < 10; ++r) sc[r] = warp_sum(sc[r]);
   if (lane < 10) {
     int c = 0;
-    for (int r = 0; r < 10; ++r) c = r == lane ? cnt[r] : c;
+    float score = 0.f;
+    for (int r = 0; r < 10; ++r) {
+      c = r == lane ? cnt[r] : c;
+      score = r == lane ? sc[r] : score;
+    }
     const int idx = sample * 10 + lane;
     for (int e = 0; e < 9; ++e) models_out[idx * 9 + e] = S.models[lane][e];
     counts_out[idx] = c;
-    atomicMax(best, pack_best(c, idx));
+    if constexpr (MSAC) {
+      scores_out[idx] = score;
+      atomicMax(best, pack_best_score(score, idx));
+    } else {
+      atomicMax(best, pack_best(c, idx));
+    }
   }
 }
 
@@ -160,12 +186,16 @@ extern "C" int spherical_e_propose_score_f32(int b, int n, int k, float max_sq,
                                              const float* x2, const unsigned char* mask,
                                              const int* samples, const unsigned char* active,
                                              float* models, int* counts, unsigned long long* best,
-                                             void* stream) {
+                                             int msac, float* scores, void* stream) {
   using namespace ctt;
   if (b == 0 || k == 0) return (int)cudaGetLastError();
   const dim3 grid((unsigned)((k + kSphereEWarps - 1) / kSphereEWarps), (unsigned)b);
-  spherical_e_propose_score_kernel<<<grid, 32 * kSphereEWarps, 0, (cudaStream_t)stream>>>(
-      n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best);
+  if (msac)
+    spherical_e_propose_score_kernel<true><<<grid, 32 * kSphereEWarps, 0, (cudaStream_t)stream>>>(
+        n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best, scores);
+  else
+    spherical_e_propose_score_kernel<false><<<grid, 32 * kSphereEWarps, 0, (cudaStream_t)stream>>>(
+        n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best, scores);
   return (int)cudaGetLastError();
 }
 
@@ -173,12 +203,12 @@ extern "C" int spherical_e_refit_f32(int b, int n, float max_sq, const float* ma
                                      int count_in, const int* count_arr, const float* x1,
                                      const float* x2, const unsigned char* mask,
                                      const float* model_in, float* model_out, int* count_out,
-                                     void* stream) {
-  using namespace ctt;
-  if (b == 0) return (int)cudaGetLastError();
-  two_view_refit_kernel<EssentialRays, false><<<b, kTwoViewRefitThreads, 0, (cudaStream_t)stream>>>(
-      n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out);
-  return (int)cudaGetLastError();
+                                     int msac, float score_in, const float* score_arr,
+                                     float* score_out, void* stream) {
+  return ctt::launch_two_view_refit<ctt::EssentialRays>(b, n, max_sq, max_sq_arr, count_in,
+                                                         count_arr, x1, x2, mask, model_in,
+                                                         model_out, count_out, msac, score_in,
+                                                         score_arr, score_out, stream);
 }
 
 extern "C" int spherical_e_inliers_f32(int b, int n, float max_sq, const float* max_sq_arr,

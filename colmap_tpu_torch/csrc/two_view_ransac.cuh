@@ -24,6 +24,15 @@
 //     on near-degenerate inlier sets.
 //   inliers: grid (ceil(N / 256), B), the inlier mask of one model per pair.
 //
+// MSAC (colmap_tpu optim/ransac.py _score with support="m_estimator"): with
+// the MSAC template flag, propose_score also sums max(max_sq - r, 0) over a
+// model's valid rows (each lane its rows in order, then a butterfly of warp
+// shuffles: a fixed order, no float atomics; a NaN residual adds nothing),
+// writes the score beside the count and packs (score bits, index)
+// (pack_best_score); refit sums the refit's score in the same block pass as
+// its count and keeps the refit where the score is larger. Without the flag
+// the entries are the code they were.
+//
 // A pair is a row of x1, x2 (B, N, kDim) and mask (B, N); rows beyond a pair's
 // match count carry mask 0. max_sq is one float for all pairs or, when
 // max_sq_arr is not null, one per pair. Pairs whose ``active`` byte is 0
@@ -153,7 +162,7 @@ __device__ __forceinline__ void load_row(const float* x, long long i, float* out
   for (int d = 0; d < Model::kDim; ++d) out[d] = x[Model::kDim * i + d];
 }
 
-template <class Model, int WARPS>
+template <class Model, int WARPS, bool MSAC>
 __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
                                               const float* __restrict__ max_sq_arr,
                                               const float* __restrict__ x1,
@@ -163,7 +172,8 @@ __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
                                               const unsigned char* __restrict__ active,
                                               float* __restrict__ models_out,
                                               int* __restrict__ counts_out,
-                                              unsigned long long* __restrict__ best) {
+                                              unsigned long long* __restrict__ best,
+                                              float* __restrict__ scores_out) {
   constexpr int S = Model::kSolutions, M = Model::kSample, D = Model::kDim;
   __shared__ float models[WARPS][S * 9];
   const int pair = blockIdx.y;
@@ -187,9 +197,11 @@ __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
   __syncwarp();
   bool finite[S];
   int cnt[S];
+  float sc[S];
   for (int r = 0; r < S; ++r) {
     finite[r] = all_finite(models[warp] + 9 * r, 9);
     cnt[r] = 0;
+    sc[r] = 0.f;
   }
   for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
@@ -202,32 +214,54 @@ __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
       load_row<Model>(x2, i, b);
     }
     for (int r = 0; r < S; ++r) {
-      const bool in = ok && finite[r] && row_residual<Model>(models[warp] + 9 * r, a, b) <= max_sq;
-      cnt[r] += __popc(__ballot_sync(kFull, in));
+      if constexpr (MSAC) {
+        const float res = ok && finite[r] ? row_residual<Model>(models[warp] + 9 * r, a, b) : 0.f;
+        const bool in = ok && finite[r] && res <= max_sq;
+        cnt[r] += __popc(__ballot_sync(kFull, in));
+        sc[r] += in ? max_sq - res : 0.f;
+      } else {
+        const bool in =
+            ok && finite[r] && row_residual<Model>(models[warp] + 9 * r, a, b) <= max_sq;
+        cnt[r] += __popc(__ballot_sync(kFull, in));
+      }
     }
   }
+  if constexpr (MSAC)
+    for (int r = 0; r < S; ++r) sc[r] = warp_sum(sc[r]);
   if (lane < S) {
     int c = 0;
-    for (int r = 0; r < S; ++r) c = r == lane ? cnt[r] : c;
+    float score = 0.f;
+    for (int r = 0; r < S; ++r) {
+      c = r == lane ? cnt[r] : c;
+      score = r == lane ? sc[r] : score;
+    }
     const int idx = sample * S + lane;
     float* out = models_out + ((size_t)pair * k * S + idx) * 9;
     for (int e = 0; e < 9; ++e) out[e] = models[warp][9 * lane + e];
     counts_out[(size_t)pair * k * S + idx] = c;
-    atomicMax(best + pair, pack_best(c, idx));
+    if constexpr (MSAC) {
+      scores_out[(size_t)pair * k * S + idx] = score;
+      atomicMax(best + pair, pack_best_score(score, idx));
+    } else {
+      atomicMax(best + pair, pack_best(c, idx));
+    }
   }
 }
 
 constexpr int kTwoViewRefitThreads = 256;
 
 // FIT_ONLY: fit on the rows of ``mask`` and write the fit as it is (no model
-// in, no comparison of supports).
-template <class Model, bool FIT_ONLY>
+// in, no comparison of supports). MSAC: keep the refit where its score beats
+// score_in (or score_arr[pair]) and write the kept score to score_out.
+template <class Model, bool FIT_ONLY, bool MSAC>
 __global__ void two_view_refit_kernel(int n, float max_sq, const float* __restrict__ max_sq_arr,
                                       int count_in, const int* __restrict__ count_arr,
                                       const float* __restrict__ x1, const float* __restrict__ x2,
                                       const unsigned char* __restrict__ mask,
                                       const float* __restrict__ model_in,
-                                      float* __restrict__ model_out, int* __restrict__ count_out) {
+                                      float* __restrict__ model_out, int* __restrict__ count_out,
+                                      float score_in, const float* __restrict__ score_arr,
+                                      float* __restrict__ score_out) {
   constexpr int D = Model::kDim;
   __shared__ float scratch[32 * 45];
   __shared__ float refined[9];
@@ -306,6 +340,27 @@ __global__ void two_view_refit_kernel(int n, float max_sq, const float* __restri
     if (threadIdx.x < 9) model_out[pair * 9 + threadIdx.x] = r[threadIdx.x];
     return;
   }
+  if constexpr (MSAC) {
+    if (score_arr != nullptr) score_in = score_arr[pair];
+    float sums[2] = {0.f, 0.f};  // count, score
+    if (refined_ok)
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        if (!mask[i]) continue;
+        const float res = row_residual<Model>(r, x1 + D * i, x2 + D * i);
+        if (res <= max_sq) {
+          sums[0] += 1.f;
+          sums[1] += max_sq - res;
+        }
+      }
+    block_sum<2>(sums, scratch);
+    if (threadIdx.x == 0) {
+      const bool take = refined_ok && sums[1] > score_in;
+      for (int e = 0; e < 9; ++e) model_out[pair * 9 + e] = take ? r[e] : m[e];
+      count_out[pair] = take ? (int)sums[0] : count_in;
+      score_out[pair] = take ? sums[1] : score_in;
+    }
+    return;
+  }
   float cnt[1] = {0.f};
   if (refined_ok)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
@@ -336,6 +391,43 @@ __global__ void two_view_inliers_kernel(int n, float max_sq, const float* __rest
              row_residual<Model>(m, x1 + Model::kDim * row, x2 + Model::kDim * row) <= max_sq;
 }
 
+// Launch the propose-and-score kernel of Model in its default or MSAC mode.
+template <class Model, int WARPS>
+inline int launch_two_view_propose(int b, int n, int k, float max_sq, const float* max_sq_arr,
+                                   const float* x1, const float* x2, const unsigned char* mask,
+                                   const int* samples, const unsigned char* active, float* models,
+                                   int* counts, unsigned long long* best, int msac, float* scores,
+                                   void* stream) {
+  if (b == 0 || k == 0) return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((k + WARPS - 1) / WARPS), (unsigned)b);
+  if (msac)
+    two_view_propose_score_kernel<Model, WARPS, true><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+        n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best, scores);
+  else
+    two_view_propose_score_kernel<Model, WARPS, false><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+        n, k, max_sq, max_sq_arr, x1, x2, mask, samples, active, models, counts, best, scores);
+  return (int)cudaGetLastError();
+}
+
+// Launch the refit kernel of Model in its default or MSAC mode.
+template <class Model>
+inline int launch_two_view_refit(int b, int n, float max_sq, const float* max_sq_arr,
+                                 int count_in, const int* count_arr, const float* x1,
+                                 const float* x2, const unsigned char* mask, const float* model_in,
+                                 float* model_out, int* count_out, int msac, float score_in,
+                                 const float* score_arr, float* score_out, void* stream) {
+  if (b == 0) return (int)cudaGetLastError();
+  if (msac)
+    two_view_refit_kernel<Model, false, true><<<b, kTwoViewRefitThreads, 0, (cudaStream_t)stream>>>(
+        n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out,
+        score_in, score_arr, score_out);
+  else
+    two_view_refit_kernel<Model, false, false><<<b, kTwoViewRefitThreads, 0, (cudaStream_t)stream>>>(
+        n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out, count_out,
+        0.f, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace ctt
 
 // The C entries of a model family NAME over Model (see the header note).
@@ -344,25 +436,20 @@ __global__ void two_view_inliers_kernel(int n, float max_sq, const float* __rest
       int b, int n, int k, float max_sq, const float* max_sq_arr, const float* x1,               \
       const float* x2, const unsigned char* mask, const int* samples,                            \
       const unsigned char* active, float* models, int* counts, unsigned long long* best,         \
-      void* stream) {                                                                             \
-    if (b == 0 || k == 0) return (int)cudaGetLastError();                                         \
-    const dim3 grid((unsigned)((k + WARPS - 1) / WARPS), (unsigned)b);                            \
-    ctt::two_view_propose_score_kernel<Model, WARPS>                                              \
-        <<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(n, k, max_sq, max_sq_arr, x1, x2, mask,   \
-                                                        samples, active, models, counts, best);  \
-    return (int)cudaGetLastError();                                                               \
+      int msac, float* scores, void* stream) {                                                   \
+    return ctt::launch_two_view_propose<Model, WARPS>(b, n, k, max_sq, max_sq_arr, x1, x2, mask, \
+                                                      samples, active, models, counts, best,     \
+                                                      msac, scores, stream);                     \
   }                                                                                               \
   extern "C" int NAME##_refit_f32(int b, int n, float max_sq, const float* max_sq_arr,           \
                                   int count_in, const int* count_arr, const float* x1,           \
                                   const float* x2, const unsigned char* mask,                    \
                                   const float* model_in, float* model_out, int* count_out,       \
-                                  void* stream) {                                                 \
-    if (b == 0) return (int)cudaGetLastError();                                                   \
-    ctt::two_view_refit_kernel<Model, false>                                                      \
-        <<<b, ctt::kTwoViewRefitThreads, 0, (cudaStream_t)stream>>>(                              \
-            n, max_sq, max_sq_arr, count_in, count_arr, x1, x2, mask, model_in, model_out,        \
-            count_out);                                                                           \
-    return (int)cudaGetLastError();                                                               \
+                                  int msac, float score_in, const float* score_arr,              \
+                                  float* score_out, void* stream) {                              \
+    return ctt::launch_two_view_refit<Model>(b, n, max_sq, max_sq_arr, count_in, count_arr, x1,  \
+                                             x2, mask, model_in, model_out, count_out, msac,     \
+                                             score_in, score_arr, score_out, stream);            \
   }                                                                                               \
   extern "C" int NAME##_inliers_f32(int b, int n, float max_sq, const float* max_sq_arr,         \
                                     const float* x1, const float* x2, const unsigned char* mask, \

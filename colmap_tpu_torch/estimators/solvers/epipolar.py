@@ -129,6 +129,24 @@ def fundamental_eight_point(x1, x2, weights=None):
     return _unit_frobenius(T2.transpose(-1, -2) @ F @ T1)
 
 
+def fundamental_from_plane_and_parallax(H, x1a, x2a, x1b, x2b):
+    """F from a homography and two off-plane correspondences (DEGENSAC's
+    plane-and-parallax hypothesis, colmap_tpu estimators/degensac.py:47): the
+    epipole e' is the intersection of the parallax lines l_i = (H x1_i) x
+    x2_i, and F = [e']x H. Arguments broadcast; returns (..., 3, 3) of unit
+    Frobenius norm."""
+    def hom(x):
+        return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+    la = torch.linalg.cross(torch.einsum("...ij,...j->...i", H, hom(x1a)), hom(x2a))
+    lb = torch.linalg.cross(torch.einsum("...ij,...j->...i", H, hom(x1b)), hom(x2b))
+    e2 = torch.linalg.cross(la, lb)
+    z = torch.zeros_like(e2[..., 0])
+    ex = torch.stack([z, -e2[..., 2], e2[..., 1], e2[..., 2], z, -e2[..., 0],
+                      -e2[..., 1], e2[..., 0], z], dim=-1).reshape(e2.shape[:-1] + (3, 3))
+    return _unit_frobenius(ex @ H)
+
+
 def fundamental_seven_point(x1, x2):
     """7-point fundamental matrices: x1, x2 (..., 7, 2). Returns
     (..., 3, 3, 3), the solution axis first, NaN where a root is complex."""

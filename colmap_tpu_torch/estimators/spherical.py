@@ -38,8 +38,7 @@ from colmap_tpu_torch.optim.ransac import (
     BlockRansacResult,
     RansacOptions,
     RansacResult,
-    ransac,
-    ransac_block,
+    ransac_family,
 )
 from colmap_tpu_torch.scene.types import Pose, TwoViewGeometry, TwoViewGeometryConfig
 from colmap_tpu_torch.sensor import models as camera_models
@@ -69,60 +68,39 @@ def spherical_threshold(camera1, camera2, max_error: float) -> float:
                        + camera2.cam_from_img_threshold(max_error))
 
 
+_E = (KS.spherical_e_propose_score, KS.spherical_e_refit, KS.spherical_e_inliers)
+_H = (KS.spherical_h_propose_score, KS.spherical_h_refit, KS.spherical_h_inliers)
+
+
 def _ransac_e_rays(generator, r1, r2, mask, max_error, options: RansacOptions) -> RansacResult:
     """Essential-matrix LO-RANSAC on rays (N, 3): 5-point on rays (up to 10
     solutions a sample), angular Sampson scoring, weighted 8-point refit;
     ``max_error`` in rad."""
-    max_sq = float(max_error) ** 2
-    return ransac(
-        generator, mask, 5,
-        lambda idxs: KS.spherical_e_propose_score(r1, r2, mask, idxs, max_sq),
-        lambda model: KS.spherical_e_inliers(r1, r2, mask, model, max_sq),
-        options,
-        local_refine=lambda model, count: KS.spherical_e_refit(r1, r2, mask, model, max_sq,
-                                                               count),
-    )
+    return ransac_family(generator, _E, 5, r1, r2, mask, float(max_error) ** 2, options)
 
 
 def _ransac_h_rays(generator, r1, r2, mask, max_error, options: RansacOptions) -> RansacResult:
     """Ray-space homography LO-RANSAC on rays (N, 3): 4-ray DLT, angular
     transfer scoring, weighted N-ray refit; ``max_error`` in rad."""
-    max_sq = float(max_error) ** 2
-    return ransac(
-        generator, mask, 4,
-        lambda idxs: KS.spherical_h_propose_score(r1, r2, mask, idxs, max_sq),
-        lambda model: KS.spherical_h_inliers(r1, r2, mask, model, max_sq),
-        options,
-        local_refine=lambda model, count: KS.spherical_h_refit(r1, r2, mask, model, max_sq,
-                                                               count),
-    )
+    return ransac_family(generator, _H, 4, r1, r2, mask, float(max_error) ** 2, options)
 
 
 def _block(generator, kernels, m, r1, r2, mask, max_error, options) -> BlockRansacResult:
-    propose, refit, inliers = kernels
     max_sq = torch.as_tensor(np.asarray(max_error, dtype=np.float64) ** 2).to(
         device=r1.device, dtype=r1.dtype)
-    return ransac_block(
-        generator, mask, m,
-        lambda idxs, active: propose(r1, r2, mask, idxs, max_sq, active),
-        lambda models: inliers(r1, r2, mask, models, max_sq),
-        options,
-        local_refine=lambda models, counts: refit(r1, r2, mask, models, max_sq, counts),
-    )
+    return ransac_family(generator, kernels, m, r1, r2, mask, max_sq, options)
 
 
 def ransac_e_rays_block(generator, r1, r2, mask, max_error, options) -> BlockRansacResult:
     """``_ransac_e_rays`` on a block: r1, r2 (B, N, 3), mask (B, N),
     max_error (B,) rad."""
-    return _block(generator, (KS.spherical_e_propose_score, KS.spherical_e_refit,
-                              KS.spherical_e_inliers), 5, r1, r2, mask, max_error, options)
+    return _block(generator, _E, 5, r1, r2, mask, max_error, options)
 
 
 def ransac_h_rays_block(generator, r1, r2, mask, max_error, options) -> BlockRansacResult:
     """``_ransac_h_rays`` on a block: r1, r2 (B, N, 3), mask (B, N),
     max_error (B,) rad."""
-    return _block(generator, (KS.spherical_h_propose_score, KS.spherical_h_refit,
-                              KS.spherical_h_inliers), 4, r1, r2, mask, max_error, options)
+    return _block(generator, _H, 4, r1, r2, mask, max_error, options)
 
 
 def classify_spherical(g: TwoViewGeometry, options, n_matches: int, num_e: int, num_h: int,

@@ -41,8 +41,7 @@ from colmap_tpu_torch.optim.ransac import (
     BlockRansacResult,
     RansacOptions,
     RansacResult,
-    ransac,
-    ransac_block,
+    ransac_family,
 )
 from colmap_tpu_torch.estimators.spherical import (  # noqa: F401 (is_spherical: this module's API)
     estimate_spherical_two_view_geometry,
@@ -91,73 +90,46 @@ def ransac_generators(seed: int):
     return tuple(torch.Generator().manual_seed(4 * int(seed) + k) for k in range(4))
 
 
-def _ransac_f(generator: torch.Generator, x1, x2, mask, options: RansacOptions) -> RansacResult:
+_F = (KM.fundamental_propose_score, KM.fundamental_refit, KM.fundamental_inliers)
+_H = (KM.homography_propose_score, KM.homography_refit, KM.homography_inliers)
+_E = (K.essential_propose_score, K.essential_refit, K.essential_inliers)
+
+
+def _ransac_f(generator: torch.Generator, x1, x2, mask, options: RansacOptions,
+              quality_order=None) -> RansacResult:
     """Fundamental-matrix LO-RANSAC on pixel coordinates (N, 2): 7-point
     minimal solver (up to 3 solutions per sample), weighted 8-point refit."""
-    max_sq = float(options.max_error) ** 2
-    return ransac(
-        generator, mask, 7,
-        lambda idxs: KM.fundamental_propose_score(x1, x2, mask, idxs, max_sq),
-        lambda model: KM.fundamental_inliers(x1, x2, mask, model, max_sq),
-        options,
-        local_refine=lambda model, count: KM.fundamental_refit(x1, x2, mask, model, max_sq, count),
-    )
+    return ransac_family(generator, _F, 7, x1, x2, mask, float(options.max_error) ** 2, options,
+                         quality_order)
 
 
-def _ransac_h(generator: torch.Generator, x1, x2, mask, options: RansacOptions) -> RansacResult:
+def _ransac_h(generator: torch.Generator, x1, x2, mask, options: RansacOptions,
+              quality_order=None) -> RansacResult:
     """Homography LO-RANSAC on pixel coordinates (N, 2): 4-point DLT,
     weighted N-point DLT refit, forward transfer error."""
-    max_sq = float(options.max_error) ** 2
-    return ransac(
-        generator, mask, 4,
-        lambda idxs: KM.homography_propose_score(x1, x2, mask, idxs, max_sq),
-        lambda model: KM.homography_inliers(x1, x2, mask, model, max_sq),
-        options,
-        local_refine=lambda model, count: KM.homography_refit(x1, x2, mask, model, max_sq, count),
-    )
+    return ransac_family(generator, _H, 4, x1, x2, mask, float(options.max_error) ** 2, options,
+                         quality_order)
 
 
 def _ransac_e(generator: torch.Generator, x1n, x2n, mask, max_error,
-              options: RansacOptions) -> RansacResult:
+              options: RansacOptions, quality_order=None) -> RansacResult:
     """Essential-matrix LO-RANSAC on normalized coordinates (N, 2): 5-point
     minimal solver (up to 10 solutions per sample) and weighted 8-point LO
     refit, the reference's LORANSAC<EssentialMatrixFivePointEstimator>
     (estimators/two_view_geometry.cc:569-636). ``max_error`` is compared
     with the square root of the Sampson error."""
-    max_sq = float(max_error) ** 2
-    return ransac(
-        generator, mask, 5,
-        lambda idxs: K.essential_propose_score(x1n, x2n, mask, idxs, max_sq),
-        lambda model: K.essential_inliers(x1n, x2n, mask, model, max_sq),
-        options,
-        local_refine=lambda model, count: K.essential_refit(x1n, x2n, mask, model, max_sq,
-                                                            count),
-    )
-
-
-def _block(generator, kernels, m, x1, x2, mask, max_sq, options) -> BlockRansacResult:
-    propose, refit, inliers = kernels
-    return ransac_block(
-        generator, mask, m,
-        lambda idxs, active: propose(x1, x2, mask, idxs, max_sq, active),
-        lambda models: inliers(x1, x2, mask, models, max_sq),
-        options,
-        local_refine=lambda models, counts: refit(x1, x2, mask, models, max_sq, counts),
-    )
+    return ransac_family(generator, _E, 5, x1n, x2n, mask, float(max_error) ** 2, options,
+                         quality_order)
 
 
 def _ransac_f_block(generator, x1, x2, mask, options: RansacOptions) -> BlockRansacResult:
     """``_ransac_f`` on a block: x1, x2 (B, N, 2), mask (B, N)."""
-    return _block(generator, (KM.fundamental_propose_score, KM.fundamental_refit,
-                              KM.fundamental_inliers), 7, x1, x2, mask,
-                  float(options.max_error) ** 2, options)
+    return ransac_family(generator, _F, 7, x1, x2, mask, float(options.max_error) ** 2, options)
 
 
 def _ransac_h_block(generator, x1, x2, mask, options: RansacOptions) -> BlockRansacResult:
     """``_ransac_h`` on a block: x1, x2 (B, N, 2), mask (B, N)."""
-    return _block(generator, (KM.homography_propose_score, KM.homography_refit,
-                              KM.homography_inliers), 4, x1, x2, mask,
-                  float(options.max_error) ** 2, options)
+    return ransac_family(generator, _H, 4, x1, x2, mask, float(options.max_error) ** 2, options)
 
 
 def _ransac_e_block(generator, x1n, x2n, mask, max_error,
@@ -166,8 +138,7 @@ def _ransac_e_block(generator, x1n, x2n, mask, max_error,
     (B,) float64 array, one normalized threshold per pair."""
     max_sq = torch.as_tensor(np.asarray(max_error, dtype=np.float64) ** 2).to(
         device=x1n.device, dtype=x1n.dtype)
-    return _block(generator, (K.essential_propose_score, K.essential_refit, K.essential_inliers),
-                  5, x1n, x2n, mask, max_sq, options)
+    return ransac_family(generator, _E, 5, x1n, x2n, mask, max_sq, options)
 
 
 def _detect_watermark(x1, x2, inlier_mask, w1, h1, w2, h2, opt) -> bool:
@@ -263,17 +234,25 @@ def estimate_two_view_geometry(
     options: Optional[TwoViewGeometryOptions] = None,
     seed: int = 0,
     device=None,
+    quality_order=None,
 ) -> TwoViewGeometry:
     """Estimate and classify the two-view geometry of a matched image pair
     on ``device`` (default cuda).
 
     points1/points2: (N1, 2), (N2, 2) keypoint coordinates; matches (M, 2)
-    uint32 index pairs into them.
+    uint32 index pairs into them. quality_order: optional (M,) match
+    indices, best first, which ``RansacOptions(sampling="progressive")``
+    samples from progressively (without it, or for a pair that the
+    stationary filter, several models or a spherical camera reshape, the
+    RANSACs sample uniformly, as colmap_tpu does).
     """
     if options is None:
         options = TwoViewGeometryOptions()
     device = resolve_device(device)
     matches = np.asarray(matches)
+    if quality_order is not None and (options.filter_stationary_matches
+                                      or options.multiple_models):
+        quality_order = None
     if options.filter_stationary_matches and len(matches) > 0:
         matches = filter_stationary(points1, points2, matches,
                                     options.stationary_matches_max_error)
@@ -303,8 +282,8 @@ def estimate_two_view_geometry(
     gen_f, gen_h, gen_e, gen_d = ransac_generators(seed)
     calibrated = bool(camera1.has_prior_focal_length and camera2.has_prior_focal_length)
 
-    res_f = _ransac_f(gen_f, x1, x2, mask, options.ransac)
-    res_h = _ransac_h(gen_h, x1, x2, mask, options.ransac)
+    res_f = _ransac_f(gen_f, x1, x2, mask, options.ransac, quality_order)
+    res_h = _ransac_h(gen_h, x1, x2, mask, options.ransac, quality_order)
     res_e = None
     if calibrated:
         x1n, _ = K.cam_from_img(camera1.model_id, torch.as_tensor(camera1.params, dtype=dt).to(device), x1)
@@ -312,7 +291,7 @@ def estimate_two_view_geometry(
         thresh_n = 0.5 * (camera1.cam_from_img_threshold(options.ransac.max_error)
                           + camera2.cam_from_img_threshold(options.ransac.max_error))
         res_e = _ransac_e(gen_e, x1n.contiguous(), x2n.contiguous(), mask, float(thresh_n),
-                          options.ransac)
+                          options.ransac, quality_order)
 
     num_f, num_h = res_f.num_inliers, res_h.num_inliers
     num_e = res_e.num_inliers if res_e is not None else 0
@@ -325,7 +304,7 @@ def estimate_two_view_geometry(
         if is_h_degenerate(num_f, num_fh):
             F_rec, n_rec, inl_rec, recovered = degensac_recover_f(
                 gen_d, x1, x2, mask, F_model, mask_f, res_h.model, res_h.inlier_mask,
-                options.ransac)
+                options.ransac, num_f_inliers=num_f)
             if recovered:
                 F_model, mask_f, num_f = F_rec, inl_rec, n_rec
 

@@ -23,8 +23,17 @@ per pair, candidates must also lie within ``guided_max_error`` px of each
 other's epipolar lines (``match_guided_similarity``).
 
 K11 and K12 have K7's three entries (see kernels/sfm.py: one problem or a
-block of B problems, the same packed best); K11's ``fundamental_fit`` is the
-weighted 8-point alone, on the rows of a given mask.
+block of B problems, the same packed best, the MSAC mode); K11's
+``fundamental_fit`` is the weighted 8-point alone, on the rows of a given
+mask.
+
+    K46 degensac  degensac_propose_score
+
+K46 builds DEGENSAC's plane-and-parallax hypotheses F_k = [e'_k]x H, one per
+pair of off-plane rows (ia_k, ib_k), scores each on all N rows by K11's
+squared epipolar line distance (0 where ia_k = ib_k or F_k is not finite)
+and packs the first of largest support, as a propose-and-score entry does.
+The recovery refits the best on K11's refit entry (estimators/degensac.py).
 """
 
 from __future__ import annotations
@@ -36,14 +45,16 @@ import torch
 
 from colmap_tpu_torch.estimators.solvers.epipolar import (
     fundamental_eight_point,
+    fundamental_from_plane_and_parallax,
     fundamental_seven_point,
     homography_dlt,
     homography_transfer_error,
 )
 from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.optim.ransac import pack_best, score_models
 
-LAUNCHES = {"match_top2": 0, "fundamental_ransac": 0, "homography_ransac": 0}
+LAUNCHES = {"match_top2": 0, "fundamental_ransac": 0, "homography_ransac": 0, "degensac": 0}
 
 DESC_DIM = 128
 F_SOLUTIONS = 3
@@ -137,21 +148,21 @@ def match_top2_plain(desc, counts, pairs, options, keypoints=None, F=None, dtype
     return idx2, ok
 
 
-def fundamental_propose_score_plain(x1, x2, mask, samples, max_sq, active=None):
+def fundamental_propose_score_plain(x1, x2, mask, samples, max_sq, active=None, msac=False):
     """K11 propose-and-score: 7-point on each sample (3 slots per sample,
     NaN where a root is complex), squared epipolar line distance."""
     return S.two_view_propose_score_plain(fundamental_seven_point, squared_epipolar_line_distance,
-                                          x1, x2, mask, samples, max_sq, active)
+                                          x1, x2, mask, samples, max_sq, active, msac)
 
 
 def fundamental_inliers_plain(x1, x2, mask, model, max_sq):
     return S.two_view_inliers_plain(squared_epipolar_line_distance, x1, x2, mask, model, max_sq)
 
 
-def fundamental_refit_plain(x1, x2, mask, model, max_sq, count):
+def fundamental_refit_plain(x1, x2, mask, model, max_sq, count, score=None):
     """K11 refit: weighted 8-point (rank 2 enforced) on the model's inliers."""
     return S.two_view_refit_plain(fundamental_eight_point, squared_epipolar_line_distance, x1, x2,
-                                  mask, model, max_sq, count)
+                                  mask, model, max_sq, count, score)
 
 
 def fundamental_fit_plain(x1, x2, rows):
@@ -159,21 +170,33 @@ def fundamental_fit_plain(x1, x2, rows):
     return fundamental_eight_point(x1, x2, rows.to(x1.dtype))
 
 
-def homography_propose_score_plain(x1, x2, mask, samples, max_sq, active=None):
+def homography_propose_score_plain(x1, x2, mask, samples, max_sq, active=None, msac=False):
     """K12 propose-and-score: 4-point DLT on each sample, transfer error."""
     return S.two_view_propose_score_plain(
         lambda s1, s2: homography_dlt(s1, s2)[..., None, :, :], homography_transfer_error,
-        x1, x2, mask, samples, max_sq, active)
+        x1, x2, mask, samples, max_sq, active, msac)
 
 
 def homography_inliers_plain(x1, x2, mask, model, max_sq):
     return S.two_view_inliers_plain(homography_transfer_error, x1, x2, mask, model, max_sq)
 
 
-def homography_refit_plain(x1, x2, mask, model, max_sq, count):
+def homography_refit_plain(x1, x2, mask, model, max_sq, count, score=None):
     """K12 refit: weighted N-point DLT on the model's inliers."""
     return S.two_view_refit_plain(homography_dlt, homography_transfer_error, x1, x2, mask, model,
-                                  max_sq, count)
+                                  max_sq, count, score)
+
+
+def degensac_propose_score_plain(x1, x2, mask, H, ia, ib, max_sq):
+    """K46: the plane-and-parallax F of each pair of rows (ia, ib) (K,) and
+    its support on the N rows. Returns models (K, 3, 3), counts (K,) and the
+    packed best (1,)."""
+    ia, ib = ia.long(), ib.long()
+    Fs = fundamental_from_plane_and_parallax(H[None], x1[ia], x2[ia], x1[ib], x2[ib])
+    res = squared_epipolar_line_distance(Fs[:, None], x1[None], x2[None])
+    counts, _ = score_models(Fs, res, mask, max_sq, False)
+    counts = torch.where(ia != ib, counts, 0)
+    return Fs, counts, pack_best(counts)
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +204,8 @@ def homography_refit_plain(x1, x2, mask, model, max_sq, count):
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PROPOSE = [_I, _I, _I, _F] + [_P] * 9 + [_P]
-_REFIT = [_I, _I, _F, _P, _I] + [_P] * 7 + [_P]
+_PROPOSE = [_I, _I, _I, _F] + [_P] * 9 + [_I, _P] + [_P]
+_REFIT = [_I, _I, _F, _P, _I] + [_P] * 7 + [_I, _F, _P, _P] + [_P]
 _INLIERS = [_I, _I, _F] + [_P] * 6 + [_P]
 _SIGNATURES = {
     "match_top2_f32": [_I, _I, _I, _F] + [_P] * 9 + [_P],
@@ -194,6 +217,7 @@ _SIGNATURES = {
     "homography_propose_score_f32": _PROPOSE,
     "homography_refit_f32": _REFIT,
     "homography_inliers_f32": _INLIERS,
+    "degensac_propose_score_f32": [_I, _I, _F] + [_P] * 9 + [_P],
 }
 
 
@@ -266,23 +290,23 @@ def match_top2(desc, counts, pairs, options, keypoints=None, F=None, details=Fal
 # K11 -----------------------------------------------------------------------
 
 
-def fundamental_propose_score(x1, x2, mask, samples, max_sq, active=None):
+def fundamental_propose_score(x1, x2, mask, samples, max_sq, active=None, msac=False):
     """K11 propose-and-score. x1, x2 (N, 2) pixels, mask (N,), samples (K, 7)
     int32, or a block of B problems. Returns models (.., 3K, 3, 3), counts
     (.., 3K), packed best (B,)."""
     if x1.device.type == "cpu":
-        return fundamental_propose_score_plain(x1, x2, mask, samples, max_sq, active)
+        return fundamental_propose_score_plain(x1, x2, mask, samples, max_sq, active, msac)
     out = S.two_view_propose_score(_call, "fundamental", 7, F_SOLUTIONS, x1, x2, mask, samples,
-                                   max_sq, active)
+                                   max_sq, active, msac=msac)
     LAUNCHES["fundamental_ransac"] += 1
     return out
 
 
-def fundamental_refit(x1, x2, mask, model, max_sq, count):
+def fundamental_refit(x1, x2, mask, model, max_sq, count, score=None):
     """K11 refit (``_try_refine`` of the F RANSAC). Returns (model, count)."""
     if x1.device.type == "cpu":
-        return fundamental_refit_plain(x1, x2, mask, model, max_sq, count)
-    out = S.two_view_refit(_call, "fundamental", x1, x2, mask, model, max_sq, count)
+        return fundamental_refit_plain(x1, x2, mask, model, max_sq, count, score)
+    out = S.two_view_refit(_call, "fundamental", x1, x2, mask, model, max_sq, count, score=score)
     LAUNCHES["fundamental_ransac"] += 1
     return out
 
@@ -312,23 +336,23 @@ def fundamental_fit(x1, x2, rows):
 # K12 -----------------------------------------------------------------------
 
 
-def homography_propose_score(x1, x2, mask, samples, max_sq, active=None):
+def homography_propose_score(x1, x2, mask, samples, max_sq, active=None, msac=False):
     """K12 propose-and-score. x1, x2 (N, 2) pixels, mask (N,), samples (K, 4)
     int32, or a block of B problems. Returns models (.., K, 3, 3), counts
     (.., K), packed best (B,)."""
     if x1.device.type == "cpu":
-        return homography_propose_score_plain(x1, x2, mask, samples, max_sq, active)
+        return homography_propose_score_plain(x1, x2, mask, samples, max_sq, active, msac)
     out = S.two_view_propose_score(_call, "homography", 4, H_SOLUTIONS, x1, x2, mask, samples,
-                                   max_sq, active)
+                                   max_sq, active, msac=msac)
     LAUNCHES["homography_ransac"] += 1
     return out
 
 
-def homography_refit(x1, x2, mask, model, max_sq, count):
+def homography_refit(x1, x2, mask, model, max_sq, count, score=None):
     """K12 refit (``_try_refine`` of the H RANSAC). Returns (model, count)."""
     if x1.device.type == "cpu":
-        return homography_refit_plain(x1, x2, mask, model, max_sq, count)
-    out = S.two_view_refit(_call, "homography", x1, x2, mask, model, max_sq, count)
+        return homography_refit_plain(x1, x2, mask, model, max_sq, count, score)
+    out = S.two_view_refit(_call, "homography", x1, x2, mask, model, max_sq, count, score=score)
     LAUNCHES["homography_ransac"] += 1
     return out
 
@@ -340,3 +364,29 @@ def homography_inliers(x1, x2, mask, model, max_sq):
     out = S.two_view_inliers(_call, "homography", x1, x2, mask, model, max_sq)
     LAUNCHES["homography_ransac"] += 1
     return out
+
+
+# K46 -----------------------------------------------------------------------
+
+
+def degensac_propose_score(x1, x2, mask, H, ia, ib, max_sq):
+    """K46: one warp per hypothesis. x1, x2 (N, 2) pixels, mask (N,), H
+    (3, 3), ia, ib (K,) int32 rows. Returns models (K, 3, 3), counts (K,),
+    packed best (1,)."""
+    if x1.device.type == "cpu":
+        return degensac_propose_score_plain(x1, x2, mask, H, ia, ib, max_sq)
+    dev, _, lead, n = S._check_two_view(x1, x2, mask)
+    if lead:
+        raise ValueError("K46 takes one problem: x1 (N, 2)")
+    k = ia.shape[0]
+    S._check("H", H, f32, (3, 3), dev)
+    S._check("ia", ia, i32, (k,), dev)
+    S._check("ib", ib, i32, (k,), dev)
+    models = torch.empty(k, 3, 3, dtype=f32, device=dev)
+    counts = torch.empty(k, dtype=i32, device=dev)
+    best = torch.zeros(1, dtype=torch.int64, device=dev)
+    if k:
+        _call("degensac_propose_score_f32", n, k, float(max_sq),
+              *map(S._ptr, (x1, x2, mask, H, ia, ib, models, counts, best)), S._stream(dev))
+        LAUNCHES["degensac"] += 1
+    return models, counts, best

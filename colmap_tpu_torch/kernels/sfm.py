@@ -26,6 +26,15 @@ in the high 32 bits, 0xFFFFFFFF - index in the low 32). The refit entries
 are colmap_tpu's ``_try_refine``: refit on the inliers of the given model,
 keep the refit if its support is larger; they return (model, support).
 
+MSAC (``RansacOptions.support="m_estimator"``): the two-view entries (K7
+here, K11 and K12 in kernels/matching.py, K32 and K33 in
+kernels/spherical.py) take ``msac``: propose-and-score then also returns
+each model's score, the sum over valid rows of max(max_sq - r, 0) (0 for a
+non-finite model), and packs the first model of largest score
+(``optim.ransac.pack_best_scores``); the refit takes the score to beat and
+returns (model, count, score), kept where the refit's score is larger. With
+the defaults the entries compute what they did before.
+
 The pair axis: the two-view entries (K7 here, K11 and K12 in
 kernels/matching.py) also take a block of B problems, x1, x2 (B, N, 2), mask
 (B, N), samples (B, K, m), ``max_sq`` a float or a (B,) tensor, and an
@@ -47,7 +56,7 @@ from colmap_tpu_torch.estimators.solvers.p3p import kabsch, p3p
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.geometry.essential import sampson_error
 from colmap_tpu_torch.geometry.triangulation import triangulate_multi_view, triangulation_angle
-from colmap_tpu_torch.optim.ransac import pack_best
+from colmap_tpu_torch.optim.ransac import pack_best, pack_best_scores, score_models
 from colmap_tpu_torch.sensor import models as camera_models
 
 LAUNCHES = {
@@ -88,17 +97,11 @@ def p3p_residuals(models, X, uv):
     return torch.where(behind, torch.inf, err)
 
 
-def _support(models, res, mask, max_sq):
-    counts = ((res <= max_sq) & mask[None]).sum(-1).to(torch.int32)
-    finite = torch.isfinite(models.reshape(models.shape[0], -1)).all(-1)
-    return torch.where(finite, counts, 0)
-
-
 def p3p_propose_score_plain(X, rays, uv, mask, samples, max_sq):
     """K6 propose-and-score: P3P on each sample, every pose scored on all rows."""
     Rs, ts = p3p(X[samples.long()], rays[samples.long()])
     models = torch.cat([Rs, ts[..., None]], dim=-1).reshape(-1, 3, 4)
-    counts = _support(models, p3p_residuals(models, X, uv), mask, max_sq)
+    counts, _ = score_models(models, p3p_residuals(models, X, uv), mask, max_sq, False)
     return models, counts, pack_best(counts)
 
 
@@ -127,27 +130,29 @@ def _threshold(max_sq, ndim):
     return max_sq.reshape((-1,) + (1,) * (ndim - 1)) if torch.is_tensor(max_sq) else max_sq
 
 
-def two_view_propose_score_plain(solve, residual, x1, x2, mask, samples, max_sq, active=None):
+def two_view_propose_score_plain(solve, residual, x1, x2, mask, samples, max_sq, active=None,
+                                 msac=False):
     """Propose-and-score of a two-view model family, one problem or a block:
     ``solve`` maps samples (.., m, 2) x 2 to models (.., S, 3, 3) and
     ``residual`` (models, x1, x2) broadcasts to squared errors. Problems
-    whose ``active`` is False get zero counts and a zero best."""
+    whose ``active`` is False get zero counts (and scores) and a zero best.
+    With ``msac`` also returns the scores (.., M)."""
     if x1.dim() == 2:
-        models, counts, best = two_view_propose_score_plain(
-            solve, residual, x1[None], x2[None], mask[None], samples[None], max_sq)
-        return models[0], counts[0], best
+        out = two_view_propose_score_plain(
+            solve, residual, x1[None], x2[None], mask[None], samples[None], max_sq, msac=msac)
+        return tuple(o if i == 2 else o[0] for i, o in enumerate(out))
     B = x1.shape[0]
     s = samples.long()
     rows = torch.arange(B, device=x1.device)[:, None, None]
     models = solve(x1[rows, s], x2[rows, s]).reshape(B, -1, 3, 3)
     res = residual(models[:, :, None], x1[:, None], x2[:, None])  # (B, M, N)
-    counts = ((res <= _threshold(max_sq, 3)) & mask[:, None]).sum(-1).to(torch.int32)
-    counts = torch.where(torch.isfinite(models.flatten(2)).all(-1), counts, 0)
-    best = pack_best(counts)
+    counts, scores = score_models(models, res, mask, _threshold(max_sq, 3), msac)
+    best = pack_best_scores(scores) if msac else pack_best(counts)
     if active is not None:
         counts = torch.where(active[:, None], counts, 0)
+        scores = torch.where(active[:, None], scores, 0)
         best = torch.where(active, best, 0)
-    return models, counts, best
+    return (models, counts, best, scores) if msac else (models, counts, best)
 
 
 def two_view_inliers_plain(residual, x1, x2, mask, model, max_sq):
@@ -157,37 +162,48 @@ def two_view_inliers_plain(residual, x1, x2, mask, model, max_sq):
     return (residual(model[:, None], x1, x2) <= _threshold(max_sq, 2)) & mask
 
 
-def two_view_refit_plain(fit, residual, x1, x2, mask, model, max_sq, count):
+def two_view_refit_plain(fit, residual, x1, x2, mask, model, max_sq, count, score=None):
     """``_try_refine``: ``fit`` (x1, x2, weights) on the model's inliers,
     kept where it is finite and its support is larger. One problem: count an
-    int, returns (model, int); a block: (B,) int32 counts, returns tensors."""
+    int, returns (model, int); a block: (B,) int32 counts, returns tensors.
+    With an MSAC ``score`` (a float, or (B,)) the refit is kept where its
+    score is larger, and (model, count, score) come back."""
     if x1.dim() == 2:
-        out, cnt = two_view_refit_plain(
+        out = two_view_refit_plain(
             fit, residual, x1[None], x2[None], mask[None], model[None], max_sq,
-            torch.tensor([count], dtype=torch.int32, device=x1.device))
-        return out[0], int(cnt[0])
+            torch.tensor([count], dtype=torch.int32, device=x1.device),
+            None if score is None else torch.tensor([score], dtype=x1.dtype, device=x1.device))
+        return (out[0][0], int(out[1][0])) + (() if score is None else (float(out[2][0]),))
     inl = two_view_inliers_plain(residual, x1, x2, mask, model, max_sq)
     refined = fit(x1, x2, inl.to(x1.dtype))
-    count_r = two_view_inliers_plain(residual, x1, x2, mask, refined, max_sq).sum(-1)
-    take = torch.isfinite(refined.flatten(1)).all(-1) & (count_r > count)
-    return (torch.where(take[:, None, None], refined, model),
-            torch.where(take, count_r, count).to(torch.int32))
+    res = residual(refined[:, None], x1, x2)  # (B, N)
+    count_r, score_r = score_models(refined[:, None], res[:, None], mask, _threshold(max_sq, 3),
+                                    score is not None)
+    count_r, score_r = count_r[:, 0], score_r[:, 0]
+    if score is None:
+        take = count_r > count
+    else:
+        take = score_r > score
+    take &= torch.isfinite(refined.flatten(1)).all(-1)
+    out = (torch.where(take[:, None, None], refined, model),
+           torch.where(take, count_r, count).to(torch.int32))
+    return out if score is None else out + (torch.where(take, score_r, score.to(score_r.dtype)),)
 
 
-def essential_propose_score_plain(x1, x2, mask, samples, max_sq, active=None):
+def essential_propose_score_plain(x1, x2, mask, samples, max_sq, active=None, msac=False):
     """K7 propose-and-score: 5-point on each sample, Sampson scoring."""
     return two_view_propose_score_plain(essential_five_point, sampson_error, x1, x2, mask,
-                                        samples, max_sq, active)
+                                        samples, max_sq, active, msac)
 
 
 def essential_inliers_plain(x1, x2, mask, model, max_sq):
     return two_view_inliers_plain(sampson_error, x1, x2, mask, model, max_sq)
 
 
-def essential_refit_plain(x1, x2, mask, model, max_sq, count):
+def essential_refit_plain(x1, x2, mask, model, max_sq, count, score=None):
     """K7 refit: weighted 8-point on the model's inliers."""
     return two_view_refit_plain(essential_eight_point, sampson_error, x1, x2, mask, model, max_sq,
-                                count)
+                                count, score)
 
 
 def _angular_errors(X, R, t, x):
@@ -292,8 +308,8 @@ _SIGNATURES = {
     "p3p_propose_score_f32": [_I, _I, _F] + [_P] * 8 + [_P],
     "p3p_refit_f32": [_I, _F, _I] + [_P] * 6 + [_P],
     "p3p_inliers_f32": [_I, _F] + [_P] * 5 + [_P],
-    "essential_propose_score_f32": [_I, _I, _I, _F] + [_P] * 9 + [_P],
-    "essential_refit_f32": [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
+    "essential_propose_score_f32": [_I, _I, _I, _F] + [_P] * 9 + [_I, _P] + [_P],
+    "essential_refit_f32": [_I, _I, _F, _P, _I] + [_P] * 7 + [_I, _F, _P, _P] + [_P],
     "essential_inliers_f32": [_I, _I, _F] + [_P] * 6 + [_P],
     "triangulate_tracks_f32": [_I, _I, _F, _F] + [_P] * 7 + [_P],
     "filter_points_f32": [_I, _I, _I, _I, _I] + [_P] * 10 + [_P],
@@ -496,10 +512,10 @@ def _check_two_view(x1, x2, mask, dim=2):
 
 
 def two_view_propose_score(call, name, m, solutions, x1, x2, mask, samples, max_sq, active,
-                           dim=2):
+                           dim=2, msac=False):
     """Launch ``<name>_propose_score_f32``: samples (K, m) or (B, K, m) int32.
     Returns models (.., K * solutions, 3, 3), counts (.., K * solutions),
-    packed best (B,) int64."""
+    packed best (B,) int64, and with ``msac`` the scores (.., K * solutions)."""
     dev, b, lead, n = _check_two_view(x1, x2, mask, dim)
     k = samples.shape[-2]
     _check("samples", samples, i32, lead + (k, m), dev)
@@ -508,30 +524,47 @@ def two_view_propose_score(call, name, m, solutions, x1, x2, mask, samples, max_
     sq, sq_ptr = _max_sq_args(max_sq, b, dev)
     models = torch.empty(lead + (k * solutions, 3, 3), dtype=f32, device=dev)
     counts = torch.empty(lead + (k * solutions,), dtype=i32, device=dev)
+    scores = torch.empty(lead + (k * solutions,), dtype=f32, device=dev) if msac else None
     best = torch.zeros(b, dtype=torch.int64, device=dev)
     call(f"{name}_propose_score_f32", b, n, k, sq, sq_ptr,
          *map(_ptr, (x1, x2, mask, samples)), _opt_ptr(active),
-         *map(_ptr, (models, counts, best)), _stream(dev))
-    return models, counts, best
+         *map(_ptr, (models, counts, best)), int(msac), _opt_ptr(scores), _stream(dev))
+    return (models, counts, best, scores) if msac else (models, counts, best)
 
 
-def two_view_refit(call, name, x1, x2, mask, model, max_sq, count, dim=2):
+def two_view_refit(call, name, x1, x2, mask, model, max_sq, count, dim=2, score=None):
     """Launch ``<name>_refit_f32``. One problem: count an int, returns
-    (model, int); a block: count (B,) int32 on the device, returns tensors."""
+    (model, int); a block: count (B,) int32 on the device, returns tensors.
+    With an MSAC ``score`` (a float, or (B,) float32 on the device) the
+    refit is kept where its score is larger and the score comes back too."""
     dev, b, lead, n = _check_two_view(x1, x2, mask, dim)
     model = model.contiguous()
     _check("model", model, f32, lead + (3, 3), dev)
     sq, sq_ptr = _max_sq_args(max_sq, b, dev)
     out = torch.empty(lead + (3, 3), dtype=f32, device=dev)
     out_count = torch.empty(b, dtype=i32, device=dev)
+    out_score = torch.empty(b, dtype=f32, device=dev) if score is not None else None
     if lead:
         _check("count", count, i32, (b,), dev)
         scalar, count_ptr = 0, _ptr(count)
     else:
         scalar, count_ptr = int(count), None
+    score_scalar, score_ptr = 0.0, None
+    if score is not None:
+        if lead:
+            _check("score", score, f32, (b,), dev)
+            score_ptr = _ptr(score)
+        else:
+            score_scalar = float(score)
     call(f"{name}_refit_f32", b, n, sq, sq_ptr, scalar, count_ptr,
-         *map(_ptr, (x1, x2, mask, model, out, out_count)), _stream(dev))
-    return out, (out_count if lead else int(out_count.item()))
+         *map(_ptr, (x1, x2, mask, model, out, out_count)), int(score is not None),
+         score_scalar, score_ptr, _opt_ptr(out_score), _stream(dev))
+    if lead:
+        return (out, out_count) + (() if score is None else (out_score,))
+    if score is None:
+        return out, int(out_count.item())
+    h = torch.stack([out_count.double(), out_score.double()]).cpu()  # one read
+    return out, int(h[0, 0]), float(h[1, 0])
 
 
 def two_view_inliers(call, name, x1, x2, mask, model, max_sq, dim=2):
@@ -546,23 +579,24 @@ def two_view_inliers(call, name, x1, x2, mask, model, max_sq, dim=2):
     return inl
 
 
-def essential_propose_score(x1, x2, mask, samples, max_sq, active=None):
+def essential_propose_score(x1, x2, mask, samples, max_sq, active=None, msac=False):
     """K7 propose-and-score. x1, x2 (N, 2), mask (N,), samples (K, 5) int32,
     or a block of B problems. Returns models (.., 10K, 3, 3), counts
-    (.., 10K), packed best (B,)."""
+    (.., 10K), packed best (B,), and with ``msac`` the scores (.., 10K)."""
     if x1.device.type == "cpu":
-        return essential_propose_score_plain(x1, x2, mask, samples, max_sq, active)
+        return essential_propose_score_plain(x1, x2, mask, samples, max_sq, active, msac)
     out = two_view_propose_score(_call, "essential", 5, E_SOLUTIONS, x1, x2, mask, samples,
-                                 max_sq, active)
+                                 max_sq, active, msac=msac)
     LAUNCHES["essential_ransac"] += 1
     return out
 
 
-def essential_refit(x1, x2, mask, model, max_sq, count):
-    """K7 refit (``_try_refine`` of the essential RANSAC). Returns (model, count)."""
+def essential_refit(x1, x2, mask, model, max_sq, count, score=None):
+    """K7 refit (``_try_refine`` of the essential RANSAC). Returns (model,
+    count), and the score with an MSAC ``score``."""
     if x1.device.type == "cpu":
-        return essential_refit_plain(x1, x2, mask, model, max_sq, count)
-    out = two_view_refit(_call, "essential", x1, x2, mask, model, max_sq, count)
+        return essential_refit_plain(x1, x2, mask, model, max_sq, count, score)
+    out = two_view_refit(_call, "essential", x1, x2, mask, model, max_sq, count, score=score)
     LAUNCHES["essential_ransac"] += 1
     return out
 

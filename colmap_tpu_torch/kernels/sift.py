@@ -8,6 +8,11 @@ Four CUDA kernels carry the device programs of colmap_tpu/feature/sift.py
     K14 sift_extrema      3x3x3 DoG extrema with subpixel refinement
     K15 sift_orientation  36-bin orientation histograms and their peaks
     K16 sift_descriptor   4x4x8 descriptors, normalized and quantized
+    K45 sift_affine_shape Baumberg affine shapes (estimate_affine_shape)
+
+With estimate_affine_shape, K45 gives each keypoint a det-1 shape A (K, 2,
+2), and K15 and K16 take it as ``shapes``: K15 samples with W = sigma A,
+K16 with the frame sigma A R(theta), which its rows carry.
 
 As in kernels/matching.py, each wrapper runs the plain version when its
 tensors lie on the CPU and launches the kernel when they lie on a CUDA
@@ -42,7 +47,8 @@ import torch
 
 from colmap_tpu_torch.kernels import sfm as S
 
-LAUNCHES = {"sift_pyramid": 0, "sift_extrema": 0, "sift_orientation": 0, "sift_descriptor": 0}
+LAUNCHES = {"sift_pyramid": 0, "sift_extrema": 0, "sift_orientation": 0, "sift_descriptor": 0,
+            "sift_affine_shape": 0}
 
 R = 8  # half window: 16 x 16 samples at unit spacing x sigma
 NBINS_ORI = 36
@@ -415,9 +421,11 @@ def descriptors_plain(gauss, x, y, lvl, sigma, response, theta, options, shapes=
     return data, desc, quantize_descriptors(desc)
 
 
-def affine_shapes_plain(gauss, x, y, lvl, sigma, options):
+def affine_shapes_plain(gauss, x, y, lvl, sigma, options, guard=True):
     """colmap_tpu's Baumberg iteration (``affine_shape``, sift.py:472-527):
-    (K, 2, 2) det-1 shape matrices."""
+    (K, 2, 2) det-1 shape matrices; with ``guard`` False the shapes before
+    the guard that turns a shape with an entry of 8 or more (or a
+    non-finite one) into the identity (for checks near that guard)."""
     _, H, W = gauss.shape
     K = x.shape[0]
     dtype, dev = gauss.dtype, gauss.device
@@ -446,6 +454,8 @@ def affine_shapes_plain(gauss, x, y, lvl, sigma, options):
         A_new = A @ Minv_sqrt
         det_A = A_new[:, 0, 0] * A_new[:, 1, 1] - A_new[:, 0, 1] * A_new[:, 1, 0]
         A = A_new / torch.sqrt(torch.clamp(torch.abs(det_A), min=eps))[:, None, None]
+    if not guard:
+        return A
     ok = torch.isfinite(A).all(dim=(1, 2)) & (A.abs().amax(dim=(1, 2)) < 8.0)
     return torch.where(ok[:, None, None], A, torch.eye(2, dtype=dtype, device=dev))
 
@@ -461,9 +471,9 @@ _SIGNATURES = {
     "sift_blur_cols_f32": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sift_downsample2_f32": [_I, _I, _P, _P, _P],
     "sift_extrema_f32": [_I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "sift_orientation_f32": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "sift_descriptor_f32": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P],
+    "sift_orientation_f32": [_I, _I, _I, _I, _I] + [_P] * 9,
+    "sift_descriptor_f32": [_I, _I, _I, _I, _I, _I] + [_P] * 13,
+    "sift_affine_shape_f32": [_I, _I, _I, _I] + [_P] * 7,
 }
 
 
@@ -618,19 +628,26 @@ def _keypoints(gauss, x, y, lvl, sigma):
     return dev, K
 
 
-def orientations(gauss, x, y, lvl, sigma, options):
+def _shapes(shapes, K, dev):
+    if shapes is not None:
+        S._check("shapes", shapes, f32, (K, 2, 2), dev)
+    return S._opt_ptr(shapes)
+
+
+def orientations(gauss, x, y, lvl, sigma, options, shapes=None):
     """K15: one warp per keypoint; theta (K, n_ori) and ok (K, n_ori) bool
-    (with ``upright``, theta 0 and only the first row ok)."""
+    (with ``upright``, theta 0 and only the first row ok). ``shapes`` (K, 2,
+    2): affine frames sigma A, or None for sigma I."""
     if gauss.device.type == "cpu":
-        return orientations_plain(gauss, x, y, lvl, sigma, options)
+        return orientations_plain(gauss, x, y, lvl, sigma, options, shapes)
     dev, K = _keypoints(gauss, x, y, lvl, sigma)
     n_ori = options.max_num_orientations
     theta = torch.empty((K, n_ori), dtype=f32, device=dev)
     ok = torch.empty((K, n_ori), dtype=torch.uint8, device=dev)
     if K:
         _call("sift_orientation_f32", K, gauss.shape[1], gauss.shape[2], n_ori,
-              int(options.upright), _p(gauss), _p(x), _p(y), _p(sigma), _p(lvl), _p(theta),
-              _p(ok), _s(dev))
+              int(options.upright), _p(gauss), _p(x), _p(y), _p(sigma), _p(lvl),
+              _shapes(shapes, K, dev), _p(theta), _p(ok), _s(dev))
         LAUNCHES["sift_orientation"] += 1
     return theta, ok.bool()
 
@@ -638,12 +655,14 @@ def orientations(gauss, x, y, lvl, sigma, options):
 # K16 -----------------------------------------------------------------------
 
 
-def descriptors(gauss, x, y, lvl, sigma, response, theta, ok, options):
+def descriptors(gauss, x, y, lvl, sigma, response, theta, ok, options, shapes=None):
     """K16: one warp per (keypoint, orientation) row; rows where ``ok`` is
     false are skipped (zeros). Returns data (K n_ori, 9) and uint8
-    descriptors (K n_ori, 128)."""
+    descriptors (K n_ori, 128). ``shapes`` (K, 2, 2): frames sigma A R(theta),
+    or None for sigma R(theta)."""
     if gauss.device.type == "cpu":
-        data, _, desc = descriptors_plain(gauss, x, y, lvl, sigma, response, theta, options)
+        data, _, desc = descriptors_plain(gauss, x, y, lvl, sigma, response, theta, options,
+                                          shapes)
         return data, desc
     dev, K = _keypoints(gauss, x, y, lvl, sigma)
     n_ori = theta.shape[1]
@@ -656,15 +675,26 @@ def descriptors(gauss, x, y, lvl, sigma, response, theta, ok, options):
         scales = torch.tensor(dsp_scales(options), dtype=f32, device=dev)
         _call("sift_descriptor_f32", K, gauss.shape[1], gauss.shape[2], n_ori,
               int(options.normalization == "L2"), scales.shape[0], _p(scales), _p(gauss), _p(x),
-              _p(y), _p(sigma), _p(response), _p(lvl), _p(theta), _p(ok), _p(data), _p(desc),
-              _s(dev))
+              _p(y), _p(sigma), _p(response), _p(lvl), _p(theta), _shapes(shapes, K, dev), _p(ok),
+              _p(data), _p(desc), _s(dev))
         LAUNCHES["sift_descriptor"] += 1
     return data, desc
 
 
+# K45 -----------------------------------------------------------------------
+
+
 def affine_shapes(gauss, x, y, lvl, sigma, options):
-    """Baumberg affine shapes (estimate_affine_shape): the plain version on
-    the CPU; no kernel yet."""
+    """K45: Baumberg affine shapes (estimate_affine_shape), one warp per
+    keypoint, ``affine_shape_iterations`` iterations; (K, 2, 2) det-1 shapes
+    (the identity where the iteration does not stay finite and below 8)."""
     if gauss.device.type == "cpu":
         return affine_shapes_plain(gauss, x, y, lvl, sigma, options)
-    raise NotImplementedError("estimate_affine_shape has no CUDA kernel yet (ROADMAP queue 2)")
+    dev, K = _keypoints(gauss, x, y, lvl, sigma)
+    shapes = torch.empty((K, 2, 2), dtype=f32, device=dev)
+    if K:
+        _call("sift_affine_shape_f32", K, gauss.shape[1], gauss.shape[2],
+              int(options.affine_shape_iterations), _p(gauss), _p(x), _p(y), _p(sigma), _p(lvl),
+              _p(shapes), _s(dev))
+        LAUNCHES["sift_affine_shape"] += 1
+    return shapes

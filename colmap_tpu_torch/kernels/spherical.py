@@ -50,41 +50,41 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def spherical_e_propose_score_plain(r1, r2, mask, samples, max_sq, active=None):
+def spherical_e_propose_score_plain(r1, r2, mask, samples, max_sq, active=None, msac=False):
     """K32 propose-and-score: the 5-point solve on each sample of rays,
     angular Sampson scoring."""
     return S.two_view_propose_score_plain(essential_five_point_rays, angular_sampson_error, r1,
-                                          r2, mask, samples, max_sq, active)
+                                          r2, mask, samples, max_sq, active, msac)
 
 
 def spherical_e_inliers_plain(r1, r2, mask, model, max_sq):
     return S.two_view_inliers_plain(angular_sampson_error, r1, r2, mask, model, max_sq)
 
 
-def spherical_e_refit_plain(r1, r2, mask, model, max_sq, count):
+def spherical_e_refit_plain(r1, r2, mask, model, max_sq, count, score=None):
     """K32 refit: the weighted 8-point on rays over the model's inliers."""
     return S.two_view_refit_plain(essential_eight_point_rays, angular_sampson_error, r1, r2, mask,
-                                  model, max_sq, count)
+                                  model, max_sq, count, score)
 
 
-def spherical_h_propose_score_plain(r1, r2, mask, samples, max_sq, active=None):
+def spherical_h_propose_score_plain(r1, r2, mask, samples, max_sq, active=None, msac=False):
     """K33 propose-and-score: the 4-ray DLT on each sample, angular
     transfer scoring."""
     def solve(s1, s2):
         return homography_ray_dlt(s1, s2)[..., None, :, :]
 
     return S.two_view_propose_score_plain(solve, homography_ray_angular_error, r1, r2, mask,
-                                          samples, max_sq, active)
+                                          samples, max_sq, active, msac)
 
 
 def spherical_h_inliers_plain(r1, r2, mask, model, max_sq):
     return S.two_view_inliers_plain(homography_ray_angular_error, r1, r2, mask, model, max_sq)
 
 
-def spherical_h_refit_plain(r1, r2, mask, model, max_sq, count):
+def spherical_h_refit_plain(r1, r2, mask, model, max_sq, count, score=None):
     """K33 refit: the weighted N-ray DLT over the model's inliers."""
     return S.two_view_refit_plain(homography_ray_dlt, homography_ray_angular_error, r1, r2, mask,
-                                  model, max_sq, count)
+                                  model, max_sq, count, score)
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +94,8 @@ def spherical_h_refit_plain(r1, r2, mask, model, max_sq, count):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {}
 for _name in ("spherical_e", "spherical_h"):
-    _SIGNATURES[f"{_name}_propose_score_f32"] = [_I, _I, _I, _F] + [_P] * 9 + [_P]
-    _SIGNATURES[f"{_name}_refit_f32"] = [_I, _I, _F, _P, _I] + [_P] * 7 + [_P]
+    _SIGNATURES[f"{_name}_propose_score_f32"] = [_I, _I, _I, _F] + [_P] * 9 + [_I, _P] + [_P]
+    _SIGNATURES[f"{_name}_refit_f32"] = [_I, _I, _F, _P, _I] + [_P] * 7 + [_I, _F, _P, _P] + [_P]
     _SIGNATURES[f"{_name}_inliers_f32"] = [_I, _I, _F] + [_P] * 6 + [_P]
 
 
@@ -117,23 +117,24 @@ def _call(fn_name, *args):
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err}")
 
 
-def spherical_e_propose_score(r1, r2, mask, samples, max_sq, active=None):
+def spherical_e_propose_score(r1, r2, mask, samples, max_sq, active=None, msac=False):
     """K32 propose-and-score. r1, r2 (N, 3) unit rays, mask (N,), samples
     (K, 5) int32, or a block of B problems. Returns models (.., 10K, 3, 3),
     counts (.., 10K), packed best (B,)."""
     if r1.device.type == "cpu":
-        return spherical_e_propose_score_plain(r1, r2, mask, samples, max_sq, active)
+        return spherical_e_propose_score_plain(r1, r2, mask, samples, max_sq, active, msac)
     out = S.two_view_propose_score(_call, "spherical_e", 5, E_SOLUTIONS, r1, r2, mask, samples,
-                                   max_sq, active, dim=RAY_DIM)
+                                   max_sq, active, dim=RAY_DIM, msac=msac)
     LAUNCHES["spherical_e_ransac"] += 1
     return out
 
 
-def spherical_e_refit(r1, r2, mask, model, max_sq, count):
+def spherical_e_refit(r1, r2, mask, model, max_sq, count, score=None):
     """K32 refit (``_try_refine`` of the ray E RANSAC). Returns (model, count)."""
     if r1.device.type == "cpu":
-        return spherical_e_refit_plain(r1, r2, mask, model, max_sq, count)
-    out = S.two_view_refit(_call, "spherical_e", r1, r2, mask, model, max_sq, count, dim=RAY_DIM)
+        return spherical_e_refit_plain(r1, r2, mask, model, max_sq, count, score)
+    out = S.two_view_refit(_call, "spherical_e", r1, r2, mask, model, max_sq, count, dim=RAY_DIM,
+                           score=score)
     LAUNCHES["spherical_e_ransac"] += 1
     return out
 
@@ -147,23 +148,24 @@ def spherical_e_inliers(r1, r2, mask, model, max_sq):
     return out
 
 
-def spherical_h_propose_score(r1, r2, mask, samples, max_sq, active=None):
+def spherical_h_propose_score(r1, r2, mask, samples, max_sq, active=None, msac=False):
     """K33 propose-and-score. r1, r2 (N, 3) unit rays, mask (N,), samples
     (K, 4) int32, or a block of B problems. Returns models (.., K, 3, 3),
     counts (.., K), packed best (B,)."""
     if r1.device.type == "cpu":
-        return spherical_h_propose_score_plain(r1, r2, mask, samples, max_sq, active)
+        return spherical_h_propose_score_plain(r1, r2, mask, samples, max_sq, active, msac)
     out = S.two_view_propose_score(_call, "spherical_h", 4, H_SOLUTIONS, r1, r2, mask, samples,
-                                   max_sq, active, dim=RAY_DIM)
+                                   max_sq, active, dim=RAY_DIM, msac=msac)
     LAUNCHES["spherical_h_ransac"] += 1
     return out
 
 
-def spherical_h_refit(r1, r2, mask, model, max_sq, count):
+def spherical_h_refit(r1, r2, mask, model, max_sq, count, score=None):
     """K33 refit (``_try_refine`` of the ray H RANSAC). Returns (model, count)."""
     if r1.device.type == "cpu":
-        return spherical_h_refit_plain(r1, r2, mask, model, max_sq, count)
-    out = S.two_view_refit(_call, "spherical_h", r1, r2, mask, model, max_sq, count, dim=RAY_DIM)
+        return spherical_h_refit_plain(r1, r2, mask, model, max_sq, count, score)
+    out = S.two_view_refit(_call, "spherical_h", r1, r2, mask, model, max_sq, count, dim=RAY_DIM,
+                           score=score)
     LAUNCHES["spherical_h_ransac"] += 1
     return out
 

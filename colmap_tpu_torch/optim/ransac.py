@@ -28,6 +28,21 @@ axis): one launch per batch spans (problem, sample), the host reads the B
 packed bests in one copy and keeps each problem's trial count, early exit
 and LO round. All problems see the same draws, so a problem's result in a
 block equals that problem run alone; ``ransac`` is the block of one.
+
+Options (colmap_tpu optim/ransac.py:119-165):
+
+- ``support="m_estimator"`` (MSAC): a model's score is the sum over valid
+  rows of max(max_sq - r, 0), its inlier count rides along for the trial
+  bound and the result, and the LO step compares scores. The kernels pack
+  the float32 score's bits (a score is >= 0, so its bits order as an
+  unsigned int) in the high word of the packed best; the host reads the
+  best model's index, count and score in one copy. A NaN residual counts
+  as an outlier (colmap_tpu's score turns NaN, see ``score_models``).
+- ``sampling="progressive"`` with a ``quality_order``: the valid rows are
+  laid out best first and a batch samples from the first ``pool`` of them,
+  the pool growing from m to all valid rows over
+  ``progressive_full_pool_trials`` trials (``progressive_pool``). Without a
+  quality order it samples uniformly, as colmap_tpu does.
 """
 
 from __future__ import annotations
@@ -51,9 +66,9 @@ class RansacOptions:
     max_num_trials: int = 8192
     batch_size: int = 64
     dyn_num_trials_multiplier: float = 3.0
-    sampling: str = "uniform"  # "uniform"; "progressive" is not ported yet
+    sampling: str = "uniform"  # "uniform" | "progressive"
     progressive_full_pool_trials: int = 2048
-    support: str = "inlier_count"  # "inlier_count"; "m_estimator" is not ported yet
+    support: str = "inlier_count"  # "inlier_count" | "m_estimator"
     lo_outer_rounds: int = 8
 
 
@@ -89,12 +104,68 @@ def pack_best(counts: torch.Tensor) -> torch.Tensor:
     return packed.amax(-1).reshape(-1)
 
 
+def pack_best_scores(scores: torch.Tensor) -> torch.Tensor:
+    """The packed best of MSAC ``scores`` (M,) or (B, M), all >= 0: the
+    first index of the largest score, with the float32 bits of that score in
+    the high 32 bits (the kernels' packing; the plain versions pick the
+    index in their own precision)."""
+    idx = torch.argmax(scores, dim=-1, keepdim=True)  # the first of the largest
+    top = torch.gather(scores, -1, idx).float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return ((top << 32) | (0xFFFFFFFF - idx)).reshape(-1)
+
+
+def score_models(models, res, mask, max_sq, msac: bool):
+    """colmap_tpu's ``_score`` (optim/ransac.py:134-148): (counts (.., M)
+    int32, scores (.., M)) of models (.., M, ...) with squared residuals
+    res (.., M, N) on valid rows mask (.., N); ``max_sq`` broadcasts against
+    res. The score is the count, or with ``msac`` the sum of max(max_sq - r,
+    0) over valid rows; a non-finite model scores 0. A NaN residual is an
+    outlier here; in colmap_tpu it makes the model's MSAC score NaN, which
+    no later model can beat (ROADMAP §3)."""
+    inl = (res <= max_sq) & mask[..., None, :]
+    finite = torch.isfinite(models.flatten(res.dim() - 1)).all(-1)
+    counts = torch.where(finite, inl.sum(-1), 0).to(torch.int32)
+    if not msac:
+        return counts, counts.to(res.dtype)
+    scores = torch.where(inl, max_sq - res, torch.zeros_like(res)).sum(-1)
+    return counts, torch.where(finite, scores, torch.zeros_like(scores))
+
+
+def progressive_pool(trials, num_valid, m: int, full_pool_trials: int) -> np.ndarray:
+    """The progressive pool of each problem (B,) for a batch drawn after
+    ``trials`` (B,) trials: m + frac (num_valid - m) with frac = min(trials /
+    full_pool_trials, 1), in float32 and cut to int32, within [m,
+    max(num_valid, 1)] (colmap_tpu optim/ransac.py:121-132)."""
+    f32 = np.float32
+    frac = np.minimum(np.asarray(trials).astype(f32) / f32(full_pool_trials), f32(1.0))
+    nv = np.asarray(num_valid)
+    pool = (f32(m) + frac * (nv.astype(f32) - f32(m))).astype(np.int32)
+    return np.minimum(np.maximum(pool, m), np.maximum(nv, 1)).astype(np.int64)
+
+
 def _draw(generator, K, m, pool):
     """Sample positions (B, K, m) int64 in [0, pool[b]): one draw of K x m
     uniform numbers, scaled to each problem's count ``pool`` (B,)."""
     u = torch.rand(K, m, generator=generator, dtype=torch.float64)
     pool = torch.as_tensor(pool, dtype=torch.float64)[:, None, None]
     return torch.minimum((u * pool).to(torch.int64), (pool - 1).to(torch.int64))
+
+
+def _sample_layout(mask_h, quality_order, progressive):
+    """Row of each sample position (B, N) int64: the valid rows first, in
+    order, or with progressive sampling best quality first
+    (argsort(where(mask, rank, rank + N))); problems without a valid row
+    sample row 0."""
+    B, N = mask_h.shape
+    if progressive:
+        qo = np.broadcast_to(np.asarray(quality_order, dtype=np.int64).reshape(-1, N), (B, N))
+        rank = np.zeros((B, N), dtype=np.int64)
+        np.put_along_axis(rank, qo, np.broadcast_to(np.arange(N), (B, N)), axis=1)
+        return torch.from_numpy(np.argsort(np.where(mask_h, rank, rank + N), axis=1,
+                                           kind="stable"))
+    valid_idx = torch.from_numpy(np.argsort(~mask_h, axis=1, kind="stable"))
+    valid_idx[torch.from_numpy(mask_h.sum(1) == 0)] = 0
+    return valid_idx
 
 
 class BlockRansacResult(NamedTuple):
@@ -113,6 +184,7 @@ def ransac_block(
     inliers: Callable,
     options: RansacOptions,
     local_refine: Optional[Callable] = None,
+    quality_order=None,
 ) -> BlockRansacResult:
     """(LO-)RANSAC on B problems in lockstep; problem b's result equals
     ``ransac`` on problem b alone with a generator in the same state.
@@ -123,53 +195,78 @@ def ransac_block(
         min_sample_size: m, rows per minimal sample.
         propose_and_score: (sample_idxs (B, K, m) int32, active (B,) bool),
             both on mask's device -> (models (B, M, ...), counts (B, M),
-            packed best (B,) int64); entries of problems that are not active
-            are not read.
+            packed best (B,) int64), and with ``support="m_estimator"`` a
+            fourth output, scores (B, M); entries of problems that are not
+            active are not read.
         inliers: models (B, ...) -> (B, N) bool inlier masks.
         options: RansacOptions.
         local_refine: optional (models (B, ...), counts (B,) int32) ->
-            (models, counts), the ``_try_refine`` step on every problem.
+            (models, counts), the ``_try_refine`` step on every problem; with
+            ``support="m_estimator"`` (models, counts, scores (B,) of the
+            models' type) -> (models, counts, scores).
+        quality_order: optional (N,) or (B, N) row indices, best quality
+            first, for ``sampling="progressive"``.
     """
-    if options.sampling != "uniform":
-        raise NotImplementedError("progressive sampling is not ported yet (ROADMAP queue 1)")
-    if options.support != "inlier_count":
-        raise NotImplementedError("m-estimator support is not ported yet (ROADMAP queue 1)")
+    if options.sampling not in ("uniform", "progressive"):
+        raise ValueError(f"unknown sampling {options.sampling!r}")
+    if options.support not in ("inlier_count", "m_estimator"):
+        raise ValueError(f"unknown support {options.support!r}")
+    msac = options.support == "m_estimator"
+    progressive = options.sampling == "progressive" and quality_order is not None
     device = mask.device
     mask_h = mask.cpu().numpy()
     B, N = mask_h.shape
     num_valid = mask_h.sum(1)
-    # Valid rows first, in order; problems without a valid row sample row 0.
-    valid_idx = torch.from_numpy(np.argsort(~mask_h, axis=1, kind="stable"))
-    valid_idx[torch.from_numpy(num_valid == 0)] = 0
-    pool = np.maximum(num_valid, 1)
+    valid_idx = _sample_layout(mask_h, quality_order, progressive)
     K, m = options.batch_size, min_sample_size
 
     model = None
     count = np.full(B, -1, dtype=np.int64)
+    score = np.full(B, -np.inf)
     trials = np.zeros(B, dtype=np.int64)
 
     def batch(active):
         """One batch for the active problems: keep a better model, count it."""
         nonlocal model
+        pool = (progressive_pool(trials, num_valid, m, options.progressive_full_pool_trials)
+                if progressive else np.maximum(num_valid, 1))
         r = _draw(generator, K, m, pool)  # (B, K, m)
         samples = torch.gather(valid_idx, 1, r.reshape(B, -1)).reshape(B, K, m)
-        models, _, best = propose_and_score(samples.to(torch.int32).to(device),
-                                            torch.from_numpy(active).to(device))
-        packed = best.cpu().numpy()  # the one read of this batch
-        new_count, idx = packed >> 32, 0xFFFFFFFF - (packed & 0xFFFFFFFF)
-        take = np.flatnonzero(active & (new_count > count))
+        out = propose_and_score(samples.to(torch.int32).to(device),
+                                torch.from_numpy(active).to(device))
+        models, counts, best = out[:3]
+        if msac:
+            # The best model's index, count and score in the one read of this batch.
+            idx = torch.clamp(0xFFFFFFFF - (best & 0xFFFFFFFF), max=counts.shape[-1] - 1)[:, None]
+            h = torch.cat([idx.double(), counts.gather(1, idx).double(),
+                           out[3].gather(1, idx).double()], 1).cpu().numpy()
+            idx, new_count, new_score = h[:, 0].astype(np.int64), h[:, 1].astype(np.int64), h[:, 2]
+        else:
+            packed = best.cpu().numpy()  # the one read of this batch
+            new_count, idx = packed >> 32, 0xFFFFFFFF - (packed & 0xFFFFFFFF)
+            new_score = new_count
+        take = np.flatnonzero(active & (new_score > score))
         if model is None:
             model = torch.zeros((B,) + tuple(models.shape[2:]), dtype=models.dtype, device=device)
         if take.size:
             rows = torch.from_numpy(take).to(device)
             model[rows] = models[rows, torch.from_numpy(idx[take]).to(device)]
             count[take] = new_count[take]
+            score[take] = new_score[take]
         trials[active] += K
 
     def refine():
         nonlocal model
-        model, counts = local_refine(model, torch.from_numpy(count).to(torch.int32).to(device))
-        count[:] = counts.cpu().numpy()
+        count_t = torch.from_numpy(count).to(torch.int32).to(device)
+        if msac:
+            score_t = torch.from_numpy(score).to(device=device, dtype=model.dtype)
+            model, counts, scores = local_refine(model, count_t, score_t)
+            h = torch.stack([counts.double(), scores.double()]).cpu().numpy()
+            count[:], score[:] = h[0].astype(np.int64), h[1]
+        else:
+            model, counts = local_refine(model, count_t)
+            count[:] = counts.cpu().numpy()
+            score[:] = count
 
     def stop(b):
         dyn = _dyn_max_trials(int(count[b]), int(num_valid[b]), m, options.confidence,
@@ -215,6 +312,7 @@ def ransac(
     inliers: Callable,
     options: RansacOptions,
     local_refine: Optional[Callable] = None,
+    quality_order=None,
 ) -> RansacResult:
     """(LO-)RANSAC on one problem: ``ransac_block`` with B = 1.
 
@@ -224,22 +322,50 @@ def ransac(
         min_sample_size: m, rows per minimal sample.
         propose_and_score: sample_idxs (K, m) int32 on mask's device ->
             (models (M, ...), counts (M,), packed best (1,) int64), the
-            models of all samples, their support and the packed best.
+            models of all samples, their support and the packed best, and
+            with ``support="m_estimator"`` their scores (M,).
         inliers: model -> (N,) bool inlier mask.
         options: RansacOptions.
         local_refine: optional (model, count) -> (model, count), the
-            ``_try_refine`` step.
+            ``_try_refine`` step; with ``support="m_estimator"`` (model,
+            count, score) -> (model, count, score).
+        quality_order: optional (N,) row indices, best quality first, for
+            ``sampling="progressive"``.
     """
     def propose(idxs, active):
-        models, counts, best = propose_and_score(idxs[0])
-        return models[None], counts[None], best
+        return tuple(o[None] if i != 2 else o
+                     for i, o in enumerate(propose_and_score(idxs[0])))
 
-    def refine(models, counts):
-        model, count = local_refine(models[0], int(counts[0]))
-        return model[None], torch.tensor([count], dtype=torch.int32)
+    def refine(models, counts, *scores):
+        h = torch.stack([counts[:1].double(), *(s[:1].double() for s in scores)]).cpu()[:, 0]
+        out = local_refine(models[0], int(h[0]), *(float(v) for v in h[1:]))
+        return (out[0][None],) + tuple(torch.tensor([v]) for v in out[1:])
 
     res = ransac_block(generator, mask[None], min_sample_size, propose,
                        lambda models: inliers(models[0])[None], options,
-                       refine if local_refine is not None else None)
+                       refine if local_refine is not None else None, quality_order)
     return RansacResult(res.model[0], int(res.num_inliers[0]), res.inlier_mask[0],
                         int(res.num_trials[0]), bool(res.success[0]))
+
+
+def ransac_family(generator, kernels, m, x1, x2, mask, max_sq, options: RansacOptions,
+                  quality_order=None):
+    """``ransac`` on one problem (x1, x2 (N, d)) or ``ransac_block`` on a
+    block (B, N, d) over a model family's kernel entries ``kernels`` =
+    (propose_score, refit, inliers) (kernels/sfm.py's two-view entries), in
+    the support mode of ``options``; ``max_sq`` a float or, for a block, a
+    (B,) tensor."""
+    propose, refit, inliers = kernels
+    msac = options.support == "m_estimator"
+    if x1.dim() == 2:
+        return ransac(generator, mask, m,
+                      lambda idxs: propose(x1, x2, mask, idxs, max_sq, msac=msac),
+                      lambda model: inliers(x1, x2, mask, model, max_sq), options,
+                      lambda model, *support: refit(x1, x2, mask, model, max_sq, *support),
+                      quality_order)
+    return ransac_block(generator, mask, m,
+                        lambda idxs, active: propose(x1, x2, mask, idxs, max_sq, active,
+                                                     msac=msac),
+                        lambda models: inliers(x1, x2, mask, models, max_sq), options,
+                        lambda models, *support: refit(x1, x2, mask, models, max_sq, *support),
+                        quality_order)

@@ -34,8 +34,10 @@ models through K1, K9 and K24 once per model, and the spherical RANSACs K32
 and K33 on colmap_tpu_torch/kernels/spherical_cases.py (tolerances stated
 above their tests). The solver kernels K34-K40 (the packed and rig LM
 loops, global SfM's CG, relative poses, structure-less and generalized
-pose refinement) and the spectral Poisson kernels K41-K44 are held as
-stated above their tests.
+pose refinement), the spectral Poisson kernels K41-K44 and the option
+kernels (K45 affine shapes with K15 and K16 on affine frames, K46
+DEGENSAC, K47 SPRT, the MSAC mode of K7, K11, K12, K32 and K33) are held
+as stated above their tests.
 """
 
 import numpy as np
@@ -595,7 +597,8 @@ def test_matcher_and_verification_through_the_command_on_cuda(tmp_path):
     db.close()
     KM.reset_launches()
     assert cli.main(["exhaustive_matcher", "--database_path", path]) == 28
-    assert all(v > 0 for v in KM.LAUNCHES.values())
+    # Every matching kernel but DEGENSAC's K46, which only use_degensac runs.
+    assert all(v > 0 for k, v in KM.LAUNCHES.items() if k != "degensac"), KM.LAUNCHES
     db = Database(path, must_exist=True)
     for (a, b), gen in truth.items():
         gen = {tuple(r) for r in gen.tolist()}
@@ -748,7 +751,8 @@ def test_feature_extractor_command_on_cuda(tmp_path):
     path = str(tmp_path / "db.db")
     assert len(cli.main(["feature_extractor", "--database_path", path, "--image_path",
                          str(tmp_path / "images")])) == 2
-    assert all(v > 0 for v in KS.LAUNCHES.values()), KS.LAUNCHES
+    # Every SIFT kernel but K45, which only estimate_affine_shape runs.
+    assert all(v > 0 for k, v in KS.LAUNCHES.items() if k != "sift_affine_shape"), KS.LAUNCHES
     db = Database(path, must_exist=True)
     for iid, name, _ in db.read_images():
         kp, desc = db.read_keypoints(iid), db.read_descriptors(iid)
@@ -1858,3 +1862,233 @@ def test_poisson_stencil_spectral_and_iso_match_plain_on_cuda():
                                     1.0)
     _close(a.cpu(), a64, 1e-5, "chi - iso")
     _close(W.cpu(), W64, 1e-6, "W_s")
+
+
+# ---------------------------------------------------------------------------
+# Options of the front end and of RANSAC (K45-K47, the MSAC mode, shapes).
+# ---------------------------------------------------------------------------
+
+
+def _msac_family(kind):
+    """(residual, propose, refit, refit_plain, case) of an MSAC-mode family:
+    K7, K11, K12 on pixel or normalized pairs, K32, K33 on 360-degree rays."""
+    from colmap_tpu_torch.geometry.spherical import (angular_sampson_error,
+                                                     homography_ray_angular_error)
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+
+    if kind in ("E", "F", "H"):
+        residual, propose, refit, _, refit_p, _ = _two_view_family(kind)
+        return residual, propose, refit, refit_p, C.two_view_case(kind, 600, 48, 1, "cuda"), \
+            lambda: C.two_view_block_case(kind, 9, 500, 16, 2, "cuda")
+    name = {"sphere_E": "spherical_e", "sphere_H": "spherical_h"}[kind]
+    residual = angular_sampson_error if kind == "sphere_E" else homography_ray_angular_error
+    k = kind[-1]
+    return (residual, getattr(KQ, f"{name}_propose_score"), getattr(KQ, f"{name}_refit"),
+            getattr(KQ, f"{name}_refit_plain"), Q.ray_case(k, 600, 48, 1, "cuda"),
+            lambda: Q.ray_block_case(k, 9, 500, 16, 2, "cuda"))
+
+
+@pytest.mark.parametrize("kind", ["E", "F", "H", "sphere_E", "sphere_H"])
+def test_msac_mode_matches_plain_on_cuda(kind):
+    """The MSAC mode of K7, K11, K12, K32 and K33: the score of each
+    near-best kernel model (at least 90% of the best float64 score) within
+    1e-5 of a float64 score of the same model (the score is continuous at
+    the threshold; K33's float32 |h - q|^2 of unit rays holds ~1e-4 of a
+    residual at a 4 px threshold, so 5e-4 there; a degenerate model's
+    float32 residuals may be off on single rows, so all models are held to
+    1e-3 of the best score only),
+    counts as in the default mode, the packed best the first of the largest
+    score; from a model that keeps part of the support, the refit's score
+    within 1e-4 (K33: 5e-4) of the plain refit's; a block of 9 pairs gives
+    each pair what the one-pair entries give it."""
+    _need_card()
+    from colmap_tpu_torch.optim.ransac import score_models
+
+    residual, propose, refit, refit_p, c, block_case = _msac_family(kind)
+    from colmap_tpu_torch.kernels.sfm_cases import as_double
+
+    d = as_double(c)
+    models, counts, best, scores = propose(c["x1"], c["x2"], c["mask"], c["samples"],
+                                           c["max_sq"], msac=True)
+    m64 = models.double()
+    res = residual(m64[:, None], d["x1"][None], d["x2"][None])
+    _, want_s = score_models(m64, res, d["mask"], d["max_sq"], True)
+    top = want_s >= 0.9 * want_s.max()
+    rel = (scores.double() - want_s).abs() / want_s.clamp(min=1e-30)
+    tol = 5e-4 if kind == "sphere_H" else 1e-5
+    assert float(rel[top].max()) <= tol, f"{kind}: near-best MSAC scores {float(rel[top].max())}"
+    _close(scores, want_s, 1e-3, f"{kind} MSAC scores")
+    _counts_match(counts, models, lambda m: residual(m[:, None], d["x1"][None], d["x2"][None]),
+                  d["mask"], d["max_sq"])
+    idx = 0xFFFFFFFF - (int(best) & 0xFFFFFFFF)
+    assert idx == int(torch.argmax(scores)) and float(scores[idx]) > 0
+    assert (int(best) >> 32) == int(scores[idx].view(torch.int32)) & 0xFFFFFFFF
+    # A start that keeps part of the support: for F the model whose float64
+    # score is nearest half the best (a sample with an outlier in it), for H
+    # the best with a shear of 1%, for the others the best with 1% of its
+    # largest entry added to one entry.
+    start = models[idx].clone()
+    if kind == "F":
+        start = models[int(torch.argmin((want_s - want_s.max() / 2).abs()))].clone()
+    else:
+        start[0, 1] += 0.01 * (start[0, 0] if kind == "H" else start.abs().max())
+    r0 = residual(start.double()[None, None], d["x1"][None], d["x2"][None])[0]
+    n0, s0 = score_models(start.double()[None], r0, d["mask"], d["max_sq"], True)
+    got, n_got, s_got = refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], int(n0[0]),
+                              float(s0[0]))
+    ref, n_ref, s_ref = refit_p(d["x1"], d["x2"], d["mask"], start.double(), d["max_sq"],
+                                int(n0[0]), float(s0[0]))
+    assert s_ref > float(s0[0]) and abs(s_got - s_ref) <= max(1e-4, tol) * s_ref
+    assert abs(n_got - n_ref) <= 2
+    b = block_case()
+    sq = b["max_sq"]
+    mb, cb, bb, sb = propose(b["x1"], b["x2"], b["mask"], b["samples"], sq, msac=True)
+    for p in range(9):
+        s1 = float(sq[p]) if torch.is_tensor(sq) else sq
+        m1, c1, b1, sc1 = propose(b["x1"][p], b["x2"][p], b["mask"][p], b["samples"][p], s1,
+                                  msac=True)
+        assert int(b1) == int(bb[p]) and torch.equal(c1, cb[p]) and torch.equal(sc1, sb[p])
+        assert torch.equal(torch.nan_to_num(m1), torch.nan_to_num(mb[p]))
+
+
+def _plane_parallax_case(n, plane_share, k, seed):
+    """Pixel matches of a pair with a dominant plane (H fitted on it, float32
+    on the card) and k pairs of off-plane rows."""
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_dlt
+    from colmap_tpu_torch.kernels import matching_cases as C
+
+    p = C.two_view_case("H", n, 2, seed, "cpu", outliers=0.0, valid=n)
+    g = C.two_view_case("F", n, 2, seed + 1, "cpu", outliers=0.0, valid=n)
+    m = int(n * plane_share)
+    x1 = torch.cat([p["x1"][:m], g["x1"][m:]]).double()
+    x2 = torch.cat([p["x2"][:m], g["x2"][m:]]).double()
+    H = homography_dlt(x1[:m], x2[:m])
+    rng = np.random.default_rng(seed)
+    ia = torch.from_numpy(rng.integers(m, n, k)).to(torch.int32)
+    ib = torch.from_numpy(rng.integers(m, n, k)).to(torch.int32)
+    ib[0] = ia[0]  # a degenerate pair scores 0
+    return x1, x2, H, ia, ib
+
+
+def test_degensac_kernel_matches_plain_on_cuda():
+    """K46: each near-best hypothesis (at least 90% of the best float64
+    support) within 1e-4 of the float64 plain version's up to sign (the
+    epipole of two nearly parallel parallax lines has no stable sign) and
+    with the support of a float64 count of the kernel's model up to rows
+    within 2% of the threshold, 0 for ia = ib, the packed best the first of the
+    largest; degensac_recover_f on the card (K46, K11's refit and inliers)
+    against the float64 CPU path on the same positions: the same recovered
+    flag, counts within 2 rows, F within 1e-3."""
+    _need_card()
+    from colmap_tpu_torch.estimators import degensac as D
+    from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.optim.ransac import RansacOptions, unpack_best
+
+    x1, x2, H, ia, ib = _plane_parallax_case(2000, 0.8, 256, 3)
+    mask = torch.ones(len(x1), dtype=torch.bool)
+    cu = [t.cuda() for t in (x1.float(), x2.float(), mask, H.float(), ia, ib)]
+    Fs, counts, best = KM.degensac_propose_score(*cu, 16.0)
+    Fp, cp, _ = KM.degensac_propose_score_plain(x1, x2, mask, H, ia, ib, 16.0)
+    near = cp >= 0.9 * cp.max()
+    got = Fs.cpu().double()[near]
+    _close(got * torch.sign((got * Fp[near]).flatten(1).sum(1))[:, None, None], Fp[near], 1e-4,
+           "K46 near-best hypotheses")
+    assert int(counts[0]) == 0
+    near = near.cuda()  # a degenerate hypothesis's float32 residuals may be off on any row
+    _counts_match(counts[near], Fs[near], lambda m: squared_epipolar_line_distance(
+        m[:, None], x1.cuda()[None], x2.cuda()[None]), mask.cuda(), 16.0)
+    support, idx = unpack_best(int(best))
+    assert support == int(counts.max()) and idx == int(torch.argmax(counts)) and support > 1900
+    h_inl = torch.zeros_like(mask)
+    h_inl[:1600] = True
+    F_bad = torch.tensor([[0.0, -1.0, 0.2], [1.0, 0.0, -0.3], [-0.2, 0.3, 0.0]],
+                         dtype=torch.float64) @ H
+    f_inl = squared_epipolar_line_distance(F_bad, x1, x2) <= 16.0
+    pos = torch.from_numpy(np.random.default_rng(5).integers(0, 400, (2, 256)))
+    opts = RansacOptions(max_error=4.0)
+    out_c = D.degensac_recover_f(None, *cu[:3], F_bad.float().cuda(), f_inl.cuda(), cu[3],
+                                 h_inl.cuda(), opts, positions=pos.cuda())
+    out_p = D.degensac_recover_f(None, x1, x2, mask, F_bad, f_inl, H, h_inl, opts,
+                                 positions=pos)
+    assert out_c[3] == out_p[3] and out_p[3]
+    assert abs(out_c[1] - out_p[1]) <= 2 and abs(int(out_c[2].sum()) - out_c[1]) <= 2
+    Fc, Fp = out_c[0].double().cpu(), out_p[0]
+    _close(Fc * torch.sign((Fc * Fp).sum()), Fp, 1e-3, "recovered F")
+
+
+def test_sprt_kernel_matches_plain_on_cuda():
+    """K47 against the float64 plain version on 256 hypotheses x 4000 rows
+    (inlier shares 0-60%, a partial mask): accepted and num_evaluated equal
+    wherever no running sum lies within 1e-9 of log A."""
+    _need_card()
+    import math
+
+    from colmap_tpu_torch.kernels import sprt as KP
+    from colmap_tpu_torch.optim.sprt import SPRTOptions, decision_threshold
+
+    rng = np.random.default_rng(0)
+    M, N = 256, 4000
+    share = rng.uniform(0.0, 0.6, (M, 1))
+    res = np.where(rng.random((M, N)) < share, rng.uniform(0, 0.9, (M, N)),
+                   rng.uniform(1.1, 9.0, (M, N))).astype(np.float32)
+    mask = rng.random(N) < 0.95
+    o = SPRTOptions()
+    args = (1.0, math.log(decision_threshold(o)), math.log(o.delta / o.epsilon),
+            math.log((1 - o.delta) / (1 - o.epsilon)))
+    acc, num = KP.sprt(torch.from_numpy(res).cuda(), torch.from_numpy(mask).cuda(), *args)
+    acc_p, num_p = KP.sprt_plain(torch.from_numpy(res).double(), torch.from_numpy(mask), *args)
+    cum = torch.cumsum(KP.sprt_steps(torch.from_numpy(res), torch.from_numpy(mask), 1.0,
+                                     args[2], args[3]), -1)
+    clear = ((cum - args[1]).abs() > 1e-9).all(-1)
+    assert bool(clear.float().mean() > 0.99) and 0 < int(acc_p.sum()) < M
+    assert torch.equal(acc.cpu()[clear], acc_p[clear])
+    assert torch.equal(num.cpu()[clear], num_p[clear])
+
+
+def test_affine_shapes_and_frames_match_plain_on_cuda():
+    """K45 against the float64 plain version on octave 0's keypoints of a
+    rendered view: shapes within 1e-3 except where the float64 iteration's
+    largest entry lies within 1e-3 of the |A| < 8 guard; K15 and K16 on the
+    kernel's shapes: the same ok rows, theta within 1e-3 rad except at
+    histogram ties within 1e-5, descriptors within 1 count; extract_sift
+    with estimate_affine_shape on the card keeps a count within 1% of the
+    CPU path's."""
+    from colmap_tpu_torch.feature.sift import SiftOptions, extract_sift
+    from colmap_tpu_torch.kernels import sift as KS
+
+    _, img, _, gauss, dog = _sift_octave()
+    opts = SiftOptions(estimate_affine_shape=True)
+    ext = KS.detect_extrema(dog, opts)
+    sel = KS.select_candidates(ext, opts.max_candidates_per_octave)
+    x, y, lvl, sigma, resp = KS.selected_keypoints(ext, sel)
+    g64 = gauss.double()
+    shapes = KS.affine_shapes(gauss, x, y, lvl, sigma, opts)
+    ref = KS.affine_shapes_plain(g64, x.double(), y.double(), lvl, sigma.double(), opts)
+    guard = (ref.abs().amax((1, 2)) - 8.0).abs() > 1e-3
+    err = (shapes.double() - ref).abs().amax((1, 2))
+    assert bool((err[guard] <= 1e-3).all()) and len(sel) > 50
+    theta, ok = KS.orientations(gauss, x, y, lvl, sigma, opts, shapes)
+    s64 = shapes.double()
+    theta_p, ok_p = KS.orientations_plain(g64, x.double(), y.double(), lvl, sigma.double(), opts,
+                                          s64)
+    hist = KS.orientation_histograms_plain(g64, x.double(), y.double(), lvl, sigma.double(), s64)
+    top = torch.sort(hist, dim=1, descending=True).values
+    clear = (top[:, 0] - top[:, 1]).abs() > 1e-5 * top[:, 0]
+    agree = (ok == ok_p).all(dim=1)
+    assert bool(agree[clear].float().mean() > 0.99)
+    both = ok & ok_p & agree[:, None] & clear[:, None]
+    dth = torch.remainder(theta.double() - theta_p + torch.pi, 2 * torch.pi) - torch.pi
+    assert float(dth[both].abs().max()) <= 1e-3
+    data, desc = KS.descriptors(gauss, x, y, lvl, sigma, resp, theta, ok, opts, shapes)
+    data_p, _, desc_p = KS.descriptors_plain(g64, x.double(), y.double(), lvl, sigma.double(),
+                                             resp.double(), theta.double(), opts, s64)
+    rows = ok.reshape(-1)
+    assert int((desc[rows].int() - desc_p[rows].int()).abs().max()) <= 1
+    _close(data[rows], data_p[rows], 1e-5, "affine descriptor rows")
+    view = (img.cpu().numpy() * 255).astype(np.uint8)
+    kc, _ = extract_sift(view, opts, device="cuda")
+    kp, _ = extract_sift(view, opts, device="cpu")
+    assert kc.shape[1] == 6 and abs(len(kc) - len(kp)) <= 0.01 * len(kp)

@@ -14,7 +14,9 @@ absolute pose's RANSAC on small cases; then ``vocab_tree_builder`` and
 a batch of the spherical homography RANSAC (K33's plain version) on rays of
 a 360-degree pair and the packing of a problem that mixes camera models;
 then rig registration's refinement and refit (K40's plain versions); then
-the meshing slice on small cases: poisson_mesh (K41-K44's plain versions),
+the options' modules: the combination sampler, the SPRT (K47's plain
+version), DEGENSAC's hypotheses (K46's) and affine-covariant SIFT (K45's);
+then the meshing slice on small cases: poisson_mesh (K41-K44's plain versions),
 Delaunay meshing and the advancing front, the quadric simplifier (built
 with g++ from native/mesh_ops.cpp), texturing, rectification and a CMP-MVS
 export. An audit hook records every file the child opens, every library it
@@ -171,6 +173,24 @@ CHILD = textwrap.dedent("""
     assert mid == (2, 5) and rows.shape == (2, 9) and int(counts.max()) > 30
     print("CAMERAS", int(counts.max()))
 
+    from colmap_tpu_torch.estimators import degensac
+    from colmap_tpu_torch.feature.sift import SiftOptions, extract_sift
+    from colmap_tpu_torch.kernels import matching_cases as MTC
+    from colmap_tpu_torch.optim import samplers, sprt
+
+    combos = samplers.all_combinations(6, 3)
+    acc, num = sprt.sprt_evaluate(torch.tensor([[0.0] * 50, [9.0] * 50]),
+                                  torch.ones(50, dtype=torch.bool), 1.0)
+    c = MTC.two_view_case("H", 120, 2, 1, "cpu", outliers=0.0, valid=120)
+    x1, x2 = c["x1"].double(), c["x2"].double()
+    Fs, sup, _ = degensac.KM.degensac_propose_score(
+        x1, x2, c["mask"], torch.eye(3, dtype=torch.float64), torch.tensor([0, 1]),
+        torch.tensor([2, 2]), 16.0)
+    noise = (np.random.default_rng(0).random((64, 80)) * 255).astype(np.uint8)
+    kp, _ = extract_sift(noise, SiftOptions(estimate_affine_shape=True), device="cpu")
+    assert combos.shape == (20, 3) and bool(acc[0]) and not bool(acc[1]) and kp.shape[1] == 6
+    print("OPTIONS", len(combos), int(num[1]), int(sup.max()), len(kp))
+
     from colmap_tpu_torch.cli.export import export_cmp_mvs
     from colmap_tpu_torch.image.rectification import rectify_stereo_cameras
     from colmap_tpu_torch.kernels import meshing_cases as MC
@@ -211,7 +231,7 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
     assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout and "CAMERAS" in out.stdout
-    assert "SOLVERS" in out.stdout and "MESH" in out.stdout
+    assert "SOLVERS" in out.stdout and "MESH" in out.stdout and "OPTIONS" in out.stdout
 
 
 def test_no_module_of_the_port_imports_jax_or_colmap_tpu():

@@ -564,9 +564,31 @@ def test_essential_ransac_outcome_matches_jax():
 
 
 def test_ransac_keeps_unported_options_out():
+    """Progressive sampling and MSAC support are ported (their comparisons
+    with colmap_tpu are in tests/test_torch_options.py): both run through
+    the harness on a 1-D problem, and option values the reference does not
+    know are kept out with a ValueError."""
+    from colmap_tpu_torch.optim.ransac import pack_best, pack_best_scores, score_models
+
+    x = torch.tensor([0.0] * 8 + [5.0, 9.0], dtype=torch.float64)
     mask = torch.ones(10, dtype=torch.bool)
-    for opts in (RansacOptions(sampling="progressive"), RansacOptions(support="m_estimator")):
-        with pytest.raises(NotImplementedError):
+
+    def propose(idxs, msac=False):
+        models = x[idxs.long()[:, :1]]
+        counts, scores = score_models(models, (models - x[None]) ** 2, mask, 1.0, msac)
+        best = pack_best_scores(scores) if msac else pack_best(counts)
+        return (models, counts, best, scores) if msac else (models, counts, best)
+
+    def inliers(model):
+        return (model - x) ** 2 <= 1.0
+
+    for opts, msac in ((RansacOptions(sampling="progressive", batch_size=8), False),
+                       (RansacOptions(support="m_estimator", batch_size=8), True)):
+        res = ransac(torch.Generator().manual_seed(0), mask, 1, lambda i: propose(i, msac),
+                     inliers, opts)
+        assert res.success and res.num_inliers == 8 and float(res.model[0]) == 0.0
+    for opts in (RansacOptions(sampling="prosac"), RansacOptions(support="ransac")):
+        with pytest.raises(ValueError):
             ransac(torch.Generator(), mask, 3, None, None, opts)
 
 
