@@ -194,7 +194,28 @@ Phases; any failure exits non-zero:
      keeping the off-plane matches), the matcher scene of phase 11 with
      MSAC support (CALIBRATED, >= 99% inliers), progressive sampling on one
      of its pairs with a quality order by descriptor distance, and
-     `sprt_evaluate`, each under torch.profiler.
+     `sprt_evaluate`, each under torch.profiler;
+ 27. tools kernels (phase `tools_kernels`): K48 (the generalized relative
+     pose's propose-and-score, inlier and weighted-refit entries) on 32
+     injected samples of an 8192-row pair of the 4 x 5 rig scene's
+     4-camera layout with 25% outliers, and K49 (line gradients) on a
+     3072 x 2304 view, against float64 plain versions, timed (K49 beside
+     F.conv2d with hypot and atan2);
+ 28. orientation (phase `orientation`): `model_orientation_aligner --method
+     MANHATTAN-WORLD` on a rendered Manhattan facade (8 views at 3072 x
+     2304, rolled and yawed), the frame within 0.99 dots of the world's X
+     and Y, then IMAGE-ORIENTATION and PRINCIPAL-PLANE on phase mapper's
+     model;
+ 29. compat (phase `compat`): pycolmap_compat's
+     estimate_generalized_relative_pose on 8192 rig correspondences with
+     25% planted outliers (0.5 deg, 0.05, 0.9 of the inliers kept), a
+     pycolmap-style script (extract_features -> match_exhaustive ->
+     incremental_mapping) on 12 rendered frames (12/12), then
+     `automatic_reconstructor` on them and `color_extractor`;
+ 30. tools (phase `tools`): point_triangulator, image_registrator,
+     point_filtering, guided_geometric_verifier, hierarchical_mapper and
+     pose_prior_mapper on the verify scene on cuda, held to the mapper's
+     gates, then every file tool once on their outputs.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 and K35 (and
 K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
@@ -211,13 +232,17 @@ matcher also K5, K7 and K10-K12 on the rendered frames), the fisheye and
 mixed mappers K1-K3, K5-K9 and K34-K36, `exhaustive_matcher` on 360-degree
 frames K5, K10, K32 and K33, affine `run_feature_extraction` K13-K16 and
 K45, the DEGENSAC block K11, K12 and K46, the MSAC matcher K5, K7 and
-K10-K12, `sprt_evaluate` K47.
+K10-K12, `sprt_evaluate` K47, `model_orientation_aligner` K49,
+estimate_generalized_relative_pose K48, the pycolmap script and
+`automatic_reconstructor` K13-K16, K5, K7, K10-K12 and the mapper's,
+`point_triangulator` K8, `image_registrator` K6, `point_filtering` K9.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 dense,mesh_kernels,mesh`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
 retrieval_kernels,retrieval`, `--phases camera_kernels,cameras` or
-`--phases solver_kernels` or `--phases options_kernels,options` (or any
+`--phases solver_kernels` or `--phases options_kernels,options` or `--phases
+tools_kernels,orientation,compat,tools` (or any
 subset of the phases) runs a subset
 while developing and prints no result; the kernels line needs them all.
 """
@@ -226,6 +251,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import io
@@ -241,6 +267,8 @@ import time
 
 import numpy as np
 import torch
+
+T_START = time.perf_counter()
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # float32 (non-tensor-core) operations/s, for the bound of each kernel.
@@ -1581,9 +1609,10 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import sift as KS
     from colmap_tpu_torch.kernels import solver as KL
     from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import lines as KN
     from colmap_tpu_torch.kernels import sprt as KW
 
-    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP, KW
+    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP, KW, KN
 
 
 def all_launch_counts():
@@ -1692,7 +1721,7 @@ def run_mapper(db_path, out, label, min_launches=True):
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
               and k not in CAMERA_SOURCES and k not in MESH_SOURCES and k not in OPTIONS_SOURCES
-              and k not in ("structure_less_ransac", "gen_abs_refine")]
+              and k not in TOOLS_SOURCES and k not in ("structure_less_ransac", "gen_abs_refine")]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -1719,6 +1748,9 @@ def check_against_gt(out, gt, num_frames, label, max_rot_deg=MAX_ROT_DEG, max_ce
         raise AssertionError(f"{label}: {n}/{expected} images, {rot_err} deg, {ctr}: outside "
                              f"{max_rot_deg} deg / {max_center}")
     return cmp
+
+
+MAPPER_STATE = {}
 
 
 def phase_mapper(launches):
@@ -1758,6 +1790,10 @@ def phase_mapper(launches):
             for k, v in counts.items():
                 launches[k] += v
             cmp = check_against_gt(out, gt, frames, label)
+            if not full:
+                from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+                MAPPER_STATE["verify"] = read_model(os.path.join(out, "0"))
             phases = {k: (pipeline.timer.seconds[k], pipeline.timer.calls[k])
                       for k in sorted(pipeline.timer.seconds, key=pipeline.timer.seconds.get,
                                       reverse=True)}
@@ -6309,9 +6345,593 @@ def phase_options(launches):
     return results
 
 
+# ---------------------------------------------------------------------------
+# The sparse-model tools and the rest of the CLI: K48, K49, the new commands.
+# ---------------------------------------------------------------------------
+
+TOOLS_SOURCES = {
+    "gen_rel_ransac": ("colmap_tpu_torch/csrc/gen_rel_ransac.cu",
+                       "colmap_tpu/estimators/generalized_pose.py:397"),
+    "line_gradients": ("colmap_tpu_torch/csrc/line_gradients.cu", "colmap_tpu/image/lines.py:61"),
+}
+# K48 at the generalized relative pose's shape: one rig pair of 8192
+# correspondences over the 4-camera layout of the 4 x 5 rig scene (the
+# synthetic generator's rig, seed 3), 25% planted outliers, a batch of 32
+# injected samples (half from the inliers), 4 px. A near-best model (90% of
+# the best support, not degenerate) within K48_TOL plus the float64
+# eigensolve's bound rig_cases.SOLVE_EPS / gap.
+REL_ROWS, REL_SAMPLES, REL_OUTLIERS, REL_MAX_SQ, K48_TOL = 8192, 32, 0.25, 16.0, 1e-6
+# f32 operations of K48's scoring a row and model (three quaternion
+# rotations and an inverse one, two 3 x 3 products, two crosses, the
+# Sampson ratio: ~200); f64 operations of a sample's solve: the 171 Gram
+# sums over 17 rows, and K48_SWEEPS Jacobi sweeps of 17 rounds x 9 rotations
+# x 54 updates of 6 operations (a CPU run of the kernel's ordering on this
+# case's samples stopped after 7-8 sweeps); the refit's Gram sums a row.
+K48_ROW_OPS, K48_SWEEPS = 200, 8
+K48_SOLVE_OPS = 17 * 171 * 2 + K48_SWEEPS * 17 * 9 * 54 * 6
+K48_REFIT_ROW_OPS = 18 * 4 + 171 * 3
+# The compat phase's gates: tests/test_generalized_pose.py:129-133.
+REL_ROT_DEG, REL_T, REL_KEEP = 0.5, 0.05, 0.9
+# K49 on a 3072 x 2304 view (BASELINE.json config 1's frames) against its
+# float64 plain version: magnitudes within K49_RTOL relative, angles within
+# K49_ANGLE_TOL rad modulo pi where the gradient is not 0.
+K49_RTOL, K49_ANGLE_TOL = 1e-5, 1e-5
+# The Manhattan facade: 8 views at 3072 x 2304, f = 2400 (the 640 x 480, f
+# = 500 scene of tests/test_coordinate_frame.py at full size), rolled and
+# yawed by a few degrees; the frame's axes within the reference test's 0.99
+# dot of the world's X and Y.
+ORIENT_VIEWS, ORIENT_W, ORIENT_H, ORIENT_FOCAL, ORIENT_DOT = 8, 3072, 2304, 2400.0, 0.99
+ORIENT_ROLLS = (0.0, 4.0, -4.0, 2.0, -2.0, 6.0, -6.0, 3.0)
+ORIENT_YAWS = (0.0, 3.0, -3.0, -2.0, 2.0, 1.0, -1.0, 4.0)
+# Phase compat maps the 12 rendered frames of phase extractor rendered with
+# the focal length the reader guesses (1.2 x 1024 px; pycolmap's
+# extract_features and automatic_reconstructor take no intrinsics).
+COMPAT_FOCAL = 1.2 * 1024
+HIER_MAX_CENTER = 1e-3
+MAPPER_KERNELS = ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "camera_map",
+                  "essential_ransac", "p3p_ransac", "ba_pcg", "ba_lm_update", "relative_pose")
+
+
+def _k48_sensors():
+    """(q, t) sensor_from_rig of the 4 x 5 rig scene's four cameras."""
+    from colmap_tpu_torch.scene.synthetic import SyntheticDatasetOptions, synthesize_dataset
+    from colmap_tpu_torch.scene.types import Pose, SensorType
+
+    gt = synthesize_dataset(SyntheticDatasetOptions(
+        num_rigs=1, num_cameras_per_rig=4, num_frames_per_rig=5, num_points3D=1000,
+        camera_params=(FULL_FOCAL, 512.0, 384.0, 0.05), camera_has_prior_focal_length=True),
+        None, rng=np.random.default_rng(3))
+    rig = gt.rigs[min(gt.rigs)]
+    poses = [rig.sensor_from_rig((int(SensorType.CAMERA), c)) or Pose.identity()
+             for c in sorted(gt.cameras)]
+    return np.stack([p.quat for p in poses]), np.stack([p.t for p in poses])
+
+
+def _k48_case(seed):
+    from colmap_tpu_torch.kernels import rig_cases as RC
+
+    return RC.gen_rel_case(REL_ROWS, outlier_ratio=REL_OUTLIERS, seed=seed,
+                           sensors=_k48_sensors(), focal=FULL_FOCAL)
+
+
+def _k48(errs, rows, agree):
+    """K48 (a)-(c) against their float64 plain versions on one 8192-row
+    rig pair: the same injected samples fed to both; timed."""
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    case = _k48_case(7)
+    data = RC.gen_rel_tensors(case, "cuda", torch.float32)
+    data64 = KR.GenRelData(data.rays, *f64(*data[1:]))
+    samples = RC.gen_rel_samples(REL_ROWS, REL_SAMPLES, 5, case["inliers"], device="cuda")
+    m, c, b = KR.gen_rel_propose_score(data, samples, REL_MAX_SQ)
+    (m64, c64, b64), plain_s = _timed(
+        lambda: KR.gen_rel_propose_score_plain(data64, samples, REL_MAX_SQ))
+    a = RC.gen_rel_agreement(c, unpack_best(int(b[0])), m, m64, c64, unpack_best(int(b64[0])),
+                             data64, samples, REL_MAX_SQ, tol=K48_TOL)
+    log(f"K48 vs float64 plain: {REL_ROWS} rows x 4 cameras, {REL_SAMPLES} injected samples "
+        f"({a['degenerate']} degenerate, not compared): counts within their near rows "
+        f"{a['count_ok']}, best sample {unpack_best(int(b[0]))} against {unpack_best(int(b64[0]))}"
+        f" (tie {a['tie']}), {a['near_best']} near-best models within {K48_TOL:g} + eps / gap: "
+        f"{a['model_ok']} (largest error {a['max_model_err']:.3e}, the best's gap "
+        f"{a['best_gap']:.3e})")
+    if not (a["count_ok"] and a["best_ok"] and a["model_ok"]):
+        raise AssertionError(f"K48 propose-and-score disagrees with its plain version: {a}")
+    errs["gen_rel_ransac"].append((a["max_model_err"], a["max_model_err"]))
+    agree["gen_rel_ransac"] = (a["near_best"], a["near_best"])
+    best = unpack_best(int(b64[0]))[1]
+    inl = KR.gen_rel_inliers(data, m64[best].float(), REL_MAX_SQ)
+    res = KR.gen_rel_residuals(m64[best][None], data64)[0]
+    far = (res - REL_MAX_SQ).abs() > 1e-3 * REL_MAX_SQ
+    if not torch.equal(inl[far], (res <= REL_MAX_SQ)[far]):
+        raise AssertionError("K48 inliers: the mask differs from float64 off the near rows")
+    w = (res <= REL_MAX_SQ).double()
+    model, ok = KR.gen_rel_refit(data.rays, w)
+    model64, ok64 = KR.gen_rel_refit_plain(data.rays, w)
+    if not (bool(ok[0]) and bool(ok64[0])):
+        raise AssertionError("K48 refit: a solve failed")
+    check("K48 refit (float64 both)", model, model64, 1e-9, errs["gen_rel_ransac"])
+    rel = case["rel"]
+    truth = torch.as_tensor(np.concatenate([rel.rotmat(), rel.t[:, None]], 1))
+    log(f"  K48 refit over the {int(w.sum())} inliers against the truth: "
+        f"{float((model.cpu() - truth).abs().max()):.3e}")
+    n, k = REL_ROWS, REL_SAMPLES
+    t_ops = (k * n * K48_ROW_OPS / PEAK_F32_OPS_PER_S
+             + k * K48_SOLVE_OPS / PEAK_F64_OPS_PER_S) * 1e3
+    t_bytes = (nbytes(*data, samples) + nbytes(m, c) + 8) / PEAK_BYTES_PER_S * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ms = time_ms(lambda: KR.gen_rel_propose_score(data, samples, REL_MAX_SQ), reps=20)
+    plain_ms = time_ms(lambda: KR.gen_rel_propose_score_plain(data, samples, REL_MAX_SQ),
+                       reps=3)
+    log(f"    gen_rel_ransac (a), {n} rows x {k} samples: {ms:.4f} ms (plain, float32 scoring, "
+        f"{plain_ms:.3f} ms; float64 {plain_s * 1e3:.3f} ms; bound {b_ms:.5f} ms by {by})")
+    rows["gen_rel_ransac"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                  library_ms=None, entries={
+                                      "inliers": _entry_times(
+                                          lambda: KR.gen_rel_inliers(data, m[0], REL_MAX_SQ),
+                                          lambda: KR.gen_rel_inliers_plain(data, m[0],
+                                                                           REL_MAX_SQ)),
+                                      "refit": _entry_times(
+                                          lambda: KR.gen_rel_refit(data.rays, w),
+                                          lambda: KR.gen_rel_refit_plain(data.rays, w))},
+                                  extra=dict(degenerate_samples=a["degenerate"]))
+    log(f"    gen_rel_ransac (b), (c): {rows['gen_rel_ransac']['entries']} (refit bound "
+        f"{bound64(nbytes(data.rays, w), K48_REFIT_ROW_OPS * n)[0]:.5f} ms)")
+
+
+def _facade(root):
+    """The Manhattan facade of tests/test_coordinate_frame.py's
+    _manhattan_scene at 3072 x 2304: axis-aligned segments at z 5 and 6.5,
+    seen by ORIENT_VIEWS cameras at the origin rolled and yawed by a few
+    degrees; the views written as PNG, the model (PINHOLE) as BIN. Returns
+    (model path, image path)."""
+    from colmap_tpu_torch.scene.reconstruction import Reconstruction
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+    from colmap_tpu_torch.scene.types import Camera, Frame, Image, Pose, Rig, SensorType
+    from colmap_tpu_torch.utils.image_io import write_png
+
+    W, H, f = ORIENT_W, ORIENT_H, ORIENT_FOCAL
+    recon = Reconstruction()
+    recon.add_camera(Camera.create(1, 1, f, W, H))
+    segs = [(np.array([-2.0, y, z]), np.array([2.0, y, z])) for y in (-1.0, 0.0, 1.0)
+            for z in (5.0, 6.5)]
+    segs += [(np.array([x, -1.5, z]), np.array([x, 1.5, z])) for x in (-1.5, 0.0, 1.5)
+             for z in (5.0, 6.5)]
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    cam = int(SensorType.CAMERA)
+    for k in range(ORIENT_VIEWS):
+        rz, ry = np.radians(ORIENT_ROLLS[k]), np.radians(ORIENT_YAWS[k])
+        qz = np.array([np.cos(rz / 2), 0.0, 0.0, np.sin(rz / 2)])
+        qy = np.array([np.cos(ry / 2), 0.0, np.sin(ry / 2), 0.0])
+        pose = Pose(qz, np.zeros(3)).compose(Pose(qy, np.zeros(3)))
+        recon.add_rig(Rig(rig_id=k + 1, ref_sensor_id=(cam, 1)))
+        recon.add_frame(Frame(frame_id=k + 1, rig_id=k + 1, rig_from_world=pose,
+                              data_ids=[(cam, 1, k + 1)]))
+        img = Image(image_id=k + 1, name=f"im{k}.png", camera_id=1, frame_id=k + 1)
+        img.set_points2D(np.zeros((1, 2)))
+        recon.add_image(img)
+        recon.register_frame(k + 1)
+        canvas = np.zeros((H, W), dtype=np.uint8)
+        R = pose.rotmat()
+        for a, b in segs:
+            pa, pb = R @ a, R @ b
+            ua = np.array([f * pa[0] / pa[2] + W / 2, f * pa[1] / pa[2] + H / 2])
+            ub = np.array([f * pb[0] / pb[2] + W / 2, f * pb[1] / pb[2] + H / 2])
+            ts = np.linspace(0.0, 1.0, int(np.ceil(np.linalg.norm(ub - ua) * 2)) + 1)
+            xy = np.rint(np.outer(1 - ts, ua) + np.outer(ts, ub)).astype(np.int64)
+            ok = (xy[:, 0] >= 0) & (xy[:, 0] < W) & (xy[:, 1] >= 0) & (xy[:, 1] < H)
+            xi, yi = xy[ok, 0], xy[ok, 1]
+            canvas[yi, xi] = 255
+            canvas[np.minimum(yi + 1, H - 1), xi] = 255
+        write_png(os.path.join(images, img.name), canvas, level=1)
+    model = os.path.join(root, "model")
+    write_model(recon, model, fmt="bin")
+    return model, images, recon
+
+
+def _k49(errs, rows):
+    """K49 against its float64 plain version on a 3072 x 2304 facade view;
+    timed beside its plain version and one library convolution."""
+    from colmap_tpu_torch.kernels import lines as KL
+    from colmap_tpu_torch.utils.image_io import read_image_gray
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, images, _ = _facade(tmp)
+        view = read_image_gray(os.path.join(images, "im1.png"))
+    # Gray levels with texture: the facade's strokes plus a seeded noise.
+    view = np.clip(view.astype(np.int64) + np.random.default_rng(3).integers(
+        0, 40, view.shape), 0, 255).astype(np.float32)
+    img = torch.from_numpy(view).cuda()
+    mag, ang = KL.line_gradients(img)
+    mag64, ang64 = KL.line_gradients_plain(img.double())
+    strong = mag64 > 0
+    check("K49 magnitude", mag, mag64, K49_RTOL, errs["line_gradients"])
+    rel = float(((mag.double() - mag64).abs() / mag64.clamp(min=1e-30))[strong].max())
+    d = torch.remainder(ang.double() - ang64 + torch.pi / 2, torch.pi) - torch.pi / 2
+    worst = float(d[strong].abs().max())
+    log(f"  K49 at {ORIENT_W} x {ORIENT_H}: magnitudes within {rel:.3e} relative, angles within "
+        f"{worst:.3e} rad modulo pi (tolerances {K49_RTOL:g}, {K49_ANGLE_TOL:g})")
+    if not (rel <= K49_RTOL and worst <= K49_ANGLE_TOL):
+        raise AssertionError("K49 disagrees with its float64 plain version")
+    errs["line_gradients"].append((worst, worst))
+    ms = time_ms(lambda: KL.line_gradients(img), reps=25)
+    plain_ms = time_ms(lambda: KL.line_gradients_plain(img), reps=10)
+    library_ms = time_ms(lambda: KL.line_gradients_library(img), reps=25)
+    b_ms, by = bound(12 * img.numel(), 0)
+    log(f"    line_gradients, {ORIENT_W} x {ORIENT_H}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+        f"F.conv2d + hypot + atan2 + wraps {library_ms:.4f} ms, TF32 off; bound {b_ms:.5f} ms "
+        f"by {by})")
+    rows["line_gradients"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                  library_ms=library_ms)
+
+
+def phase_tools_kernels():
+    """K48 and K49 against their float64 plain versions at the paths'
+    shapes, timed with CUDA events (K49 beside F.conv2d on the replicate-
+    padded view with hypot, atan2 and the wraps, TF32 off). Returns (errs,
+    rows, agree)."""
+    errs = {k: [] for k in TOOLS_SOURCES}
+    rows, agree = {}, {}
+    torch.backends.cudnn.allow_tf32 = False
+    for label, step in (("K48", lambda: _k48(errs, rows, agree)), ("K49", lambda: _k49(errs, rows))):
+        t0 = time.perf_counter()
+        step()
+        log(f"  ({label}: {time.perf_counter() - t0:.1f} s)")
+    return errs, rows, agree
+
+
+def _verify_model(root):
+    """Phase mapper's verify-scene model (8 frames x 120 points), or, when
+    that phase did not run, the same scene through `mapper` here. Returns
+    the model's path."""
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+
+    out = os.path.join(root, "verify_model")
+    if "verify" in MAPPER_STATE:
+        write_model(MAPPER_STATE["verify"], out, fmt="bin")
+        return out
+    scene = os.path.join(root, "verify_scene")
+    os.makedirs(scene)
+    db_path, _ = make_scene(scene, 8, 120, 1280.0)
+    run_mapper(db_path, os.path.join(scene, "sparse"), "mapper, verify scene", min_launches=False)
+    shutil.copytree(os.path.join(scene, "sparse", "0"), out)
+    return out
+
+
+def _frame_dots(src, out):
+    """The aligned world's X and Y axes (the estimated frame's rightward and
+    downward axes) against the source world's X and Y: (dot x, dot y)."""
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+    a, b = read_model(src), read_model(out)
+    iid = sorted(a.reg_image_ids())[0]
+    frame = a.cam_from_world(iid).rotmat().T @ b.cam_from_world(iid).rotmat()
+    return abs(float(frame[0, 0])), abs(float(frame[1, 1]))
+
+
+def phase_orientation(launches):
+    """`model_orientation_aligner --method MANHATTAN-WORLD` on the rendered
+    facade (8 views at 3072 x 2304) on cuda under torch.profiler, the frame
+    held to the reference test's 0.99 dots; then IMAGE-ORIENTATION and
+    PRINCIPAL-PLANE on phase mapper's model."""
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model, images, _ = _facade(tmp)
+        log(f"orientation: the facade, {ORIENT_VIEWS} views at {ORIENT_W} x {ORIENT_H} "
+            f"(set-up {time.perf_counter() - t0:.1f} s)")
+        out = os.path.join(tmp, "aligned")
+        _, dt, idle = _profiled_command(
+            ["model_orientation_aligner", "--input_path", model, "--output_path", out,
+             "--image_path", images, "--method", "MANHATTAN-WORLD"],
+            "model_orientation_aligner MANHATTAN-WORLD", ("line_gradients",), launches)
+        dx, dy = _frame_dots(model, out)
+        log(f"  the frame's rightward axis at {np.degrees(np.arccos(min(dx, 1.0))):.4f} deg of X, "
+            f"downward at {np.degrees(np.arccos(min(dy, 1.0))):.4f} deg of Y (dots {dx:.6f}, "
+            f"{dy:.6f}; gate {ORIENT_DOT}); {ORIENT_VIEWS} views in {dt:.3f} s = "
+            f"{ORIENT_VIEWS / dt:.3f} views/s on {nvidia_smi_line()}")
+        if not (dx > ORIENT_DOT and dy > ORIENT_DOT):
+            raise AssertionError("MANHATTAN-WORLD: the frame misses the facade's axes")
+        results["manhattan"] = dict(seconds=dt, idle_share=idle, dot_x=dx, dot_y=dy)
+        src = _verify_model(tmp)
+        for method in ("IMAGE-ORIENTATION", "PRINCIPAL-PLANE"):
+            _, dt, _ = run_command(["model_orientation_aligner", "--input_path", src,
+                                    "--output_path", os.path.join(tmp, method), "--method",
+                                    method], f"model_orientation_aligner {method}", ())
+            log(f"  {method}: host only (no device work), {dt:.3f} s")
+            results[method] = dict(seconds=dt)
+    return results
+
+
+def _render_compat(root):
+    from colmap_tpu_torch.kernels import sift_cases as SC
+
+    t0 = time.perf_counter()
+    gt, names, _ = SC.render_scene(os.path.join(root, "images"), IMG_FRAMES, IMG_POINTS, 1024, 768,
+                                   COMPAT_FOCAL, patch_world=IMG_PATCH_WORLD)
+    log(f"  {IMG_FRAMES} rendered frames x {IMG_POINTS} points, PINHOLE 1024 x 768, f = "
+        f"{COMPAT_FOCAL:g} (set-up {time.perf_counter() - t0:.1f} s)")
+    return gt, names
+
+
+def _against_gt(recon, gt, frames, label):
+    from colmap_tpu_torch.estimators.alignment import compare_reconstructions
+
+    cmp = compare_reconstructions(recon, gt)
+    n, rot, ctr = cmp["num_common_images"], cmp["max_rotation_error_deg"], cmp["max_center_error"]
+    log(f"  {label}: {recon.num_reg_frames()}/{frames} frames, {recon.num_points3D()} points; "
+        f"max rotation error {rot:.4f} deg, max center error {ctr:.5f} (bounds "
+        f"{IMG_MAX_ROT_DEG} deg, {IMG_MAX_CENTER})")
+    if not (n == frames and rot < IMG_MAX_ROT_DEG and ctr < IMG_MAX_CENTER):
+        raise AssertionError(f"{label}: {n}/{frames} frames, {rot} deg, {ctr}")
+    return cmp
+
+
+def phase_compat(launches):
+    """pycolmap_compat on cuda: estimate_generalized_relative_pose on an
+    8192-row pair of the 4-camera layout with 25% planted outliers (the
+    gates of tests/test_generalized_pose.py), then a pycolmap-style script
+    (extract_features -> match_exhaustive -> incremental_mapping) on the 12
+    rendered frames; each driven with the launch counts at 0 before, under
+    torch.profiler."""
+    import colmap_tpu_torch.pycolmap_compat as pycolmap
+
+    results = {}
+    case = _k48_case(9)
+    (pose, inl), dt, idle = _driven(
+        "pycolmap.estimate_generalized_relative_pose, 8192 rows",
+        lambda: pycolmap.estimate_generalized_relative_pose(
+            case["points2D1"], case["points2D2"], case["camera_idxs1"], case["camera_idxs2"],
+            case["cams_from_rig"], case["cameras"], device="cuda"),
+        ("gen_rel_ransac",), launches)
+    rel, planted = case["rel"], case["inliers"]
+    rot = float(np.degrees(pose.angle_to(rel)))
+    terr = float(np.abs(pose.t - rel.t).max())
+    kept = float((inl & planted).sum() / planted.sum())
+    log(f"  rig2_from_rig1: rotation error {rot:.3e} deg, metric t error {terr:.3e}, "
+        f"{kept:.4f} of the planted inliers kept, {int((inl & ~planted).sum())} planted outliers "
+        f"in (gates {REL_ROT_DEG} deg, {REL_T}, {REL_KEEP}); {dt:.3f} s")
+    if not (rot < REL_ROT_DEG and terr < REL_T and kept >= REL_KEEP):
+        raise AssertionError("estimate_generalized_relative_pose outside its gates")
+    results["generalized_relative_pose"] = dict(seconds=dt, idle_share=idle, rot_deg=rot,
+                                                t_err=terr, kept=kept)
+    with tempfile.TemporaryDirectory() as tmp:
+        log("pycolmap-style script on the rendered frames:")
+        gt, _ = _render_compat(tmp)
+        db = os.path.join(tmp, "db.db")
+        seconds = {}
+        _, seconds["extract_features"], _ = _driven(
+            "pycolmap.extract_features", lambda: pycolmap.extract_features(
+                db, os.path.join(tmp, "images"), camera_model="PINHOLE", device="cuda"),
+            tuple(SIFT_SOURCES), launches)
+        _, seconds["match_exhaustive"], _ = _driven(
+            "pycolmap.match_exhaustive", lambda: pycolmap.match_exhaustive(db, device="cuda"),
+            MATCHER_KERNELS, launches)
+        models, seconds["incremental_mapping"], idle = _driven(
+            "pycolmap.incremental_mapping",
+            lambda: pycolmap.incremental_mapping(db, output_path=os.path.join(tmp, "sparse"),
+                                                 device="cuda"), MAPPER_KERNELS, launches)
+        _against_gt(models[0], gt, IMG_FRAMES, "pycolmap script")
+        results["script"] = dict(seconds=seconds, idle_share_mapping=idle)
+        _tools_on_rendered(tmp, gt, launches, results)
+    return results
+
+
+def _tools_on_rendered(tmp, gt, launches, results):
+    """automatic_reconstructor (sparse, quality high) on the rendered
+    frames, then color_extractor on its model."""
+    images = os.path.join(tmp, "images")
+    ws = os.path.join(tmp, "ws")
+    models, dt, idle = _profiled_command(
+        ["automatic_reconstructor", "--workspace_path", ws, "--image_path", images,
+         "--camera_model", "PINHOLE"], f"automatic_reconstructor, {IMG_FRAMES} rendered frames",
+        (*SIFT_SOURCES, *MATCHER_KERNELS, *MAPPER_KERNELS), launches, profiled=False)
+    _against_gt(models[0], gt, IMG_FRAMES, "automatic_reconstructor")
+    results["automatic_reconstructor"] = dict(seconds=dt)
+    dt = _host(["color_extractor", "--input_path", os.path.join(ws, "sparse", "0"),
+                "--image_path", images, "--output_path", os.path.join(tmp, "colored")],
+               "color_extractor")
+    results["color_extractor"] = dict(seconds=dt)
+
+
+def phase_tools(launches):
+    """Every other new command once through the CLI on cuda where it takes
+    --device: point_triangulator, image_registrator, point_filtering,
+    guided_geometric_verifier, hierarchical_mapper and pose_prior_mapper on
+    the verify scene (phase mapper's: 8 frames x 120 points, seed 3; the
+    prior scene with position priors), each under torch.profiler and held
+    to the mapper's gates; then the file tools on their outputs."""
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+    from colmap_tpu_torch.scene.types import INVALID_POINT3D
+
+    results, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path, gt = make_scene(tmp, 8, 120, 1280.0)
+        gt_dir = os.path.join(tmp, "gt")
+        write_model(gt, gt_dir, fmt="bin")
+        poses = copy.deepcopy(gt)
+        for pid in list(poses.points3D):
+            poses.delete_point3D(pid)
+        for image in poses.images.values():
+            image.points2D_p3d[:] = INVALID_POINT3D
+        src = os.path.join(tmp, "poses")
+        write_model(poses, src, fmt="bin")
+        tri = os.path.join(tmp, "triangulated")
+        n, walls["point_triangulator"], results["point_triangulator_idle"] = _profiled_command(
+            ["point_triangulator", "--database_path", db_path, "--input_path", src,
+             "--output_path", tri], "point_triangulator", ("triangulate_tracks",), launches)
+        os.makedirs(os.path.join(tmp, "tri_model"))
+        shutil.copytree(tri, os.path.join(tmp, "tri_model", "0"))
+        check_against_gt(os.path.join(tmp, "tri_model"), gt, 8, "point_triangulator")
+        if read_model(tri).num_points3D() < 0.9 * gt.num_points3D():
+            raise AssertionError("point_triangulator: too few points")
+        partial = copy.deepcopy(gt)
+        for iid in sorted(gt.reg_image_ids())[-2:]:
+            partial.deregister_frame(partial.images[iid].frame_id)
+        write_model(partial, os.path.join(tmp, "partial"), fmt="bin")
+        reg = os.path.join(tmp, "registered")
+        added, walls["image_registrator"], results["image_registrator_idle"] = _profiled_command(
+            ["image_registrator", "--database_path", db_path, "--input_path",
+             os.path.join(tmp, "partial"), "--output_path", os.path.join(reg, "0")],
+            "image_registrator", ("p3p_ransac",), launches)
+        check_against_gt(reg, gt, 8, "image_registrator")
+        if added != 2:
+            raise AssertionError(f"image_registrator registered {added} of 2 images")
+        _, walls["point_filtering"], _ = _profiled_command(
+            ["point_filtering", "--input_path", tri, "--output_path", os.path.join(tmp, "filt")],
+            "point_filtering", ("filter_points",), launches, profiled=False)
+        _, walls["guided_geometric_verifier"], _ = _profiled_command(
+            ["guided_geometric_verifier", "--database_path", db_path],
+            "guided_geometric_verifier", ("camera_map", "essential_ransac"), launches,
+            profiled=False)
+        hier = os.path.join(tmp, "hier")
+        models, walls["hierarchical_mapper"], results["hierarchical_idle"] = _profiled_command(
+            ["hierarchical_mapper", "--database_path", db_path, "--output_path", hier,
+             "--leaf_max_num_images", "5", "--image_overlap", "2", "--quiet"],
+            "hierarchical_mapper (leaves of at most 5 images)", MAPPER_KERNELS, launches)
+        leaves = _leaves(db_path, 5, 2)
+        # Leaves mapped apart and merged by a Sim3 on their shared images:
+        # colmap_tpu's test asks for the frames only; the centres are held
+        # at HIER_MAX_CENTER (a CPU run: 2.5e-4).
+        check_against_gt(hier, gt, 8, f"hierarchical_mapper, {leaves} leaves",
+                         max_center=HIER_MAX_CENTER)
+        if leaves < 2:
+            raise AssertionError("hierarchical_mapper: the scene was not split")
+        prior_root = os.path.join(tmp, "prior")
+        os.makedirs(prior_root)
+        prior_db, prior_gt = make_scene(prior_root, 8, 120, 1280.0, prior_position=True)
+        models, walls["pose_prior_mapper"], results["pose_prior_idle"] = _profiled_command(
+            ["pose_prior_mapper", "--database_path", prior_db, "--output_path",
+             os.path.join(prior_root, "sparse")], "pose_prior_mapper", MAPPER_KERNELS, launches)
+        recon = read_model(os.path.join(prior_root, "sparse", "0"))
+        err = max(np.linalg.norm(recon.cam_from_world(i).projection_center()
+                                 - prior_gt.cam_from_world(i).projection_center())
+                  for i in recon.reg_image_ids())
+        log(f"  pose_prior_mapper: {recon.num_reg_frames()}/8 frames, centres {err:.3e} from the "
+            f"priors' (the truth's) frame, no further alignment")
+        if not (recon.num_reg_frames() == 8 and err < 1e-3):
+            raise AssertionError("pose_prior_mapper: not in the priors' frame")
+        walls.update(_file_tools(tmp, db_path, tri, gt_dir))
+    log(f"  tools: seconds by command { {k: round(v, 3) for k, v in walls.items()} }")
+    results["seconds"] = walls
+    return results
+
+
+def _leaves(db_path, leaf_max, overlap):
+    """The hierarchical mapper's leaf count on the database's verified
+    pairs (its clustering, run alone)."""
+    from colmap_tpu_torch.scene.clustering import SceneClusteringOptions, cluster_scene
+    from colmap_tpu_torch.scene.database import Database
+
+    db = Database(db_path, must_exist=True)
+    weights = {(a, b): float(len(g.inlier_matches))
+               for a, b, g in db.read_all_two_view_geometries()
+               if g is not None and len(g.inlier_matches)}
+    ids = [iid for iid, _, _ in db.read_images()]
+    db.close()
+    return len(cluster_scene(ids, weights, SceneClusteringOptions(leaf_max_num_images=leaf_max,
+                                                                  image_overlap=overlap)))
+
+
+def _host(argv, label):
+    """A file tool through the CLI (no --device); its wall seconds."""
+    from colmap_tpu_torch.cli import main as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    log(f"  {label}: {lines[-1] if lines else ''} ({dt:.3f} s, host only)")
+    return dt
+
+
+def _file_tools(tmp, db_path, model, gt_dir):
+    """The commands that only rewrite files, each once on the tools'
+    outputs; every one must exit 0 (gui must exit 1, as colmap_tpu's)."""
+    from colmap_tpu_torch.cli import main as cli
+
+    walls = {}
+    out = lambda name: os.path.join(tmp, "files", name)  # noqa: E731
+    os.makedirs(out(""))
+    for kind, name in (("BIN", "bin"), ("TXT", "txt"), ("PLY", "m.ply"), ("NVM", "m.nvm"),
+                       ("Bundler", "m.out"), ("VRML", "m.wrl"), ("R3D", "r3d"), ("CAM", "cam")):
+        walls[f"model_converter {kind}"] = _host(
+            ["model_converter", "--input_path", model, "--output_path", out(name),
+             "--output_type", kind], f"model_converter {kind}")
+    tf = out("tf.txt")
+    with open(tf, "w") as f:
+        f.write("2.0 1 0 0 0 1.0 2.0 3.0")
+    walls["model_transformer"] = _host(["model_transformer", "--input_path", model,
+                                        "--output_path", out("moved"), "--transform_path", tf],
+                                       "model_transformer")
+    walls["model_aligner"] = _host(["model_aligner", "--input_path", out("moved"),
+                                    "--ref_model_path", gt_dir, "--output_path", out("aligned")],
+                                   "model_aligner")
+    walls["model_merger"] = _host(["model_merger", "--input_path1", gt_dir, "--input_path2",
+                                   out("moved"), "--output_path", out("merged")], "model_merger")
+    walls["model_cropper"] = _host(["model_cropper", "--input_path", model, "--output_path",
+                                    out("cropped"), "--boundary=-1,-1,-1,0,1,1"], "model_cropper")
+    walls["model_comparer"] = _host(["model_comparer", "--input_path1", out("aligned"),
+                                     "--input_path2", gt_dir], "model_comparer")
+    walls["model_splitter"] = _host(["model_splitter", "--input_path", model, "--output_path",
+                                     out("parts")], "model_splitter")
+    walls["model_clusterer"] = _host(["model_clusterer", "--input_path", model, "--output_path",
+                                      out("clusters"), "--leaf_max_num_images", "4"],
+                                     "model_clusterer")
+    ids = out("ids.txt")
+    with open(ids, "w") as f:
+        f.write("1\n")
+    walls["image_deleter"] = _host(["image_deleter", "--input_path", model, "--output_path",
+                                    out("deleted"), "--image_ids_path", ids], "image_deleter")
+    walls["image_filterer"] = _host(["image_filterer", "--input_path", model, "--output_path",
+                                     out("filtered")], "image_filterer")
+    walls["project_generator"] = _host(["project_generator", "--database_path", db_path,
+                                        "--output_path", out("project.ini")],
+                                       "project_generator")
+    shutil.copy(db_path, out("copy.db"))
+    import sqlite3
+
+    conn = sqlite3.connect(out("copy.db"))  # image names are unique in a database
+    conn.execute("UPDATE images SET name = 'copy_' || name")
+    conn.commit()
+    conn.close()
+    walls["database_merger"] = _host(["database_merger", "--database_path1", db_path,
+                                      "--database_path2", out("copy.db"),
+                                      "--merged_database_path", out("merged.db")],
+                                     "database_merger")
+    walls["database_cleaner"] = _host(["database_cleaner", "--database_path", out("copy.db"),
+                                       "--type", "matches"], "database_cleaner")
+    feats, imgs = out("feats"), out("imgs")
+    os.makedirs(feats)
+    os.makedirs(imgs)
+    from colmap_tpu_torch.utils.image_io import write_png
+
+    rng = np.random.default_rng(0)
+    write_png(os.path.join(imgs, "a.png"), rng.integers(0, 255, (60, 80), dtype=np.uint8))
+    with open(os.path.join(feats, "a.png.txt"), "w") as f:
+        f.write("2 128\n" + "\n".join(" ".join(["1.0"] * 4 + ["7"] * 128) for _ in range(2)))
+    walls["feature_importer"] = _host(["feature_importer", "--database_path", out("imp.db"),
+                                       "--image_path", imgs, "--import_path", feats],
+                                      "feature_importer")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["gui"])
+        raise AssertionError("gui returned")
+    except SystemExit as e:
+        if e.code != 1:
+            raise
+    log("  gui: exits 1 (headless), as colmap_tpu's")
+    return walls
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
               "mesh_kernels", "mesh", "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
-              "camera_kernels", "cameras", "solver_kernels", "options_kernels", "options")
+              "camera_kernels", "cameras", "solver_kernels", "options_kernels", "options",
+              "tools_kernels", "orientation", "compat", "tools")
 
 
 def main():
@@ -6431,7 +7051,18 @@ def main():
         run("options", lambda: phase_options(launches))
     if "dir" in OPTIONS_STATE:
         shutil.rmtree(OPTIONS_STATE["dir"], ignore_errors=True)
-    log(f"seconds by phase: {seconds}")
+    if "tools_kernels" in phases:
+        k_errs, k_rows, k_agree = run("tools_kernels", phase_tools_kernels)
+        errs.update(k_errs)
+        rows.update(k_rows)
+        agree.update(k_agree)
+    for phase, fn in (("orientation", phase_orientation), ("compat", phase_compat),
+                      ("tools", phase_tools)):
+        if phase in phases:
+            run(phase, lambda: fn(launches))
+    new = sum(seconds.get(k, 0.0) for k in ("tools_kernels", "orientation", "compat", "tools"))
+    log(f"seconds by phase: {seconds}; the sparse-model tools' phases {new:.1f} s, the whole "
+        f"script {time.perf_counter() - T_START:.1f} s")
     # Models 5-17 and mixed: the kernel's other inputs; K34's rig entries.
     for name, ents in (*cam_entries.items(), *extra["entries"].items(), *opt_entries.items()):
         if name in rows and ents:
@@ -6441,7 +7072,7 @@ def main():
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
                **MESH_SOURCES, **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
-               **SOLVER_SOURCES, **OPTIONS_SOURCES}
+               **SOLVER_SOURCES, **OPTIONS_SOURCES, **TOOLS_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

@@ -1,8 +1,11 @@
-"""Command-line interface of the port (the ported subset of colmap_tpu's).
+"""Command-line interface of the port: every command of colmap_tpu's.
 
 reference behavior: src/colmap/exe/colmap.cc. Same command names and flags
-as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch versions of the kernels). Ported commands:
+as ``python -m colmap_tpu.cli.main``, plus ``--device`` on the commands that
+do device work (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
+the kernels); commands that only rewrite files stay on the host, as in
+colmap_tpu. As colmap_tpu's, the commands are split over this module,
+cli/extra_commands.py and cli/extra_commands2.py. Commands of this module:
 
     database_creator    create an empty database
     feature_extractor   SIFT keypoints and descriptors of a folder of images
@@ -33,6 +36,23 @@ as ``python -m colmap_tpu.cli.main``, plus ``--device`` (default ``cuda``;
     mesh_texturer       view selection and a texture atlas -> OBJ + MTL + PNG
     image_rectifier     rectify and undistort stereo pairs of a model
     image_undistorter_standalone  undistort images listed with their cameras
+    automatic_reconstructor  images -> sparse (and with --dense, dense) model
+    point_triangulator  re-triangulate a model's images from a database
+    model_converter     BIN, TXT, PLY, NVM, Bundler, VRML, R3D or CAM export
+    model_aligner       Sim3-align a model to a reference model
+    model_merger        merge two models that share images
+    color_extractor     point colours from the images
+    model_transformer   apply a Sim3 from a file
+    model_cropper       drop points outside a box
+    point_filtering     filter points by error, angle and track length
+    project_generator   write a project.ini of the option tree
+    database_merger     merge two databases into a third
+    pose_prior_mapper   mapper, then alignment to the images' prior positions
+
+cli/extra_commands.py adds hierarchical_mapper, image_registrator,
+model_comparer, model_splitter, model_clusterer, image_deleter,
+image_filterer, database_cleaner, model_orientation_aligner and gui;
+cli/extra_commands2.py feature_importer and guided_geometric_verifier.
 
 Commands return what they built (``main`` passes it on), so a caller that
 drives the CLI in-process can read it: ``mapper`` and ``global_mapper``
@@ -45,6 +65,9 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
+
+import numpy as np
 
 
 def _cmd_database_creator(args):
@@ -814,6 +837,285 @@ def _cmd_image_undistorter_standalone(args):
     return n
 
 
+def _cmd_point_triangulator(args):
+    """Re-triangulate every registered image of a model from the database's
+    correspondences, keeping the poses (reference: point_triangulator)."""
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.database_cache import DatabaseCache
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+    from colmap_tpu_torch.sfm.incremental_triangulator import (
+        IncrementalTriangulator,
+        TriangulatorOptions,
+    )
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    db = Database(args.database_path, must_exist=True)
+    recon = read_model(args.input_path)
+    cache = DatabaseCache.create(db)
+    triangulator = IncrementalTriangulator(cache.correspondence_graph, recon, device)
+    n = triangulator.retriangulate(TriangulatorOptions())
+    recon.update_point3D_errors()
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Triangulated {n} observations")
+    db.close()
+    return n
+
+
+def _cmd_model_converter(args):
+    from colmap_tpu_torch.scene import exporters
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+
+    recon = read_model(args.input_path)
+    kind = args.output_type
+    if kind in ("BIN", "bin"):
+        write_model(recon, args.output_path, fmt="bin")
+    elif kind in ("TXT", "txt"):
+        write_model(recon, args.output_path, fmt="txt")
+    elif kind in ("PLY", "ply"):
+        from colmap_tpu_torch.utils.ply import write_ply
+
+        pts = (np.stack([p.xyz for p in recon.points3D.values()]) if recon.points3D
+               else np.zeros((0, 3)))
+        colors = (np.stack([p.color for p in recon.points3D.values()]) if recon.points3D
+                  else None)
+        write_ply(args.output_path, pts, colors=colors)
+    elif kind in ("NVM", "nvm"):
+        exporters.write_nvm(recon, args.output_path)
+    elif kind in ("Bundler", "bundler"):
+        exporters.write_bundler(recon, args.output_path)
+    elif kind in ("VRML", "vrml"):
+        base = os.path.splitext(args.output_path)[0]
+        exporters.write_vrml(recon, base + ".images.wrl", base + ".points3D.wrl")
+    elif kind in ("R3D", "r3d", "Recon3D"):
+        exporters.write_recon3d(recon, args.output_path)
+    elif kind in ("CAM", "cam"):
+        exporters.write_cam_files(recon, args.output_path)
+    else:
+        print(f"Unknown output type {kind}")
+        sys.exit(1)
+    print(f"Converted model -> {args.output_path}")
+
+
+def _cmd_model_aligner(args):
+    from colmap_tpu_torch.estimators.alignment import align_reconstructions, apply_sim3
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+
+    recon = read_model(args.input_path)
+    ref = read_model(args.ref_model_path)
+    sim = align_reconstructions(recon, ref)
+    if sim is None:
+        print("Alignment failed: not enough common images")
+        sys.exit(1)
+    apply_sim3(recon, *sim)
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Aligned model (scale {sim[0]:.6f}) -> {args.output_path}")
+    return sim
+
+
+def _cmd_model_merger(args):
+    from colmap_tpu_torch.estimators.alignment import align_reconstructions, apply_sim3
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+
+    recon1 = read_model(args.input_path1)
+    recon2 = read_model(args.input_path2)
+    sim = align_reconstructions(recon2, recon1)
+    if sim is None:
+        print("Merge failed: models share too few images")
+        sys.exit(1)
+    apply_sim3(recon2, *sim)
+    # Merge entities of recon2 into recon1 (disjoint ids assumed for points).
+    for iid in recon2.reg_image_ids():
+        if iid not in recon1.images or not recon1.is_image_registered(iid):
+            img2 = recon2.images[iid]
+            if iid not in recon1.images:
+                if img2.camera_id not in recon1.cameras:
+                    recon1.add_camera(recon2.cameras[img2.camera_id])
+                frame2 = recon2.frames[img2.frame_id]
+                if frame2.rig_id not in recon1.rigs:
+                    recon1.add_rig(recon2.rigs[frame2.rig_id])
+                if frame2.frame_id not in recon1.frames:
+                    recon1.add_frame(frame2)
+                recon1.add_image(img2)
+            recon1.register_frame(recon2.images[iid].frame_id)
+    for p in recon2.points3D.values():
+        track = [el for el in p.track if el.image_id in recon1.images
+                 and recon1.images[el.image_id].points2D_p3d[el.point2D_idx] == -1]
+        if len(track) >= 2:
+            recon1.add_point3D(p.xyz, track, color=p.color)
+    write_model(recon1, args.output_path, fmt="bin")
+    print(f"Merged -> {args.output_path}: {recon1.num_reg_frames()} frames, "
+          f"{recon1.num_points3D()} points")
+
+
+def _cmd_color_extractor(args):
+    """Each point's colour, the mean of its observations' pixels (nearest
+    pixel), from the images; read with utils/image_io.py."""
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+    from colmap_tpu_torch.utils.image_io import read_image, to_rgb
+
+    recon = read_model(args.input_path)
+    loaded = {}
+    for p in recon.points3D.values():
+        votes = []
+        for el in p.track:
+            image = recon.images[el.image_id]
+            if el.image_id not in loaded:
+                path = os.path.join(args.image_path, image.name)
+                loaded[el.image_id] = to_rgb(read_image(path)) if os.path.exists(path) else None
+            img = loaded[el.image_id]
+            if img is None:
+                continue
+            x, y = image.points2D_xy[el.point2D_idx]
+            xi = int(np.clip(round(x), 0, img.shape[1] - 1))
+            yi = int(np.clip(round(y), 0, img.shape[0] - 1))
+            votes.append(img[yi, xi])
+        if votes:
+            p.color = np.mean(votes, axis=0).astype(np.uint8)
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Extracted colors -> {args.output_path}")
+
+
+def _cmd_model_transformer(args):
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+
+    recon = read_model(args.input_path)
+    # Transform file: one line "scale qw qx qy qz tx ty tz".
+    with open(args.transform_path) as f:
+        vals = [float(v) for v in f.read().split()]
+    recon.transform(vals[0], np.array(vals[1:5]), np.array(vals[5:8]))
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Transformed -> {args.output_path}")
+
+
+def _cmd_model_cropper(args):
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+
+    recon = read_model(args.input_path)
+    bounds = [float(v) for v in args.boundary.split(",")]
+    lo, hi = np.array(bounds[:3]), np.array(bounds[3:6])
+    for pid in list(recon.points3D.keys()):
+        xyz = recon.points3D[pid].xyz
+        if np.any(xyz < lo) or np.any(xyz > hi):
+            recon.delete_point3D(pid)
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Cropped to {recon.num_points3D()} points -> {args.output_path}")
+
+
+def _cmd_point_filtering(args):
+    """filter_points3D (K9 on ``--device``), then the track-length cut."""
+    from colmap_tpu_torch.scene.reconstruction_io import read_model, write_model
+    from colmap_tpu_torch.sfm.filtering import filter_points3D
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    recon = read_model(args.input_path)
+    n = filter_points3D(recon, max_reproj_error=args.max_reproj_error,
+                        min_tri_angle_deg=args.min_tri_angle, device=device)
+    for pid in list(recon.points3D.keys()):
+        if len(recon.points3D[pid].track) < args.min_track_len:
+            recon.delete_point3D(pid)
+    write_model(recon, args.output_path, fmt="bin")
+    print(f"Filtered {n} observations -> {args.output_path}")
+    return n
+
+
+def _cmd_project_generator(args):
+    from colmap_tpu_torch.controllers.option_manager import OptionManager
+
+    om = OptionManager(database_path=args.database_path or "", image_path=args.image_path or "")
+    om.write(args.output_path)
+    print(f"Wrote project file -> {args.output_path}")
+
+
+def _cmd_database_merger(args):
+    import dataclasses
+
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.utils.types import pair_id_to_image_pair
+
+    db1 = Database(args.database_path1)
+    db2 = Database(args.database_path2)
+    out = Database(args.merged_database_path)
+    for db in (db1, db2):
+        cam_map = {cid: out.write_camera(dataclasses.replace(cam, camera_id=0),
+                                         use_camera_id=False)
+                   for cid, cam in db.read_cameras().items()}
+        local = {}
+        for iid, name, cid in db.read_images():
+            new_id = out.write_image(name, cam_map[cid])
+            local[iid] = new_id
+            kp = db.read_keypoints(iid)
+            if len(kp):
+                out.write_keypoints(new_id, kp)
+            desc = db.read_descriptors(iid)
+            if len(desc):
+                out.write_descriptors(new_id, desc)
+        for pair_id, m in db.read_all_matches():
+            a, b = pair_id_to_image_pair(pair_id)
+            if a in local and b in local:
+                out.write_matches(local[a], local[b], m)
+        for a, b, g in db.read_all_two_view_geometries():
+            if g is not None and a in local and b in local:
+                out.write_two_view_geometry(local[a], local[b], g)
+    out.commit()
+    print(f"Merged -> {args.merged_database_path}: {out.num_images()} images")
+    db1.close()
+    db2.close()
+    out.close()
+
+
+def _cmd_pose_prior_mapper(args):
+    """The mapper on ``--device``, then each model's robust Sim3 alignment
+    to its images' prior positions (reference: pose_prior_mapper,
+    exe/sfm.cc)."""
+    from colmap_tpu_torch.estimators.alignment import align_reconstruction_to_pose_priors
+    from colmap_tpu_torch.scene.database import Database
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+    from colmap_tpu_torch.sfm.incremental_pipeline import (
+        IncrementalPipeline,
+        IncrementalPipelineOptions,
+    )
+    from colmap_tpu_torch.utils.dtypes import resolve_device
+
+    device = resolve_device(args.device)
+    db = Database(args.database_path, must_exist=True)
+    priors = {prior["data_id"]: prior["position"] for prior in db.read_pose_priors().values()
+              if prior["position"] is not None}
+    models = IncrementalPipeline(IncrementalPipelineOptions(), db, device=device).run()
+    os.makedirs(args.output_path, exist_ok=True)
+    for i, recon in enumerate(models):
+        align_reconstruction_to_pose_priors(recon, priors,
+                                            robust_max_error=args.prior_position_max_error)
+        out = os.path.join(args.output_path, str(i))
+        write_model(recon, out, fmt="bin")
+        print(f"Model {i}: {recon.num_reg_frames()} frames -> {out}")
+    db.close()
+    return models
+
+
+def _cmd_automatic_reconstructor(args):
+    from colmap_tpu_torch.controllers.automatic import (
+        AutomaticReconstructionOptions,
+        DataType,
+        Quality,
+        run_automatic_reconstruction,
+    )
+
+    options = AutomaticReconstructionOptions(
+        workspace_path=args.workspace_path,
+        image_path=args.image_path,
+        data_type=DataType(args.data_type),
+        quality=Quality(args.quality),
+        camera_model=args.camera_model,
+        single_camera=not args.per_image_camera,
+        dense=args.dense,
+    )
+    models = run_automatic_reconstruction(options, device=args.device)
+    print(f"Reconstructed {len(models)} model(s) -> {args.workspace_path}")
+    return models
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="colmap_tpu_torch",
@@ -1034,6 +1336,95 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--radius_ratio_bound", type=float, default=5.0)
     c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=_cmd_advancing_front_mesher)
+
+    c = sub.add_parser("automatic_reconstructor")
+    c.add_argument("--workspace_path", required=True)
+    c.add_argument("--image_path", required=True)
+    c.add_argument("--data_type", default="individual",
+                   choices=["individual", "video", "internet"])
+    c.add_argument("--quality", default="high", choices=["low", "medium", "high", "extreme"])
+    c.add_argument("--camera_model", default="SIMPLE_RADIAL")
+    c.add_argument("--per_image_camera", action="store_true")
+    c.add_argument("--dense", action="store_true")
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_automatic_reconstructor)
+
+    c = sub.add_parser("point_triangulator")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_point_triangulator)
+
+    c = sub.add_parser("model_converter")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--output_type", required=True)
+    c.set_defaults(fn=_cmd_model_converter)
+
+    c = sub.add_parser("model_aligner")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--ref_model_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.set_defaults(fn=_cmd_model_aligner)
+
+    c = sub.add_parser("model_merger")
+    c.add_argument("--input_path1", required=True)
+    c.add_argument("--input_path2", required=True)
+    c.add_argument("--output_path", required=True)
+    c.set_defaults(fn=_cmd_model_merger)
+
+    c = sub.add_parser("color_extractor")
+    c.add_argument("--image_path", required=True)
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.set_defaults(fn=_cmd_color_extractor)
+
+    c = sub.add_parser("model_transformer")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--transform_path", required=True)
+    c.set_defaults(fn=_cmd_model_transformer)
+
+    c = sub.add_parser("model_cropper")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--boundary", required=True, help="x0,y0,z0,x1,y1,z1")
+    c.set_defaults(fn=_cmd_model_cropper)
+
+    c = sub.add_parser("point_filtering")
+    c.add_argument("--input_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--max_reproj_error", type=float, default=4.0)
+    c.add_argument("--min_tri_angle", type=float, default=1.5)
+    c.add_argument("--min_track_len", type=int, default=2)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_point_filtering)
+
+    c = sub.add_parser("project_generator")
+    c.add_argument("--database_path", default="")
+    c.add_argument("--image_path", default="")
+    c.add_argument("--output_path", required=True)
+    c.set_defaults(fn=_cmd_project_generator)
+
+    c = sub.add_parser("database_merger")
+    c.add_argument("--database_path1", required=True)
+    c.add_argument("--database_path2", required=True)
+    c.add_argument("--merged_database_path", required=True)
+    c.set_defaults(fn=_cmd_database_merger)
+
+    c = sub.add_parser("pose_prior_mapper")
+    c.add_argument("--database_path", required=True)
+    c.add_argument("--output_path", required=True)
+    c.add_argument("--prior_position_max_error", type=float, default=5.0)
+    c.add_argument("--device", default="cuda", help=device_help)
+    c.set_defaults(fn=_cmd_pose_prior_mapper)
+
+    from colmap_tpu_torch.cli.extra_commands import register as register_extra
+    from colmap_tpu_torch.cli.extra_commands2 import register as register_extra2
+
+    register_extra(sub, device_help)
+    register_extra2(sub, device_help)
     return p
 
 

@@ -15,13 +15,12 @@
 
 namespace ctt {
 
-// AtA and Atb are destroyed; false where the Cholesky meets a pivot that is
-// not positive.
-__device__ inline bool gdlt_rotation(double* AtA, double* Atb, bool estimate_scale, double* R,
-                                     double* s) {
-  if (!cholesky_solve<12>(AtA, Atb)) return false;
-  // The raw rotation block M = Atb[0..8] (row-major); M^T M = V diag(s^2) V^T.
-  const double* M = Atb;
+// The proper rotation nearest the 3 x 3 matrix M (row-major): with
+// M = U diag(sv) V^T, R = U diag(1, 1, det(U V^T)) V^T, written as
+// u0 v0^T + u1 v1^T + (u0 x u1)(v0 x v1)^T from M^T M's Jacobi eigenvectors;
+// sv the singular values, largest first. Shared with K48 (gen_rel_ransac.cu),
+// which projects the 17-point solve's rotation block.
+__device__ inline void nearest_rotation(const double* M, double* R, double* sv) {
   double S[9], V[9];
   for (int p = 0; p < 3; ++p)
     for (int q = 0; q < 3; ++q)
@@ -56,7 +55,20 @@ __device__ inline bool gdlt_rotation(double* AtA, double* Atb, bool estimate_sca
                         v0[0] * v1[1] - v0[1] * v1[0]};
   for (int p = 0; p < 3; ++p)
     for (int q = 0; q < 3; ++q) R[3 * p + q] = u0[p] * v0[q] + u1[p] * v1[q] + u2[p] * v2[q];
-  *s = estimate_scale ? (s0 + s1 + s2) / 3.0 : 1.0;
+  sv[0] = s0;
+  sv[1] = s1;
+  sv[2] = s2;
+}
+
+// AtA and Atb are destroyed; false where the Cholesky meets a pivot that is
+// not positive.
+__device__ inline bool gdlt_rotation(double* AtA, double* Atb, bool estimate_scale, double* R,
+                                     double* s) {
+  if (!cholesky_solve<12>(AtA, Atb)) return false;
+  // The raw rotation block M = Atb[0..8] (row-major).
+  double sv[3];
+  nearest_rotation(Atb, R, sv);
+  *s = estimate_scale ? (sv[0] + sv[1] + sv[2]) / 3.0 : 1.0;
   return true;
 }
 

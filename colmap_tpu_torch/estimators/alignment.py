@@ -3,9 +3,10 @@
 reference behavior: src/colmap/estimators/alignment.h:42-86
 (AlignReconstructions / CompareReconstructions) — Sim3 alignment on common
 camera projection centers, then per-image rotation / projection-center
-error metrics. Counterpart of colmap_tpu/estimators/alignment.py (the
-subset the mapper's checks use); the Umeyama runs in float64 numpy on the
-host.
+error metrics; and the Sim3 alignment of a model to its images' prior
+positions (AlignReconstructionToPosePriors). Counterpart of
+colmap_tpu/estimators/alignment.py; the Umeyama (estimators/solvers/
+similarity.py) runs in float64 numpy on the host.
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from colmap_tpu_torch.estimators.solvers.similarity import umeyama
+from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.scene.reconstruction import Reconstruction
 
 
@@ -70,20 +74,8 @@ def _quat_from_rotmat_f64(R: np.ndarray) -> np.ndarray:
 
 def _umeyama_f64(src: np.ndarray, dst: np.ndarray):
     """Closed-form similarity transform (Umeyama 1991) in numpy float64."""
-    mu_s = src.mean(axis=0)
-    mu_d = dst.mean(axis=0)
-    cs = src - mu_s
-    cd = dst - mu_d
-    cov = cd.T @ cs / len(src)
-    U, D, Vt = np.linalg.svd(cov)
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1.0
-    R = U @ S @ Vt
-    var_s = (cs ** 2).sum() / len(src)
-    s = float(np.trace(np.diag(D) @ S) / max(var_s, 1e-30))
-    t = mu_d - s * (R @ mu_s)
-    return s, R, t
+    s, R, t = umeyama(src, dst)
+    return float(s), R, t
 
 
 def apply_sim3(recon: Reconstruction, scale: float, quat: np.ndarray, t: np.ndarray):
@@ -123,3 +115,44 @@ def compare_reconstructions(
         "max_rotation_error_deg": float(np.max(rot_errors)) if rot_errors else np.inf,
         "max_center_error": float(np.max(center_errors)) if center_errors else np.inf,
     }
+
+
+def align_reconstruction_to_pose_priors(
+    recon: Reconstruction,
+    prior_positions: Dict[int, np.ndarray],
+    robust_max_error: float = 0.0,
+    seed: int = 0,
+):
+    """Sim3-align a reconstruction to per-image prior positions (e.g. GPS).
+
+    reference behavior: AlignReconstructionToPosePriors (alignment.h:42-86)
+    — with robust_max_error > 0 and >= 4 common images, the best of 256
+    random triplets by the count of centres within robust_max_error of their
+    priors, then Umeyama on its inliers; plain Umeyama otherwise. Transforms
+    the reconstruction in place; returns the Sim3 (scale, quat, t) or None
+    (colmap_tpu's alignment.py:130, the same triplet draws).
+    """
+    common = [i for i in recon.reg_image_ids() if i in prior_positions]
+    if len(common) < 3:
+        return None
+    src = np.stack([recon.cam_from_world(i).projection_center() for i in common])
+    dst = np.stack([np.asarray(prior_positions[i], dtype=np.float64) for i in common])
+    if robust_max_error > 0 and len(common) >= 4:
+        rng = np.random.default_rng(seed)
+        best = None
+        for _ in range(256):
+            idx = rng.choice(len(common), 3, replace=False)
+            s, R, t = umeyama(src[idx], dst[idx])
+            pred = float(s) * src @ R.T + t
+            inl = np.linalg.norm(pred - dst, axis=1) <= robust_max_error
+            if best is None or inl.sum() > best[0]:
+                best = (inl.sum(), inl)
+        if best is None or best[0] < 3:
+            return None
+        s, R, t = umeyama(src[best[1]], dst[best[1]])
+    else:
+        s, R, t = umeyama(src, dst)
+    quat = rot.rotmat_to_quat(torch.as_tensor(np.asarray(R, dtype=np.float64))).numpy()
+    recon.transform(float(s), quat, np.asarray(t))
+    return (float(s), quat, np.asarray(t))
+

@@ -28,8 +28,17 @@ behavior: estimators/generalized_pose.{h,cc}). Ported here:
   come from a seeded CPU ``torch.Generator`` and the host reads one packed
   best (8 bytes) per batch.
 
-The generalized relative pose (17-point, ``_gen_rel_ransac``) is not ported
-yet (ROADMAP queue 1).
+- ``estimate_generalized_relative_pose``: rig2_from_rig1 from 2D-2D
+  correspondences between two rig frames (EstimateGeneralizedRelativePose):
+  an LO-RANSAC over 17-point linear solves of the generalized epipolar
+  constraint on Plücker rays (Li & Hartley), each model scored by the
+  Sampson error of every row's own camera pair times focal². Each batch is
+  one launch of K48 (kernels/rig.py gen_rel_propose_score) and one 8-byte
+  read; the LO refit, the weighted 17-point solve over every row with the
+  best model's inliers as weights, is one launch of K48 (c) in float64.
+  colmap_tpu takes the nullspace vector's sign as eigh returns it; here it
+  is fixed so that the rotation block has det >= 0, the sign for which the
+  projection onto SO(3) is the rotation (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -229,6 +238,118 @@ class StructureLessAbsolutePoseOptions:
     min_num_trials: int = 100
     max_num_trials: int = 5000
     batch_size: int = 16
+
+
+def _plucker_rays(uv, cam_q, cam_t):
+    """Normalized observations (N, 2) and each one's cam_from_rig -> the
+    Plücker rays (direction d, moment m = c × d) and camera centres c in the
+    rig frame (colmap_tpu's _plucker_rays, l.386)."""
+    bearings = torch.nn.functional.normalize(torch.cat([uv, torch.ones_like(uv[:, :1])], 1),
+                                             dim=1)
+    q_inv = rot.quat_conjugate(cam_q)
+    d = rot.quat_rotate(q_inv, bearings)
+    c = -rot.quat_rotate(q_inv, cam_t)
+    return d, torch.linalg.cross(c, d), c
+
+
+def g17_relative_pose(q1, m1, q2, m2):
+    """Linear generalized relative pose (3, 4) rig2_from_rig1 from 17+
+    Plücker ray pairs (colmap_tpu's g17_relative_pose, l.349; the plain
+    solve of K48, kernels/rig.py g17_solve)."""
+    return KR.g17_solve(q1, m1, q2, m2)
+
+
+def _weighted_g17(d1, m1, d2, m2, weights):
+    """Weighted least-squares refit of the 17-point system over every row
+    (colmap_tpu's _weighted_g17, l.454; K48 (c) on the card)."""
+    return KR.g17_solve(d1, m1, d2, m2, weights)
+
+
+@dataclasses.dataclass
+class GeneralizedRelativePoseOptions:
+    """colmap_tpu's options (l.479-486)."""
+
+    max_error_px: float = 4.0
+    min_inlier_ratio: float = 0.25
+    confidence: float = 0.999
+    min_num_trials: int = 50
+    max_num_trials: int = 2000
+    batch_size: int = 32
+
+
+def gen_rel_data(points2D1, points2D2, camera_idxs1, camera_idxs2,
+                 cams_from_rig: Sequence[Pose], cameras: Sequence[Camera], device,
+                 dtype) -> KR.GenRelData:
+    """The correspondences of a generalized relative pose on ``device``:
+    the rays in float64, the observations, cameras and focal lengths in
+    ``dtype``."""
+    idx1 = np.asarray(camera_idxs1, dtype=np.int64)
+    idx2 = np.asarray(camera_idxs2, dtype=np.int64)
+    uv1, f1 = _normalize_observations(np.asarray(points2D1, dtype=np.float64), idx1, cameras,
+                                      device, dtype)
+    uv2, f2 = _normalize_observations(np.asarray(points2D2, dtype=np.float64), idx2, cameras,
+                                      device, dtype)
+    q = np.stack([p.quat for p in cams_from_rig]).astype(np.float64)
+    t = np.stack([p.t for p in cams_from_rig]).astype(np.float64)
+    cams64 = torch.as_tensor(np.concatenate([q[idx1], t[idx1], q[idx2], t[idx2]], 1)).to(device)
+    d1, m1, _ = _plucker_rays(uv1.double(), cams64[:, 0:4], cams64[:, 4:7])
+    d2, m2, _ = _plucker_rays(uv2.double(), cams64[:, 7:11], cams64[:, 11:14])
+    return KR.GenRelData(torch.cat([d1, m1, d2, m2], 1).contiguous(),
+                         torch.cat([uv1, uv2], 1).contiguous(), cams64.to(dtype).contiguous(),
+                         torch.sqrt(f1 * f2).contiguous(),
+                         torch.ones(len(idx1), dtype=torch.bool, device=device))
+
+
+def _gen_rel_refit(data: KR.GenRelData, model, max_sq, count):
+    """``_try_refine``: the weighted 17-point solve (K48 (c), float64) over
+    every row with the inliers of ``model`` as weights, kept where it is
+    finite and its support is larger; the host reads the support once."""
+    inl = KR.gen_rel_inliers(data, model, max_sq)
+    refined, ok = KR.gen_rel_refit(data.rays, inl.double())
+    refined = refined.to(model.dtype)
+    count_r = int(torch.where(ok[0], KR.gen_rel_inliers(data, refined, max_sq).sum(), -1))
+    return (refined, count_r) if count_r > count else (model, count)
+
+
+def estimate_generalized_relative_pose(
+    points2D1: np.ndarray,
+    points2D2: np.ndarray,
+    camera_idxs1: np.ndarray,
+    camera_idxs2: np.ndarray,
+    cams_from_rig: Sequence[Pose],
+    cameras: Sequence[Camera],
+    options: Optional[GeneralizedRelativePoseOptions] = None,
+    seed: int = 0,
+    device=None,
+) -> Tuple[Optional[Pose], np.ndarray]:
+    """rig2_from_rig1 from 2D-2D correspondences between two rig frames on
+    ``device``. Returns (rig2_from_rig1 | None, inlier_mask). Metric scale
+    needs rays from >= 2 distinct camera centres.
+    reference: estimators/generalized_pose.h EstimateGeneralizedRelativePose.
+    """
+    options = options or GeneralizedRelativePoseOptions()
+    n = len(points2D1)
+    if n < KR.G17_SAMPLE:
+        return None, np.zeros(n, dtype=bool)
+    device = torch.device(device or "cuda")
+    data = gen_rel_data(points2D1, points2D2, camera_idxs1, camera_idxs2, cams_from_rig,
+                        cameras, device, floatx(device))
+    max_sq = float(options.max_error_px) ** 2
+    opts = RansacOptions(min_inlier_ratio=options.min_inlier_ratio,
+                         confidence=options.confidence, min_num_trials=options.min_num_trials,
+                         max_num_trials=options.max_num_trials, batch_size=options.batch_size)
+    res = ransac(
+        torch.Generator().manual_seed(int(seed)), data.mask, KR.G17_SAMPLE,
+        lambda idxs: KR.gen_rel_propose_score(data, idxs, max_sq),
+        lambda model: KR.gen_rel_inliers(data, model, max_sq),
+        opts,
+        local_refine=lambda model, count: _gen_rel_refit(data, model, max_sq, count),
+    )
+    if not res.success:
+        return None, np.zeros(n, dtype=bool)
+    model = res.model.double().cpu()
+    return (Pose(rot.rotmat_to_quat(model[:, :3]).numpy(), model[:, 3].numpy()),
+            res.inlier_mask.cpu().numpy())
 
 
 def _unproject(camera: Camera, xy: np.ndarray, device, dtype) -> torch.Tensor:

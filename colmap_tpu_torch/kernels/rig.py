@@ -1,7 +1,8 @@
 """Rig kernels: wrappers, plain PyTorch versions, launch counts.
 
-Six CUDA kernels carry the device programs of the rig paths of the
-incremental mapper (sources in ``colmap_tpu_torch/csrc``):
+Seven CUDA kernels carry the device programs of the rig paths of the
+incremental mapper and of the generalized relative pose (sources in
+``colmap_tpu_torch/csrc``):
 
     K24 rig_ba_jacobians   rig_obs_jacobians, rig_obs_cost
     K25 rig_ba_reduce      rig_lm_reduce
@@ -9,13 +10,16 @@ incremental mapper (sources in ``colmap_tpu_torch/csrc``):
     K27 gen_abs_ransac     gen_abs_propose_score, gen_abs_inliers
     K38 rig_lm_update      rig_lm_candidate, rig_lm_accept
     K40 gen_abs_refine     gen_abs_refine, gen_abs_refit
+    K48 gen_rel_ransac     gen_rel_propose_score, gen_rel_inliers, gen_rel_refit
 
 K24-K26 and K38 carry colmap_tpu/estimators/bundle_adjustment_rig.py
 (``lm_step`` and ``lm_solve_fused``; the PCG between them is K34 of
 kernels/solver.py); K27 carries ``_gen_abs_ransac`` of
 colmap_tpu/estimators/generalized_pose.py, K40 its
 ``refine_generalized_absolute_pose`` and the weighted ``gdlt_pose`` of the
-LO refit, in float64. As the other kernel modules do,
+LO refit, in float64; K48 carries ``_gen_rel_ransac`` (the 17-point
+generalized relative pose, ``g17_relative_pose`` and the LO step's
+``_weighted_g17``), its solves in float64. As the other kernel modules do,
 each wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; on a CUDA tensor it
 launches or raises, it never falls back. ``LAUNCHES`` counts kernel launches
@@ -79,12 +83,14 @@ LAUNCHES = {
     "gen_abs_ransac": 0,
     "rig_lm_update": 0,
     "gen_abs_refine": 0,
+    "gen_rel_ransac": 0,
 }
 
 W = 8  # columns of a camera-side row: 6 for frames and sensors, P <= 8 for cameras
 WIDE_W = 17  # the camera-side row width when P > 8
 CHUNK = 1024  # camera-side entries one block of K25 / K26 sums
 GDLT_SAMPLE = 6
+G17_SAMPLE = 17
 
 f32, f64, i32 = torch.float32, torch.float64, torch.int32
 
@@ -548,6 +554,108 @@ def gen_abs_refit_plain(X, centers, dirs, weights, estimate_scale: bool):
     return torch.where(ok, model, torch.nan), ok
 
 
+# K48's plain versions ------------------------------------------------------
+
+
+class GenRelData(NamedTuple):
+    """The correspondences of one generalized-relative-pose RANSAC: each
+    row's Plücker rays in its rig frame (direction and moment c × d of the
+    ray in rig 1, then in rig 2; float64, the solves' type), its normalized
+    observations, the cam_from_rig of its two cameras and the geometric mean
+    of their focal lengths (the pixel scale of the error)."""
+
+    rays: torch.Tensor  # (N, 12) float64: d1, m1, d2, m2
+    obs: torch.Tensor  # (N, 4): uv1, uv2
+    cams: torch.Tensor  # (N, 14): q1 (wxyz), t1, q2, t2
+    focal: torch.Tensor  # (N,)
+    mask: torch.Tensor  # (N,) bool
+
+
+def g17_solve(d1, m1, d2, m2, weights=None):
+    """The (weighted) 17-point linear solve of the generalized epipolar
+    constraint q2' E q1 + q2' R m1 + m2' R q1 = 0, any leading batch
+    dimensions: d1, m1, d2, m2 (..., n, 3), weights (..., n). The smallest
+    eigenvector of AᵀA, its sign fixed so that the rotation block has det >=
+    0, the block projected onto SO(3), E divided by the signed mean singular
+    value and t taken from E Rᵀ = [t]x. Returns (..., 3, 4) rig2_from_rig1
+    (colmap_tpu's g17_relative_pose, l.349-383, and _weighted_g17,
+    l.454-476, which take eigh's sign as it comes)."""
+    cE = torch.einsum("...ni,...nj->...nij", d2, d1).flatten(-2)
+    cR = (torch.einsum("...ni,...nj->...nij", d2, m1)
+          + torch.einsum("...ni,...nj->...nij", m2, d1)).flatten(-2)
+    A = torch.cat([cE, cR], dim=-1)
+    if weights is not None:
+        A = A * torch.sqrt(torch.clamp(weights, min=0.0))[..., None]
+    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    u = vecs[..., 0]
+    R_raw = u[..., 9:].reshape(u.shape[:-1] + (3, 3))
+    sign = torch.where(torch.linalg.det(R_raw) < 0, -1.0, 1.0).to(u.dtype)
+    u = u * sign[..., None]
+    E_raw = u[..., :9].reshape(u.shape[:-1] + (3, 3))
+    R_raw = R_raw * sign[..., None, None]
+    U, sv, Vt = torch.linalg.svd(R_raw)
+    d = torch.sign(torch.linalg.det(U @ Vt))
+    ones = torch.ones_like(d)
+    R = U @ torch.diag_embed(torch.stack([ones, ones, d], dim=-1)) @ Vt
+    lam = sv.mean(-1) * d
+    E = E_raw / torch.where(lam.abs() < 1e-12, 1.0, lam)[..., None, None]
+    T = E @ R.transpose(-1, -2)
+    t = 0.5 * torch.stack([T[..., 2, 1] - T[..., 1, 2], T[..., 0, 2] - T[..., 2, 0],
+                           T[..., 1, 0] - T[..., 0, 1]], dim=-1)
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def _rays(rays):
+    return rays[..., 0:3], rays[..., 3:6], rays[..., 6:9], rays[..., 9:12]
+
+
+def gen_rel_residuals(models, data: GenRelData):
+    """Squared Sampson errors in pixels (M, N) of (M, 3, 4) rig2_from_rig1
+    models, each row through the relative pose of its two cameras
+    (colmap_tpu's residual, l.414-441)."""
+    q1, t1, q2, t2 = (data.cams[:, 0:4], data.cams[:, 4:7], data.cams[:, 7:11],
+                      data.cams[:, 11:14])
+    R1, R2 = rot.quat_to_rotmat(q1), rot.quat_to_rotmat(q2)
+    Rm, tm = models[:, :, :3], models[:, :, 3]
+    R_rel = torch.einsum("nab,mbc,ndc->mnad", R2, Rm, R1)
+    c1 = -torch.einsum("nba,nb->na", R1, t1)
+    t_rel = torch.einsum("nab,mnb->mna", R2,
+                         torch.einsum("mab,nb->mna", Rm, c1) + tm[:, None]) + t2
+    E = _skew(t_rel) @ R_rel
+    ones = torch.ones_like(data.obs[:, :1])
+    x1h = torch.cat([data.obs[:, 0:2], ones], 1)
+    x2h = torch.cat([data.obs[:, 2:4], ones], 1)
+    Ex1 = torch.einsum("mnij,nj->mni", E, x1h)
+    Etx2 = torch.einsum("mnji,nj->mni", E, x2h)
+    num = (x2h * Ex1).sum(-1) ** 2
+    den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-12) * data.focal ** 2
+
+
+def gen_rel_propose_score_plain(data: GenRelData, samples, max_sq):
+    """K48 propose-and-score: g17_solve on each 17-row sample in float64,
+    every model scored on all rows in the observations' dtype. Returns
+    models (K, 3, 4), counts (K,), packed best (1,)."""
+    d1, m1, d2, m2 = _rays(data.rays[samples.long()].double())
+    models = g17_solve(d1, m1, d2, m2).to(data.obs.dtype)
+    res = gen_rel_residuals(models, data)
+    counts = ((res <= max_sq) & data.mask[None]).sum(-1).to(i32)
+    counts = torch.where(torch.isfinite(models.flatten(1)).all(-1), counts, 0)
+    return models, counts, pack_best(counts)
+
+
+def gen_rel_inliers_plain(data: GenRelData, model, max_sq):
+    return (gen_rel_residuals(model[None].to(data.obs.dtype), data)[0] <= max_sq) & data.mask
+
+
+def gen_rel_refit_plain(rays, weights):
+    """K48 (c): the weighted 17-point solve over every row, float64. Returns
+    (model (3, 4), NaN where not finite; ok (1,) bool)."""
+    model = g17_solve(*_rays(rays), weights)
+    ok = torch.isfinite(model).all().reshape(1)
+    return torch.where(ok, model, torch.nan), ok
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
@@ -566,6 +674,9 @@ _SIGNATURES = {
     "rig_lm_accept_f32": [_I, _I, _I, _LL] + [_P] * 4 + [_D] * 3 + [_P] * 13 + [_I, _P],
     "gen_abs_refine_f64": [_I, _I, _D] + [_P] * 10 + [_P],
     "gen_abs_refit_f64": [_I, _I] + [_P] * 6 + [_P],
+    "gen_rel_propose_score_f32": [_I, _I, _F] + [_P] * 9 + [_P],
+    "gen_rel_inliers_f32": [_I, _F] + [_P] * 6 + [_P],
+    "gen_rel_refit_f64": [_I] + [_P] * 5 + [_P],
 }
 
 
@@ -925,6 +1036,73 @@ def gen_abs_refit(X, centers, dirs, weights, estimate_scale: bool):
     _call("gen_abs_refit_f64", n, int(bool(estimate_scale)),
           *map(S._ptr, (X, centers, dirs, weights, model, ok)), S._stream(dev))
     LAUNCHES["gen_abs_refine"] += 1
+    return model, ok
+
+
+# K48 -----------------------------------------------------------------------
+
+
+def _k48_checks(data: GenRelData):
+    dev = S._require_cuda(data.obs)
+    n = data.obs.shape[0]
+    S._check("rays", data.rays, f64, (n, 12), dev)
+    S._check("obs", data.obs, f32, (n, 4), dev)
+    S._check("cams", data.cams, f32, (n, 14), dev)
+    S._check("focal", data.focal, f32, (n,), dev)
+    S._check("mask", data.mask, torch.bool, (n,), dev)
+    return dev, n
+
+
+def gen_rel_propose_score(data: GenRelData, samples, max_sq):
+    """K48 propose-and-score. samples (K, 17) int32. Returns models (K, 3,
+    4), counts (K,), packed best (1,)."""
+    if data.obs.device.type == "cpu":
+        return gen_rel_propose_score_plain(data, samples, max_sq)
+    dev, n = _k48_checks(data)
+    k = samples.shape[0]
+    S._check("samples", samples, i32, (k, G17_SAMPLE), dev)
+    models = torch.empty(k, 3, 4, dtype=f32, device=dev)
+    counts = torch.empty(k, dtype=i32, device=dev)
+    best = torch.zeros(1, dtype=torch.int64, device=dev)
+    _call("gen_rel_propose_score_f32", n, k, float(max_sq),
+          *map(S._ptr, (data.rays, data.obs, data.cams, data.focal, data.mask, samples, models,
+                        counts, best)), S._stream(dev))
+    LAUNCHES["gen_rel_ransac"] += 1
+    return models, counts, best
+
+
+def gen_rel_inliers(data: GenRelData, model, max_sq):
+    """K48 inlier mask (N,) of one (3, 4) model."""
+    if data.obs.device.type == "cpu":
+        return gen_rel_inliers_plain(data, model, max_sq)
+    dev, n = _k48_checks(data)
+    model = model.to(f32).contiguous()
+    S._check("model", model, f32, (3, 4), dev)
+    inl = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _call("gen_rel_inliers_f32", n, float(max_sq),
+              *map(S._ptr, (data.obs, data.cams, data.focal, data.mask, model, inl)),
+              S._stream(dev))
+        LAUNCHES["gen_rel_ransac"] += 1
+    return inl
+
+
+def gen_rel_refit(rays, weights):
+    """K48 (c): the weighted 17-point solve in one launch; rays (n, 12),
+    weights (n,) float64 on the card. Returns (model (3, 4) float64, NaN
+    where not finite; ok (1,) bool), both on the card."""
+    if rays.device.type == "cpu":
+        return gen_rel_refit_plain(rays, weights)
+    dev = S._require_cuda(rays)
+    n = rays.shape[0]
+    S._check("rays", rays, f64, (n, 12), dev)
+    S._check("weights", weights, f64, (n,), dev)
+    partial = torch.empty(max((n + 255) // 256, 1), 171, dtype=f64, device=dev)
+    model = torch.empty(3, 4, dtype=f64, device=dev)
+    ok = torch.empty(1, dtype=torch.bool, device=dev)
+    _call("gen_rel_refit_f64", n, *map(S._ptr, (rays, weights, partial, model, ok)),
+          S._stream(dev))
+    LAUNCHES["gen_rel_ransac"] += 1
     return model, ok
 
 

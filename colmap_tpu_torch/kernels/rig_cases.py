@@ -12,7 +12,9 @@ version are held to on injected samples. ``lm_step_inputs`` runs one rig LM
 step up to K38 (the inputs of K34's set-up (c) and step, and of K38), and
 ``refine_case`` is a perturbed start for K40's refinement with the outliers
 kept in. ``write_rig_config`` writes the ``rig_configurator`` JSON of a
-synthetic scene's true rig.
+synthetic scene's true rig. ``gen_rel_case`` is a pair of rig frames' 2D-2D
+correspondences for the generalized relative pose (K48), with planted
+outliers, and ``gen_rel_samples`` its injected 17-row samples.
 """
 
 from __future__ import annotations
@@ -252,3 +254,119 @@ def write_rig_config(gt, path):
         cams.append(cc)
     with open(path, "w") as f:
         json.dump([{"cameras": cams}], f)
+
+
+def gen_rel_case(n: int, num_cams: int = 4, outlier_ratio: float = 0.25, seed: int = 0,
+                 sensors=None, baseline: float = 0.3, focal: float = 1280.0,
+                 width: int = 1024, height: int = 768):
+    """Two rig frames' correspondences for the generalized relative pose:
+    ``n`` points 5-12 in front of rig 1 (tests/test_generalized_pose.py's
+    scene), each seen by a random camera of each frame of a ``num_cams``
+    rig (``sensors`` = (q, t) sensor_from_rig, or sensor_poses with
+    ``baseline``), PINHOLE cameras of ``focal`` px; a share of the rows'
+    second observations replaced by random pixels. Returns a dict with
+    points2D1, points2D2 (n, 2) pixels, camera_idxs1, camera_idxs2,
+    cams_from_rig (Poses), cameras, rel (rig2_from_rig1 Pose) and inliers
+    (n,) bool."""
+    from colmap_tpu_torch.scene.types import Camera
+
+    rng = np.random.default_rng(seed)
+    sq, st = sensors if sensors is not None else sensor_poses(num_cams, rng, baseline, 20.0)
+    num_cams = len(sq)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    ang = rng.uniform(0.05, 0.5)
+    rel = Pose(np.concatenate([[np.cos(ang / 2)], np.sin(ang / 2) * axis]),
+               rng.normal(size=3) * 0.8)
+    cameras = [Camera(c, int(camera_models.CameraModelId.PINHOLE), width, height,
+                      np.array([focal, focal, width / 2.0, height / 2.0]))
+               for c in range(num_cams)]
+    cams = [Pose(np.asarray(sq[c], dtype=np.float64), np.asarray(st[c], dtype=np.float64))
+            for c in range(num_cams)]
+    rows = []
+    while sum(len(r[0]) for r in rows) < n:
+        m = 2 * n
+        X = np.concatenate([rng.uniform(-3, 3, (m, 2)), rng.uniform(5, 12, (m, 1))], 1)
+        i1, i2 = rng.integers(0, num_cams, m), rng.integers(0, num_cams, m)
+        X1 = np.stack([cams[c].apply(X[k:k + 1])[0] for k, c in enumerate(i1)])
+        X2 = np.stack([cams[c].compose(rel).apply(X[k:k + 1])[0] for k, c in enumerate(i2)])
+        ok = (X1[:, 2] > 0.5) & (X2[:, 2] > 0.5)
+        rows.append((X1[ok], X2[ok], i1[ok], i2[ok]))
+    X1, X2, i1, i2 = (np.concatenate(a)[:n] for a in zip(*rows))
+    pp = np.array([width / 2.0, height / 2.0])
+    p1 = X1[:, :2] / X1[:, 2:] * focal + pp
+    p2 = X2[:, :2] / X2[:, 2:] * focal + pp
+    outlier = rng.random(n) < outlier_ratio
+    p2[outlier] = rng.uniform([0, 0], [width, height], (int(outlier.sum()), 2))
+    return dict(points2D1=p1, points2D2=p2, camera_idxs1=i1, camera_idxs2=i2,
+                cams_from_rig=cams, cameras=cameras, rel=rel, inliers=~outlier)
+
+
+def gen_rel_samples(n: int, k: int, seed: int, inliers=None, device="cpu"):
+    """(k, 17) int32 sample rows: half drawn from the true inliers (when
+    given), the rest uniformly."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, (k, 17))
+    if inliers is not None:
+        s[: k // 2] = rng.choice(np.flatnonzero(inliers), (k // 2, 17))
+    return torch.as_tensor(s, dtype=torch.int32).to(device)
+
+
+def gen_rel_tensors(case, device, dtype):
+    """GenRelData of a gen_rel_case on ``device``, observations in ``dtype``."""
+    from colmap_tpu_torch.estimators.generalized_pose import gen_rel_data
+
+    return gen_rel_data(case["points2D1"], case["points2D2"], case["camera_idxs1"],
+                        case["camera_idxs2"], case["cams_from_rig"], case["cameras"], device,
+                        dtype)
+
+
+# A 17-row sample whose A^T A has a relative eigen gap (lambda_2 - lambda_1)
+# / lambda_max below DEGENERATE_GAP has a two-dimensional nullspace in
+# float64 (for example rows from too few camera pairs, an axial layout):
+# every solver, colmap_tpu's eigh included, returns an arbitrary vector of
+# it. Elsewhere two float64 eigensolvers agree within the Davis-Kahan bound
+# SOLVE_EPS / gap on the eigenvector (SOLVE_EPS ~ 18 x 2 x float64 eps).
+DEGENERATE_GAP, SOLVE_EPS = 1e-14, 4e-15
+
+
+def g17_gaps(rays, samples):
+    """The relative eigen gap of each sample's A^T A (K,), float64."""
+    from colmap_tpu_torch.kernels.rig import _rays
+
+    d1, m1, d2, m2 = _rays(rays[samples.long()].double())
+    cE = torch.einsum("...ni,...nj->...nij", d2, d1).flatten(-2)
+    cR = (torch.einsum("...ni,...nj->...nij", d2, m1)
+          + torch.einsum("...ni,...nj->...nij", m2, d1)).flatten(-2)
+    A = torch.cat([cE, cR], -1)
+    w = torch.linalg.eigvalsh(A.transpose(-1, -2) @ A)
+    return (w[:, 1] - w[:, 0]) / w[:, -1]
+
+
+def gen_rel_agreement(counts, best, models, models64, counts64, best64, data64, samples,
+                      max_sq, margin: float = 1e-3, tol: float = 1e-6):
+    """How K48's batch agrees with its float64 plain version on the same
+    samples, on the samples that are not degenerate: every count within its
+    near rows (float64 residual within ``margin`` of the threshold) of the
+    float64 count; the same best index, or a near-tie decided from the
+    float64 arithmetic; each near-best model (90% of the best support)
+    within ``tol`` + SOLVE_EPS / gap of the float64 model. Returns a dict
+    with the checks, the largest model error and the degenerate count."""
+    from colmap_tpu_torch.kernels.rig import gen_rel_residuals
+
+    gap = g17_gaps(data64.rays, samples).to(counts64.device)
+    ok = gap >= DEGENERATE_GAP
+    res = gen_rel_residuals(models64, data64)
+    near = ((res - max_sq).abs() <= margin * max_sq) & data64.mask[None]
+    near_n = torch.where(torch.isfinite(models64.flatten(1)).all(-1), near.sum(-1), 0)
+    diff = (counts.long() - counts64.long()).abs()
+    count_ok = bool((diff <= near_n)[ok].all())
+    (_, ik), (cp, ip) = best, best64
+    tie = ip != ik and abs(int(counts64[ik]) - cp) <= int(near_n[ik]) + int(near_n[ip])
+    full = (counts64 >= 0.9 * counts64[ok].max()) & ok
+    err = (models.double() - models64.double()).abs().flatten(1).amax(1)
+    model_ok = bool((err <= tol + SOLVE_EPS / gap)[full].all())
+    return dict(count_ok=count_ok, best_ok=ik == ip or tie, model_ok=model_ok,
+                near=int(near_n.max()), tie=tie, max_model_err=float(err[full].max()),
+                near_best=int(full.sum()), degenerate=int((~ok).sum()),
+                best_gap=float(gap[ip]))

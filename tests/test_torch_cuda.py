@@ -1073,7 +1073,8 @@ def test_rig_ba_kernels_match_plain_on_cuda(model_id):
                                         x.double()), 1e-4, "K26 back-substitution")
     torch.cuda.synchronize()
     assert KR.LAUNCHES == {"rig_ba_jacobians": 2, "rig_ba_reduce": 2, "rig_ba_matvec": 3,
-                           "gen_abs_ransac": 0, "rig_lm_update": 0, "gen_abs_refine": 0}
+                           "gen_abs_ransac": 0, "rig_lm_update": 0, "gen_abs_refine": 0,
+                           "gen_rel_ransac": 0}
 
 
 def test_rig_solve_matches_plain_on_cuda():
@@ -2092,3 +2093,63 @@ def test_affine_shapes_and_frames_match_plain_on_cuda():
     kc, _ = extract_sift(view, opts, device="cuda")
     kp, _ = extract_sift(view, opts, device="cpu")
     assert kc.shape[1] == 6 and abs(len(kc) - len(kp)) <= 0.01 * len(kp)
+
+
+# K48 and K49 against their plain versions. K48: a batch of injected
+# 17-row samples of a 4-camera rig pair (25% outliers) scored in float32
+# against the float64 plain version, on the samples that are not degenerate
+# (rig_cases.gen_rel_agreement): every count within the rows near the
+# threshold, the same best sample or a near-tie, the near-best models (90%
+# of the best support) within 1e-6 plus the float64 eigensolve's bound
+# SOLVE_EPS / gap; the inlier entry equal off the near rows; the refit (both
+# float64) within 1e-9. K49 on an integer-valued image (its Scharr sums are exact in
+# float32 in any order): magnitudes within 1e-6 relative, angles within
+# 1e-5 rad modulo pi.
+
+
+def test_gen_rel_ransac_matches_plain_on_cuda():
+    _need_card()
+    from colmap_tpu_torch.kernels import rig as KR
+    from colmap_tpu_torch.kernels import rig_cases as RC
+    from colmap_tpu_torch.optim.ransac import unpack_best
+
+    case = RC.gen_rel_case(2000, seed=5)
+    data = RC.gen_rel_tensors(case, "cuda", torch.float32)
+    data64 = KR.GenRelData(data.rays, *(t.double() if t.is_floating_point() else t
+                                        for t in data[1:]))
+    samples = RC.gen_rel_samples(2000, 64, 3, case["inliers"], device="cuda")
+    max_sq = 16.0
+    KR.reset_launches()
+    m, c, b = KR.gen_rel_propose_score(data, samples, max_sq)
+    m64, c64, b64 = KR.gen_rel_propose_score_plain(data64, samples, max_sq)
+    agree = RC.gen_rel_agreement(c, unpack_best(int(b[0])), m, m64, c64,
+                                 unpack_best(int(b64[0])), data64, samples, max_sq)
+    assert agree["count_ok"] and agree["best_ok"] and agree["model_ok"], agree
+    best = unpack_best(int(b64[0]))[1]
+    inl = KR.gen_rel_inliers(data, m64[best].float(), max_sq)
+    res = KR.gen_rel_residuals(m64[best][None], data64)[0]
+    far = (res - max_sq).abs() > 1e-3 * max_sq
+    assert torch.equal(inl[far], (res <= max_sq)[far])
+    w = (res <= max_sq).double()
+    model, ok = KR.gen_rel_refit(data.rays, w)
+    model_p, ok_p = KR.gen_rel_refit_plain(data.rays, w)
+    assert bool(ok[0]) and bool(ok_p[0])
+    assert float((model - model_p).abs().max()) <= 1e-9
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES["gen_rel_ransac"] == 3
+
+
+def test_line_gradients_matches_plain_on_cuda():
+    _need_card()
+    from colmap_tpu_torch.kernels import lines as KL
+
+    img = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (481, 643)).astype(
+        np.float32))
+    KL.reset_launches()
+    mag, ang = KL.line_gradients(img.cuda())
+    mag_p, ang_p = KL.line_gradients_plain(img.double())
+    rel = (mag.double().cpu() - mag_p).abs() / mag_p.clamp(min=1e-12)
+    assert float(rel[mag_p > 0].max()) <= 1e-6
+    d = torch.remainder(ang.double().cpu() - ang_p + torch.pi / 2, torch.pi) - torch.pi / 2
+    assert float(d[mag_p > 0].abs().max()) <= 1e-5
+    assert KL.LAUNCHES["line_gradients"] == 1

@@ -19,7 +19,10 @@ version), DEGENSAC's hypotheses (K46's) and affine-covariant SIFT (K45's);
 then the meshing slice on small cases: poisson_mesh (K41-K44's plain versions),
 Delaunay meshing and the advancing front, the quadric simplifier (built
 with g++ from native/mesh_ops.cpp), texturing, rectification and a CMP-MVS
-export. An audit hook records every file the child opens, every library it
+export; then the sparse-model tools: the line detector (K49's plain
+version), the generalized relative pose (K48's), and model_converter,
+model_orientation_aligner, project_generator and hierarchical_mapper with
+``--device cpu``. An audit hook records every file the child opens, every library it
 loads and every process it starts: none lies under colmap_tpu/. A second
 test reads every line of the port and of chip_smoke.py for an import of
 jax or colmap_tpu.
@@ -219,8 +222,31 @@ CHILD = textwrap.dedent("""
                    device="cpu")
     assert len(df) > 0 and len(af) > 0 and len(sf) < len(f) and (lab >= 0).any()
     assert sorted(os.listdir(os.path.join(root, "cmp")))[0] == "00001_P.txt"
-    assert not TOUCHED, TOUCHED
     print("MESH", len(f), len(sf), len(df), len(af))
+
+    from colmap_tpu_torch import pycolmap_compat as pc
+    from colmap_tpu_torch.estimators import generalized_pose
+    from colmap_tpu_torch.image.lines import detect_line_segments
+
+    img = np.zeros((80, 100), np.float32)
+    img[20:22, 10:90] = 255.0
+    img[10:70, 50:52] = 255.0
+    segs = detect_line_segments(img, 20.0, device="cpu")
+    case = rig_cases.gen_rel_case(120, seed=1)
+    pose, inl = generalized_pose.estimate_generalized_relative_pose(
+        case["points2D1"], case["points2D2"], case["camera_idxs1"], case["camera_idxs2"],
+        case["cams_from_rig"], case["cameras"], device="cpu")
+    gdir = os.path.join(root, "global", "0")
+    cli.main(["model_converter", "--input_path", gdir, "--output_path",
+              os.path.join(root, "m.nvm"), "--output_type", "NVM"])
+    cli.main(["model_orientation_aligner", "--input_path", gdir, "--output_path",
+              os.path.join(root, "aligned"), "--method", "PRINCIPAL-PLANE", "--device", "cpu"])
+    cli.main(["project_generator", "--output_path", os.path.join(root, "project.ini")])
+    cli.main(["hierarchical_mapper", "--database_path", gdb, "--output_path",
+              os.path.join(root, "hier"), "--device", "cpu", "--quiet"])
+    assert pose is not None and len(segs) >= 2 and hasattr(pc, "estimate_generalized_relative_pose")
+    assert not TOUCHED, TOUCHED
+    print("TOOLS", len(segs), int(inl.sum()))
 """)
 
 
@@ -232,6 +258,7 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
     assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout and "CAMERAS" in out.stdout
     assert "SOLVERS" in out.stdout and "MESH" in out.stdout and "OPTIONS" in out.stdout
+    assert "TOOLS" in out.stdout
 
 
 def test_no_module_of_the_port_imports_jax_or_colmap_tpu():
