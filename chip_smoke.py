@@ -215,7 +215,31 @@ Phases; any failure exits non-zero:
  30. tools (phase `tools`): point_triangulator, image_registrator,
      point_filtering, guided_geometric_verifier, hierarchical_mapper and
      pose_prior_mapper on the verify scene on cuda, held to the mapper's
-     gates, then every file tool once on their outputs.
+     gates, then every file tool once on their outputs;
+ 31. learned kernels (phase `learned_kernels`): ALIKED on a rendered 3072 x
+     2304 view with random weights (seed 0), K = 8192: every K50 call
+     (convolutions, upsamplings) against its F.conv2d-based plain version
+     (TF32 off) within 1e-4, K51 the plain version's keypoint list in its
+     order (positions within 1e-5 px beyond one float32 ulp of the
+     coordinate), K52 against the dense plain SDDH
+     (the whole image convolved, as colmap_tpu) within 1e-4, peak memory;
+     then LightGlue (9 layers, hidden 256, 4 heads) on one pair of 2048 of
+     the view's features: every K53 (a) call of the forward within 1e-4,
+     K53 (b)'s match list equal to the plain version's but at near-ties of
+     float64 scores; each timed beside its plain version and the library
+     call (F.conv2d, F.max_pool2d + torch.topk, scaled_dot_product_attention,
+     log_softmax + argmax);
+ 32. learned (phase `learned`): `feature_extractor --descriptor_type aliked`
+     on four rendered 3072 x 2304 views under torch.profiler (128-d uint8
+     descriptors), `exhaustive_matcher` on them (ALIKED_BRUTEFORCE), the 12
+     rendered 1024 x 768 frames extracted at 2048 ALIKED features and
+     matched by run_exhaustive_matching with matcher_type="lightglue"
+     (threshold 0) under torch.profiler (pairs/s, idle share), then one
+     frame against a copy of itself under another name (through the
+     pipeline) and against a permuted copy: on its SIFT features at least
+     100 mutual matches, at least 0.99 of them correct; on its ALIKED
+     features the counts (random weights make ALIKED's uint8 descriptors
+     nearly parallel: LightGlue keeps ~1 match).
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 and K35 (and
 K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
@@ -235,14 +259,16 @@ K45, the DEGENSAC block K11, K12 and K46, the MSAC matcher K5, K7 and
 K10-K12, `sprt_evaluate` K47, `model_orientation_aligner` K49,
 estimate_generalized_relative_pose K48, the pycolmap script and
 `automatic_reconstructor` K13-K16, K5, K7, K10-K12 and the mapper's,
-`point_triangulator` K8, `image_registrator` K6, `point_filtering` K9.
+`point_triangulator` K8, `image_registrator` K6, `point_filtering` K9,
+`feature_extractor --descriptor_type aliked` K50-K52, ALIKED's
+`exhaustive_matcher` K10 and LightGlue's run_exhaustive_matching K53.
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 dense,mesh_kernels,mesh`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
 retrieval_kernels,retrieval`, `--phases camera_kernels,cameras` or
 `--phases solver_kernels` or `--phases options_kernels,options` or `--phases
-tools_kernels,orientation,compat,tools` (or any
+tools_kernels,orientation,compat,tools` or `--phases learned_kernels,learned` (or any
 subset of the phases) runs a subset
 while developing and prints no result; the kernels line needs them all.
 """
@@ -1611,8 +1637,10 @@ def _kernel_modules():
     from colmap_tpu_torch.kernels import spherical as KQ
     from colmap_tpu_torch.kernels import lines as KN
     from colmap_tpu_torch.kernels import sprt as KW
+    from colmap_tpu_torch.kernels import aliked as KA
+    from colmap_tpu_torch.kernels import lightglue as KLG
 
-    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP, KW, KN
+    return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP, KW, KN, KA, KLG
 
 
 def all_launch_counts():
@@ -1721,7 +1749,8 @@ def run_mapper(db_path, out, label, min_launches=True):
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
               and k not in CAMERA_SOURCES and k not in MESH_SOURCES and k not in OPTIONS_SOURCES
-              and k not in TOOLS_SOURCES and k not in ("structure_less_ransac", "gen_abs_refine")]
+              and k not in TOOLS_SOURCES and k not in LEARNED_SOURCES
+              and k not in ("structure_less_ransac", "gen_abs_refine")]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
         raise AssertionError(f"{label}: the mapper launched no {missing}")
@@ -6928,10 +6957,496 @@ def _file_tools(tmp, db_path, model, gt_dir):
     return walls
 
 
+LEARNED_SOURCES = {
+    "aliked_conv": ("colmap_tpu_torch/csrc/aliked_conv.cu", "colmap_tpu/feature/aliked.py:120"),
+    "aliked_dkd": ("colmap_tpu_torch/csrc/aliked_dkd.cu", "colmap_tpu/feature/aliked.py:141"),
+    "aliked_sddh": ("colmap_tpu_torch/csrc/aliked_sddh.cu", "colmap_tpu/feature/aliked.py:201"),
+    "lightglue_attention": ("colmap_tpu_torch/csrc/lightglue_attention.cu",
+                            "colmap_tpu/feature/lightglue.py:118"),
+}
+# ALIKED at the extractor's width: rendered 3072 x 2304 views (BASELINE.json
+# config 1's frames), K = 8192 (SiftOptions.max_num_features, the
+# pipeline's cap), random weights from init_params' seed 0. Each K50 call
+# and K52 within K50_RTOL of their plain versions (F.conv2d with TF32 off;
+# K52's plain version the dense SDDH that convolves the whole image, as
+# colmap_tpu), relative to the output's largest magnitude; K51 the plain
+# version's keypoint list in its order, refined positions within K51_PX
+# beyond one float32 ulp of the coordinate (the sum x + dx is rounded).
+ALIKED_K, K50_RTOL, K51_PX, K52_RTOL = 8192, 1e-4, 1e-5, 1e-4
+# LightGlue at its published width (LightGlueOptions: 9 layers, hidden 256,
+# 4 heads) on one pair of 2048 keypoints (the cap): the first 2048 ALIKED
+# features of a view against the same features moved by 3.5 px, their
+# descriptors perturbed, in a permuted order. Every K53 (a) call within
+# K53_RTOL of its plain version; K53 (b) the plain version's match list,
+# where a row may differ only if a score of its decision lies within
+# K53_TIE of another (float64 scores).
+LG_N, K53_RTOL, K53_TIE = 2048, 1e-4, 1e-6
+# Phase learned: LightGlue on the 12 rendered 1024 x 768 frames (phase
+# extractor's scene) extracted at 2048 ALIKED features, threshold 0 (random
+# weights keep no match at the default 0.1); one frame against a copy of
+# itself under another name and against a permuted copy keeps at least
+# LG_MIN_MATCHES mutual matches, at least LG_MIN_CORRECT of them right, on
+# SIFT features (tests/test_learned_features.py:70-105's property; on
+# ALIKED's uint8 descriptors random weights keep ~1 match, logged).
+LG_FRAME_FEATURES, LG_MIN_MATCHES, LG_MIN_CORRECT = 2048, 100, 0.99
+LEARNED_STATE = {}
+
+
+def _learned_views():
+    """The EXTRACT_VIEWS rendered 3072 x 2304 views (made once, shared by
+    the two learned phases): their directory."""
+    from colmap_tpu_torch.kernels import sift_cases as SC
+
+    if "views" not in LEARNED_STATE:
+        root = tempfile.mkdtemp(prefix="learned_")
+        t0 = time.perf_counter()
+        SC.render_scene(os.path.join(root, "wide"), EXTRACT_VIEWS, SIFT_POINTS, SIFT_W, SIFT_H,
+                        1.25 * SIFT_W)
+        log(f"learned: {EXTRACT_VIEWS} rendered {SIFT_W} x {SIFT_H} views (set-up "
+            f"{time.perf_counter() - t0:.1f} s)")
+        LEARNED_STATE.update(root=root, views=os.path.join(root, "wide"))
+    return LEARNED_STATE["views"]
+
+
+def _conv_ops(x, w, pool):
+    h, wd = (x.shape[1] // 2, x.shape[2] // 2) if pool else x.shape[1:]
+    return 2 * w.numel() * h * wd
+
+
+def _backbone_plain(p, img):
+    """backbone_and_score through the plain versions (F.conv2d, TF32 off)."""
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    S = KA.ACT_SELU
+
+    def block(x, q, pool=False):
+        x = KA.conv_plain(x, q["conv1"]["w"], q["conv1"]["b"], S, pool)
+        return KA.conv_plain(x, q["conv2"]["w"], q["conv2"]["b"], S)
+
+    H, W = img.shape
+    f1 = block(img[None], p["block1"])
+    f2 = block(f1, p["block2"], True)
+    f3 = block(f2, p["block3"], True)
+    f4 = block(f3, p["block4"], True)
+    parts = [KA.conv_plain(f1, p["agg1"]["w"], p["agg1"]["b"], S)]
+    for i, f in enumerate((f2, f3, f4), start=2):
+        parts.append(KA.upsample_selu_plain(KA.conv_plain(f, p[f"agg{i}"]["w"], p[f"agg{i}"]["b"]),
+                                            (H, W)))
+    s = torch.cat(parts)
+    for name in ("smh1", "smh2", "smh3"):
+        s = KA.conv_plain(s, p[name]["w"], p[name]["b"], S)
+    return KA.conv_plain(s, p["smh4"]["w"], p["smh4"]["b"], KA.ACT_SIGMOID)[0]
+
+
+def _k50(img, p, errs, rows):
+    """K50 on a full-width view: each call against its plain version on the
+    same inputs, then the whole backbone timed three ways."""
+    import torch.nn.functional as F
+
+    from colmap_tpu_torch.feature import aliked as TA
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    calls, worst = [], [0.0, 0.0]
+    conv, upsample = KA.conv, KA.upsample_selu
+
+    def conv_checked(x, w, b, act=KA.ACT_NONE, pool=False, out=None):
+        y = conv(x, w, b, act, pool, out)
+        a, r = rel_err(y, KA.conv_plain(x, w, b, act, pool))
+        calls.append(("conv", x, w, b, pool))
+        worst[:] = [max(worst[0], a), max(worst[1], r)]
+        if not r <= K50_RTOL:
+            raise AssertionError(f"K50 (a) {tuple(w.shape)} pool={pool}: relative error {r:.3e}")
+        return y
+
+    def upsample_checked(src, out):
+        y = upsample(src, out)
+        a, r = rel_err(y, KA.upsample_selu_plain(src, tuple(out.shape[1:])))
+        calls.append(("upsample", src, tuple(out.shape[1:])))
+        worst[:] = [max(worst[0], a), max(worst[1], r)]
+        if not r <= K50_RTOL:
+            raise AssertionError(f"K50 (b) {tuple(src.shape)}: relative error {r:.3e}")
+        return y
+
+    KA.conv, KA.upsample_selu = conv_checked, upsample_checked
+    try:
+        feat, score = TA.backbone_and_score(p, img)
+    finally:
+        KA.conv, KA.upsample_selu = conv, upsample
+    a, r = rel_err(score, _backbone_plain(p, img))
+    log(f"  K50: {len(calls)} calls (convs and upsamplings) each within {worst[1]:.3e} of the "
+        f"plain version (max abs {worst[0]:.3e}, tolerance {K50_RTOL:g}); the score map within "
+        f"{r:.3e}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    errs["aliked_conv"].append(tuple(worst))
+    ops = sum(_conv_ops(c[1], c[2], c[4]) for c in calls if c[0] == "conv")
+    H, W = img.shape
+    b_ms, by = bound(4 * H * W * (2 + feat.shape[0]), ops)
+    lib_in = [(F.avg_pool2d(x[None], 2)[0] if pool else x, w, b)
+              for kind, x, w, b, pool in (c for c in calls if c[0] == "conv")]
+    ups = [(c[1], c[2]) for c in calls if c[0] == "upsample"]
+
+    def library():
+        for x, w, b in lib_in:
+            F.conv2d(x[None], w, b, padding=w.shape[-1] // 2)
+        for src, size in ups:
+            F.interpolate(src[None], size=size, mode="bilinear", align_corners=False)
+
+    ms = time_ms(lambda: TA.backbone_and_score(p, img), reps=5)
+    plain_ms = time_ms(lambda: _backbone_plain(p, img), reps=3)
+    library_ms = time_ms(library, reps=3)
+    log(f"    aliked_conv, the backbone and score head at {W} x {H} ({ops / 2e9:.1f} GMAC): "
+        f"{ms:.3f} ms (plain {plain_ms:.3f} ms; F.conv2d x {len(lib_in)} + F.interpolate x "
+        f"{len(ups)}, TF32 off, {library_ms:.3f} ms; bound {b_ms:.4f} ms by {by})")
+    rows["aliked_conv"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                               library_ms=library_ms)
+    return feat, score
+
+
+def _k51(score, errs, rows):
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    xy, sc = KA.dkd(score, ALIKED_K, 2, 0.2)
+    xy_p, sc_p = KA.dkd_plain(score, ALIKED_K, 2, 0.2)
+    same = len(sc) == len(sc_p) and bool(torch.equal(sc, sc_p))
+    err = beyond = float("inf")
+    if len(xy) and same:
+        d = (xy - xy_p).abs()
+        err = float(d.max())
+        # x + dx is rounded to float32: one ulp of the coordinate (2.4e-4 px
+        # at 2048-4095) is the refinement's resolution there.
+        ulp = torch.nextafter(xy_p.abs(), torch.full_like(xy_p, torch.inf)) - xy_p.abs()
+        beyond = float((d - ulp).clamp(min=0).max())
+    log(f"  K51: {len(xy)} keypoints ({len(xy_p)} plain), the same list in the same order: "
+        f"{same}; refined positions within {err:.3e} px, {beyond:.3e} px beyond one float32 "
+        f"ulp of the coordinate (tolerance {K51_PX:g})")
+    if not (same and beyond <= K51_PX and len(xy) > 0):
+        raise AssertionError("K51 disagrees with its plain version")
+    errs["aliked_dkd"].append((err, err / max(float(xy_p.abs().max()), 1e-30)))
+    H, W = score.shape
+    b_ms, by = bound(4 * H * W + 12 * len(xy), 0)
+    ms = time_ms(lambda: KA.dkd(score, ALIKED_K, 2, 0.2), reps=10)
+    plain_ms = time_ms(lambda: KA.dkd_plain(score, ALIKED_K, 2, 0.2), reps=5)
+    library_ms = time_ms(lambda: KA.dkd_library(score, ALIKED_K, 2, 0.2), reps=10)
+    log(f"    aliked_dkd at {W} x {H}, K = {ALIKED_K}: {ms:.4f} ms with its count read and "
+        f"sort (plain {plain_ms:.3f} ms; F.max_pool2d + torch.topk {library_ms:.4f} ms; bound "
+        f"{b_ms:.5f} ms by {by})")
+    rows["aliked_dkd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                              library_ms=library_ms)
+    return xy
+
+
+def _k52(feat, xy, p, errs, rows):
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    o = p["sddh_offset"]
+    off_args = (o["conv1"]["w"], o["conv1"]["b"], o["conv2"]["w"], o["conv2"]["b"])
+    off = KA.sddh_offsets(feat, xy, *off_args)
+    check("K52 (a) offsets against the dense plain version", off,
+          KA.sddh_offsets_plain(feat, xy, *off_args), K52_RTOL, errs["aliked_sddh"])
+    d_args = (p["sddh_weight"]["w"], p["sddh_weight"]["b"], p["sddh_agg"]["w"])
+    check("K52 (b) descriptors on the same offsets", KA.sddh_describe(feat, xy, off, *d_args),
+          KA.sddh_describe_plain(feat, xy, off, *d_args), K52_RTOL, errs["aliked_sddh"])
+    torch.cuda.reset_peak_memory_stats()
+    desc = KA.sddh(feat, xy, p)
+    check("K52 descriptors against the dense plain SDDH", desc, KA.sddh_plain(feat, xy, p),
+          K52_RTOL, errs["aliked_sddh"])
+    log(f"  K52: peak memory with the dense plain version "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    C, H, W = feat.shape
+    n, M = len(xy), p["sddh_agg"]["w"].shape[0]
+    macs = n * (16 * C * C * 9 + 4 * 2 * M * C * 9 + 2 * M * C * C)
+    moved = 4 * (n * (36 + 4 * M) * C + n * (2 + C) + sum(t.numel() for t in (*off_args, *d_args)))
+    b_ms, by = bound(moved, 2 * macs)
+    ms = time_ms(lambda: KA.sddh(feat, xy, p), reps=10)
+    plain_ms = time_ms(lambda: KA.sddh_plain(feat, xy, p), reps=3)
+    ms_a = time_ms(lambda: KA.sddh_offsets(feat, xy, *off_args), reps=10)
+    log(f"    aliked_sddh, {n} keypoints ({macs / 1e9:.1f} GMAC sparse): {ms:.3f} ms, (a) "
+        f"{ms_a:.3f} ms (the dense plain version {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {by})")
+    rows["aliked_sddh"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                               library_ms=None, entries={"offsets": dict(ms=ms_a)})
+
+
+def _lg_pair(xy, desc, shape):
+    """Set 1: the first LG_N features; set 2: the same moved by 3.5 px, the
+    descriptors perturbed and renormalized, permuted. Normalized as
+    match_lightglue's prep; returns (tensors on the card, perm)."""
+    from colmap_tpu_torch.feature.lightglue import _prep
+
+    rng = np.random.default_rng(7)
+    n = min(LG_N, len(xy))
+    xy, desc = xy[:n].cpu().numpy(), desc[:n].cpu().numpy()
+    perm = rng.permutation(n)
+    xy2 = (xy + 3.5)[perm]
+    d2 = (desc + 0.05 * rng.normal(size=desc.shape).astype(np.float32))[perm]
+    d1, k1 = _prep(desc, xy, shape, LG_N)
+    d2, k2 = _prep(d2, xy2, shape, LG_N)
+    return [torch.from_numpy(a).cuda() for a in (d1, k1, d2, k2)], perm
+
+
+def _k53(xy, desc, shape, errs, rows):
+    """K53 (a) at every call of one pair's forward and K53 (b) on its
+    similarity, against their plain versions; timed."""
+    from colmap_tpu_torch.feature.lightglue import LightGlue, LightGlueOptions
+    from colmap_tpu_torch.kernels import lightglue as KLG
+
+    (d1, k1, d2, k2), perm = _lg_pair(xy, desc, shape)
+    n = len(d1)
+    model = LightGlue(None, LightGlueOptions(filter_threshold=0.0)).cuda()
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    calls, worst = [], [0.0, 0.0]
+    attention = KLG.attention
+
+    def checked(q, k, v, mq, mk, heads, cos=None, sin=None):
+        y = attention(q, k, v, mq, mk, heads, cos, sin)
+        a, r = rel_err(y, KLG.attention_plain(q, k, v, mq, mk, heads, cos, sin))
+        worst[:] = [max(worst[0], a), max(worst[1], r)]
+        if not r <= K53_RTOL:
+            raise AssertionError(f"K53 (a) call {len(calls)}: relative error {r:.3e}")
+        calls.append((q, k, v, mq, mk, heads, cos, sin))
+        return y
+
+    KLG.attention = checked
+    try:
+        with torch.inference_mode():
+            sim, m1, m2 = model.head(d1, k1, mask, d2, k2, mask)
+    finally:
+        KLG.attention = attention
+    log(f"  K53 (a): {len(calls)} calls of one {n} x {n} pair's forward (9 layers, hidden 256, "
+        f"4 heads), each within {worst[1]:.3e} of the plain version (max abs {worst[0]:.3e}, "
+        f"tolerance {K53_RTOL:g})")
+    errs["lightglue_attention"].append(tuple(worst))
+    q, k, v, mq, mk, heads, cos, sin = calls[0]
+    ops = 4 * heads * n * n * 64
+    b_ms, by = bound(4 * 4 * n * 256 + 2 * 4 * n * 32, ops)
+    ms = time_ms(lambda: KLG.attention(q, k, v, mq, mk, heads, cos, sin), reps=25)
+    plain_ms = time_ms(lambda: KLG.attention_plain(q, k, v, mq, mk, heads, cos, sin), reps=10)
+    library_ms = time_ms(lambda: KLG.attention_library(q, k, v, mk, heads), reps=25)
+    fwd_ms = time_ms(lambda: model.head(d1, k1, mask, d2, k2, mask), reps=5)
+    log(f"    lightglue_attention (a), self-attention with the rotation, {n} x {n}: {ms:.4f} ms "
+        f"(plain {plain_ms:.3f} ms; F.scaled_dot_product_attention with the additive mask "
+        f"{library_ms:.4f} ms; bound {b_ms:.5f} ms by {by}); the pair's forward {fwd_ms:.3f} ms")
+
+    # (b): the match list against the plain version's; near-ties from float64.
+    matches, _ = KLG.log_assignment(sim, mask, mask, m1, m2, 0.0)
+    s32 = KLG.log_assignment_plain(sim, mask, mask, m1, m2)
+    ref = KLG.extract_matches_plain(s32, mask, mask, 0.0)
+    s64 = KLG.log_assignment_plain(sim.double(), mask, mask, m1.double(), m2.double())
+    got_set = {tuple(r) for r in matches.long().tolist()}
+    ref_set = {tuple(r) for r in ref.tolist()}
+    top_r = torch.topk(s64, 2, dim=1).values
+    top_c = torch.topk(s64, 2, dim=0).values
+    tie_r = (top_r[:, 0] - top_r[:, 1]) < K53_TIE
+    tie_c = (top_c[0] - top_c[1]) < K53_TIE
+    bad = [(i, j) for (i, j) in got_set ^ ref_set if not (tie_r[i] or tie_c[j])]
+    correct = float(np.mean([perm[j] == i for i, j in got_set])) if got_set else 0.0
+    log(f"  K53 (b): {len(got_set)} matches ({len(ref_set)} plain), {len(got_set ^ ref_set)} "
+        f"differing, {len(bad)} of them outside a near-tie ({K53_TIE:g}); {correct:.4f} of the "
+        f"kernel's matches the planted correspondence")
+    if bad or not got_set:
+        raise AssertionError(f"K53 (b) disagrees with its plain version: {bad[:5]}")
+    errs["lightglue_attention"].append((0.0, 0.0))
+    N1, N2 = sim.shape
+    b_b, by_b = bound(4 * N1 * N2 + 5 * (N1 + N2) + 8 * len(matches), 0)
+    ms_b = time_ms(lambda: KLG.log_assignment(sim, mask, mask, m1, m2, 0.0), reps=25)
+    plain_b = time_ms(lambda: KLG.extract_matches_plain(
+        KLG.log_assignment_plain(sim, mask, mask, m1, m2), mask, mask, 0.0), reps=10)
+    lib_b = time_ms(lambda: KLG.log_assignment_library(sim), reps=25)
+    log(f"    lightglue_attention (b), the log-assignment and match list, {N1} x {N2}: "
+        f"{ms_b:.4f} ms with its count read (plain {plain_b:.3f} ms; log_softmax x 2 + argmax x 2 "
+        f"{lib_b:.4f} ms; bound {b_b:.5f} ms by {by_b})")
+    rows["lightglue_attention"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+        entries={"log_assignment": dict(ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b,
+                                        library_ms=lib_b)},
+        extra={"pair_forward_ms": fwd_ms})
+
+
+def phase_learned_kernels():
+    """K50-K53 against their plain versions on the card at full width: one
+    rendered 3072 x 2304 view through the backbone (K50), DKD at K = 8192
+    (K51) and SDDH (K52, against the dense plain version), then one pair of
+    2048 of its features through LightGlue (K53); timed with CUDA events.
+    Returns (errs, rows)."""
+    from colmap_tpu_torch.feature.aliked import AlikedOptions, init_params
+    from colmap_tpu_torch.kernels import aliked as KA
+    from colmap_tpu_torch.utils.image_io import read_image_gray
+    from colmap_tpu_torch.utils.param_tree import map_tree
+
+    errs = {k: [] for k in LEARNED_SOURCES}
+    rows = {}
+    torch.backends.cudnn.allow_tf32 = False
+    views = _learned_views()
+    name = sorted(os.listdir(views))[0]
+    img = torch.from_numpy(read_image_gray(os.path.join(views, name)).astype(np.float32) / 255.0)
+    img = img.cuda()
+    p = map_tree(lambda t: t.cuda(), init_params(AlikedOptions(max_num_keypoints=ALIKED_K)))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        feat, score = _k50(img, p, errs, rows)
+        log(f"  (K50: {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        xy = _k51(score, errs, rows)
+        log(f"  (K51: {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        _k52(feat, xy, p, errs, rows)
+        desc = KA.sddh(feat, xy, p)
+        log(f"  (K52: {time.perf_counter() - t0:.1f} s)")
+        del feat, score
+        t0 = time.perf_counter()
+        _k53(xy, desc, tuple(img.shape), errs, rows)
+        log(f"  (K53: {time.perf_counter() - t0:.1f} s)")
+    return errs, rows
+
+
+LEARNED_EXTRACT_KERNELS = ("aliked_conv", "aliked_dkd", "aliked_sddh")
+
+
+def _lightglue_checks(root, images, frame, launches, results):
+    """One frame against a copy of itself under another name (through
+    feature_extractor and run_exhaustive_matching) and against a permuted
+    copy (match_lightglue): mutual matches and the share that is right. The
+    gates hold on SIFT features (SIFT_LIGHTGLUE); on ALIKED's the counts
+    are logged: with random weights, the uint8 storage (d + 1) 127.5 turns
+    every ALIKED descriptor nearly parallel, and LightGlue keeps ~1 match."""
+    from colmap_tpu_torch.controllers.feature_pipeline import (
+        MatchingPipelineOptions, run_exhaustive_matching)
+    from colmap_tpu_torch.feature.lightglue import LightGlueOptions, match_lightglue
+    from colmap_tpu_torch.scene.database import Database
+
+    opts = MatchingPipelineOptions(matcher_type="lightglue",
+                                   lightglue_options=LightGlueOptions(filter_threshold=0.0))
+    out = {}
+    for kind, kernels, gated in (("sift", SIFT_SOURCES, True),
+                                 ("aliked", LEARNED_EXTRACT_KERNELS, False)):
+        pair_dir = os.path.join(root, f"pair_{kind}")
+        os.makedirs(pair_dir)
+        shutil.copy(os.path.join(images, frame), os.path.join(pair_dir, "a_" + frame))
+        shutil.copy(os.path.join(images, frame), os.path.join(pair_dir, "b_copy_" + frame))
+        pair_db = pair_dir + ".db"
+        run_command(["feature_extractor", "--database_path", pair_db, "--image_path", pair_dir,
+                     "--descriptor_type", kind, "--max_num_features", str(LG_FRAME_FEATURES)],
+                    f"feature_extractor --descriptor_type {kind}, a frame and its copy", kernels)
+        db = Database(pair_db, must_exist=True)
+        _driven(f"LightGlue on {kind} features, a frame against its copy",
+                lambda: run_exhaustive_matching(db, opts, device="cuda"), ("lightglue_attention",),
+                launches)
+        (_, m), = db.read_all_matches()
+        ids = [iid for iid, _, _ in db.read_images()]
+        kp, desc = db.read_keypoints(ids[0]), db.read_descriptors(ids[0])
+        cam = next(iter(db.read_cameras().values()))
+        db.close()
+        shape = (cam.height, cam.width)
+        perm = np.random.default_rng(5).permutation(len(kp))
+        mp = match_lightglue(desc.astype(np.float32), kp, desc[perm].astype(np.float32), kp[perm],
+                             shape, shape, None, opts.lightglue_options, "cuda")
+        for label, mm, right in (("copy", m, lambda r: r[:, 0] == r[:, 1]),
+                                 ("permuted copy", mp, lambda r: perm[r[:, 1]] == r[:, 0])):
+            share = float(np.mean(right(mm))) if len(mm) else 0.0
+            log(f"  LightGlue on {kind} features, {frame} against its {label}: {len(mm)} mutual "
+                f"matches of {len(kp)} keypoints, {share:.4f} correct" + (
+                    f" (gates: >= {LG_MIN_MATCHES}, >= {LG_MIN_CORRECT})" if gated else
+                    " (no gate: random weights)"))
+            if gated and not (len(mm) >= LG_MIN_MATCHES and share >= LG_MIN_CORRECT):
+                raise AssertionError(f"LightGlue against the {label}: {len(mm)} matches, {share}")
+            out[f"{kind} {label}"] = dict(matches=len(mm), correct=share, keypoints=len(kp))
+    results["self_match"] = out
+
+
+def phase_learned(launches):
+    """Learned features through the normal entry points on cuda:
+    `feature_extractor --descriptor_type aliked` on four rendered 3072 x
+    2304 views under torch.profiler (128-d uint8 descriptors, at most 8192 a
+    view), `exhaustive_matcher` on them (ALIKED_BRUTEFORCE, K10), then the
+    12 rendered 1024 x 768 frames extracted with 2048 ALIKED features and
+    matched by run_exhaustive_matching with matcher_type="lightglue"
+    (threshold 0) under torch.profiler, then the copy and permuted-copy
+    checks on SIFT and ALIKED features of one frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colmap_tpu_torch.controllers.feature_pipeline import (
+        MatchingPipelineOptions, run_exhaustive_matching)
+    from colmap_tpu_torch.feature.lightglue import LightGlueOptions
+    from colmap_tpu_torch.kernels import sift_cases as SC
+    from colmap_tpu_torch.scene.database import Database
+
+    results = {}
+    views = _learned_views()
+    root = LEARNED_STATE["root"]
+    db_path = os.path.join(root, "wide.db")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
+        torch.cuda.synchronize()
+        _, dt, counts = run_command(["feature_extractor", "--database_path", db_path,
+                                     "--image_path", views, "--descriptor_type", "aliked"],
+                                    "feature_extractor --descriptor_type aliked, full width",
+                                    LEARNED_EXTRACT_KERNELS)
+    for k, v in counts.items():
+        launches[k] += v
+    busy_ms, by_name = device_busy(prof)
+    idle = log_busy("feature_extractor --descriptor_type aliked", busy_ms, by_name, dt * 1e3,
+                    top=8)
+    db = Database(db_path, must_exist=True)
+    n_kp = []
+    for iid, _, _ in db.read_images():
+        kp, desc = db.read_keypoints(iid), db.read_descriptors(iid)
+        if not (0 < len(kp) <= ALIKED_K and desc.dtype == np.uint8
+                and desc.shape == (len(kp), 128)):
+            raise AssertionError(f"image {iid}: {len(kp)} keypoints, descriptors "
+                                 f"{desc.dtype} {desc.shape}")
+        n_kp.append(len(kp))
+    db.close()
+    log(f"  {EXTRACT_VIEWS} images in {dt:.3f} s = {EXTRACT_VIEWS / dt:.3f} images/s on "
+        f"{nvidia_smi_line()}; keypoints per view {n_kp}; 128-d uint8 descriptors; idle share "
+        f"{'not measured' if idle is None else f'{idle:.4f}'}")
+    results["extract_full_width"] = dict(seconds=dt, images_per_s=EXTRACT_VIEWS / dt,
+                                         keypoints=n_kp, idle_share=idle)
+    _, dt, counts = run_command(["exhaustive_matcher", "--database_path", db_path],
+                                "exhaustive_matcher on ALIKED features (ALIKED_BRUTEFORCE)",
+                                ("match_top2",))
+    for k, v in counts.items():
+        launches[k] += v
+    results["aliked_bruteforce_s"] = dt
+
+    frames = os.path.join(root, "frames")
+    t0 = time.perf_counter()
+    SC.render_scene(os.path.join(frames, "images"), IMG_FRAMES, IMG_POINTS, 1024, 768, IMG_FOCAL,
+                    patch_world=IMG_PATCH_WORLD)
+    log(f"LightGlue: {IMG_FRAMES} rendered 1024 x 768 frames (set-up "
+        f"{time.perf_counter() - t0:.1f} s)")
+    images = os.path.join(frames, "images")
+    fdb = os.path.join(frames, "db.db")
+    _, dt, counts = run_command(["feature_extractor", "--database_path", fdb, "--image_path",
+                                 images, "--descriptor_type", "aliked", "--max_num_features",
+                                 str(LG_FRAME_FEATURES)],
+                                "feature_extractor --descriptor_type aliked, 12 frames",
+                                LEARNED_EXTRACT_KERNELS)
+    for k, v in counts.items():
+        launches[k] += v
+    db = Database(fdb, must_exist=True)
+    opts = MatchingPipelineOptions(matcher_type="lightglue",
+                                   lightglue_options=LightGlueOptions(filter_threshold=0.0))
+    n_pairs = IMG_FRAMES * (IMG_FRAMES - 1) // 2
+    n_verified, dt, idle = _driven("run_exhaustive_matching, matcher_type lightglue",
+                                   lambda: run_exhaustive_matching(db, opts, device="cuda"),
+                                   ("lightglue_attention",), launches)
+    counts = [len(m) for _, m in db.read_all_matches()]
+    db.close()
+    log(f"  LightGlue matcher: {n_pairs} pairs in {dt:.3f} s = {n_pairs / dt:.2f} pairs/s on "
+        f"{nvidia_smi_line()}, idle share {'not measured' if idle is None else f'{idle:.4f}'}; "
+        f"{n_verified} pairs verified; matches a pair {min(counts)}-{max(counts)} "
+        f"(random weights)")
+    if len(counts) != n_pairs:
+        raise AssertionError(f"LightGlue wrote {len(counts)} match lists for {n_pairs} pairs")
+    results["lightglue_matcher"] = dict(seconds=dt, pairs_per_s=n_pairs / dt, idle_share=idle,
+                                        verified=n_verified)
+    _lightglue_checks(frames, images, sorted(os.listdir(images))[0], launches, results)
+    return results
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
               "mesh_kernels", "mesh", "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
               "camera_kernels", "cameras", "solver_kernels", "options_kernels", "options",
-              "tools_kernels", "orientation", "compat", "tools")
+              "tools_kernels", "orientation", "compat", "tools", "learned_kernels", "learned")
 
 
 def main():
@@ -7060,8 +7575,16 @@ def main():
                       ("tools", phase_tools)):
         if phase in phases:
             run(phase, lambda: fn(launches))
-    new = sum(seconds.get(k, 0.0) for k in ("tools_kernels", "orientation", "compat", "tools"))
-    log(f"seconds by phase: {seconds}; the sparse-model tools' phases {new:.1f} s, the whole "
+    if "learned_kernels" in phases:
+        n_errs, n_rows = run("learned_kernels", phase_learned_kernels)
+        errs.update(n_errs)
+        rows.update(n_rows)
+    if "learned" in phases:
+        run("learned", lambda: phase_learned(launches))
+    if "root" in LEARNED_STATE:
+        shutil.rmtree(LEARNED_STATE["root"], ignore_errors=True)
+    new = sum(seconds.get(k, 0.0) for k in ("learned_kernels", "learned"))
+    log(f"seconds by phase: {seconds}; the learned features' phases {new:.1f} s, the whole "
         f"script {time.perf_counter() - T_START:.1f} s")
     # Models 5-17 and mixed: the kernel's other inputs; K34's rig entries.
     for name, ents in (*cam_entries.items(), *extra["entries"].items(), *opt_entries.items()):
@@ -7072,7 +7595,7 @@ def main():
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
                **MESH_SOURCES, **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
-               **SOLVER_SOURCES, **OPTIONS_SOURCES, **TOOLS_SOURCES}
+               **SOLVER_SOURCES, **OPTIONS_SOURCES, **TOOLS_SOURCES, **LEARNED_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

@@ -143,15 +143,13 @@ def _cmd_feature_extractor(args):
     from colmap_tpu_torch.scene.database import Database
     from colmap_tpu_torch.utils.dtypes import resolve_device
 
-    if args.descriptor_type != "sift":
-        raise NotImplementedError(
-            f"--descriptor_type {args.descriptor_type} is not ported yet (ROADMAP queue 1 item 5)")
     device = resolve_device(args.device)
     db = Database(args.database_path)
     reader = ImageReaderOptions(
         camera_model=args.camera_model, single_camera=not args.per_image_camera,
         camera_params=args.camera_params, mask_path=args.mask_path,
-        camera_mask_path=args.camera_mask_path, extractor_type=args.descriptor_type)
+        camera_mask_path=args.camera_mask_path, extractor_type=args.descriptor_type,
+        aliked_weights_path=args.aliked_weights_path)
     ids = run_feature_extraction(db, args.image_path, reader_options=reader,
                                  sift_options=SiftOptions(max_num_features=args.max_num_features),
                                  device=device)

@@ -8,13 +8,15 @@ workers -> verifier pool -> database).
 
 Extraction: one reader thread decodes images (utils/image_io.py, no PIL)
 and reads their EXIF up to four images ahead of the extractor; each image
-goes through extract_sift (feature/sift.py, kernels K13-K16) on the chosen
-device, and cameras, images, pose priors, keypoints and descriptors land in
-the SQLite database on this thread.
+goes through extract_sift (feature/sift.py, kernels K13-K16) or, with an
+``aliked`` extractor type, extract_aliked (feature/aliked.py, K50-K52) on
+the chosen device, and cameras, images, pose priors, keypoints and
+descriptors land in the SQLite database on this thread.
 
 Matching: pairs stream in blocks of 256: each block is one call of the
-matcher kernel K10 over the block's descriptor table, then blocks of up to
-64 pairs through the E, F and H RANSAC kernels
+matcher kernel K10 over the block's descriptor table (or, with
+``matcher_type="lightglue"``, LightGlue pair by pair: feature/lightglue.py,
+K53), then blocks of up to 64 pairs through the E, F and H RANSAC kernels
 (estimators/two_view_batch.py), and the results go to the database.
 Descriptors live on the device only for their block.
 """
@@ -33,6 +35,10 @@ from colmap_tpu_torch.estimators.two_view_geometry import (
     TwoViewGeometryOptions,
     estimate_two_view_geometry,
 )
+from colmap_tpu_torch.feature.aliked import AlikedOptions, Aliked, extract_aliked
+from colmap_tpu_torch.feature.aliked import load_torch_weights as load_aliked_weights
+from colmap_tpu_torch.feature.lightglue import LightGlue, LightGlueOptions, match_lightglue
+from colmap_tpu_torch.feature.lightglue import load_torch_weights as load_lightglue_weights
 from colmap_tpu_torch.feature.matcher import MatchingOptions, match_guided, match_pairs_batched
 from colmap_tpu_torch.feature.pairing import (
     ExhaustivePairingOptions,
@@ -67,7 +73,8 @@ class ImageReaderOptions:
     mask_path: Optional[str] = None
     # One mask for every image (reference: image_reader.h:57).
     camera_mask_path: Optional[str] = None
-    # "sift"; "aliked" is not ported yet (ROADMAP queue 1 item 5).
+    # "sift", or "aliked" (any name starting so) for ALIKED; without a
+    # weights path ALIKED runs on init_params' random weights.
     extractor_type: str = "sift"
     aliked_weights_path: Optional[str] = None
 
@@ -102,6 +109,31 @@ def _apply_mask(kp: np.ndarray, desc: np.ndarray, mask_img: np.ndarray):
     return kp[keep], desc[keep]
 
 
+# ALIKED networks by (weights path, options, device). colmap_tpu keeps the
+# first call's parameters on the function for the life of the process,
+# whatever weights path a later call names (ROADMAP §3); the port keys them.
+_ALIKED_MODELS: Dict[tuple, Aliked] = {}
+
+
+def _aliked_model(reader_options: ImageReaderOptions, sift_options: SiftOptions, device):
+    options = AlikedOptions(max_num_keypoints=sift_options.max_num_features)
+    path = reader_options.aliked_weights_path
+    key = (path, options, str(device))
+    if key not in _ALIKED_MODELS:
+        params = load_aliked_weights(path, options) if path else None
+        _ALIKED_MODELS[key] = Aliked(params, options).to(device)
+    return _ALIKED_MODELS[key]
+
+
+def _extract(img, reader_options, sift_options, device):
+    if not reader_options.extractor_type.startswith("aliked"):
+        return extract_sift(img, sift_options, device=device)
+    model = _aliked_model(reader_options, sift_options, device)
+    kp, desc = extract_aliked(img, model, model.options, device)
+    # Float descriptors into the uint8 range of the database, truncated.
+    return kp, np.clip((desc + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+
 def run_feature_extraction(
     database: Database,
     image_dir: str,
@@ -110,14 +142,12 @@ def run_feature_extraction(
     sift_options: Optional[SiftOptions] = None,
     device=None,
 ) -> List[int]:
-    """Extract SIFT features for the images of a directory (by default all
-    of them, sorted by name) into the database; returns the image ids."""
+    """Extract SIFT (or ALIKED) features for the images of a directory (by
+    default all of them, sorted by name) into the database; returns the
+    image ids. ALIKED takes its keypoint cap from
+    sift_options.max_num_features, as colmap_tpu does."""
     reader_options = reader_options or ImageReaderOptions()
     sift_options = sift_options or SiftOptions()
-    if reader_options.extractor_type != "sift":
-        raise NotImplementedError(
-            f"extractor_type {reader_options.extractor_type!r} is not ported yet "
-            "(ROADMAP queue 1 item 5)")
     device = resolve_device(device)
     if image_names is None:
         image_names = sorted(f for f in os.listdir(image_dir)
@@ -164,7 +194,7 @@ def run_feature_extraction(
                     image_id, position=np.array([exif["latitude"], exif["longitude"],
                                                  exif.get("altitude", 0.0)]),
                     coordinate_system=0)
-            kp, desc = extract_sift(img, sift_options, device=device)
+            kp, desc = _extract(img, reader_options, sift_options, device)
             mask_img = _load_mask(reader_options, name)
             if mask_img is not None:
                 kp, desc = _apply_mask(kp, desc, mask_img)
@@ -184,16 +214,19 @@ class MatchingPipelineOptions:
     # Match again with the verified epipolar geometry as a constraint
     # (guided matching, controllers/feature_matching_utils.h:133).
     guided_matching: bool = False
-    # "bruteforce"; "lightglue" is not ported yet.
+    # Matcher type (feature/types.h:47-50: SIFT_BRUTEFORCE, SIFT_LIGHTGLUE,
+    # ALIKED_BRUTEFORCE, ALIKED_LIGHTGLUE): "lightglue", else brute force.
     matcher_type: str = "bruteforce"
     lightglue_weights_path: Optional[str] = None
-    lightglue_options: Optional[object] = None
+    # Overrides LightGlueOptions (layer count, filter threshold, ...).
+    lightglue_options: Optional[LightGlueOptions] = None
 
 
-def _require_bruteforce(options: MatchingPipelineOptions):
-    if options.matcher_type != "bruteforce":
-        raise NotImplementedError(
-            f"matcher_type {options.matcher_type!r} is not ported yet (ROADMAP queue 1 item 5)")
+def _lightglue_model(options: MatchingPipelineOptions, device) -> LightGlue:
+    lg_options = options.lightglue_options or LightGlueOptions()
+    params = (load_lightglue_weights(options.lightglue_weights_path, lg_options)
+              if options.lightglue_weights_path else None)
+    return LightGlue(params, lg_options).to(device)
 
 
 def _match_and_verify_pairs(
@@ -205,7 +238,6 @@ def _match_and_verify_pairs(
 ) -> int:
     """Match and verify a pair list block by block on ``device``; writes
     matches and two-view geometries, returns the number of verified pairs."""
-    _require_bruteforce(options)
     device = resolve_device(device)
     cameras = database.read_cameras()
     images = {iid: (name, cid) for (iid, name, cid) in database.read_images()}
@@ -216,6 +248,7 @@ def _match_and_verify_pairs(
             kp_cache[iid] = database.read_keypoints(iid)[:, :2]
         return kp_cache[iid]
 
+    lightglue = _lightglue_model(options, device) if options.matcher_type == "lightglue" else None
     pairs = list(pairs)
     n_verified = 0
     # Per-image normalized keypoints are kept across all blocks.
@@ -224,10 +257,18 @@ def _match_and_verify_pairs(
         block = pairs[blk_start:blk_start + block_pairs]
         block_ids = sorted({i for p in block for i in p})
         descs = {iid: database.read_descriptors(iid) for iid in block_ids}
-        local = {iid: k for k, iid in enumerate(block_ids)}
-        pair_idxs = np.asarray([(local[a], local[b]) for (a, b) in block], dtype=np.int64)
-        match_lists = match_pairs_batched([descs[iid] for iid in block_ids], pair_idxs,
-                                          options.matching, device)
+        if lightglue is not None:
+            shape = {iid: (cameras[images[iid][1]].height, cameras[images[iid][1]].width)
+                     for iid in block_ids}
+            match_lists = [match_lightglue(descs[a].astype(np.float32), get_kp(a),
+                                           descs[b].astype(np.float32), get_kp(b), shape[a],
+                                           shape[b], lightglue, lightglue.options, device)
+                           for (a, b) in block]
+        else:
+            local = {iid: k for k, iid in enumerate(block_ids)}
+            pair_idxs = np.asarray([(local[a], local[b]) for (a, b) in block], dtype=np.int64)
+            match_lists = match_pairs_batched([descs[iid] for iid in block_ids], pair_idxs,
+                                              options.matching, device)
 
         items, verify_slots = [], []
         for k, (id1, id2) in enumerate(block):
@@ -269,7 +310,6 @@ def run_exhaustive_matching(
     """reference behavior: CreateExhaustiveFeatureMatcher
     (controllers/feature_matching.cc:330)."""
     options = options or MatchingPipelineOptions()
-    _require_bruteforce(options)
     image_ids = [iid for (iid, _, _) in database.read_images()]
     n = 0
     for block in exhaustive_pairs(image_ids, pairing or ExhaustivePairingOptions()):

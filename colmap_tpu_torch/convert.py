@@ -30,6 +30,11 @@ from colmap_tpu's levels, and ``visual_index_from_numpy`` the port's index
 (postings in CSR order by word) from the numpy state of a colmap_tpu
 VisualIndex, so that both packages can query one index state.
 
+Learned features: ``aliked_params_from_numpy`` and
+``lightglue_params_from_numpy`` give the port's ALIKED and LightGlue the
+parameters of colmap_tpu's pytrees (``np.asarray`` of each leaf), in the
+same layout, so that both packages compute the same thing.
+
 Nothing here imports colmap_tpu: callers pass its objects and, for the way
 back, its classes.
 """
@@ -239,3 +244,24 @@ def visual_index_from_numpy(vocabulary, thresholds, inverted, image_word_counts,
                                                         dtype=torch.long, device=dev))
     index.num_images = int(num_images)
     return index
+
+
+def _params_from_numpy(tree, device=None, dtype=None):
+    from colmap_tpu_torch.utils.param_tree import map_tree
+
+    return map_tree(lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device), tree)
+
+
+def aliked_params_from_numpy(tree, device=None, dtype=None):
+    """The port's ALIKED parameter tree (feature/aliked.py) from colmap_tpu's
+    ``init_params`` / ``load_torch_weights`` pytree, each leaf as numpy:
+    the same keys and layouts (conv ``w`` (Cout, Cin, k, k), ``b``,
+    ``sddh_agg.w`` (M, D, D)); ``dtype`` None keeps each leaf's."""
+    return _params_from_numpy(tree, device, dtype)
+
+
+def lightglue_params_from_numpy(tree, device=None, dtype=None):
+    """The port's LightGlue parameter tree (feature/lightglue.py) from
+    colmap_tpu's pytree, each leaf as numpy: the same keys, the layers as a
+    list, linear ``w`` (cin, cout) as colmap_tpu keeps it."""
+    return _params_from_numpy(tree, device, dtype)

@@ -36,8 +36,10 @@ above their tests). The solver kernels K34-K40 (the packed and rig LM
 loops, global SfM's CG, relative poses, structure-less and generalized
 pose refinement), the spectral Poisson kernels K41-K44 and the option
 kernels (K45 affine shapes with K15 and K16 on affine frames, K46
-DEGENSAC, K47 SPRT, the MSAC mode of K7, K11, K12, K32 and K33) are held
-as stated above their tests.
+DEGENSAC, K47 SPRT, the MSAC mode of K7, K11, K12, K32 and K33) and the
+learned-feature kernels K50-K53 (ALIKED's convolutions, detection and
+sparse SDDH, LightGlue's attention and log-assignment) are held as stated
+above their tests.
 """
 
 import numpy as np
@@ -2153,3 +2155,137 @@ def test_line_gradients_matches_plain_on_cuda():
     d = torch.remainder(ang.double().cpu() - ang_p + torch.pi / 2, torch.pi) - torch.pi / 2
     assert float(d[mag_p > 0].abs().max()) <= 1e-5
     assert KL.LAUNCHES["line_gradients"] == 1
+
+
+# K50-K53 (ALIKED and LightGlue): each float32 kernel against its plain
+# version in float64 on the same inputs, within 1e-5 of each output's
+# largest entry (float32 sums of up to 1152 products); K51's keypoint order
+# exactly, its positions within 1e-5 px; K53 (b)'s match list exactly (the
+# random scores have no near-ties).
+
+
+@pytest.mark.parametrize("k,pool,act,cout", [(3, False, 1, 16), (3, True, 1, 32), (1, False, 0, 32),
+                                             (3, False, 2, 1), (3, False, 1, 8), (1, True, 1, 4)])
+def test_aliked_conv_matches_plain_on_cuda(k, pool, act, cout):
+    _need_card()
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    g = torch.Generator().manual_seed(cout + 10 * k)
+    x = torch.randn((13, 67, 93), generator=g)
+    w = torch.randn((cout, 13, k, k), generator=g) * 0.3
+    b = torch.randn(cout, generator=g)
+    KA.reset_launches()
+    big = torch.full((cout + 8, 33 if pool else 67, 46 if pool else 93), 7.0, device="cuda")
+    out = KA.conv(x.cuda(), w.cuda(), b.cuda(), act, pool, out=big[4:4 + cout])
+    ref = KA.conv_plain(x.double(), w.double(), b.double(), act, pool)
+    _close(out.cpu(), ref, 1e-5, "K50 (a)")
+    assert bool((big[:4] == 7.0).all()) and bool((big[4 + cout:] == 7.0).all())
+    src = torch.randn((32, 17, 23), generator=g)
+    feat = torch.zeros((64, 67, 93), device="cuda")
+    KA.upsample_selu(src.cuda(), feat[32:])
+    _close(feat[32:].cpu(), KA.upsample_selu_plain(src.double(), (67, 93)), 1e-5, "K50 (b)")
+    assert KA.LAUNCHES["aliked_conv"] == 2
+
+
+def test_aliked_dkd_matches_plain_on_cuda():
+    _need_card()
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    g = torch.Generator().manual_seed(5)
+    score = torch.sigmoid(3.0 * torch.nn.functional.avg_pool2d(
+        torch.randn((1, 1, 97, 131), generator=g), 3, 1, 1)[0, 0] + 0.5)
+    score[10:14, 20:25] = 1.0  # a saturated plateau: every pixel of it is a peak, tied
+    score[50, 60] = score[70, 80] = 0.9  # exact ties between separate peaks
+    KA.reset_launches()
+    xy, sc = KA.dkd(score.cuda(), 300, 2, 0.2)
+    xy_p, sc_p = KA.dkd_plain(score, 300, 2, 0.2)
+    assert torch.equal(sc.cpu(), sc_p)
+    assert float((xy.cpu() - xy_p).abs().max()) <= 1e-5
+    xy_all, _ = KA.dkd(score.cuda(), 10 ** 6, 2, 0.2)
+    xy_all_p, _ = KA.dkd_plain(score, 10 ** 6, 2, 0.2)
+    assert len(xy_all) == len(xy_all_p) > 300
+    assert float((xy_all.cpu() - xy_all_p).abs().max()) <= 1e-5
+    assert KA.LAUNCHES["aliked_dkd"] == 4
+
+
+def test_aliked_sddh_matches_dense_plain_on_cuda():
+    _need_card()
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    g = torch.Generator().manual_seed(9)
+    C, H, W, M = 128, 37, 45, 16
+    feat = torch.nn.functional.selu(torch.randn((C, H, W), generator=g))
+    xy = torch.rand((41, 2), generator=g) * torch.tensor([W - 1.0, H - 1.0])
+    xy[:6] = torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0], [0.4, H - 1.0], [W - 1.0, 0.6],
+                           [1.5, 2.5], [W - 2.2, 1.0]])
+    w1 = torch.randn((C, C, 3, 3), generator=g) * (2.0 / (9 * C)) ** 0.5
+    w2 = torch.randn((2 * M, C, 3, 3), generator=g) * (2.0 / (9 * C)) ** 0.5
+    b1, b2 = torch.randn(C, generator=g) * 0.1, torch.randn(2 * M, generator=g) * 0.1
+    w = torch.randn((C, C, 1, 1), generator=g) * (2.0 / C) ** 0.5
+    b = torch.randn(C, generator=g) * 0.1
+    agg = torch.randn((M, C, C), generator=g) * (1.0 / C) ** 0.5
+    KA.reset_launches()
+    cu = [t.cuda() for t in (feat, xy, w1, b1, w2, b2)]
+    off = KA.sddh_offsets(*cu)
+    off_p = KA.sddh_offsets_plain(*(t.double() for t in (feat, xy, w1, b1, w2, b2)))
+    _close(off.cpu(), off_p, 1e-5, "K52 (a)")
+    desc = KA.sddh_describe(cu[0], cu[1], off, w.cuda(), b.cuda(), agg.cuda())
+    desc_p = KA.sddh_describe_plain(feat.double(), xy.double(), off.double().cpu(), w.double(),
+                                    b.double(), agg.double())
+    _close(desc.cpu(), desc_p, 1e-5, "K52 (b)")
+    assert KA.LAUNCHES["aliked_sddh"] == 2
+
+
+def test_lightglue_attention_matches_plain_on_cuda():
+    _need_card()
+    from colmap_tpu_torch.feature.lightglue import rotary_encode
+    from colmap_tpu_torch.kernels import lightglue as KLG
+
+    g = torch.Generator().manual_seed(3)
+    n1, n2, heads = 150, 77, 4
+    qkv = torch.randn((n1, 3 * 256), generator=g)
+    kpts = torch.rand((n1, 2), generator=g) * 2 - 1
+    cos, sin = rotary_encode(kpts, 256, heads)
+    mask = torch.rand(n1, generator=g) > 0.2
+    KLG.reset_launches()
+    c = qkv.cuda()
+    out = KLG.attention(c[:, :256], c[:, 256:512], c[:, 512:], mask.cuda(), mask.cuda(), heads,
+                        cos.cuda(), sin.cuda())
+    ref = KLG.attention_plain(*(t.double() for t in (qkv[:, :256], qkv[:, 256:512], qkv[:, 512:])),
+                              mask, mask, heads, cos.double(), sin.double())
+    _close(out.cpu(), ref, 1e-5, "K53 (a) self")
+    kv = torch.randn((n2, 512), generator=g)
+    mask2 = torch.zeros(n2, dtype=torch.bool)  # every key masked: the softmax averages them
+    mask2[:5] = torch.rand(5, generator=g) > 2.0
+    for m2 in (mask2, torch.rand(n2, generator=g) > 0.3):
+        out = KLG.attention(c[:, :256], kv[:, :256].cuda(), kv[:, 256:].cuda(), mask.cuda(),
+                            m2.cuda(), heads)
+        ref = KLG.attention_plain(qkv[:, :256].double(), kv[:, :256].double(),
+                                  kv[:, 256:].double(), mask, m2, heads)
+        _close(out.cpu(), ref, 1e-5, "K53 (a) cross")
+    assert KLG.LAUNCHES["lightglue_attention"] == 3
+
+
+def test_lightglue_assignment_matches_plain_on_cuda():
+    _need_card()
+    from colmap_tpu_torch.kernels import lightglue as KLG
+
+    g = torch.Generator().manual_seed(4)
+    n1, n2 = 130, 97
+    sim = torch.randn((n1, n2), generator=g) * 4
+    sim[torch.arange(60), torch.arange(60)] += 12.0  # sixty strong mutual matches
+    mask1 = torch.rand(n1, generator=g) > 0.1
+    mask2 = torch.rand(n2, generator=g) > 0.1
+    m1, m2 = torch.rand(n1, generator=g), torch.rand(n2, generator=g)
+    KLG.reset_launches()
+    for thr in (0.0, 0.1):
+        matches, scores = KLG.log_assignment(sim.cuda(), mask1.cuda(), mask2.cuda(), m1.cuda(),
+                                             m2.cuda(), thr, want_scores=True)
+        scores_p = KLG.log_assignment_plain(sim.double(), mask1, mask2, m1.double(), m2.double())
+        valid = mask1[:, None] & mask2[None, :]
+        err = (scores.cpu().double() - scores_p)[valid].abs().max()
+        assert float(err) <= 1e-5 * float(scores_p[valid].abs().max())
+        ref = KLG.extract_matches_plain(scores_p, mask1, mask2, thr)
+        assert torch.equal(matches.cpu().long(), ref)
+        assert len(ref) > 20
+    assert KLG.LAUNCHES["lightglue_attention"] == 2

@@ -22,7 +22,8 @@ with g++ from native/mesh_ops.cpp), texturing, rectification and a CMP-MVS
 export; then the sparse-model tools: the line detector (K49's plain
 version), the generalized relative pose (K48's), and model_converter,
 model_orientation_aligner, project_generator and hierarchical_mapper with
-``--device cpu``. An audit hook records every file the child opens, every library it
+``--device cpu``; then ALIKED extraction and LightGlue matching (K50-K53's
+plain versions) on a noise image. An audit hook records every file the child opens, every library it
 loads and every process it starts: none lies under colmap_tpu/. A second
 test reads every line of the port and of chip_smoke.py for an import of
 jax or colmap_tpu.
@@ -245,8 +246,17 @@ CHILD = textwrap.dedent("""
     cli.main(["hierarchical_mapper", "--database_path", gdb, "--output_path",
               os.path.join(root, "hier"), "--device", "cpu", "--quiet"])
     assert pose is not None and len(segs) >= 2 and hasattr(pc, "estimate_generalized_relative_pose")
-    assert not TOUCHED, TOUCHED
     print("TOOLS", len(segs), int(inl.sum()))
+
+    from colmap_tpu_torch.feature.aliked import AlikedOptions, extract_aliked
+    from colmap_tpu_torch.feature.lightglue import LightGlueOptions, match_lightglue
+
+    akp, adesc = extract_aliked(noise, None, AlikedOptions(max_num_keypoints=64), device="cpu")
+    lm = match_lightglue(adesc, akp, adesc, akp, noise.shape, noise.shape, None,
+                         LightGlueOptions(num_layers=1, filter_threshold=0.0), device="cpu")
+    assert 0 < len(akp) <= 64 and adesc.shape == (len(akp), 128) and len(lm) > 0
+    assert not TOUCHED, TOUCHED
+    print("LEARNED", len(akp), len(lm))
 """)
 
 
@@ -258,7 +268,7 @@ def test_port_runs_without_jax_colmap_tpu_and_pil(tmp_path):
     assert "KEYPOINTS" in out.stdout and "DENSE" in out.stdout and "GLOBAL" in out.stdout
     assert "RIG" in out.stdout and "RETRIEVAL" in out.stdout and "CAMERAS" in out.stdout
     assert "SOLVERS" in out.stdout and "MESH" in out.stdout and "OPTIONS" in out.stdout
-    assert "TOOLS" in out.stdout
+    assert "TOOLS" in out.stdout and "LEARNED" in out.stdout
 
 
 def test_no_module_of_the_port_imports_jax_or_colmap_tpu():

@@ -644,10 +644,29 @@ def test_matcher_commands_default_to_cuda_and_raise_without_a_card(tmp_path):
         assert args.device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):
             tcli.main([cmd, "--database_path", path] + extra)
-    with pytest.raises(NotImplementedError, match="lightglue"):
-        tpipeline.run_exhaustive_matching(
-            tdb.Database(path), tpipeline.MatchingPipelineOptions(matcher_type="lightglue"),
-            device="cpu")
+    # matcher_type="lightglue" runs on the CPU: two images sharing 40 of
+    # their features get LightGlue's matches written (2 layers, threshold 0).
+    from colmap_tpu_torch.feature.lightglue import LightGlueOptions
+
+    rng = np.random.default_rng(2)
+    db = tdb.Database(path)
+    cam = db.write_camera(ttypes.Camera.create(0, "SIMPLE_RADIAL", 500.0, 640, 480),
+                          use_camera_id=False)
+    desc = rng.integers(0, 256, (60, 128)).astype(np.uint8)
+    kp = np.concatenate([rng.uniform(0, 480, (60, 2)), np.ones((60, 1)), np.zeros((60, 1))],
+                        axis=1).astype(np.float32)
+    for name, rows in (("a.png", slice(0, 60)), ("b.png", slice(20, 60))):
+        iid = db.write_image(name, cam)
+        db.write_keypoints(iid, kp[rows])
+        db.write_descriptors(iid, desc[rows])
+    tpipeline.run_exhaustive_matching(
+        db, tpipeline.MatchingPipelineOptions(
+            matcher_type="lightglue",
+            lightglue_options=LightGlueOptions(num_layers=2, filter_threshold=0.0)),
+        device="cpu")
+    (_, matches), = db.read_all_matches()
+    assert len(matches) >= 20 and (matches[:, 0] == matches[:, 1] + 20).mean() > 0.9
+    db.close()
 
 
 def test_matching_wrappers_never_fall_back_off_the_cpu():

@@ -459,7 +459,7 @@ def test_run_feature_extraction_matches_colmap_tpu(views, tmp_path):
 
 def test_feature_extractor_command(views, tmp_path):
     """feature_extractor on the CPU: masks drop keypoints on zero pixels;
-    ALIKED and a card that is not there raise."""
+    ALIKED runs; a card that is not there raises."""
     d, names = views
     mask = np.zeros((480, 480), np.uint8)
     mask[:, :240] = 255
@@ -475,9 +475,19 @@ def test_feature_extractor_command(views, tmp_path):
         kp = t.read_keypoints(iid)
         assert 0 < len(kp) <= 500 and (kp[:, 0] < 240).all()
     t.close()
-    with pytest.raises(NotImplementedError):
-        tcli.main(["feature_extractor", "--database_path", str(tmp_path / "a.db"),
-                   "--image_path", d, "--descriptor_type", "aliked", "--device", "cpu"])
+    # --descriptor_type aliked runs on the CPU (a 96 x 128 crop of a view,
+    # random weights): 128-d uint8 descriptors, at most --max_num_features.
+    small = str(tmp_path / "small")
+    os.makedirs(small)
+    image_io.write_png_gray(os.path.join(small, "crop.png"),
+                            image_io.read_image_gray(os.path.join(d, names[0]))[200:296, 200:328])
+    ids = tcli.main(["feature_extractor", "--database_path", str(tmp_path / "a.db"),
+                     "--image_path", small, "--descriptor_type", "aliked",
+                     "--max_num_features", "300", "--device", "cpu"])
+    t = tdb.Database(str(tmp_path / "a.db"), must_exist=True)
+    kp, desc = t.read_keypoints(ids[0]), t.read_descriptors(ids[0])
+    assert 0 < len(kp) <= 300 and desc.dtype == np.uint8 and desc.shape == (len(kp), 128)
+    t.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tcli.main(["feature_extractor", "--database_path", str(tmp_path / "b.db"),
