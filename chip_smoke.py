@@ -239,7 +239,23 @@ Phases; any failure exits non-zero:
      pipeline) and against a permuted copy: on its SIFT features at least
      100 mutual matches, at least 0.99 of them correct; on its ALIKED
      features the counts (random weights make ALIKED's uint8 descriptors
-     nearly parallel: LightGlue keeps ~1 match).
+     nearly parallel: LightGlue keeps ~1 match);
+ 33. covariance (phase `covariance`): estimate_ba_covariance (K1, K54, the
+     float64 inverse) on the verify BA scene (8 x 120 x 5, 1 px noise,
+     two-frame gauge, intrinsics fixed) and on the BA headline, against the
+     same function through the plain versions in float64 on the same
+     float32 inputs; K54 against its plain version, the inverse against
+     np.linalg.inv, the fixed rows exactly 0, the free pose blocks
+     positive-definite; cond(S); K54 timed at the headline;
+ 34. sharded (phase `sharded`): solve_sharded_packed on the BA headline (10
+     iterations, PCG 20) in an NCCL group of one rank in this process, PCG
+     and dense, against solve_packed (the same iterations, the cost within
+     1e-6); K35's split candidate and K4 without its diagonal against
+     float64; two ranks on this card over gloo (parallel/dist_cases.py),
+     their cameras equal to the bit, against solve_packed, seconds an
+     iteration beside the single card's; hierarchical_mapper through the
+     CLI under COLMAP_TPU_MULTIHOST=1 with torchrun's variables (a group of
+     one rank) registering what it registers alone.
 Each path is driven with the launch counts set to 0 just before it and
 read just after: the BA paths (phases 4-5) must launch K1-K3 and K35 (and
 K4 with the dense solver, K34 with PCG), the matcher K5, K7 and K10-K12,
@@ -261,14 +277,17 @@ estimate_generalized_relative_pose K48, the pycolmap script and
 `automatic_reconstructor` K13-K16, K5, K7, K10-K12 and the mapper's,
 `point_triangulator` K8, `image_registrator` K6, `point_filtering` K9,
 `feature_extractor --descriptor_type aliked` K50-K52, ALIKED's
-`exhaustive_matcher` K10 and LightGlue's run_exhaustive_matching K53.
+`exhaustive_matcher` K10, LightGlue's run_exhaustive_matching K53,
+estimate_ba_covariance K1 and K54, and the sharded solves K1-K3, K35 and
+K34 (PCG) or K4 (dense).
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 dense,mesh_kernels,mesh`, `--phases
 global_kernels,global`, `--phases rig_kernels,rig` or `--phases
 retrieval_kernels,retrieval`, `--phases camera_kernels,cameras` or
 `--phases solver_kernels` or `--phases options_kernels,options` or `--phases
-tools_kernels,orientation,compat,tools` or `--phases learned_kernels,learned` (or any
+tools_kernels,orientation,compat,tools` or `--phases learned_kernels,learned` or
+`--phases covariance,sharded` (or any
 subset of the phases) runs a subset
 while developing and prints no result; the kernels line needs them all.
 """
@@ -719,9 +738,13 @@ SOLVER_SOURCES = {
     "gen_abs_refine": ("colmap_tpu_torch/csrc/gen_abs_refine.cu",
                        "colmap_tpu/estimators/generalized_pose.py:262"),
 }
-# Published float64 peak of one H100 SXM outside the tensor cores (NVIDIA
-# data sheet): the bound of K36, which computes in float64.
+# Published float64 peaks of one H100 SXM (NVIDIA data sheet): outside the
+# tensor cores, the bound of float64 work without a GEMM form (K36, K40,
+# K47 and K48: small per-row solves and tests); through the FP64 tensor
+# cores (DMMA), the bound of float64 work with one (K54's S_corr =
+# sum Z W^T).
 PEAK_F64_OPS_PER_S = 34e12
+PEAK_F64_TC_OPS_PER_S = 67e12
 # K34 against float64 on the same float32 inputs: float32 vectors and 6x6
 # blocks, float64 dot products; K35's candidate: one float32 update per entry.
 K34_RTOL = K234_RTOL
@@ -1155,6 +1178,27 @@ def _dense_solve_ms(packed):
     return ridge_ms
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """The host garbage collector's pauses inside the block: yields a dict
+    that holds, after the block, the collections by generation and their
+    milliseconds."""
+    out, t0 = {"collections": [0, 0, 0], "ms": 0.0}, [0.0]
+
+    def note(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            out["collections"][info["generation"]] += 1
+            out["ms"] += (time.perf_counter() - t0[0]) * 1e3
+
+    gc.callbacks.append(note)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(note)
+
+
 def phase_headline_solve(headline, gt_cost, launches):
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
@@ -1197,17 +1241,22 @@ def phase_headline_solve(headline, gt_cost, launches):
         # time (cuSOLVER, cuBLAS); a second one, the loop lm_solve_fused_packed
         # runs, times the steady state and reports what the loop did.
         use_dense = ba._use_dense(packed, options)
-        t0 = time.perf_counter()
-        _, cost_warm, _, warm_info = ba._lm_loop(packed, maps, model_id, options, masks,
-                                                 use_dense, True, with_info=True)
-        torch.cuda.synchronize()
-        dt_warm = time.perf_counter() - t0
+        with gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            _, cost_warm, _, warm_info = ba._lm_loop(packed, maps, model_id, options, masks,
+                                                     use_dense, True, with_info=True)
+            torch.cuda.synchronize()
+            dt_warm = time.perf_counter() - t0
+        graph_ms = (warm_info["record_s"] + warm_info["instantiate_s"]) * 1e3
         log(f"  warm: the same solve again in {dt_warm:.3f} s = {iters / dt_warm:.3f} LM iter/s, "
-            f"{dt_warm / iters * 1e3:.3f} ms per iteration (final cost {cost_warm:.6e}); "
+            f"{dt_warm / iters * 1e3:.3f} ms per iteration, of which the graph's recording and "
+            f"instantiation take {graph_ms / iters:.3f} (final cost {cost_warm:.6e}); "
             f"device-resident loop: {warm_info['host_reads']} host reads per solve (the done "
             f"flag every {ba.DONE_CHUNK} iterations, then the result), graph "
             f"{warm_info['graph']}: recorded in {warm_info['record_s'] * 1e3:.2f} ms, "
-            f"instantiated in {warm_info['instantiate_s'] * 1e3:.2f} ms")
+            f"instantiated in {warm_info['instantiate_s'] * 1e3:.2f} ms; the host's garbage "
+            f"collector inside it: {pauses['collections']} collections by generation, "
+            f"{pauses['ms']:.2f} ms")
         ridge_ms = _dense_solve_ms(packed) if use_dense else None
         _, cost_plain, iters_plain = ba._lm_loop(packed, maps, model_id, options, masks,
                                                  ba._use_dense(packed, options), True,
@@ -1750,6 +1799,7 @@ def run_mapper(db_path, out, label, min_launches=True):
               and k not in RIG_SOURCES and k not in RETRIEVAL_SOURCES
               and k not in CAMERA_SOURCES and k not in MESH_SOURCES and k not in OPTIONS_SOURCES
               and k not in TOOLS_SOURCES and k not in LEARNED_SOURCES
+              and k not in COVARIANCE_SOURCES
               and k not in ("structure_less_ransac", "gen_abs_refine")]
     missing = [k for k in needed if counts[k] == 0]
     if min_launches and missing:
@@ -2346,16 +2396,32 @@ def run_command(argv, label, kernels):
     kernel of ``kernels`` did not launch."""
     from colmap_tpu_torch.cli import main as cli
 
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return cli.main(argv + ["--device", "cuda"])
+
+    return _counted(label, run, kernels,
+                    lambda dt: f"{buf.getvalue().strip().splitlines()[-1]} ({dt:.3f} s)")
+
+
+def _counted(label, fn, kernels, what=None, launches=None):
+    """fn() with every launch count at 0 before; logs ``label`` (with
+    ``what(seconds)``, else the seconds) and the kernels it launched, adds
+    them to ``launches`` if given, fails if a kernel of ``kernels`` did not
+    launch; returns (result, seconds, launches of this call)."""
     torch.cuda.synchronize()
     reset_all_launches()
-    buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        out = cli.main(argv + ["--device", "cuda"])
+    out = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = all_launch_counts()
-    log(f"{label}: {buf.getvalue().strip().splitlines()[-1]} ({dt:.3f} s)")
+    if launches is not None:
+        for k, v in counts.items():
+            launches[k] += v
+    log(f"{label}: {what(dt) if what else f'{dt:.3f} s'}")
     log(f"  launches: { {k: v for k, v in counts.items() if v} }")
     missing = [k for k in kernels if counts[k] == 0]
     if missing:
@@ -5226,7 +5292,7 @@ def phase_cameras(launches):
 
 
 def bound64(bytes_moved, ops64):
-    """bound() for work in float64 operations (K36)."""
+    """bound() for float64 work without a GEMM form (K36, K40, K47, K48)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops64 / PEAK_F64_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -7443,10 +7509,355 @@ def phase_learned(launches):
     return results
 
 
+# Phase covariance: K54 (the BA covariance's float64 S) and the covariance path.
+COVARIANCE_SOURCES = {
+    "ba_covariance_assemble": ("colmap_tpu_torch/csrc/ba_covariance.cu",
+                               "colmap_tpu/estimators/covariance.py:57"),
+}
+# K54 against its plain version in float64 on the same float32 Jacobians:
+# float64 sums in the atomics' order, relative to S's largest entry (H_cc -
+# S_corr cancels, so the terms are larger than S).
+K54_RTOL = 1e-10
+# torch.linalg.inv_ex against np.linalg.inv of the same float64 S_reg: two
+# LU inverses differ by about n eps cond(S_reg) (n eps = 1.3e-13 at n =
+# 1204), relative to the inverse's largest entry.
+INV_RTOL_PER_COND = 1e-12
+# The card's covariances (float32 Jacobians) against the float64 plain path:
+# the largest relative Frobenius error of a free pose block, and the largest
+# error of the camera blocks relative to their largest entry (measured
+# 6.9e-8 and 6.8e-10 at the headline on an H100).
+COV_POSE_RTOL = 1e-5
+COV_CAM_RTOL = 1e-5
+# Phase sharded: the point-sharded solve against solve_packed on the BA
+# headline, the same iterations and the final cost within this (the two
+# solves differ only in the order of float32 sums).
+SHARDED_COST_RTOL = 1e-6
+
+
+def _covariance_scene(name, problem, model_id, masks, launches, errs):
+    """estimate_ba_covariance on the card (K1 + K54) against the same
+    function through the plain versions in float64 on the same float32
+    inputs; K54 and the inverse against their float64 references; the fixed
+    rows and the free pose blocks. Returns K54's inputs for timing."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators import covariance as cv
+    from colmap_tpu_torch.kernels import ba as K
+
+    options = ba.BAOptions()
+    cov, dt, _ = _counted(f"estimate_ba_covariance, {name}",
+                          lambda: cv.estimate_ba_covariance(problem, model_id, options, masks),
+                          ("ba_obs_jacobians", "ba_covariance_assemble"), launches=launches)
+    p64 = problem._replace(**{k: getattr(problem, k).double() for k in
+                              ("quat", "t", "cam_params", "points", "obs_xy", "obs_w")})
+    m64 = ba.BAMasks(*(m.double() for m in masks))
+    ref = cv._covariance(p64, model_id, options, m64, 1e-8, K.PLAIN)
+    F = problem.quat.shape[0]
+    C, P = problem.cam_params.shape
+    fixed = (torch.cat([torch.cat([masks.frame_mask[:, None].expand(-1, 3),
+                                   masks.frame_trans_mask], 1).reshape(-1),
+                        masks.cam_mask.reshape(-1)]) == 0).cpu().numpy()
+    pose_fixed = fixed[:6 * F].reshape(F, 6)
+    worst = 0.0
+    for f in range(F):
+        free = ~pose_fixed[f]
+        got, want = cov["pose_covs"][f], ref["pose_covs"][f]
+        if not (np.isfinite(got).all() and (got[~free] == 0).all() and (got[:, ~free] == 0).all()):
+            raise AssertionError(f"{name}: pose block {f} is not finite or not 0 on its fixed rows")
+        if free.any():
+            blk = got[np.ix_(free, free)]
+            if not np.linalg.eigvalsh(blk).min() > 0:
+                raise AssertionError(f"{name}: free pose block {f} is not positive-definite")
+            worst = max(worst, np.linalg.norm(got - want) / np.linalg.norm(want))
+    cam_err = (np.abs(cov["cam_covs"] - ref["cam_covs"]).max()
+               / max(np.abs(ref["cam_covs"]).max(), 1e-300))
+
+    # K54 against its plain version on the same float32 Jacobians; S's fixed rows.
+    packed, maps, _ = ba.pack_problem(problem)
+    om = ba._obs_masks(masks, options)
+    pk = packed
+    _, Jp, Jc, Jx = K.obs_jacobians(pk.quat, pk.t, pk.cam_params, pk.points, pk.obs_frame,
+                                    pk.obs_cam, pk.obs_point, pk.obs_xy, pk.obs_w, om.pose,
+                                    om.cam, om.point, model_id, "trivial", 1.0)
+    args = (Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, 1e-8, F, C)
+    S = K.covariance_assemble(*args)
+    check(f"K54 S ({name})", S, K.covariance_assemble_plain(*args), K54_RTOL,
+          errs["ba_covariance_assemble"])
+    fixed_t = torch.from_numpy(fixed).cuda()
+    if not ((S[fixed_t] == 0).all() and (S[:, fixed_t] == 0).all()):
+        raise AssertionError(f"{name}: K54's S is not exactly 0 on the fixed rows")
+    free_t = ~fixed_t
+    cond_free = torch.linalg.cond(S[free_t][:, free_t]).item()
+    # The inverse on the card against np.linalg.inv of the same S_reg (float64).
+    diag = torch.diagonal(S).abs()
+    S_reg = S + torch.diag(torch.where(diag < 1e-12, 1.0, 1e-8 * torch.clamp(diag, min=1.0)))
+    inv = torch.linalg.inv_ex(S_reg)[0].cpu().numpy()
+    inv_np = np.linalg.inv(S_reg.cpu().numpy())
+    cond_reg = float(np.linalg.cond(S_reg.cpu().numpy()))
+    inv_rel = np.abs(inv - inv_np).max() / np.abs(inv_np).max()
+    log(f"  {name}: n = {6 * F + C * P} ({int(fixed.sum())} fixed rows, exactly 0 in S and in "
+        f"the covariances); cond(S) over the free rows {cond_free:.4e}, cond(S_reg) "
+        f"{cond_reg:.4e}; torch.linalg.inv_ex vs np.linalg.inv: rel {inv_rel:.3e} (tol "
+        f"{INV_RTOL_PER_COND:g} x cond(S_reg)); pose blocks against the float64 plain path: "
+        f"max relative Frobenius error {worst:.3e} (tol {COV_POSE_RTOL:g}), camera blocks "
+        f"rel {cam_err:.3e} (tol {COV_CAM_RTOL:g}); wall {dt:.3f} s on {nvidia_smi_line()}")
+    if not inv_rel <= INV_RTOL_PER_COND * cond_reg:
+        raise AssertionError(f"{name}: the inverse differs from np.linalg.inv by {inv_rel:.3e}")
+    if not worst <= COV_POSE_RTOL:
+        raise AssertionError(f"{name}: pose covariance error {worst:.3e} > {COV_POSE_RTOL}")
+    if not cam_err <= COV_CAM_RTOL:
+        raise AssertionError(f"{name}: camera covariance error {cam_err:.3e} > {COV_CAM_RTOL}")
+    return args, dict(seconds=dt, cond_free=cond_free, cond_reg=cond_reg, inv_rel=inv_rel,
+                      pose_rel_frob=worst, cam_rel=cam_err)
+
+
+def phase_covariance(launches):
+    """estimate_ba_covariance (K1 + K54 + the float64 inverse) on the verify
+    scene (8 x 120 x 5, 1 px noise, seed 2, two-frame gauge, intrinsics
+    fixed) and on the BA headline (two-frame gauge, default intrinsics),
+    held as _covariance_scene says; K54 timed at the headline."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    errs = {"ba_covariance_assemble": []}
+    results = {}
+    problem, _, model_id = synthetic_ba_problem(8, 120, 5, pixel_noise=1.0, seed=2, device="cuda")
+    masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, ba.BAOptions()), 0, 1)
+    masks = masks._replace(cam_mask=torch.zeros_like(masks.cam_mask))
+    _, results["verify"] = _covariance_scene("verify scene", problem, model_id, masks, launches,
+                                             errs)
+    problem, _, model_id = synthetic_ba_problem(200, 50000, 6, seed=0, device="cuda")
+    masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, ba.BAOptions()), 0, 1)
+    args, results["headline"] = _covariance_scene("BA headline", problem, model_id, masks,
+                                                  launches, errs)
+    Jp, Jc, Jx, fpm, cpm, lam, F, C = args
+    N, capp = fpm.shape
+    P, D = Jc.shape[-1], 6 * F + C * Jc.shape[-1]
+    Kw = 6 + P
+    # As K4's count (time_kernels), in float64: per point with n real slots
+    # and M = nK entries, W and Z (30 nK), S_corr's symmetric half (3 M (M +
+    # 1)), the H_cc term (2 nK (K + 1)), the adds into S (M (M + 1) / 2), and
+    # H_pp with its inverse (24 capp + 60).
+    n = ((Jp != 0).flatten(1).any(1) | (Jc != 0).flatten(1).any(1)).view(N, capp).sum(1).double()
+    M = n * Kw
+    ops = float((30 * n * Kw + 3 * M * (M + 1) + 2 * n * Kw * (Kw + 1) + M * (M + 1) / 2).sum()
+                + N * (24 * capp + 60))
+    b_bytes = nbytes(Jp, Jc, Jx, fpm, cpm) + D * D * 8
+    ms = time_ms(lambda: K.covariance_assemble(*args))
+    plain_ms = time_ms(lambda: K.covariance_assemble_plain(*args), reps=3)
+    t_bytes = b_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F64_TC_OPS_PER_S * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"  ba_covariance_assemble at the headline (D = {D}): {ms:.4f} ms (plain {plain_ms:.3f} "
+        f"ms, bound {b_ms:.4f} ms by {by}: {b_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP f64); "
+        f"launches on the driven paths {launches['ba_covariance_assemble']}")
+    rows = {"ba_covariance_assemble": dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                           bound_by=by, library_ms=None)}
+    return errs, rows, results
+
+
+def _headline_problem():
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.parallel.dist_cases import HEADLINE_OPTIONS
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    problem, _, model_id = synthetic_ba_problem(200, 50000, 6, seed=0, device="cuda")
+    options = ba.BAOptions(**HEADLINE_OPTIONS)
+    masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, options), 0, 1)
+    return problem, model_id, options, masks
+
+
+def _same_solve(label, summary, ref_summary):
+    rel = abs(summary["final_cost"] - ref_summary["final_cost"]) / ref_summary["final_cost"]
+    log(f"  {label}: final cost {summary['final_cost']:.9e} in {summary['num_iterations']} "
+        f"iterations; solve_packed {ref_summary['final_cost']:.9e} in "
+        f"{ref_summary['num_iterations']}: relative difference {rel:.3e} "
+        f"(tol {SHARDED_COST_RTOL:g})")
+    if summary["num_iterations"] != ref_summary["num_iterations"] or not rel <= SHARDED_COST_RTOL:
+        raise AssertionError(f"{label}: differs from solve_packed")
+    return rel
+
+
+def _split_kernel_checks(problem, model_id, options, masks, errs):
+    """K35's split candidate and K4 without its diagonal (the sharded
+    solve's modes) against their plain versions in float64 at the headline."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KL
+
+    pk, maps, _ = ba.pack_problem(problem)
+    om = ba._obs_masks(masks, options)
+    J = K.obs_jacobians(*pk, om.pose, om.cam, om.point, model_id, "trivial", 1.0)
+    F, C = pk.quat.shape[0], pk.cam_params.shape[0]
+    lam = torch.tensor(1e-3, device="cuda")
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red64 = K.LMReduction(*f64(*red))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dp = torch.randn(F, 6, device="cuda", generator=g) * 1e-3
+    dc = torch.randn(C, J[2].shape[-1], device="cuda", generator=g) * 1e-3
+    dx = K.back_substitute(*J[1:], maps.frame_pm, maps.cam_pm, red.Hpp_inv, red.gx, dp, dc)
+    params = (pk.quat, pk.t, pk.cam_params, pk.points)
+    cand, pred = KL.lm_candidate(*params, dp, dc, dx, red, lam, split=True)
+    _, pred_fused = KL.lm_candidate(*params, dp, dc, dx, red, lam)
+    _, pred64 = KL.lm_candidate_plain(*f64(*params, dp, dc, dx), red64, lam.double(), split=True)
+    check("K35 split candidate pred (camera part, point part)", pred, pred64, K35_RTOL,
+          errs.setdefault("ba_lm_update", []))
+    check("K35 split pred sum against the fused pred", pred.sum(), pred_fused, 1e-12,
+          errs["ba_lm_update"])
+    ops = (*J[1:], maps.frame_pm, maps.cam_pm, red.Hpp_inv)
+    lam_diag = torch.cat([lam * red.diag_pose.reshape(-1), lam * red.diag_cam.reshape(-1)])
+    S = K.dense_schur_assemble(*ops, lam_diag, F, diagonal=False)
+    check("K4 S without its diagonal", S,
+          K.dense_schur_assemble_plain(*f64(*ops, lam_diag), F, diagonal=False), K234_RTOL,
+          errs.setdefault("ba_dense_schur_assemble", []))
+
+
+def _sharded_costs(problem, model_id, options, masks):
+    """Where a sharded PCG solve's time goes in an NCCL group of one rank:
+    the device's busy and idle share over a warm solve (torch.profiler),
+    and the wall time of one all-reduce of the camera system (6F + C P
+    floats) through the solve's hook, over 200 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from colmap_tpu_torch.parallel import sharded_ba
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded_ba.solve_sharded_packed(problem, model_id, options, masks)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    busy_ms, by_name = device_busy(prof)
+    idle = log_busy("solve_sharded_packed (pcg), NCCL world size 1", busy_ms, by_name,
+                    dt * 1e3, top=8)
+    F, (C, P) = problem.quat.shape[0], problem.cam_params.shape
+    buf = torch.zeros(6 * F + C * P, device="cuda")
+    reduce = sharded_ba.make_reduce()
+    reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        reduce(buf)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / 200 * 1e6
+    log(f"    one all-reduce of {buf.numel()} floats through the hook: {us:.1f} us (NCCL, world "
+        f"size 1, 200 calls)")
+    return dict(idle_share=idle, allreduce_us=us)
+
+
+def phase_sharded(launches, errs):
+    """The point-sharded solve (parallel/sharded_ba.py) on the BA headline,
+    10 LM iterations, PCG 20: (a) in this process in an NCCL group of one
+    rank, PCG and the dense path, against solve_packed; K35's split mode
+    and K4 without its diagonal against float64; (b) two ranks on this card
+    over gloo (parallel/dist_cases.py case headline), every rank's cameras
+    equal to the bit, against solve_packed, seconds an iteration beside the
+    single card's warm iteration; (c) hierarchical_mapper through the CLI
+    under COLMAP_TPU_MULTIHOST=1 with torchrun's variables (a group of one
+    rank) registers what the run without them registers."""
+    import dataclasses
+
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.parallel import dist_cases, multihost, sharded_ba
+
+    results = {}
+    problem, model_id, options, masks = _headline_problem()
+    ba_kernels = ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "ba_lm_update")
+    single, warm = {}, {}
+    for solver in ("pcg", "auto"):
+        opts = dataclasses.replace(options, solver_type=solver)
+        ba.solve_packed(problem, model_id, opts, masks)  # loads what the path calls first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single[solver] = ba.solve_packed(problem, model_id, opts, masks)[1]
+        torch.cuda.synchronize()
+        warm[solver] = (time.perf_counter() - t0) / single[solver]["num_iterations"]
+    multihost.initialize(f"tcp://127.0.0.1:{dist_cases.free_port()}", 1, 0, backend="nccl")
+    try:
+        for solver in ("pcg", "auto"):
+            opts = dataclasses.replace(options, solver_type=solver)
+            need = ba_kernels + (("ba_pcg",) if solver == "pcg" else ("ba_dense_schur_assemble",))
+            (_, summary), _, _ = _counted(f"solve_sharded_packed ({solver}), NCCL world size 1",
+                                          lambda: sharded_ba.solve_sharded_packed(
+                                              problem, model_id, opts, masks), need,
+                                          launches=launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharded_ba.solve_sharded_packed(problem, model_id, opts, masks)
+            torch.cuda.synchronize()
+            per_it = (time.perf_counter() - t0) / summary["num_iterations"]
+            rel = _same_solve(f"NCCL world 1 ({solver})", summary, single[solver])
+            log(f"    warm call / iterations (packing included) {per_it * 1e3:.3f} ms sharded, "
+                f"{warm[solver] * 1e3:.3f} ms solve_packed (the same card)")
+            results[f"nccl1_{solver}"] = dict(ms_per_iteration=per_it * 1e3,
+                                              single_ms_per_iteration=warm[solver] * 1e3,
+                                              cost_rel=rel)
+        results["nccl1_pcg"].update(_sharded_costs(problem, model_id, options, masks))
+        _split_kernel_checks(problem, model_id, options, masks, errs)
+    finally:
+        multihost.shutdown()
+
+    with tempfile.TemporaryDirectory() as out:
+        wall = dist_cases.launch("headline", 2, out, device="cuda:0", timeout=400)
+        ranks = [dict(np.load(os.path.join(out, f"rank{r}_headline.npz"))) for r in range(2)]
+    for key in ("quat", "t", "cam_params", "points"):
+        if not np.array_equal(ranks[0][key], ranks[1][key]):
+            raise AssertionError(f"gloo 2 ranks: the ranks' {key} differ")
+    summary = json.loads(str(ranks[0]["summary"]))
+    rel = _same_solve("gloo, 2 ranks on one card (pcg)", summary, single["pcg"])
+    per_it = max(float(r["seconds"]) for r in ranks) / summary["num_iterations"]
+    us = max(float(r["allreduce_us"]) for r in ranks)
+    log(f"    the ranks' cameras and points equal to the bit; warm call / iterations "
+        f"{per_it * 1e3:.3f} ms, solve_packed {warm['pcg'] * 1e3:.3f} ms on {nvidia_smi_line()}; "
+        f"{options.pcg_iterations + 3} all-reduces an iteration, one staged all-reduce of the "
+        f"camera system {us:.1f} us (200 calls); the ranks' wall {wall:.1f} s")
+    results["gloo2_pcg"] = dict(ms_per_iteration=per_it * 1e3,
+                                single_ms_per_iteration=warm["pcg"] * 1e3, cost_rel=rel,
+                                num_devices=summary["num_devices"], allreduce_us=us)
+
+    with tempfile.TemporaryDirectory() as root:
+        db_path, _ = make_scene(root, 8, 120)
+        base = ["hierarchical_mapper", "--database_path", db_path, "--leaf_max_num_images", "5",
+                "--image_overlap", "2", "--quiet", "--output_path"]
+        models, _, counts = run_command(base + [os.path.join(root, "alone")],
+                                        "hierarchical_mapper, one process", MAPPER_KERNELS)
+        for k, v in counts.items():
+            launches[k] += v
+        env = dict(COLMAP_TPU_MULTIHOST="1", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(dist_cases.free_port()), WORLD_SIZE="1", RANK="0",
+                   LOCAL_RANK="0")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            grouped, _, counts = run_command(
+                base + [os.path.join(root, "group")],
+                "hierarchical_mapper, COLMAP_TPU_MULTIHOST=1 under torchrun's variables",
+                MAPPER_KERNELS)
+            joined = torch.distributed.is_initialized() and multihost.process_count() == 1
+        finally:
+            multihost.shutdown()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        for k, v in counts.items():
+            launches[k] += v
+        ids = lambda ms: [sorted(m.reg_image_ids()) for m in ms]
+        if not joined or ids(grouped) != ids(models):
+            raise AssertionError(f"hierarchical_mapper in a group: joined {joined}, registered "
+                                 f"{ids(grouped)} against {ids(models)}")
+        log(f"  hierarchical_mapper joined an NCCL group of one rank and registered "
+            f"{ids(grouped)}, as alone")
+    return results
+
+
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
               "mesh_kernels", "mesh", "global_kernels", "global", "rig_kernels", "rig", "retrieval_kernels", "retrieval",
               "camera_kernels", "cameras", "solver_kernels", "options_kernels", "options",
-              "tools_kernels", "orientation", "compat", "tools", "learned_kernels", "learned")
+              "tools_kernels", "orientation", "compat", "tools", "learned_kernels", "learned",
+              "covariance", "sharded")
 
 
 def main():
@@ -7583,8 +7994,14 @@ def main():
         run("learned", lambda: phase_learned(launches))
     if "root" in LEARNED_STATE:
         shutil.rmtree(LEARNED_STATE["root"], ignore_errors=True)
-    new = sum(seconds.get(k, 0.0) for k in ("learned_kernels", "learned"))
-    log(f"seconds by phase: {seconds}; the learned features' phases {new:.1f} s, the whole "
+    if "covariance" in phases:
+        v_errs, v_rows, _ = run("covariance", lambda: phase_covariance(launches))
+        errs.update(v_errs)
+        rows.update(v_rows)
+    if "sharded" in phases:
+        run("sharded", lambda: phase_sharded(launches, errs))
+    new = sum(seconds.get(k, 0.0) for k in ("covariance", "sharded"))
+    log(f"seconds by phase: {seconds}; the covariance and sharded phases {new:.1f} s, the whole "
         f"script {time.perf_counter() - T_START:.1f} s")
     # Models 5-17 and mixed: the kernel's other inputs; K34's rig entries.
     for name, ents in (*cam_entries.items(), *extra["entries"].items(), *opt_entries.items()):
@@ -7595,7 +8012,8 @@ def main():
 
     sources = {**BA_SOURCES, **SFM_SOURCES, **MATCH_SOURCES, **SIFT_SOURCES, **MVS_SOURCES,
                **MESH_SOURCES, **GLOBAL_SOURCES, **RIG_SOURCES, **RETRIEVAL_SOURCES, **CAMERA_SOURCES,
-               **SOLVER_SOURCES, **OPTIONS_SOURCES, **TOOLS_SOURCES, **LEARNED_SOURCES}
+               **SOLVER_SOURCES, **OPTIONS_SOURCES, **TOOLS_SOURCES, **LEARNED_SOURCES,
+               **COVARIANCE_SOURCES}
     kernels = []
     for name, (src, replaces) in sources.items():
         if name not in rows:

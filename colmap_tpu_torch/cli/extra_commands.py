@@ -34,6 +34,7 @@ def _write_models(models, output_path):
 
 
 def _cmd_hierarchical_mapper(args):
+    from colmap_tpu_torch.parallel import multihost
     from colmap_tpu_torch.scene.clustering import SceneClusteringOptions
     from colmap_tpu_torch.scene.database import Database
     from colmap_tpu_torch.sfm.hierarchical_pipeline import (
@@ -47,7 +48,8 @@ def _cmd_hierarchical_mapper(args):
                                           image_overlap=args.image_overlap),
         verbose=not args.quiet)
     models = HierarchicalPipeline(options, db, device=args.device).run()
-    _write_models(models, args.output_path)
+    if multihost.process_index() == 0:  # every process merged the same models
+        _write_models(models, args.output_path)
     db.close()
     return models
 

@@ -1119,6 +1119,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="colmap_tpu_torch",
         description="PyTorch/CUDA SfM with COLMAP-compatible data formats",
     )
+    p.add_argument("--log_level", type=int, default=0,
+                   help="VLOG verbosity: 0 info, 1/2 increasing detail "
+                        "(reference: glog --v)")
+    p.add_argument("--profile_dir", default="",
+                   help="trace the command with torch.profiler (CPU, and CUDA when the "
+                        "command runs on the card) into this directory")
     sub = p.add_subparsers(dest="command", required=True)
     device_help = "torch device to run on; cuda raises if no card is present"
 
@@ -1426,8 +1432,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _profiled(args):
+    """Run the command under torch.profiler and write its Chrome trace into
+    ``--profile_dir`` (colmap_tpu writes a jax.profiler trace there)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from colmap_tpu_torch.utils import logging
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(getattr(args, "device", "cpu")).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        out = args.fn(args)
+    path = os.path.join(args.profile_dir, f"{args.command}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logging.info("Profile written to %s", path)
+    return out
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from colmap_tpu_torch.parallel import multihost
+    from colmap_tpu_torch.utils import logging
+
+    logging.set_verbosity(args.log_level)
+    # Join a process group when launched under torchrun with
+    # COLMAP_TPU_MULTIHOST=1 (a no-op otherwise), as colmap_tpu joins its cluster.
+    multihost.initialize()
+    if args.profile_dir:
+        return _profiled(args)
     return args.fn(args)
 
 

@@ -18,8 +18,10 @@
 // entry 6 f + a or the camera entry 6F + P c + a - 6; the pair k == l also
 // adds the H_cc term J_kT J_k (pose 6x6 on the frame diagonal, pose-camera
 // and camera-camera blocks). A first kernel writes lam D + 1e-10 on the
-// diagonal of the zeroed S. Atomics make the order of the sums vary from run
-// to run.
+// diagonal of the zeroed S; without lam_diag it is left out, and S is one
+// rank's part of H_cc - S_corr, which a point-sharded solve sums over its
+// ranks before it adds the diagonal once (colmap_tpu l.1635). Atomics make
+// the order of the sums vary from run to run.
 //
 // Track length: tiles make any track length fit in shared memory, and the
 // work follows each point's own track: slots with a zero J row (padding up
@@ -171,7 +173,8 @@ __global__ void dense_schur_kernel(long long N, int capp, int F, int P, int D,
 
 }  // namespace ctt
 
-// S: D x D, zeroed by the caller; lam_diag: the D damping terms lam * diag(H_cc).
+// S: D x D, zeroed by the caller; lam_diag: the D damping terms lam * diag(H_cc),
+// or null for no diagonal step.
 extern "C" int ba_dense_schur_assemble_f32(long long N, int capp, int F, int C, int P,
                                            const float* Jp, const float* Jc, const float* Jx,
                                            const int* fids, const int* cids, const float* hinv,
@@ -180,7 +183,7 @@ extern "C" int ba_dense_schur_assemble_f32(long long N, int capp, int F, int C, 
   const int D = 6 * F + C * P;
   const size_t smem = sizeof(int) * (2 * ctt::tile_words(6 + P) + 10);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (D > 0) ctt::set_diagonal<<<(D + 255) / 256, 256, 0, stream>>>(D, lam_diag, S);
+  if (D > 0 && lam_diag != nullptr) ctt::set_diagonal<<<(D + 255) / 256, 256, 0, stream>>>(D, lam_diag, S);
   if (N > 0) {
     long long blocks = N < 16LL * num_sms ? N : 16LL * num_sms;
     cudaFuncSetAttribute(ctt::dense_schur_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -11,7 +11,14 @@
 //                    cam' = cam + dc, points' = points + dx into the candidate
 //                    buffers, and each block's float64 sum of the predicted
 //                    decrease terms g.d + lam diag d^2; then one block sums
-//                    the block sums in order: pred = 0.5 * total.
+//                    the block sums in order: pred = 0.5 * total. Given a
+//                    second output pred_pt, the point terms are summed apart
+//                    (the block sums of the frame and camera terms, then of
+//                    the point terms): pred = 0.5 * camera part, pred_pt =
+//                    0.5 * point part. A point-sharded solve
+//                    (parallel/sharded_ba.py) sums pred_pt over the ranks,
+//                    whose camera part is already the same on every rank
+//                    (colmap_tpu psums only the point part, l.1127-1130).
 //   ba_lm_accept     one thread: from cost, new_cost (K1's cost mode, a
 //                    double), pred, lam, nu, last_cost, the iteration count
 //                    and done, the new lam, nu, cost, last_cost, count, done,
@@ -49,11 +56,12 @@ __global__ void lm_candidate_kernel(int F, int CP, long long N, const float* __r
                                     const float* __restrict__ diag_cam,
                                     const float* __restrict__ diag_pt, float* __restrict__ quat_o,
                                     float* __restrict__ t_o, float* __restrict__ cam_o,
-                                    float* __restrict__ pts_o, double* __restrict__ partial) {
+                                    float* __restrict__ pts_o, double* __restrict__ partial,
+                                    int split) {
   __shared__ double scratch[32];
   const double lam = (double)*lam_p;
   const long long total = (long long)F + CP + N;
-  double acc = 0.0;
+  double acc = 0.0, acc_pt = 0.0;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     if (i < F) {
@@ -70,24 +78,37 @@ __global__ void lm_candidate_kernel(int F, int CP, long long N, const float* __r
       cam_o[c] = cam[c] + d;
     } else {
       const long long n = i - F - CP;
+      double& a = split ? acc_pt : acc;
       for (int k = 0; k < 3; ++k) {
         const float d = dx[3 * n + k];
-        acc += (double)d * gx[3 * n + k] + lam * diag_pt[3 * n + k] * d * d;
+        a += (double)d * gx[3 * n + k] + lam * diag_pt[3 * n + k] * d * d;
         pts_o[3 * n + k] = pts[3 * n + k] + d;
       }
     }
   }
   const double s = block_sum_lm(acc, scratch);
   if (threadIdx.x == 0) partial[blockIdx.x] = s;
+  if (split) {
+    const double s_pt = block_sum_lm(acc_pt, scratch);
+    if (threadIdx.x == 0) partial[gridDim.x + blockIdx.x] = s_pt;
+  }
 }
 
+// pred = 0.5 * the sum of partial[0, blocks); with pred_pt, also pred_pt =
+// 0.5 * the sum of partial[blocks, 2 blocks).
 __global__ void lm_pred_kernel(int blocks, const double* __restrict__ partial,
-                               double* __restrict__ pred) {
+                               double* __restrict__ pred, double* __restrict__ pred_pt) {
   __shared__ double scratch[32];
   double acc = 0.0;
   for (int b = threadIdx.x; b < blocks; b += blockDim.x) acc += partial[b];
   const double s = block_sum_lm(acc, scratch);
   if (threadIdx.x == 0) *pred = 0.5 * s;
+  if (pred_pt != nullptr) {
+    double acc_pt = 0.0;
+    for (int b = threadIdx.x; b < blocks; b += blockDim.x) acc_pt += partial[blocks + b];
+    const double s_pt = block_sum_lm(acc_pt, scratch);
+    if (threadIdx.x == 0) *pred_pt = 0.5 * s_pt;
+  }
 }
 
 __global__ void lm_accept_kernel(float* __restrict__ lam_p, double* __restrict__ S,
@@ -125,7 +146,8 @@ __global__ void lm_copy_kernel(int F, int CP, long long N, const double* __restr
 // State quat (F, 4), t (F, 3), cam (C*P), points (N, 3); the step dp (F, 6),
 // dc (C*P), dx (N, 3); K2's gp, gc, gx, diag_pose, diag_cam, diag_pt; lam one
 // float. Writes the candidate quat_o, t_o, cam_o, pts_o, the block sums into
-// partial (at most 2 num_sms doubles) and pred (one double).
+// partial (at most 4 num_sms doubles) and pred (one double); with pred_pt not
+// null, the point part into pred_pt and the rest into pred.
 extern "C" int ba_lm_candidate_f32(int F, int CP, long long N, const float* lam,
                                    const float* quat, const float* t, const float* cam,
                                    const float* pts, const float* dp, const float* dc,
@@ -133,14 +155,15 @@ extern "C" int ba_lm_candidate_f32(int F, int CP, long long N, const float* lam,
                                    const float* gx, const float* diag_pose,
                                    const float* diag_cam, const float* diag_pt, float* quat_o,
                                    float* t_o, float* cam_o, float* pts_o, double* partial,
-                                   double* pred, int num_sms, cudaStream_t stream) {
+                                   double* pred, double* pred_pt, int num_sms,
+                                   cudaStream_t stream) {
   const int blocks = ctt::lm_blocks((long long)F + CP + N, num_sms);
   ctt::lm_candidate_kernel<<<blocks, ctt::kLmThreads, 0, stream>>>(
       F, CP, N, lam, quat, t, cam, pts, dp, dc, dx, gp, gc, gx, diag_pose, diag_cam, diag_pt,
-      quat_o, t_o, cam_o, pts_o, partial);
+      quat_o, t_o, cam_o, pts_o, partial, pred_pt != nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ctt::lm_pred_kernel<<<1, ctt::kLmThreads, 0, stream>>>(blocks, partial, pred);
+  ctt::lm_pred_kernel<<<1, ctt::kLmThreads, 0, stream>>>(blocks, partial, pred, pred_pt);
   return (int)cudaGetLastError();
 }
 

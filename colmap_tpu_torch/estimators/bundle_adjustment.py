@@ -260,9 +260,11 @@ def _use_dense(problem: BAProblem, options: BAOptions) -> bool:
     )
 
 
-def _pcg(kernels, Jp, Jc, Jx, maps: PackedMaps, red, lam, block_jacobi: bool, iterations: int):
+def _pcg(kernels, Jp, Jc, Jx, maps: PackedMaps, red, lam, block_jacobi: bool, iterations: int,
+         reduce=None):
     """PCG on (S + λD) x = b with a fixed iteration count: K34's set-up,
-    then per iteration K3's matvec and K34's step. Returns (dp, dc)."""
+    then per iteration K3's matvec (summed over the ranks by ``reduce``, if
+    given) and K34's step. Returns (dp, dc)."""
     F = red.bp.shape[0]
     C, P = red.bc.shape
     st = kernels.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam,
@@ -270,6 +272,8 @@ def _pcg(kernels, Jp, Jc, Jx, maps: PackedMaps, red, lam, block_jacobi: bool, it
     for _ in range(iterations):
         Ap_p, Ap_c = kernels.schur_matvec(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, red.Hpp_inv,
                                           st.p[:6 * F].view(F, 6), st.p[6 * F:].view(C, P))
+        if reduce is not None:
+            reduce(Ap_p, Ap_c)
         st = kernels.pcg_step(st, Ap_p, Ap_c, lam, red.diag_pose, red.diag_cam)
     return st.x[:6 * F].view(F, 6), st.x[6 * F:].view(C, P)
 
@@ -296,12 +300,19 @@ def _lm_scalars(cost, lam: float, nu: float, dtype) -> _LMScalars:
 
 def _lm_iteration(state: BAProblem, maps: PackedMaps, model_id, options: BAOptions,
                   obs_masks: _ObsMasks, sc: _LMScalars, kernels, use_dense: bool,
-                  block_jacobi: bool, groups) -> None:
+                  block_jacobi: bool, groups, reduce=None) -> None:
     """One LM iteration in the point-major layout, in place on ``state``'s
     parameter tensors and ``sc``: K1, K2, the dense solve (K4 + Cholesky) or
     PCG (K34, K3), K3's back-substitution, K35's candidate, K1's cost and
     K35's accept. It reads nothing back to the host, so it can be captured
-    as a CUDA graph; once ``done`` is set it changes nothing."""
+    as a CUDA graph; once ``done`` is set it changes nothing.
+
+    ``reduce(*tensors)``, given, sums its tensors over the ranks of a
+    point-sharded solve in place (parallel/sharded_ba.py; colmap_tpu's
+    psums): K2's camera-side outputs, each PCG matvec, the dense path's S
+    (whose diagonal is then added once, l.1635), and the new cost with the
+    point part of the predicted decrease. So every value that K34 and K35
+    decide on is the same, bit for bit, on every rank."""
     p = state
     F = p.quat.shape[0]
     C = p.cam_params.shape[0]
@@ -312,18 +323,29 @@ def _lm_iteration(state: BAProblem, maps: PackedMaps, model_id, options: BAOptio
         model_id, options.loss, options.loss_scale, groups,
     )
     red = kernels.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, C, lam)
+    if reduce is not None:
+        reduce(red.gp, red.gc, red.bp, red.bc, red.diag_pose, red.diag_cam, red.Hcc_pose)
     if use_dense:
         lam_diag = torch.cat([(lam * red.diag_pose).reshape(-1), (lam * red.diag_cam).reshape(-1)])
         S = kernels.dense_schur_assemble(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
-                                          red.Hpp_inv, lam_diag, F)
+                                          red.Hpp_inv, lam_diag, F, diagonal=reduce is None)
+        if reduce is not None:
+            reduce(S)
+            S.diagonal().add_(lam_diag + 1e-10)
         dp, dc = _dense_schur_solve(S, red.bp, red.bc)
     else:
-        dp, dc = _pcg(kernels, Jp, Jc, Jx, maps, red, lam, block_jacobi, options.pcg_iterations)
+        dp, dc = _pcg(kernels, Jp, Jc, Jx, maps, red, lam, block_jacobi, options.pcg_iterations,
+                      reduce)
     dx = kernels.back_substitute(Jp, Jc, Jx, maps.frame_pm, maps.cam_pm,
                                   red.Hpp_inv, red.gx, dp, dc)
-    cand, pred = kernels.lm_candidate(p.quat, p.t, p.cam_params, p.points, dp, dc, dx, red, lam)
+    cand, pred = kernels.lm_candidate(p.quat, p.t, p.cam_params, p.points, dp, dc, dx, red, lam,
+                                      split=reduce is not None)
     new_cost = kernels.obs_cost64(*cand, p.obs_frame, p.obs_cam, p.obs_point, p.obs_xy, p.obs_w,
                                   model_id, options.loss, options.loss_scale, groups)
+    if reduce is not None:
+        summed = torch.stack([new_cost, pred[1]])
+        reduce(summed)
+        new_cost, pred = summed[0], pred[0] + summed[1]
     kernels.lm_accept(lam, sc.S, new_cost, pred, (p.quat, p.t, p.cam_params, p.points), cand,
                       options.min_lambda, options.max_lambda, options.function_tolerance,
                       sc.done)
@@ -337,28 +359,35 @@ def _own_state(problem: BAProblem) -> BAProblem:
                             points=problem.points.clone())
 
 
-def _start(problem: BAProblem, model_id, options: BAOptions, lam: float, nu: float, kernels):
+def _start(problem: BAProblem, model_id, options: BAOptions, lam: float, nu: float, kernels,
+           reduce=None):
     """(state, scalars, groups) at the start of a solve: the model groups of
     a mixed problem (once per solve), the state's copy, its cost on the
-    device."""
+    device (summed over the ranks by ``reduce``, if given)."""
     groups = ba_kernels.model_groups(model_id, problem.cam_params, problem.obs_cam)
     p = _own_state(problem)
     cost = kernels.obs_cost64(p.quat, p.t, p.cam_params, p.points, p.obs_frame, p.obs_cam,
                               p.obs_point, p.obs_xy, p.obs_w, model_id, options.loss,
                               options.loss_scale, groups)
+    if reduce is not None:
+        reduce(cost)
     return p, _lm_scalars(cost, lam, nu, problem.points.dtype), groups
 
 
 def lm_step_packed(problem: BAProblem, maps: PackedMaps, model_id,
-                   options: BAOptions, masks: BAMasks, lam: float, nu: float):
+                   options: BAOptions, masks: BAMasks, lam: float, nu: float,
+                   reduce=None, solve_semantics: bool = False):
     """One LM iteration in the packed layout (same semantics as colmap_tpu's
     lm_step_packed). Returns (problem, lam, nu, cost, new_cost, accepted)
-    with Python scalars."""
+    with Python scalars. ``reduce`` as in _lm_iteration (one rank's shard
+    of a point-sharded problem); ``solve_semantics``: PCG with the scalar
+    Jacobi preconditioner whatever ``solver_type`` says, as ``solve``."""
     kernels = ba_kernels.KERNELS
-    state, sc, groups = _start(problem, model_id, options, lam, nu, kernels)
+    state, sc, groups = _start(problem, model_id, options, lam, nu, kernels, reduce)
     cost = sc.S[1].item()
+    use_dense = not solve_semantics and _use_dense(problem, options)
     _lm_iteration(state, maps, model_id, options, _obs_masks(masks, options), sc, kernels,
-                  _use_dense(problem, options), True, groups)
+                  use_dense, not solve_semantics, groups, reduce)
     S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
     return (state, float(sc.lam), S["nu"], cost, S["new_cost"], bool(S["accepted"]))
 
@@ -416,7 +445,7 @@ def drive(step, sc: _LMScalars, device, max_iterations: int, graph_wanted: bool,
 
 
 def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
-             verbose=False, kernels=ba_kernels.KERNELS, with_info=False):
+             verbose=False, kernels=ba_kernels.KERNELS, with_info=False, reduce=None):
     """The LM loop of every solve: (state, final cost, iterations), and with
     ``with_info`` a fourth value, a dict of what the solve did (whether it
     replayed a graph, the seconds to record and instantiate it, its host
@@ -427,15 +456,17 @@ def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
     Everything between two reads of the 1-byte done flag stays on the
     device (``drive``): a PCG solve replays a CUDA graph of one iteration
     under the size rule GRAPH_MIN_ITERATIONS; the dense path launches
-    eagerly. ``verbose`` reads and prints every iteration."""
+    eagerly. ``verbose`` reads and prints every iteration. With ``reduce``
+    (one rank's shard of a point-sharded solve, see _lm_iteration) the
+    iterations launch without a graph: the collectives are not captured."""
     dev = problem.points.device
     obs_masks = _obs_masks(masks, options)
     state, sc, groups = _start(problem, model_id, options, options.initial_lambda, 2.0,
-                               kernels)
+                               kernels, reduce)
 
     def step():
         _lm_iteration(state, maps, model_id, options, obs_masks, sc, kernels, use_dense,
-                      block_jacobi, groups)
+                      block_jacobi, groups, reduce)
 
     def verbose_step(n, cost):
         S = dict(zip(solver.LM_FIELDS, sc.S.tolist()))
@@ -443,7 +474,7 @@ def _lm_loop(problem, maps, model_id, options, masks, use_dense, block_jacobi,
               f"accepted={bool(S['accepted'])} lam={float(sc.lam):.2e}")
 
     graph_wanted = (dev.type == "cuda" and kernels is ba_kernels.KERNELS and not use_dense
-                    and options.max_iterations >= GRAPH_MIN_ITERATIONS)
+                    and reduce is None and options.max_iterations >= GRAPH_MIN_ITERATIONS)
     info = drive(step, sc, dev, options.max_iterations, graph_wanted, (ba_kernels, solver),
                  verbose_step if verbose else None)
     S = info.pop("S")

@@ -7,6 +7,7 @@ Four CUDA kernels carry the packed Levenberg-Marquardt solver of
     K2 ba_lm_reduce             lm_reduce
     K3 ba_schur_matvec          schur_matvec, back_substitute
     K4 ba_dense_schur_assemble  dense_schur_assemble
+    K54 ba_covariance_assemble  covariance_assemble (float64 S of the covariance)
 
 and K34 (PCG) and K35 (the LM update) of ``kernels/solver.py`` run the
 rest of the solve on the card.
@@ -59,6 +60,7 @@ LAUNCHES = {
     "ba_lm_reduce": 0,
     "ba_schur_matvec": 0,
     "ba_dense_schur_assemble": 0,
+    "ba_covariance_assemble": 0,
 }
 
 # Camera models that csrc/camera_models.cuh implements: all 18.
@@ -289,8 +291,10 @@ def _camera_rows(frame_pm, cam_pm, F: int, P: int):
 
 
 def dense_schur_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
-                               num_frames: int):
-    """S = H_cc - Σ_points W Hpp⁻¹ Wᵀ + diag(lam_diag + 1e-10), dense D×D (K4's function).
+                               num_frames: int, diagonal: bool = True):
+    """S = H_cc - Σ_points W Hpp⁻¹ Wᵀ + diag(lam_diag + 1e-10), dense D×D (K4's function);
+    without ``diagonal`` the last term is left out (one rank's part of a
+    point-sharded solve's S, which adds it after the sum over ranks).
 
     W holds a point's (pose, camera) x point coupling blocks Jᵀ Jx per slot;
     H_cc adds each slot's [Jp Jc]ᵀ[Jp Jc]: pose 6×6 on the frame diagonal,
@@ -326,7 +330,33 @@ def dense_schur_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
         ra, rb = rows[real[a]], rows[real[b]]
         S.index_put_((ra[:, :, None].expand(-1, K, K), rb[:, None, :].expand(-1, K, K)),
                      -blk, accumulate=True)
-    S.diagonal().add_(lam_diag + 1e-10)
+    if diagonal:
+        S.diagonal().add_(lam_diag + 1e-10)
+    return S
+
+
+def covariance_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, lam: float, num_frames: int,
+                              num_cams: int, dtype=torch.float64):
+    """S = H_cc - Σ_points W (H_pp + diag(lam diag(H_pp) + 1e-12))⁻¹ Wᵀ + lam diag(H_cc),
+    dense D×D in ``dtype`` (K54's function): colmap_tpu's S of
+    estimate_ba_covariance (covariance.py:57, the vmap of _schur_matvec over
+    the identity with _build_schur's operators) from the point-major
+    Jacobians, which are first cast to ``dtype``. Nothing else is added to
+    the diagonal, so a row whose Jacobian column is masked stays exactly 0.
+    """
+    Jp, Jc, Jx = (x.to(dtype) for x in (Jp, Jc, Jx))
+    N, capp = frame_pm.shape
+    F, C, P = int(num_frames), int(num_cams), Jc.shape[-1]
+    Jx_pm = Jx.reshape(N, capp * 2, 3)
+    Hpp = (Jx_pm[..., :, None] * Jx_pm[..., None, :]).sum(1)
+    damp = lam * torch.diagonal(Hpp, dim1=-2, dim2=-1) + 1e-12
+    Hpp_inv = inv3x3_spd(Hpp + torch.diag_embed(damp))
+    diag = torch.cat([
+        _segment_sum((Jp * Jp).sum(1), frame_pm.reshape(-1), F).reshape(-1),
+        _segment_sum((Jc * Jc).sum(1), cam_pm.reshape(-1), C).reshape(-1)])
+    S = dense_schur_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, diag, F,
+                                   diagonal=False)
+    S.diagonal().add_(lam * diag)
     return S
 
 
@@ -346,6 +376,7 @@ _SIGNATURES = {
     "ba_lm_reduce_f32": [_LL, _I, _I, _I, _I] + [_P] * 18 + [_I, _P],
     "ba_schur_matvec_f32": [_I, _LL, _I, _I, _I, _I] + [_P] * 10 + [_I, _P],
     "ba_dense_schur_assemble_f32": [_LL, _I, _I, _I, _I] + [_P] * 8 + [_I, _P],
+    "ba_covariance_assemble_f64": [_LL, _I, _I, _I, _I, ctypes.c_double] + [_P] * 6 + [_I, _P],
 }
 
 
@@ -567,11 +598,11 @@ def back_substitute(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, gx, dp, dc):
 
 
 def dense_schur_assemble(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
-                         num_frames: int):
+                         num_frames: int, diagonal: bool = True):
     """K4. See dense_schur_assemble_plain for the function."""
     if Jp.device.type == "cpu":
         return dense_schur_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv,
-                                          lam_diag, num_frames)
+                                          lam_diag, num_frames, diagonal)
     dev, N, capp, P = _j_checks(Jp, Jc, Jx, frame_pm, cam_pm)
     D = lam_diag.shape[0]
     F = int(num_frames)
@@ -582,9 +613,25 @@ def dense_schur_assemble(Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag,
     _check("lam_diag", lam_diag, torch.float32, (D,), dev)
     S = torch.zeros(D, D, dtype=torch.float32, device=dev)
     _call("ba_dense_schur_assemble_f32", N, capp, F, C, P,
-          *map(_ptr, (Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag, S)),
+          *map(_ptr, (Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, lam_diag if diagonal else None, S)),
           _I(_num_sms(dev)), _stream(dev))
     LAUNCHES["ba_dense_schur_assemble"] += 1
+    return S
+
+
+def covariance_assemble(Jp, Jc, Jx, frame_pm, cam_pm, lam: float, num_frames: int,
+                        num_cams: int):
+    """K54: the covariance's S in float64 from K1's float32 Jacobians. See
+    covariance_assemble_plain for the function (run in float64 on the CPU)."""
+    if Jp.device.type == "cpu":
+        return covariance_assemble_plain(Jp, Jc, Jx, frame_pm, cam_pm, lam, num_frames, num_cams)
+    dev, N, capp, P = _j_checks(Jp, Jc, Jx, frame_pm, cam_pm)
+    F, C = int(num_frames), int(num_cams)
+    D = 6 * F + C * P
+    S = torch.zeros(D, D, dtype=torch.float64, device=dev)
+    _call("ba_covariance_assemble_f64", N, capp, F, C, P, float(lam),
+          *map(_ptr, (Jp, Jc, Jx, frame_pm, cam_pm, S)), _I(_num_sms(dev)), _stream(dev))
+    LAUNCHES["ba_covariance_assemble"] += 1
     return S
 
 
@@ -600,12 +647,13 @@ class BAKernels(NamedTuple):
     pcg_step: object
     lm_candidate: object
     lm_accept: object
+    covariance_assemble: object
 
 
 KERNELS = BAKernels(obs_jacobians, obs_cost, obs_cost64, lm_reduce, schur_matvec,
                     back_substitute, dense_schur_assemble, solver.pcg_setup, solver.pcg_step,
-                    solver.lm_candidate, solver.lm_accept)
+                    solver.lm_candidate, solver.lm_accept, covariance_assemble)
 PLAIN = BAKernels(obs_jacobians_plain, obs_cost_plain, obs_cost64_plain, lm_reduce_plain,
                   schur_matvec_plain, back_substitute_plain, dense_schur_assemble_plain,
                   solver.pcg_setup_plain, solver.pcg_step_plain, solver.lm_candidate_plain,
-                  solver.lm_accept_plain)
+                  solver.lm_accept_plain, covariance_assemble_plain)

@@ -144,17 +144,21 @@ def pcg_step_plain(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam) -> PCGSta
     return PCGState(st.M, x, r, z, z + beta * st.p, rz_new.reshape(1))
 
 
-def lm_candidate_plain(quat, t, cam_params, points, dp, dc, dx, red, lam):
+def lm_candidate_plain(quat, t, cam_params, points, dp, dc, dx, red, lam, split: bool = False):
     """K35 candidate: _apply_update (l.435) and the predicted decrease of
     l.1137-1146, 0.5 (g.d + lam diag.d^2) over poses, cameras and points.
     ``red`` is K2's LMReduction. Returns ((quat, t, cam, points), pred
-    0-d float64)."""
+    0-d float64); with ``split``, pred is (2,) float64: the pose and camera
+    part, then the point part (a point-sharded solve sums only the latter
+    over its ranks, l.1127-1130)."""
     q = rot.quat_normalize(rot.quat_multiply(quat_exp(dp[:, :3]), quat))
     cand = (q, t + dp[:, 3:], cam_params + dc, points + dx)
-    pred = 0.5 * ((dp * red.gp).sum() + (dc * red.gc).sum() + (dx * red.gx).sum() + lam * (
-        (red.diag_pose * dp * dp).sum() + (red.diag_cam * dc * dc).sum()
-        + (red.diag_pt * dx * dx).sum()))
-    return cand, pred.double()
+    cam_part = (dp * red.gp).sum() + (dc * red.gc).sum() + lam * (
+        (red.diag_pose * dp * dp).sum() + (red.diag_cam * dc * dc).sum())
+    pt_part = (dx * red.gx).sum() + lam * (red.diag_pt * dx * dx).sum()
+    if split:
+        return cand, 0.5 * torch.stack([cam_part, pt_part]).double()
+    return cand, (0.5 * (cam_part + pt_part)).double()
 
 
 def lm_accept_plain(lam, S, new_cost, pred, state, cand, min_lambda: float, max_lambda: float,
@@ -401,7 +405,7 @@ _SIGNATURES = {
     "ba_pcg_setup_f32": [_I, _I, _I] + [_P] * 12 + [_P],
     "ba_pcg_step_f32": [_I, _I] + [_P] * 11 + [_P],
     "ba_pcg_setup_diag_f32": [_I] + [_P] * 7 + [_P],
-    "ba_lm_candidate_f32": [_I, _I, _LL] + [_P] * 20 + [_I, _P],
+    "ba_lm_candidate_f32": [_I, _I, _LL] + [_P] * 21 + [_I, _P],
     "ba_lm_accept_f32": [_I, _I, _LL] + [_P] * 4 + [_D, _D, _D] + [_P] * 9 + [_I, _P],
     "relative_pose_cheirality_f32": [_I] + [_P] * 10 + [_P],
     "relative_pose_refine_f32": [_I, _I] + [_P] * 9 + [_P],
@@ -534,10 +538,10 @@ def _state_shapes(quat, cam_params, points):
     return ((quat.shape[0], 4), (quat.shape[0], 3), tuple(cam_params.shape), (points.shape[0], 3))
 
 
-def lm_candidate(quat, t, cam_params, points, dp, dc, dx, red, lam):
+def lm_candidate(quat, t, cam_params, points, dp, dc, dx, red, lam, split: bool = False):
     """K35 candidate. See lm_candidate_plain for the function."""
     if points.device.type == "cpu":
-        return lm_candidate_plain(quat, t, cam_params, points, dp, dc, dx, red, lam)
+        return lm_candidate_plain(quat, t, cam_params, points, dp, dc, dx, red, lam, split)
     dev = _require_cuda(points)
     F, N = quat.shape[0], points.shape[0]
     C, P = cam_params.shape
@@ -553,12 +557,12 @@ def lm_candidate(quat, t, cam_params, points, dp, dc, dx, red, lam):
         _check(name, x, f32, shape, dev)
     cand = tuple(torch.empty(s, dtype=f32, device=dev) for s in shapes)
     sms = _num_sms(dev)
-    partial = torch.empty(max(1, 2 * sms), dtype=f64, device=dev)
-    pred = torch.empty((), dtype=f64, device=dev)
+    partial = torch.empty(max(1, 4 * sms), dtype=f64, device=dev)
+    pred = torch.empty(2 if split else (), dtype=f64, device=dev)
     _call("ba_lm_candidate_f32", F, C * P, N,
           *map(_ptr, (lam, quat, t, cam_params, points, dp, dc, dx, red.gp, red.gc, red.gx,
                       red.diag_pose, red.diag_cam, red.diag_pt, *cand, partial, pred)),
-          _I(sms), _stream(dev))
+          _P(pred.data_ptr() + 8) if split else _P(0), _I(sms), _stream(dev))
     LAUNCHES["ba_lm_update"] += 1
     return cand, pred
 

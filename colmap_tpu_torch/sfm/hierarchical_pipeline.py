@@ -8,10 +8,12 @@ sub-reconstructions via robust Sim3 alignment on shared images.
 
 Counterpart of colmap_tpu/sfm/hierarchical_pipeline.py: each leaf runs the
 port's incremental mapper on ``device`` (its kernels as in ``mapper``), the
-clustering and the merge are host code. The port is one process, so
-``exchange_sub_reconstructions`` is the identity, as colmap_tpu's is when
-``process_count() == 1``; the multi-process exchange waits for the port's
-multi-GPU slice.
+clustering and the merge are host code. Under a process group
+(parallel/multihost.py, torchrun with COLMAP_TPU_MULTIHOST=1) each process
+reconstructs a strided slice of the leaves, and
+``exchange_sub_reconstructions`` gathers every process's leaves, serialized
+as zipped bin models, onto every process, which then merge the same set; in
+one process it is the identity, as colmap_tpu's is.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import dataclasses
 from typing import List
 
 from colmap_tpu_torch.estimators.alignment import align_reconstructions, apply_sim3
+from colmap_tpu_torch.parallel import multihost
 from colmap_tpu_torch.scene.clustering import SceneClusteringOptions, cluster_scene
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.scene.reconstruction import Reconstruction
@@ -98,10 +101,51 @@ def merge_reconstructions(
     return True
 
 
+def _serialize_reconstruction(recon: Reconstruction) -> bytes:
+    """One byte blob of a reconstruction: its bin model files, zipped."""
+    import io
+    import os
+    import tempfile
+    import zipfile
+
+    from colmap_tpu_torch.scene.reconstruction_io import write_model
+
+    with tempfile.TemporaryDirectory() as d:
+        write_model(recon, d, fmt="bin")
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w") as z:
+            for name in sorted(os.listdir(d)):
+                z.write(os.path.join(d, name), name)
+        return buf.getvalue()
+
+
+def _deserialize_reconstruction(data: bytes) -> Reconstruction:
+    import io
+    import tempfile
+    import zipfile
+
+    from colmap_tpu_torch.scene.reconstruction_io import read_model
+
+    with tempfile.TemporaryDirectory() as d:
+        with zipfile.ZipFile(io.BytesIO(data)) as z:
+            z.extractall(d)
+        return read_model(d)
+
+
 def exchange_sub_reconstructions(subs: List[Reconstruction]) -> List[Reconstruction]:
-    """Every process's leaf reconstructions on all processes: the identity
-    in the port's single process (colmap_tpu's single-process branch)."""
-    return subs
+    """Every process's leaf reconstructions on every process, in process
+    order (each process holds its slice of the leaves; the Sim3 merge needs
+    them all): serialized through the bin model format and exchanged with
+    ``multihost.all_gather_bytes``. One process: the identity."""
+    import pickle
+
+    if multihost.process_count() == 1:
+        return subs
+    payload = pickle.dumps([_serialize_reconstruction(r) for r in subs])
+    out: List[Reconstruction] = []
+    for blob in multihost.all_gather_bytes(payload):
+        out.extend(_deserialize_reconstruction(b) for b in pickle.loads(blob))
+    return out
 
 
 class HierarchicalPipeline:
@@ -121,9 +165,13 @@ class HierarchicalPipeline:
         if self.options.verbose:
             logging.info("Clustered %d images into %d leaves", len(image_ids), len(clusters))
 
-        # Reconstruct each leaf independently (one process: all of them).
+        # Reconstruct each leaf independently: each process a strided slice
+        # of the leaves (one process: all of them).
+        local = {ci for ci, _ in multihost.local_work_slice(list(enumerate(clusters)))}
         subs: List[Reconstruction] = []
         for ci, cluster in enumerate(clusters):
+            if ci not in local:
+                continue
             names = {
                 name for (iid, name, _) in self.database.read_images()
                 if iid in set(cluster)

@@ -38,8 +38,9 @@ pose refinement), the spectral Poisson kernels K41-K44 and the option
 kernels (K45 affine shapes with K15 and K16 on affine frames, K46
 DEGENSAC, K47 SPRT, the MSAC mode of K7, K11, K12, K32 and K33) and the
 learned-feature kernels K50-K53 (ALIKED's convolutions, detection and
-sparse SDDH, LightGlue's attention and log-assignment) are held as stated
-above their tests.
+sparse SDDH, LightGlue's attention and log-assignment) and K54 (the BA
+covariance's float64 S) are held as stated above their tests; the
+point-sharded solve runs in an NCCL group of one rank.
 """
 
 import numpy as np
@@ -151,6 +152,61 @@ def test_solve_matches_plain_on_cuda(problem, solver):
     _, cost_plain, _ = ba._lm_loop(pk, maps, model_id, opts, masks, ba._use_dense(pk, opts),
                                    True, kernels=K.PLAIN)
     assert abs(cost - cost_plain) <= 1e-3 * cost_plain
+
+
+@pytest.mark.parametrize("shape", [(20, 2000, 0), (800, 2000, 700)],
+                         ids=["20x2000", "800_frames_long_track"])
+def test_k54_covariance_assemble_matches_plain_on_cuda(shape):
+    """K54 against its plain version in float64 on the same float32 K1
+    Jacobians (two-frame gauge, so the fixed rows are exactly 0 in both):
+    within 1e-10 of S's largest entry (float64 sums in the atomics' order;
+    H_cc - S_corr cancels, so the terms are larger than S). Then
+    estimate_ba_covariance on the card: finite, zero on the gauge rows."""
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.estimators.covariance import estimate_ba_covariance
+    from colmap_tpu_torch.kernels import ba as K
+
+    pk, maps, model_id, opts, masks = _setup(*shape)
+    om = ba._obs_masks(masks, opts)
+    _, Jp, Jc, Jx = K.obs_jacobians(pk.quat, pk.t, pk.cam_params, pk.points, pk.obs_frame,
+                                    pk.obs_cam, pk.obs_point, pk.obs_xy, pk.obs_w, om.pose,
+                                    om.cam, om.point, model_id, "trivial", 1.0)
+    F, C = pk.quat.shape[0], pk.cam_params.shape[0]
+    args = (Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, 1e-8, F, C)
+    K.reset_launches()
+    S = K.covariance_assemble(*args)
+    assert K.LAUNCHES["ba_covariance_assemble"] == 1 and S.dtype == torch.float64
+    ref = K.covariance_assemble_plain(*args)
+    _close(S, ref, 1e-10, "K54 S")
+    fixed = torch.cat([torch.cat([masks.frame_mask[:, None].expand(-1, 3),
+                                  masks.frame_trans_mask], 1).reshape(-1),
+                       masks.cam_mask.reshape(-1)]) == 0
+    assert (S[fixed] == 0).all() and (S[:, fixed] == 0).all() and (ref[fixed] == 0).all()
+    if shape[0] == 20:
+        cov = estimate_ba_covariance(pk, model_id, opts, masks)
+        assert np.isfinite(cov["pose_covs"]).all() and (cov["pose_covs"][0] == 0).all()
+        assert (cov["pose_covs"][1][3] == 0).all()
+
+
+def test_sharded_solve_in_a_world_size_one_nccl_group_on_cuda(problem):
+    """solve_sharded_packed in an NCCL group of one rank against
+    solve_packed: the same iterations, the cost within 1e-6 relative."""
+    import dataclasses
+
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.parallel import dist_cases, multihost, sharded_ba
+
+    pk, maps, model_id, opts, masks = problem
+    opts = dataclasses.replace(opts, solver_type="pcg", max_iterations=5)
+    multihost.initialize(f"tcp://127.0.0.1:{dist_cases.free_port()}", 1, 0, backend="nccl")
+    try:
+        out, summary = sharded_ba.solve_sharded_packed(pk, model_id, opts, masks)
+    finally:
+        multihost.shutdown()
+    ref, ref_summary = ba.solve_packed(pk, model_id, opts, masks)
+    assert summary["num_iterations"] == ref_summary["num_iterations"]
+    assert abs(summary["final_cost"] - ref_summary["final_cost"]) <= (
+        1e-6 * ref_summary["final_cost"])
 
 
 def _need_card():

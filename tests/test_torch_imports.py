@@ -285,3 +285,28 @@ def test_no_module_of_the_port_imports_jax_or_colmap_tpu():
     hits = [f"{f}:{i + 1}" for f in files for i, line in enumerate(open(f, encoding="utf-8"))
             if pattern.match(line)]
     assert not hits, hits
+
+
+# colmap_tpu modules with no counterpart in the port, and why.
+NOT_PORTED = {
+    "utils/bucketing.py": "pads shapes to buckets so that XLA compiles few programs; "
+                          "PyTorch runs eagerly and the kernels take any shape",
+    "utils/jax_cache.py": "JAX's persistent compilation cache; the port compiles nothing "
+                          "at run time but its nvcc library, keyed by its sources",
+    "utils/native.py": "host helpers already in the port: union-find is "
+                       "utils/union_find.py, the stable argsort scene/correspondence_graph.py",
+}
+
+
+def test_every_module_of_colmap_tpu_has_a_counterpart():
+    """Every .py file of colmap_tpu/ has one at the same path in
+    colmap_tpu_torch/, but for NOT_PORTED (files are listed, nothing of
+    colmap_tpu is imported)."""
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, n), root).replace(os.sep, "/")
+                for d, _, names in os.walk(root) for n in names if n.endswith(".py")}
+
+    reference, port = modules("colmap_tpu"), modules("colmap_tpu_torch")
+    assert sorted(reference - port) == sorted(NOT_PORTED)
+    assert all(os.path.exists(os.path.join(REPO, "colmap_tpu", m)) for m in NOT_PORTED)

@@ -93,11 +93,35 @@ def _subcommands(parser):
             for name, p in sub.choices.items()}
 
 
+def _top_level_options(parser):
+    return {o for act in parser._actions for o in act.option_strings} - {"-h", "--help"}
+
+
 def test_the_two_clis_register_the_same_commands_and_arguments():
     ref, port = _subcommands(ref_parser()), _subcommands(port_parser())
     assert set(ref) == set(port) and len(ref) == 52
     for name in ref:
         assert port[name] - {"--device"} == ref[name], name
+    assert _top_level_options(port_parser()) == _top_level_options(ref_parser())
+
+
+def test_top_level_log_level_and_profile_dir(tmp_path):
+    """``--log_level`` sets the verbosity and ``--profile_dir`` writes a
+    torch.profiler trace of the command (both before the command, as in
+    colmap_tpu)."""
+    import json
+
+    from colmap_tpu_torch.utils import logging
+
+    port_main(["--log_level", "1", "database_creator", "--database_path",
+               str(tmp_path / "a.db")])
+    assert os.path.exists(tmp_path / "a.db") and logging.get_verbosity() == 1
+    port_main(["--log_level", "0", "--profile_dir", str(tmp_path / "prof"), "database_creator",
+               "--database_path", str(tmp_path / "b.db")])
+    assert logging.get_verbosity() == 0 and os.path.exists(tmp_path / "b.db")
+    (trace,) = os.listdir(tmp_path / "prof")
+    assert trace == "database_creator.pt.trace.json"
+    assert json.loads((tmp_path / "prof" / trace).read_text())["traceEvents"]
 
 
 @pytest.mark.parametrize("kind", ["BIN", "TXT", "PLY", "NVM", "Bundler", "VRML", "R3D", "CAM"])
