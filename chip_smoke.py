@@ -136,7 +136,9 @@ Phases; any failure exits non-zero:
      marked from float64, each chosen centroid within 1e-5 of the nearest's
      float64 distance; K31 (S = W Wᵀ of rank_images_bow) on the W of that
      tree's words, 1000 x 32 768, within 1e-5, exactly symmetric, the same
-     bits twice; timed with CUDA events;
+     bits twice, and the bits of its sparse path's integer model (the card
+     chose the inverted file); timed with CUDA events, its parts under
+     torch.profiler;
  21. retrieval (phase `retrieval`): the collection written to a database,
      `vocab_tree_builder --depth 5 --branching 8`, `vocab_tree_retriever
      --num_images 10`, `vocab_tree_matcher --num_images 10` up to its pair
@@ -221,7 +223,7 @@ Phases; any failure exits non-zero:
      (convolutions, upsamplings) against its F.conv2d-based plain version
      (TF32 off) within 1e-4, K51 the plain version's keypoint list in its
      order (positions within 1e-5 px beyond one float32 ulp of the
-     coordinate), K52 against the dense plain SDDH
+     coordinate; its parts under torch.profiler), K52 against the dense plain SDDH
      (the whole image convolved, as colmap_tpu) within 1e-4, peak memory;
      then LightGlue (9 layers, hidden 256, 4 heads) on one pair of 2048 of
      the view's features: every K53 (a) call of the forward within 1e-4,
@@ -681,7 +683,8 @@ RET_IMAGES, RET_PER_IMAGE, RET_WORDS, RET_BRANCHING, RET_DEPTH, RET_SAMPLE = (
 # in index, which share the most of its pool window); the retriever's top-10
 # against the float64 plain path's on 100 query images; K29 within 2e-7 of
 # the scale (float64 sums rounded once to float32); K31 within 1e-5 of the
-# scale (float32 sums of up to 32 768 products of normalized histograms).
+# scale (its sparse path: exact products summed as integers of 2^-F, one
+# float32 rounding; its dense path: float32 sums of up to K products).
 RET_RECALL, RET_SUBSET, K29_RTOL, K31_RTOL = 0.8, 100, 2e-7, 1e-5
 # f32 operations (an FMA is 2): K28 and K30 3 per (row, centroid, dim), a
 # subtraction and an FMA; K29 1 per (row, dim), its float64 add counted at
@@ -889,6 +892,41 @@ def bound(bytes_moved, ops):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_split(fn, reps=5):
+    """(device busy ms, {kernel: (device ms, launches)}, wall ms), each a
+    call of fn, for log_busy: torch.profiler over reps calls (device_busy),
+    means a call; the wall is host time around reps calls ending in a
+    synchronize, without the profiler. The profiler can drop the events of
+    its first milliseconds, so a sleep kernel (spin_kernel) runs first and is
+    left out. These calls keep the card busy for most of their wall
+    (0.48-0.97 in the runs that recorded them whole), so a busy time under a
+    quarter of it is taken for lost events: None, not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms, by_name = device_busy(prof, skip="spin_kernel")
+    split = {}
+    for name, (ms, cnt) in by_name.items():
+        short = name.split("(")[0].split("::")[-1]
+        a, c = split.get(short, (0.0, 0))
+        split[short] = (a + ms / reps, c + cnt / reps)
+    if busy_ms is None or busy_ms / reps < 0.25 * wall_ms:
+        return None, split, wall_ms
+    return busy_ms / reps, split, wall_ms
 
 
 def check(name, got, ref, rtol, errs):
@@ -1743,15 +1781,17 @@ def run_matcher(db_path, label):
     return verified, dt, counts
 
 
-def device_busy(prof):
+def device_busy(prof, skip=None):
     """(busy ms, {kernel name: (ms, launches)}) of a profiled run: the union
     of the device intervals, read from the raw event list (key_averages()
-    over millions of events takes longer than the run itself)."""
+    over millions of events takes longer than the run itself); kernels whose
+    name holds ``skip`` are left out."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+        if (e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+                and not (skip and skip in e.name())):
             spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
             ms, cnt = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, cnt + 1)
@@ -1767,13 +1807,13 @@ def device_busy(prof):
 
 def log_busy(label, busy_ms, by_name, wall_ms, top=15):
     if busy_ms is None:
-        log(f"  {label}: the profiler recorded no device time; idle share not measured")
+        log(f"  {label}: the profiler recorded no device time, or too little; not measured")
         return None
     idle = 1 - busy_ms / wall_ms
-    log(f"  {label}, under the profiler: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall, "
+    log(f"  {label}, under the profiler: device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall, "
         f"idle share {idle:.4f}")
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"    {ms:10.3f} ms  {cnt:7d} launches  {name[:90]}")
+        log(f"    {ms:12.4f} ms  {cnt:7g} launches  {name[:90]}")
     return idle
 
 
@@ -4433,19 +4473,28 @@ def gram_work(W):
 
 
 def _nonzero(W):
-    return f"{float((W != 0).double().mean()):.4f} of it nonzero"
+    c = (W != 0).sum(0).double()
+    return (f"{float((W != 0).double().mean()):.4f} of it nonzero, "
+            f"{float((c * (c + 1)).sum() / 2):.4g} products Σ c_k (c_k + 1) / 2, "
+            f"the most images on one word {int(c.max())}")
 
 
-def gram_check(name, W, errs):
+def gram_check(name, W, errs, sparse=None):
     """K31 on W against its float64 plain version: within K31_RTOL of the
-    scale, exactly symmetric, the same bits in two runs."""
+    scale, exactly symmetric, the same bits in two runs. Whether S has the
+    bits of the sparse path's integer model (gram_fixed_plain) shows which
+    regime the card chose; ``sparse`` True requires them."""
     from colmap_tpu_torch.kernels import retrieval as KT
 
     got, again = KT.gram(W), KT.gram(W)
     if not (torch.equal(got, again) and torch.equal(got, got.T)):
         raise AssertionError(f"{name}: two runs differ, or S is not symmetric")
-    check(f"{name} ({_nonzero(W)}), exactly symmetric, the same bits in two runs", got,
-          KT.gram_plain(W.double()), K31_RTOL, errs)
+    model = bool(torch.equal(got, KT.gram_fixed_plain(W)))
+    check(f"{name} ({_nonzero(W)}), exactly symmetric, the same bits in two runs; the bits of "
+          f"the integer model (sparse regime): {model}", got, KT.gram_plain(W.double()),
+          K31_RTOL, errs)
+    if sparse and not model:
+        raise AssertionError(f"{name}: S is not the sparse path's integer sum")
 
 
 def phase_retrieval_kernels():
@@ -4518,7 +4567,8 @@ def phase_retrieval_kernels():
     # K31 on rank_images_bow's W for this tree: the images' words by K30
     # (TreeVocabulary.assign), weighted and normalized by bow_matrix.
     W = bow_matrix(tree.assign(x), [RET_PER_IMAGE] * RET_IMAGES, tree.num_words)
-    gram_check(f"retrieval_gram, W {RET_IMAGES} x {tree.num_words}", W, errs["retrieval_gram"])
+    gram_check(f"retrieval_gram, W {RET_IMAGES} x {tree.num_words}", W, errs["retrieval_gram"],
+               sparse=True)
 
     S = len(counts)
     B, L = RET_BRANCHING, RET_DEPTH
@@ -4551,6 +4601,7 @@ def phase_retrieval_kernels():
         f"retrieval_gram, W {RET_IMAGES} x {tree.num_words} ({_nonzero(W)})",
         lambda: KT.gram(W), lambda: KT.gram_plain(W), b, ops,
         library=lambda: torch.matmul(W, W.T))
+    log_busy("  retrieval_gram, a call", *kernel_split(lambda: KT.gram(W)))
     del x, W
     torch.cuda.synchronize()
     return errs, rows
@@ -4693,11 +4744,18 @@ def phase_retrieval(launches, errs, rows):
         W = seen[0]
         name = f"retrieval_gram, vocab_tree_pairs' W {W.shape[0]} x {W.shape[1]}"
         gram_check(name, W, errs.setdefault("retrieval_gram", []))
+        name += f" ({_nonzero(W)})"
+        b, ops = gram_work(W)
+        entry = dict(ms=time_ms(lambda: KT.gram(W), reps=20),
+                     plain_ms=time_ms(lambda: KT.gram_plain(W), reps=3),
+                     library_ms=time_ms(lambda: torch.matmul(W, W.T), reps=20))
+        entry["bound_ms"], entry["bound_by"] = bound(b, ops)
+        log(f"    {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.3f} ms, library "
+            f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms by "
+            f"{entry['bound_by']})")
+        log_busy("  retrieval_gram on vocab_tree_pairs' W, a call", *kernel_split(lambda: KT.gram(W)))
         if "retrieval_gram" in rows:
-            rows["retrieval_gram"]["entries"] = {name: dict(
-                ms=time_ms(lambda: KT.gram(W), reps=20),
-                plain_ms=time_ms(lambda: KT.gram_plain(W), reps=3),
-                library_ms=time_ms(lambda: torch.matmul(W, W.T), reps=20))}
+            rows["retrieval_gram"]["entries"] = {name: entry}
         del seen, W
         bow_near = sum(abs(a - b) <= 5 for a, b in bow_pairs)
         t0 = time.perf_counter()
@@ -7181,7 +7239,9 @@ def _k51(score, errs, rows):
         # at 2048-4095) is the refinement's resolution there.
         ulp = torch.nextafter(xy_p.abs(), torch.full_like(xy_p, torch.inf)) - xy_p.abs()
         beyond = float((d - ulp).clamp(min=0).max())
-    log(f"  K51: {len(xy)} keypoints ({len(xy_p)} plain), the same list in the same order: "
+    cand = KA.dkd_plain(score, score.numel(), 2, 0.2)[1].numel()
+    log(f"  K51: {cand} candidates; {len(xy)} keypoints ({len(xy_p)} plain), the same list in "
+        "the same order: "
         f"{same}; refined positions within {err:.3e} px, {beyond:.3e} px beyond one float32 "
         f"ulp of the coordinate (tolerance {K51_PX:g})")
     if not (same and beyond <= K51_PX and len(xy) > 0):
@@ -7192,9 +7252,10 @@ def _k51(score, errs, rows):
     ms = time_ms(lambda: KA.dkd(score, ALIKED_K, 2, 0.2), reps=10)
     plain_ms = time_ms(lambda: KA.dkd_plain(score, ALIKED_K, 2, 0.2), reps=5)
     library_ms = time_ms(lambda: KA.dkd_library(score, ALIKED_K, 2, 0.2), reps=10)
-    log(f"    aliked_dkd at {W} x {H}, K = {ALIKED_K}: {ms:.4f} ms with its count read and "
-        f"sort (plain {plain_ms:.3f} ms; F.max_pool2d + torch.topk {library_ms:.4f} ms; bound "
-        f"{b_ms:.5f} ms by {by})")
+    log(f"    aliked_dkd at {W} x {H}, K = {ALIKED_K}: {ms:.4f} ms with its one count read, "
+        f"after the last launch (plain {plain_ms:.3f} ms; F.max_pool2d + torch.topk "
+        f"{library_ms:.4f} ms; bound {b_ms:.5f} ms by {by})")
+    log_busy("  aliked_dkd, a call", *kernel_split(lambda: KA.dkd(score, ALIKED_K, 2, 0.2)))
     rows["aliked_dkd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                               library_ms=library_ms)
     return xy

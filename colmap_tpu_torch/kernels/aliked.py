@@ -9,10 +9,11 @@ Three CUDA kernels carry the device program of colmap_tpu/feature/aliked.py
                       on the fly, written into a channel slice of its
                       output; (b) bilinear upsampling (half-pixel centres)
                       and SELU into a channel slice
-    K51 aliked_dkd    (a) the peak test of the score map (5 x 5 max, -inf
+    K51 aliked_dkd    the peak test of the score map (5 x 5 max, -inf
                       outside, >= and the strict threshold), candidates
-                      compacted as (score, flat index) keys; (b) the 5 x 5
-                      soft-argmax refinement of the selected keypoints
+                      compacted as (score, flat index) keys, a radix
+                      select of the first K keys, their sort, and the
+                      5 x 5 soft-argmax refinement, all on the card
     K52 aliked_sddh   (a) the SDDH offsets at each keypoint from its 6 x 6
                       feature patch (conv1, SELU, conv2 at the 4 bilinear
                       corners, both zero paddings, then 5 tanh(o / 5));
@@ -40,7 +41,10 @@ ascending), the order of ``lax.top_k``. Each candidate's key is
 ``(0x7FFFFFFF - bits(score)) << 32 | index``: scores are sigmoid outputs,
 so they are non-negative and their bits order as the floats do, and one
 ascending sort of the unique keys gives that order whatever order the
-candidates were compacted in.
+candidates were compacted in. The card finds the K-th smallest key by an
+MSB-first radix select, a byte a pass; ``dkd_keys`` and
+``radix_select_model`` are that select in numpy, for the CPU tests (the
+card path does not use them).
 
 As in the other kernel modules, a wrapper runs the plain version when its
 tensor lies on the CPU and launches the kernel when it lies on a CUDA
@@ -54,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,8 +77,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "aliked_conv_f32": [_I] * 7 + [_P] * 5,
     "aliked_upsample_selu_f32": [_I] * 5 + [_P] * 3,
-    "aliked_dkd_peaks_f32": [_I] * 3 + [ctypes.c_float] + [_P] * 4,
-    "aliked_dkd_refine_f32": [_I] * 4 + [_P] * 5,
+    "aliked_dkd_f32": [_I] * 3 + [ctypes.c_float, _I] + [_P] * 6,
     "aliked_sddh_offsets_f32": [_I] * 5 + [_P] * 8,
     "aliked_sddh_describe_f32": [_I] * 5 + [_P] * 8,
 }
@@ -93,6 +97,8 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.aliked_dkd_workspace_bytes.argtypes = [_I] * 3
+    lib.aliked_dkd_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -212,27 +218,64 @@ def dkd_plain(score, max_num_keypoints, radius, threshold):
 
 
 def dkd(score, max_num_keypoints, radius, threshold):
-    """K51: dkd_plain on the card. (a) writes the candidates' keys, one
-    4-byte read gives their count, one sort of the keys orders them, and
-    (b) refines the first K."""
+    """K51: dkd_plain on the card. One C entry launches the peak test, the
+    radix select of the K-th key, the compaction, the sort (runs of 2048
+    keys and their merges) and the refinement; one 4-byte read of the
+    selected count, after the last launch, sizes the returned rows."""
     if score.device.type == "cpu":
         return dkd_plain(score, max_num_keypoints, radius, threshold)
     dev = S._require_cuda(score)
     H, W = score.shape
     S._check("score", score, torch.float32, (H, W), dev)
-    keys = torch.empty(H * W, dtype=torch.int64, device=dev)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch("aliked_dkd", "aliked_dkd_peaks_f32", H, W, radius, ctypes.c_float(threshold),
-            S._ptr(score), S._ptr(keys), S._ptr(count), S._stream(dev))
-    n = int(count.item())
-    keys = torch.sort(keys[:n]).values[:min(max_num_keypoints, H * W)].contiguous()
-    n = len(keys)
-    xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    scores = torch.empty(n, dtype=torch.float32, device=dev)
-    if n:
-        _launch("aliked_dkd", "aliked_dkd_refine_f32", H, W, radius, n, S._ptr(score),
-                S._ptr(keys), S._ptr(xy), S._ptr(scores), S._stream(dev))
-    return xy, scores
+    if H * W >= 2 ** 31 - 1:
+        raise NotImplementedError(f"K51 takes score maps below 2^31 pixels, not {H} x {W}")
+    cap = min(max_num_keypoints, H * W)
+    if cap <= 0:
+        return (torch.empty((0, 2), dtype=torch.float32, device=dev),
+                torch.empty(0, dtype=torch.float32, device=dev))
+    ws = torch.empty(_lib().aliked_dkd_workspace_bytes(H, W, cap), dtype=torch.uint8, device=dev)
+    xy = torch.empty((cap, 2), dtype=torch.float32, device=dev)
+    scores = torch.empty(cap, dtype=torch.float32, device=dev)
+    n_out = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("aliked_dkd", "aliked_dkd_f32", H, W, radius, ctypes.c_float(threshold), cap,
+            S._ptr(score), S._ptr(ws), S._ptr(xy), S._ptr(scores), S._ptr(n_out), S._stream(dev))
+    n = int(n_out.item())
+    return xy[:n], scores[:n]
+
+
+def dkd_keys(vals, idx):
+    """K51's candidate keys (numpy uint64) of scores ``vals`` (float32,
+    non-negative) at flat indices ``idx``: (0x7FFFFFFF - bits(score)) << 32
+    | index. Ascending key order is lax.top_k's order."""
+    bits = np.asarray(vals, np.float32).view(np.uint32).astype(np.uint64)
+    return ((np.uint64(0x7FFFFFFF) - bits) << np.uint64(32)) | np.asarray(idx, np.uint64)
+
+
+def radix_select_model(keys, k):
+    """K51's select in numpy: (threshold, bytes resolved). The K-th smallest
+    of the unique uint64 ``keys`` found MSB first, a byte at a time: each
+    pass histograms the next byte of the keys that share the bytes found so
+    far and takes the bin that holds the K-th; it stops when that bin holds
+    exactly the keys still wanted. The keys <= threshold are exactly the
+    min(k, len(keys)) smallest (all of them, threshold 2^64 - 1, when there
+    are no more than k)."""
+    keys = np.asarray(keys, np.uint64)
+    if len(keys) <= k:
+        return np.uint64(0xFFFFFFFFFFFFFFFF), 0
+    prefix, krem = 0, k
+    for d in range(8):
+        shift = 56 - 8 * d
+        high = np.uint64(shift + 8)
+        inbin = keys if d == 0 else keys[(keys >> high) == np.uint64(prefix >> (shift + 8))]
+        hist = np.bincount(((inbin >> np.uint64(shift)) & np.uint64(255)).astype(np.int64),
+                           minlength=256)
+        cum = np.cumsum(hist)
+        b = int(np.searchsorted(cum, krem))  # first bin with cum >= krem
+        krem -= int(cum[b] - hist[b])
+        prefix |= b << shift
+        if hist[b] == krem:
+            return np.uint64(prefix | ((1 << shift) - 1)), d + 1
+    raise AssertionError("unique keys resolve by the last byte")
 
 
 def dkd_library(score, max_num_keypoints, radius, threshold):

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +45,8 @@ f32, f64, i32 = torch.float32, torch.float64, torch.int32
 NEAR_TIE = 1e-5
 # Elements of one float64 block of the plain versions (256 MB).
 _PLAIN_BLOCK = 1 << 25
+# K31's sparse sums stay below 2^GRAM_BITS (retrieval_gram.cu kSparseBound).
+GRAM_BITS = 61
 
 
 def reset_launches() -> None:
@@ -172,6 +175,34 @@ def gram_plain(w):
     return (w64 @ w64.T).to(w.dtype)
 
 
+def gram_scale_exponent(w) -> int:
+    """F of K31's sparse path: the largest with r m² 2^F < 2^GRAM_BITS,
+    m = max |w| and r the most nonzeros of a row (|S[i, j]| <= r m²); 0
+    for a zero W."""
+    if w.numel() == 0:
+        return 0
+    m = float(w.abs().max())
+    bound = float(int((w != 0).sum(1).max())) * m * m
+    return GRAM_BITS - math.frexp(bound)[1] if bound > 0 else 0
+
+
+def gram_fixed_plain(w):
+    """K31's arithmetic on the card's sparse path, in PyTorch, for the CPU
+    tests (the card path does not use it): each product w_ik w_jk, exact in
+    float64, scaled by 2^F (gram_scale_exponent), rounded to an integer
+    (half to even) and summed as integers; S = the sum times 2^-F in W's
+    dtype."""
+    F = gram_scale_exponent(w)
+    w64, scale = w.to(f64), math.ldexp(1.0, F)
+    n, K = w.shape
+    acc = torch.zeros((n, n), dtype=torch.int64, device=w.device)
+    rows = max(1, _PLAIN_BLOCK // max(n * K, 1))
+    for i0 in range(0, n, rows):
+        prod = w64[i0:i0 + rows, None, :] * w64[None, :, :] * scale
+        acc[i0:i0 + rows] = torch.round(prod).to(torch.int64).sum(-1)
+    return (acc.to(f64) * math.ldexp(1.0, -F)).to(w.dtype)
+
+
 def csr(segments, num_segments: int):
     """(order, offsets) int32 of a stable sort by segment, on its device:
     the rows of segment s are order[offsets[s]:offsets[s + 1]]."""
@@ -191,7 +222,7 @@ _SIGNATURES = {
     "retrieval_assign_f32": [_I, _I, _I] + [_P] * 5,
     "retrieval_update_f32": [_I, _I] + [_P] * 7,
     "retrieval_descend_f32": [_I, _I, _I, _I] + [_P] * 4,
-    "retrieval_gram_f32": [_I, _I] + [_P] * 3,
+    "retrieval_gram_f32": [_I, _I] + [_P] * 4,
 }
 
 
@@ -204,6 +235,8 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.retrieval_gram_workspace_bytes.argtypes = [_I, _I]
+    lib.retrieval_gram_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -281,8 +314,11 @@ def descend(x, levels, branching: int, depth: int):
 
 
 def gram(w):
-    """K31: S = W Wᵀ (n, n) float32 of W (n, K) float32, exactly symmetric.
-    See gram_plain."""
+    """K31: S = W Wᵀ (n, n) float32 of W (n, K) float32, exactly symmetric
+    and the same in every run. See gram_plain; on the card, sparse W go
+    through an inverted file with integer sums (gram_fixed_plain is their
+    arithmetic), dense ones through a tiled product: a small W by its shape,
+    the others as the card chooses (retrieval_gram.cu)."""
     if w.device.type == "cpu":
         return gram_plain(w)
     dev = S._require_cuda(w)
@@ -291,6 +327,7 @@ def gram(w):
     S._check("w", w, f32, w.shape, dev)
     n, K = w.shape
     out = torch.empty(n, n, dtype=f32, device=dev)
-    _call("retrieval_gram_f32", n, K, S._ptr(w), S._ptr(out), S._stream(dev))
+    ws = torch.empty(_lib().retrieval_gram_workspace_bytes(n, K), dtype=torch.uint8, device=dev)
+    _call("retrieval_gram_f32", n, K, S._ptr(w), S._ptr(out), S._ptr(ws), S._stream(dev))
     LAUNCHES["retrieval_gram"] += 1
     return out

@@ -1308,6 +1308,80 @@ def test_retrieval_gram_matches_plain_on_cuda():
     assert KT.LAUNCHES["retrieval_gram"] == 2
 
 
+def _gram_case(case):
+    """W (float32, rows L2-normalized) for K31's cases: "stop_word" a
+    300 x 5000 W with word 0 in every row (a list of length n) and row 11
+    all zero; "odd" 333 x 4097 (no tile's multiple); "wide_n" 5000 x 2000,
+    beyond one block's 4096-image accumulator; "scaled" the stop-word W
+    times 1e3 (a smaller 2^F); "dense" 300 x 64 and "dense_chosen" 600 x
+    1024, every entry nonzero (the dense regime, by shape and as the card
+    chooses it)."""
+    rng = np.random.default_rng(31)
+    n, K, p = {"stop_word": (300, 5000, 0.06), "odd": (333, 4097, 0.05),
+               "wide_n": (5000, 2000, 0.02), "scaled": (300, 5000, 0.06),
+               "dense": (300, 64, 1.0), "dense_chosen": (600, 1024, 1.0)}[case]
+    w = rng.random((n, K)) * (rng.random((n, K)) < p) + (1e-3 if p == 1.0 else 0.0)
+    if case in ("stop_word", "scaled"):
+        w[:, 0] = rng.uniform(0.2, 1.0, n)
+        w[11] = 0.0
+    w /= np.maximum(np.linalg.norm(w, axis=1, keepdims=True), 1e-12)
+    return w * (1e3 if case == "scaled" else 1.0)
+
+
+@pytest.mark.parametrize("case", ["stop_word", "odd", "wide_n", "scaled", "dense", "dense_chosen"])
+def test_retrieval_gram_cases_on_cuda(case):
+    """K31 on its edge cases: within 1e-5 of float64, exactly symmetric,
+    the same bits in two runs; on the sparse cases the bits of the integer
+    model (gram_fixed_plain) where it is cheap to form, and an all-zero row
+    gives a zero row and column."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+
+    wt = torch.as_tensor(_gram_case(case), dtype=torch.float32, device="cuda")
+    KT.reset_launches()
+    got, again = KT.gram(wt), KT.gram(wt)
+    _close(got, KT.gram_plain(wt.double()), 1e-5, f"K31 {case}")
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    if case in ("stop_word", "odd", "scaled"):
+        assert torch.equal(got, KT.gram_fixed_plain(wt))
+    if case in ("stop_word", "scaled"):
+        assert (got[11] == 0).all()
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_gram"] == 2
+
+
+@pytest.mark.parametrize("density", [0.01, 1.0])
+def test_retrieval_gram_beyond_int_entries_on_cuda(density):
+    """K31 on a 2048 x (2^20 + 1) W, 2^31 + 2048 entries (8.6 GB), made on
+    the card: 1% nonzero with a stop word (the inverted file, its counts
+    and fills indexed past 2^31) and all nonzero (more nonzeros than the
+    lists hold, so the card runs the dense kernel). Within 1e-5 of float64
+    (summed over slices of K), exactly symmetric, the same bits twice."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+
+    n, K = 2048, (1 << 20) + 1
+    g = torch.Generator(device="cuda").manual_seed(31)
+    w = torch.rand(n, K, device="cuda", generator=g)
+    if density < 1.0:
+        w.masked_fill_(w >= density, 0.0)
+        w[:, 0] = 0.5
+    else:
+        w.add_(1e-3)
+    w.div_(w.norm(dim=1, keepdim=True))
+    KT.reset_launches()
+    got, again = KT.gram(w), KT.gram(w)
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    ref = torch.zeros(n, n, dtype=torch.float64, device="cuda")
+    for k0 in range(0, K, 1 << 18):
+        part = w[:, k0:k0 + (1 << 18)].double()
+        ref += part @ part.T
+        del part
+    _close(got, ref, 1e-5, f"K31 n K > 2^31, {density:g} nonzero")
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_gram"] == 2
+
+
 def test_query_ranks_a_duplicate_as_on_the_cpu_on_cuda():
     """An index on cuda and on the CPU over one flat vocabulary, image 6 a
     copy of image 2 added after it: the same ids in the same order, scores
@@ -2261,7 +2335,67 @@ def test_aliked_dkd_matches_plain_on_cuda():
     xy_all_p, _ = KA.dkd_plain(score, 10 ** 6, 2, 0.2)
     assert len(xy_all) == len(xy_all_p) > 300
     assert float((xy_all.cpu() - xy_all_p).abs().max()) <= 1e-5
-    assert KA.LAUNCHES["aliked_dkd"] == 4
+    assert KA.LAUNCHES["aliked_dkd"] == 2
+
+
+def _dkd_case(case):
+    """(score map, K) for K51's select: "plateau" a saturated 4 x 5 plateau
+    (each pixel a peak, tied at 1.0) holding the K-th key; "exact" K equal to the
+    number of candidates; "fewer" more K than candidates; "sort_runs" a
+    1200 x 1600 map whose 20 000 kept keys fill ten 2048-key sort runs
+    and four merges; "band" 24 000 grid peaks within 64 ulps of 0.75 (their keys
+    share the first three bytes), the cut inside a tie."""
+    g = torch.Generator().manual_seed(51)
+    if case in ("band", "sort_runs"):
+        H, W = (600, 640) if case == "band" else (1200, 1600)
+    else:
+        H, W = 97, 131
+    score = torch.sigmoid(3.0 * torch.nn.functional.avg_pool2d(
+        torch.randn((1, 1, H, W), generator=g), 3, 1, 1)[0, 0] + 0.5)
+    if case == "plateau":
+        score[10:14, 20:25] = 1.0
+        return score, 13
+    n_cand = len(_plain_candidates(score))
+    if case == "exact":
+        return score, n_cand
+    if case == "fewer":
+        return score, n_cand + 100
+    if case == "sort_runs":
+        return score, 20000
+    score[:] = 0.1
+    ulp = float(np.spacing(np.float32(0.75)))
+    steps = torch.randint(0, 64, (H // 4, W // 4), generator=g).float()
+    steps[3, 5:60] = 63.0
+    score[::4, ::4] = 0.75 + steps * ulp
+    return score, int((steps == 63).sum()) - 20
+
+
+def _plain_candidates(score):
+    """The scores of every candidate of score (dkd_plain with K = H W)."""
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    return KA.dkd_plain(score, score.numel(), 2, 0.2)[1]
+
+
+@pytest.mark.parametrize("case", ["plateau", "exact", "fewer", "sort_runs", "band"])
+def test_aliked_dkd_select_cases_on_cuda(case):
+    """K51's radix select, sort and merge on its edge cases: the same list
+    of keypoints in the same order as dkd_plain (scores equal), positions
+    within 1e-5 px beyond one float32 ulp (chip_smoke.py's K51_PX rule), one
+    launch a call."""
+    _need_card()
+    from colmap_tpu_torch.kernels import aliked as KA
+
+    score, k = _dkd_case(case)
+    KA.reset_launches()
+    xy, sc = KA.dkd(score.cuda(), k, 2, 0.2)
+    xy_p, sc_p = KA.dkd_plain(score, k, 2, 0.2)
+    assert len(sc) == len(sc_p) > 0 and torch.equal(sc.cpu(), sc_p)
+    # x + dx is rounded to float32: beyond 1024 px one ulp (1.2e-4) exceeds
+    # 1e-5, so positions are held within 1e-5 beyond one ulp there.
+    ulp = torch.nextafter(xy_p.abs(), torch.full_like(xy_p, torch.inf)) - xy_p.abs()
+    assert float(((xy.cpu() - xy_p).abs() - ulp).clamp(min=0).max()) <= 1e-5
+    assert KA.LAUNCHES["aliked_dkd"] == 1
 
 
 def test_aliked_sddh_matches_dense_plain_on_cuda():

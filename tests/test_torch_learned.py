@@ -127,6 +127,58 @@ def test_dkd_ties_follow_top_k():
     assert np.abs(t_xy.numpy() - np.asarray(xy)).max() <= 1e-5
 
 
+def _select_case(case):
+    """(score map, K) for K51's select: "random" colmap_tpu's own score map
+    at 64 x 80 (K = 128); "plateau" a saturated 4 x 6 plateau (every pixel
+    a peak, tied at 1.0) with the K-th key inside it; "ties" exact ties
+    between separate peaks with the cut inside the run of ties; "band"
+    peaks on a grid whose scores lie within 64 ulps of 0.75 (their keys
+    share the first three bytes), cut inside a tie."""
+    rng = np.random.default_rng(11)
+    if case == "random":
+        return _stages((64, 80))[2], 128
+    score = rng.uniform(0.0, 0.6, (40, 52)).astype(np.float32)
+    if case == "plateau":
+        score[5:9, 10:16] = 1.0
+        return score, 17
+    if case == "ties":
+        score[20, 30] = score[30, 40] = score[35, 5] = score[2, 2] = 0.95
+        return score, 2
+    score[:] = 0.1
+    ulp = np.spacing(np.float32(0.75))
+    steps = rng.integers(0, 64, (10, 13))
+    steps[4, 6] = steps[4, 7] = steps[5, 0] = steps[7, 9] = 63
+    score[::4, ::4] = np.float32(0.75) + steps.astype(np.float32) * ulp
+    return score, 2
+
+
+@pytest.mark.parametrize("case", ["random", "plateau", "ties", "band"])
+def test_radix_select_model_matches_top_k(case):
+    """K51's MSB-first radix select (radix_select_model on dkd_keys) against
+    jax.lax.top_k on _nms_keypoints' candidates (the same peak test, l.146-
+    152): the keys <= the threshold, ascending, are top_k's first
+    min(K, candidates) indices in order; with ties at the cut the select
+    runs through the index bytes."""
+    score, k = _select_case(case)
+    H, W = score.shape
+    pooled = jax.lax.reduce_window(jnp.asarray(score), -jnp.inf, jax.lax.max, (5, 5), (1, 1),
+                                   "SAME")
+    is_peak = np.asarray((jnp.asarray(score) >= pooled) & (jnp.asarray(score) > 0.2)).reshape(-1)
+    flat = jnp.where(is_peak, jnp.asarray(score).reshape(-1), -jnp.inf)
+    vals, idxs = jax.lax.top_k(flat, k)
+    cand = np.nonzero(is_peak)[0]
+    keys = KA.dkd_keys(score.reshape(-1)[cand], cand)
+    thresh, passes = KA.radix_select_model(keys, k)
+    kept = np.sort(keys[keys <= thresh])
+    n = min(k, len(cand))
+    assert len(kept) == n and len(cand) > k
+    assert np.array_equal((kept & np.uint64(0xFFFFFFFF)).astype(np.int64), np.asarray(idxs)[:n])
+    assert np.array_equal(score.reshape(-1)[kept & np.uint64(0xFFFFFFFF)], np.asarray(vals)[:n])
+    if case != "random":
+        assert passes >= 7  # the cut lies inside a run of equal scores
+    assert KA.radix_select_model(keys, len(cand))[0] == np.uint64(2 ** 64 - 1)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=["64x80", "61x83"])
 def test_sddh_matches_colmap_tpu(shape):
     _, feat, _, xy, _, valid, desc = _stages(shape)

@@ -26,6 +26,7 @@ Tolerances and their reasons:
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from colmap_tpu.cli import extra_commands as jx
@@ -192,6 +193,48 @@ def test_bow_matrix_and_gram_plain_match_rank_images_bows_program():
     assert S.dtype == torch.float32 and torch.equal(S, S.T)
     ref = np.asarray(jax.jit(lambda w: w @ w.T)(want), np.float64)
     assert np.abs(S.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _bow_case(case):
+    """A sparse bag-of-words W (float32, rows L2-normalized) for K31's
+    integer model: "bow" plain; "stop_word" with word 0 in every row and
+    row 5 all zero; "scaled" the bow W times 1e3 (a smaller 2^F)."""
+    rng = np.random.default_rng(21)
+    n, K = 37, 300
+    w = rng.random((n, K)) * (rng.random((n, K)) < 0.08)
+    if case == "stop_word":
+        w[:, 0] = rng.uniform(0.2, 1.0, n)
+        w[5] = 0.0
+    w /= np.maximum(np.linalg.norm(w, axis=1, keepdims=True), 1e-12)
+    if case == "scaled":
+        w *= 1e3
+    return w.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["bow", "stop_word", "scaled"])
+def test_gram_integer_model_matches_rank_images_bows_program(case):
+    """K31's sparse arithmetic (gram_fixed_plain: exact products scaled by
+    2^F, rounded to integers and summed as integers) against colmap_tpu's
+    jitted w @ w.T (rank_images_bow, visual_index.py:487) within 1e-6 of
+    the scale and against float64 within 1e-7 (each product's rounding to
+    2^-F and one float32 rounding); bit-for-bit symmetric; 2^F the largest
+    power of two that keeps r m² 2^F below 2^GRAM_BITS."""
+    import jax
+
+    w = _bow_case(case)
+    W = torch.from_numpy(w)
+    S = R.gram_fixed_plain(W)
+    assert S.dtype == torch.float32 and torch.equal(S, S.T)
+    ref = np.asarray(jax.jit(lambda a: a @ a.T)(w), np.float64)
+    scale = np.abs(ref).max()
+    assert np.abs(S.numpy() - ref).max() <= 1e-6 * scale
+    exact = w.astype(np.float64) @ w.astype(np.float64).T
+    assert np.abs(S.numpy() - exact).max() <= 1e-7 * scale
+    F = R.gram_scale_exponent(W)
+    bound = float((w != 0).sum(1).max()) * float(np.abs(w).max()) ** 2
+    assert bound * 2.0 ** F < 2.0 ** R.GRAM_BITS <= 2 * bound * 2.0 ** F
+    if case == "stop_word":
+        assert (S[5] == 0).all()
 
 
 def test_one_kmeans_step_matches():
