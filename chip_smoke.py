@@ -321,6 +321,7 @@ T_START = time.perf_counter()
 # float32 (non-tensor-core) operations/s, for the bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 # Final cost of colmap_tpu (JAX, CPU, float32) on the headline problem after
 # 10 LM iterations, dense Schur or PCG; and its limit relative to the cost
@@ -927,6 +928,17 @@ def kernel_split(fn, reps=5):
     if busy_ms is None or busy_ms / reps < 0.25 * wall_ms:
         return None, split, wall_ms
     return busy_ms / reps, split, wall_ms
+
+
+def log_parts(label, fn, reps=20):
+    """Each kernel's device ms a call of fn (kernel_split over reps calls),
+    printed even where the busy share is not measured; returns the split."""
+    busy, split, wall = kernel_split(fn, reps)
+    parts = ", ".join(f"{k} {ms:.4f} ms x {cnt:g}"
+                      for k, (ms, cnt) in sorted(split.items(), key=lambda kv: -kv[1][0]))
+    log(f"  {label}, a call under the profiler: {parts or 'no device events'}; device busy "
+        f"{'not measured' if busy is None else f'{busy:.4f} ms'} of {wall:.4f} ms wall")
+    return split
 
 
 def check(name, got, ref, rtol, errs):
@@ -6222,6 +6234,13 @@ def _options_sprt(errs, rows, case):
                      bytes_moved, 0, ops64=K47_ROW_OPS * int(num.long().sum()))
     row["library_ms"] = time_ms(library, reps=10)
     log(f"    sprt: torch.cumsum + argmax on the float64 steps {row['library_ms']:.4f} ms")
+    plan = KP.plan()
+    log(f"    K47 design: one block of {plan['threads']} threads a hypothesis ({res.shape[0]} "
+        f"blocks), tiles of {plan['tile_rows']} rows, {plan['registers']} registers and "
+        f"{plan['local_bytes']} spilled bytes a thread, {plan['shared_bytes']} B static shared "
+        f"a block")
+    split = log_parts("sprt", lambda: KP.sprt(res, mask, *args))
+    row["extra"] = {"design": plan, "parts_ms": {name: ms for name, (ms, _) in split.items()}}
     rows["sprt"] = row
 
 
@@ -7348,9 +7367,20 @@ def _k53(xy, desc, shape, errs, rows):
     plain_ms = time_ms(lambda: KLG.attention_plain(q, k, v, mq, mk, heads, cos, sin), reps=10)
     library_ms = time_ms(lambda: KLG.attention_library(q, k, v, mk, heads), reps=25)
     fwd_ms = time_ms(lambda: model.head(d1, k1, mask, d2, k2, mask), reps=5)
+    tf32_ms = 3 * ops / PEAK_TF32_OPS_PER_S * 1e3
     log(f"    lightglue_attention (a), self-attention with the rotation, {n} x {n}: {ms:.4f} ms "
         f"(plain {plain_ms:.3f} ms; F.scaled_dot_product_attention with the additive mask "
-        f"{library_ms:.4f} ms; bound {b_ms:.5f} ms by {by}); the pair's forward {fwd_ms:.3f} ms")
+        f"{library_ms:.4f} ms; bound {b_ms:.5f} ms by {by}, {tf32_ms:.5f} ms for the three TF32 "
+        f"passes at 495 TFLOP/s); the pair's forward {fwd_ms:.3f} ms")
+    plan = KLG.attention_plan(heads, n, n)
+    log(f"    K53 (a) design at {n} x {n}, {heads} heads: {plan['splits']} key splits, tile grid "
+        f"{plan['grid']} of {plan['threads']} threads, {plan['registers']} registers and "
+        f"{plan['local_bytes']} spilled bytes a thread, {plan['shared_bytes']} B dynamic shared "
+        f"a block, {plan['blocks_per_sm']} blocks an SM on {plan['sms']} SMs")
+    split = log_parts("lightglue_attention (a), self-attention with the rotation",
+                      lambda: KLG.attention(q, k, v, mq, mk, heads, cos, sin))
+    log_parts("lightglue_attention (a), cross-attention", lambda: KLG.attention(q, k, v, mq, mk,
+                                                                                 heads))
 
     # (b): the match list against the plain version's; near-ties from float64.
     matches, _ = KLG.log_assignment(sim, mask, mask, m1, m2, 0.0)
@@ -7384,7 +7414,8 @@ def _k53(xy, desc, shape, errs, rows):
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms,
         entries={"log_assignment": dict(ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b,
                                         library_ms=lib_b)},
-        extra={"pair_forward_ms": fwd_ms})
+        extra={"pair_forward_ms": fwd_ms, "design": plan,
+               "parts_ms": {name: ms for name, (ms, _) in split.items()}})
 
 
 def phase_learned_kernels():

@@ -5,8 +5,11 @@ colmap_tpu/feature/lightglue.py ``lightglue_forward`` (source
 ``colmap_tpu_torch/csrc/lightglue_attention.cu``):
 
     K53 lightglue_attention  (a) masked multi-head attention, head_dim 64,
-                             with the 2D rotary encoding applied to q and
-                             k as they load (self-attention); masked keys
+                             on the tensor cores in 3xTF32, with the 2D
+                             rotary encoding applied to q and k by a
+                             pre-pass (self-attention) and the keys split
+                             across blocks with a log-sum-exp merge where
+                             one split would not fill the card; masked keys
                              get the logit -1e9, masked queries give 0;
                              (b) the log-assignment: the masked similarity's
                              row and column log-softmax plus
@@ -27,7 +30,10 @@ Layouts follow colmap_tpu's: q, k, v and the output are (N, H * 64) rows
 may be column blocks of one qkv product. cos and sin are (N, 32) tables of
 ``_rotary_encode``. As in the other kernel modules, a wrapper runs the
 plain version when its tensor lies on the CPU and launches the kernel on a
-CUDA tensor, or raises; ``LAUNCHES`` counts launches by kernel name.
+CUDA tensor, or raises; ``LAUNCHES`` counts launches by kernel name, one
+for each entry call whatever the number of kernels it runs.
+``attention_split_model`` is (a)'s arithmetic on the CPU: the TF32
+rounding of its operands, the splits' partials and their merge.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ EPS = 1e-12  # log(matchability + EPS) (lightglue.py:184)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "lightglue_attention_f32": [_I] * 3 + [_P, _I, _P, _I, _P, _I] + [_P] * 4 + [_P, _I, _P],
+    "lightglue_attention_plan": [_I] * 3 + [_P],
+    "lightglue_attention_f32": [_I] * 4 + [_P, _I, _P, _I, _P, _I] + [_P] * 7 + [_I, _P],
     "lightglue_assignment_f32": [_I, _I, ctypes.c_float] + [_P] * 14,
 }
 
@@ -119,11 +126,85 @@ def attention_library(q, k, v, mask_k, num_heads):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
 
 
+KEY_TILE = 64  # keys a tile of the kernel; splits take whole tiles
+PART_ROW = 68  # floats a partial row: o (64), m, l, padding
+
+
+def tf32_round(x):
+    """cvt.rna.tf32.f32 on float32 x: the nearest TF32 value (ties away from
+    zero), the low 13 mantissa bits cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: big * big + big * small + small * big of the split
+    operands (big the TF32 rounding, small that of the rest), in float32."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    asm, bsm = tf32_round(a - ab), tf32_round(b - bb)
+    return asm @ bb + ab @ bsm + ab @ bb
+
+
+def split_ranges(nk, splits):
+    """[lo, hi) keys of each split: split j takes tiles T j // s .. T (j +
+    1) // s - 1 of the T = ceil(nk / 64) tiles (empty where s > T)."""
+    tiles = -(-nk // KEY_TILE)
+    return [(min(nk, KEY_TILE * (tiles * j // splits)),
+             min(nk, KEY_TILE * (tiles * (j + 1) // splits))) for j in range(splits)]
+
+
+def attention_split_model(q, k, v, mask_q, mask_k, num_heads, cos=None, sin=None, splits=1):
+    """K53 (a)'s arithmetic on the CPU: q / 8 and k (rotated in float32 when
+    cos and sin are given) and p and v multiplied in 3xTF32; each split's
+    partial (o, m, l) from its keys (masked ones at -1e9, an empty split m =
+    -inf, l = 0), merged by log-sum-exp, 0 for a masked query."""
+    q, k, v = (_heads(t.to(torch.float32), num_heads) for t in (q, k, v))
+    if cos is not None:
+        q, k = apply_rotary(q, cos.float(), sin.float()), apply_rotary(k, cos.float(), sin.float())
+    q = q * 0.125
+    parts = []
+    for lo, hi in split_ranges(k.shape[1], splits):
+        logits = torch.where(mask_k[lo:hi], _mm3(q, k[:, lo:hi].transpose(1, 2)),
+                             torch.tensor(MASKED))
+        if hi > lo:
+            m = logits.amax(-1, keepdim=True)
+        else:
+            m = torch.full(q.shape[:2] + (1,), -torch.inf)
+        p = torch.exp(logits - m)
+        parts.append((_mm3(p, v[:, lo:hi]), m, p.sum(-1, keepdim=True)))
+    M = torch.stack([m for _, m, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for _, m, _ in parts]
+    L = sum(wj * l for wj, (_, _, l) in zip(w, parts))
+    o = sum(wj * oj for wj, (oj, _, _) in zip(w, parts))
+    return _unheads(o / L * mask_q[None, :, None])
+
+
 def _rows(name, x, n, dev):
     if x.device != dev or x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
         raise ValueError(f"{name} must be a float32 ({n}, C) tensor on {dev}")
     if x.stride(1) != 1 or x.stride(0) % 4 or x.data_ptr() % 16:
         raise ValueError(f"{name} needs unit column stride and 16-byte aligned rows")
+
+
+@functools.cache
+def _plan(device_index, num_heads, nq, nk):
+    info = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        err = _lib().lightglue_attention_plan(num_heads, nq, nk, info)
+    if err != 0:
+        raise RuntimeError(f"lightglue_attention_plan failed: CUDA error {err}")
+    return dict(zip(("splits", "blocks_per_sm", "sms", "registers", "local_bytes",
+                     "shared_bytes", "threads"), info))
+
+
+def attention_plan(num_heads, nq, nk):
+    """K53 (a)'s design for a call on the current card: the split count,
+    the tile kernel's blocks an SM holds, the SMs, its registers and spilled
+    bytes a thread, dynamic shared bytes and threads a block, and the
+    grid."""
+    p = dict(_plan(torch.cuda.current_device(), num_heads, nq, nk))
+    p["grid"] = (-(-nq // 64), num_heads, p["splits"])
+    return p
 
 
 def attention(q, k, v, mask_q, mask_k, num_heads, cos=None, sin=None):
@@ -150,10 +231,15 @@ def attention(q, k, v, mask_q, mask_k, num_heads, cos=None, sin=None):
         S._check("sin", sin, torch.float32, (nq, HEAD_DIM // 2), dev)
     out = torch.empty((nq, width), dtype=torch.float32, device=dev)
     if nq and nk:
-        rot = (S._ptr(cos), S._ptr(sin)) if cos is not None else (None, None)
-        _launch("lightglue_attention_f32", num_heads, nq, nk, S._ptr(q), q.stride(0), S._ptr(k),
-                k.stride(0), S._ptr(v), v.stride(0), S._ptr(mask_q), S._ptr(mask_k), *rot,
-                S._ptr(out), width, S._stream(dev))
+        splits = _plan(dev.index, num_heads, nq, nk)["splits"]
+        f32 = dict(dtype=torch.float32, device=dev)
+        rot = torch.empty((2, nq, width), **f32) if cos is not None else None
+        part = torch.empty((splits, num_heads, nq, PART_ROW), **f32) if splits > 1 else None
+        opt = lambda x: None if x is None else S._ptr(x)  # noqa: E731
+        _launch("lightglue_attention_f32", num_heads, nq, nk, splits, S._ptr(q), q.stride(0),
+                S._ptr(k), k.stride(0), S._ptr(v), v.stride(0), S._ptr(mask_q),
+                S._ptr(mask_k), *map(opt, (cos, sin, rot, part)), S._ptr(out), width,
+                S._stream(dev))
     elif nq:
         out.zero_()
     return out

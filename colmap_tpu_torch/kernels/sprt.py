@@ -10,8 +10,10 @@ launches.
 The plain version is colmap_tpu's masked cumulative sum: each valid row
 adds log_in (an inlier) or log_out (an outlier) to the log likelihood ratio,
 in float64, and a hypothesis is rejected at the first row where the running
-sum exceeds log A. The kernel walks the rows in order, 32 at a time, and
-stops there.
+sum exceeds log A. The kernel gives each hypothesis a block, which walks its
+rows in tiles of 2048 and evaluates the ratio from exact integer counts,
+n_in log_in + n_out log_out (``sprt_count_model`` is that evaluation on the
+CPU), and stops at the first tile that holds a rejection.
 """
 
 from __future__ import annotations
@@ -50,8 +52,23 @@ def sprt_plain(res, mask, max_sq, log_A, log_in, log_out):
     return ~any_reject, torch.where(any_reject, first, n).to(torch.int32)
 
 
+def sprt_count_model(res, mask, max_sq, log_A, log_in, log_out):
+    """The kernel's evaluation on the CPU: the ratio after row i is n_in(i)
+    log_in + n_out(i) log_out from the exact int64 counts of inliers and
+    outliers up to row i, tested at every row. Returns (accepted (M,) bool,
+    num_evaluated (M,) int32); it differs from sprt_plain only where a
+    running sum lies within about N ulps of log_A."""
+    inl = (res.double() <= max_sq) & mask[None]
+    n_in = torch.cumsum(inl.long(), dim=-1)
+    n_out = torch.cumsum((mask[None] & ~inl).long(), dim=-1)
+    rejected_at = n_in.double() * log_in + n_out.double() * log_out > log_A
+    any_reject = rejected_at.any(-1)
+    first = torch.argmax(rejected_at.to(torch.uint8), dim=-1) + 1
+    return ~any_reject, torch.where(any_reject, first, res.shape[-1]).to(torch.int32)
+
+
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SIGNATURES = {"sprt_f32": [_I, _I, _D, _D, _D, _D] + [_P] * 4 + [_P]}
+_SIGNATURES = {"sprt_f32": [_I, _I, _D, _D, _D, _D] + [_P] * 4 + [_P], "sprt_plan": [_P]}
 
 
 @functools.cache
@@ -72,10 +89,18 @@ def _call(fn_name, *args):
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err}")
 
 
+def plan():
+    """K47's design on the current card: threads a block, rows a tile,
+    registers and spilled bytes a thread, static shared bytes a block."""
+    info = (ctypes.c_int * 5)()
+    _call("sprt_plan", info)
+    return dict(zip(("threads", "tile_rows", "registers", "local_bytes", "shared_bytes"), info))
+
+
 def sprt(res, mask, max_sq, log_A, log_in, log_out):
-    """K47: one warp per hypothesis of res (M, N) float32 (mask (N,) bool)
-    walks its rows in order in float64 and stops at the first row whose
-    running log ratio exceeds log_A. Returns (accepted (M,) bool,
+    """K47: one block per hypothesis of res (M, N) float32 (mask (N,) bool)
+    walks its rows in tiles, counting inliers and outliers, and stops at the
+    first row whose log ratio exceeds log_A. Returns (accepted (M,) bool,
     num_evaluated (M,) int32)."""
     if res.device.type == "cpu":
         return sprt_plain(res, mask, max_sq, log_A, log_in, log_out)

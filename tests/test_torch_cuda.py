@@ -2181,6 +2181,48 @@ def test_sprt_kernel_matches_plain_on_cuda():
     assert torch.equal(num.cpu()[clear], num_p[clear])
 
 
+@pytest.mark.parametrize("n, fields, masked", [
+    (8197, {}, False), (1, {}, False), (2047, {}, False),
+    (8197, dict(delta=0.3, epsilon=0.1), False), (2047, dict(delta=0.3, epsilon=0.1), False),
+    (8197, {}, True)], ids=["8197", "1", "2047", "8197-delta-above-epsilon",
+                            "2047-delta-above-epsilon", "8197-all-masked"])
+def test_sprt_block_kernel_cases_on_cuda(n, fields, masked):
+    """K47's tiles against the float64 plain version on 96 hypotheses (odd
+    N: rows start at every 4-byte offset of a 16-byte line): a row count
+    not a multiple of the 2048-row tile, one row, delta > epsilon (inliers
+    raise the ratio), every row masked; accepted and num_evaluated equal
+    wherever no running sum lies within 1e-9 of log A; one launch."""
+    _need_card()
+    import math
+
+    from colmap_tpu_torch.kernels import sprt as KP
+    from colmap_tpu_torch.optim.sprt import SPRTOptions, decision_threshold
+
+    rng = np.random.default_rng(n)
+    M = 96
+    share = rng.uniform(0.0, 0.6, (M, 1))
+    res = np.where(rng.random((M, n)) < share, rng.uniform(0, 0.9, (M, n)),
+                   rng.uniform(1.1, 9.0, (M, n))).astype(np.float32)
+    mask = np.zeros(n, bool) if masked else rng.random(n) < 0.95
+    o = SPRTOptions(**fields)
+    args = (1.0, math.log(decision_threshold(o)), math.log(o.delta / o.epsilon),
+            math.log((1 - o.delta) / (1 - o.epsilon)))
+    KP.reset_launches()
+    acc, num = KP.sprt(torch.from_numpy(res).cuda(), torch.from_numpy(mask).cuda(), *args)
+    assert KP.LAUNCHES["sprt"] == 1
+    acc_p, num_p = KP.sprt_plain(torch.from_numpy(res).double(), torch.from_numpy(mask), *args)
+    cum = torch.cumsum(KP.sprt_steps(torch.from_numpy(res), torch.from_numpy(mask), 1.0,
+                                     args[2], args[3]), -1)
+    clear = ((cum - args[1]).abs() > 1e-9).all(-1)
+    assert bool(clear.float().mean() > 0.95)
+    assert torch.equal(acc.cpu()[clear], acc_p[clear])
+    assert torch.equal(num.cpu()[clear], num_p[clear])
+    if masked or n == 1:
+        assert bool(acc.all()) and bool((num == n).all())
+    elif fields:
+        assert 0 < int(acc_p.sum()) < M
+
+
 def test_affine_shapes_and_frames_match_plain_on_cuda():
     """K45 against the float64 plain version on octave 0's keypoints of a
     rendered view: shapes within 1e-3 except where the float64 iteration's
@@ -2454,6 +2496,63 @@ def test_lightglue_attention_matches_plain_on_cuda():
                                   kv[:, 256:].double(), mask, m2, heads)
         _close(out.cpu(), ref, 1e-5, "K53 (a) cross")
     assert KLG.LAUNCHES["lightglue_attention"] == 3
+
+
+ATTENTION_CARD_CASES = {
+    # (nq, nk, the rotation, the key mask, masked queries)
+    "self-2085-rotary": (2085, 2085, True, "random", False),
+    "cross-1x1500": (1, 1500, False, "random", False),
+    "cross-1500x1": (1500, 1, False, "all", False),
+    "all-keys-masked-split": (64, 1500, False, "none", False),
+    "masked-queries": (300, 300, True, "random", True),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CARD_CASES))
+def test_lightglue_attention_tensor_core_cases_on_cuda(case):
+    """K53 (a) (3xTF32 tiles, the rotation pre-pass, the split keys and
+    their merge) within 1e-5 of float64 plain, on q, k, v column blocks of
+    a (n, 768) product: self-attention with the rotation at 2085 (a ragged
+    last tile of queries and keys), one query against 1500 keys and 1500
+    queries against one key, every key masked where the plan splits the
+    keys (each row the mean of v), a fifth of the queries masked (rows of
+    0); one launch a call."""
+    _need_card()
+    from colmap_tpu_torch.feature.lightglue import rotary_encode
+    from colmap_tpu_torch.kernels import lightglue as KLG
+
+    nq, nk, rotary, keys, masked_q = ATTENTION_CARD_CASES[case]
+    heads = 4
+    g = torch.Generator().manual_seed(nq + nk)
+    a = torch.randn((nq, 768), generator=g)
+    b = a if rotary else torch.randn((nk, 768), generator=g)
+    mask_q = torch.ones(nq, dtype=torch.bool)
+    if masked_q:
+        mask_q[torch.randperm(nq, generator=g)[:nq // 5]] = False
+    mask_k = {"random": torch.rand(nk, generator=g) > 0.3,
+              "all": torch.ones(nk, dtype=torch.bool),
+              "none": torch.zeros(nk, dtype=torch.bool)}[keys]
+    cos = sin = None
+    if rotary:
+        cos, sin = rotary_encode(torch.rand((nq, 2), generator=g) * 2 - 1, 256, heads)
+    plan = KLG.attention_plan(heads, nq, nk)
+    if keys == "none":
+        assert plan["splits"] > 1
+    KLG.reset_launches()
+    ac, bc = a.cuda(), b.cuda()
+    out = KLG.attention(ac[:, :256], bc[:, 256:512], bc[:, 512:], mask_q.cuda(), mask_k.cuda(),
+                        heads, None if cos is None else cos.cuda(),
+                        None if sin is None else sin.cuda())
+    assert KLG.LAUNCHES["lightglue_attention"] == 1
+    ref = KLG.attention_plain(a[:, :256].double(), b[:, 256:512].double(), b[:, 512:].double(),
+                              mask_q, mask_k, heads, None if cos is None else cos.double(),
+                              None if sin is None else sin.double())
+    out = out.cpu()
+    _close(out, ref, 1e-5, f"K53 (a) {case}, {plan['splits']} splits")
+    assert not out[~mask_q].any()
+    if keys == "none":
+        _close(out[mask_q], b[:, 512:].double().mean(0).expand(int(mask_q.sum()), -1), 1e-5,
+               "K53 (a), every key masked")
 
 
 def test_lightglue_assignment_matches_plain_on_cuda():

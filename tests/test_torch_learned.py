@@ -330,6 +330,52 @@ def test_lightglue_identical_and_permuted_sets():
                                                 (256, 256), jp, JL.LightGlueOptions(**LG)))
 
 
+# K53 (a)'s arithmetic (attention_split_model: 3xTF32 operands, the
+# splits' partials and their log-sum-exp merge) against colmap_tpu's
+# _attention, with _apply_rotary for self-attention, in float64: (nq, nk,
+# the rotation, splits, the key mask, masked queries). 150 keys are 3 tiles
+# of 64, so 4 splits leave one empty.
+ATTENTION_CASES = {
+    "self_rotary_150": (150, 150, True, 2, "random", False),
+    "cross_77x150": (77, 150, False, 2, "random", False),
+    "all_keys_masked_s3": (77, 150, False, 3, "none", False),
+    "masked_query": (150, 150, True, 3, "random", True),
+    "s1": (150, 150, True, 1, "random", False),
+    "s4": (77, 150, False, 4, "random", True),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_split_model_matches_colmap_tpu(case):
+    """Within 1e-5 of the float64 output's largest entry; masked queries
+    give 0; with every key masked each row averages all of v."""
+    nq, nk, rotary, splits, keys, masked_q = ATTENTION_CASES[case]
+    rng = np.random.default_rng(nq + nk + splits)
+    q, k, v = (rng.normal(size=(n, 256)) for n in (nq, nk, nk))
+    mask_q = np.ones(nq, bool)
+    if masked_q:
+        mask_q[rng.choice(nq, 20, replace=False)] = False
+    mask_k = rng.random(nk) > 0.3 if keys == "random" else np.zeros(nk, bool)
+    jq, jk, jv = (JL._heads(jnp.asarray(x), 4) for x in (q, k, v))
+    cos = sin = None
+    if rotary:
+        jcos, jsin = JL._rotary_encode(jnp.asarray(rng.uniform(-1, 1, (nq, 2))), 256, 4)
+        jq, jk = JL._apply_rotary(jq, jcos, jsin), JL._apply_rotary(jk, jcos, jsin)
+        cos, sin = torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin))
+    ref = np.asarray(JL._unheads(JL._attention(jq, jk, jv, jnp.asarray(mask_q),
+                                               jnp.asarray(mask_k))))
+    f32 = lambda a: torch.from_numpy(a).float()  # noqa: E731
+    got = KLG.attention_split_model(f32(q), f32(k), f32(v), torch.from_numpy(mask_q),
+                                    torch.from_numpy(mask_k), 4, cos, sin, splits).numpy()
+    assert got.dtype == np.float32 and got.shape == (nq, 256)
+    assert _rel(got, ref) <= 1e-5
+    assert not got[~mask_q].any()
+    if keys == "none":
+        assert _rel(got[mask_q], np.broadcast_to(v.mean(0), (int(mask_q.sum()), 256))) <= 1e-5
+    if splits > 3:
+        assert (0, 0) in KLG.split_ranges(nk, splits)  # an empty split takes part
+
+
 def test_match_lightglue_raises_over_the_cap_as_colmap_tpu():
     opts = JL.LightGlueOptions(**LG)
     jp, npp = _lg_params(4, opts)

@@ -14,6 +14,7 @@ test states its tolerance.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -123,6 +124,44 @@ def test_sprt_evaluate_equals_the_reference(case):
     assert np.array_equal(num.numpy(), np.asarray(jnum)) and num.dtype == torch.int32
     if case == 2:
         assert 0 < int(acc.sum()) < len(acc)  # both outcomes occur
+
+
+def _sprt_count_cases():
+    """_sprt_cases, then delta > epsilon (log_in > 0 > log_out: inliers
+    raise the ratio), every row invalid, and N = 2051 (not a multiple of
+    the kernel's 2048-row tile)."""
+    rng = np.random.default_rng(1)
+    share = rng.uniform(0.0, 0.6, (64, 1))
+    res = np.where(rng.random((64, 2051)) < share, rng.uniform(0, 0.9, (64, 2051)),
+                   rng.uniform(1.1, 9, (64, 2051)))
+    return _sprt_cases() + [
+        (res[:, :300], rng.random(300) < 0.9, 1.0, dict(delta=0.3, epsilon=0.1)),
+        (res[:, :300], np.zeros(300, bool), 1.0, {}),
+        (res, rng.random(2051) < 0.95, 1.0, {}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_sprt_count_model_equals_the_reference(case):
+    """K47's evaluation from integer counts (sprt_count_model) against
+    sprt_evaluate: the same decisions and rows on every hypothesis whose
+    float64 running sum stays 1e-9 away from log A."""
+    res, mask, thr, fields = _sprt_count_cases()[case]
+    o = tsprt.SPRTOptions(**fields)
+    args = (thr, math.log(tsprt.decision_threshold(o)), math.log(o.delta / o.epsilon),
+            math.log((1 - o.delta) / (1 - o.epsilon)))
+    acc, num = KP.sprt_count_model(_T(res, torch.float32), torch.from_numpy(mask), *args)
+    jacc, jnum = jsprt.sprt_evaluate(jnp.asarray(res.astype(np.float32)), jnp.asarray(mask),
+                                     thr, jsprt.SPRTOptions(**fields))
+    step = np.where(mask, np.where(res.astype(np.float32) <= thr, args[2], args[3]), 0.0)
+    clear = (np.abs(np.cumsum(step, -1) - args[1]) > 1e-9).all(-1)
+    assert clear.mean() > 0.95 and num.dtype == torch.int32
+    assert np.array_equal(acc.numpy()[clear], np.asarray(jacc)[clear])
+    assert np.array_equal(num.numpy()[clear], np.asarray(jnum)[clear])
+    if case == 3:
+        assert args[2] > 0 > args[3] and 0 < int(acc.sum()) < len(acc)
+    if case == 4:
+        assert acc.all() and (num == res.shape[1]).all()
 
 
 # ---------------------------------------------------------------------------
