@@ -132,7 +132,11 @@ Phases; any failure exits non-zero:
      neighbour structure (BASELINE.json config 3's scale): K28 with a flat
      1024-word vocabulary over all 2M rows, K28 and K29 over level 4 of a
      branching-8, depth-5 tree (4096 nodes x 8 children; K29 the same bits
-     in two runs), K30 through that tree; indices equal except at near-ties
+     in two runs), K30 through that tree (sorted passes at 2M rows, a warp a
+     row at one image's 2000 rows: the same leaves on those rows; the
+     CUDA launches a call of each, counted in a captured graph and under
+     the profiler; both regimes timed from 2000 rows to 2M); indices equal
+     except at near-ties
      marked from float64, each chosen centroid within 1e-5 of the nearest's
      float64 distance; K31 (S = W Wᵀ of rank_images_bow) on the W of that
      tree's words, 1000 x 32 768, within 1e-5, exactly symmetric, the same
@@ -149,7 +153,7 @@ Phases; any failure exits non-zero:
      rendered frames (phase 13's scene) through
      `feature_extractor`, `vocab_tree_builder` (flat, then depth 3),
      `vocab_tree_matcher --num_images 5` and `mapper`, held to the images ->
-     model gates;
+     model gates; the driven commands' K30 calls and rows by regime;
  22. camera kernels (phase `camera_kernels`): K5 in its three modes
      (project, the z = 1 lift, unit rays) for camera models 5-17 on one
      image's points and over a 185-degree lens's whole image, K1 for each
@@ -3128,6 +3132,7 @@ def _poisson_depth(KM, x, n, w, depth, errs, failed):
                    torch.view_as_real(KM.spectral_divide_plain(spec, 1.0)))
     log(f"    K43: max_abs_err {a:.3e} rel {r:.3e} (tol {K43_RTOL:g}), same bits twice: {same}")
     record("poisson_spectral", "K43", same and r <= K43_RTOL, a, r)
+    out["poisson_spectral"]["bits"] = _k43_bits(KM, spec, got, depth)
     chi = torch.fft.irfftn(got, s=(N, N, N))
     # K44 (a) against the float64 plain gather, (b) equal to chi - iso.
     iso, same = _twice_equal(lambda: KM.iso_level(chi, x, w))
@@ -3182,6 +3187,29 @@ def _poisson_depth(KM, x, n, w, depth, errs, failed):
     del grid, blurred, div, spec, got, chi, shifted, work, shift_buf, vals, cidx, kidx, lam, g5
     torch.cuda.empty_cache()
     return out
+
+
+def _k43_bits(KM, spec, got, depth):
+    """Whether K43's output on this spectrum has the bits of its tables'
+    model divided on the card (laplacian_axis_terms with torch's cos and
+    divide), and the SHA-256 (16 hex digits) of its output on a seeded
+    spectrum, rfftn(randn(N^3)) from torch.Generator seed `depth`, which
+    tools/ab_cases.py's spectral case digests the same way for two trees."""
+    import hashlib
+
+    N = 1 << depth
+    e_ij, e_k = KM.laplacian_axis_terms(N, "cuda")
+    den = ((e_ij[:, None, None] + e_ij[None, :, None]) + e_k[None, None, :]) - np.float32(1e-4)
+    model = torch.equal(torch.view_as_real(torch.complex(spec.real / den, spec.imag / den)),
+                        torch.view_as_real(got))
+    seeded = torch.fft.rfftn(torch.randn(N, N, N, generator=torch.Generator().manual_seed(
+        depth)).cuda())
+    digest = hashlib.sha256(torch.view_as_real(KM.spectral_divide_(seeded, 1.0)).contiguous()
+                            .cpu().numpy().tobytes()).hexdigest()[:16]
+    log(f"    K43: the bits of its tables' model on the card: {model}; on the seeded spectrum "
+        f"sha256 {digest}")
+    del den, seeded
+    return {"model_same_bits": model, "seeded_sha256": digest}
 
 
 def phase_mesh_kernels():
@@ -4484,6 +4512,72 @@ def gram_work(W):
     return nbytes(W) + 4 * W.shape[0] ** 2, float((c * (c + 1)).sum())
 
 
+def descend_work(x, leaves, B, L):
+    """(bytes, f32 operations) K30 needs on these rows: each row read once,
+    its leaf written once, and each child row the call touches read once
+    (the B children of every node a row passes through, from the leaves);
+    RET_DIST_OPS a (row, child, dim)."""
+    N, D = x.shape
+    leaves = leaves.long()
+    nodes = sum(int(torch.unique(leaves // B ** (L - lv)).numel()) for lv in range(L))
+    return nbytes(x) + 4 * N + nodes * B * D * 4, RET_DIST_OPS * N * B * L * D
+
+
+def graph_launches(fn):
+    """(CUDA launches, {kind: count}) of one call of fn: the kernel, memset
+    and copy nodes of a CUDA graph captured from that call, counted by the
+    driver (cuGraphGetNodes); (None, reason) where the capture or the count
+    fails."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            fn()
+        cu = ctypes.CDLL("libcuda.so.1")
+        graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        kinds = {}
+        for node in nodes:
+            t = ctypes.c_int(-1)
+            if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+                raise RuntimeError("cuGraphNodeGetType failed")
+            kind = {0: "kernel", 1: "memcpy", 2: "memset", 5: "empty"}.get(t.value, t.value)
+            kinds[kind] = kinds.get(kind, 0) + 1
+        del g
+    except Exception as e:  # a measurement, not a check: reported as not measured
+        return None, f"not measured: {e!r}"
+    return sum(v for k, v in kinds.items() if k != "empty"), kinds
+
+
+def _descend_regimes(KT, x, flat, B, L):
+    """K30's two regimes (``_descend_run``) timed on the first n rows of x
+    for n around DESCEND_SORTED_MIN_ROWS and at all of them, their leaves
+    the same bits at each n: where they cross places the threshold."""
+    D = x.shape[1]
+    plans = {"direct": KT.DescendPlan("direct", ((0, L),), 0, 1),
+             "sorted": KT._descend_plan(KT.DESCEND_SORTED_MIN_ROWS, B, L, D)}
+    times = {}
+    for n in (RET_PER_IMAGE, 65536, 131072, 196608, 262144, x.shape[0]):
+        part = x[:n]
+        a, b = (KT._descend_run(part, flat, B, L, p) for p in plans.values())
+        if not torch.equal(a, b):
+            raise AssertionError(f"retrieval_descend: the regimes' leaves differ at {n} rows")
+        times[n] = [time_ms(lambda p=p: KT._descend_run(part, flat, B, L, p), reps=20)
+                    for p in plans.values()]
+    faster = [n for n, (d, s) in times.items() if s < d]
+    log("  retrieval_descend, direct / sorted ms by rows (the same leaves at each): " + "; ".join(
+        f"{n} {d:.4f} / {s:.4f}" for n, (d, s) in times.items())
+        + f"; sorted faster from {min(faster) if faster else 'none of them'} "
+        f"(DESCEND_SORTED_MIN_ROWS {KT.DESCEND_SORTED_MIN_ROWS})")
+
+
 def _nonzero(W):
     c = (W != 0).sum(0).double()
     return (f"{float((W != 0).double().mean()):.4f} of it nonzero, "
@@ -4604,10 +4698,39 @@ def phase_retrieval_kernels():
         lambda: KT.update(x, seg, cents), lambda: KT.update_plain(x, seg, cents),
         nbytes(x, seg, cents, new, counts), RET_SUM_OPS * N * D, library=library_update,
         plain_reps=1)
+    # K30 at the corpus's 2M rows (rank_images_bow, the sorted regime) and at
+    # one image's rows (VisualIndex.add and query, the direct regime): the
+    # same bits on image 0's rows; the CUDA launches of a call, counted from
+    # a captured graph and from the profiler (the plan's figure beside them).
+    leaves = KT.descend(x, flat, B, L)
+    one = x[:RET_PER_IMAGE]
+    one_leaves = KT.descend(one, flat, B, L)
+    if not torch.equal(one_leaves, leaves[:RET_PER_IMAGE]):
+        raise AssertionError("retrieval_descend: one image's leaves differ from the corpus call's")
+    log(f"  retrieval_descend: image 0's {RET_PER_IMAGE} rows get the corpus call's leaves")
+    per_call = {}
+    for rows_in in (x, one):
+        n = rows_in.shape[0]
+        plan = KT._descend_plan(n, B, L, D)
+        label = f"{n} rows, {plan.regime}"
+        got, kinds = graph_launches(lambda: KT.descend(rows_in, flat, B, L))
+        split = log_parts(f"retrieval_descend, {label}", lambda: KT.descend(rows_in, flat, B, L))
+        log(f"  retrieval_descend, {label}: passes {list(plan.passes)}, {plan.smem_bytes} shared "
+            f"bytes a block; CUDA launches a call {got} in a captured graph ({kinds}), "
+            f"{sum(c for _, c in split.values()):g} under the profiler, {plan.launches} by the plan")
+        per_call[label] = got
     rows["retrieval_descend"] = _global_row(
-        f"retrieval_descend, {N} rows through {B}^{L}", lambda: KT.descend(x, flat, B, L),
-        lambda: KT.descend_plain(x, flat, B, L), nbytes(x, flat) + 4 * N,
-        RET_DIST_OPS * N * B * L * D, plain_reps=1)
+        f"retrieval_descend, {N} rows through {B}^{L} ({KT._descend_plan(N, B, L, D).regime})",
+        lambda: KT.descend(x, flat, B, L), lambda: KT.descend_plain(x, flat, B, L),
+        *descend_work(x, leaves, B, L), plain_reps=1)
+    entry = _global_row(
+        f"retrieval_descend, one image's {RET_PER_IMAGE} rows "
+        f"({KT._descend_plan(RET_PER_IMAGE, B, L, D).regime})",
+        lambda: KT.descend(one, flat, B, L), lambda: KT.descend_plain(one, flat, B, L),
+        *descend_work(one, one_leaves, B, L), plain_reps=3)
+    rows["retrieval_descend"]["entries"] = {f"one image, {RET_PER_IMAGE} rows": entry}
+    rows["retrieval_descend"]["extra"] = {"launches_a_call": per_call}
+    _descend_regimes(KT, x, flat, B, L)
     b, ops = gram_work(W)
     rows["retrieval_gram"] = _global_row(
         f"retrieval_gram, W {RET_IMAGES} x {tree.num_words} ({_nonzero(W)})",
@@ -4706,6 +4829,15 @@ def phase_retrieval(launches, errs, rows):
     results = {}
     corpus = _retrieval_corpus()
     truth = TC.true_neighbors(RET_IMAGES, 10)
+    by_regime = {"direct": [0, 0], "sorted": [0, 0]}  # K30 on the driven paths: calls, rows
+
+    def k30_tally():
+        """Adds the K30 calls and rows of the command just driven (each
+        starts with every count at 0) to by_regime."""
+        for r, tally in by_regime.items():
+            tally[0] += KT.DESCEND_CALLS[r]
+            tally[1] += KT.DESCEND_ROWS[r]
+
     with tempfile.TemporaryDirectory() as tmp:
         db_path, tree = os.path.join(tmp, "corpus.db"), os.path.join(tmp, "tree.npz")
         t0 = time.perf_counter()
@@ -4716,10 +4848,12 @@ def phase_retrieval(launches, errs, rows):
             ["vocab_tree_builder", "--database_path", db_path, "--vocab_tree_path", tree,
              "--depth", str(RET_DEPTH), "--branching", str(RET_BRANCHING)],
             "vocab_tree_builder, corpus", RETRIEVAL_BUILD_KERNELS, launches)
+        k30_tally()
         ranked, seconds["vocab_tree_retriever"], idles["vocab_tree_retriever"] = _profiled_command(
             ["vocab_tree_retriever", "--database_path", db_path, "--vocab_tree_path", tree,
              "--num_images", "10"], "vocab_tree_retriever, corpus", RETRIEVAL_QUERY_KERNELS,
             launches)
+        k30_tally()
         rec = TC.recall({i - 1: [r.image_id - 1 for r in res] for i, res in ranked.items()}, truth)
         pairs = []
         real = FP.run_matches_import
@@ -4730,6 +4864,7 @@ def phase_retrieval(launches, errs, rows):
                                    "--vocab_tree_path", tree, "--num_images", "10"],
                                   "vocab_tree_matcher up to its pair list, corpus",
                                   RETRIEVAL_QUERY_KERNELS, launches))
+            k30_tally()
         finally:
             FP.run_matches_import = real
         near_pairs = sum(abs(a - b) <= 5 for a, b in pairs)
@@ -4749,6 +4884,7 @@ def phase_retrieval(launches, errs, rows):
         counts = all_launch_counts()
         for k, v in counts.items():
             launches[k] += v
+        k30_tally()
         if not (counts["retrieval_assign"] and counts["retrieval_update"]
                 and counts["retrieval_gram"]):
             raise AssertionError("vocab_tree_pairs: launched no K28, K29 or K31")
@@ -4812,6 +4948,7 @@ def phase_retrieval(launches, errs, rows):
                                                     f"{cmd}, images -> model", kernels)
             for name, v in counts.items():
                 launches[name] += v
+            k30_tally()
         from colmap_tpu_torch.estimators.alignment import compare_reconstructions
         from colmap_tpu_torch.scene.database import Database
         from colmap_tpu_torch.scene.reconstruction_io import read_model
@@ -4834,6 +4971,11 @@ def phase_retrieval(launches, errs, rows):
                                  f"{ctr}, {matched} pairs")
         results["images_to_model"] = dict(seconds=seconds, frames=n, max_rot_deg=rot,
                                           max_center=ctr, pairs=matched)
+    log("  K30 on the driven paths by regime: " + "; ".join(
+        f"{r} {c} calls, {n} rows ({n / max(c, 1):.0f} a call)" for r, (c, n) in by_regime.items()))
+    if "retrieval_descend" in rows:  # the retrieval_kernels phase ran
+        rows["retrieval_descend"].setdefault("extra", {})["path_calls_by_regime"] = {
+            r: c for r, (c, _) in by_regime.items()}
     return results
 
 

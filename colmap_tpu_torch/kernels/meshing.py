@@ -118,6 +118,19 @@ def laplacian_eigenvalues(N, device="cpu"):
     return lk[:, None, None] + lk[None, :, None] + lr[None, None, :]
 
 
+def laplacian_axis_terms(N, device="cpu"):
+    """K43's two tables, in the kernel's arithmetic: e(f) = 2 cos(2 pi f) - 2
+    in float32 at the fftfreq bins of axes i and j ((N,)) and the rfftfreq
+    bins of axis k ((N/2 + 1,)), each f = i / N taken in float64 and rounded
+    to float32. laplacian_eigenvalues(N) is (e_ij[:, None, None] +
+    e_ij[None, :, None]) + e_k[None, None, :]."""
+    i = np.arange(N)
+    f_ij = torch.from_numpy((np.where(i < (N + 1) // 2, i, i - N) / N).astype(np.float32))
+    f_k = torch.from_numpy((np.arange(N // 2 + 1) / N).astype(np.float32))
+    pi = np.float32(np.pi)
+    return tuple((2.0 * torch.cos(f.to(device) * 2.0 * pi) - 2.0) for f in (f_ij, f_k))
+
+
 def spectral_divide_plain(spec, point_weight):
     """K43: spec / (lambda - point_weight 1e-4), real and imaginary parts
     divided by the float32 denominator (a new tensor)."""
@@ -281,14 +294,16 @@ def _dense(x):
 
 def spectral_divide_(spec, point_weight):
     """K43: the (N, N, N/2 + 1) complex64 spectrum divided in place by
-    lambda - point_weight 1e-4; one thread a bin, in the spectrum's storage
-    order (cuFFT's rfftn output is dense but not C-ordered). Returns spec
-    (on the CPU a new tensor)."""
+    lambda - point_weight 1e-4, from per-axis tables of the eigenvalue's
+    terms (laplacian_axis_terms), a warp a row of the spectrum's fastest
+    storage axis and two bins a lane (cuFFT's rfftn output is dense but not
+    C-ordered). Returns spec (on the CPU a new tensor)."""
     if spec.device.type == "cpu":
         return spectral_divide_plain(spec, point_weight)
     dev = S._require_cuda(spec)
     N = spec.shape[0]
-    _check_grid_n(N)
+    if not 1 <= N <= MAX_GRID:  # any N: the kernel takes odd rows too
+        raise ValueError(f"K43 takes a grid of 1 to {MAX_GRID}, got {N}")
     if spec.dtype != torch.complex64 or tuple(spec.shape) != (N, N, N // 2 + 1):
         raise ValueError(f"spec must be complex64 of shape {(N, N, N // 2 + 1)}, got "
                          f"{spec.dtype} {tuple(spec.shape)}")

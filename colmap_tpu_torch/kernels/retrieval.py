@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,6 +38,9 @@ from colmap_tpu_torch.kernels import sfm as S
 
 LAUNCHES = {"retrieval_assign": 0, "retrieval_update": 0, "retrieval_descend": 0,
             "retrieval_gram": 0}
+# K30's calls and rows by regime (``_descend_plan``), counted beside LAUNCHES.
+DESCEND_CALLS = {"direct": 0, "sorted": 0}
+DESCEND_ROWS = {"direct": 0, "sorted": 0}
 
 f32, f64, i32 = torch.float32, torch.float64, torch.int32
 
@@ -49,9 +52,65 @@ _PLAIN_BLOCK = 1 << 25
 GRAM_BITS = 61
 
 
+# K30's regimes (retrieval_descend.cu). From DESCEND_SORTED_MIN_ROWS rows on
+# the levels are descended in sorted passes, below it a warp a row reads the
+# children from L2. chip_smoke.py's retrieval_kernels phase times both
+# (``_descend_run``) at row counts around this threshold; on an H100
+# through 8^5 they cross between 131 072 and 196 608 rows (PERF.md, row 15c).
+# A pass stages its node's subtree in at most DESCEND_SMEM_BUDGET bytes of
+# shared memory (a third of an H100 SM's 233 472, less 1 KB a block the
+# card keeps, so that three blocks share an SM) and buckets rows into at
+# most DESCEND_MAX_GROUPS nodes; trees beyond either descend directly.
+DESCEND_SORTED_MIN_ROWS = 150000
+DESCEND_SMEM_BUDGET = 75776
+DESCEND_MAX_GROUPS = 1 << 20
+
+
+class DescendPlan(NamedTuple):
+    regime: str  # "direct", "sorted", or "none" (no rows or no levels: no launch)
+    passes: tuple  # (first level, stop level) of each pass
+    smem_bytes: int  # shared memory of a sorted pass's block (its first, largest pass)
+    launches: int  # CUDA launches a call makes, a memset counted as one
+
+
+def _pass_smem(branching: int, k: int, dim: int) -> int:
+    """Shared bytes of a sorted pass of k levels (retrieval_descend.cu
+    pass_smem): the subtree's B + ... + B^k rows, 16 bytes of padding after
+    each node's B rows, then B^k node counts."""
+    nodes = [branching ** m for m in range(k)]
+    return sum(n * (branching * dim * 4 + 16) for n in nodes) + branching ** k * 4
+
+
+def _descend_plan(n: int, branching: int, depth: int, dim: int) -> DescendPlan:
+    """K30's regime for n rows of dim through a tree of branching^depth
+    leaves, from the shapes alone: "sorted" from DESCEND_SORTED_MIN_ROWS
+    rows on, in passes of the most levels whose subtree fits
+    DESCEND_SMEM_BUDGET; "direct" below, or where no pass fits or a pass
+    would bucket more than DESCEND_MAX_GROUPS nodes. Sorted passes after
+    the first bucket the rows by node: a scan and a scatter each, and one
+    memset of the counts for all of them."""
+    if n == 0 or depth == 0:
+        return DescendPlan("none", (), 0, 0)
+    direct = DescendPlan("direct", ((0, depth),), 0, 1)
+    if n < DESCEND_SORTED_MIN_ROWS or _pass_smem(branching, 1, dim) > DESCEND_SMEM_BUDGET:
+        return direct
+    k = 1
+    while k < depth and _pass_smem(branching, k + 1, dim) <= DESCEND_SMEM_BUDGET:
+        k += 1
+    passes = tuple((l0, min(depth, l0 + k)) for l0 in range(0, depth, k))
+    if any(branching ** l0 > DESCEND_MAX_GROUPS for l0, _ in passes):
+        return direct
+    later = len(passes) - 1
+    return DescendPlan("sorted", passes, _pass_smem(branching, k, dim),
+                       1 + 3 * later + (1 if later else 0))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in (DESCEND_CALLS, DESCEND_ROWS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _best_two(d2):
@@ -221,7 +280,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "retrieval_assign_f32": [_I, _I, _I] + [_P] * 5,
     "retrieval_update_f32": [_I, _I] + [_P] * 7,
-    "retrieval_descend_f32": [_I, _I, _I, _I] + [_P] * 4,
+    "retrieval_descend_f32": [_I] * 5 + [_P] * 5,
     "retrieval_gram_f32": [_I, _I] + [_P] * 4,
 }
 
@@ -237,6 +296,8 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.retrieval_gram_workspace_bytes.argtypes = [_I, _I]
     lib.retrieval_gram_workspace_bytes.restype = ctypes.c_longlong
+    lib.retrieval_descend_workspace_bytes.argtypes = [_I] * 4
+    lib.retrieval_descend_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -298,18 +359,36 @@ def update(x, segments, cents):
 
 def descend(x, levels, branching: int, depth: int):
     """K30: leaf ids (int32) of the rows of x by descent through ``levels``
-    ((Σ_l B^(l+1), D), the tree's levels concatenated)."""
+    ((Σ_l B^(l+1), D), the tree's levels concatenated), in the regime
+    ``_descend_plan`` chooses from the shapes."""
     if x.device.type == "cpu":
         return descend_plain(x, levels, branching, depth)
+    _, D = _rows(x)
+    return _descend_run(x, levels, branching, depth, _descend_plan(x.shape[0], branching, depth, D))
+
+
+def _descend_run(x, levels, branching: int, depth: int, plan: DescendPlan):
+    """K30's launch on the card in the regime of ``plan``: descend's own
+    plan, or (to time the regimes against each other) the other one."""
     dev, D = _rows(x)
     rows = sum(branching ** (level + 1) for level in range(depth))
     S._check("levels", levels, f32, (rows, D), dev)
     if branching ** depth >= 2 ** 31:
         raise ValueError(f"{branching}^{depth} leaves do not fit int32 ids")
-    out = torch.empty(x.shape[0], dtype=i32, device=dev)
-    _call("retrieval_descend_f32", x.shape[0], D, branching, depth, S._ptr(x), S._ptr(levels),
-          S._ptr(out), S._stream(dev))
+    if x.data_ptr() % 16 or levels.data_ptr() % 16:
+        raise ValueError("K30 reads rows as float4: x and levels must be 16-byte aligned")
+    N = x.shape[0]
+    if plan.regime == "none":
+        return torch.zeros(N, dtype=i32, device=dev)
+    k = plan.passes[0][1] - plan.passes[0][0] if plan.regime == "sorted" else 0
+    out = torch.empty(N, dtype=i32, device=dev)
+    ws = torch.empty(_lib().retrieval_descend_workspace_bytes(N, branching, depth, k),
+                     dtype=torch.uint8, device=dev)
+    _call("retrieval_descend_f32", N, D, branching, depth, k, S._ptr(x), S._ptr(levels),
+          S._ptr(out), S._ptr(ws), S._stream(dev))
     LAUNCHES["retrieval_descend"] += 1
+    DESCEND_CALLS[plan.regime] += 1
+    DESCEND_ROWS[plan.regime] += N
     return out
 
 

@@ -1259,9 +1259,36 @@ def test_retrieval_level_step_matches_plain_on_cuda():
     assert KT.LAUNCHES["retrieval_assign"] == 1 and KT.LAUNCHES["retrieval_update"] == 2
 
 
+def _descend_both(KT, TC, xt, flat, B, L, label):
+    """K30 in both regimes against descend64 on at least
+    DESCEND_SORTED_MIN_ROWS rows: all of them in one call (sorted passes)
+    and in calls of fewer rows (a warp a row), each twice; equal but at
+    near-ties, the choices within NEAR_TIE of the nearest, and the two
+    regimes' leaves the same bits (their arithmetic is one). Returns the
+    leaves and float64's (numpy) and the number of calls made."""
+    n, D = xt.shape
+    chunks = xt.split(KT.DESCEND_SORTED_MIN_ROWS - 1)
+    assert KT._descend_plan(n, B, L, D).regime == "sorted"
+    assert all(KT._descend_plan(len(c), B, L, D).regime == "direct" for c in chunks)
+    want, near = (t.cpu().numpy() for t in KT.descend64(xt, flat, B, L))
+    runs = {"sorted": lambda: KT.descend(xt, flat, B, L),
+            "direct": lambda: torch.cat([KT.descend(c, flat, B, L) for c in chunks])}
+    out = {}
+    for regime, run in runs.items():
+        got = run()
+        assert torch.equal(got, run()), f"K30 {label}, {regime}: two runs differ"
+        TC.agree(got.cpu().numpy(), want, near, f"K30 {label}, {regime}")
+        assert float(KT.descend_excess64(xt, flat, B, L, got)[1].max()) <= KT.NEAR_TIE
+        out[regime] = got
+    assert torch.equal(out["direct"], out["sorted"]), f"K30 {label}: the regimes differ"
+    return out["sorted"].cpu().numpy(), want, 2 * (1 + len(chunks))
+
+
 def test_retrieval_descend_matches_plain_on_cuda():
     """K30 on a branching-8, depth-5 tree (32 768 leaves) with 40 planted
-    exact ties, on 20 000 rows beside its leaves and the planted rows."""
+    exact ties, on DESCEND_SORTED_MIN_ROWS rows beside its leaves and the
+    planted rows, in both regimes (sorted passes over all rows, a warp a
+    row in calls of fewer), which give the same bits."""
     _need_card()
     from colmap_tpu_torch.kernels import retrieval as KT
     from colmap_tpu_torch.kernels import retrieval_cases as TC
@@ -1269,22 +1296,64 @@ def test_retrieval_descend_matches_plain_on_cuda():
     rng = np.random.default_rng(13)
     levels = TC.random_tree(rng, 8, 5)
     tied, first, lvl, node = TC.plant_ties(rng, levels, 40)
-    x = np.concatenate([TC.near_leaves(rng, levels, 20000), tied])
+    n = KT.DESCEND_SORTED_MIN_ROWS
+    x = np.concatenate([TC.near_leaves(rng, levels, n), tied])
     flat = torch.cat([torch.as_tensor(lv, device="cuda").reshape(-1, 128) for lv in levels])
     xt = torch.as_tensor(x, device="cuda")
     KT.reset_launches()
-    got = KT.descend(xt, flat, 8, 5).cpu().numpy()
-    want, near = (t.cpu().numpy() for t in KT.descend64(xt, flat, 8, 5))
-    TC.agree(got, want, near, "K30")
-    got_t = torch.as_tensor(got, device="cuda")
-    assert float(KT.descend_excess64(xt, flat, 8, 5, got_t)[1].max()) <= KT.NEAR_TIE
-    assert (got[20000:] == want[20000:]).all()
-    at_node = want[20000:] // 8 ** (5 - lvl) == node
+    got, want, calls = _descend_both(KT, TC, xt, flat, 8, 5, "8^5")
+    assert (got[n:] == want[n:]).all()
+    at_node = want[n:] // 8 ** (5 - lvl) == node
     assert at_node.sum() >= 30
-    digit = want[20000:] // 8 ** (4 - lvl) % 8
+    digit = want[n:] // 8 ** (4 - lvl) % 8
     assert (digit[at_node] == first[at_node]).all()
     torch.cuda.synchronize()
-    assert KT.LAUNCHES["retrieval_descend"] == 1
+    assert KT.LAUNCHES["retrieval_descend"] == calls
+    assert KT.DESCEND_CALLS == {"direct": calls - 2, "sorted": 2}
+    assert KT.DESCEND_ROWS == {"direct": 2 * len(x), "sorted": 2 * len(x)}
+
+
+@pytest.mark.parametrize("case", ["b10", "d64", "l1", "l2", "skewed", "wide", "none"])
+def test_retrieval_descend_regime_cases_on_cuda(case):
+    """K30's two regimes against descend64 (DESCEND_SORTED_MIN_ROWS rows,
+    all in one call and in calls of fewer): B = 10 at depth 4 with planted
+    ties (chunks of 8 and 2 children); D = 64; depth 1 and 2 (one sorted
+    pass); every row beside one leaf (one node holds all rows at every
+    level: a skewed bucket); B = 32 at depth 2 (B + B² rows exceed the
+    shared-memory budget: passes of one level); no rows (no launch)."""
+    _need_card()
+    from colmap_tpu_torch.kernels import retrieval as KT
+    from colmap_tpu_torch.kernels import retrieval_cases as TC
+
+    B, L, D = {"b10": (10, 4, 128), "d64": (8, 3, 64), "l1": (8, 1, 128), "l2": (8, 2, 128),
+               "skewed": (8, 4, 128), "wide": (32, 2, 128), "none": (8, 3, 128)}[case]
+    n = KT.DESCEND_SORTED_MIN_ROWS
+    rng = np.random.default_rng(30)
+    levels = TC.random_tree(rng, B, L, dim=D)
+    rows = [TC.near_leaves(rng, levels, n)]
+    if case == "b10":
+        rows.append(TC.plant_ties(rng, levels, 30)[0])
+    elif case == "skewed":
+        leaf = levels[-1].reshape(-1, D)[1234]
+        rows = [(leaf + rng.normal(0.0, 0.05, (n, D))).astype(np.float32)]
+    elif case == "none":
+        rows = [np.zeros((0, D), np.float32)]
+    x = torch.as_tensor(np.concatenate(rows), device="cuda")
+    flat = torch.cat([torch.as_tensor(lv, device="cuda").reshape(-1, D) for lv in levels])
+    plan = KT._descend_plan(x.shape[0], B, L, D)
+    assert plan.passes == {"b10": ((0, 2), (2, 4)), "d64": ((0, 2), (2, 3)), "l1": ((0, 1),),
+                           "l2": ((0, 2),), "skewed": ((0, 2), (2, 4)),
+                           "wide": ((0, 1), (1, 2)), "none": ()}[case]
+    KT.reset_launches()
+    if case == "none":
+        assert KT.descend(x, flat, B, L).shape == (0,)
+        assert KT.LAUNCHES["retrieval_descend"] == 0
+        return
+    got, want, calls = _descend_both(KT, TC, x, flat, B, L, case)
+    if case == "skewed":
+        assert (want == 1234).all() and (got == 1234).all()
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["retrieval_descend"] == calls
 
 
 def test_retrieval_gram_matches_plain_on_cuda():
@@ -1941,6 +2010,39 @@ def _twice(fn):
     return a
 
 
+def _spectral_orders(KM, spec, want):
+    """K43 on spec laid out in each of the six storage orders (a row of the
+    fastest axis of odd length N/2 + 1 or N where they are fastest, a base
+    on an odd bin): within K43_RTOL (1e-6) of the plain version, the same
+    bits twice, and the bits of `want` (K43 on spec as rfftn gives it)."""
+    import itertools
+
+    ref = torch.view_as_real(KM.spectral_divide_plain(spec, 1.0))
+    for perm in itertools.permutations(range(3)):  # perm[0] outermost in storage
+        for shift in (0, 1):  # shift 1: the base one complex bin past an aligned one
+            store = torch.empty(spec.numel() + shift, dtype=spec.dtype, device=spec.device)
+            laid = store[shift:].view([spec.shape[a] for a in perm]).permute(
+                [perm.index(a) for a in range(3)])
+            got = _twice(lambda: KM.spectral_divide_(laid.copy_(spec), 1.0))
+            _close(torch.view_as_real(got), ref, 1e-6, f"K43, storage order {perm}")
+            assert torch.equal(got, want), f"K43, storage order {perm}: other bits"
+
+
+def test_poisson_spectral_odd_n_on_cuda():
+    """K43 at N = 33 (every axis odd) and N = 32, on a random spectrum, in
+    each storage order."""
+    _need_card()
+    from colmap_tpu_torch.kernels import meshing as KM
+
+    for N in (33, 32):
+        g = torch.Generator().manual_seed(N)
+        spec = torch.fft.rfftn(torch.randn(N, N, N, generator=g).cuda())
+        got = _twice(lambda: KM.spectral_divide_(spec.clone(), 1.0))
+        _close(torch.view_as_real(got),
+               torch.view_as_real(KM.spectral_divide_plain(spec, 1.0)), 1e-6, f"K43 N {N}")
+        _spectral_orders(KM, spec, got)
+
+
 @pytest.mark.parametrize("case", ["sphere", "clip_border", "crowded_voxel"])
 def test_poisson_splat_matches_plain_on_cuda(case):
     """K41 (a) equal to its plain version; K41 (b) equal to the plain sums
@@ -1977,6 +2079,7 @@ def test_poisson_stencil_spectral_and_iso_match_plain_on_cuda():
     ref = KM.spectral_divide_plain(spec, 1.0)
     got = _twice(lambda: KM.spectral_divide_(spec.clone(), 1.0))
     _close(torch.view_as_real(got), torch.view_as_real(ref), 1e-6, "K43")
+    _spectral_orders(KM, spec, got)
     chi = torch.fft.irfftn(got, s=(N, N, N))
     iso = _twice(lambda: KM.iso_level(chi, x, w))
     iso64 = KM.iso_level_plain(chi.double(), x.double(), w.double())

@@ -74,6 +74,23 @@ def test_poisson_indicator_matches_reference(case):
         assert werr <= 1e-5 * np.abs(W_r).max(), (case, dtype, werr)
 
 
+@pytest.mark.parametrize("N", [2, 3, 32, 33, 129, 256])
+def test_laplacian_axis_terms_sum_to_the_eigenvalues(N):
+    """K43's per-axis tables (the kernel's arithmetic: i / N in float64
+    rounded to float32) broadcast-summed as (e_i + e_j) + e_k equal
+    laplacian_eigenvalues bit for bit, for even and odd N, and colmap_tpu's
+    eigenvalues (meshing.py l.95-101, JAX's cos) to 1e-6."""
+    e_ij, e_k = KM.laplacian_axis_terms(N)
+    assert e_ij.shape == (N,) and e_k.shape == (N // 2 + 1,) and e_k.dtype == torch.float32
+    lam = (e_ij[:, None, None] + e_ij[None, :, None]) + e_k[None, None, :]
+    assert torch.equal(lam, KM.laplacian_eigenvalues(N))
+    k = jnp.fft.fftfreq(N).astype(jnp.float32) * 2.0 * jnp.pi
+    kr = jnp.fft.rfftfreq(N).astype(jnp.float32) * 2.0 * jnp.pi
+    want = ((2.0 * jnp.cos(k) - 2.0)[:, None, None] + (2.0 * jnp.cos(k) - 2.0)[None, :, None]
+            + (2.0 * jnp.cos(kr) - 2.0)[None, None, :])
+    np.testing.assert_allclose(lam.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
 def test_kernel_entries_compose_the_indicator():
     """The entries one at a time (splat, three blur passes, divergence,
     spectral divide, iso level, shift) give poisson_indicator's field, and

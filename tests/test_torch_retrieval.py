@@ -143,6 +143,43 @@ def test_descend_plain_matches_tree_descend():
     assert (R.descend(torch.as_tensor(x), flat, 8, 3).numpy() == got.numpy()).all()
 
 
+@pytest.mark.parametrize("B,D,k,smem", [(8, 128, 2, 37264), (8, 64, 2, 18832),
+                                         (10, 128, 2, 56896), (10, 64, 2, 28736),
+                                         (32, 128, 1, 16528), (32, 64, 1, 8336)])
+def test_descend_plan_regimes_passes_and_shared_bytes(B, D, k, smem):
+    """K30's plan from the shapes alone: a warp a row below
+    DESCEND_SORTED_MIN_ROWS rows; from it on, sorted passes of the most
+    levels whose subtree (B + ... + B^k rows of D floats, then B^k counts)
+    fits DESCEND_SMEM_BUDGET with 16 bytes of padding a node (B = 8, 10:
+    two levels; B = 32, whose B + B² rows are 528 KB at D = 128: one), a
+    scan and a scatter before each later pass and one memset of their
+    counts."""
+    assert R.DESCEND_SORTED_MIN_ROWS == 150000 and R.DESCEND_SMEM_BUDGET == 75776
+    L = 5 if B < 32 else 2
+    for n in (1, 2000, 149999):
+        assert R._descend_plan(n, B, L, D) == R.DescendPlan("direct", ((0, L),), 0, 1)
+    passes = tuple((l0, min(L, l0 + k)) for l0 in range(0, L, k))
+    want = R.DescendPlan("sorted", passes, smem, 3 * len(passes) - 1)
+    for n in (150000, 150001, 2_000_000):
+        assert R._descend_plan(n, B, L, D) == want
+    assert R._descend_plan(2_000_000, B, 1, D) == R.DescendPlan(
+        "sorted", ((0, 1),), B * D * 4 + 16 + B * 4, 1)
+
+
+def test_descend_plan_without_rows_levels_or_room():
+    """No rows or no levels: no launch. A node's children beyond the
+    budget (B = 256 at D = 128) or more than DESCEND_MAX_GROUPS nodes to
+    bucket (2^24 at B = 2, depth 30): the direct regime at any row count."""
+    assert R._descend_plan(0, 8, 5, 128) == R.DescendPlan("none", (), 0, 0)
+    assert R._descend_plan(2_000_000, 8, 0, 128) == R.DescendPlan("none", (), 0, 0)
+    for B, L in ((256, 2), (2, 30)):
+        for n in (2000, 2_000_000):
+            assert R._descend_plan(n, B, L, 128) == R.DescendPlan("direct", ((0, L),), 0, 1)
+    plan = R._descend_plan(2_000_000, 2, 20, 128)  # 6 levels a pass: 126 rows, 63 nodes
+    assert plan.passes == ((0, 6), (6, 12), (12, 18), (18, 20))
+    assert plan.smem_bytes == 126 * 512 + 63 * 16 + 64 * 4 and plan.launches == 11
+
+
 def test_excess_measures_how_far_the_choice_lies_beyond_the_nearest():
     """excess64 and descend_excess64 (the card checks' error measure of K28
     and K30): 0 for the float64 choice, the gap to the nearest for another."""
