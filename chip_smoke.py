@@ -286,6 +286,12 @@ estimate_generalized_relative_pose K48, the pycolmap script and
 `exhaustive_matcher` K10, LightGlue's run_exhaustive_matching K53,
 estimate_ba_covariance K1 and K54, and the sharded solves K1-K3, K35 and
 K34 (PCG) or K4 (dense).
+The weighing: the wrappers of K2, K3, K12, K13, K18, K22, K28, K33, K34
+and K50 count their launches by shape (kernels/tally.py), the driven runs'
+shapes are summed beside their launches (add_launches), and each shape
+class (sizes rounded up to powers of two) with at least 5% of its kernel's
+driven launches is timed again, through a call kept at that class, beside
+its bound; it logs launches x (ms - bound) by kernel ("weighing: " line).
 Then it prints the kernels line (JSON), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. `--phases dense,mvs`, `--phases
 dense,mesh_kernels,mesh`, `--phases
@@ -315,6 +321,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -1268,10 +1275,9 @@ def phase_headline_solve(headline, gt_cost, launches):
         solved, cost, iters = ba.lm_solve_fused_packed(packed, maps, model_id, options, masks)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {k: v for k, v in all_launch_counts().items() if k in BA_SOURCES
-                  or k in ("ba_pcg", "ba_lm_update")}
-        for k, v in counts.items():
-            launches[k] += v
+        counts = all_launch_counts().only(lambda k, v: k in BA_SOURCES
+                                          or k in ("ba_pcg", "ba_lm_update"))
+        add_launches(launches, counts)
         log(f"headline solve ({solver}): final cost {cost:.6e} after {iters} iterations in "
             f"{dt:.3f} s = {iters / dt:.3f} LM iter/s; launches {counts}; K3 launches per "
             f"solve {counts['ba_schur_matvec']}")
@@ -1437,9 +1443,8 @@ def phase_cli(launches):
                       "--device", "cuda"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {k: v for k, v in all_launch_counts().items() if v}
-        for k, v in counts.items():
-            launches[k] += v
+        counts = all_launch_counts().only(lambda k, v: v)
+        add_launches(launches, counts)
         log(buf.getvalue().strip() + f"  ({dt:.2f} s; launches {counts})")
         missing = [k for k in ("ba_obs_jacobians", "ba_lm_reduce", "ba_schur_matvec", "ba_pcg",
                                "ba_lm_update") if not counts.get(k)]
@@ -1746,8 +1751,42 @@ def _kernel_modules():
     return KB, K, KM, KS, KV, KG, KR, KT, KQ, KL, KP, KW, KN, KA, KLG
 
 
+class Counts(dict):
+    """Launches by kernel, and ``shapes``: the launch shapes
+    (kernels/tally.py) counted with them."""
+
+    shapes: Counter
+
+    def only(self, keep):
+        """The counts of the kernels k with keep(k, launches), their shapes
+        kept."""
+        out = Counts({k: v for k, v in self.items() if keep(k, v)})
+        out.shapes = self.shapes
+        return out
+
+
 def all_launch_counts():
-    return {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
+    counts = Counts({k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()})
+    counts.shapes = Counter()
+    for mod in _kernel_modules():
+        if hasattr(mod, "SHAPES"):
+            counts.shapes.update(mod.SHAPES.counts)
+    return counts
+
+
+# Launch shapes of the driven paths: (kernel, entry, *sizes) -> launches,
+# summed by add_launches beside ``launches``.
+PATH_SHAPES = Counter()
+
+
+def add_launches(launches, counts):
+    """Add a driven run's ``counts`` (all_launch_counts, or a part of them)
+    to ``launches``, and their kernels' launch shapes to PATH_SHAPES."""
+    for k, v in counts.items():
+        launches[k] += v
+    for key, n in counts.shapes.items():
+        if key[0] in counts:
+            PATH_SHAPES[key] += n
 
 
 def reset_all_launches():
@@ -1914,16 +1953,14 @@ def phase_mapper(launches):
             expected = sum(len(m) >= 15 for m in pairs.values())
             if verified != expected:
                 raise AssertionError(f"{label}: verified {verified} of {expected} pairs")
-            for k, v in m_counts.items():
-                launches[k] += v
+            add_launches(launches, m_counts)
             out = os.path.join(root, "sparse")
             ctx = profile(activities=[ProfilerActivity.CUDA]) if full else contextlib.nullcontext()
             with ctx as prof:
                 pipeline, dt, counts = run_mapper(db_path, out, label, min_launches=full)
             if full:
                 profiled, wall_ms = prof, dt * 1e3
-            for k, v in counts.items():
-                launches[k] += v
+            add_launches(launches, counts)
             cmp = check_against_gt(out, gt, frames, label)
             if not full:
                 from colmap_tpu_torch.scene.reconstruction_io import read_model
@@ -2155,8 +2192,7 @@ def phase_matcher_full(launches):
                 break
             log("  the profile lacks the matcher's kernel; running the command again")
         db_path = run_path
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         idle = log_busy("exhaustive_matcher, full width", busy_ms, by_name, dt * 1e3, top=8)
         log(f"  {len(truth)} pairs in {dt:.3f} s = {len(truth) / dt:.3f} pairs/s on "
             f"{nvidia_smi_line()}; launches { {k: counts[k] for k in MATCHER_KERNELS} }; "
@@ -2475,8 +2511,7 @@ def _counted(label, fn, kernels, what=None, launches=None):
     dt = time.perf_counter() - t0
     counts = all_launch_counts()
     if launches is not None:
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
     log(f"{label}: {what(dt) if what else f'{dt:.3f} s'}")
     log(f"  launches: { {k: v for k, v in counts.items() if v} }")
     missing = [k for k in kernels if counts[k] == 0]
@@ -2512,8 +2547,7 @@ def phase_extractor(launches):
             _, dt, counts = run_command(["feature_extractor", "--database_path", db_path,
                                          "--image_path", images], "feature_extractor, full width",
                                         SIFT_SOURCES)
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         busy_ms, by_name = device_busy(prof)
         idle = log_busy("feature_extractor, full width", busy_ms, by_name, dt * 1e3, top=10)
         db = Database(db_path, must_exist=True)
@@ -2557,21 +2591,18 @@ def phase_extractor(launches):
              os.path.join(root, "images"), "--camera_model", "PINHOLE", "--camera_params",
              ",".join(repr(float(v)) for v in params)], "feature_extractor", SIFT_SOURCES)
         sift_launches = {k: counts[k] for k in SIFT_SOURCES}
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         _, seconds["exhaustive_matcher"], counts = run_command(
             ["exhaustive_matcher", "--database_path", db_path], "exhaustive_matcher",
             MATCHER_KERNELS)
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         out = os.path.join(root, "sparse")
         # The rendered scene registers a frame from 2D-2D correspondences
         # alone (structure-less, K37).
         _, seconds["mapper"], counts = run_command(
             ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"], "mapper",
             ("structure_less_ransac", "ba_pcg", "ba_lm_update", "relative_pose"))
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         from colmap_tpu_torch.estimators.alignment import compare_reconstructions
         from colmap_tpu_torch.scene.reconstruction_io import read_model
 
@@ -2745,8 +2776,7 @@ def phase_dense(launches):
             torch.zeros(1, device="cuda").add_(1.0)  # let the tracer see a first kernel
             torch.cuda.synchronize()
             out, seconds[label], counts = run_command(argv, label, kernels)
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         busy_ms, by_name = device_busy(prof)
         idle[label] = log_busy(label, busy_ms, by_name, seconds[label] * 1e3, top=8)
         if label == "stereo_fusion":
@@ -3933,8 +3963,7 @@ def _profiled_command(argv, label, kernels, launches, profiled=True):
 
     if not profiled:
         out, seconds, counts = run_command(argv, label, kernels)
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         return out, seconds, None
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3943,8 +3972,7 @@ def _profiled_command(argv, label, kernels, launches, profiled=True):
         out, seconds, counts = run_command(argv, label, kernels)
         t1 = time.perf_counter()
     t2 = time.perf_counter()
-    for k, v in counts.items():
-        launches[k] += v
+    add_launches(launches, counts)
     busy_ms, by_name = device_busy(prof)
     idle = log_busy(label, busy_ms, by_name, seconds * 1e3, top=8)
     log(f"  (the profiler's stop {t2 - t1:.1f} s, reading its trace "
@@ -4463,8 +4491,7 @@ def phase_rig(launches):
             expected = sum(len(m) >= 15 for m in pairs.values())
             if verified != expected:
                 raise AssertionError(f"{label}: verified {verified} of {expected} pairs")
-            for k, v in m_counts.items():
-                launches[k] += v
+            add_launches(launches, m_counts)
             out = os.path.join(root, "sparse")
             pipeline, seconds, idle = _profiled_command(
                 ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
@@ -4882,8 +4909,7 @@ def phase_retrieval(launches, errs, rows):
             KT.gram = real_gram
         seconds["vocab_tree_pairs"] = time.perf_counter() - t0
         counts = all_launch_counts()
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         k30_tally()
         if not (counts["retrieval_assign"] and counts["retrieval_update"]
                 and counts["retrieval_gram"]):
@@ -4946,8 +4972,7 @@ def phase_retrieval(launches, errs, rows):
             label = f"{cmd} ({k})"
             _, seconds[label], counts = run_command([cmd, "--database_path", db_path] + extra,
                                                     f"{cmd}, images -> model", kernels)
-            for name, v in counts.items():
-                launches[name] += v
+            add_launches(launches, counts)
             k30_tally()
         from colmap_tpu_torch.estimators.alignment import compare_reconstructions
         from colmap_tpu_torch.scene.database import Database
@@ -5332,8 +5357,7 @@ def _camera_mapper(root, label, num_frames, launches, results, profiled, **scene
     expected = sum(len(m) >= 15 for m in pairs.values())
     if verified != expected:
         raise AssertionError(f"{label}: verified {verified} of {expected} pairs")
-    for k, v in m_counts.items():
-        launches[k] += v
+    add_launches(launches, m_counts)
     out = os.path.join(root, "sparse")
     pipeline, seconds, idle = _profiled_command(
         ["mapper", "--database_path", db_path, "--output_path", out, "--quiet"],
@@ -6428,8 +6452,7 @@ def _driven(label, fn, kernels, launches):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     counts = all_launch_counts()
-    for k, v in counts.items():
-        launches[k] += v
+    add_launches(launches, counts)
     busy_ms, by_name = device_busy(prof)
     idle = log_busy(label, busy_ms, by_name, dt * 1e3, top=6)
     log(f"  {label}: {dt:.3f} s, idle share {'not measured' if idle is None else f'{idle:.4f}'}; "
@@ -7680,8 +7703,7 @@ def phase_learned(launches):
                                      "--image_path", views, "--descriptor_type", "aliked"],
                                     "feature_extractor --descriptor_type aliked, full width",
                                     LEARNED_EXTRACT_KERNELS)
-    for k, v in counts.items():
-        launches[k] += v
+    add_launches(launches, counts)
     busy_ms, by_name = device_busy(prof)
     idle = log_busy("feature_extractor --descriptor_type aliked", busy_ms, by_name, dt * 1e3,
                     top=8)
@@ -7703,8 +7725,7 @@ def phase_learned(launches):
     _, dt, counts = run_command(["exhaustive_matcher", "--database_path", db_path],
                                 "exhaustive_matcher on ALIKED features (ALIKED_BRUTEFORCE)",
                                 ("match_top2",))
-    for k, v in counts.items():
-        launches[k] += v
+    add_launches(launches, counts)
     results["aliked_bruteforce_s"] = dt
 
     frames = os.path.join(root, "frames")
@@ -7720,8 +7741,7 @@ def phase_learned(launches):
                                  str(LG_FRAME_FEATURES)],
                                 "feature_extractor --descriptor_type aliked, 12 frames",
                                 LEARNED_EXTRACT_KERNELS)
-    for k, v in counts.items():
-        launches[k] += v
+    add_launches(launches, counts)
     db = Database(fdb, must_exist=True)
     opts = MatchingPipelineOptions(matcher_type="lightglue",
                                    lightglue_options=LightGlueOptions(filter_threshold=0.0))
@@ -8056,8 +8076,7 @@ def phase_sharded(launches, errs):
                 "--image_overlap", "2", "--quiet", "--output_path"]
         models, _, counts = run_command(base + [os.path.join(root, "alone")],
                                         "hierarchical_mapper, one process", MAPPER_KERNELS)
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         env = dict(COLMAP_TPU_MULTIHOST="1", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(dist_cases.free_port()), WORLD_SIZE="1", RANK="0",
                    LOCAL_RANK="0")
@@ -8076,8 +8095,7 @@ def phase_sharded(launches, errs):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        for k, v in counts.items():
-            launches[k] += v
+        add_launches(launches, counts)
         ids = lambda ms: [sorted(m.reg_image_ids()) for m in ms]
         if not joined or ids(grouped) != ids(models):
             raise AssertionError(f"hierarchical_mapper in a group: joined {joined}, registered "
@@ -8085,6 +8103,131 @@ def phase_sharded(launches, errs):
         log(f"  hierarchical_mapper joined an NCCL group of one rank and registered "
             f"{ids(grouped)}, as alone")
     return results
+
+
+# ---------------------------------------------------------------------------
+# The weighing: launches x (ms - bound) at the shapes the driven paths ran.
+# ---------------------------------------------------------------------------
+
+# The ten kernels that head the table's launches x (ms - bound) (PERF.md):
+# their wrappers keep a launch-shape tally (kernels/tally.py).
+WEIGHED = ("ba_schur_matvec", "aliked_conv", "sift_pyramid", "pm_iteration", "global_positioning",
+           "spherical_h_ransac", "ba_pcg", "retrieval_assign", "homography_ransac",
+           "ba_lm_reduce")
+# A shape class with at least this share of its kernel's driven launches is
+# timed; the others are charged at the timed class nearest in size.
+WEIGH_SHARE = 0.05
+
+
+def shape_work(kernel, entry, sizes, args):
+    """(bytes, f32 operations) of one call of ``kernel``'s ``entry`` at
+    ``sizes`` (its tally's sizes; ``args``, the call's arguments, give the
+    valid rows of the RANSACs), by the formula of the kernel's row in the
+    kernels line; the entries the row does not time by the same counts."""
+    if kernel == "ba_schur_matvec":
+        N, capp, F, C, P = sizes
+        O = N * capp
+        out = 4 * (6 * F + C * P) if entry == "matvec" else 24 * N
+        return (4 * O * 2 * (9 + P) + 36 * N + 8 * O + 4 * (6 * F + C * P) + out,
+                O * (8 * (6 + P) + 24 + 4 * (6 + P)) + N * 18)
+    if kernel == "ba_lm_reduce":
+        N, capp, F, C, P = sizes
+        O = N * capp
+        return (4 * O * (20 + 2 * P) + 8 * O + 4 * (54 * F + 3 * C * P + 15 * N),
+                O * (156 + 12 * P) + N * 60)
+    if kernel == "ba_pcg":
+        if entry == "setup_diag":
+            return 4 * 6 * sizes[0], K34_ENTRY_OPS * sizes[0]
+        F, CP = sizes[:2]
+        n = 6 * F + CP
+        return 4 * (11 * n + 36 * F), K34_ENTRY_OPS * n + K34_FRAME_OPS * F
+    if kernel == "sift_pyramid":
+        H, W = sizes[:2]
+        HW = H * W
+        if entry == "upsample2":
+            return 4 * 5 * HW, 6 * 4 * HW
+        if entry == "downsample2":
+            return 4 * HW + HW, 0
+        r, dog = sizes[2:]
+        return 4 * HW * (4 + 2 * dog), 2 * 2 * (2 * r + 1) * HW + dog * HW
+    if kernel == "pm_iteration":
+        Sv, H, W, taps, geometric = sizes
+        HW = H * W
+        planes = 4 * HW * (1 + Sv + Sv * geometric + 4 + 1 + Sv + Sv * (entry == "weights") + 8)
+        return (planes + 4 * HW * (5 + Sv),
+                (HW + 1) // 2 * (taps * PM_TAP_OPS + PM_CAND_OPS
+                                 + 7 * (2 * Sv + 1 + pm_plane_ops(taps, Sv, geometric))))
+    if kernel == "global_positioning":
+        O, C, P = sizes
+        return (4 * (6 * O + 9 * P + 15 * C),
+                GP_OBS_OPS * O + GP_POINT_OPS * P + GP_CAM_OPS * C)
+    if kernel in ("spherical_h_ransac", "homography_ransac"):
+        B, N, K = sizes
+        valid = float(args[2].sum())
+        sample_ops, row_ops = ((SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS)
+                               if kernel == "spherical_h_ransac" else (4000, 20))
+        tensors = [a for a in args[:4] if torch.is_tensor(a)]
+        if entry == "propose":
+            return nbytes(*tensors) + 4 * 10 * B * K, B * K * sample_ops + K * valid * row_ops
+        return nbytes(*tensors) + 4 * B * N, valid * row_ops
+    if kernel == "retrieval_assign":
+        N, D, G = sizes
+        x, cents, groups = args[:3]
+        return nbytes(x, cents, groups) + 4 * N, RET_DIST_OPS * N * G * D
+    if kernel == "aliked_conv":
+        if entry == "upsample_selu":
+            c, h, w, H, W = sizes
+            return 4 * c * (h * w + H * W), 10 * c * H * W
+        cin, hin, win, cout, k, pool = sizes
+        h, w = (hin // 2, win // 2) if pool else (hin, win)
+        return (4 * (cin * hin * win + cout * h * w + cout * (cin * k * k + 1)),
+                2 * cout * cin * k * k * h * w)
+    raise ValueError(f"no work formula for {kernel}")
+
+
+def phase_weighing():
+    """Weigh the WEIGHED kernels at the shapes the driven paths launched
+    them at (PATH_SHAPES): each shape class with at least WEIGH_SHARE of its
+    kernel's launches is timed again through the call kept at that class
+    (CUDA events; a call that launches n kernels counts ms / n a launch)
+    and bound by shape_work; the rest is charged at the nearest timed class
+    (kernels/tally.py weigh). Logs the table and a JSON line; returns it."""
+    from colmap_tpu_torch.kernels import tally as TL
+
+    counts = Counter({k: n for k, n in PATH_SHAPES.items() if k[0] in WEIGHED})
+    samples = {}
+    for mod in _kernel_modules():
+        if hasattr(mod, "SHAPES"):
+            samples.update(mod.SHAPES.samples)
+    log(f"weighing {len(WEIGHED)} kernels at the shape classes of their driven launches "
+        f"(sizes rounded up to powers of two; timed where a class holds >= {WEIGH_SHARE:g} of "
+        f"its kernel's launches):")
+    timed = {}
+    for key in TL.classes_to_time(counts, WEIGH_SHARE):
+        if key not in samples:
+            log(f"  {key}: no call kept at this class (launched only inside a graph's capture)")
+            continue
+        sizes, fn, args, per_call = samples[key]
+        first = time_ms(lambda: fn(*args), reps=3)
+        ms = time_ms(lambda: fn(*args), reps=max(3, min(25, int(100.0 / max(first, 1e-3)))))
+        nb, ops = shape_work(key[0], key[1], sizes, args)
+        b_ms, by = bound(nb / per_call, ops / per_call)
+        timed[key] = (ms / per_call, b_ms)
+        log(f"  {key[0]} {key[1]} at {sizes} (class {list(key[2:])}): {ms / per_call:.5f} ms a "
+            f"launch, bound {b_ms:.5f} ms by {by}")
+    for mod in _kernel_modules():
+        if hasattr(mod, "SHAPES"):
+            mod.SHAPES.reset_samples()
+            mod.SHAPES.sampling = False
+    result = TL.weigh(counts, timed, WEIGH_SHARE)
+    order = sorted(result, key=lambda k: -(result[k]["weight_ms"] or 0.0))
+    for k in order:
+        r = result[k]
+        w = "not timed" if r["weight_ms"] is None else f"{r['weight_ms'] / 1e3:.4f} s"
+        log(f"  {k}: {r['launches']} launches over {len(r['rows'])} shape classes, launches x "
+            f"(ms - bound) = {w}")
+    log("weighing: " + json.dumps({"card": nvidia_smi_line(), "order": order, "kernels": result}))
+    return result
 
 
 ALL_PHASES = ("ba", "sfm", "mapper", "matching", "matcher", "sift", "extractor", "dense", "mvs",
@@ -8108,6 +8251,9 @@ def main():
 
     from colmap_tpu_torch.kernels.build import library
 
+    for mod in _kernel_modules():  # keep a call at each launch shape for the weighing
+        if hasattr(mod, "SHAPES"):
+            mod.SHAPES.sampling = True
     t0 = time.perf_counter()
     library()
     log(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
@@ -8234,6 +8380,8 @@ def main():
         rows.update(v_rows)
     if "sharded" in phases:
         run("sharded", lambda: phase_sharded(launches, errs))
+    if PATH_SHAPES:
+        run("weighing", phase_weighing)
     new = sum(seconds.get(k, 0.0) for k in ("covariance", "sharded"))
     log(f"seconds by phase: {seconds}; the covariance and sharded phases {new:.1f} s, the whole "
         f"script {time.perf_counter() - T_START:.1f} s")

@@ -63,8 +63,11 @@ import torch
 import torch.nn.functional as F
 
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels.tally import ShapeTally
 
 LAUNCHES = {"aliked_conv": 0, "aliked_dkd": 0, "aliked_sddh": 0}
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 ACT_NONE, ACT_SELU, ACT_SIGMOID = 0, 1, 2
 # The SDDH offsets are bounded by BOUND * tanh(o / BOUND) (aliked.py:211).
@@ -86,6 +89,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 @functools.cache
@@ -149,6 +153,8 @@ def conv(x, w, b, act=ACT_NONE, pool=False, out=None):
     S._check("out", out, torch.float32, (cout, h, wd), dev)
     _launch("aliked_conv", "aliked_conv_f32", cin, hin, win, cout, k, int(pool), act,
             *map(S._ptr, (x, w, b, out)), S._stream(dev))
+    SHAPES.add("aliked_conv", "conv", (cin, hin, win, cout, k, pool), conv,
+               (x, w, b, act, pool, out))
     return out
 
 
@@ -170,6 +176,7 @@ def upsample_selu(src, out):
     S._check("out", out, torch.float32, (c, H, W), dev)
     _launch("aliked_conv", "aliked_upsample_selu_f32", c, h, w, H, W, S._ptr(src), S._ptr(out),
             S._stream(dev))
+    SHAPES.add("aliked_conv", "upsample_selu", (c, h, w, H, W), upsample_selu, (src, out))
     return out
 
 

@@ -53,6 +53,7 @@ import torch
 from colmap_tpu_torch.estimators.ba_residual import make_residual_fn, robust_cost, robust_weight
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import solver
+from colmap_tpu_torch.kernels.tally import ShapeTally
 from colmap_tpu_torch.sensor import models as camera_models
 
 LAUNCHES = {
@@ -62,6 +63,8 @@ LAUNCHES = {
     "ba_dense_schur_assemble": 0,
     "ba_covariance_assemble": 0,
 }
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 # Camera models that csrc/camera_models.cuh implements: all 18.
 CUDA_MODELS = frozenset(range(18))
@@ -71,6 +74,7 @@ LOSSES = {"trivial": 0, "huber": 1, "cauchy": 2}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +564,8 @@ def lm_reduce(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames: int, num_cams: int,
           *map(_ptr, (lam, r, Jp, Jc, Jx, frame_pm, cam_pm, scratch, *out)),
           _I(_num_sms(dev)), _stream(dev))
     LAUNCHES["ba_lm_reduce"] += 1
+    SHAPES.add("ba_lm_reduce", "reduce", (N, capp, F, C, P), lm_reduce,
+               (r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames, num_cams, lam))
     return out
 
 
@@ -578,6 +584,8 @@ def _k3(mode, Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, xp, xc, gx):
           *map(_ptr, (Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, xp, xc, gx, out)),
           _I(_num_sms(dev)), _stream(dev))
     LAUNCHES["ba_schur_matvec"] += 1
+    SHAPES.add("ba_schur_matvec", "back_substitute" if mode else "matvec", (N, capp, F, C, P),
+               _k3, (mode, Jp, Jc, Jx, frame_pm, cam_pm, Hpp_inv, xp, xc, gx))
     return out
 
 

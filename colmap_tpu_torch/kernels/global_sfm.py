@@ -33,6 +33,7 @@ import torch
 
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels.tally import ShapeTally
 
 LAUNCHES = {
     "rotation_averaging": 0,
@@ -40,6 +41,8 @@ LAUNCHES = {
     "view_graph_calibration": 0,
     "global_cg": 0,
 }
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 f32, f64, i32 = torch.float32, torch.float64, torch.int32
 
@@ -47,6 +50,7 @@ f32, f64, i32 = torch.float32, torch.float64, torch.int32
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 def _segment_sum(contrib, ids, n):
@@ -632,6 +636,7 @@ def gp_setup(prob: GPProblem, centers, points, out: Optional[GPSystem] = None) -
           *map(S._ptr, (centers, points, out.w, wpr, cost_term, cost_cam, out.Hpp_inv, out.g_x,
                         y0, out.Hcc, out.b, out.diag_c, out.cost)), S._stream(dev))
     LAUNCHES["global_positioning"] += 1
+    SHAPES.add("global_positioning", "setup", (O, C, P), gp_setup, (prob, centers, points, out))
     return out._replace(cost=out.cost.to(f32))
 
 
@@ -650,6 +655,7 @@ def gp_schur_matvec(prob: GPProblem, sys: GPSystem, xc):
     _call("gp_schur_matvec_f32", *args,
           *map(S._ptr, (sys.w, sys.Hpp_inv, sys.Hcc, xc, y, out)), S._stream(dev))
     LAUNCHES["global_positioning"] += 1
+    SHAPES.add("global_positioning", "schur_matvec", (O, C, P), gp_schur_matvec, (prob, sys, xc))
     return out
 
 
@@ -668,6 +674,8 @@ def gp_back_substitute(prob: GPProblem, sys: GPSystem, xc, centers, points):
           *map(S._ptr, (sys.w, sys.Hpp_inv, sys.g_x, xc, centers, points, new_c, new_p)),
           S._stream(dev))
     LAUNCHES["global_positioning"] += 1
+    SHAPES.add("global_positioning", "back_substitute", (O, C, P), gp_back_substitute,
+               (prob, sys, xc, centers, points))
     return new_c, new_p
 
 

@@ -52,9 +52,12 @@ from colmap_tpu_torch.estimators.solvers.epipolar import (
 )
 from colmap_tpu_torch.geometry.essential import squared_epipolar_line_distance
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels import tally as T
 from colmap_tpu_torch.optim.ransac import pack_best, score_models
 
 LAUNCHES = {"match_top2": 0, "fundamental_ransac": 0, "homography_ransac": 0, "degensac": 0}
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = T.ShapeTally()
 
 DESC_DIM = 128
 F_SOLUTIONS = 3
@@ -64,6 +67,7 @@ H_SOLUTIONS = 1
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +349,8 @@ def homography_propose_score(x1, x2, mask, samples, max_sq, active=None, msac=Fa
     out = S.two_view_propose_score(_call, "homography", 4, H_SOLUTIONS, x1, x2, mask, samples,
                                    max_sq, active, msac=msac)
     LAUNCHES["homography_ransac"] += 1
+    SHAPES.add("homography_ransac", "propose", T.pair_sizes(x1, samples), homography_propose_score,
+               (x1, x2, mask, samples, max_sq, active, msac))
     return out
 
 
@@ -354,6 +360,8 @@ def homography_refit(x1, x2, mask, model, max_sq, count, score=None):
         return homography_refit_plain(x1, x2, mask, model, max_sq, count, score)
     out = S.two_view_refit(_call, "homography", x1, x2, mask, model, max_sq, count, score=score)
     LAUNCHES["homography_ransac"] += 1
+    SHAPES.add("homography_ransac", "refit", T.pair_sizes(x1), homography_refit,
+               (x1, x2, mask, model, max_sq, count, score))
     return out
 
 
@@ -363,6 +371,8 @@ def homography_inliers(x1, x2, mask, model, max_sq):
         return homography_inliers_plain(x1, x2, mask, model, max_sq)
     out = S.two_view_inliers(_call, "homography", x1, x2, mask, model, max_sq)
     LAUNCHES["homography_ransac"] += 1
+    SHAPES.add("homography_ransac", "inliers", T.pair_sizes(x1), homography_inliers,
+               (x1, x2, mask, model, max_sq))
     return out
 
 

@@ -39,14 +39,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels.tally import ShapeTally
 
 LAUNCHES = {"pm_cost": 0, "pm_iteration": 0, "pm_view_weights": 0, "pm_view_selection": 0}
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 MAX_VIEWS = 32  # K18's best-half sort and K19's per-view arrays live in registers
 MAX_TAPS = 256  # K17's spatial weights live in shared memory
@@ -57,6 +61,7 @@ UNIFORM_PROB = 0.5
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 class Draws(NamedTuple):
@@ -379,7 +384,9 @@ def iteration_plain(problem, depth, normal, cost, cost_all, weights, draws: Draw
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "pm_cost_f32": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "pm_iteration_f32": [_I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _F, _F] + [_P] * 17,
+    "pm_iteration_f32": [_I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _F, _F, _I, _I, _I] + [_P] * 18,
+    "pm_sources_create": [_I, _I, _I, _P, _P, ctypes.POINTER(_P)],
+    "pm_sources_destroy": [_P],
     "pm_view_weights_f32": [_I, _I, _I, _I, _D, _D, _P, _P, _P, _P, _P, _P],
     "pm_consistency_filter_f32": [_I, _I, _I, _I, _D, _F, _F, _I] + [_P] * 10,
     "pm_view_selection_f32": [_I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
@@ -485,12 +492,80 @@ def costs(problem, depth, normal, options):
     return out
 
 
+class IterationPlan(NamedTuple):
+    """K18's launch (pm_iteration.cu): the instantiation, the view bucket
+    and the block's dynamic shared bytes."""
+
+    fixed_window: bool  # the compile-time window (R 2, step 1), else the generic one
+    bucket: int  # per-view arrays of 8, 16 or 32 registers
+    smem_bytes: int  # the reference tile with its R halo, and the fixed window's taps
+
+
+# A K18 block: ITER_TILE_Y rows x ITER_TILE_X active pixels (pm_iteration.cu
+# kTileY, kTileX); its reference tile and halo stay under ITER_SMEM_MAX
+# bytes of shared memory beside the cameras (an H100 block has 227 KB). At
+# the compile-time window (R 2, step 1: 25 taps) each thread also keeps its
+# taps' weights and deviations there.
+ITER_TILE_X, ITER_TILE_Y = 32, 8
+ITER_SMEM_MAX = 200 * 1024
+ITER_FIXED_TAPS = 25
+
+
+def iteration_plan(views: int, radius: int, step: int) -> IterationPlan:
+    """K18's launch plan for S = ``views`` sources and a window of
+    ``radius`` and ``step``."""
+    if not 1 <= views <= MAX_VIEWS:
+        raise ValueError(f"K18 takes 1 to {MAX_VIEWS} source views, got {views}")
+    bucket = next(b for b in (8, 16, 32) if views <= b)
+    fixed = (radius, step) == (2, 1)
+    smem = 4 * (ITER_TILE_Y + 2 * radius) * (2 * ITER_TILE_X + 2 * radius)
+    if smem > ITER_SMEM_MAX:
+        raise ValueError(f"a window of radius {radius} needs {smem} bytes of K18's tile, over "
+                         f"{ITER_SMEM_MAX}")
+    if fixed:
+        smem += 2 * 4 * ITER_FIXED_TAPS * ITER_TILE_X * ITER_TILE_Y
+    return IterationPlan(fixed, bucket, smem)
+
+
+class _SourceSet:
+    """A problem's source images as K18 reads them: gather textures over a
+    copy in CUDA arrays (``pm_sources_create``), freed with the tensor."""
+
+    def __init__(self, src):
+        handle = _P()
+        Sv, H, W = src.shape
+        _call("pm_sources_create", Sv, H, W, _p(src), _s(src.device), ctypes.byref(handle))
+        self.handle, self.key = handle, _source_key(src)
+        self.free = weakref.finalize(src, _lib().pm_sources_destroy, handle)
+        self.free.atexit = False  # the process's end frees them
+
+
+def _source_key(src):
+    return src.data_ptr(), tuple(src.shape), src.device, src._version
+
+
+# The last problem's sources, made once and reused by its half-iterations.
+_SOURCES: dict = {}
+
+
+def _sources(src) -> _SourceSet:
+    held = _SOURCES.get("set")
+    if held is not None and held.key == _source_key(src) and held.free.alive:
+        return held
+    if held is not None:
+        held.free()
+    _SOURCES["set"] = _SourceSet(src)
+    return _SOURCES["set"]
+
+
 def iteration(problem, depth, normal, cost, cost_all, weights, draws: Draws, parity,
               perturbation, options):
     """K18: one red-black half-iteration of the planes at (y + x) % 2 ==
-    parity, one thread an active pixel; the others are copied. ``weights``
-    (S, H, W) from K19, or None for the best-half mean. Returns (depth,
-    normal, cost, cost_all), new tensors."""
+    parity, one thread an active pixel in tiles of ``iteration_plan``; the
+    others are copied. ``weights`` (S, H, W) from K19, or None for the
+    best-half mean. The sources are read through textures made once per
+    problem (``_sources``). Returns (depth, normal, cost, cost_all), new
+    tensors."""
     if depth.device.type == "cpu":
         return iteration_plain(problem, depth, normal, cost, cost_all, weights, draws, parity,
                                perturbation, options)
@@ -504,15 +579,22 @@ def iteration(problem, depth, normal, cost, cost_all, weights, draws: Draws, par
     _plane("draws.depth", draws.depth, "draws.normal", draws.normal, dev, H, W)
     _plane("draws.factor", draws.factor, "draws.noise", draws.noise, dev, H, W)
     R, step, taps = _window(options, dev)
+    plan = iteration_plan(Sv, R, step)
+    sources = _sources(problem.src_images)
     gw, gmax = _geom_args(problem, options)
     out = (depth.clone(), normal.clone(), cost.clone(), cost_all.clone())
     _call("pm_iteration_f32", Sv, H, W, R, step, 1.0 / (2 * options.sigma_color ** 2), gw, gmax,
           int(parity), float(perturbation), options.depth_min, options.depth_max,
-          _p(cams), _p(taps), _p(problem.ref_image), _p(problem.src_images),
+          int(plan.fixed_window), plan.bucket, plan.smem_bytes,
+          _p(cams), _p(taps), _p(problem.ref_image), _p(problem.src_images), sources.handle,
           S._opt_ptr(problem.src_depths), S._opt_ptr(weights), _p(draws.depth),
           _p(draws.normal), _p(draws.factor), _p(draws.noise), _p(depth), _p(normal),
           *map(_p, out), _s(dev))
     LAUNCHES["pm_iteration"] += 1
+    SHAPES.add("pm_iteration", "weights" if weights is not None else "best_half",
+               (Sv, H, W, len(taps), problem.src_depths is not None), iteration,
+               (problem, depth, normal, cost, cost_all, weights, draws, parity, perturbation,
+                options))
     return out
 
 

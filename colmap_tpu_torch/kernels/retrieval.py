@@ -35,9 +35,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels.tally import ShapeTally
 
 LAUNCHES = {"retrieval_assign": 0, "retrieval_update": 0, "retrieval_descend": 0,
             "retrieval_gram": 0}
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 # K30's calls and rows by regime (``_descend_plan``), counted beside LAUNCHES.
 DESCEND_CALLS = {"direct": 0, "sorted": 0}
 DESCEND_ROWS = {"direct": 0, "sorted": 0}
@@ -108,6 +111,7 @@ def _descend_plan(n: int, branching: int, depth: int, dim: int) -> DescendPlan:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
     for counts in (DESCEND_CALLS, DESCEND_ROWS):
         for k in counts:
             counts[k] = 0
@@ -337,6 +341,8 @@ def assign(x, cents, groups=None, group_size: Optional[int] = None):
     _call("retrieval_assign_f32", N, D, G, S._ptr(x), S._ptr(cents),
           S._P(0) if groups is None else S._ptr(groups), S._ptr(out), S._stream(dev))
     LAUNCHES["retrieval_assign"] += 1
+    SHAPES.add("retrieval_assign", "grouped" if groups is not None else "flat", (N, D, G), assign,
+               (x, cents, groups, group_size))
     return out
 
 

@@ -46,9 +46,12 @@ import numpy as np
 import torch
 
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels.tally import ShapeTally
 
 LAUNCHES = {"sift_pyramid": 0, "sift_extrema": 0, "sift_orientation": 0, "sift_descriptor": 0,
             "sift_affine_shape": 0}
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 R = 8  # half window: 16 x 16 samples at unit spacing x sigma
 NBINS_ORI = 36
@@ -60,6 +63,7 @@ MAX_RADIUS = 64  # widest blur the kernel takes: sigma up to 16 px
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 class Extrema(NamedTuple):
@@ -518,6 +522,7 @@ def upsample2(img):
     out = torch.empty((2 * H, 2 * W), dtype=f32, device=dev)
     _call("sift_upsample2_f32", H, W, _p(img), _p(out), _s(dev))
     LAUNCHES["sift_pyramid"] += 1
+    SHAPES.add("sift_pyramid", "upsample2", (H, W), upsample2, (img,))
     return out
 
 
@@ -535,6 +540,8 @@ def _blur_into(src, sigma, out, dog=None):
     _call("sift_blur_cols_f32", H, W, r, _p(taps), _p(tmp), _p(src), _p(out), S._opt_ptr(dog),
           _s(dev))
     LAUNCHES["sift_pyramid"] += 1
+    SHAPES.add("sift_pyramid", "blur", (H, W, r, dog is not None), _blur_into,
+               (src, sigma, out, dog), launches=2)
 
 
 def blur(img, sigma):
@@ -570,6 +577,7 @@ def downsample2(img):
     out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=f32, device=dev)
     _call("sift_downsample2_f32", H, W, _p(img), _p(out), _s(dev))
     LAUNCHES["sift_pyramid"] += 1
+    SHAPES.add("sift_pyramid", "downsample2", (H, W), downsample2, (img,))
     return out
 
 

@@ -56,6 +56,7 @@ from colmap_tpu_torch.geometry.essential import (
     decompose_essential_matrix,
     triangulate_point_dlt,
 )
+from colmap_tpu_torch.kernels.tally import ShapeTally
 from colmap_tpu_torch.optim.ransac import pack_best
 
 LAUNCHES = {
@@ -64,6 +65,8 @@ LAUNCHES = {
     "relative_pose": 0,
     "structure_less_ransac": 0,
 }
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 # K35's scalar state, one float64 each, in this order.
 LM_FIELDS = ("nu", "cost", "last_cost", "it", "done", "accepted", "take", "new_cost", "pred")
@@ -72,6 +75,7 @@ LM_FIELDS = ("nu", "cost", "last_cost", "it", "done", "accepted", "take", "new_c
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 class PCGState(NamedTuple):
@@ -483,6 +487,8 @@ def pcg_setup(Hcc_pose, diag_pose, diag_cam, bp, bc, lam, block_jacobi: bool) ->
     _call("ba_pcg_setup_f32", F, C * P, int(bool(block_jacobi)),
           *map(_ptr, (lam, Hcc_pose, diag_pose, diag_cam, bp, bc, *st)), _stream(dev))
     LAUNCHES["ba_pcg"] += 1
+    SHAPES.add("ba_pcg", "setup", (F, C * P), pcg_setup,
+               (Hcc_pose, diag_pose, diag_cam, bp, bc, lam, block_jacobi))
     return st
 
 
@@ -499,6 +505,7 @@ def pcg_setup_diag(M, b) -> PCGState:
     st = PCGState(M, e(n), e(n), e(n), e(n), torch.empty(1, dtype=f64, device=dev))
     _call("ba_pcg_setup_diag_f32", n, *map(_ptr, (M, b, *st[1:])), _stream(dev))
     LAUNCHES["ba_pcg"] += 1
+    SHAPES.add("ba_pcg", "setup_diag", (n,), pcg_setup_diag, (M, b))
     return st
 
 
@@ -528,6 +535,8 @@ def pcg_step(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam) -> PCGState:
           *map(_opt_ptr, (lam if damped else None, diag_pose if damped else None, diag_cam)),
           *map(_ptr, (st.M, Ap_p, Ap_c, st.x, st.r, st.z, st.p, st.rz)), _stream(dev))
     LAUNCHES["ba_pcg"] += 1
+    SHAPES.add("ba_pcg", "step", (F, C * P, damped), pcg_step,
+               (st, Ap_p, Ap_c, lam, diag_pose, diag_cam))
     return st
 
 

@@ -32,8 +32,11 @@ from colmap_tpu_torch.estimators.solvers.epipolar import (
 )
 from colmap_tpu_torch.geometry.spherical import angular_sampson_error, homography_ray_angular_error
 from colmap_tpu_torch.kernels import sfm as S
+from colmap_tpu_torch.kernels import tally as T
 
 LAUNCHES = {"spherical_e_ransac": 0, "spherical_h_ransac": 0}
+# Launch shapes of the kernels above, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = T.ShapeTally()
 
 E_SOLUTIONS = 10
 H_SOLUTIONS = 1
@@ -43,6 +46,7 @@ RAY_DIM = 3
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +161,8 @@ def spherical_h_propose_score(r1, r2, mask, samples, max_sq, active=None, msac=F
     out = S.two_view_propose_score(_call, "spherical_h", 4, H_SOLUTIONS, r1, r2, mask, samples,
                                    max_sq, active, dim=RAY_DIM, msac=msac)
     LAUNCHES["spherical_h_ransac"] += 1
+    SHAPES.add("spherical_h_ransac", "propose", T.pair_sizes(r1, samples),
+               spherical_h_propose_score, (r1, r2, mask, samples, max_sq, active, msac))
     return out
 
 
@@ -167,6 +173,8 @@ def spherical_h_refit(r1, r2, mask, model, max_sq, count, score=None):
     out = S.two_view_refit(_call, "spherical_h", r1, r2, mask, model, max_sq, count, dim=RAY_DIM,
                            score=score)
     LAUNCHES["spherical_h_ransac"] += 1
+    SHAPES.add("spherical_h_ransac", "refit", T.pair_sizes(r1), spherical_h_refit,
+               (r1, r2, mask, model, max_sq, count, score))
     return out
 
 
@@ -176,4 +184,6 @@ def spherical_h_inliers(r1, r2, mask, model, max_sq):
         return spherical_h_inliers_plain(r1, r2, mask, model, max_sq)
     out = S.two_view_inliers(_call, "spherical_h", r1, r2, mask, model, max_sq, dim=RAY_DIM)
     LAUNCHES["spherical_h_ransac"] += 1
+    SHAPES.add("spherical_h_ransac", "inliers", T.pair_sizes(r1), spherical_h_inliers,
+               (r1, r2, mask, model, max_sq))
     return out

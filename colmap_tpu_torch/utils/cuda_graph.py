@@ -3,7 +3,8 @@ counts kept true.
 
 The solvers' loops (the packed and the rig LM solves, rotation averaging's
 and global positioning's CG) record one step once per solve and replay it.
-A kernel wrapper adds one to its module's ``LAUNCHES`` where it launches;
+A kernel wrapper adds one to its module's ``LAUNCHES`` (and its launch
+shape to ``SHAPES``, where the module keeps one) where it launches;
 recording launches nothing, so ``capture`` takes back what the recorded
 step added to the given modules' counts, and each replay adds it again, as
 the graph launches each recorded kernel once.
@@ -20,6 +21,7 @@ def record(step, graph, modules):
     kernel modules whose ``LAUNCHES`` the step moves. Returns (replay,
     step's return value, seconds inside the recording)."""
     counts = [m.LAUNCHES for m in modules]
+    counts += [m.SHAPES.counts for m in modules if hasattr(m, "SHAPES")]
     before = [dict(c) for c in counts]
     t0 = time.perf_counter()
     # thread_local: a synchronizing call in another thread of the pipeline
@@ -30,7 +32,8 @@ def record(step, graph, modules):
     finally:
         t1 = time.perf_counter()
         graph.capture_end()
-    recorded = [(c, k, c[k] - b[k]) for c, b in zip(counts, before) for k in c if c[k] != b[k]]
+    recorded = [(c, k, c[k] - b.get(k, 0)) for c, b in zip(counts, before) for k in c
+                if c[k] != b.get(k, 0)]
     for c, k, n in recorded:
         c[k] -= n
 

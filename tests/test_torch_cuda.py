@@ -134,6 +134,60 @@ def test_kernels_match_plain_on_cuda(shape):
            K.dense_schur_assemble_plain(*_f64(*ops, lam_diag), F), 1e-4, "K4 S")
 
 
+# K3 at the shapes the weighing found heaviest (the mapper's local BAs: a few
+# frames, hundreds of points, one camera of P 4 or 8), and on each of its
+# other paths: three cameras (no warp shares one camera: the lanes add
+# their own terms), 300 frames (a table of 1804 floats: one a block), 4200
+# frames (100 KB: straight into the output) and a track of 40 slots (lanes
+# take two trips). The matvec and the back-substitution to 1e-4 of their
+# plain versions in float64, as test_kernels_match_plain_on_cuda holds K3.
+@pytest.mark.parametrize("F, N, model_id, cameras, track", [
+    (5, 800, 4, 1, 0), (5, 120, 2, 1, 0), (3, 700, 4, 1, 0), (9, 2700, 2, 1, 0),
+    (12, 900, 2, 3, 0), (300, 2000, 2, 1, 0), (4200, 1000, 2, 1, 0), (48, 500, 2, 1, 40)],
+    ids=["5x800_p8", "5x120_p4", "3x700_p8", "9x2700_p4", "three_cameras", "300_frames",
+         "4200_frames", "track_40"])
+def test_schur_matvec_weighed_shapes_match_plain_on_cuda(F, N, model_id, cameras, track):
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if track:
+        pk, maps, model_id, opts, masks = _setup(F, N, track)
+    else:
+        problem, _, _ = synthetic_ba_problem(F, N, min(F, 6), model_id=model_id, seed=4,
+                                             device="cuda")
+        if cameras > 1:
+            problem = problem._replace(
+                cam_params=problem.cam_params.repeat(cameras, 1),
+                obs_cam=(problem.obs_frame % cameras).to(torch.int32))
+        opts = ba.BAOptions()
+        masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, opts), 0, 1)
+        pk, maps, _ = ba.pack_problem(problem)
+    om = ba._obs_masks(masks, opts)
+    J = K.obs_jacobians(pk.quat, pk.t, pk.cam_params, pk.points, pk.obs_frame, pk.obs_cam,
+                        pk.obs_point, pk.obs_xy, pk.obs_w, om.pose, om.cam, om.point, model_id,
+                        "trivial", 1.0)
+    C = pk.cam_params.shape[0]
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, torch.tensor(1e-3, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xp = torch.randn(F, 6, device="cuda", generator=g)
+    xc = torch.randn(C, J[2].shape[-1], device="cuda", generator=g) * 1e-3
+    ops = (J[1], J[2], J[3], maps.frame_pm, maps.cam_pm, red.Hpp_inv)
+    K.reset_launches()
+    got = K.schur_matvec(*ops, xp, xc)
+    dx = K.back_substitute(*ops, red.gx, xp, xc)
+    for name, a, b in zip(("out_p", "out_c"), got, K.schur_matvec_plain(*_f64(*ops, xp, xc))):
+        _close(a, b, 1e-4, f"K3 {name}")
+    _close(dx, K.back_substitute_plain(*_f64(*ops, red.gx, xp, xc)), 1e-4, "K3 dx")
+    N_, capp = maps.frame_pm.shape
+    P = J[2].shape[-1]
+    assert K.LAUNCHES["ba_schur_matvec"] == 2
+    assert K.SHAPES.counts == {("ba_schur_matvec", "matvec", N_, capp, F, C, P): 1,
+                               ("ba_schur_matvec", "back_substitute", N_, capp, F, C, P): 1}
+
+
 @pytest.mark.parametrize("solver", ["dense_schur", "pcg"])
 def test_solve_matches_plain_on_cuda(problem, solver):
     """Three LM iterations through the kernels and through the plain
@@ -961,6 +1015,116 @@ def test_pm_iteration_keeps_the_plane_where_no_source_sees_the_window(view_selec
         assert torch.equal(ref[0], d64) and torch.equal(ref[1], n64)
         moved = int(((got[0] != d) | (got[1] != n).any(-1)).sum())
         assert moved == 0, f"parity {parity}: {moved} planes moved"
+
+
+# K18's launch plans beyond the 64 x 96, three-view case above: odd sides
+# (the last tile's rows and columns, the parity's wrap), a window of radius
+# 3 and step 2 (the generic instantiation), one view and nine (the second
+# view bucket), two and four views (best-half over an even count), and
+# 1001 columns, whose 4004-byte rows miss any texture pitch alignment.
+# Each is held as test_pm_iteration_matches_plain_on_cuda holds the default.
+@pytest.mark.parametrize("view_selection", [True, False], ids=["weights", "best_half"])
+@pytest.mark.parametrize("H, W, views, radius, step", [
+    (63, 97, 3, 2, 1), (64, 96, 3, 3, 2), (40, 64, 1, 2, 1), (40, 64, 9, 2, 1),
+    (40, 64, 2, 2, 1), (40, 64, 4, 3, 2), (24, 1001, 2, 2, 1)],
+    ids=["odd_sides", "r3_step2", "one_view", "nine_views", "two_views", "four_views_r3",
+         "w1001"])
+def test_pm_iteration_plans_match_plain_on_cuda(H, W, views, radius, step, view_selection):
+    import dataclasses
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from colmap_tpu_torch.kernels import mvs as K
+    from colmap_tpu_torch.kernels import mvs_cases as C
+    from colmap_tpu_torch.mvs.patch_match import PatchMatchOptions
+
+    case = C.plane_case(H, W, views, seed=11)
+    p, d, n, sel, dr = C.tensors(case, "cuda", torch.float32, True)
+    p64, d64, n64, sel64, dr64 = C.tensors(case, "cuda", torch.float64, True)
+    opts = PatchMatchOptions(depth_min=2.0, depth_max=10.0, window_radius=radius,
+                             window_step=step, view_selection=view_selection)
+    plan = K.iteration_plan(views, radius, step)
+    assert plan.fixed_window == ((radius, step) == (2, 1))
+    assert plan.bucket == (8 if views <= 8 else 16)
+    ca = K.costs_plain(p64, d64, n64, opts)
+    w64 = K.view_weights_plain(p64, d64, n64, sel64, opts) if view_selection else None
+    cost = K.aggregate(ca, w64)
+    K.reset_launches()
+    for parity in (0, 1):
+        got = K.iteration(p, d, n, cost.float(), ca.float(), None if w64 is None else w64.float(),
+                          dr, parity, 0.5, opts)
+        ref = K.iteration_plain(p64, d64, n64, cost, ca, w64, dr64, parity, 0.5, opts)
+        ties = C.choice_ties(p64, d64, n64, cost, w64, dr64, parity, 0.5, opts, 1e-3, 1e-4, 0.02)
+        same = (((got[0].double() - ref[0]).abs() <= 1e-5 * ref[0])
+                & ((got[1].double() - ref[1]).abs().amax(-1) <= 1e-4))
+        assert bool(same[~ties].all()), f"parity {parity}: {int((~same & ~ties).sum())} differ"
+        assert same.double().mean() >= 0.99
+        agree = same & ~ties
+        _close(got[2][agree], ref[2][agree], 1e-4, "K18 cost")
+        _close(got[3][:, agree], ref[3][:, agree], 1e-4, "K18 cost_all")
+        inactive = (torch.arange(H, device="cuda")[:, None]
+                    + torch.arange(W, device="cuda")[None]) % 2 != parity
+        assert torch.equal(got[0][inactive], d[inactive])
+        assert torch.equal(got[3][:, inactive], ca.float()[:, inactive])
+    assert K.LAUNCHES["pm_iteration"] == 2
+    assert K.SHAPES.counts == {("pm_iteration", "weights" if view_selection else "best_half",
+                                views, H, W, (2 * radius // step + 1) ** 2, 1): 2}
+
+
+def test_pm_iteration_sources_are_made_once_a_problem_on_cuda():
+    """K18's textures are made at a problem's first half-iteration and
+    reused until its source images change, in place or for another
+    tensor."""
+    from colmap_tpu_torch.kernels import mvs as K
+
+    (p, d, n, _, dr), _, opts = _pm_case(False)
+    ca = K.costs(p, d, n, opts)
+    cost = K.aggregate(ca, None)
+    first = K.iteration(p, d, n, cost, ca, None, dr, 0, 0.5, opts)
+    made = K._SOURCES["set"]
+    again = K.iteration(p, d, n, cost, ca, None, dr, 0, 0.5, opts)
+    assert K._SOURCES["set"] is made
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    p.src_images.mul_(0.5)  # in place: the copy is made again
+    K.iteration(p, d, n, cost, ca, None, dr, 0, 0.5, opts)
+    assert K._SOURCES["set"] is not made and not made.free.alive
+    other = p._replace(src_images=p.src_images.clone())
+    K.iteration(other, d, n, cost, ca, None, dr, 0, 0.5, opts)
+    assert K._SOURCES["set"].key[0] == other.src_images.data_ptr()
+
+
+def test_launch_shapes_follow_launches_and_graph_replays_on_cuda():
+    """A wrapper's launch shape is counted with its launch; a captured step
+    moves its shapes to the replays, as its launches; a call is kept at a
+    shape class only outside a capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.utils import cuda_graph
+
+    n = 1000
+    M = torch.rand(n, device="cuda") + 1.0
+    b = torch.rand(n, device="cuda")
+    KS.reset_launches()
+    KS.SHAPES.reset_samples()
+    KS.SHAPES.sampling = True
+    try:
+        KS.pcg_setup_diag(M, b)
+        assert KS.SHAPES.counts == {("ba_pcg", "setup_diag", n): 1}
+        assert list(KS.SHAPES.samples) == [("ba_pcg", "setup_diag", 1024)]
+        KS.SHAPES.reset_samples()
+        replay, _, _, _ = cuda_graph.capture(lambda: KS.pcg_setup_diag(M, b),
+                                             torch.device("cuda"), (KS,))
+        assert KS.LAUNCHES["ba_pcg"] == 1 and KS.SHAPES.counts[("ba_pcg", "setup_diag", n)] == 1
+        assert not KS.SHAPES.samples
+        replay()
+        replay()
+        torch.cuda.synchronize()
+        assert KS.LAUNCHES["ba_pcg"] == 3 and KS.SHAPES.counts[("ba_pcg", "setup_diag", n)] == 3
+    finally:
+        KS.SHAPES.sampling = False
+        KS.SHAPES.reset_samples()
 
 
 # K21-K23 against their float64 plain versions on the same float32 inputs, on
