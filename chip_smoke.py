@@ -175,9 +175,11 @@ Phases; any failure exits non-zero:
  24. solver kernels (phase `solver_kernels`): K34 (PCG's set-up in both
      preconditioner modes and its step) and K35 (the LM candidate and
      accept) against float64 plain versions at a mapper-sized local BA
-     (15 x 1500) and at the BA headline, K36 (cheirality and refinement)
-     on the initial pair's 3 seeds x 8192 rows and cheirality on 780 pose
-     graph edges x 200 rows, K37 on 16 injected samples at the rendered
+     (15 x 1500) and at the BA headline, K34's step by its launch plan
+     (one warp up to 32 frames and 128 camera entries) and by the block on
+     the same seeded vectors from 4 to 200 frames, K36 (cheirality and
+     refinement) on the initial pair's 3 seeds x 8192 rows and cheirality
+     on 780 pose graph edges x 200 rows, K37 on 16 injected samples at the rendered
      scene's shape (2000 rows, 11 registered cameras; every near-best model
      of its check within 1e-6 of float64), K40 (the rig pose refinement
      and refit) on 2000 rows x 4 cameras in float64, timed; at both BA
@@ -735,11 +737,12 @@ SPH_PAIRS, SPH_ROWS, SPH_SAMPLES, SPH_PLAIN_PAIRS = 64, 8192, 128, 8
 # f32 operations (an FMA is 2): K32 per sample K7's 5-point count (see phase
 # sfm: null space and elimination 6e3, the grid 2050 x 25, the bisections
 # 1000 x 60, the models 3e3), per model and ray the angular Sampson error
-# (80); K33 per sample the 12 DLT rows into the normal matrix (1080) and 10
-# Jacobi sweeps of 36 rotations of the 9 x 9 (~1.3e5), per ray the angular
-# transfer error (45).
+# (80); K33 per sample the 8 kept DLT rows (4 x 23), Householder QR of their
+# 9 x 8 transpose (46 flops an entry of a reflector's column over 8
+# reflectors: 46 x 44), the null vector (5 x 44) and its norm (30), per ray
+# the angular transfer error (45).
 SPH_E_SAMPLE_OPS, SPH_E_ROW_OPS = 6000 + 2050 * 25 + 1000 * 60 + 3000, 80
-SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS = 1080 + 130000, 45
+SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS = 4 * 23 + 46 * 44 + 5 * 44 + 30, 45
 # Phase solver_kernels (K34-K37) and the device-resident LM loop.
 SOLVER_SOURCES = {
     "ba_pcg": ("colmap_tpu_torch/csrc/ba_pcg.cu",
@@ -5979,9 +5982,47 @@ def _k40(errs, rows):
         f"{bound64(nbytes(data.X, data.centers, data.dirs, w), K40_REFIT_ROW_OPS * n)[0]:.5f} ms)")
 
 
+# K34's step by plan on seeded vectors (solver_cases.pcg_vectors): the
+# weighing's heaviest classes (F 8 CP 4, F 4 CP 4, F 8 CP 8), the one-warp
+# instances at the plan's bound (32 frames and 32, 64 and 128 camera
+# entries), the rig's undamped step and the BA headline.
+K34_PLAN_SHAPES = ((8, 4, True), (4, 4, True), (8, 8, True), (32, 32, True), (32, 64, True),
+                   (32, 128, True), (0, 96, False), (200, 4, True))
+
+
+def _k34_plans(errs, rows):
+    """K34's step by its plan and by the block on the same inputs, against
+    float64 and timed (in place, as the PCG runs it), at K34_PLAN_SHAPES;
+    the times go into the K34 row's entries."""
+    from colmap_tpu_torch.kernels import solver as KL
+    from colmap_tpu_torch.kernels.solver_cases import pcg_vectors
+
+    log("K34 step by plan (seeded vectors; CUDA-event-timed launches):")
+    entries = rows["ba_pcg"]["entries"]
+    for F, CP, damped in K34_PLAN_SHAPES:
+        st0, Ap0, damping = pcg_vectors(F, CP, damped, F + CP, "cuda")
+        ref = KL.pcg_step_plain(_as64(st0), *f64(*Ap0), *f64(*damping))
+        plan = KL.pcg_step_plan(F, CP)
+        times = {}
+        for pl in dict.fromkeys([plan, 0]):
+            st = KL.PCGState(*(v.clone() for v in st0))
+            Ap = tuple(a.clone() for a in Ap0)
+            KL.pcg_step_planned(st, *Ap, *damping, pl)
+            for n, a, b in zip(KL.PCGState._fields[1:], st[1:], ref[1:]):
+                check(f"K34 step F {F} CP {CP} by {pl} {n}", a, b, K34_RTOL, errs["ba_pcg"])
+            times[pl] = time_ms(lambda: KL.pcg_step_planned(st, *Ap, *damping, pl), reps=200)
+        n = 6 * F + CP
+        b_ms, by = bound(4 * (11 * n + 36 * F), K34_ENTRY_OPS * n + K34_FRAME_OPS * F)
+        entries[f"step F {F} CP {CP}{'' if damped else ' undamped'}"] = dict(
+            ms=times[plan], plan=plan, block_ms=times[0], bound_ms=b_ms)
+        log(f"    F {F}, CP {CP}: plan {plan} {times[plan]:.5f} ms, block {times[0]:.5f} ms, "
+            f"bound {b_ms:.5f} ms by {by}")
+
+
 def phase_solver_kernels():
     """K34-K37 and K40 against their float64 plain versions: K34 and K35 at
-    the BA headline and at a mapper-sized local BA, K36 on the initial
+    the BA headline and at a mapper-sized local BA, K34's step by plan
+    (_k34_plans), K36 on the initial
     pair's seeds and on a pose graph's edges, K37 on injected samples at the
     rendered scene's shape, K40 at a rig registration's; timed with CUDA
     events. Returns (errs, rows, agree)."""
@@ -6001,6 +6042,7 @@ def phase_solver_kernels():
         _loop_costs(label, packed, model_id, maps, masks)
         if timed:
             _loop_costs(label, packed, model_id, maps, masks, dense=True)
+    _k34_plans(errs, rows)
     _k36(errs, rows)
     _k37(errs, rows, agree)
     _k40(errs, rows)

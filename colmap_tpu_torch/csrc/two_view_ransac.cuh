@@ -10,7 +10,11 @@
 //     kSolutions 3x3 models, NaN where a slot has none); the warp scores
 //     them on the pair's N rows in one strided pass, writes models and
 //     counts, and keeps the pair's best with one 64-bit atomicMax on
-//     (count, index), the first model of largest support.
+//     (count, index), the first model of largest support. A Model that
+//     sets kLaneSolve (K33) has its block's samples solved by lanes 0..
+//     warps-1 of warp 0, one a lane, before a block barrier: the solves run
+//     side by side and their local arrays share cache lines. Models without
+//     it (K11, K12) compile to the code they had.
 //   refit: one block per pair (colmap_tpu optim/ransac.py _try_refine). The
 //     rows within the threshold of the given model are Hartley-normalized
 //     (weighted centroid, then mean distance), the 9 x 9 normal matrix of
@@ -162,6 +166,16 @@ __device__ __forceinline__ void load_row(const float* x, long long i, float* out
   for (int d = 0; d < Model::kDim; ++d) out[d] = x[Model::kDim * i + d];
 }
 
+// Model::kLaneSolve, false where the model does not set it.
+template <class Model, class = void>
+struct LaneSolve {
+  static constexpr bool value = false;
+};
+template <class Model>
+struct LaneSolve<Model, decltype(void(Model::kLaneSolve))> {
+  static constexpr bool value = Model::kLaneSolve;
+};
+
 template <class Model, int WARPS, bool MSAC>
 __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
                                               const float* __restrict__ max_sq_arr,
@@ -180,19 +194,35 @@ __global__ void two_view_propose_score_kernel(int n, int k, float max_sq,
   if (active != nullptr && !active[pair]) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sample = blockIdx.x * WARPS + warp;
+  if constexpr (LaneSolve<Model>::value) {
+    // Lanes 0..WARPS-1 of warp 0 solve the block's samples, one each.
+    const int mine = blockIdx.x * WARPS + lane;
+    if (warp == 0 && lane < WARPS && mine < k) {
+      float s1[D * M], s2[D * M];
+      const int* rows = samples + ((size_t)pair * k + mine) * M;
+      for (int r = 0; r < M; ++r) {
+        load_row<Model>(x1 + (size_t)pair * n * D, rows[r], s1 + D * r);
+        load_row<Model>(x2 + (size_t)pair * n * D, rows[r], s2 + D * r);
+      }
+      Model::solve(s1, s2, models[lane]);
+    }
+    __syncthreads();
+  }
   if (sample >= k) return;  // whole warps leave together
   x1 += (size_t)pair * n * D;
   x2 += (size_t)pair * n * D;
   mask += (size_t)pair * n;
   if (max_sq_arr != nullptr) max_sq = max_sq_arr[pair];
-  if (lane == 0) {
-    float s1[D * M], s2[D * M];
-    const int* rows = samples + ((size_t)pair * k + sample) * M;
-    for (int r = 0; r < M; ++r) {
-      load_row<Model>(x1, rows[r], s1 + D * r);
-      load_row<Model>(x2, rows[r], s2 + D * r);
+  if constexpr (!LaneSolve<Model>::value) {
+    if (lane == 0) {
+      float s1[D * M], s2[D * M];
+      const int* rows = samples + ((size_t)pair * k + sample) * M;
+      for (int r = 0; r < M; ++r) {
+        load_row<Model>(x1, rows[r], s1 + D * r);
+        load_row<Model>(x2, rows[r], s2 + D * r);
+      }
+      Model::solve(s1, s2, models[warp]);
     }
-    Model::solve(s1, s2, models[warp]);
   }
   __syncwarp();
   bool finite[S];

@@ -407,7 +407,7 @@ _F = ctypes.c_float
 # the wrappers pass them, then scalars, the SM count and the stream.
 _SIGNATURES = {
     "ba_pcg_setup_f32": [_I, _I, _I] + [_P] * 12 + [_P],
-    "ba_pcg_step_f32": [_I, _I] + [_P] * 11 + [_P],
+    "ba_pcg_step_f32": [_I, _I, _I] + [_P] * 11 + [_P],
     "ba_pcg_setup_diag_f32": [_I] + [_P] * 7 + [_P],
     "ba_lm_candidate_f32": [_I, _I, _LL] + [_P] * 21 + [_I, _P],
     "ba_lm_accept_f32": [_I, _I, _LL] + [_P] * 4 + [_D, _D, _D] + [_P] * 9 + [_I, _P],
@@ -513,15 +513,41 @@ def _opt_ptr(x):
     return _P(0) if x is None else _ptr(x)
 
 
+# K34's step runs as one warp up to STEP_WARP_FRAMES frames (one a lane) and
+# 32 x max(STEP_WARP_CAMS) camera entries (1, 2 or 4 a lane, the kernel's
+# instances); as one block of 1024 threads above. On the H100 the warp is
+# faster than the block up to there; two frames a lane, at 64 frames, was
+# slower (PERF.md, K34's row).
+STEP_WARP_FRAMES, STEP_WARP_CAMS = 32, (1, 2, 4)
+
+
+def pcg_step_plan(F: int, CP: int) -> int:
+    """K34 step's launch plan for F frames and CP camera entries: camera
+    entries a lane of the one-warp step, the smallest instance that holds
+    them, or 0 for the block."""
+    if F > STEP_WARP_FRAMES:
+        return 0
+    return next((k for k in STEP_WARP_CAMS if CP <= 32 * k), 0)
+
+
 def pcg_step(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam) -> PCGState:
     """K34 step: updates ``st`` (and Ap) in place on the card and returns it.
     With diag_pose, diag_cam (and lam) None the step adds no damping (the
     rig's). See pcg_step_plain for the function."""
     if Ap_p.device.type == "cpu":
         return pcg_step_plain(st, Ap_p, Ap_c, lam, diag_pose, diag_cam)
-    dev = _require_cuda(Ap_p)
+    plan = pcg_step_plan(Ap_p.shape[0], Ap_c.numel())
+    return pcg_step_planned(st, Ap_p, Ap_c, lam, diag_pose, diag_cam, plan)
+
+
+def pcg_step_planned(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam, plan) -> PCGState:
+    """K34 step on the card by the given plan: pcg_step_plan's, or 0, the
+    block, at any size (chip_smoke.py times the two plans side by side)."""
     F, (C, P) = Ap_p.shape[0], Ap_c.shape
     n = 6 * F + C * P
+    if plan and not (plan in STEP_WARP_CAMS and F <= STEP_WARP_FRAMES and C * P <= 32 * plan):
+        raise ValueError(f"K34 step: no one-warp instance {plan} for F {F}, CP {C * P}")
+    dev = _require_cuda(Ap_p)
     checks = [("Ap_p", Ap_p, (F, 6)), ("Ap_c", Ap_c, (C, P)), ("M", st.M, (36 * F + C * P,)),
               ("x", st.x, (n,)), ("r", st.r, (n,)), ("z", st.z, (n,)), ("p", st.p, (n,))]
     if diag_cam is not None:
@@ -531,7 +557,7 @@ def pcg_step(st: PCGState, Ap_p, Ap_c, lam, diag_pose, diag_cam) -> PCGState:
         _check(name, x, f32, shape, dev)
     _check("rz", st.rz, f64, (1,), dev)
     damped = diag_cam is not None
-    _call("ba_pcg_step_f32", F, C * P,
+    _call("ba_pcg_step_f32", F, C * P, plan,
           *map(_opt_ptr, (lam if damped else None, diag_pose if damped else None, diag_cam)),
           *map(_ptr, (st.M, Ap_p, Ap_c, st.x, st.r, st.z, st.p, st.rz)), _stream(dev))
     LAUNCHES["ba_pcg"] += 1

@@ -1,8 +1,9 @@
-"""Synthetic inputs for K36 and K37, made from a numpy seed.
+"""Synthetic inputs for K34's step, K36 and K37, made from a numpy seed.
 
 Each case builds the tensors one kernel takes at the shapes the mapper
-gives it: two-view problems in CSR order (the initial pair's seeds, the pose
-graph's edges) with noise, outliers and padded rows, and structure-less
+gives it: a PCG state of F frames and CP camera entries, two-view problems
+in CSR order (the initial pair's seeds, the pose graph's edges) with noise,
+outliers and padded rows, and structure-less
 registration problems (a new camera against registered ones) with injected
 samples. chip_smoke.py and the card tests hold each kernel against its plain
 version on them. Arrays are made in float64 with numpy and handed over at
@@ -16,10 +17,33 @@ import numpy as np
 import torch
 
 from colmap_tpu_torch.kernels.sfm_cases import _quat, _rotation, _t
+from colmap_tpu_torch.kernels.solver import PCGState
 
 
 def _skew(v):
     return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+
+
+def pcg_vectors(F, CP, damped, seed, device):
+    """A K34 step's inputs: the state (M of inverted SPD 6x6 blocks and
+    positive camera entries; x, r, p; z = M r and rz = r.z), Ap = (a
+    positive diagonal) p + noise as (F, 6) and (CP, 1), and the damping
+    (lam 1e-3, diag_pose (F, 6), diag_cam (CP, 1)), or three None where
+    undamped (the rig's step). float32 vectors, rz float64."""
+    rng = np.random.default_rng(seed)
+    n = 6 * F + CP
+    G = rng.standard_normal((F, 6, 6))
+    blocks = np.linalg.inv(G @ G.transpose(0, 2, 1) + np.eye(6))
+    M = np.concatenate([blocks.reshape(-1), rng.uniform(0.5, 2.0, CP)])
+    r, p = rng.standard_normal(n), rng.standard_normal(n)
+    z = np.concatenate([(blocks @ r[:6 * F].reshape(F, 6, 1)).reshape(-1), M[36 * F:] * r[6 * F:]])
+    Ap = rng.uniform(0.5, 2.0, n) * p + 0.1 * rng.standard_normal(n)
+    st = PCGState(_t(M, device), _t(rng.standard_normal(n), device), _t(r, device),
+                  _t(z, device), _t(p, device), _t([float(r @ z)], device, torch.float64))
+    damping = ((torch.tensor(1e-3, device=device), _t(rng.uniform(0.5, 2.0, (F, 6)), device),
+                _t(rng.uniform(0.5, 2.0, (CP, 1)), device)) if damped else (None, None, None))
+    Ap = (_t(Ap[:6 * F].reshape(F, 6), device), _t(Ap[6 * F:].reshape(CP, 1), device))
+    return st, Ap, damping
 
 
 def relative_pose_case(sizes, seed, device, noise=1e-3, outliers=0.1, dtype=torch.float32):

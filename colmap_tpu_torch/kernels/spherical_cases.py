@@ -85,6 +85,54 @@ def ray_block_case(kind, b, n, k, seed, device):
     return out
 
 
+# Of a ray pair's three rows of [r2]_x, the two K33's solve keeps, by the
+# axis k* = argmax_k |r2_k| it drops.
+_KEPT = torch.tensor([[1, 2], [0, 2], [0, 1]])
+
+
+def ray_dlt_rows8(r1, r2):
+    """K33's 4-ray system in float64: of each ray pair's three rows c_k (x)
+    r1 of [r2]_x H r1 = 0 (c_k the rows of [r2]_x), the two other than k* =
+    argmax_k |r2_k| (the first on ties), in the order of k, pair by pair.
+    r1, r2 (..., 4, 3); returns (..., 8, 9). Since r2^T [r2]_x = 0 these
+    rows span the space of all 12, so their null vector is the 4-ray DLT's
+    (homography_ray_dlt)."""
+    x2, y2, z2 = r2.unbind(-1)
+    z = torch.zeros_like(z2)
+    cross = torch.stack([torch.stack([z, -z2, y2], -1), torch.stack([z2, z, -x2], -1),
+                         torch.stack([-y2, x2, z], -1)], -2)  # (..., 4, 3, 3)
+    keep = _KEPT.to(r2.device)[r2.abs().argmax(-1)]  # (..., 4, 2)
+    rows = torch.gather(cross, -2, keep[..., None].expand(keep.shape + (3,)))
+    return (rows[..., None] * r1[..., None, None, :]).reshape(r1.shape[:-2] + (8, 9))
+
+
+def ray_dlt8(r1, r2):
+    """The null vector of ray_dlt_rows8 (its last right singular vector), as
+    a (..., 3, 3) homography of unit Frobenius norm: the function K33's
+    solve computes, in float64."""
+    h = torch.linalg.svd(ray_dlt_rows8(r1, r2))[2][..., -1, :]
+    return (h / h.norm(dim=-1, keepdim=True)).reshape(h.shape[:-1] + (3, 3))
+
+
+def axis_samples(r2, mask, per_group, seed):
+    """Samples (7 per_group, 4) int32 of valid rows, by the axis k and sign s
+    of each ray's largest component of r2: per_group samples of 4 rays of
+    each of the 6 groups (k, s), then per_group samples whose rays come from
+    the groups (0, +), (1, -), (2, +) and one drawn at random."""
+    rng = np.random.default_rng(seed)
+    r = r2.detach().cpu().double().numpy()
+    ok = mask.detach().cpu().numpy().astype(bool)
+    axis = np.abs(r).argmax(1)
+    sign = r[np.arange(len(r)), axis] > 0
+    groups = [np.flatnonzero(ok & (axis == k) & (sign == s)) for k in range(3) for s in (True,
+                                                                                       False)]
+    out = [rng.choice(g, 4, replace=False) for g in groups for _ in range(per_group)]
+    for _ in range(per_group):
+        picks = [groups[0], groups[3], groups[4], groups[int(rng.integers(6))]]
+        out.append(np.array([rng.choice(g) for g in picks]))
+    return torch.as_tensor(np.stack(out), dtype=torch.int32, device=r2.device)
+
+
 def spherical_pair(rng, R, t, n=300, outlier_ratio=0.15, width=2048, height=1024):
     """colmap_tpu's equirectangular test pair (tests/test_ransac_two_view.py
     _spherical_pair): n points in a shell 2-8 units around camera 1 seen by

@@ -331,6 +331,33 @@ def test_ray_solvers_match_jax():
            1e-9, "4-ray DLT")
 
 
+def test_k33_eight_rows_match_jax_ray_dlt():
+    """K33's solve keeps 8 of the 4-ray DLT's 12 rows (spherical_cases
+    ray_dlt_rows8): the kept rows have rank 8 and their null vector, in
+    float64, equals colmap_tpu's homography_ray_dlt up to sign within 1e-9,
+    on seeded samples whose r2 rays have their largest component on each
+    axis with either sign (alone and mixed in a sample) and on samples whose
+    r2 rays tie on their largest components."""
+    c = QC.ray_case("H", 2000, 4, 7, "cpu", outliers=0.0)
+    r1, r2 = c["x1"].double(), c["x2"].double()
+    idx = QC.axis_samples(r2, c["mask"], 6, 3).long()
+    s1, s2 = r1[idx], r2[idx]
+    axes = s2.abs().argmax(-1)
+    assert {(int(k), bool(v)) for k, v in zip(axes.flatten(), (
+        s2.gather(-1, axes[..., None])[..., 0] > 0).flatten())} == {
+            (k, v) for k in range(3) for v in (True, False)}
+    ties = torch.tensor([[[1.0, 1.0, 0.2], [0.3, -1.0, 1.0], [1.0, 1.0, 1.0], [-1.0, 0.1, -1.0]],
+                         [[-1.0, -1.0, 0.0], [0.0, 1.0, -1.0], [1.0, -1.0, -1.0],
+                          [0.5, 0.5, 0.5]]], dtype=torch.float64)
+    s1 = torch.cat([s1, r1[10:18].reshape(2, 4, 3)])
+    s2 = torch.cat([s2, ties / ties.norm(dim=-1, keepdim=True)])
+    assert bool((torch.linalg.svdvals(QC.ray_dlt_rows8(s1, s2))[..., 7] > 1e-6).all())
+    got = QC.ray_dlt8(s1, s2).numpy()
+    ref = np.asarray(jepi.homography_ray_dlt(jnp.asarray(s1.numpy()), jnp.asarray(s2.numpy())))
+    sign = np.sign((got * ref).sum((-2, -1)))[:, None, None]
+    _close(got * sign, ref, 1e-9, "8-row null vector")
+
+
 def test_spherical_residuals_match_jax():
     """angular_sampson_error and homography_ray_angular_error against
     colmap_tpu's on the rays of a case and random models: 1e-12 of scale."""

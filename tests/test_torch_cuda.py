@@ -1714,6 +1714,78 @@ def test_spherical_ransac_matches_plain_on_cuda(kind):
             assert torch.equal(torch.nan_to_num(m1), torch.nan_to_num(mb[b]))
 
 
+def test_spherical_h_solve_cases_on_cuda():
+    """K33's solve (8 of the 12 DLT rows, Householder QR in float32) on
+    3000 rays of a rotation: samples whose r2 rays have their largest
+    component on each axis with either sign (alone and mixed), the case's
+    degenerate samples (a repeated row) and near-degenerate ones (a ray and
+    its three nearest neighbours). Each model of a sample whose 8 x 9 system
+    has sigma_8 >= 1e-2 sigma_1 equals float64 homography_ray_dlt's up to
+    sign within 1e-3 of its scale; every support, in the count and the MSAC
+    mode, equals a float64 count of the kernel's own model up to rows within
+    2% of the threshold, and the near-best MSAC scores (>= 90% of the best)
+    a float64 score within 5e-4; a block of 5 pairs with pair 2 inactive
+    gives each active pair what the one-pair entry gives it."""
+    _need_card()
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_ray_dlt
+    from colmap_tpu_torch.geometry.spherical import homography_ray_angular_error
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+    from colmap_tpu_torch.kernels.sfm_cases import as_double
+    from colmap_tpu_torch.optim.ransac import score_models, unpack_best
+
+    c = Q.ray_case("H", 3000, 8, 5, "cuda")
+    d = as_double(c)
+    valid = torch.nonzero(c["mask"]).flatten()
+    r1v = d["x1"][valid]
+    near = []
+    for i in valid[::200][:16]:
+        ang = (r1v @ d["x1"][i]).neg()
+        near.append(valid[torch.argsort(ang)[:4]])
+    samples = torch.cat([c["samples"], Q.axis_samples(c["x2"], c["mask"], 8, 6),
+                         torch.stack(near).to(torch.int32)])
+    res = lambda m: torch.where(d["mask"], homography_ray_angular_error(  # noqa: E731
+        m[:, None], d["x1"][None], d["x2"][None]), torch.inf)
+    s1, s2 = d["x1"][samples.long()], d["x2"][samples.long()]
+    ref = homography_ray_dlt(s1, s2)
+    sv = torch.linalg.svdvals(Q.ray_dlt_rows8(s1, s2))
+    good = sv[:, 7] >= 1e-2 * sv[:, 0]
+    assert int(good.sum()) >= 50
+    for msac in (False, True):
+        out = KQ.spherical_h_propose_score(c["x1"], c["x2"], c["mask"], samples, c["max_sq"],
+                                           msac=msac)
+        mk, ck, bk = out[:3]
+        m64 = mk.double()
+        sign = torch.sign((m64 * ref).sum((-2, -1)))[:, None, None]
+        _close((m64 * sign)[good], ref[good], 1e-3, f"K33 models (msac {msac})")
+        _counts_match(ck, mk, res, d["mask"], d["max_sq"])
+        if msac:
+            sk = out[3]
+            _, s64 = score_models(m64, res(m64), d["mask"], d["max_sq"], True)
+            top = s64 >= 0.9 * s64.max()
+            assert bool(((sk.double() - s64).abs() <= 5e-4 * s64)[top].all())
+        else:
+            support, idx = unpack_best(int(bk.item()))
+            assert support == int(ck.max()) and int(ck[idx]) == support
+    B = 5
+    blk = Q.ray_block_case("H", B, 2000, 4, 7, "cuda")
+    blk["samples"] = torch.stack([Q.axis_samples(blk["x2"][b], blk["mask"][b], 2, b)
+                                  for b in range(B)])
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    active[2] = False
+    for msac in (False, True):
+        out = KQ.spherical_h_propose_score(blk["x1"], blk["x2"], blk["mask"], blk["samples"],
+                                           blk["max_sq"], active, msac=msac)
+        assert int(out[2][2]) == 0
+        for b in (0, 1, 3, 4):
+            one = KQ.spherical_h_propose_score(blk["x1"][b], blk["x2"][b], blk["mask"][b],
+                                               blk["samples"][b], float(blk["max_sq"][b]),
+                                               msac=msac)
+            assert int(one[2]) == int(out[2][b])
+            assert all(torch.equal(torch.nan_to_num(x), torch.nan_to_num(y[b]))
+                       for x, y in zip((one[0], one[1], *one[3:]), (out[0], out[1], *out[3:])))
+
+
 # K34-K37 (kernels/solver.py). K34 (float32 vectors and 6x6 blocks, float64
 # dots) and K35's candidate (one float32 update per entry) are held to 1e-4
 # and 1e-5 of each output's scale against float64 on the same inputs; K35's
@@ -1956,6 +2028,139 @@ def test_rig_pcg_and_lm_update_match_plain_on_cuda():
     assert bool(S[5] == 0) and S[0].item() == 4.0
     for a, b in zip(before, state):
         assert torch.equal(a, b)
+
+
+# (F, CP, damped): the weighing's heaviest classes (F 8 CP 4, F 4 CP 4, F 8
+# CP 8), the one-warp plan's edges (32 frames; 32 and 128 camera entries),
+# the first sizes past its bound (33 frames; 129 camera entries), the rig's
+# undamped step (F = 0) on both plans, the BA headline (200 frames) and the
+# 4200-frame check problem.
+K34_STEP_CASES = [(8, 4, True), (4, 4, True), (8, 8, True), (32, 32, True), (32, 128, True),
+                  (33, 4, True), (32, 129, True), (0, 96, False), (0, 1000, False),
+                  (200, 4, True), (4200, 8, True)]
+
+
+@pytest.mark.parametrize("F,CP,damped", K34_STEP_CASES,
+                         ids=[f"F{F}_CP{CP}" + ("" if d else "_undamped")
+                              for F, CP, d in K34_STEP_CASES])
+def test_pcg_step_plans_match_plain_on_cuda(F, CP, damped):
+    """K34's step by its plan (one warp up to 32 frames and 128 camera
+    entries, the block above), and by the block where the plan is a warp,
+    against pcg_step_plain in float64 on the same inputs to 1e-4 of each
+    output's scale; a second run from the same state gives the same bits
+    (fixed-order sums, no atomics)."""
+    _need_card()
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.kernels.solver_cases import pcg_vectors
+
+    st0, Ap0, (lam, dpose, dcam) = pcg_vectors(F, CP, damped, F + CP, "cuda")
+    ref = KS.pcg_step_plain(KS.PCGState(*_f64(*st0)), *_f64(*Ap0),
+                            *(None if v is None else v.double() for v in (lam, dpose, dcam)))
+    plan = KS.pcg_step_plan(F, CP)
+    assert (plan != 0) == (F <= 32 and CP <= 128)
+    runs = []
+    for pl in [plan, 0] if plan else [plan]:
+        for _ in range(2):
+            st = KS.PCGState(*(v.clone() for v in st0))
+            Ap = tuple(a.clone() for a in Ap0)
+            KS.pcg_step_planned(st, *Ap, lam, dpose, dcam, pl)
+            runs.append((pl, torch.cat([v.reshape(-1).double() for v in (*st, *Ap)])))
+            for name, a, b in zip(KS.PCGState._fields, st, ref):
+                _close(a, b, 1e-4, f"K34 step {pl} {name}")
+            if damped:
+                ref_Ap = torch.cat([Ap0[0].reshape(-1), Ap0[1].reshape(-1)]).double()
+                ref_Ap = ref_Ap + lam.double() * torch.cat(
+                    [dpose.reshape(-1), dcam.reshape(-1)]).double() * st0.p.double()
+                _close(torch.cat([Ap[0].reshape(-1), Ap[1].reshape(-1)]), ref_Ap, 1e-5,
+                       f"K34 step {pl} Ap")
+            else:
+                assert all(torch.equal(a, b) for a, b in zip(Ap, Ap0))
+    for (pa, a), (pb, b) in zip(runs[::2], runs[1::2]):
+        assert pa == pb and torch.equal(a, b), f"K34 step {pa}: two runs differ"
+
+
+@pytest.mark.parametrize("shape", [(8, 800, 2), (4, 500, 2), (8, 800, 4)],
+                         ids=["F8_CP4", "F4_CP4", "F8_CP8"])
+def test_pcg_graph_replay_matches_eager_on_cuda(shape):
+    """The weighing's heaviest classes on synthetic problems (F frames, N
+    points, SIMPLE_RADIAL or OPENCV): after K34's set-up and one K3
+    product, the step against pcg_step_plain in float64 (1e-4); 5 PCG
+    iterations (K3 + K34) replayed from a CUDA graph against the same
+    iterations run eagerly from the same state (1e-4: K3's float atomics
+    change their order from run to run); 10 steps alone on one product, a
+    graph replay against eager launches, to the bit."""
+    _need_card()
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KS
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    F, N, model_id = shape
+    problem, _, _ = synthetic_ba_problem(F, N, min(F, 6), model_id=model_id, seed=0,
+                                         device="cuda")
+    opts = ba.BAOptions()
+    masks = ba.fix_gauge_two_frames(ba.default_masks(problem, model_id, opts), 0, 1)
+    pk, maps, _ = ba.pack_problem(problem)
+    om = ba._obs_masks(masks, opts)
+    J = K.obs_jacobians(*pk, om.pose, om.cam, om.point, model_id, opts.loss, opts.loss_scale)
+    C, P = pk.cam_params.shape
+    lam = torch.tensor(1e-3, device="cuda")
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red64 = K.LMReduction(*_f64(*red))
+    assert KS.pcg_step_plan(F, C * P) != 0
+
+    def product(s):
+        return K.schur_matvec(*J[1:], maps.frame_pm, maps.cam_pm, red.Hpp_inv,
+                              s.p[:6 * F].view(F, 6), s.p[6 * F:].view(C, P))
+
+    st0 = KS.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, True)
+    Ap0 = product(st0)
+    ref = KS.pcg_step_plain(KS.PCGState(*_f64(*st0)), *_f64(*Ap0), lam.double(),
+                            red64.diag_pose, red64.diag_cam)
+    st = KS.pcg_step(KS.PCGState(*(v.clone() for v in st0)), *(a.clone() for a in Ap0), lam,
+                     red.diag_pose, red.diag_cam)
+    for name, a, b in zip(KS.PCGState._fields, st, ref):
+        _close(a, b, 1e-4, f"K34 step {shape} {name}")
+
+    def fresh():
+        return KS.PCGState(*(v.clone() for v in st0))
+
+    def iterate(s):
+        for _ in range(5):
+            KS.pcg_step(s, *product(s), lam, red.diag_pose, red.diag_cam)
+
+    def steps(s, Ap):
+        for _ in range(10):
+            KS.pcg_step(s, *Ap, lam, red.diag_pose, red.diag_cam)
+
+    for body, args, tol in ((iterate, (), 1e-4), (steps, (Ap0,), 0.0)):
+        eager = fresh()
+        body(eager, *(tuple(a.clone() for a in x) for x in args))
+        graphed = fresh()
+        held = [tuple(a.clone() for a in x) for x in args]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            warm = fresh()
+            body(warm, *(tuple(a.clone() for a in x) for x in args))
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        start = [v.clone() for v in graphed]
+        start_held = [tuple(a.clone() for a in x) for x in held]
+        with torch.cuda.graph(g):
+            body(graphed, *held)
+        for v, s0 in zip(graphed, start):  # the capture ran nothing: replay from the start
+            v.copy_(s0)
+        for x, x0 in zip(held, start_held):
+            for a, a0 in zip(x, x0):
+                a.copy_(a0)
+        g.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(KS.PCGState._fields, graphed, eager):
+            if tol:
+                _close(a, b, tol, f"{body.__name__} {shape} {name}: graph against eager")
+            else:
+                assert torch.equal(a, b), f"{body.__name__} {shape} {name}: graph against eager"
 
 
 def test_rig_device_loop_reads_no_host_on_cuda():

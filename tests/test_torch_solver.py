@@ -152,6 +152,38 @@ def test_k34_pcg_matches_jax(step_inputs, block_jacobi):
     assert float(st.rz[0]) > 0 and torch.count_nonzero(st.x) == 0
 
 
+def test_k34_step_plan():
+    """K34's step plan: one warp up to 32 frames, with the smallest instance
+    (1, 2 or 4 camera entries a lane) that holds CP camera entries up to
+    128; the block (0) past either; the planned wrapper refuses an instance
+    too small for its vectors and a tensor that is not on a CUDA device."""
+    plan = KS.pcg_step_plan
+    assert plan(0, 96) == 4 and plan(0, 129) == 0  # the rig's step, F = 0
+    assert plan(8, 4) == plan(4, 4) == plan(8, 8) == plan(32, 32) == 1
+    assert plan(32, 33) == 2 and plan(32, 65) == plan(32, 128) == 4
+    assert plan(33, 4) == plan(32, 129) == plan(200, 4) == plan(4200, 8) == 0
+    for F in range(0, 40):
+        for CP in (1, 31, 32, 33, 64, 65, 96, 97, 128, 129):
+            k = plan(F, CP)
+            if F > 32 or CP > 128:
+                assert k == 0
+                continue
+            assert k in KS.STEP_WARP_CAMS and CP <= 32 * k and (k == 1 or CP > 16 * k)
+    m = dict(device="meta")
+    z = torch.zeros
+    st = KS.PCGState(z(36 * 20 + 4, **m), *(z(124, **m) for _ in range(4)),
+                     z(1, dtype=torch.float64, **m))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        KS.pcg_step(st, z(20, 6, **m), z(1, 4, **m), None, None, None)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        KS.pcg_step_planned(st, z(20, 6, **m), z(1, 4, **m), None, None, None, 0)
+    big = KS.PCGState(z(36 * 40 + 4, **m), *(z(244, **m) for _ in range(4)),
+                      z(1, dtype=torch.float64, **m))
+    for small, state, F in ((1, big, 40), (3, st, 20), (8, st, 20)):
+        with pytest.raises(ValueError, match="no one-warp instance"):
+            KS.pcg_step_planned(state, z(F, 6, **m), z(1, 4, **m), None, None, None, small)
+
+
 def test_k35_candidate_matches_jax(step_inputs):
     """K35's candidate (plain) against _apply_update (l.435) and the
     predicted decrease of l.1137-1146 on a random step: 1e-12."""

@@ -19,6 +19,20 @@ schur:F:N:MODEL  K3's matvec on synthetic_ba_problem(F, N, min(F, 6),
                  heaviest class (791 points, capp 6, 5 frames, one camera,
                  P 8), 200:50000:2 the BA headline. The output's last bits
                  vary from run to run (atomics), so no digest.
+pcg_step:F:N:MODEL
+                 K34's step on the same problem after its set-up
+                 (block-Jacobi, lam 1e-3) and one K3 product, in place as the
+                 PCG runs it; its output (a step from that state) digested;
+                 and a CUDA graph of 20 PCG iterations (K3 + K34 each), as
+                 the LM loop replays them. 8:800:2 (F 8, CP 4), 4:500:2
+                 (F 4, CP 4) and 8:800:4 (F 8, CP 8) are the weighing's
+                 heaviest classes, 200:50000:2 the BA headline.
+spherical_h:PAIRS[:ROWS]
+                 K33's propose-and-score, count and MSAC modes, on
+                 spherical_cases.ray_block_case("H", PAIRS, ROWS, 128, 1):
+                 PAIRS pairs of ROWS rays (default 8192; valid counts ROWS
+                 down to about ROWS / 2), 128 samples a pair; made once, in
+                 cache_dir. Few rows leave the samples' solves alone.
 """
 
 import os
@@ -81,7 +95,9 @@ def patchmatch(mode, cache_dir):
              lambda: torch.cat([t.reshape(-1) for t in call()]), 10)]
 
 
-def schur(arg, cache_dir):
+def _ba_case(arg):
+    """(F, model_id, Jacobians (K1), packed maps, K2's reduction at lam
+    1e-3, lam) of the schur and pcg_step cases."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
     from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
@@ -96,9 +112,16 @@ def schur(arg, cache_dir):
     r, Jp, Jc, Jx = K.obs_jacobians(p.quat, p.t, p.cam_params, p.points, p.obs_frame,
                                     p.obs_cam, p.obs_point, p.obs_xy, p.obs_w, om.pose, om.cam,
                                     om.point, model_id, options.loss, options.loss_scale)
-    C = p.cam_params.shape[0]
-    red = K.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, C,
-                      torch.tensor(1e-3, device="cuda"))
+    lam = torch.tensor(1e-3, device="cuda")
+    red = K.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, p.cam_params.shape[0], lam)
+    return F, model_id, (Jp, Jc, Jx), maps, red, lam
+
+
+def schur(arg, cache_dir):
+    from colmap_tpu_torch.kernels import ba as K
+
+    F, model_id, (Jp, Jc, Jx), maps, red, _ = _ba_case(arg)
+    N, C = int(arg.split(":")[1]), red.bc.shape[0]
     g = torch.Generator(device="cuda").manual_seed(0)
     xp = torch.randn(F, 6, device="cuda", generator=g)
     xc = torch.randn(C, Jc.shape[-1], device="cuda", generator=g) * 1e-3
@@ -106,3 +129,70 @@ def schur(arg, cache_dir):
                                   xp, xc)
     return [(f"K3 matvec {F}x{N} model {model_id} (capp {maps.frame_pm.shape[1]})", call, None,
              200 if N < 10000 else 50)]
+
+
+def pcg_step(arg, cache_dir):
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.kernels import solver as KS
+
+    F, _, J, maps, red, lam = _ba_case(arg)
+    C, P = red.bc.shape
+    st = KS.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, True)
+
+    def product(s):
+        return K.schur_matvec(*J, maps.frame_pm, maps.cam_pm, red.Hpp_inv,
+                              s.p[:6 * F].view(F, 6), s.p[6 * F:].view(C, P))
+
+    Ap = product(st)
+    start = (KS.PCGState(*(v.clone() for v in st)), tuple(a.clone() for a in Ap))
+
+    def output():
+        s, a = KS.PCGState(*(v.clone() for v in start[0])), tuple(v.clone() for v in start[1])
+        KS.pcg_step(s, *a, lam, red.diag_pose, red.diag_cam)
+        return torch.cat([*(v.reshape(-1).double() for v in (*s, *a))])
+
+    def iterations():
+        for _ in range(20):
+            KS.pcg_step(st, *product(st), lam, red.diag_pose, red.diag_cam)
+
+    graph = []
+
+    def replay():  # recorded at the first call, after the step's label ran
+        if not graph:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                iterations()
+            torch.cuda.current_stream().wait_stream(side)
+            graph.append(torch.cuda.CUDAGraph())
+            with torch.cuda.graph(graph[0]):
+                iterations()
+        graph[0].replay()
+
+    step = lambda: KS.pcg_step(st, *Ap, lam, red.diag_pose, red.diag_cam)  # noqa: E731
+    label = f"{F} frames, CP {C * P}"
+    return [(f"K34 step {label}", step, output, 200),
+            (f"K3 + K34 graph of 20 PCG iterations {label}", replay, None, 50)]
+
+
+def spherical_h(arg, cache_dir):
+    from colmap_tpu_torch.kernels import spherical as KQ
+    from colmap_tpu_torch.kernels import spherical_cases as Q
+
+    pairs, rows = (int(v) for v in (arg.split(":") + ["8192"])[:2])
+    path = os.path.join(cache_dir, f"rays_h_{pairs}_{rows}.pkl")
+    if not os.path.exists(path):
+        with open(path, "wb") as f:
+            pickle.dump({k: v.cpu() if torch.is_tensor(v) else v for k, v in
+                         Q.ray_block_case("H", pairs, rows, 128, 1, "cpu").items()}, f)
+    with open(path, "rb") as f:
+        c = {k: v.cuda() if torch.is_tensor(v) else v for k, v in pickle.load(f).items()}
+    args = (c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+    out = []
+    for msac in (False, True):
+        call = lambda m=msac: KQ.spherical_h_propose_score(*args, msac=m)  # noqa: E731
+        digest = lambda m=msac: torch.cat([t.reshape(-1).double()  # noqa: E731
+                                           for t in KQ.spherical_h_propose_score(*args, msac=m)])
+        out.append((f"K33 propose {'MSAC' if msac else 'count'} {pairs} pairs x {rows} x 128",
+                    call, digest, 20))
+    return out

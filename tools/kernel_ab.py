@@ -1,6 +1,6 @@
 """Time calls of two checkouts of the port in turns on one card.
 
-    python3 tools/kernel_ab.py PARENT_DIR CHANGE_DIR CASE [CASE ...] [--out FILE]
+    python3 tools/kernel_ab.py PARENT_DIR CHANGE_DIR CASE [CASE ...] [--out FILE] [--profile]
 
 A CASE is FILE.py:FUNCTION[:ARG], for example tools/ab_cases.py:descend:2000.
 Four worker processes run in turn, parent, change, change, parent, each with
@@ -13,6 +13,9 @@ SHA-256 the main process compares between the checkouts. cache_dir (beside
 FILE of --out) lets a case make its inputs once for all four workers. The
 main process prints each round, each label's median by checkout and whether
 both give the same bits; it writes all of it to --out and needs one card.
+With --profile each worker also runs each call 20 times under
+torch.profiler and records each device kernel's ms and launches a call
+(the kernels alone, without the gaps between them), under "parts".
 """
 
 from __future__ import annotations
@@ -43,11 +46,30 @@ def _time_ms(torch, fn, reps):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def _parts(torch, fn, reps=20):
+    """{kernel name: [device ms, launches]} a call of fn, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = out.get(e.name()[:80], (0.0, 0))
+            out[e.name()[:80]] = (ms + e.duration_ns() / 1e6 / reps, n + 1 / reps)
+    return out
+
+
 def _digest(t):
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def worker(tree, cases, cache_dir, out_path):
+def worker(tree, cases, cache_dir, out_path, profile=False):
     sys.path.insert(0, tree)
     import torch
 
@@ -55,7 +77,9 @@ def worker(tree, cases, cache_dir, out_path):
 
     if not colmap_tpu_torch.__file__.startswith(tree):
         raise RuntimeError(f"colmap_tpu_torch from {colmap_tpu_torch.__file__}, not {tree}")
-    res = {"tree": tree, "ms": {}, "sha256": {}}
+    res = {"tree": tree, "ms": {}, "sha256": {}, "parts": {}}
+    if profile:  # the profiler set up before any case records a CUDA graph
+        _parts(torch, lambda: torch.ones(1, device="cuda"), reps=1)
     for case in cases:
         path, func, *arg = case.split(":", 2)
         spec = importlib.util.spec_from_file_location(f"ab_case_{len(res['ms'])}", path)
@@ -64,6 +88,8 @@ def worker(tree, cases, cache_dir, out_path):
         for label, call, output, reps in getattr(module, func)(arg[0] if arg else None,
                                                                cache_dir):
             res["ms"][label] = _time_ms(torch, call, reps)
+            if profile:
+                res["parts"][label] = _parts(torch, call)
             if output is not None:
                 res["sha256"][label] = _digest(output())
         torch.cuda.empty_cache()
@@ -77,11 +103,12 @@ def main():
     ap.add_argument("change")
     ap.add_argument("cases", nargs="+", metavar="CASE")
     ap.add_argument("--out", default="_perf/kernel_ab.json")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         tree, cache_dir, out_path = args.worker
-        worker(tree, args.cases, cache_dir, out_path)
+        worker(tree, args.cases, cache_dir, out_path, args.profile)
         return
     import torch
 
@@ -101,7 +128,8 @@ def main():
         tree = os.path.abspath(getattr(args, name))
         path = f"{out}.{i}.json"
         subprocess.run([sys.executable, os.path.abspath(__file__), args.parent, args.change,
-                        *cases, "--worker", tree, cache_dir, path], check=True, cwd=tree)
+                        *cases, *(["--profile"] if args.profile else []), "--worker", tree,
+                        cache_dir, path], check=True, cwd=tree)
         with open(path) as f:
             rounds.append(dict(json.load(f), name=name))
         print(f"round {i} ({name}): " + json.dumps(rounds[-1]), flush=True)
