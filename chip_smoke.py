@@ -349,7 +349,7 @@ K1_RTOL = 1e-5
 # rounding in the kernel (proj - xy: about 1e-4 px on coordinates of 1e3 px)
 # the weight carries into every Jacobian entry of small residuals.
 K1_ROBUST_RTOL = 1e-4
-K234_RTOL = 1e-4  # float32 sums, in an order the atomics change from run to run
+K234_RTOL = 1e-4  # float32 sums; K3 orders them by its atomics, differently run to run
 # K5: one float32 projection / 25 float32 Newton steps against float64.
 K5_RTOL = 1e-5
 # K6, K7: float32 minimal solvers against float64; models are compared where
@@ -995,7 +995,10 @@ def compare_kernels(problem, maps, model_id, options, masks, errs, label):
 
     r, Jp, Jc, Jx = out_k
     lam = torch.tensor(1e-3, device="cuda")
-    red_k = K.lm_reduce(r, Jp, Jc, Jx, fpm, cpm, F, C, lam)
+    red_k = K.lm_reduce(r, Jp, Jc, Jx, fpm, cpm, F, C, lam, maps.order)
+    if not all(torch.equal(a, b) for a, b in
+               zip(red_k, K.lm_reduce(r, Jp, Jc, Jx, fpm, cpm, F, C, lam, maps.order))):
+        raise AssertionError(f"K2 {label}: two calls give different bits")
     red_p = K.lm_reduce_plain(*f64(r, Jp, Jc, Jx), fpm, cpm, F, C, lam.double())
     for n, a, b in zip(red_k._fields, red_k, red_p):
         check(f"K2 {n}", a, b, K234_RTOL, errs["ba_lm_reduce"])
@@ -1091,9 +1094,10 @@ def phase_kernels(headline):
     packed, maps, masks = setup(problem, model_id)
     compare_kernels(packed, maps, model_id, options, masks, errs,
                     f"tracks of up to {maps.frame_pm.shape[1]} slots")
-    # 800 frames: K2's frame table exceeds its shared-memory limit, so K2 adds
-    # straight into global memory; one track of 706 observations makes K4 tile
-    # the point's slots. 4200 frames: the same for K3's matvec table.
+    # 800 frames: one track of 706 observations makes K2's point blocks write
+    # y for a second launch (capp above REDUCE_RECOMPUTE_MAX_CAPP) and K4 tile
+    # the point's slots. 4200 frames: K3's matvec table exceeds its
+    # shared-memory limit, so K3 adds straight into global memory.
     for num_frames, num_points, track in ((800, 2000, 700), (4200, 1000, 0)):
         problem, model_id = long_track_problem(5, num_frames, num_points, track, "cuda")
         packed, maps, masks = setup(problem, model_id)
@@ -1142,8 +1146,11 @@ def time_kernels(ctx, maps, model_id):
         # ~40 ops for the pose/point chain, (4 + 3 + P) x 20 for the dual
         # projection, 2 x (6 + P + 3) x 3 for weighting and masking, per slot.
         O * (40 + (7 + P) * 20 + 6 * (9 + P)))
+    plan = K.lm_reduce_plan(N, capp, maps.order.items.shape[0])
+    log(f"  K2's plan at the headline: {plan} ({maps.order.num_partials} partial rows; "
+        f"{plan.launches} graph node(s) a call in an LM iteration's replay)")
     row("ba_lm_reduce",
-        lambda: K.lm_reduce(r, Jp, Jc, Jx, fpm, cpm, F, C, lam),
+        lambda: K.lm_reduce(r, Jp, Jc, Jx, fpm, cpm, F, C, lam, maps.order),
         lambda: K.lm_reduce_plain(r, Jp, Jc, Jx, fpm, cpm, F, C, lam),
         J_bytes + ids + nbytes(*red),
         # per slot: Hpp/gx 36, v 12, gp/bp 24, JpT Jp 84, camera 12 P; per point ~60.
@@ -1877,20 +1884,37 @@ def log_busy(label, busy_ms, by_name, wall_ms, top=15):
 
 def run_mapper(db_path, out, label, min_launches=True):
     """`mapper` through the CLI on cuda with every launch count at 0 before;
-    returns (pipeline, seconds, launches, stdout)."""
+    returns (pipeline, seconds, launches, stdout). Logs the host time that
+    pack_problem spent building K2's slot orders (kernels/ba.py slot_order)."""
     from colmap_tpu_torch.cli import main as cli
+    from colmap_tpu_torch.kernels import ba as KB
+
+    slot_order, orders = KB.slot_order, [0, 0.0]
+
+    def timed_slot_order(*args):
+        t = time.perf_counter()
+        order = slot_order(*args)
+        orders[0] += 1
+        orders[1] += time.perf_counter() - t
+        return order
 
     torch.cuda.synchronize()
     reset_all_launches()
     buf = io.StringIO()
+    KB.slot_order = timed_slot_order
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        pipeline = cli.main(["mapper", "--database_path", db_path, "--output_path", out,
-                             "--device", "cuda", "--quiet"])
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(buf):
+            pipeline = cli.main(["mapper", "--database_path", db_path, "--output_path", out,
+                                 "--device", "cuda", "--quiet"])
+        torch.cuda.synchronize()
+    finally:
+        KB.slot_order = slot_order
     dt = time.perf_counter() - t0
     counts = all_launch_counts()
     log(f"{label}: {buf.getvalue().strip()} ({dt:.3f} s)")
+    log(f"  K2 slot orders: {orders[0]} built in {orders[1]:.4f} s of the host "
+        f"({100 * orders[1] / dt:.2f}% of the mapper's wall)")
     log(f"  launches: {counts}")
     needed = [k for k in counts if k != "ba_dense_schur_assemble" and k not in MATCH_SOURCES
               and k not in SIFT_SOURCES and k not in MVS_SOURCES and k not in GLOBAL_SOURCES
@@ -5560,7 +5584,7 @@ def _k34_k35(label, problem, model_id, maps, masks, errs, timed):
     J = K.obs_jacobians(*p, om.pose, om.cam, om.point, model_id, options.loss,
                         options.loss_scale)
     lam = torch.tensor(1e-3, device="cuda")
-    red = K.lm_reduce(*J, fpm, cpm, F, C, lam)
+    red = K.lm_reduce(*J, fpm, cpm, F, C, lam, maps.order)
     red64 = _as64(red)
     for bj in (True, False):
         tag = "block-Jacobi" if bj else "scalar Jacobi"
@@ -7986,7 +8010,7 @@ def _split_kernel_checks(problem, model_id, options, masks, errs):
     J = K.obs_jacobians(*pk, om.pose, om.cam, om.point, model_id, "trivial", 1.0)
     F, C = pk.quat.shape[0], pk.cam_params.shape[0]
     lam = torch.tensor(1e-3, device="cuda")
-    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam, maps.order)
     red64 = K.LMReduction(*f64(*red))
     g = torch.Generator(device="cuda").manual_seed(0)
     dp = torch.randn(F, 6, device="cuda", generator=g) * 1e-3
@@ -8151,11 +8175,12 @@ def phase_sharded(launches, errs):
 # The weighing: launches x (ms - bound) at the shapes the driven paths ran.
 # ---------------------------------------------------------------------------
 
-# The ten kernels that head the table's launches x (ms - bound) (PERF.md):
+# The fifteen kernels that head the table's launches x (ms - bound) (PERF.md):
 # their wrappers keep a launch-shape tally (kernels/tally.py).
 WEIGHED = ("ba_schur_matvec", "aliked_conv", "sift_pyramid", "pm_iteration", "global_positioning",
            "spherical_h_ransac", "ba_pcg", "retrieval_assign", "homography_ransac",
-           "ba_lm_reduce")
+           "ba_lm_reduce", "ba_obs_jacobians", "rig_ba_matvec", "global_cg", "pm_view_selection",
+           "fundamental_ransac")
 # A shape class with at least this share of its kernel's driven launches is
 # timed; the others are charged at the timed class nearest in size.
 WEIGH_SHARE = 0.05
@@ -8177,6 +8202,28 @@ def shape_work(kernel, entry, sizes, args):
         O = N * capp
         return (4 * O * (20 + 2 * P) + 8 * O + 4 * (54 * F + 3 * C * P + 15 * N),
                 O * (156 + 12 * P) + N * 60)
+    if kernel == "ba_obs_jacobians":
+        n, N, F, C, P = sizes
+        common = 4 * (7 * F + C * P + 3 * N) + 24 * n
+        if entry == "cost":  # the projection alone, one float64 sum out
+            return common + 8, n * (40 + (7 + P) * 2)
+        return (common + 4 * (6 * F + C * P + N) + 4 * n * (20 + 2 * P),
+                n * (40 + (7 + P) * 20 + 6 * (9 + P)))
+    if kernel == "rig_ba_matvec":
+        O, N, R, w = sizes
+        mode, jac, obs, layout, Hpp_inv, lam_diag, gx, x = args
+        out = 4 * R * w if mode == 0 else 12 * N
+        return (nbytes(jac.Jf, jac.Js, jac.Jc, jac.Jx, Hpp_inv, x, lam_diag, gx)
+                + nbytes(*obs[:4]) + nbytes(*layout[:7]) + out,
+                O * RIG_K26_OBS_OPS + N * RIG_K26_POINT_OPS)
+    if kernel == "global_cg":
+        n = 3 * sizes[0]
+        if entry.startswith("setup"):
+            return 4 * 7 * n + 16, K39_ENTRY_OPS * n
+        return 4 * 8 * n + 16, K39_ENTRY_OPS * n
+    if kernel == "pm_view_selection":
+        Sv, H, W = sizes
+        return 4 * 3 * Sv * H * W, PM_SEL_OPS * Sv * H * W
     if kernel == "ba_pcg":
         if entry == "setup_diag":
             return 4 * 6 * sizes[0], K34_ENTRY_OPS * sizes[0]
@@ -8203,14 +8250,16 @@ def shape_work(kernel, entry, sizes, args):
         O, C, P = sizes
         return (4 * (6 * O + 9 * P + 15 * C),
                 GP_OBS_OPS * O + GP_POINT_OPS * P + GP_CAM_OPS * C)
-    if kernel in ("spherical_h_ransac", "homography_ransac"):
+    if kernel in ("spherical_h_ransac", "homography_ransac", "fundamental_ransac"):
         B, N, K = sizes
         valid = float(args[2].sum())
         sample_ops, row_ops = ((SPH_H_SAMPLE_OPS, SPH_H_ROW_OPS)
                                if kernel == "spherical_h_ransac" else (4000, 20))
+        sols = 3 if kernel == "fundamental_ransac" else 1  # models a sample
         tensors = [a for a in args[:4] if torch.is_tensor(a)]
         if entry == "propose":
-            return nbytes(*tensors) + 4 * 10 * B * K, B * K * sample_ops + K * valid * row_ops
+            return (nbytes(*tensors) + 4 * 10 * B * K * sols,
+                    B * K * sample_ops + K * sols * valid * row_ops)
         return nbytes(*tensors) + 4 * B * N, valid * row_ops
     if kernel == "retrieval_assign":
         N, D, G = sizes

@@ -92,6 +92,122 @@ __device__ void smallest_eigvec(T* A, T* out, int sweeps) {
   for (int i = 0; i < N; ++i) out[i] = V[i * N + k];
 }
 
+// colmap_tpu's tournament order of the 36 pairs of 9 indices
+// (optim/small_linalg.py _round_robin(9)): in round k (0..8) place 0 of the
+// circle holds 0 and place j = 1..9 holds ((j - 1 - k) mod 9) + 1; place i
+// meets place 9 - i (i = 0..4), and a meeting with the tenth index, 9, is
+// no rotation. Every pair meets once in the 9 rounds.
+__host__ __device__ constexpr int rr9_at(int k, int j) {
+  return j == 0 ? 0 : ((j - 1 - k) % 9 + 9) % 9 + 1;
+}
+
+// Unit eigenvector of the smallest eigenvalue of the symmetric 9 x 9
+// matrix whose upper triangle, row by row, is ut[45] (held by every lane),
+// by a cyclic Jacobi over one warp: lane k < 9 keeps row k of A and of V in
+// registers. In each round (colmap_tpu eigh_small's tournament, rr9_at) the
+// lower lane p of each of the 4 pairs (p, q) takes the rotation from its
+// row's A[p][p], A[p][q] and lane q's A[q][q] (jacobi_eigh's algebraic
+// rotation and skip rule, its quotients by the fast reciprocal); every lane
+// applies the 4 rotations to its rows of A and V (A J, V J), then each
+// pair's lanes combine their rows (J^T A). The smallest diagonal entry
+// picks the column (the first on ties). All 32 lanes of the warp call it;
+// every lane gets out.
+__device__ inline void warp_smallest_eigvec9(const float* ut, float* out, int sweeps) {
+  constexpr unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float a[9], v[9];
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    a[s] = 0.f;
+    v[s] = s == lane ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int r = 0, q = 0; r < 9; ++r)
+#pragma unroll
+    for (int s = r; s < 9; ++s, ++q) {
+      if (lane == r) a[s] = ut[q];
+      if (lane == s) a[r] = ut[q];
+    }
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+#pragma unroll
+    for (int r = 0; r < 9; ++r) {
+      // This lane's partner in round r (itself where it has none).
+      int partner = lane;
+      bool low = true;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const int e = rr9_at(r, i), f = rr9_at(r, 9 - i);
+        if (e == 9 || f == 9) continue;
+        const int p = e < f ? e : f, q = e < f ? f : e;
+        if (lane == p) partner = q;
+        if (lane == q) {
+          partner = p;
+          low = false;
+        }
+      }
+      float diag = 0.f, off = 0.f;  // A[k][k] and A[k][partner] of this lane's row k
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        if (j == lane) diag = a[j];
+        if (j == partner) off = a[j];
+      }
+      const float other = __shfl_sync(full, diag, partner);
+      float c = 1.f, sn = 0.f;
+      if (low && partner != lane) {
+        const float diff = other - diag;
+        if (!(off == 0.f || fabsf(off) * 1e12f < fabsf(diff))) {
+          const float tau = __fdividef(diff, 2.f * off);
+          const float t =
+              tau == 0.f ? 1.f : __fdividef(sgn(tau), fabsf(tau) + sqrtf(1.f + tau * tau));
+          c = rsqrtf(1.f + t * t);
+          sn = t * c;
+        }
+      }
+      // A <- A J, V <- V J: columns p and q of each lane's rows.
+      float cr = 1.f, sr = 0.f;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const int e = rr9_at(r, i), f = rr9_at(r, 9 - i);
+        if (e == 9 || f == 9) continue;
+        const int p = e < f ? e : f, q = e < f ? f : e;
+        const float ci = __shfl_sync(full, c, p), si = __shfl_sync(full, sn, p);
+        const float akp = a[p], akq = a[q];
+        a[p] = ci * akp - si * akq;
+        a[q] = si * akp + ci * akq;
+        const float vkp = v[p], vkq = v[q];
+        v[p] = ci * vkp - si * vkq;
+        v[q] = si * vkp + ci * vkq;
+        if (lane == p || lane == q) {
+          cr = ci;
+          sr = si;
+        }
+      }
+      // A <- J^T A: rows p and q, each lane with its partner's row.
+#pragma unroll
+      for (int s = 0; s < 9; ++s) {
+        const float o = __shfl_sync(full, a[s], partner);
+        a[s] = low ? cr * a[s] - sr * o : sr * o + cr * a[s];
+      }
+    }
+  }
+  int best = 0;
+  float dmin = __shfl_sync(full, a[0], 0);
+#pragma unroll
+  for (int j = 1; j < 9; ++j) {
+    const float d = __shfl_sync(full, a[j], j);
+    if (d < dmin) {
+      dmin = d;
+      best = j;
+    }
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int j = 0; j < 9; ++j)
+    if (j == best) mine = v[j];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) out[i] = __shfl_sync(full, mine, i);
+}
+
 // Solves A x = b in place for symmetric positive definite A (row-major,
 // only the lower triangle read) by Cholesky: on return b holds x. Returns
 // false, with b undefined, where a pivot is not positive.

@@ -1,6 +1,8 @@
 // The three entries of a two-view LO-RANSAC over a block of pairs, written
-// once for a model family (K11 fundamental matrix, K12 homography on image
-// points; K33 homography on unit bearing rays). A Model gives kDim, the
+// once for a model family (K11 fundamental matrix, K32 essential matrix and
+// K33 homography on unit bearing rays; K12, the homography on image points,
+// takes the refit and inlier entries and has a propose kernel of its own in
+// homography_ransac.cu). A Model gives kDim, the
 // floats of a row (2 for image points, 3 for rays), and kHartley, whether
 // its refit conditions the rows (image points) or takes them as they are
 // (unit rays need no conditioning):
@@ -14,14 +16,18 @@
 //     sets kLaneSolve (K33) has its block's samples solved by lanes 0..
 //     warps-1 of warp 0, one a lane, before a block barrier: the solves run
 //     side by side and their local arrays share cache lines. Models without
-//     it (K11, K12) compile to the code they had.
+//     it (K11) compile to the code they had.
 //   refit: one block per pair (colmap_tpu optim/ransac.py _try_refine). The
 //     rows within the threshold of the given model are Hartley-normalized
 //     (weighted centroid, then mean distance), the 9 x 9 normal matrix of
 //     the family's linear system is summed over them by the block (45
 //     entries), its smallest eigenvector comes from Jacobi
 //     (small_linalg.cuh), and Model::finish turns it into a model; it is
-//     kept if it is finite and its support is larger. The smallest
+//     kept if it is finite and its support is larger. Thread 0 runs the
+//     Jacobi (smallest_eigvec, its arrays in local memory) unless the Model
+//     sets kWarpEigen (K12): then warp 0 runs warp_smallest_eigvec9, a lane
+//     a row of A and of V in registers. Models without it (K11, K32, K33)
+//     compile to the code they had. The smallest
 //     eigenvector of A^T A is the smallest right singular vector of A (the
 //     plain version's route for refits too); its condition number is that
 //     of A squared, which in float32 costs the refit about half its digits
@@ -174,6 +180,16 @@ struct LaneSolve {
 template <class Model>
 struct LaneSolve<Model, decltype(void(Model::kLaneSolve))> {
   static constexpr bool value = Model::kLaneSolve;
+};
+
+// Model::kWarpEigen, false where the model does not set it.
+template <class Model, class = void>
+struct WarpEigen {
+  static constexpr bool value = false;
+};
+template <class Model>
+struct WarpEigen<Model, decltype(void(Model::kWarpEigen))> {
+  static constexpr bool value = Model::kWarpEigen;
 };
 
 template <class Model, int WARPS, bool MSAC>
@@ -351,7 +367,16 @@ __global__ void two_view_refit_kernel(int n, float max_sq, const float* __restri
     }
   }
   block_sum<45>(ata, scratch);
-  if (threadIdx.x == 0) {
+  if constexpr (WarpEigen<Model>::value) {
+    if (threadIdx.x < 32) {
+      float f[9];
+      warp_smallest_eigvec9(ata, f, 10);
+      if (threadIdx.x == 0) {
+        Model::finish(f, T1, T2, refined);
+        refined_ok = all_finite(refined, 9);
+      }
+    }
+  } else if (threadIdx.x == 0) {
     float A[81], f[9];
     int q = 0;
     for (int r = 0; r < 9; ++r)
@@ -460,7 +485,9 @@ inline int launch_two_view_refit(int b, int n, float max_sq, const float* max_sq
 
 }  // namespace ctt
 
-// The C entries of a model family NAME over Model (see the header note).
+// The C entries of a model family NAME over Model (see the header note); a
+// family with a propose kernel of its own (K12) takes the refit and inlier
+// entries alone.
 #define CTT_TWO_VIEW_ENTRIES(NAME, Model, WARPS)                                                  \
   extern "C" int NAME##_propose_score_f32(                                                        \
       int b, int n, int k, float max_sq, const float* max_sq_arr, const float* x1,               \
@@ -471,6 +498,9 @@ inline int launch_two_view_refit(int b, int n, float max_sq, const float* max_sq
                                                       samples, active, models, counts, best,     \
                                                       msac, scores, stream);                     \
   }                                                                                               \
+  CTT_TWO_VIEW_REFIT_INLIERS_ENTRIES(NAME, Model)
+
+#define CTT_TWO_VIEW_REFIT_INLIERS_ENTRIES(NAME, Model)                                           \
   extern "C" int NAME##_refit_f32(int b, int n, float max_sq, const float* max_sq_arr,           \
                                   int count_in, const int* count_arr, const float* x1,           \
                                   const float* x2, const unsigned char* mask,                    \

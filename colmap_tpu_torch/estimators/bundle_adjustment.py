@@ -104,6 +104,9 @@ class BAMasks(NamedTuple):
 class PackedMaps(NamedTuple):
     frame_pm: torch.Tensor  # (N, capp) int32 frame id per slot (dummy -> 0)
     cam_pm: torch.Tensor  # (N, capp) int32 camera id per slot (dummy -> 0)
+    # K2's sums by frame and camera (kernels/ba.py slot_order); the plain
+    # versions need none.
+    order: Optional[ba_kernels.SlotOrder] = None
 
 
 def camera_mask(cam_params, model_id, options: BAOptions):
@@ -157,7 +160,8 @@ def pack_problem(problem: BAProblem, align: int = 2, capp: Optional[int] = None)
 
     Returns (packed BAProblem with Opm = N*capp observations in point-major
     order, PackedMaps, capacities dict) on the problem's device. Dummy slots
-    carry obs_w = 0 and frame/cam id 0; their Jacobian rows are zero.
+    carry obs_w = 0 and frame/cam id 0; their Jacobian rows are zero. The
+    maps' ``order`` lists the real slots by frame and by camera for K2.
     """
     F = int(problem.quat.shape[0])
     N = int(problem.points.shape[0])
@@ -200,7 +204,10 @@ def pack_problem(problem: BAProblem, align: int = 2, capp: Optional[int] = None)
         obs_xy=dev(p_xy),
         obs_w=dev(p_w),
     )
-    maps = PackedMaps(packed.obs_frame.view(N, capp), packed.obs_cam.view(N, capp))
+    real = np.zeros(Opm, dtype=bool)
+    real[slots] = True
+    order = ba_kernels.slot_order(frame_pm, cam_pm, real, F, problem.cam_params.shape[0], device)
+    maps = PackedMaps(packed.obs_frame.view(N, capp), packed.obs_cam.view(N, capp), order)
     counts_f = np.bincount(obs_frame, minlength=F)
     capf = int(max(1, -(-int(counts_f.max(initial=0)) // align) * align))
     return packed, maps, {"capf": capf, "capp": capp}
@@ -322,7 +329,7 @@ def _lm_iteration(state: BAProblem, maps: PackedMaps, model_id, options: BAOptio
         p.obs_xy, p.obs_w, obs_masks.pose, obs_masks.cam, obs_masks.point,
         model_id, options.loss, options.loss_scale, groups,
     )
-    red = kernels.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red = kernels.lm_reduce(r, Jp, Jc, Jx, maps.frame_pm, maps.cam_pm, F, C, lam, maps.order)
     if reduce is not None:
         reduce(red.gp, red.gc, red.bp, red.bc, red.diag_pose, red.diag_cam, red.Hcc_pose)
     if use_dense:

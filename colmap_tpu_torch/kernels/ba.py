@@ -38,8 +38,10 @@ K2-K4 take P = Pmax + 1 as they take any P. The groups do not change
 during a solve: the solver builds them once and passes them as ``groups``
 (without it each call builds them: an argsort and a host read).
 
-Sum order: the kernels reduce frame and camera sums with atomics, so the
-order of those sums, and their last bits, vary from run to run.
+Sum order: K3 reduces frame and camera sums with atomics, so the order of
+those sums, and their last bits, vary from run to run. K2 sums each frame's
+and each camera's slots in a fixed order (``slot_order``, built once a
+solve by pack_problem): its outputs have the same bits run to run.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from colmap_tpu_torch.estimators.ba_residual import make_residual_fn, robust_cost, robust_weight
@@ -227,14 +230,116 @@ def inv3x3_spd(A, eps=1e-12):
     return inv * inv_det[..., None, None]
 
 
+# K2's launch plan (csrc/ba_reduce.cu): blocks of REDUCE_THREADS threads;
+# an item block sums up to ``reduce_chunk`` slots of one frame or camera
+# (REDUCE_CHUNK_SMALL below REDUCE_CHUNK_SWITCH real slots, where more and
+# shorter items finish sooner, REDUCE_CHUNK above, where they would re-read
+# more points); the item blocks recompute each slot's y = Hpp^-1 gx up to
+# REDUCE_RECOMPUTE_MAX_CAPP slots a point, and above it read the y that the
+# point blocks write in a first launch (chosen by measurement on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md §6).
+REDUCE_THREADS = 256
+REDUCE_CHUNK, REDUCE_CHUNK_SMALL, REDUCE_CHUNK_SWITCH = 1024, 256, 32768
+REDUCE_RECOMPUTE_MAX_CAPP = 2
+REDUCE_ITEM_FIELDS = 8
+
+
+def reduce_chunk(num_slots: int) -> int:
+    """Slots an item of K2 sums, for a problem of ``num_slots`` real slots."""
+    return REDUCE_CHUNK_SMALL if num_slots < REDUCE_CHUNK_SWITCH else REDUCE_CHUNK
+
+
+class SlotOrder(NamedTuple):
+    """K2's sums by frame and by camera (``slot_order``), on the device.
+
+    ``tickets`` is state on the device that a call changes and leaves as it
+    found it (the last item of a segment resets the segment's ticket to 0):
+    a call of K2 with an order is not reentrant. Two calls in flight with
+    one order on different streams, or a call cut between a ticket's
+    increment and its reset, would corrupt every later sum of the problem;
+    the solvers make one call at a time on one stream."""
+
+    slots: torch.Tensor  # (2M,) int32: the M real slots frame by frame, then camera by camera
+    # (W, 8) int32 items: segment (frame f, or camera F + c), first and
+    # one-past-last entry of ``slots``, its partial row (-1 where the
+    # segment is one item), the segment's first partial row, its items,
+    # its ticket, 0.
+    items: torch.Tensor
+    tickets: torch.Tensor  # (max(1, Q),) int32 zeros: one a segment of several items
+    num_partials: int
+    num_frames: int
+    num_cams: int
+    num_slots: int  # N * capp, the packed problem's slots (M of them real)
+    num_real: int  # M
+
+
+def slot_order_arrays(frame_pm, cam_pm, real, num_frames: int, num_cams: int, chunk=None):
+    """(slots, items, partials, tickets) of ``SlotOrder`` as numpy arrays
+    from the point-major frame and camera ids (Opm,) and the mask of real
+    slots (Opm,) bool: the real slots in a stable order by frame, then by
+    camera; each segment split into items of ``chunk`` slots (by default
+    ``reduce_chunk`` of the real slots; one item where it has none)."""
+    ids = np.flatnonzero(real)
+    chunk = reduce_chunk(len(ids)) if chunk is None else chunk
+    F, C = int(num_frames), int(num_cams)
+    f, c = np.asarray(frame_pm)[ids], np.asarray(cam_pm)[ids]
+    slots = np.concatenate([ids[np.argsort(f, kind="stable")],
+                            ids[np.argsort(c, kind="stable")]]).astype(np.int32)
+    counts = np.concatenate([np.bincount(f, minlength=F), np.bincount(c, minlength=C)])
+    starts = np.cumsum(counts) - counts
+    n_items = np.maximum(1, -(-counts // chunk))
+    seg = np.repeat(np.arange(F + C), n_items)
+    k = np.arange(len(seg)) - np.repeat(np.cumsum(n_items) - n_items, n_items)
+    begin = starts[seg] + k * chunk
+    end = np.minimum(begin + chunk, starts[seg] + counts[seg])
+    multi = n_items[seg] > 1
+    part = np.where(multi, np.cumsum(multi) - 1, -1)
+    ticket = (np.cumsum(n_items > 1) - 1)[seg]
+    items = np.stack([seg, begin, end, part, np.where(multi, part - k, -1), n_items[seg],
+                      np.where(multi, ticket, -1), np.zeros_like(seg)], axis=1)
+    return slots, items.astype(np.int32), int(multi.sum()), int((n_items > 1).sum())
+
+
+def slot_order(frame_pm, cam_pm, real, num_frames: int, num_cams: int, device) -> SlotOrder:
+    """K2's ``SlotOrder`` of a packed problem (``slot_order_arrays``) on ``device``."""
+    slots, items, partials, tickets = slot_order_arrays(frame_pm, cam_pm, real, num_frames,
+                                                        num_cams)
+    return SlotOrder(torch.from_numpy(slots).to(device), torch.from_numpy(items).to(device),
+                     torch.zeros(max(1, tickets), dtype=torch.int32, device=device), partials,
+                     int(num_frames), int(num_cams), len(real), len(slots) // 2)
+
+
+class ReducePlan(NamedTuple):
+    recompute: bool  # the item blocks recompute y (else the point blocks write it)
+    point_blocks: int
+    item_blocks: int
+    launches: int  # device launches of a call: graph nodes a replay holds for it
+
+
+def lm_reduce_plan(num_points: int, capp: int, num_items: int) -> ReducePlan:
+    """K2's launches for N points of capp slots and an order of
+    ``num_items`` items, as ba_lm_reduce_f32 makes them."""
+    recompute = capp <= REDUCE_RECOMPUTE_MAX_CAPP
+    G = 1
+    while G < capp and G < 32:
+        G *= 2
+    per_block = (REDUCE_THREADS // 32) * (32 // G)
+    point_blocks = -(-int(num_points) // per_block)
+    if recompute:
+        launches = int(point_blocks + num_items > 0)
+    else:
+        launches = int(point_blocks > 0) + int(num_items > 0)
+    return ReducePlan(recompute, point_blocks, int(num_items), launches)
+
+
 def _segment_sum(contrib, ids, n):
     return contrib.new_zeros((n,) + contrib.shape[1:]).index_add_(0, ids, contrib)
 
 
 def lm_reduce_plain(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames: int,
-                    num_cams: int, lam) -> LMReduction:
+                    num_cams: int, lam, order=None) -> LMReduction:
     """One LM step's reductions over the point-major slots (K2's function);
-    lam is a 0-d tensor."""
+    lam is a 0-d tensor. ``order``, K2's slot order, is not needed here."""
     N, capp = frame_pm.shape
     fids, cids = frame_pm.reshape(-1), cam_pm.reshape(-1)
     F, C = num_frames, num_cams
@@ -377,7 +482,7 @@ _F = ctypes.c_float
 # the wrappers pass them, then (except K1) the SM count, then the stream.
 _SIGNATURES = {
     "ba_obs_jacobians_f32": [_I, _I, _I, _F, _LL, _I, _I, _P] + [_P] * 17 + [_P],
-    "ba_lm_reduce_f32": [_LL, _I, _I, _I, _I] + [_P] * 18 + [_I, _P],
+    "ba_lm_reduce_f32": [_LL, _I, _I, _I, _I] + [_P] * 7 + [_I] + [_P] * 13 + [_P],
     "ba_schur_matvec_f32": [_I, _LL, _I, _I, _I, _I] + [_P] * 10 + [_I, _P],
     "ba_dense_schur_assemble_f32": [_LL, _I, _I, _I, _I] + [_P] * 8 + [_I, _P],
     "ba_covariance_assemble_f64": [_LL, _I, _I, _I, _I, ctypes.c_double] + [_P] * 6 + [_I, _P],
@@ -471,6 +576,10 @@ def _k1_launches(mode, quat, t, cam_params, points, obs_frame, obs_cam, obs_poin
                           obs_w, *masks, *outs, cost)),
               _stream(dev))
         LAUNCHES["ba_obs_jacobians"] += 1
+        SHAPES.add("ba_obs_jacobians", "cost" if mode else "jacobians",
+                   (n, points.shape[0], quat.shape[0], cam_params.shape[0], W), _k1_launches,
+                   (mode, quat, t, cam_params, points, obs_frame, obs_cam, obs_point, obs_xy,
+                    obs_w, masks, outs, cost, model_id, loss, loss_scale, [(m, slots)]))
 
 
 def obs_jacobians(quat, t, cam_params, points, obs_frame, obs_cam, obs_point,
@@ -543,29 +652,41 @@ def _j_checks(Jp, Jc, Jx, frame_pm, cam_pm):
 
 
 def lm_reduce(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames: int, num_cams: int,
-              lam) -> LMReduction:
+              lam, order=None) -> LMReduction:
     """K2. See lm_reduce_plain for the function; lam is a 0-d float32 tensor
-    on the card, read there by the kernel."""
+    on the card, read there by the kernel; ``order`` the problem's
+    ``SlotOrder`` (pack_problem's maps.order), which the kernel needs. Not
+    reentrant for one order: a call uses and resets its tickets
+    (``SlotOrder``)."""
     if Jp.device.type == "cpu":
         return lm_reduce_plain(r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames, num_cams, lam)
     dev, N, capp, P = _j_checks(Jp, Jc, Jx, frame_pm, cam_pm)
     _check("r", r, torch.float32, (N * capp, 2), dev)
     _check("lam", lam, torch.float32, (), dev)
     F, C = int(num_frames), int(num_cams)
+    if order is None or (order.num_frames, order.num_cams, order.num_slots) != (F, C, N * capp):
+        raise ValueError(f"K2 takes the slot order of a problem of {F} frames, {C} cameras and "
+                         f"{N * capp} slots (pack_problem's maps.order)")
+    W = order.items.shape[0]
+    _check("order.items", order.items, torch.int32, (W, REDUCE_ITEM_FIELDS), dev)
+    if order.num_real > N * capp:
+        raise ValueError(f"the order has {order.num_real} real slots of {N * capp}")
+    _check("order.slots", order.slots, torch.int32, (2 * order.num_real,), dev)
+    plan = lm_reduce_plan(N, capp, W)
     e = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     out = LMReduction(
         gp=e(F, 6), gc=e(C, P), bp=e(F, 6), bc=e(C, P), diag_pose=e(F, 6),
         diag_cam=e(C, P), Hcc_pose=e(F, 6, 6), gx=e(N, 3), Hpp_inv=e(N, 3, 3),
         diag_pt=e(N, 3),
     )
-    # Frame/camera partial sums: 33 floats per frame, 3P per camera.
-    scratch = torch.zeros(33 * F + 3 * P * C, dtype=torch.float32, device=dev)
+    partials = e(order.num_partials, max(33, 3 * P)) if order.num_partials else None
+    y = None if plan.recompute else e(N, 3)
     _call("ba_lm_reduce_f32", N, capp, F, C, P,
-          *map(_ptr, (lam, r, Jp, Jc, Jx, frame_pm, cam_pm, scratch, *out)),
-          _I(_num_sms(dev)), _stream(dev))
+          *map(_ptr, (lam, r, Jp, Jc, Jx, order.slots, order.items)), W,
+          *map(_ptr, (order.tickets, partials, y, *out)), _stream(dev))
     LAUNCHES["ba_lm_reduce"] += 1
     SHAPES.add("ba_lm_reduce", "reduce", (N, capp, F, C, P), lm_reduce,
-               (r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames, num_cams, lam))
+               (r, Jp, Jc, Jx, frame_pm, cam_pm, num_frames, num_cams, lam, order))
     return out
 
 

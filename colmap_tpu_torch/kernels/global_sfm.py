@@ -315,6 +315,7 @@ def gp_back_substitute_plain(prob: GPProblem, sys: GPSystem, xc, centers, points
 # ---------------------------------------------------------------------------
 
 CG_ROTATION, CG_POSITIONING = 0, 1
+_CG_MODES = ("rotation", "positioning")  # the tally's entry names by mode
 
 
 class CGState(NamedTuple):
@@ -694,6 +695,7 @@ def cg_setup(mode: int, b, diag, eps_rel: float = 0.0) -> CGState:
     _call("global_cg_setup_f32", int(mode), 3 * n, float(eps_rel),
           *map(S._ptr, (b, diag, st.M, st.x, st.r, st.z, st.p, st.scal)), S._stream(dev))
     LAUNCHES["global_cg"] += 1
+    SHAPES.add("global_cg", "setup_" + _CG_MODES[mode], (n,), cg_setup, (mode, b, diag, eps_rel))
     return st
 
 
@@ -711,6 +713,7 @@ def cg_step(mode: int, st: CGState, Ap) -> CGState:
     _call("global_cg_step_f32", int(mode), 3 * n,
           *map(S._ptr, (st.M, Ap, st.x, st.r, st.z, st.p, st.scal)), S._stream(dev))
     LAUNCHES["global_cg"] += 1
+    SHAPES.add("global_cg", "step_" + _CG_MODES[mode], (n,), cg_step, (mode, st, Ap))
     return st
 
 

@@ -203,6 +203,53 @@ def degensac_propose_score_plain(x1, x2, mask, H, ia, ib, max_sq):
     return Fs, counts, pack_best(counts)
 
 
+def jacobi_rounds9():
+    """The rounds of K12's warp Jacobi (csrc/small_linalg.cuh rr9_at): in
+    round k place 0 of a circle of 10 holds 0 and place j >= 1 holds
+    ((j - 1 - k) mod 9) + 1; place i meets place 9 - i, and a meeting with
+    the tenth index (9) is no rotation. Each round as sorted (p, q) pairs."""
+    rounds = []
+    for k in range(9):
+        at = [0] + [(j - 1 - k) % 9 + 1 for j in range(1, 10)]
+        rounds.append(tuple(sorted((min(at[i], at[9 - i]), max(at[i], at[9 - i]))
+                                   for i in range(5) if 9 not in (at[i], at[9 - i]))))
+    return tuple(rounds)
+
+
+def warp_jacobi_model(A, sweeps: int = 10):
+    """The unit eigenvector of the smallest eigenvalue of a symmetric 9 x 9
+    matrix as K12's refit takes it (csrc/small_linalg.cuh
+    warp_smallest_eigvec9), in float32 on the CPU: each round's disjoint
+    rotations (jacobi_eigh's algebraic rotation and skip rule) applied at
+    once, A <- J^T A J and V <- V J, for ``sweeps`` sweeps of
+    ``jacobi_rounds9``; the column of the smallest diagonal entry (the first
+    on ties)."""
+    a = A.to(torch.float32).clone()
+    v = torch.eye(9, dtype=torch.float32)
+    one = torch.ones((), dtype=torch.float32)
+    for _ in range(sweeps):
+        for pairs in jacobi_rounds9():
+            rot = []
+            for p, q in pairs:
+                apq, diff = a[p, q], a[q, q] - a[p, p]
+                c, s = one, torch.zeros((), dtype=torch.float32)
+                if not (apq == 0 or abs(apq) * 1e12 < abs(diff)):
+                    tau = diff / (2 * apq)
+                    t = one if tau == 0 else torch.sign(tau) / (abs(tau) + torch.sqrt(1 + tau * tau))
+                    c = torch.rsqrt(1 + t * t)
+                    s = t * c
+                rot.append((p, q, c, s))
+            for p, q, c, s in rot:
+                for m in (a, v):
+                    kp, kq = m[:, p].clone(), m[:, q].clone()
+                    m[:, p], m[:, q] = c * kp - s * kq, s * kp + c * kq
+            rows = a.clone()
+            for p, q, c, s in rot:
+                rows[p], rows[q] = c * a[p] - s * a[q], s * a[p] + c * a[q]
+            a = rows
+    return v[:, int(torch.argmin(torch.diagonal(a)))]
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
@@ -303,6 +350,8 @@ def fundamental_propose_score(x1, x2, mask, samples, max_sq, active=None, msac=F
     out = S.two_view_propose_score(_call, "fundamental", 7, F_SOLUTIONS, x1, x2, mask, samples,
                                    max_sq, active, msac=msac)
     LAUNCHES["fundamental_ransac"] += 1
+    SHAPES.add("fundamental_ransac", "propose", T.pair_sizes(x1, samples),
+               fundamental_propose_score, (x1, x2, mask, samples, max_sq, active, msac))
     return out
 
 
@@ -312,6 +361,8 @@ def fundamental_refit(x1, x2, mask, model, max_sq, count, score=None):
         return fundamental_refit_plain(x1, x2, mask, model, max_sq, count, score)
     out = S.two_view_refit(_call, "fundamental", x1, x2, mask, model, max_sq, count, score=score)
     LAUNCHES["fundamental_ransac"] += 1
+    SHAPES.add("fundamental_ransac", "refit", T.pair_sizes(x1), fundamental_refit,
+               (x1, x2, mask, model, max_sq, count, score))
     return out
 
 
@@ -321,6 +372,8 @@ def fundamental_inliers(x1, x2, mask, model, max_sq):
         return fundamental_inliers_plain(x1, x2, mask, model, max_sq)
     out = S.two_view_inliers(_call, "fundamental", x1, x2, mask, model, max_sq)
     LAUNCHES["fundamental_ransac"] += 1
+    SHAPES.add("fundamental_ransac", "inliers", T.pair_sizes(x1), fundamental_inliers,
+               (x1, x2, mask, model, max_sq))
     return out
 
 
@@ -334,6 +387,7 @@ def fundamental_fit(x1, x2, rows):
     out = torch.empty(lead + (3, 3), dtype=f32, device=dev)
     _call("fundamental_fit_f32", b, n, *map(S._ptr, (x1, x2, rows, out)), S._stream(dev))
     LAUNCHES["fundamental_ransac"] += 1
+    SHAPES.add("fundamental_ransac", "fit", T.pair_sizes(x1), fundamental_fit, (x1, x2, rows))
     return out
 
 

@@ -661,4 +661,6 @@ def update_sel_prob(cost_all, sel_prob, axis, prev_weight, options):
           1.0 / (2.0 * options.ncc_sigma ** 2), ncc_norm(options.ncc_sigma), _p(cost_all),
           _p(sel_prob), _p(out), _s(dev))
     LAUNCHES["pm_view_selection"] += 1
+    SHAPES.add("pm_view_selection", "along_" + "HW"[axis], (Sv, H, W), update_sel_prob,
+               (cost_all, sel_prob, axis, prev_weight, options))
     return out

@@ -73,6 +73,7 @@ from colmap_tpu_torch.kernels.solver import (
     pcg_step,
     pcg_step_plain,
 )
+from colmap_tpu_torch.kernels.tally import ShapeTally
 from colmap_tpu_torch.optim.ransac import pack_best
 from colmap_tpu_torch.sensor import models as camera_models
 
@@ -85,6 +86,8 @@ LAUNCHES = {
     "gen_abs_refine": 0,
     "gen_rel_ransac": 0,
 }
+# Launch shapes of K26, counted where LAUNCHES is (kernels/tally.py).
+SHAPES = ShapeTally()
 
 W = 8  # columns of a camera-side row: 6 for frames and sensors, P <= 8 for cameras
 WIDE_W = 17  # the camera-side row width when P > 8
@@ -98,6 +101,7 @@ f32, f64, i32 = torch.float32, torch.float64, torch.int32
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -869,6 +873,8 @@ def _k26(mode, jac: RigJacobians, obs: RigObs, layout: RigLayout, Hpp_inv, lam_d
           S._ptr(Hpp_inv), _opt(lam_diag), _opt(gx), S._ptr(x), S._ptr(uz), S._ptr(partials),
           S._ptr(out), S._stream(dev))
     LAUNCHES["rig_ba_matvec"] += 1
+    SHAPES.add("rig_ba_matvec", "back_substitute" if mode else "matvec", (O, N, R, w), _k26,
+               (mode, jac, obs, layout, Hpp_inv, lam_diag, gx, x))
     return out
 
 

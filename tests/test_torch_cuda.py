@@ -99,9 +99,10 @@ def problem():
                          ids=["20x2000", "800_frames_long_track"])
 def test_kernels_match_plain_on_cuda(shape):
     """K1-K4 against their plain versions (float64) on a 20 x 2000 problem,
-    and on 800 frames with one track of 706 observations: there K2 adds its
-    frame table (above its shared-memory limit) straight into global memory,
-    and K4 tiles the long point's slots."""
+    and on 800 frames with one track of 706 observations: there K2's point
+    blocks write y for a second launch (capp above
+    REDUCE_RECOMPUTE_MAX_CAPP), and K4 tiles the long point's slots. K2
+    gives the same bits twice."""
     from colmap_tpu_torch.estimators import bundle_adjustment as ba
     from colmap_tpu_torch.kernels import ba as K
 
@@ -116,10 +117,12 @@ def test_kernels_match_plain_on_cuda(shape):
     F, C = pk.quat.shape[0], pk.cam_params.shape[0]
     fpm, cpm = maps.frame_pm, maps.cam_pm
     lam = torch.tensor(1e-3, device="cuda")
-    red = K.lm_reduce(*J, fpm, cpm, F, C, lam)
+    red = K.lm_reduce(*J, fpm, cpm, F, C, lam, maps.order)
     ref = K.lm_reduce_plain(*_f64(*J), fpm, cpm, F, C, lam.double())
     for name, a, b in zip(K.LMReduction._fields, red, ref):
         _close(a, b, 1e-4, f"K2 {name}")
+    again = K.lm_reduce(*J, fpm, cpm, F, C, lam, maps.order)
+    assert all(torch.equal(a, b) for a, b in zip(red, again))
     g = torch.Generator(device="cuda").manual_seed(0)
     xp = torch.randn(F, 6, device="cuda", generator=g)
     xc = torch.randn(C, J[2].shape[-1], device="cuda", generator=g) * 1e-3
@@ -170,7 +173,8 @@ def test_schur_matvec_weighed_shapes_match_plain_on_cuda(F, N, model_id, cameras
                         pk.obs_point, pk.obs_xy, pk.obs_w, om.pose, om.cam, om.point, model_id,
                         "trivial", 1.0)
     C = pk.cam_params.shape[0]
-    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, torch.tensor(1e-3, device="cuda"))
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, torch.tensor(1e-3, device="cuda"),
+                      maps.order)
     g = torch.Generator(device="cuda").manual_seed(0)
     xp = torch.randn(F, 6, device="cuda", generator=g)
     xc = torch.randn(C, J[2].shape[-1], device="cuda", generator=g) * 1e-3
@@ -186,6 +190,140 @@ def test_schur_matvec_weighed_shapes_match_plain_on_cuda(F, N, model_id, cameras
     assert K.LAUNCHES["ba_schur_matvec"] == 2
     assert K.SHAPES.counts == {("ba_schur_matvec", "matvec", N_, capp, F, C, P): 1,
                                ("ba_schur_matvec", "back_substitute", N_, capp, F, C, P): 1}
+
+
+# K2 at the weighing's two heaviest classes (a frame's pose refinement:
+# 1000 constant points of one slot, capp 2; a local BA of 8 frames, capp 6, whose
+# camera spans six items) and at the BA headline (200 frames, 50 000
+# points: every segment several items), against float64 within K234_RTOL,
+# the same bits twice, one launch a call; refused without the problem's order.
+@pytest.mark.parametrize("F, N, model_id", [(1, 1000, 4), (8, 1000, 4), (200, 50000, 2)],
+                         ids=["1x1000_capp2", "8x1000_capp6", "headline"])
+def test_lm_reduce_weighed_classes_match_plain_on_cuda(F, N, model_id):
+    _need_card()
+    from colmap_tpu_torch.estimators import bundle_adjustment as ba
+    from colmap_tpu_torch.kernels import ba as K
+    from colmap_tpu_torch.scene.synthetic_ba import synthetic_ba_problem
+
+    problem, _, _ = synthetic_ba_problem(F, N, min(F, 6), model_id=model_id, seed=0,
+                                         device="cuda")
+    # One frame: a pose refinement, its points constant (estimators/pose.py).
+    opts = ba.BAOptions(refine_points=F > 1)
+    masks = ba.default_masks(problem, model_id, opts)
+    if F > 1:
+        masks = ba.fix_gauge_two_frames(masks, 0, 1)
+    pk, maps, _ = ba.pack_problem(problem)
+    om = ba._obs_masks(masks, opts)
+    J = K.obs_jacobians(pk.quat, pk.t, pk.cam_params, pk.points, pk.obs_frame, pk.obs_cam,
+                        pk.obs_point, pk.obs_xy, pk.obs_w, om.pose, om.cam, om.point, model_id,
+                        "trivial", 1.0)
+    C = pk.cam_params.shape[0]
+    lam = torch.tensor(1e-3, device="cuda")
+    K.reset_launches()
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam, maps.order)
+    again = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam, maps.order)
+    assert K.LAUNCHES["ba_lm_reduce"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(red, again))
+    ref = K.lm_reduce_plain(*_f64(*J), maps.frame_pm, maps.cam_pm, F, C, lam.double())
+    for name, a, b in zip(K.LMReduction._fields, red, ref):
+        _close(a, b, 1e-4, f"K2 {name}")
+    with pytest.raises(ValueError):
+        K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    with pytest.raises(ValueError):  # the order of a problem with other slots
+        K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam,
+                    maps.order._replace(num_slots=maps.order.num_slots + 2))
+
+
+def test_homography_propose_weighed_class_matches_plain_on_cuda():
+    """K12's propose-and-score at the weighing's heaviest class, 64 pairs x
+    1024 rows x 128 samples, count and MSAC modes: where a model agrees
+    with the plain (float64) model of its sample to 1e-3 and holds at least
+    a tenth of the pair's best support, its count within the border rows
+    of its float64 count (a sample with an outlier fits its own four rows
+    alone, and its float32 transfer errors there can be off by more than
+    the border); the packed best the first of the largest count or score,
+    and its model within 1e-3 of the plain one; MSAC scores of
+    the near-best models (at least 90% of the pair's best float64 score)
+    within 1e-5 of the float64 score of the same model, those of the
+    models whose count is held within 1e-3 of the best; the same bits
+    twice."""
+    _need_card()
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_transfer_error
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.optim.ransac import score_models, unpack_best
+
+    B, N, S = 64, 1024, 128
+    c = C.two_view_block_case("H", B, N, S, 2, "cuda")
+    args = (c["x1"], c["x2"], c["mask"], c["samples"], c["max_sq"])
+    x1, x2 = c["x1"].double(), c["x2"].double()
+    plain = KM.homography_propose_score_plain(x1, x2, c["mask"], c["samples"], c["max_sq"])
+    for msac in (False, True):
+        out = KM.homography_propose_score(*args, msac=msac)
+        again = KM.homography_propose_score(*args, msac=msac)
+        assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                   for a, b in zip(out, again))
+        models, counts, best = out[:3]
+        for b in range(B):
+            m64, ref64 = models[b].double(), plain[0][b]
+            sign = torch.sign((m64 * ref64).sum((-1, -2)))[:, None, None]
+            scale = ref64.abs().amax((-1, -2)).clamp(min=1e-30)
+            agree = ((m64 * sign - ref64).abs().amax((-1, -2)) <= 1e-3 * scale)
+            agree &= torch.isfinite(m64).all(-1).all(-1)
+            err = lambda m, b=b: homography_transfer_error(m[:, None], x1[b][None],  # noqa: E731
+                                                            x2[b][None])
+            agree &= plain[1][b] >= 0.1 * plain[1][b].max()
+            _counts_match(counts[b][agree], models[b][agree], err, c["mask"][b], c["max_sq"])
+            _, s64 = score_models(m64, err(m64), c["mask"][b], c["max_sq"], True)
+            key = out[3][b] if msac else counts[b]
+            support, idx = unpack_best(int(best[b]))
+            assert idx == int(torch.argmax(key)) and bool(agree[idx])
+            ref = plain[0][b, idx]
+            _close(models[b, idx] * torch.sign((models[b, idx].double() * ref).sum()), ref,
+                   1e-3, f"H best model of pair {b}")
+            if msac:
+                top = s64 >= 0.9 * s64.max()
+                rel = (out[3][b].double() - s64).abs() / s64.clamp(min=1e-30)
+                assert float(rel[top].max()) <= 1e-5
+                _close(out[3][b][agree], s64[agree], 1e-3 * float(s64.max()) / max(
+                    float(s64[agree].abs().max()), 1e-30), f"H MSAC scores of pair {b}")
+
+
+def test_homography_refit_weighed_class_matches_plain_on_cuda():
+    """K12's refit at the weighing's class, one pair of 8192 rows, count
+    and MSAC modes, from the best model with a 1% shear: support within 2
+    rows of the plain (float64) refit's, model within 1e-3, MSAC score
+    within 1e-4; the same bits twice."""
+    _need_card()
+    from colmap_tpu_torch.estimators.solvers.epipolar import homography_transfer_error
+    from colmap_tpu_torch.kernels import matching as KM
+    from colmap_tpu_torch.kernels import matching_cases as C
+    from colmap_tpu_torch.optim.ransac import score_models, unpack_best
+
+    c = C.two_view_case("H", 8192, 64, 1, "cuda")
+    d = C.as_double(c)
+    models, counts, best = KM.homography_propose_score(c["x1"], c["x2"], c["mask"],
+                                                       c["samples"], c["max_sq"])
+    start = models[unpack_best(int(best))[1]].clone()
+    start[0, 1] += 0.01 * start[0, 0]
+    n0 = int(KM.homography_inliers_plain(d["x1"], d["x2"], d["mask"], start.double(),
+                                         d["max_sq"]).sum())
+    got, n_got = KM.homography_refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0)
+    again, n_again = KM.homography_refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0)
+    assert torch.equal(got, again) and n_got == n_again
+    ref, n_ref = KM.homography_refit_plain(d["x1"], d["x2"], d["mask"], start.double(),
+                                           d["max_sq"], n0)
+    assert n_ref > n0 and abs(n_got - n_ref) <= 2
+    _close(got * torch.sign((got.double() * ref).sum()), ref, 1e-3, "H refit at 8192 rows")
+    r0 = homography_transfer_error(start.double()[None, None], d["x1"][None], d["x2"][None])[0]
+    s0 = float(score_models(start.double()[None], r0, d["mask"], d["max_sq"], True)[1][0])
+    got, n_got, s_got = KM.homography_refit(c["x1"], c["x2"], c["mask"], start, c["max_sq"], n0,
+                                            s0)
+    assert (got, n_got, s_got)[1:] == KM.homography_refit(c["x1"], c["x2"], c["mask"], start,
+                                                          c["max_sq"], n0, s0)[1:]
+    ref, n_ref, s_ref = KM.homography_refit_plain(d["x1"], d["x2"], d["mask"], start.double(),
+                                                  d["max_sq"], n0, s0)
+    assert s_ref > s0 and abs(n_got - n_ref) <= 2 and abs(s_got - s_ref) <= 1e-4 * s_ref
 
 
 @pytest.mark.parametrize("solver", ["dense_schur", "pcg"])
@@ -1809,7 +1947,7 @@ def test_pcg_and_lm_update_match_plain_on_cuda(problem):
     J = K.obs_jacobians(*pk, om.pose, om.cam, om.point, model_id, "trivial", 1.0)
     F, (C, P) = pk.quat.shape[0], pk.cam_params.shape
     lam = torch.tensor(1e-3, device="cuda")
-    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam, maps.order)
     red64 = K.LMReduction(*_f64(*red))
     for bj in (True, False):
         st = KS.pcg_setup(red.Hcc_pose, red.diag_pose, red.diag_cam, red.bp, red.bc, lam, bj)
@@ -2105,7 +2243,7 @@ def test_pcg_graph_replay_matches_eager_on_cuda(shape):
     J = K.obs_jacobians(*pk, om.pose, om.cam, om.point, model_id, opts.loss, opts.loss_scale)
     C, P = pk.cam_params.shape
     lam = torch.tensor(1e-3, device="cuda")
-    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam)
+    red = K.lm_reduce(*J, maps.frame_pm, maps.cam_pm, F, C, lam, maps.order)
     red64 = K.LMReduction(*_f64(*red))
     assert KS.pcg_step_plan(F, C * P) != 0
 
